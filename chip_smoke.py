@@ -11,23 +11,41 @@ non-zero and no result line is printed):
 1. the card: name, power limit, TF32 off for float32 matmuls;
 2. build: the hand-written CUDA kernels are compiled from
    ``paddle_tpu_torch/ops/cuda_kernels/csrc`` with nvcc for sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the card,
+3. kernels K1 and K2: each against its plain PyTorch version on the card,
    in float32 and bfloat16, at the serving path's shapes, timed beside
    the plain version, the bound of the card and (flash only) PyTorch's
    scaled_dot_product_attention as a yardstick the port never calls;
-4. serve: the full-width GPT bench model (vocab 32000, dim 512, 8 layers,
-   8 heads, max_len 1024, float32, random weights from a seed) behind the
-   fifo ServingEngine (8 slots, page 16) answers 16 requests; every
-   request must finish, no page may leak, and the kernels' launch counts
-   must equal 8 layers x the prefill runs and decode steps the engine ran;
+4. fifo serve: the full-width GPT bench model (vocab 32000, dim 512, 8
+   layers, 8 heads, max_len 1024, float32, random weights from a seed)
+   behind the fifo ServingEngine (8 slots, page 16) answers 16 requests,
+   once to warm up and once measured; every request must finish, no page
+   may leak, and the kernels' launch counts must equal 8 layers x the
+   prefill runs and decode steps the engine ran;
 5. the same weights and requests through an explicit-CPU engine, which
    takes the kernels' plain versions: tokens must agree, except at most
    one request that may part at a near tie (CPU top-2 logits within
-   1e-3).
+   1e-3) — the rule every comparison below uses;
+6. kernel K3 (the multi-query page walk) against its plain version at the
+   mixed step's shape (4 chunk lanes of 32 rows) and the speculative
+   verify's (8 slots of 5 rows), float32 and bfloat16, ragged, with an
+   idle lane, a mid-page start, a chunk across a page, a lane near 1024
+   and every unseen pool slot poisoned;
+7. v2 serve (8 slots, page 16, chunk 32, 4 lanes, the default
+   watermark): the 16 requests (tokens as the fifo card run's), the 16
+   prefix-heavy requests of ``gpt_bench.prefix_prompts`` (prefix hits and
+   copy-on-write must happen; tokens as an explicit-CPU v2 engine's), and
+   a low-priority request overtaken by a high-priority burst in a pool
+   tight enough to preempt (tokens as a roomy pool's); launch counts
+   K3 = 8 x mixed steps, K2 = 8 x (mixed + decode steps), K1 = 0;
+8. spec serve (k 4, a 1-layer draft) on weights whose layers 1-7 are
+   damped as serve_bench's spec rows damp them: tokens as v2's on the
+   same weights, drafts accepted, K3 = 8 x (mixed steps + spec rounds),
+   K2 = 8 x (mixed + decode steps) + 1 layer x k x draft runs;
+9. summary.
 
-The second-to-last line is the ``{"kernels": [...]}`` summary and the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
-exits 2 and prints no result.
+The second-to-last line is the ``{"kernels": [...], "serve": [...]}``
+summary and the last line is ``{"ok": true, "device": {...}}``.  Without
+CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -60,7 +78,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 # the serving model is gpt_bench's: bench.py's GPT config at _gpt_heads(512)
 SLOTS, PAGE, N_REQ, MAX_NEW = 8, 16, 16, 32
 NUM_PAGES = SLOTS * pages_needed(MAX_LEN, PAGE) + 1
+CHUNK, LANES = 32, 4
+SPEC_K, DRAFT_LAYERS = 4, 1
 SEED = 0
+KERNELS = {"flash_attention": fa.flash_attention,
+           "paged_attention": pa.paged_attention,
+           "paged_attention_mq": pa.paged_attention_mq}
 
 
 def log(tag, obj):
@@ -68,19 +91,35 @@ def log(tag, obj):
 
 
 def time_ms(fn, iters=20):
-    """Mean device time of one call, from CUDA events over `iters` calls
-    after a warm-up."""
+    """Mean device time of one call, from CUDA events around `iters` calls
+    after a warm-up.  The calls are queued behind a device spin
+    (``torch.cuda._sleep``) that lasts longer than the host takes to
+    enqueue them, so the events time the kernels back to back and not the
+    host's launch rate (for a kernel shorter than its Python wrapper the
+    two differ).  The spin doubles until the host stays ahead of it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * iters * (time.monotonic() - t0) + 0.01
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_s * 2e9))  # cycles, at up to 2 GHz
+        start.record()
+        t0 = time.monotonic()
+        for _ in range(iters):
+            fn()
+        host_s = time.monotonic() - t0
+        end.record()
+        end.synchronize()
+        if host_s < spin_s / 2:
+            return start.elapsed_time(end) / iters
+        spin_s *= 2
+    raise AssertionError(f"time_ms: the host could not enqueue {iters} "
+                         f"calls ahead of the device")
 
 
 def bound(nbytes, flops, dtype):
@@ -237,23 +276,87 @@ def paged_phase(dev):
 
 # -- 4. serve -----------------------------------------------------------------
 
-def serve(lm, prompts, place):
-    """Serve `prompts` on a fresh fifo engine over the global scope's
-    parameters; returns (tokens per request, requests, engine, wall
+def serve(lm, prompts, place, scheduler="fifo", priorities=None,
+          first_alone=False, **kw):
+    """Serve `prompts` on a fresh engine over the global scope's
+    parameters.  With `first_alone`, request 0 is submitted and stepped
+    once before the others arrive.  Checks that every request finished
+    with max_new tokens and that no page leaked (the prefix index let go
+    first); returns (tokens per request, requests, engine, wall
     seconds)."""
     eng = ServingEngine(lm, max_batch_size=SLOTS, page_size=PAGE,
-                        place=place)
+                        place=place, scheduler=scheduler, **kw)
+    pri = priorities or [0] * len(prompts)
     t0 = time.monotonic()
-    rids = [eng.submit(p, MAX_NEW, arrival=t0) for p in prompts]
+    rids = [eng.submit(prompts[0], MAX_NEW, arrival=t0, priority=pri[0])]
+    if first_alone:
+        eng.step()
+    rids += [eng.submit(p, MAX_NEW, arrival=t0, priority=pr)
+             for p, pr in zip(prompts[1:], pri[1:])]
     fin = eng.run()
     wall = time.monotonic() - t0
     if sorted(fin) != sorted(rids):
         raise AssertionError("not every request finished")
     if any(len(fin[r].generated) != MAX_NEW for r in rids):
         raise AssertionError("a request finished short of max_new")
+    eng.cache.prefix.clear()
     if eng.cache.allocator.available() != eng.num_pages - 1:
         raise AssertionError(f"page leak: {eng.stats()['page_stats']}")
     return [fin[r].generated for r in rids], [fin[r] for r in rids], eng, wall
+
+
+def counted(fn):
+    """Run `fn` with every kernel's launch count set to 0 just before;
+    returns (its result, the counts just after)."""
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in KERNELS.items()}
+
+
+def check_launches(path, launches, want):
+    if launches != want:
+        raise AssertionError(f"{path}: kernel launches {launches} != what "
+                             f"the engine's counts imply {want}")
+    used = [k for k, v in want.items() if v]
+    if not used:
+        raise AssertionError(f"{path}: no kernel launched")
+
+
+def serve_row(scheduler, prompts, tokens, reqs, eng, wall, launches):
+    """One serve's numbers: TTFT over the requests (all submitted at t0),
+    prefill tokens per second of the runs that carry prefill (fifo:
+    prefill runs; v2/spec: mixed runs, which also decode), decoded tokens
+    per second of the runs that emit them, steps and launches."""
+    st = eng.stats()
+    ttft = sorted(r.first_token_t - r.arrival for r in reqs)
+    decoded = sum(len(t) - 1 for t in tokens)
+    if scheduler == "fifo":
+        pre_s, dec_s = st["prefill_s"], st["decode_s"]
+    else:
+        pre_s = st["mixed_s"]
+        dec_s = st["mixed_s"] + st["decode_s"] + st["draft_s"] \
+            + st["verify_s"]
+    return {"scheduler": scheduler, "requests": len(prompts),
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "max_new": MAX_NEW, "wall_s": wall,
+            "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+            "ttft_max_ms": ttft[-1] * 1e3,
+            "prefill_tok_s": st["prefill_computed"] / pre_s,
+            "decode_tok_s": decoded / dec_s,
+            "output_tok_s": sum(len(t) for t in tokens) / wall,
+            "steps": eng._steps,
+            **{k: st[k] for k in (
+                "prefill_runs", "decode_steps", "mixed_steps",
+                "spec_rounds", "draft_runs", "prefill_computed",
+                "prefill_cached", "cow_copies", "preemptions",
+                "spec_drafted", "spec_accepted", "spec_emitted",
+                "prefill_s", "decode_s", "mixed_s", "draft_s",
+                "verify_s")},
+            "launches": launches,
+            "launches_per_request": {k: v / len(prompts)
+                                     for k, v in launches.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def serve_phase(dev, card_name, smi):
@@ -267,43 +370,34 @@ def serve_phase(dev, card_name, smi):
         raise AssertionError("startup left a parameter off the card")
 
     prompts = gpt_bench.prompts(N_REQ, seed=SEED)
-    fa.flash_attention.launches = 0
-    pa.paged_attention.launches = 0
-    tokens, reqs, eng, wall = serve(lm, prompts, fluid.CUDAPlace(0))
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "paged_attention": pa.paged_attention.launches}
+    serve(lm, prompts, fluid.CUDAPlace(0))  # warm-up
+    (tokens, reqs, eng, wall), launches = counted(
+        lambda: serve(lm, prompts, fluid.CUDAPlace(0)))
     st = eng.stats()
-    want = {"flash_attention": LAYERS * st["prefill_runs"],
-            "paged_attention": LAYERS * st["decode_steps"]}
-    if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"kernel launches {launches} != 8 layers x "
-                             f"engine runs {want}")
+    check_launches("fifo", launches, {
+        "flash_attention": LAYERS * st["prefill_runs"],
+        "paged_attention": LAYERS * st["decode_steps"],
+        "paged_attention_mq": 0})
     buckets = sorted(eng._prefill_progs)
     if not {256, 512, 1024} <= set(buckets):
         raise AssertionError(f"prefill buckets {buckets} miss 256/512/1024")
-    ttft = sorted(r.first_token_t - r.arrival for r in reqs)
-    decoded = sum(len(t) - 1 for t in tokens)
-    res = {"card": card_name, "nvidia_smi": smi, "requests": N_REQ,
-           "params": n_params, "startup_s": startup_s,
-           "prompt_lens": [len(p) for p in prompts], "max_new": MAX_NEW,
-           "prefill_buckets": buckets, "wall_s": wall,
-           "ttft_p50_ms": float(np.median(ttft)) * 1e3,
-           "ttft_max_ms": ttft[-1] * 1e3,
-           "prefill_tok_s": st["prefill_computed"] / st["prefill_s"],
-           "decode_tok_s": decoded / st["decode_s"],
-           "prefill_runs": st["prefill_runs"],
-           "decode_steps": st["decode_steps"],
-           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "launches": launches,
-           "launches_per_request": {k: v / N_REQ
-                                    for k, v in launches.items()},
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log("serve", res)
+    row = serve_row("fifo", prompts, tokens, reqs, eng, wall, launches)
+    log("serve", {"card": card_name, "nvidia_smi": smi, "params": n_params,
+                  "startup_s": startup_s,
+                  "prompt_lens": [len(p) for p in prompts],
+                  "prefill_buckets": buckets, **row})
     arrays = [scope.find_np(p.name) for p in lm._params]
-    return lm, prompts, tokens, arrays, launches
+    return lm, prompts, tokens, arrays, row
 
 
 # -- 5. the same weights on the CPU -------------------------------------------
+
+def cpu_scope(lm, arrays):
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        lm.load_params(arrays, scope)
+    return scope
+
 
 def cpu_top2_gap(lm, scope, seq):
     """Gap between the CPU model's two largest next-token logits after
@@ -326,41 +420,216 @@ def cpu_top2_gap(lm, scope, seq):
     return (top[0] - top[1]).item()
 
 
-def cpu_phase(lm, prompts, gpu_tokens, arrays):
-    scope = fluid.Scope()
-    with fluid.scope_guard(scope):
-        lm.load_params(arrays, scope)
-        t0 = time.monotonic()
-        cpu_tokens, _, _, _ = serve(lm, prompts, fluid.CPUPlace())
-        cpu_s = time.monotonic() - t0
+def agree(tag, lm, gap_scope, prompts, want, got, **extra):
+    """Hold `got` to `want`: identical, except at most one request that
+    parts where the CPU model's top-2 logits are within 1e-3."""
     parted = []
-    for i, (g, c) in enumerate(zip(gpu_tokens, cpu_tokens)):
-        if g == c:
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
             continue
-        j = next(j for j, (a, b) in enumerate(zip(g, c)) if a != b)
-        gap = cpu_top2_gap(lm, scope, prompts[i] + c[:j])
-        parted.append({"request": i, "position": j, "gpu": g[j],
-                       "cpu": c[j], "cpu_top2_gap": gap})
-    res = {"cpu_s": cpu_s, "identical": N_REQ - len(parted),
-           "parted": parted}
-    log("cpu_agreement", res)
+        j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = cpu_top2_gap(lm, gap_scope, prompts[i] + a[:j])
+        parted.append({"request": i, "position": j, "want": a[j],
+                       "got": b[j], "cpu_top2_gap": gap})
+    res = {"identical": len(want) - len(parted), "of": len(want),
+           "parted": parted, **extra}
+    log(tag, res)
     if len(parted) > 1 or any(p["cpu_top2_gap"] > 1e-3 for p in parted):
-        raise AssertionError(f"card and CPU tokens disagree: {parted}")
+        raise AssertionError(f"{tag}: tokens disagree: {parted}")
+    return res
 
 
-# -- summary ------------------------------------------------------------------
+def cpu_phase(lm, prompts, gpu_tokens, scope):
+    t0 = time.monotonic()
+    with fluid.scope_guard(scope):
+        cpu_tokens, _, _, _ = serve(lm, prompts, fluid.CPUPlace())
+    agree("cpu_agreement", lm, scope, prompts, cpu_tokens, gpu_tokens,
+          cpu_s=time.monotonic() - t0)
 
-def summary_row(name, source, replaces, row, by_dtype, launches):
+
+# -- 6. kernel K3 -------------------------------------------------------------
+
+def mq_phase(dev):
+    """K3 at the mixed step's shape (N 4 chunk lanes, C 32) and the spec
+    verify's (N 8, C 5): nh 8, dh 64, ps 16, maxp 64, the 513-page pool.
+    Each lane is (q_start, valid rows); ctx_lens = max(q_start + rows, 1),
+    as the chunk op passes them."""
+    nh, dh = HEADS, DIM // HEADS
+    maxp = pages_needed(MAX_LEN, PAGE)
+    shapes = {
+        # rows past the chunk at the end of a system prompt, a mid-page
+        # start whose chunk crosses a page, an idle lane, a lane near 1024
+        "mixed": (32, [(576, 20), (200, 32), (0, 0), (990, 32)]),
+        # verify rows k+1 = 5 (fewer where the window shrank), a chunk
+        # crossing a page, a lane near 1024, an idle lane
+        "verify": (5, [(1, 5), (14, 5), (1019, 5), (300, 3), (64, 5),
+                       (999, 1), (5, 2), (0, 0)]),
+    }
+    rng = np.random.RandomState(SEED + 2)
+    rows, summary = [], {}
+    for shape, (C, lanes) in shapes.items():
+        N = len(lanes)
+        q0 = [s for s, _ in lanes]
+        ctx = [max(s + n, 1) for s, n in lanes]
+        pt = np.zeros((N, maxp), np.int32)
+        perm = iter(rng.permutation(np.arange(1, NUM_PAGES)))
+        for n, (L, (_, rows_n)) in enumerate(zip(ctx, lanes)):
+            if rows_n:  # an idle lane keeps its all-null table row
+                for j in range(pages_needed(L, PAGE)):
+                    pt[n, j] = next(perm)
+        pt_t = torch.from_numpy(pt)
+        cl_t = torch.tensor(ctx, dtype=torch.int32)
+        for dtype in DTYPES:
+            g = torch.Generator(device=dev).manual_seed(SEED + 3)
+            q = torch.randn(N, nh, C, dh, generator=g, device=dev).to(dtype)
+            kp, vp = (torch.randn(NUM_PAGES, nh, PAGE, dh, generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+            kp, vp = _poison_unseen(kp, vp, pt_t, cl_t, PAGE)
+            pt_d, cl_d = pt_t.to(dev), cl_t.to(dev)
+            q0_d = torch.tensor(q0, dtype=torch.int32, device=dev)
+            args = (q, kp, vp, pt_d, cl_d, q0_d)
+            out = pa.paged_attention_mq(*args)
+            torch.cuda.synchronize()
+            ref = pa.paged_attention_mq_ref(*args)
+            err = max_err(out, ref)
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError("paged_attention_mq read a poisoned "
+                                     "slot or left a row unnormalized")
+            itemsize = q.element_size()
+            # keys some row needs: below min(ctx, q_start + C); each
+            # (row, key) pair visible to the row is 4*dh FLOPs per head
+            needed = [min(L, s + C) for L, s in zip(ctx, q0)]
+            kv = sum(needed) * nh * dh * 2 * itemsize
+            table = sum(pages_needed(k, PAGE) for k in needed) * 4 + N * 8
+            nbytes = kv + 2 * q.numel() * itemsize + table
+            pairs = sum(min(s + c + 1, L) for L, s in zip(ctx, q0)
+                        for c in range(C))
+            flops = 4 * dh * nh * pairs
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            row = {"shape": shape, "dtype": str(dtype).split(".")[1],
+                   "N": N, "nh": nh, "C": C, "dh": dh, "ps": PAGE,
+                   "maxp": maxp, "pool_pages": NUM_PAGES,
+                   "q_starts": q0, "ctx_lens": ctx, "max_abs_err": err,
+                   "kernel_ms": time_ms(lambda: pa.paged_attention_mq(*args),
+                                        iters=100),
+                   "plain_ms": time_ms(
+                       lambda: pa.paged_attention_mq_ref(*args)),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log("paged_attention_mq", row)
+            if err > TOL[dtype]:
+                raise AssertionError(
+                    f"paged_attention_mq disagrees with its plain version: "
+                    f"{row} (tolerance {TOL[dtype]})")
+            if dtype == torch.float32:
+                summary[shape] = row
+    return rows, summary
+
+
+# -- 7. v2 serve --------------------------------------------------------------
+
+V2 = dict(scheduler="v2", chunk_size=CHUNK, chunk_lanes=LANES)
+
+
+def v2_want(st):
+    return {"flash_attention": 0,
+            "paged_attention": LAYERS * (st["mixed_steps"]
+                                         + st["decode_steps"]),
+            "paged_attention_mq": LAYERS * st["mixed_steps"]}
+
+
+def v2_phase(lm, prompts, fifo_tokens, scope_cpu):
+    card = fluid.CUDAPlace(0)
+    serve(lm, prompts, card, **V2)  # warm-up
+    (tokens, reqs, eng, wall), launches = counted(
+        lambda: serve(lm, prompts, card, **V2))
+    check_launches("v2", launches, v2_want(eng.stats()))
+    row = serve_row("v2", prompts, tokens, reqs, eng, wall, launches)
+    row["watermark_pages"] = eng.scheduler.watermark_pages
+    log("serve_v2", row)
+    agree("v2_vs_fifo", lm, scope_cpu, prompts, fifo_tokens, tokens)
+
+    # prefix-heavy traffic: hits and copy-on-write, against the CPU
+    pprompts = gpt_bench.prefix_prompts(N_REQ, seed=SEED)
+    (ptok, preqs, peng, pwall), plaunch = counted(
+        lambda: serve(lm, pprompts, card, **V2))
+    pst = peng.stats()
+    check_launches("v2_prefix", plaunch, v2_want(pst))
+    if not (pst["prefill_cached"] > 0 and pst["cow_copies"] > 0):
+        raise AssertionError(f"prefix set: no prefix hit or no COW copy: "
+                             f"{pst}")
+    prow = serve_row("v2", pprompts, ptok, preqs, peng, pwall, plaunch)
+    log("serve_v2_prefix", prow)
+    t0 = time.monotonic()
+    with fluid.scope_guard(scope_cpu):
+        cpu_tok, _, ceng, _ = serve(lm, pprompts, fluid.CPUPlace(), **V2)
+    agree("v2_prefix_vs_cpu", lm, scope_cpu, pprompts, cpu_tok, ptok,
+          cpu_s=time.monotonic() - t0,
+          cpu_prefill_cached=ceng.stats()["prefill_cached"])
+
+    # preemption: a low-priority request, then a high-priority burst into
+    # a pool of 64 pages; the same arrivals in the roomy pool
+    burst = [prompts[0][:300]] + [p[:200] for p in prompts[1:8]]
+    pri = [0] + [1] * 7
+    (ttok, _, teng, _), tlaunch = counted(lambda: serve(
+        lm, burst, card, priorities=pri, first_alone=True, num_pages=64,
+        **V2))
+    check_launches("v2_tight", tlaunch, v2_want(teng.stats()))
+    if teng.stats()["preemptions"] < 1:
+        raise AssertionError("the tight pool preempted nothing")
+    rtok, _, _, _ = serve(lm, burst, card, priorities=pri, first_alone=True,
+                          **V2)
+    agree("v2_preempt_vs_roomy", lm, scope_cpu, burst, rtok, ttok,
+          preemptions=teng.stats()["preemptions"],
+          watermark_pages=teng.scheduler.watermark_pages)
+    return row, prow, launches
+
+
+# -- 8. spec serve ------------------------------------------------------------
+
+def spec_phase(lm, prompts):
+    card = fluid.CUDAPlace(0)
+    scope = fluid.global_scope()
+    gpt_bench.damp_tail_layers(lm, scope, DRAFT_LAYERS, scale=0.01)
+    damped_cpu = cpu_scope(lm, [scope.find_np(p.name) for p in lm._params])
+    v2_tok, _, _, _ = serve(lm, prompts, card, **V2)
+    spec = dict(V2, scheduler="spec", spec_k=SPEC_K,
+                spec_draft_layers=DRAFT_LAYERS)
+    serve(lm, prompts, card, **spec)  # warm-up
+    (tokens, reqs, eng, wall), launches = counted(
+        lambda: serve(lm, prompts, card, **spec))
+    st = eng.stats()
+    check_launches("spec", launches, {
+        "flash_attention": 0,
+        "paged_attention": LAYERS * (st["mixed_steps"] + st["decode_steps"])
+        + DRAFT_LAYERS * SPEC_K * st["draft_runs"],
+        "paged_attention_mq": LAYERS * (st["mixed_steps"]
+                                        + st["spec_rounds"])})
+    if st["spec_accepted"] < 1:
+        raise AssertionError(f"spec accepted no draft: {st}")
+    row = serve_row("spec", prompts, tokens, reqs, eng, wall, launches)
+    row["accept_rate_damped_random_model"] = (st["spec_accepted"]
+                                              / max(st["spec_drafted"], 1))
+    log("serve_spec", row)
+    agree("spec_vs_v2_damped", lm, damped_cpu, prompts, v2_tok, tokens)
+    return row, launches
+
+
+# -- 9. summary ---------------------------------------------------------------
+
+def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
             "max_abs_err_by_dtype": by_dtype,
             "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": {k: row[k] for k in row
-                      if k in ("dtype", "B", "H", "T", "D", "N", "nh", "dh",
-                               "ps", "maxp", "pool_pages")}}
+                      if k in ("shape", "dtype", "B", "H", "T", "D", "N",
+                               "nh", "C", "dh", "ps", "maxp",
+                               "pool_pages")}}
 
 
 def errs_by_dtype(rows):
@@ -381,22 +650,48 @@ def main():
     build()
     fl_rows, fl_sum = flash_phase(dev)
     pg_rows, pg_sum = paged_phase(dev)
-    lm, prompts, tokens, arrays, launches = serve_phase(dev, name, smi)
-    cpu_phase(lm, prompts, tokens, arrays)
+    lm, prompts, tokens, arrays, fifo_row = serve_phase(dev, name, smi)
+    scope_cpu = cpu_scope(lm, arrays)
+    cpu_phase(lm, prompts, tokens, scope_cpu)
+    mq_rows, mq_sum = mq_phase(dev)
+    v2_row, v2p_row, v2_launch = v2_phase(lm, prompts, tokens, scope_cpu)
+    spec_row, spec_launch = spec_phase(lm, prompts)
+    by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
+               "v2_prefix": v2p_row["launches"], "spec": spec_launch}
+    csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
+    pallas = "paddle_tpu/ops/pallas_kernels/"
+
+    def paths(kernel):
+        return {p: c[kernel] for p, c in by_path.items()}
+
     kernels = [
-        summary_row("flash_attention", "paddle_tpu_torch/ops/cuda_kernels/"
-                    "csrc/flash_attention.cu",
-                    "paddle_tpu/ops/pallas_kernels/flash_attention.py:213",
-                    fl_sum, errs_by_dtype(fl_rows),
-                    launches["flash_attention"]),
-        summary_row("paged_attention", "paddle_tpu_torch/ops/cuda_kernels/"
-                    "csrc/paged_attention.cu",
-                    "paddle_tpu/ops/pallas_kernels/paged_attention.py:177",
-                    pg_sum, errs_by_dtype(pg_rows),
-                    launches["paged_attention"]),
+        summary_row("flash_attention", csrc + "flash_attention.cu",
+                    pallas + "flash_attention.py:213", fl_sum,
+                    errs_by_dtype(fl_rows),
+                    fifo_row["launches"]["flash_attention"],
+                    paths("flash_attention")),
+        summary_row("paged_attention", csrc + "paged_attention.cu",
+                    pallas + "paged_attention.py:177", pg_sum,
+                    errs_by_dtype(pg_rows),
+                    fifo_row["launches"]["paged_attention"],
+                    paths("paged_attention")),
+        summary_row("paged_attention_mq", csrc + "paged_attention_mq.cu",
+                    pallas + "paged_attention.py:284", mq_sum["mixed"],
+                    errs_by_dtype(mq_rows),
+                    v2_launch["paged_attention_mq"],
+                    paths("paged_attention_mq")),
     ]
+    kernels[2]["verify_shape"] = {
+        k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")}
+    serve_rows = [{k: r[k] for k in (
+        "scheduler", "requests", "ttft_p50_ms", "prefill_tok_s",
+        "decode_tok_s", "output_tok_s", "steps", "mixed_steps",
+        "decode_steps", "spec_rounds", "launches")}
+        for r in (fifo_row, v2_row, spec_row)]
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "serve": serve_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -177,6 +177,104 @@ class DecoderLM:
                    "eps": 1e-5})
         return tok
 
+    def prefill_chunk(self, tokens, ctx_len, chunk_len, page_table, cache,
+                      page_size, all_tokens=False):
+        """Append one paged_prefill_chunk op: materialize K/V for `tokens`
+        [K,C,1] at context offset `ctx_len` [K,1] through `page_table`,
+        return the greedy token [K] at each lane's last valid position
+        (meaningful on a lane's FINAL chunk; `chunk_len` [K,1] = 0 idles
+        a lane).  ``all_tokens=True`` returns (tok, chunk_tokens) where
+        chunk_tokens [K,C] is the greedy pick after EVERY position — the
+        speculative verify step."""
+        if self._params is None:
+            raise RuntimeError("build the tower with .logits() first")
+        kpool, vpool = cache
+        helper = LayerHelper("paged_prefill_chunk")
+        tok = helper.create_tmp_variable("int64", shape=(-1,),
+                                         stop_gradient=True)
+        ins = self._decode_inputs(tokens)
+        ins.update({"CtxLen": [ctx_len.name], "ChunkLen": [chunk_len.name],
+                    "PageTable": [page_table.name],
+                    "KPool": [kpool.name], "VPool": [vpool.name]})
+        outs = {"NextToken": [tok.name], "KPoolOut": [kpool.name],
+                "VPoolOut": [vpool.name]}
+        ctok = None
+        if all_tokens:
+            C = int(tokens.shape[-2])  # [.., C, 1] token payload
+            ctok = helper.create_tmp_variable("int64", shape=(-1, C),
+                                              stop_gradient=True)
+            outs["ChunkTokens"] = [ctok.name]
+        helper.append_op(
+            "paged_prefill_chunk", inputs=ins, outputs=outs,
+            attrs={"n_heads": self.n_heads, "page_size": int(page_size),
+                   "eps": 1e-5, "all_tokens": int(bool(all_tokens))})
+        if all_tokens:
+            return tok, ctok
+        return tok
+
+    def spec_draft(self, cache, token, ctx_len, spec_len, page_table,
+                   page_size, k_steps):
+        """Append a paged_spec_draft op: `k_steps` chained greedy decode
+        steps of THIS tower (the draft — see truncated()) over the
+        target's pools, returning the drafted continuation [B, k_steps]
+        int64.  `spec_len` [B,1] caps per-slot drafting (0 idles a
+        slot)."""
+        if self._params is None:
+            raise RuntimeError("build the tower with .logits() first")
+        kpool, vpool = cache
+        helper = LayerHelper("paged_spec_draft")
+        drafted = helper.create_tmp_variable(
+            "int64", shape=(-1, int(k_steps)), stop_gradient=True)
+        ins = self._decode_inputs(token)
+        ins.update({"CtxLen": [ctx_len.name], "SpecLen": [spec_len.name],
+                    "PageTable": [page_table.name],
+                    "KPool": [kpool.name], "VPool": [vpool.name]})
+        helper.append_op(
+            "paged_spec_draft", inputs=ins,
+            outputs={"Drafted": [drafted.name], "KPoolOut": [kpool.name],
+                     "VPoolOut": [vpool.name]},
+            attrs={"n_heads": self.n_heads, "page_size": int(page_size),
+                   "eps": 1e-5, "k_steps": int(k_steps)})
+        return drafted
+
+    def truncated(self, n_layers):
+        """A DEPTH-TRUNCATED view of this model: the first `n_layers`
+        blocks plus the shared embedding/position/final-LN/head — the
+        self-speculative DRAFT.  The view owns no parameters of its own
+        (its _params alias this model's), so draft layer i computes
+        exactly target layer i and the two towers share one KV pool (the
+        draft touches only pool layers < n_layers).  Call it through
+        ``serving.speculative.build_draft_lm``."""
+        if self._params is None:
+            raise RuntimeError("build the tower with .logits() first")
+        if not 1 <= int(n_layers) <= self.n_layers:
+            raise ValueError(
+                f"draft depth {n_layers} not in [1, {self.n_layers}]")
+        draft = DecoderLM(self.vocab_size, self.dim, int(n_layers),
+                          self.n_heads, self.max_len,
+                          mlp_ratio=self.mlp_ratio, dtype=self.dtype)
+        head = 2 + self._PER_LAYER * int(n_layers)
+        draft._params = self._params[:head] + self._params[-3:]
+        return draft
+
+    def page_copy(self, src, dst, cache):
+        """Append a paged_page_copy op: physical page `src` [M,1] -> `dst`
+        [M,1] across every layer of both pools (prefix-cache
+        copy-on-write; unused lanes pass 0 -> 0, a null-page no-op).
+        Returns the fetchable dst witness [M] int64."""
+        kpool, vpool = cache
+        helper = LayerHelper("paged_page_copy")
+        out = helper.create_tmp_variable("int64", shape=(-1,),
+                                         stop_gradient=True)
+        helper.append_op(
+            "paged_page_copy",
+            inputs={"Src": [src.name], "Dst": [dst.name],
+                    "KPool": [kpool.name], "VPool": [vpool.name]},
+            outputs={"Out": [out.name], "KPoolOut": [kpool.name],
+                     "VPoolOut": [vpool.name]},
+            attrs={})
+        return out
+
     def _decode_inputs(self, prompt):
         """Wire the recorded tower parameters into a decode op's slots,
         declaring them in the current program."""

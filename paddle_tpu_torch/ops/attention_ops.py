@@ -1,7 +1,10 @@
-"""Serving ops over the paged KV cache: ``paged_prefill`` (whole-prompt
-prefill + first greedy token) and ``paged_decode_step`` (one
-continuous-batching decode step) — the port of the two ops of
-``paddle_tpu/ops/attention_ops.py`` the fifo engine runs.
+"""Serving ops over the paged KV cache — the port of the serving ops of
+``paddle_tpu/ops/attention_ops.py``: ``paged_prefill`` (whole-prompt
+prefill + first greedy token), ``paged_decode_step`` (one
+continuous-batching decode step), ``paged_prefill_chunk`` (one prefill
+chunk at a context offset; with ``all_tokens`` the speculative verify),
+``paged_spec_draft`` (K chained draft decode steps) and
+``paged_page_copy`` (the prefix cache's copy-on-write).
 
 The K/V pools ride the executor's read-then-written state idiom (input
 slot KPool and output slot KPoolOut name the SAME variable).  Where the
@@ -16,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_kernels.flash_attention import flash_attention
-from .cuda_kernels.paged_attention import paged_attention
+from .cuda_kernels.paged_attention import paged_attention, paged_attention_mq
 from .registry import register_op
 from .transformer_ops import _lm_fns, _prompt_2d, stable_argmax
 
@@ -128,6 +131,7 @@ def paged_decode_step(ctx, ins, attrs):
     page = torch.where(act, page, torch.zeros_like(page))
     off = ctxl % ps
     attend_len = ctxl + 1  # context including the token written this step
+    # the kernels take int32: cast once here, not in every layer's call
     pt32 = pt.to(torch.int32)
     len32 = attend_len.to(torch.int32)
 
@@ -146,3 +150,165 @@ def paged_decode_step(ctx, ins, attrs):
     nxt = stable_argmax(fns.head_logits(x), torch.int64)
     nxt = torch.where(act, nxt, torch.zeros_like(nxt))
     return {"NextToken": [nxt], "KPoolOut": [kpool], "VPoolOut": [vpool]}
+
+
+@register_op("paged_prefill_chunk", grad=None,
+             non_diff_inputs=("Tokens", "CtxLen", "ChunkLen", "PageTable"))
+def paged_prefill_chunk(ctx, ins, attrs):
+    """CHUNKED prefill: one fixed-size slice of a prompt, at a context
+    offset, into the paged KV pools — the v2 engine's prefill quantum.
+    Positions [ctx, ctx+chunk) are embedded, written through the page
+    table, and attend over the WHOLE paged context so far (prefix-cache
+    hits + earlier chunks + this chunk causally).
+
+    Inputs: Tokens [K,C,1] int64 (chunk tokens, 0-padded), CtxLen [K,1]
+    (positions already materialized), ChunkLen [K,1] (valid tokens this
+    chunk; 0 = idle lane, all writes land in the null page), PageTable
+    [K,maxp], KPool/VPool, plus the decode parameter slots.  Attrs:
+    n_heads, page_size, eps, all_tokens.  Outputs: NextToken [K] int64
+    (greedy pick at each lane's LAST valid chunk position; idle lanes
+    emit 0), KPoolOut/VPoolOut, and with ``all_tokens=1`` ChunkTokens
+    [K,C] int64 — the greedy pick after EVERY chunk position (0 past
+    ChunkLen), the speculative verify read.
+
+    Attention is the multi-query page walk (``paged_attention_mq``) with
+    the key bound ``max(ctx + chunk, 1)``.  The JAX op's CPU path is a
+    dense gather masked only by ``key <= query``; the two agree on every
+    valid row and differ only in the garbage rows past ChunkLen."""
+    nh = int(attrs["n_heads"])
+    ps = int(attrs["page_size"])
+    eps = float(attrs.get("eps", 1e-5))
+
+    tokens = _prompt_2d(ins)  # [K,C] int64
+    ctx0 = _squeeze_feed(ins["CtxLen"][0], torch.int64)
+    clen = _squeeze_feed(ins["ChunkLen"][0], torch.int64)
+    pt = ins["PageTable"][0].long()  # [K,maxp]
+    kpool, vpool = ins["KPool"][0], ins["VPool"][0]
+
+    fns = _lm_fns(ins, nh, eps)
+    emb = ins["Emb"][0]
+    cdt = emb.dtype
+    scale = 1.0 / (fns.dh ** 0.5)
+    K, C = tokens.shape
+    maxp = pt.shape[1]
+
+    i_idx = torch.arange(C, device=tokens.device)
+    pos = ctx0[:, None] + i_idx[None, :]  # [K,C] absolute
+    valid = i_idx[None, :] < clen[:, None]
+    # pad/idle writes land in the null page; the pos-table gather clamps
+    # so a pad tail running past max_len stays in range
+    blk = torch.clamp(pos // ps, max=maxp - 1)
+    page = torch.where(valid, pt.gather(1, blk), torch.zeros_like(blk))
+    pages_f, offs_f = page.reshape(-1), (pos % ps).reshape(-1)
+    pos_c = torch.clamp(pos, max=fns.pos.shape[0] - 1)
+    # rows past ChunkLen attend through the key bound (kp < attend_len);
+    # >= 1 keeps every row's normalizer positive
+    attend_len = torch.clamp(ctx0 + clen, min=1)
+    pt32, len32, q032 = (t.to(torch.int32) for t in (pt, attend_len, ctx0))
+
+    def rows(a):  # [K,nh,C,dh] -> [K*C,nh,dh]
+        return a.transpose(1, 2).reshape(K * C, nh, fns.dh)
+
+    def attend(i, q, k, v):
+        _paged_pools_write(kpool, i, pages_f, offs_f, rows(k))
+        _paged_pools_write(vpool, i, pages_f, offs_f, rows(v))
+        return paged_attention_mq(q, kpool[i], vpool[i], pt32, len32, q032,
+                                  scale=scale)
+
+    x = emb[tokens] + fns.pos[pos_c].to(cdt)  # [K,C,D]
+    for i in range(fns.L):
+        x = fns.block(i, x, attend)
+
+    last_i = torch.clamp(clen - 1, min=0)
+    last = x[torch.arange(K, device=x.device), last_i][:, None, :]
+    nxt = stable_argmax(fns.head_logits(last), torch.int64)
+    nxt = torch.where(clen > 0, nxt, torch.zeros_like(nxt))
+    out = {"NextToken": [nxt], "KPoolOut": [kpool], "VPoolOut": [vpool]}
+    if int(attrs.get("all_tokens", 0)):
+        ctoks = stable_argmax(fns.head_logits_all(x), torch.int64)  # [K,C]
+        out["ChunkTokens"] = [torch.where(valid, ctoks,
+                                          torch.zeros_like(ctoks))]
+    return out
+
+
+@register_op("paged_spec_draft", grad=None,
+             non_diff_inputs=("Tokens", "CtxLen", "SpecLen", "PageTable"))
+def paged_spec_draft(ctx, ins, attrs):
+    """K chained DRAFT decode steps in ONE op — the proposal half of
+    speculative decoding.
+
+    The parameter slots carry the DRAFT tower: a depth-truncated prefix of
+    the target (``DecoderLM.truncated``), so draft layer i IS target
+    layer i and the K/V the draft writes at pool layer i are the values
+    the target would write there.  The pools are the TARGET's; layers at
+    or past the draft depth are never touched.
+
+    Inputs: Tokens [N,1] int64 (each slot's last emitted token — not yet
+    in the cache), CtxLen [N,1], SpecLen [N,1] (tokens to draft; 0 idles
+    the slot: its writes land in the null page and it emits 0s),
+    PageTable [N,maxp], KPool/VPool, plus the draft parameter slots.
+    Attrs: n_heads, page_size, eps, k_steps.  Outputs: Drafted
+    [N, k_steps] int64 (column k is garbage where k >= SpecLen),
+    KPoolOut/VPoolOut."""
+    nh = int(attrs["n_heads"])
+    ps = int(attrs["page_size"])
+    eps = float(attrs.get("eps", 1e-5))
+    K = int(attrs["k_steps"])
+
+    tok = _squeeze_feed(ins["Tokens"][0], torch.int64)
+    ctxl = _squeeze_feed(ins["CtxLen"][0], torch.int64)
+    slen = _squeeze_feed(ins["SpecLen"][0], torch.int64)
+    pt = ins["PageTable"][0].long()
+    kpool, vpool = ins["KPool"][0], ins["VPool"][0]
+
+    fns = _lm_fns(ins, nh, eps)
+    emb = ins["Emb"][0]
+    cdt = emb.dtype
+    scale = 1.0 / (fns.dh ** 0.5)
+    maxp = pt.shape[1]
+    pt32 = pt.to(torch.int32)
+
+    drafted = []
+    for k in range(K):
+        act = k < slen
+        p_abs = ctxl + k
+        page = pt.gather(1, torch.clamp(p_abs // ps, max=maxp - 1)[:, None])
+        page = torch.where(act, page[:, 0], torch.zeros_like(p_abs))
+        off = p_abs % ps
+        attend_len = torch.where(act, p_abs + 1,
+                                 torch.ones_like(p_abs)).to(torch.int32)
+        p_row = torch.clamp(p_abs, max=fns.pos.shape[0] - 1)
+        x = emb[tok][:, None, :] + fns.pos[p_row].to(cdt)[:, None, :]
+
+        def attend(i, q, k_, v_, page=page, off=off, attend_len=attend_len):
+            _paged_pools_write(kpool, i, page, off, k_[:, :, 0])
+            _paged_pools_write(vpool, i, page, off, v_[:, :, 0])
+            out = paged_attention(q[:, :, 0], kpool[i], vpool[i], pt32,
+                                  attend_len, scale=scale)
+            return out[:, :, None, :]
+
+        for i in range(fns.L):
+            x = fns.block(i, x, attend)
+        nxt = stable_argmax(fns.head_logits(x), torch.int64)
+        tok = torch.where(act, nxt, torch.zeros_like(nxt))
+        drafted.append(tok)
+
+    return {"Drafted": [torch.stack(drafted, dim=1)], "KPoolOut": [kpool],
+            "VPoolOut": [vpool]}
+
+
+@register_op("paged_page_copy", grad=None, non_diff_inputs=("Src", "Dst"))
+def paged_page_copy(ctx, ins, attrs):
+    """Device-side page copy for prefix-cache COPY-ON-WRITE: duplicate
+    physical page Src into Dst across every layer of both pools, in place.
+
+    Inputs: Src/Dst [M,1] int64 page ids (unused lanes pass src=dst=0, a
+    null-page no-op), KPool/VPool.  Outputs: Out [M] int64 (the dst ids),
+    KPoolOut/VPoolOut.  The right-hand side is gathered before the
+    write, so a copy never reads a page it has already written."""
+    src = _squeeze_feed(ins["Src"][0], torch.int64)
+    dst = _squeeze_feed(ins["Dst"][0], torch.int64)
+    kpool, vpool = ins["KPool"][0], ins["VPool"][0]
+    kpool[:, dst] = kpool[:, src]
+    vpool[:, dst] = vpool[:, src]
+    return {"Out": [dst], "KPoolOut": [kpool], "VPoolOut": [vpool]}

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _I, _P],
+    "ptt_paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

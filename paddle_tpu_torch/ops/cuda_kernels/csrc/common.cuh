@@ -39,4 +39,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Copy the first `n` elements (whole rows of dh) of one K page and one V
+// page into shared memory as f32: element c of row t lands at
+// ks[t * ldk + c] and vs[t * ldv + c].  Thread `tid` of `nthreads` takes
+// elements tid, tid + nthreads, ... and issues kStage loads of each
+// tensor before it stores any, so several loads are in flight per thread.
+template <typename T>
+__device__ __forceinline__ void stage_page(const T* __restrict__ k,
+                                           const T* __restrict__ v, int n,
+                                           int dh, int ldk, int ldv,
+                                           float* ks, float* vs, int tid,
+                                           int nthreads) {
+  constexpr int kStage = 8;
+  for (int e0 = tid; e0 < n; e0 += kStage * nthreads) {
+    float kr[kStage], vr[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * nthreads;
+      if (e < n) {
+        kr[u] = to_f(k[e]);
+        vr[u] = to_f(v[e]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * nthreads;
+      if (e < n) {
+        const int t = e / dh, c = e - t * dh;
+        ks[t * ldk + c] = kr[u];
+        vs[t * ldv + c] = vr[u];
+      }
+    }
+  }
+}
+
 }  // namespace ptt

@@ -16,7 +16,8 @@
 // flight per (n, h).  A warp copies the valid rows of its page (rows
 // t < ctx - j*ps only: the pool's stale slots are never read) straight
 // out of the pool at ((page*nh + h)*ps + t)*dh into shared memory with
-// coalesced loads — the pool is never gathered — then lane t scores row
+// coalesced loads, several in flight per lane (stage_page) — the pool is
+// never gathered — then lane t scores row
 // t, the warp folds the page into its running max, normalizer and f32
 // P.V accumulator, and at the end the warps' partial softmaxes are merged
 // through shared memory.  Precondition (not checked: it would need a
@@ -66,11 +67,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const size_t pbase = ((size_t)page * nh + h) * (size_t)ps * dh;
     const int valid = min(ps, ctx - j * ps);
     __syncwarp();  // the previous page's rows are consumed
-    for (int e = lane; e < valid * dh; e += 32) {
-      const int t = e / dh, c = e - t * dh;
-      ks[t * ldk + c] = to_f(kp[pbase + e]);
-      vs[e] = to_f(vp[pbase + e]);
-    }
+    stage_page(kp + pbase, vp + pbase, valid * dh, dh, ldk, dh, ks, vs,
+               lane, 32);
     __syncwarp();
     for (int c0 = 0; c0 < valid; c0 += 32) {
       const int t = c0 + lane;

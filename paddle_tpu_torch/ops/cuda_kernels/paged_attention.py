@@ -1,9 +1,14 @@
-"""Paged (ragged) KV-cache decode attention: the CUDA kernel
-(``csrc/paged_attention.cu``, replacing the Pallas kernel
-``paddle_tpu/ops/pallas_kernels/paged_attention.py: paged_attention``) and
-its plain PyTorch version.
+"""Paged (ragged) KV-cache attention: two CUDA kernels and their plain
+PyTorch versions.
 
-Contract:
+* ``paged_attention`` (``csrc/paged_attention.cu``, replacing the Pallas
+  kernel ``paddle_tpu/ops/pallas_kernels/paged_attention.py:
+  paged_attention``): one query token per slot, the decode step.
+* ``paged_attention_mq`` (``csrc/paged_attention_mq.cu``, replacing
+  ``paged_attention_mq`` of the same Pallas module): C query rows per
+  slot, the chunked-prefill and speculative-verify step.
+
+Decode contract:
   q          [N, nh, dh]      one query token per sequence slot
   k_pages    [P, nh, ps, dh]  shared K pool (page 0 = reserved null page)
   v_pages    [P, nh, ps, dh]  shared V pool
@@ -13,9 +18,19 @@ Contract:
                               them 0, the null page)
   ctx_lens   [N]              valid context length per slot, >= 1
   -> [N, nh, dh]
-Positions ``j*ps + t >= ctx_lens[n]`` are masked out.  The kernel takes
-float32 or bfloat16 pools and dh ≤ 128.  Its precondition ``ctx_lens >= 1``
-is not checked on the host: checking would synchronise.
+Positions ``j*ps + t >= ctx_lens[n]`` are masked out.
+
+Multi-query contract: q [N, nh, C, dh] (C positions per slot, the head
+layout ``_lm_fns.block`` hands ``attend``), the same pools and table,
+ctx_lens [N] (TOTAL attended length, >= 1) and q_starts [N] (absolute
+position of query row 0); row c of slot n sees the keys
+``{p : p <= q_starts[n] + c and p < ctx_lens[n]}`` -> [N, nh, C, dh].
+Position 0 is always visible, so rows past a lane's valid chunk are
+finite garbage that callers mask.
+
+The kernels take float32 or bfloat16 pools and dh ≤ 128.  The
+preconditions ``ctx_lens >= 1`` and ``q_starts >= 0`` are not checked on
+the host: checking would synchronise.
 """
 
 from __future__ import annotations
@@ -50,6 +65,64 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, ctx_lens,
     return torch.einsum("bhk,bhkd->bhd", p, v)
 
 
+def paged_attention_mq_ref(q, k_pages, v_pages, page_table, ctx_lens,
+                           q_starts, scale=None):
+    """Plain PyTorch version of the multi-query walk: the dense gather of
+    ``paged_attention_ref`` with a per-row causal bound (the JAX
+    ``paged_attention_mq_ref`` oracle)."""
+    N, nh, C, dh = q.shape
+    ps = k_pages.shape[2]
+    maxp = page_table.shape[1]
+    s = scale if scale is not None else 1.0 / (dh ** 0.5)
+    pt = page_table.to(device=q.device, dtype=torch.int64)
+
+    def dense(pages):  # [P,nh,ps,dh] -> [N,nh,maxp*ps,dh]
+        g = pages[pt]  # [N,maxp,nh,ps,dh]
+        return g.permute(0, 2, 1, 3, 4).reshape(N, nh, maxp * ps, dh)
+
+    k = dense(k_pages)
+    v = dense(v_pages)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * s
+    kp = torch.arange(maxp * ps, device=q.device)[None, None, None, :]
+    qp = (q_starts.to(q.device, torch.int64)[:, None]
+          + torch.arange(C, device=q.device)[None, :])[:, None, :, None]
+    cl = ctx_lens.to(q.device, torch.int64)[:, None, None, None]
+    scores = scores.masked_fill(~((kp <= qp) & (kp < cl)), -1e30)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def _check_paged(name, q, k_pages, v_pages, page_table, lens):
+    """The checks both kernels' wrappers share: q [N, nh, ..., dh]
+    against the pools [P, nh, ps, dh], the table and the per-slot
+    vectors in `lens`."""
+    N, nh, dh = q.shape[0], q.shape[1], q.shape[-1]
+    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[1] != nh or k_pages.shape[3] != dh:
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"{name}: q and the pools must share one dtype")
+    if k_pages.device != q.device or v_pages.device != q.device:
+        raise ValueError(f"{name}: q and the pools must share one device")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{name}: the pools must be contiguous")
+    if page_table.ndim != 2 or page_table.shape[0] != N \
+            or any(tuple(t.shape) != (N,) for t in lens):
+        raise ValueError(f"{name}: page_table {tuple(page_table.shape)} / "
+                         f"{[tuple(t.shape) for t in lens]} do not match "
+                         f"N={N}")
+    if dh > 128:
+        raise ValueError(f"{name}: head dim {dh} > 128")
+
+
+def _i32(t, device):
+    """An index tensor as contiguous int32 on `device` (torch indexes
+    with int64; the kernels take int32)."""
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
 def paged_attention(q, k_pages, v_pages, page_table, ctx_lens, scale=None):
     """See the module docstring.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
@@ -58,39 +131,53 @@ def paged_attention(q, k_pages, v_pages, page_table, ctx_lens, scale=None):
                                    scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
+    _check_paged("paged_attention", q, k_pages, v_pages, page_table,
+                 [ctx_lens])
     N, nh, dh = q.shape
-    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape \
-            or k_pages.shape[1] != nh or k_pages.shape[3] != dh:
-        raise ValueError(f"paged_attention: pools {tuple(k_pages.shape)}, "
-                         f"{tuple(v_pages.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_attention: q and the pools must share one "
-                        "dtype")
-    if k_pages.device != q.device or v_pages.device != q.device:
-        raise ValueError("paged_attention: q and the pools must share one "
-                         "device")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_attention: the pools must be contiguous")
-    if page_table.ndim != 2 or page_table.shape[0] != N \
-            or tuple(ctx_lens.shape) != (N,):
-        raise ValueError(f"paged_attention: page_table "
-                         f"{tuple(page_table.shape)} / ctx_lens "
-                         f"{tuple(ctx_lens.shape)} do not match N={N}")
-    if dh > 128:
-        raise ValueError(f"paged_attention: head dim {dh} > 128")
     code = _common.dtype_code(q)
     ps = k_pages.shape[2]
     maxp = page_table.shape[1]
     s = scale if scale is not None else 1.0 / (dh ** 0.5)
     q = q.contiguous()
-    pt = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    cl = ctx_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    _common.launch("ptt_paged_attention_fwd", q, k_pages, v_pages, pt, cl,
+    _common.launch("ptt_paged_attention_fwd", q, k_pages, v_pages,
+                   _i32(page_table, q.device), _i32(ctx_lens, q.device),
                    out, N, nh, dh, ps, maxp, float(s), code, device=q.device)
     paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_mq(q, k_pages, v_pages, page_table, ctx_lens, q_starts,
+                       scale=None):
+    """See the module docstring.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return paged_attention_mq_ref(q, k_pages, v_pages, page_table,
+                                      ctx_lens, q_starts, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_mq: no kernel for device "
+                         f"{q.device}")
+    if q.ndim != 4:
+        raise ValueError(f"paged_attention_mq: q {tuple(q.shape)} is not "
+                         f"[N, nh, C, dh]")
+    _check_paged("paged_attention_mq", q, k_pages, v_pages, page_table,
+                 [ctx_lens, q_starts])
+    N, nh, C, dh = q.shape
+    code = _common.dtype_code(q)
+    ps = k_pages.shape[2]
+    maxp = page_table.shape[1]
+    s = scale if scale is not None else 1.0 / (dh ** 0.5)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    _common.launch("ptt_paged_attention_mq_fwd", q, k_pages, v_pages,
+                   _i32(page_table, q.device), _i32(ctx_lens, q.device),
+                   _i32(q_starts, q.device), out, N, nh, C, dh, ps, maxp,
+                   float(s), code, device=q.device)
+    paged_attention_mq.launches += 1
+    return out
+
+
+paged_attention_mq.launches = 0

@@ -1,6 +1,7 @@
 """Decoder-LM forward machinery shared by the serving ops — the part of
 ``paddle_tpu/ops/transformer_ops.py`` (``_lm_fns``, ``_prompt_2d``,
-``stable_argmax``) that the paged prefill and decode ops walk."""
+``stable_argmax``) that the paged prefill, decode, chunk and draft ops
+walk."""
 
 from __future__ import annotations
 
@@ -51,8 +52,18 @@ def _lm_fns(ins, nh: int, eps: float):
         x = ln(x, ins["LnfS"][0], ins["LnfB"][0])
         return x[:, -1].float() @ ins["WHead"][0].float()
 
+    def head_logits_all(x):
+        """Final LN + LM head on EVERY position, in f32: [N,t,D] ->
+        [N,t,V] — the speculative-verify read of the chunk op.  LN and
+        the head are position-wise, so row t equals head_logits() of the
+        length-(t+1) slice."""
+        x = ln(x, ins["LnfS"][0], ins["LnfB"][0])
+        return x.float() @ ins["WHead"][0].float()
+
     return SimpleNamespace(ln=ln, heads=heads, merge=merge, block=block,
-                           head_logits=head_logits, L=L, D=D, dh=dh, pos=pos)
+                           head_logits=head_logits,
+                           head_logits_all=head_logits_all, L=L, D=D, dh=dh,
+                           pos=pos)
 
 
 def _prompt_2d(ins):

@@ -156,6 +156,64 @@ def test_pool_scatter_matches_jax(jx):
     np.testing.assert_array_equal(tpool.numpy(), want)
 
 
+def _mq_fixture(seed=0, C=5, nh=2, dh=16, P=10, ps=8):
+    """Multi-query rows over a ragged paged context: a chunk from position
+    0, a chunk that starts mid-page after a prefix hit and crosses a page
+    boundary, an idle lane (ctx_lens 1, all-null table row) whose rows
+    all sit past its context, and a verify-like chunk at the end of a
+    long context — rows past a lane's valid chunk included."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(4, nh, C, dh).astype(np.float32)
+    kp = rng.randn(P, nh, ps, dh).astype(np.float32)
+    vp = rng.randn(P, nh, ps, dh).astype(np.float32)
+    pt = np.array([[1, 2, 0, 0], [3, 4, 5, 0], [0, 0, 0, 0],
+                   [6, 7, 8, 9]], np.int32)
+    q0 = np.array([0, 11, 0, 27], np.int32)
+    # chunk lengths 3 (rows 3.. past it), C, idle, 2
+    cl = np.maximum(q0 + np.array([3, C, 0, 2], np.int32), 1)
+    return q, kp, vp, pt, cl, q0, ps
+
+
+@pytest.mark.parametrize("C", [1, 5])
+def test_paged_mq_ref_matches_jax_ref_and_kernel(jx, C):
+    """The plain multi-query version against the JAX oracle and the JAX
+    Pallas kernel (interpret mode), on the ragged fixture with every
+    unseen pool slot poisoned to 1e9."""
+    q, kp, vp, pt, cl, q0, ps = _mq_fixture(C=C)
+    kn, vn = _poison_unseen(kp, vp, pt, cl, ps)
+    got = t_pa.paged_attention_mq_ref(*_t(q, kn, vn, pt, cl, q0)).numpy()
+    assert np.isfinite(got).all()
+    j_in = [jx.jnp.asarray(a) for a in (q, kn, vn, pt, cl, q0)]
+    ref = np.asarray(jx.pa.paged_attention_mq_ref(*j_in))
+    kern = np.asarray(jx.pa.paged_attention_mq(*j_in, interpret=True))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, kern, atol=1e-5, rtol=1e-5)
+    # the poison is invisible: the clean pools give the same rows
+    clean = t_pa.paged_attention_mq_ref(*_t(q, kp, vp, pt, cl, q0)).numpy()
+    np.testing.assert_allclose(got, clean, atol=1e-5)
+
+
+def test_paged_mq_single_row_is_the_decode_walk():
+    """C = 1 with q_starts = ctx_lens - 1 is the decode kernel's
+    contract: the two plain versions agree."""
+    q, kp, vp, pt, cl, _ = _paged_fixture()
+    q0 = cl - 1
+    mq = t_pa.paged_attention_mq_ref(
+        *_t(q[:, :, None, :], kp, vp, pt, cl, q0)).numpy()
+    one = t_pa.paged_attention_ref(*_t(q, kp, vp, pt, cl)).numpy()
+    np.testing.assert_allclose(mq[:, :, 0, :], one, atol=1e-6)
+
+
+def test_paged_mq_wrapper_takes_plain_version_on_cpu():
+    q, kp, vp, pt, cl, q0, _ = _mq_fixture()
+    args = _t(q, kp, vp, pt, cl, q0)
+    before = t_pa.paged_attention_mq.launches
+    np.testing.assert_array_equal(
+        t_pa.paged_attention_mq(*args).numpy(),
+        t_pa.paged_attention_mq_ref(*args).numpy())
+    assert t_pa.paged_attention_mq.launches == before
+
+
 # -- on the card: each kernel against its plain version -------------------
 
 # f32: FMA vs cuBLAS order, 1e-4; bf16: P rounded at other points, 2e-2
@@ -190,5 +248,41 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
     out = t_pa.paged_attention(*args)
     torch.cuda.synchronize()
     ref = t_pa.paged_attention_ref(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= _CARD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,dh,ps", [(5, 64, 16), (32, 64, 16), (1, 64, 16),
+                                     (70, 40, 8), (9, 128, 16)])
+def test_paged_mq_kernel_matches_plain_on_card(cuda_device, dtype, C, dh,
+                                               ps):
+    """The verify shape (C 5) and the chunk shape (C 32) at the serving
+    head dim, the decode-like C 1, more rows than one row tile at a
+    padded head dim (C 70, dh 40, page 8) and the widest head (128), with
+    a mid-page start, a chunk across a page boundary, an idle lane and
+    a poisoned pool."""
+    rng = np.random.RandomState(C + dh)
+    nh, P, maxp = 4, 40, 12
+    q = rng.randn(5, nh, C, dh).astype(np.float32)
+    kp = rng.randn(P, nh, ps, dh).astype(np.float32)
+    vp = rng.randn(P, nh, ps, dh).astype(np.float32)
+    q0 = np.array([0, 11, 0, 3 * ps - 2, 5 * ps + 1], np.int32)
+    cl = np.minimum(np.maximum(q0 + np.array([C, C, 0, min(C, 4), C]), 1),
+                    maxp * ps).astype(np.int32)
+    pt = np.zeros((5, maxp), np.int32)
+    pages = iter(rng.permutation(np.arange(1, P)))
+    for n in range(5):
+        if n == 2:
+            continue  # the idle lane keeps an all-null row
+        for j in range(pages_needed(int(cl[n]), ps)):
+            pt[n, j] = next(pages)
+    kn, vn = _poison_unseen(kp, vp, pt, cl, ps)
+    args = [a.to(cuda_device) for a in _t(q, kn, vn, pt, cl, q0)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    out = t_pa.paged_attention_mq(*args)
+    torch.cuda.synchronize()
+    ref = t_pa.paged_attention_mq_ref(*args)
+    assert torch.isfinite(out.float()).all()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= _CARD_TOL[dtype], err

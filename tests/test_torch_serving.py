@@ -196,16 +196,22 @@ def test_engine_runs_every_prefill_bucket_it_needs():
 
 
 def test_engine_refuses_unported_schedulers():
+    """An unknown scheduler name raises ValueError, as in JAX; the fifo
+    engine takes `priority` and `deadline` and ignores them, as in
+    JAX."""
     _, tlm = _build_pair()
-    for mode in ("v2", "spec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mode in ("router", "FIFO"):
+        with pytest.raises(ValueError, match="scheduler="):
             TEngine(tlm, scheduler=mode, place=tfluid.CPUPlace())
-    # the fifo engine has no priorities or deadlines to honour
     eng = TEngine(tlm, max_batch_size=2, page_size=8, num_pages=7,
                   place=tfluid.CPUPlace())
-    for kw in ({"priority": 1}, {"deadline": 5.0}):
-        with pytest.raises(TypeError):
-            eng.submit([1, 2, 3], 2, **kw)
+    rids = [eng.submit([1, 2, 3], 2, priority=5),
+            eng.submit([1, 2, 3], 2, deadline=0.5),
+            eng.submit([4, 5], 2, priority=-1, deadline=9.0)]
+    fin = eng.run()
+    # fifo admits in submission order whatever the priorities
+    assert list(eng.scheduler.admission_order) == rids
+    assert fin[rids[0]].generated == fin[rids[1]].generated
 
 
 def test_page_allocator_guards_and_counts():
@@ -220,8 +226,18 @@ def test_page_allocator_guards_and_counts():
         alloc.free([0])
     alloc.free(pages[1:])
     assert alloc.stats() == {"num_pages": 5, "free": 4, "held": 0,
-                             "total_allocs": 3, "total_frees": 3,
-                             "peak_held": 3}
+                             "shared": 0, "total_allocs": 3,
+                             "total_frees": 3, "peak_held": 3}
+    # refcounts: a retained page survives all but its last holder
+    (p,) = alloc.alloc(1)
+    alloc.retain([p])
+    assert alloc.refcount(p) == 2 and alloc.stats()["shared"] == 1
+    alloc.free([p])
+    assert alloc.refcount(p) == 1 and alloc.available() == 3
+    alloc.free([p])
+    assert alloc.refcount(p) == 0 and alloc.available() == 4
+    with pytest.raises(ValueError, match="not currently held"):
+        alloc.retain([p])
 
 
 def test_gpt_bench_prompts_reach_the_long_buckets():

@@ -1,18 +1,23 @@
-"""Where the port's fifo serving time goes, on one CUDA card.
+"""Where the port's serving time goes, on one CUDA card.
 
 Usage (repository root, on a machine with a CUDA card and nvcc):
 
-    python3 tools/profile_torch_serve.py [--trace serve_trace.json]
+    python3 tools/profile_torch_serve.py [--scheduler fifo|v2|spec]
+                                         [--trace serve_trace.json]
 
 Builds the full-width GPT bench model and the 16 requests that
 ``chip_smoke.py`` serves (``paddle_tpu_torch.models.gpt_bench``), serves
-them once to warm up, then serves them again under ``torch.profiler`` and
-prints one JSON line: the engine's prefill and decode seconds, the device
-time of each kernel group (the port's two kernels, GEMMs, everything
-else, host-device copies) per phase, and the device busy share of the
-profiled window (kernel intervals merged, over the window's host wall
-time, which the profiler itself inflates).  The phases are the engine's
-own profiler ranges, ``serve.prefill`` and ``serve.decode``.  The chrome
+them once to warm up with the chosen scheduler (v2 and spec: chunk 32, 4
+lanes; spec: k 4, a 1-layer draft, on weights whose later layers are
+damped as ``chip_smoke.py`` damps them), then serves them again under
+``torch.profiler`` and prints one JSON line: the engine's counters and
+seconds per kind of run, the device time of each kernel group (the
+port's three kernels, GEMMs, everything else, host-device copies) per
+phase, and the device busy share of the profiled window (kernel
+intervals merged, over the window's host wall time, which the profiler
+itself inflates).  The phases are the engine's own profiler ranges
+(``serve.prefill``, ``serve.decode``, ``serve.mixed``,
+``serve.cow_copy``, ``serve.draft``, ``serve.verify``).  The chrome
 trace goes to ``--trace`` when given.
 """
 
@@ -37,12 +42,20 @@ from paddle_tpu_torch.ops.cuda_kernels import _common  # noqa: E402
 from paddle_tpu_torch.serving import ServingEngine  # noqa: E402
 
 SLOTS, PAGE, N_REQ, MAX_NEW, SEED = 8, 16, 16, 32, 0
+MARKS = ("serve.prefill", "serve.decode", "serve.mixed", "serve.cow_copy",
+         "serve.draft", "serve.verify")
+ENGINE_KW = {"fifo": {},
+             "v2": {"scheduler": "v2", "chunk_size": 32, "chunk_lanes": 4},
+             "spec": {"scheduler": "spec", "chunk_size": 32,
+                      "chunk_lanes": 4, "spec_k": 4, "spec_draft_layers": 1}}
 
 
 def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "flash_attention (K1)"
+    if "paged_attn_mq_kernel" in n:
+        return "paged_attention_mq (K3)"
     if "paged_attn_kernel" in n:
         return "paged_attention (K2)"
     if "memcpy" in n or "memset" in n:
@@ -64,11 +77,11 @@ def _busy_us(intervals):
     return total
 
 
-def _serve(lm, prompts):
-    """Serve `prompts` on a fresh fifo engine on the card; returns the
-    engine and the wall seconds."""
+def _serve(lm, prompts, kw):
+    """Serve `prompts` on a fresh engine on the card; returns the engine
+    and the wall seconds."""
     eng = ServingEngine(lm, max_batch_size=SLOTS, page_size=PAGE,
-                        place=fluid.CUDAPlace(0))
+                        place=fluid.CUDAPlace(0), **kw)
     t0 = time.monotonic()
     for p in prompts:
         eng.submit(p, MAX_NEW, arrival=t0)
@@ -78,8 +91,11 @@ def _serve(lm, prompts):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scheduler", choices=sorted(ENGINE_KW),
+                    default="fifo")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
+    kw = ENGINE_KW[args.scheduler]
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -91,26 +107,27 @@ def main(argv=None):
     print(smi, flush=True)
     _common.load()
     lm = gpt_bench.build(fluid.CUDAPlace(0), seed=SEED)
+    if args.scheduler == "spec":
+        gpt_bench.damp_tail_layers(lm, fluid.global_scope(), 1, scale=0.01)
     prompts = gpt_bench.prompts(N_REQ, seed=SEED)
-    _serve(lm, prompts)  # warm-up
-    eng_plain, wall_plain = _serve(lm, prompts)
+    _serve(lm, prompts, kw)  # warm-up
+    eng_plain, wall_plain = _serve(lm, prompts, kw)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _serve(lm, prompts)
+        _serve(lm, prompts, kw)
         torch.cuda.synchronize()
         wall_prof = time.monotonic() - t0
 
     events = prof.events()
-    marks = ("serve.prefill", "serve.decode")
     phases = [(e.name, e.time_range.start, e.time_range.end) for e in events
-              if e.name in marks and e.device_type == DeviceType.CPU]
+              if e.name in MARKS and e.device_type == DeviceType.CPU]
     groups, names, intervals, by_phase = {}, {}, [], {}
     for e in events:
         # the profiler mirrors each host mark as a device-side annotation
         # spanning the phase: not a kernel
-        if e.device_type != DeviceType.CUDA or e.name in marks:
+        if e.device_type != DeviceType.CUDA or e.name in MARKS:
             continue
         us = e.time_range.elapsed_us()
         intervals.append((e.time_range.start, e.time_range.end))
@@ -130,12 +147,15 @@ def main(argv=None):
     busy_by_phase = {
         m: _busy_us(by_phase.get(m, [])) / sum(
             f - s for p, s, f in phases if p == m)
-        for m in marks if any(p == m for p, _, _ in phases)}
+        for m in MARKS if any(p == m for p, _, _ in phases)}
     st = eng_plain.stats()
-    out = {"card": smi, "wall_s_unprofiled": wall_plain,
-           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "prefill_runs": st["prefill_runs"],
-           "decode_steps": st["decode_steps"],
+    out = {"card": smi, "scheduler": args.scheduler,
+           "wall_s_unprofiled": wall_plain,
+           **{k: st[k] for k in (
+               "prefill_s", "decode_s", "mixed_s", "draft_s", "verify_s",
+               "prefill_runs", "decode_steps", "mixed_steps", "spec_rounds",
+               "draft_runs", "prefill_computed", "spec_drafted",
+               "spec_accepted")},
            "wall_s_profiled": wall_prof,
            "device_ms_by_phase_and_group": dict(sorted(groups.items())),
            "device_busy_share_profiled": busy,
