@@ -41,11 +41,31 @@ non-zero and no result line is printed):
    damped as serve_bench's spec rows damp them: tokens as v2's on the
    same weights, drafts accepted, K3 = 8 x (mixed steps + spec rounds),
    K2 = 8 x (mixed + decode steps) + 1 layer x k x draft runs;
-9. summary.
+9. (the serving summary rows, printed with phase 13);
+10. kernels K4-K6 (flash forward with logsumexp, dQ, dK/dV) against their
+    plain versions, float32 and bfloat16, at the training bench shape
+    [8, 8, 1024, 64] causal, a ragged [2, 4, 1000, 64] causal and
+    non-causal, and a D = 128 case [2, 4, 512, 128]; out and lse
+    absolutely, dq, dk and dv relative to each tensor's max |value|; at
+    the bench shape each is timed beside its plain version, the card's
+    bound and PyTorch's scaled_dot_product_attention (forward for K4, its
+    backward, which yields dq, dk and dv together, for K5 and K6);
+11. training parity, float32: ``build_lm_train_program`` at full width
+    and depth (vocab 32000, dim 512, 8 layers, 8 heads, Adam 3e-4), batch
+    2 x 256, three steps on the card and three on an explicit CPU
+    executor from the same numpy state: losses within 1e-4 relative, the
+    step-1 grads of the embedding, the first WQ and the head within 1e-3
+    of their max |g|, and per step K4 = 16, K5 = 8, K6 = 8, K1 = 0;
+12. bf16 training at the bench shape (``build_lm_train_program``
+    defaults, batch 8 x 1024 from ``RandomState(0)`` as ``bench.py`` makes
+    it): 2 warm-up steps, then 10 measured; every loss finite, the last
+    below the first; step ms, tokens/s, peak memory and launch counts
+    (K4 = 16, K5 = 8, K6 = 8, K1 = 0 per step);
+13. summary.
 
-The second-to-last line is the ``{"kernels": [...], "serve": [...]}``
-summary and the last line is ``{"ok": true, "device": {...}}``.  Without
-CUDA the script exits 2 and prints no result.
+The second-to-last line is the ``{"kernels": [...], "serve": [...],
+"train": [...]}`` summary and the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -61,7 +81,9 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.models import gpt_bench
-from paddle_tpu_torch.models.gpt_bench import DIM, HEADS, LAYERS, MAX_LEN
+from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
+                                               VOCAB)
+from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.cuda_kernels import _common
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
@@ -83,7 +105,12 @@ SPEC_K, DRAFT_LAYERS = 4, 1
 SEED = 0
 KERNELS = {"flash_attention": fa.flash_attention,
            "paged_attention": pa.paged_attention,
-           "paged_attention_mq": pa.paged_attention_mq}
+           "paged_attention_mq": pa.paged_attention_mq,
+           "flash_attention_fwd": fa.flash_attention_fwd,
+           "flash_attention_dq": fa.flash_attention_dq,
+           "flash_attention_dkv": fa.flash_attention_dkv}
+# the training bench (bench.py bench_gpt_train): batch 8 x 1024, bf16
+TRAIN_BS, TRAIN_SEQ = 8, 1024
 
 
 def log(tag, obj):
@@ -315,6 +342,9 @@ def counted(fn):
 
 
 def check_launches(path, launches, want):
+    """`want` names the kernels the path runs; every other kernel must
+    stay at 0."""
+    want = {k: want.get(k, 0) for k in KERNELS}
     if launches != want:
         raise AssertionError(f"{path}: kernel launches {launches} != what "
                              f"the engine's counts imply {want}")
@@ -615,7 +645,244 @@ def spec_phase(lm, prompts):
     return row, launches
 
 
-# -- 9. summary ---------------------------------------------------------------
+# -- 10. kernels K4-K6 --------------------------------------------------------
+
+TRAIN_SHAPES = [  # (B, H, T, D, causal, timed)
+    (TRAIN_BS, HEADS, TRAIN_SEQ, DIM // HEADS, True, True),
+    (2, 4, 1000, 64, True, False),
+    (2, 4, 1000, 64, False, False),
+    (2, 4, 512, 128, True, False),
+]
+
+
+def rel_err(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def train_kernel_phase(dev):
+    """K4 (out, lse), K5 (dq) and K6 (dk, dv) against their plain
+    versions; the plain backward takes the plain forward's out and lse,
+    so each kernel sees the same inputs as its plain version."""
+    rows = {"flash_attention_fwd": [], "flash_attention_dq": [],
+            "flash_attention_dkv": []}
+    summary = {}
+    for dtype in DTYPES:
+        for B, H, T, D, causal, timed in TRAIN_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(SEED + T + D)
+            q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=dev)
+                           .to(dtype) for _ in range(4))
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            r_out, r_lse = fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+            delta = (r_out.float() * do.float()).sum(-1).reshape(B * H, T)
+            bwd = (q, k, v, do, r_lse, delta)
+            dq = fa.flash_attention_dq(*bwd, causal=causal)
+            dk, dv = fa.flash_attention_dkv(*bwd, causal=causal)
+            torch.cuda.synchronize()
+            r_dq = fa.flash_attention_dq_ref(*bwd, causal=causal)
+            r_dk, r_dv = fa.flash_attention_dkv_ref(*bwd, causal=causal)
+            shape = {"dtype": str(dtype).split(".")[1], "B": B, "H": H,
+                     "T": T, "D": D, "causal": causal}
+            itemsize = q.element_size()
+            tensor_bytes = B * H * T * D * itemsize
+            row_bytes = B * H * T * 4
+            pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+            checks = {
+                "flash_attention_fwd": (
+                    {"max_abs_err": max_err(out, r_out),
+                     "lse_max_abs_err": max_err(lse, r_lse)},
+                    4 * tensor_bytes + row_bytes, 4 * D * pairs),
+                "flash_attention_dq": (
+                    {"max_abs_err": max_err(dq, r_dq),
+                     "max_rel_err": rel_err(dq, r_dq)},
+                    5 * tensor_bytes + 2 * row_bytes, 6 * D * pairs),
+                "flash_attention_dkv": (
+                    {"max_abs_err": max(max_err(dk, r_dk),
+                                        max_err(dv, r_dv)),
+                     "max_rel_err": max(rel_err(dk, r_dk),
+                                        rel_err(dv, r_dv))},
+                    6 * tensor_bytes + 2 * row_bytes, 8 * D * pairs),
+            }
+            for name, (errs, nbytes, flops) in checks.items():
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                rows[name].append({**shape, **errs, "bound_ms": b_ms,
+                                   "bound_by": b_by})
+            if timed:
+                timed_rows(q, k, v, do, bwd, causal, rows)
+            for name in rows:
+                log(name, rows[name][-1])
+            fwd = rows["flash_attention_fwd"][-1]
+            worst = max(rows["flash_attention_dq"][-1]["max_rel_err"],
+                        rows["flash_attention_dkv"][-1]["max_rel_err"])
+            if (fwd["max_abs_err"] > TOL[dtype]
+                    or fwd["lse_max_abs_err"] > 1e-4 or worst > TOL[dtype]):
+                raise AssertionError(
+                    f"a training kernel disagrees with its plain version at "
+                    f"{shape}: out/lse {fwd}, grads {worst} (tolerance "
+                    f"{TOL[dtype]}: out absolute, grads relative to max "
+                    f"|g|; lse 1e-4)")
+            if timed and dtype == torch.bfloat16:
+                summary = {n: rows[n][-1] for n in rows}
+    return rows, summary
+
+
+def timed_rows(q, k, v, do, bwd, causal, rows):
+    """Kernel, plain and library times at the bench shape, added to the
+    last row of each kernel."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), iters=10)
+    times = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+            lambda: fa.flash_attention_fwd_ref(q, k, v, causal=causal),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(*bwd, causal=causal),
+            lambda: fa.flash_attention_dq_ref(*bwd, causal=causal),
+            lib_bwd),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(*bwd, causal=causal),
+            lambda: fa.flash_attention_dkv_ref(*bwd, causal=causal),
+            lib_bwd),
+    }
+    for name, (kern, plain, lib) in times.items():
+        rows[name][-1].update({"kernel_ms": time_ms(kern),
+                               "plain_ms": time_ms(plain, iters=5),
+                               "library_ms": lib})
+
+
+# -- 11. training parity, f32 --------------------------------------------------
+
+PARITY_BS, PARITY_SEQ = 2, 256
+TRAIN_KERNELS = ("flash_attention", "flash_attention_fwd",
+                 "flash_attention_dq", "flash_attention_dkv")
+
+
+def train_program(seq, dtype):
+    """The full-width GPT training program (bench.py's config at dim 512:
+    8 heads) in fresh default programs and scope; returns (loss, main,
+    startup)."""
+    fluid.reset()
+    loss = transformer.build_lm_train_program(
+        seq_len=seq, vocab_size=VOCAB, dim=DIM, n_layers=LAYERS,
+        n_heads=HEADS, dtype=dtype, learning_rate=3e-4)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, fluid.default_main_program(), startup
+
+
+def train_batch(bs, seq):
+    """bench.py's batch: tokens from RandomState(0), targets shifted."""
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, VOCAB, (bs, seq, 1)).astype(np.int64)
+    return {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+
+
+def per_step_want():
+    return {"flash_attention_fwd": 2 * LAYERS, "flash_attention_dq": LAYERS,
+            "flash_attention_dkv": LAYERS}
+
+
+def run_steps(exe, main, loss, feed, n, fetch=(), scope=None):
+    """`n` training steps; per step (loss, the fetched grads (step 1
+    only), the kernels' launches in that step, host seconds to the fetched
+    loss).  The counts are read as differences: nothing is reset here."""
+    out = []
+    for step in range(n):
+        names = list(fetch) if step == 0 else []
+        before = {k: f.launches for k, f in KERNELS.items()}
+        t0 = time.monotonic()
+        vals = exe.run(main, feed=feed, fetch_list=[loss] + names,
+                       scope=scope)
+        secs = time.monotonic() - t0
+        out.append((float(vals[0][0]), dict(zip(names, vals[1:])),
+                    {k: f.launches - before[k] for k, f in KERNELS.items()},
+                    secs))
+    return out
+
+
+def train_parity_phase():
+    loss, main, startup = train_program(PARITY_SEQ, "float32")
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    scope = fluid.global_scope()
+    state = {n: scope.find_np(n) for n, v in main.global_block().vars.items()
+             if v.persistable}
+    params = [p.name for p in main.global_block().all_parameters()]
+    # the embedding, the first layer's WQ, the head
+    grads = [n + "@GRAD" for n in (params[0], params[4], params[-1])]
+    feed = train_batch(PARITY_BS, PARITY_SEQ)
+    gpu = run_steps(card, main, loss, feed, 3, grads)
+    for _, _, launches, _ in gpu:
+        check_launches("train_f32", launches, per_step_want())
+    t0 = time.monotonic()
+    cpu_scope = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_scope)
+    cpu = run_steps(fluid.Executor(fluid.CPUPlace()), main, loss, feed, 3,
+                    grads, scope=cpu_scope)
+    cpu_s = time.monotonic() - t0
+    loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(gpu, cpu)]
+    grad_rel = {n: float(np.abs(gpu[0][1][n] - cpu[0][1][n]).max()
+                         / np.abs(cpu[0][1][n]).max()) for n in grads}
+    res = {"bs": PARITY_BS, "seq": PARITY_SEQ, "dtype": "float32",
+           "gpu_losses": [r[0] for r in gpu],
+           "cpu_losses": [r[0] for r in cpu], "loss_rel_err": loss_rel,
+           "grad_rel_err_step1": grad_rel,
+           "launches_per_step": gpu[-1][2],
+           "gpu_step_s": [r[3] for r in gpu], "cpu_s": cpu_s}
+    log("train_parity", res)
+    if max(loss_rel) > 1e-4 or max(grad_rel.values()) > 1e-3:
+        raise AssertionError(f"card and CPU training disagree: {res} "
+                             f"(losses 1e-4 relative, grads 1e-3 of max "
+                             f"|g|)")
+    return res
+
+
+# -- 12. bf16 training at the bench shape -------------------------------------
+
+def train_bench_phase(card_name, smi):
+    t0 = time.monotonic()
+    loss, main, startup = train_program(TRAIN_SEQ, "bfloat16")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    warm = run_steps(exe, main, loss, feed, 2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed, 10))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    want = {k: 10 * v for k, v in per_step_want().items()}
+    check_launches("train_bf16", launches, want)
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    res = {"card": card_name, "nvidia_smi": smi, "bs": TRAIN_BS,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16", "lr": 3e-4,
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "startup_s": startup_s, "losses": losses,
+           "step_ms": step_ms,
+           "step_ms_each": [r[3] * 1e3 for r in steps],
+           "tok_s": TRAIN_BS * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / len(steps)
+                                 for k, v in launches.items()}}
+    log("train_bench", res)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 training: losses {losses} are not "
+                             f"finite or did not fall")
+    return res
+
+
+# -- 13. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -629,13 +896,13 @@ def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
             "shape": {k: row[k] for k in row
                       if k in ("shape", "dtype", "B", "H", "T", "D", "N",
                                "nh", "C", "dh", "ps", "maxp",
-                               "pool_pages")}}
+                               "pool_pages", "causal")}}
 
 
-def errs_by_dtype(rows):
+def errs_by_dtype(rows, key="max_abs_err"):
     out = {}
     for r in rows:
-        out[r["dtype"]] = max(out.get(r["dtype"], 0.0), r["max_abs_err"])
+        out[r["dtype"]] = max(out.get(r["dtype"], 0.0), r[key])
     return out
 
 
@@ -656,8 +923,13 @@ def main():
     mq_rows, mq_sum = mq_phase(dev)
     v2_row, v2p_row, v2_launch = v2_phase(lm, prompts, tokens, scope_cpu)
     spec_row, spec_launch = spec_phase(lm, prompts)
+    tr_rows, tr_sum = train_kernel_phase(dev)
+    parity = train_parity_phase()
+    bench = train_bench_phase(name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
-               "v2_prefix": v2p_row["launches"], "spec": spec_launch}
+               "v2_prefix": v2p_row["launches"], "spec": spec_launch,
+               "train_f32_per_step": parity["launches_per_step"],
+               "train_bf16_10_steps": bench["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -681,6 +953,23 @@ def main():
                     v2_launch["paged_attention_mq"],
                     paths("paged_attention_mq")),
     ]
+    for kname, replaces, err_key in (
+            ("flash_attention_fwd", "flash_attention.py:342", "max_abs_err"),
+            ("flash_attention_dq", "flash_attention.py:235", "max_rel_err"),
+            ("flash_attention_dkv", "flash_attention.py:286",
+             "max_rel_err")):
+        src = "flash_attention.cu" if kname == "flash_attention_fwd" \
+            else "flash_attention_bwd.cu"
+        row = summary_row(kname, csrc + src, pallas + replaces,
+                          tr_sum[kname], errs_by_dtype(tr_rows[kname],
+                                                       err_key),
+                          bench["launches"][kname], paths(kname))
+        row["max_err_by_dtype_is"] = err_key
+        row["f32_bench_shape"] = {
+            k: tr_rows[kname][0][k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
+        kernels.append(row)
     kernels[2]["verify_shape"] = {
         k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -690,8 +979,16 @@ def main():
         "decode_tok_s", "output_tok_s", "steps", "mixed_steps",
         "decode_steps", "spec_rounds", "launches")}
         for r in (fifo_row, v2_row, spec_row)]
+    train_rows = [
+        {"run": "parity_f32", **{k: parity[k] for k in (
+            "bs", "seq", "gpu_losses", "cpu_losses", "loss_rel_err",
+            "grad_rel_err_step1", "launches_per_step")}},
+        {"run": "bench_bf16", **{k: bench[k] for k in (
+            "bs", "seq", "losses", "step_ms", "tok_s", "peak_mem_gb",
+            "launches_per_step")}}]
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels, "serve": serve_rows}), flush=True)
+    print(json.dumps({"kernels": kernels, "serve": serve_rows,
+                      "train": train_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,200 @@
+"""Desc-level autodiff: ``append_backward``, the port of
+``paddle_tpu/framework/backward.py``.
+
+Walks the block's ops in reverse from the loss, asks each op's grad maker
+for grad op descs, accumulates duplicate gradients with `sum` ops, and
+appends the grad ops to the same block.  The program this builds is the
+JAX package's op for op; each grad op's computation comes from the port's
+registry (``generic_grad``: autograd over a re-run of the forward
+emitter).  ``calc_gradient`` and the print / error-clip hooks of a
+variable are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set
+
+from ..ops.registry import default_grad_maker, get_op_info
+from . import unique_name
+from .core import GRAD_SUFFIX, Parameter, Variable, grad_var_name
+
+
+def _compute_requires_grad(block, no_grad_set: Set[str]) -> Set[str]:
+    """Forward taint pass: a var requires grad iff it is a trainable Parameter
+    (or an un-stopped feed) or an output of an op with a requiring-grad
+    input, minus stop_gradient / no_grad vars."""
+    req: Set[str] = set()
+    for v in block.vars.values():
+        if isinstance(v, Parameter) and v.trainable and v.name not in no_grad_set:
+            req.add(v.name)
+        elif v.is_data and not v.stop_gradient and v.name not in no_grad_set:
+            req.add(v.name)
+    for op in block.ops:
+        info = get_op_info(op.type)
+        if info.grad is None:
+            continue
+        if any(n in req for n in op.input_names()):
+            for n in op.output_names():
+                if not n:
+                    continue
+                v = block._find_var_recursive(n)
+                if v is not None and v.stop_gradient:
+                    continue
+                if n in no_grad_set:
+                    continue
+                req.add(n)
+    return req
+
+
+def _ensure_grad_var(block, primal_name: str, grad_name: str):
+    if grad_name in block.vars:
+        return block.vars[grad_name]
+    primal = block._find_var_recursive(primal_name)
+    return block.create_var(
+        name=grad_name,
+        shape=primal.shape if primal is not None else None,
+        dtype=primal.dtype if primal is not None else "float32",
+        stop_gradient=True,
+    )
+
+
+def append_backward(
+    loss: Variable,
+    parameter_list: Optional[List[str]] = None,
+    no_grad_set: Optional[Set[str]] = None,
+):
+    """Append grad ops for `loss` to its block; returns [(param, grad_var)]."""
+    block = loss.block
+    no_grad = set(no_grad_set or ())
+    for v in block.vars.values():
+        if v.stop_gradient:
+            no_grad.add(v.name)
+
+    requires_grad = _compute_requires_grad(block, no_grad)
+    if loss.name not in requires_grad:
+        raise ValueError(
+            f"loss {loss.name!r} does not depend on any trainable parameter"
+        )
+
+    fwd_ops = list(block.ops)
+    # seed d(loss)/d(loss) = 1
+    loss_grad = grad_var_name(loss.name)
+    _ensure_grad_var(block, loss.name, loss_grad)
+    block.append_op(
+        "fill_constant",
+        outputs={"Out": [loss_grad]},
+        attrs={
+            "shape": list(loss.shape or (1,)),
+            "value": 1.0,
+            "dtype": loss.dtype,
+        },
+    )
+
+    # pending grads per primal var (names of partial grads to be summed)
+    pending: Dict[str, List[str]] = {loss.name: [loss_grad]}
+    finalized: Set[str] = {loss.name}
+
+    def finalize(name: str) -> Optional[str]:
+        """Materialize the accumulated gradient of `name` as <name>@GRAD."""
+        parts = pending.get(name)
+        if not parts:
+            return None
+        gname = grad_var_name(name)
+        if name in finalized:
+            return gname
+        v = block._find_var_recursive(name)
+        for hook in ("print_gradient", "error_clip"):
+            if getattr(v, hook, None):
+                raise NotImplementedError(
+                    f"variable {name!r} asks for {hook}, which the port does "
+                    f"not carry yet (ROADMAP.md Queue A item 3b)")
+        if len(parts) == 1:
+            if parts[0] != gname:
+                _ensure_grad_var(block, name, gname)
+                block.append_op(
+                    "assign", inputs={"X": [parts[0]]}, outputs={"Out": [gname]}
+                )
+        else:
+            _ensure_grad_var(block, name, gname)
+            block.append_op(
+                "sum", inputs={"X": list(parts)}, outputs={"Out": [gname]}
+            )
+        finalized.add(name)
+        return gname
+
+    def record(name: str, grad_name: str):
+        pending.setdefault(name, []).append(grad_name)
+
+    for op in reversed(fwd_ops):
+        info = get_op_info(op.type)
+        if info.grad is None:
+            continue
+        has_out_grad = any(
+            n in pending for n in op.output_names() if n
+        )
+        needs_in_grad = any(
+            n in requires_grad and n not in no_grad
+            for n in op.input_names()
+            if n
+        )
+        if not has_out_grad or not needs_in_grad:
+            continue
+
+        # materialize cotangents for this op's outputs
+        for n in op.output_names():
+            if n and n in pending:
+                finalize(n)
+
+        wanted = {n for n in op.input_names() if n in requires_grad and n not in no_grad}
+        for gtype, gins, gouts, gattrs in default_grad_maker(op, wanted):
+            # rewrite grad-op *outputs* that collide with already-recorded
+            # grads: record partials under fresh names, sum lazily
+            new_outs = {}
+            for slot, names in gouts.items():
+                rewritten = []
+                for n in names:
+                    if not n:
+                        rewritten.append("")
+                        continue
+                    primal = n[: -len(GRAD_SUFFIX)]
+                    if primal in pending:
+                        n = unique_name.generate(n + "@RENAME")
+                    _ensure_grad_var(block, primal, n)
+                    record(primal, n)
+                    rewritten.append(n)
+                new_outs[slot] = rewritten
+            # grad-op *inputs* that reference missing out-grads: leave "" —
+            # the generic emitter gives them zero cotangents
+            new_ins = {}
+            for slot, names in gins.items():
+                if slot.endswith(GRAD_SUFFIX):
+                    new_ins[slot] = [
+                        n if (n[: -len(GRAD_SUFFIX)] in finalized) else ""
+                        for n in names
+                    ]
+                else:
+                    new_ins[slot] = list(names)
+            block.append_op(gtype, inputs=new_ins, outputs=new_outs, attrs=gattrs)
+
+    # finalize parameter grads
+    params = (
+        [block.var(p) if isinstance(p, str) else p for p in parameter_list]
+        if parameter_list
+        else block.all_parameters()
+    )
+    result = []
+    for p in params:
+        if not getattr(p, "trainable", True):
+            continue
+        g = finalize(p.name)
+        if g is not None:
+            result.append((p, block.var(g)))
+    # materialize grads of un-stopped feeds so they are fetchable
+    feed_grads = 0
+    for v in list(block.vars.values()):
+        if v.is_data and not v.stop_gradient:
+            if finalize(v.name) is not None:
+                feed_grads += 1
+    if not result and not feed_grads:
+        raise ValueError("append_backward produced no parameter gradients")
+    return result

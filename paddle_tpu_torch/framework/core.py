@@ -4,7 +4,8 @@
 The IR is the same desc graph the JAX package builds: layer functions append
 ops and variables, the executor walks a block.  Only the dtype mapping
 differs — bfloat16 maps to ``torch.bfloat16`` — and only the part of the IR
-the serving path uses is carried (no JSON/proto serialization, no clone).
+the serving and training paths use is carried (no JSON/proto
+serialization, no clone).
 """
 
 from __future__ import annotations
@@ -103,6 +104,8 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.lod_level = lod_level
         self.is_data = is_data
+        # the parameter an optimizer accumulator belongs to (moments)
+        self.accumulator_for: Optional[str] = None
 
     def __repr__(self):
         return (
@@ -190,6 +193,9 @@ class Block:
                 return None
             blk = self.program.blocks[blk.parent_idx]
 
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None) -> Operator:
         op = Operator(self, type, inputs, outputs, attrs)
         # stable per-op uid: the RNG salt of stochastic ops
@@ -221,6 +227,13 @@ class Program:
     def __repr__(self):
         return f"Program(blocks={len(self.blocks)}, " \
                f"ops={sum(len(b.ops) for b in self.blocks)})"
+
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 _main_program = Program()

@@ -6,7 +6,10 @@ in turn (modelled on its ``_lower_op``), threading a name → tensor
 environment.  Inputs come from the feeds, from earlier ops of the block,
 or from the scope; every persistable output is written back to the scope
 BY REFERENCE — an op that updates a pool in place hands back the same
-tensor, so a KV pool is never copied.
+tensor, so a KV pool is never copied.  The walk runs under
+``torch.no_grad()``; only a ``generic_grad`` op turns autograd on, for its
+own re-run of the forward op.  A block that holds grad ops runs with
+``is_test`` false.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.registry import EmitContext, get_op_info
-from .core import Program, default_main_program, torch_dtype
+from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
 from .place import Place, default_place
 from .scope import Scope, global_scope, to_numpy
 
@@ -59,11 +62,12 @@ class Executor:
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step)
         self._step += 1
-        for op in block.ops:
-            for n in op.input_names():
-                if n and n not in env:
-                    env[n] = self._read_state(scope, block, n)
-            self._run_op(op, env, ctx)
+        with torch.no_grad():
+            for op in block.ops:
+                for n in op.input_names():
+                    if n and n not in env:
+                        env[n] = self._read_state(scope, block, n)
+                self._run_op(op, env, ctx)
         for op in block.ops:
             for n in op.output_names():
                 v = block._find_var_recursive(n) if n else None
@@ -106,8 +110,16 @@ class Executor:
         info = get_op_info(op.type)
         ins = {slot: [env[n] if n else None for n in names]
                for slot, names in op.inputs.items()}
+        attrs = op.attrs
+        if op.type == "generic_grad":
+            # the grad op's requested outputs: (forward input slot, index)
+            attrs = dict(op.attrs)
+            attrs["__wanted__"] = {
+                (slot[: -len(GRAD_SUFFIX)], i)
+                for slot, names in op.outputs.items()
+                for i, n in enumerate(names) if n}
         try:
-            outs = info.emit(ctx, ins, op.attrs)
+            outs = info.emit(ctx, ins, attrs)
         except Exception as e:
             in_names = {s: list(ns) for s, ns in op.inputs.items() if ns}
             out_names = {s: list(ns) for s, ns in op.outputs.items() if ns}

@@ -1,4 +1,5 @@
-"""LayerHelper: parameter creation + op appending for layer functions.
+"""LayerHelper: parameter creation + op appending for layer functions, the
+port of ``paddle_tpu/framework/layer_helper.py``.
 
 Each created parameter gets its init op written into the *startup*
 program and its Parameter var registered in the *main* program — the
@@ -51,6 +52,8 @@ class LayerHelper:
             gradient_clip_attr=attr.get("gradient_clip"),
             optimize_attr={"learning_rate": attr.get("learning_rate", 1.0)},
         )
+        if attr.get("update_hooks"):
+            param.update_hooks = attr["update_hooks"]
         sblock = self.startup_program.global_block()
         if name not in sblock.vars:
             svar = sblock.create_parameter(
@@ -66,6 +69,28 @@ class LayerHelper:
             dtype=dtype,
             stop_gradient=stop_gradient,
         )
+
+    def create_global_variable(self, name=None, shape=None, dtype="float32",
+                               persistable=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(self.name + ".global"),
+            shape=shape,
+            dtype=dtype,
+            persistable=persistable,
+            stop_gradient=True,
+        )
+
+    def set_initialized(self, var, initializer):
+        """Register an init op for a non-parameter persistable var
+        (optimizer accumulators, the learning rate)."""
+        sblock = self.startup_program.global_block()
+        if var.name not in sblock.vars:
+            svar = sblock.create_var(
+                name=var.name, shape=var.shape, dtype=var.dtype,
+                persistable=True,
+            )
+            svar.accumulator_for = var.accumulator_for
+            initializer(svar, sblock)
 
     def append_activation(self, out_var):
         act = self.kwargs.get("act")

@@ -1,5 +1,6 @@
 """Scope: name → torch tensor, the persistent state between executor runs
-(parameters, KV pools).
+(parameters, optimizer state, KV pools), and ``load_persistables``,
+which carries a program's whole state in from numpy.
 
 Values are torch tensors.  ``set`` accepts numpy, as a CPU tensor; the
 Executor moves a tensor that lies on another device than its own to its
@@ -44,6 +45,40 @@ class Scope:
     def find_np(self, name: str) -> Optional[np.ndarray]:
         v = self.find(name)
         return None if v is None else to_numpy(v)
+
+
+def load_persistables(program, arrays, scope: Optional[Scope] = None):
+    """Write numpy `arrays` (name → value) into `scope` (the global scope
+    by default) for EVERY persistable variable of `program`'s global block:
+    parameters, optimizer accumulators, the learning rate.  Each name,
+    shape and dtype is checked against the program's declaration (a
+    float32 array may stand for a bfloat16 variable: numpy has no
+    bfloat16); a missing or unknown name raises.  A value lands on the
+    device of the tensor it replaces (the CPU when the name is new)."""
+    from .core import canonical_dtype, torch_dtype
+
+    scope = scope if scope is not None else global_scope()
+    want = {n: v for n, v in program.global_block().vars.items()
+            if v.persistable}
+    missing = sorted(set(want) - set(arrays))
+    unknown = sorted(set(arrays) - set(want))
+    if missing or unknown:
+        raise KeyError(f"load_persistables: missing {missing}, not "
+                       f"persistable in the program {unknown}")
+    for name, var in want.items():
+        a = np.asarray(arrays[name])
+        if tuple(a.shape) != tuple(var.shape):
+            raise ValueError(f"{name}: shape {a.shape} != {var.shape}")
+        got = canonical_dtype(a.dtype)
+        if got != var.dtype and not (var.dtype == "bfloat16"
+                                     and got == "float32"):
+            raise TypeError(f"{name}: dtype {got} != {var.dtype}")
+        if got == "bfloat16":
+            a = a.astype(np.float32)
+        old = scope.find(name)
+        scope.set(name, torch.tensor(
+            a, device=old.device if old is not None else "cpu",
+            dtype=torch_dtype(var.dtype)))
 
 
 _global_scope = Scope()

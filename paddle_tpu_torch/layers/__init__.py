@@ -1,4 +1,12 @@
-from .nn import data, embedding, fc, layer_norm, multi_head_attention  # noqa: F401
+from .nn import (  # noqa: F401
+    data,
+    embedding,
+    fc,
+    layer_norm,
+    mean,
+    multi_head_attention,
+    softmax_with_cross_entropy,
+)
 from .fluid_compat import create_parameter  # noqa: F401
 from .sequence import propagate_length  # noqa: F401
-from .tensor import elementwise_add  # noqa: F401
+from .tensor import cast, elementwise_add, reshape, transpose  # noqa: F401

@@ -1,6 +1,7 @@
 """Layer functions building ops into the default main program — the part
-of ``paddle_tpu/layers/nn.py`` that ``decoder_lm`` builds.  They only
-append descs; which ops have torch emitters is the registry's business."""
+of ``paddle_tpu/layers/nn.py`` that ``decoder_lm`` and ``lm_loss`` build.
+They only append descs; which ops have torch emitters is the registry's
+business."""
 
 from __future__ import annotations
 
@@ -125,10 +126,18 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
 
 
 def multi_head_attention(queries, keys, values, num_heads, causal=False,
-                         param_attr=None, name=None):
+                         param_attr=None, name=None, sp_mode="ring",
+                         sp_schedule="plain"):
     """Multi-head attention over [B, T, D]: QKV and output projections are
-    fc ops, the core is one scaled_dot_product_attention op."""
+    fc ops, the core is one scaled_dot_product_attention op.  `sp_mode`
+    and `sp_schedule` are recorded on the op for a sequence-parallel mesh;
+    on one device they have no effect."""
     helper = LayerHelper("multi_head_attention", name=name)
+    if sp_mode not in ("ring", "alltoall"):
+        raise ValueError(f"sp_mode {sp_mode!r}: use 'ring' or 'alltoall'")
+    if sp_schedule not in ("plain", "zigzag"):
+        raise ValueError(
+            f"sp_schedule {sp_schedule!r}: use 'plain' or 'zigzag'")
     D = queries.shape[-1]
     if D % num_heads:
         raise ValueError(f"hidden size {D} must divide num_heads={num_heads}")
@@ -156,7 +165,8 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
         "scaled_dot_product_attention",
         inputs={"Q": [qh.name], "K": [kh.name], "V": [vh.name]},
         outputs={"Out": [attn.name]},
-        attrs={"causal": causal},
+        attrs={"causal": causal, "sp_mode": sp_mode,
+               "sp_schedule": sp_schedule},
     )
     back = helper.create_tmp_variable(queries.dtype)
     helper.append_op("transpose", inputs={"X": [attn.name]},
@@ -168,3 +178,25 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
                      attrs={"shape": [0, 0, D]})
     out = fc(merged, D, num_flatten_dims=2, bias_attr=False)
     return propagate_length(queries, out)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_tmp_variable(logits.dtype, shape=logits.shape)
+    loss = helper.create_tmp_variable(
+        logits.dtype, shape=tuple(logits.shape[:-1]) + (1,))
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        inputs={"Logits": [logits.name], "Label": [label.name]},
+        outputs={"Loss": [loss.name], "Softmax": [softmax.name]},
+        attrs={"soft_label": soft_label},
+    )
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=(1,))
+    helper.append_op("mean", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out

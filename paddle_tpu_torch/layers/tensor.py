@@ -1,8 +1,36 @@
-"""Tensor-building layer functions: elementwise_add."""
+"""Tensor-building layer functions, the part of
+``paddle_tpu/layers/tensor.py`` that the LM tower and its loss build:
+cast, reshape, transpose, elementwise_add."""
 
 from __future__ import annotations
 
 from ..framework.layer_helper import LayerHelper
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_tmp_variable(dtype, shape=x.shape)
+    helper.append_op("cast", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"out_dtype": dtype})
+    return out
+
+
+def reshape(x, shape, name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=tuple(shape))
+    helper.append_op("reshape", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"shape": list(shape)})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_tmp_variable(
+        x.dtype, shape=tuple(x.shape[p] for p in perm) if x.shape else None)
+    helper.append_op("transpose", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": list(perm)})
+    return out
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):

@@ -1,6 +1,7 @@
 """Decoder-only transformer language model (GPT-style): the tower builder
-``decoder_lm`` and ``DecoderLM``'s paged serving path, ported from
-``paddle_tpu/models/transformer.py``.
+``decoder_lm``, the loss ``lm_loss``, the training program
+``build_lm_train_program`` and ``DecoderLM``'s paged serving path, ported
+from ``paddle_tpu/models/transformer.py``.
 
 Architecture: pre-LN residual blocks (LN → causal MHA → +x; LN → MLP
 gelu → +x), learned position embeddings, final LN, untied LM head.
@@ -34,15 +35,31 @@ def _positions(tokens, dim, max_len, dtype):
 
 
 def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
-               mlp_ratio=4, dtype="float32"):
-    """tokens [B, T, 1] int64 → logits [B, T, vocab_size]."""
+               mlp_ratio=4, dtype="float32", dropout_prob=0.0,
+               is_test=False, remat=False, sp_mode="ring",
+               sp_schedule="zigzag"):
+    """tokens [B, T, 1] int64 → logits [B, T, vocab_size].
+
+    The JAX signature.  `sp_mode`/`sp_schedule` are recorded on the
+    attention ops (no effect on one device); `dropout_prob > 0` and
+    `remat=True` are not ported yet (ROADMAP.md Queue A item 3b) and
+    raise."""
+    if dropout_prob:
+        raise NotImplementedError(
+            "decoder_lm: dropout is not ported yet (ROADMAP.md Queue A "
+            "item 3b)")
+    if remat:
+        raise NotImplementedError(
+            "decoder_lm: remat is not ported yet (ROADMAP.md Queue A "
+            "item 3b)")
     emb = layers.embedding(tokens, size=[vocab_size, dim], dtype=dtype)
     pos = _positions(tokens, dim, max_len, dtype)
     x = layers.elementwise_add(emb, pos, axis=1)
     for _ in range(n_layers):
         h = layers.layer_norm(x, begin_norm_axis=2)
-        a = layers.multi_head_attention(h, h, h, num_heads=n_heads,
-                                        causal=True)
+        a = layers.multi_head_attention(
+            h, h, h, num_heads=n_heads, causal=True,
+            sp_mode=sp_mode, sp_schedule=sp_schedule)
         x = layers.elementwise_add(x, a)
         h = layers.layer_norm(x, begin_norm_axis=2)
         m = layers.fc(h, dim * mlp_ratio, num_flatten_dims=2, act="gelu")
@@ -50,6 +67,18 @@ def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
         x = layers.elementwise_add(x, m)
     x = layers.layer_norm(x, begin_norm_axis=2)
     return layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False)
+
+
+def lm_loss(logits, targets, dtype="float32"):
+    """Next-token loss: logits [B, T, V] vs targets [B, T, 1] (already
+    shifted by the data pipeline).  Softmax runs in f32 regardless of the
+    model compute dtype."""
+    V = logits.shape[-1]
+    flat = layers.reshape(logits, [-1, V])
+    if dtype != "float32":
+        flat = layers.cast(flat, "float32")
+    tgt = layers.reshape(targets, [-1, 1])
+    return layers.mean(layers.softmax_with_cross_entropy(flat, tgt))
 
 
 class DecoderLM:
@@ -73,7 +102,7 @@ class DecoderLM:
         self.dtype = dtype
         self._params = None
 
-    def logits(self, tokens):
+    def logits(self, tokens, **kw):
         if self._params is not None:
             raise RuntimeError(
                 "DecoderLM.logits() already built this model's tower — "
@@ -82,7 +111,7 @@ class DecoderLM:
         before = set(block.vars)
         out = decoder_lm(tokens, self.vocab_size, self.dim, self.n_layers,
                          self.n_heads, self.max_len,
-                         mlp_ratio=self.mlp_ratio, dtype=self.dtype)
+                         mlp_ratio=self.mlp_ratio, dtype=self.dtype, **kw)
         new = [v for n, v in block.vars.items()
                if n not in before and isinstance(v, Parameter)]
         want = 2 + self._PER_LAYER * self.n_layers + 3
@@ -297,3 +326,22 @@ class DecoderLM:
                 "B1": per(9), "W2": per(10), "B2": per(11),
                 "LnfS": [p[-3].name], "LnfB": [p[-2].name],
                 "WHead": [p[-1].name]}
+
+
+def build_lm_train_program(seq_len, vocab_size=32000, dim=512,
+                           n_layers=8, n_heads=8, dtype="bfloat16",
+                           learning_rate=3e-4, remat=False,
+                           sp_mode="ring", sp_schedule="zigzag"):
+    """Bench/test entry: data vars + decoder_lm + Adam; returns the loss
+    var.  Feed 'tokens' and 'targets' as [B, T, 1] int64 — the batch dim
+    is free."""
+    from .. import optimizer as opt
+
+    tokens = layers.data("tokens", shape=[seq_len, 1], dtype="int64")
+    targets = layers.data("targets", shape=[seq_len, 1], dtype="int64")
+    logits = decoder_lm(tokens, vocab_size, dim, n_layers, n_heads,
+                        max_len=seq_len, dtype=dtype, remat=remat,
+                        sp_mode=sp_mode, sp_schedule=sp_schedule)
+    loss = lm_loss(logits, targets, dtype=dtype)
+    opt.Adam(learning_rate=learning_rate).minimize(loss)
+    return loss

@@ -1,3 +1,11 @@
 """Op emitters; importing this package registers them."""
 
-from . import attention_ops, tensor_ops  # noqa: F401
+from . import (  # noqa: F401
+    activation_ops,
+    attention_ops,
+    loss_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    tensor_ops,
+)

@@ -1,5 +1,11 @@
-"""Serving ops over the paged KV cache — the port of the serving ops of
-``paddle_tpu/ops/attention_ops.py``: ``paged_prefill`` (whole-prompt
+"""Attention ops — the port of ``scaled_dot_product_attention`` and the
+serving ops of ``paddle_tpu/ops/attention_ops.py``.
+
+``scaled_dot_product_attention`` is the tower's attention core: K1 in
+eval mode (``is_test``), ``FlashAttentionTrain`` (K4 forward, K5/K6
+backward) in a training program.
+
+The serving ops run over the paged KV cache: ``paged_prefill`` (whole-prompt
 prefill + first greedy token), ``paged_decode_step`` (one
 continuous-batching decode step), ``paged_prefill_chunk`` (one prefill
 chunk at a context offset; with ``all_tokens`` the speculative verify),
@@ -18,10 +24,26 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_kernels.flash_attention import flash_attention
+from .cuda_kernels.flash_attention import FlashAttentionTrain, flash_attention
 from .cuda_kernels.paged_attention import paged_attention, paged_attention_mq
 from .registry import register_op
 from .transformer_ops import _lm_fns, _prompt_2d, stable_argmax
+
+
+@register_op("scaled_dot_product_attention")
+def scaled_dot_product_attention(ctx, ins, attrs):
+    """Multi-head attention core: Q, K, V [B,H,T,D] → [B,H,T,D].  One
+    device, so ``sp_mode`` and ``sp_schedule`` have no effect, as in the
+    JAX package without an 'sp' mesh axis.  CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise (no shape gate: the
+    kernels take any T and D ≤ 128)."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    causal = bool(attrs.get("causal", False))
+    if ctx.is_test:
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        out = FlashAttentionTrain.apply(q, k, v, causal, None)
+    return {"Out": [out]}
 
 
 def _squeeze_feed(x, dtype):

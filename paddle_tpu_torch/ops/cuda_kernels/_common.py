@@ -34,7 +34,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types after the kernel's own, (dtype, stream)
 # close every launch
 _SIGNATURES = {
-    "ptt_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                _P],
+    "ptt_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _I, _P],
+    "ptt_flash_attention_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _F, _I, _P],
     "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _I, _P],
     "ptt_paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's attention kernels: dtype conversion
-// to and from the f32 compute type, and warp-wide reductions.
+// to and from the f32 compute type, warp-wide reductions, and tile and
+// page staging into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,21 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
   return x;
+}
+
+// Stage rows [r0, r0 + ROWS) of one [t_len, d] row-major matrix into
+// shared memory as f32 with row stride `ld`, zero past t_len and past d
+// (up to the padded width DP).
+template <typename T, int ROWS, int DP, int NTHREADS>
+__device__ __forceinline__ void stage_tile(float* dst, int ld,
+                                           const T* __restrict__ src, int r0,
+                                           int t_len, int d) {
+  for (int e = threadIdx.x; e < ROWS * DP; e += NTHREADS) {
+    const int r = e / DP, c = e - r * DP;
+    const int gr = r0 + r;
+    dst[r * ld + c] =
+        (gr < t_len && c < d) ? to_f(src[(size_t)gr * d + c]) : 0.f;
+  }
 }
 
 // Copy the first `n` elements (whole rows of dh) of one K page and one V

@@ -1,13 +1,18 @@
-// Causal flash attention forward for Hopper (sm_90a).
+// Causal flash attention forward for Hopper (sm_90a): K1 and K4.
 //
-// Replaces the Pallas TPU kernel flash_attention
+// Replaces the Pallas TPU kernels flash_attention (K1) and
+// flash_attention_fwd (K4, with_lse=True)
 // (paddle_tpu/ops/pallas_kernels/flash_attention.py: _fwd_body, _fwd_grid):
 // out = softmax(Q K^T * scale [+ causal mask]) V over [B, H, T, D]
 // (contiguous), f32 scores, an online softmax (running max m, normalizer
-// l, f32 accumulator per row), P cast to the input dtype before P.V.
+// l, f32 accumulator per row), P cast to the input dtype before P.V.  The
+// LSE instance (K4, training) also writes lse = m + log l per real row in
+// f32, the backward's residual; the serving instance (K1) carries none of
+// that code.
 //
 // Bound on an H100: causal, the work is 4*D*T*(T+1)/2 flops per (b, h)
-// and 4*T*D elements of traffic (Q, K, V read once, O written once).  At
+// and 4*T*D elements of traffic (Q, K, V read once, O written once; K4
+// adds T f32 lse values).  At
 // the serving prefill shapes (T <= 1024, D = 64) f32 is bound by the
 // 67 TFLOP/s of the CUDA cores and bf16 by device memory.
 //
@@ -47,27 +52,15 @@ constexpr int smem_floats() {
   return 2 * kBQ * (DP + 4) + kBK * DP + kBQ * kLdp;
 }
 
-// Stage rows [r0, r0 + 64) of one [t_len, d] matrix as f32, zero past
-// t_len and past d.
-template <typename T, int DP>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int r0, int t_len, int d) {
-  for (int e = threadIdx.x; e < kBQ * DP; e += kThreads) {
-    const int r = e / DP, c = e - r * DP;
-    const int gr = r0 + r;
-    dst[r * ld + c] =
-        (gr < t_len && c < d) ? to_f(src[(size_t)gr * d + c]) : 0.f;
-  }
-}
-
 // The minimum of two blocks per SM leaves the register cap at 255 but
 // changes ptxas's choice: without it the f32 DP = 64 instance is held to
 // 128 registers and spills, and runs slower.
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t_len, int d,
-                 int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int t_len, int d, int causal,
+                 float scale) {
   constexpr int ldq = DP + 4;
   constexpr int G = DP / 64;  // 4-wide output column groups per thread
   extern __shared__ __align__(16) float smem[];
@@ -84,7 +77,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4;
   const int r0 = ty * kRows;
 
-  stage<T, DP>(qs, ldq, q + base, q0, t_len, d);
+  stage_tile<T, kBQ, DP, kThreads>(qs, ldq, q + base, q0, t_len, d);
 
   float m[kRows], l[kRows], acc[kRows][4 * G];
 #pragma unroll
@@ -101,8 +94,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile is consumed
-    stage<T, DP>(ks, ldq, k + base, k0, t_len, d);
-    stage<T, DP>(vs, DP, v + base, k0, t_len, d);
+    stage_tile<T, kBK, DP, kThreads>(ks, ldq, k + base, k0, t_len, d);
+    stage_tile<T, kBK, DP, kThreads>(vs, DP, v + base, k0, t_len, d);
     __syncthreads();
 
     // S = Q K^T for rows r0.., columns tx + 16 j
@@ -201,6 +194,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + r0 + i;
     if (qi >= t_len) continue;
+    // the backward's residual: m and l are a row's, shared by its threads
+    if (LSE && tx == 0) lse[(size_t)blockIdx.y * t_len + qi] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -213,48 +208,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int t_len, int d, int causal, float scale,
-                   cudaStream_t stream) {
+                   void* lse, int bh, int t_len, int d, int causal,
+                   float scale, cudaStream_t stream) {
   const size_t smem = (size_t)smem_floats<DP>() * sizeof(float);
-  auto kern = flash_fwd_kernel<T, DP>;
+  auto kern = flash_fwd_kernel<T, DP, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kBQ - 1) / kBQ, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, d, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      t_len, d, causal, scale);
   return cudaGetLastError();
 }
 
+template <typename T, bool LSE>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int t_len, int d, int causal,
+                       float scale, cudaStream_t stream) {
+  if (d <= 64)
+    return launch<T, 64, LSE>(q, k, v, o, lse, bh, t_len, d, causal, scale, stream);
+  return launch<T, 128, LSE>(q, k, v, o, lse, bh, t_len, d, causal, scale, stream);
+}
+
+// lse == nullptr: the serving instance (K1), which writes no logsumexp
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int bh, int t_len, int d, int causal, float scale,
-                     cudaStream_t stream) {
-  if (d <= 64) return launch<T, 64>(q, k, v, o, bh, t_len, d, causal, scale, stream);
-  return launch<T, 128>(q, k, v, o, bh, t_len, d, causal, scale, stream);
+                     void* lse, int bh, int t_len, int d, int causal,
+                     float scale, cudaStream_t stream) {
+  if (lse == nullptr)
+    return dispatch_d<T, false>(q, k, v, o, lse, bh, t_len, d, causal, scale, stream);
+  return dispatch_d<T, true>(q, k, v, o, lse, bh, t_len, d, causal, scale, stream);
 }
 
 }  // namespace
 }  // namespace ptt
 
 // q, k, v, o: [bh, t_len, d] contiguous, all of `dtype`, on the caller's
-// current device, which owns `stream`.  Returns a cudaError_t (0 on
-// success).
+// current device, which owns `stream`; lse: [bh, t_len] f32, or null for
+// no logsumexp.  Returns a cudaError_t (0 on success).
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, void* o, int bh,
-                                       int t_len, int d, int causal,
+                                       const void* v, void* o, void* lse,
+                                       int bh, int t_len, int d, int causal,
                                        float scale, int dtype, void* stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || d < 1 || d > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kFloat32:
-      return (int)ptt::dispatch<float>(q, k, v, o, bh, t_len, d, causal, scale, s);
+      return (int)ptt::dispatch<float>(q, k, v, o, lse, bh, t_len, d, causal, scale, s);
     case ptt::kBFloat16:
-      return (int)ptt::dispatch<__nv_bfloat16>(q, k, v, o, bh, t_len, d, causal, scale, s);
+      return (int)ptt::dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, t_len, d, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

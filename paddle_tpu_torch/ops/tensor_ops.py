@@ -1,6 +1,9 @@
-"""Tensor creation ops of the startup program: fill_constant,
-uniform_random, gaussian_random.  Random ops draw from the context's
-per-op generator, on the context's device."""
+"""Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
+that the startup program and the LM tower use: fill_constant,
+uniform_random, gaussian_random, assign, cast, reshape, transpose, slice
+and lookup_table.  Random ops draw from the context's per-op generator,
+on the context's device.  Shape ops may return views of their input; no
+emitter writes into an input."""
 
 from __future__ import annotations
 
@@ -39,3 +42,55 @@ def gaussian_random(ctx, ins, attrs):
     out = torch.empty(_shape(attrs), dtype=torch.float32, device=ctx.device)
     out.normal_(mean, std, generator=ctx.generator(attrs))
     return {"Out": [out.to(dt)]}
+
+
+@register_op("assign")
+def assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("cast")
+def cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("reshape")
+def reshape(ctx, ins, attrs):
+    x = ins["X"][0]
+    shape = [int(s) for s in attrs["shape"]]
+    # paddle semantics: 0 keeps the input dim, -1 infers
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(shape[: x.ndim])] + shape[x.ndim:]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("transpose")
+def transpose(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].permute(*[int(a) for a in attrs["axis"]])]}
+
+
+@register_op("slice")
+def slice_op(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.ndim
+    for ax, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[int(ax)] = slice(int(s), int(e))
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register_op("lookup_table", non_diff_inputs=("Ids",))
+def lookup_table(ctx, ins, attrs):
+    """Embedding lookup.  Its grad (autograd of ``index_select``) is a
+    scatter-add into W, with atomics on the card."""
+    w = ins["W"][0]
+    ids = ins["Ids"][0]
+    flat = ids.reshape(-1).long()
+    emb = w.index_select(0, flat)
+    pad = attrs.get("padding_idx")
+    if pad is not None and pad >= 0:
+        emb = torch.where((flat == int(pad))[:, None],
+                          torch.zeros((), dtype=emb.dtype, device=emb.device),
+                          emb)
+    out_shape = tuple(ids.shape[:-1] if ids.shape[-1] == 1 else ids.shape) \
+        + (w.shape[-1],)
+    return {"Out": [emb.reshape(out_shape)]}

@@ -31,6 +31,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import sys, json\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.framework.backward\n"
         "import paddle_tpu_torch.serving\n"
         "import paddle_tpu_torch.ops.cuda_kernels._common\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -91,4 +93,4 @@ def test_unregistered_op_raises_key_error():
     from paddle_tpu_torch.ops.registry import get_op_info
 
     with pytest.raises(KeyError, match="no torch emitter"):
-        get_op_info("lookup_table")
+        get_op_info("lstm")

@@ -80,6 +80,80 @@ def test_flash_wrapper_takes_plain_version_on_cpu():
     assert t_fa.flash_attention.launches == before
 
 
+# -- training: K4 forward with lse, K5 dQ, K6 dK/dV ---------------------------
+
+def _train_case(jx, T, causal, seed=0, B=2, H=2, D=16):
+    """q, k, v, dO from numpy, and the JAX kernels' (out, lse) and
+    (dq, dk, dv) in interpret mode."""
+    jnp, jfa = jx.jnp, jx.fa
+    q, k, v = _qkv(T, B=B, H=H, D=D, seed=seed)
+    do = np.random.RandomState(seed + 1).randn(B, H, T, D).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jout, jlse = jfa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                         interpret=True)
+    jgrads = jfa.flash_attention_bwd(jq, jk, jv, jout, jlse, jdo,
+                                     causal=causal, interpret=True)
+    return ([torch.from_numpy(a) for a in (q, k, v, do)],
+            [np.asarray(a) for a in (jout, jlse)],
+            [np.asarray(a) for a in jgrads])
+
+
+# f32 on the CPU, two frameworks' reduction orders: 2e-5 as above
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [16, 37])
+def test_flash_fwd_ref_matches_jax_kernel(jx, T, causal):
+    (q, k, v, _), (jout, jlse), _ = _train_case(jx, T, causal)
+    out, lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    assert lse.shape == (q.shape[0] * q.shape[1], T)
+    assert lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), jout, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=2e-5, rtol=2e-5)
+    # the serving plain version computes the same attention
+    np.testing.assert_allclose(
+        out.numpy(), t_fa.flash_attention_ref(q, k, v, causal).numpy(),
+        atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [16, 37])
+def test_flash_bwd_ref_matches_jax_kernel_and_autograd(jx, T, causal):
+    """The FA-2 plain backward against the JAX dQ and dK/dV kernels and
+    against torch.autograd through dense f32 attention."""
+    (q, k, v, do), _, jgrads = _train_case(jx, T, causal)
+    out, lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    got = t_fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    for g, j in zip(got, jgrads):
+        np.testing.assert_allclose(g.numpy(), j, atol=2e-5, rtol=2e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dense = t_fa.flash_attention_ref(*leaves, causal=causal)
+    auto = torch.autograd.grad(dense, leaves, do)
+    for g, a in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def _launch_counts():
+    return [f.launches for f in (t_fa.flash_attention, t_fa.flash_attention_fwd,
+                                 t_fa.flash_attention_dq,
+                                 t_fa.flash_attention_dkv)]
+
+
+def test_flash_train_function_takes_plain_versions_on_cpu():
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(37))
+    do = torch.from_numpy(
+        np.random.RandomState(5).randn(*q.shape).astype(np.float32))
+    before = _launch_counts()
+    out = t_fa.FlashAttentionTrain.apply(q, k, v, True, None)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert _launch_counts() == before
+    ref_out, lse = t_fa.flash_attention_fwd_ref(q.detach(), k.detach(),
+                                                v.detach())
+    torch.testing.assert_close(out.detach(), ref_out)
+    for g, r in zip(grads, t_fa.flash_attention_bwd_ref(
+            q.detach(), k.detach(), v.detach(), ref_out, lse, do)):
+        torch.testing.assert_close(g, r)
+
+
 def _paged_fixture(seed=0, N=4, nh=2, dh=16, P=9, ps=8):
     """The ragged fixture of tests/test_serving.py: full pages, a partial
     page, a single token, null-page tails."""
@@ -286,3 +360,74 @@ def test_paged_mq_kernel_matches_plain_on_card(cuda_device, dtype, C, dh,
     assert torch.isfinite(out.float()).all()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= _CARD_TOL[dtype], err
+
+
+# K4-K6: the bench head dim (64), a padded head dim (40) across a ragged
+# edge, the widest head (128) and the non-causal form
+_TRAIN_SHAPES = [(40, 64, True), (200, 40, True), (77, 128, True),
+                 (100, 64, False), (130, 64, False)]
+
+
+def _rel_err(got, ref):
+    """max |got - ref| over max |ref|: bf16 gradients are compared
+    relative to each tensor's scale."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,causal", _TRAIN_SHAPES)
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, T, D,
+                                                causal):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(T, B=2, H=4, D=D))
+    out, lse = t_fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    assert (out.float() - ref.float()).abs().max().item() <= _CARD_TOL[dtype]
+    # lse is f32 in both: only the summation order differs
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+# bf16 backward: dS and the outputs are rounded to bf16 (8 bits), so the
+# gradients are held to 2e-2 of each tensor's max |value|
+_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,causal", _TRAIN_SHAPES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, dtype, T, D,
+                                               causal):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(T, B=2, H=4, D=D))
+    do = torch.from_numpy(np.random.RandomState(7).randn(
+        *q.shape).astype(np.float32)).to(cuda_device, dtype)
+    out, lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)
+    delta = (out.float() * do.float()).sum(-1).reshape(-1, T)
+    dq = t_fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = t_fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    rq = t_fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal=causal)
+    rk, rv = t_fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                          causal=causal)
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == dtype
+        assert _rel_err(got, ref) <= _BWD_TOL[dtype], name
+
+
+def test_flash_train_function_launches_kernels_on_card(cuda_device):
+    """FlashAttentionTrain on CUDA tensors: one K4 launch forward, one K5
+    and one K6 backward, and the plain versions' gradients."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+               for a in _qkv(70, B=2, H=4, D=64))
+    do = torch.randn(q.shape, device=cuda_device)
+    before = _launch_counts()
+    out = t_fa.FlashAttentionTrain.apply(q, k, v, True, None)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [0, 1, 1, 1]
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref_out, lse = t_fa.flash_attention_fwd_ref(qd, kd, vd)
+    for g, r in zip(grads, t_fa.flash_attention_bwd_ref(qd, kd, vd, ref_out,
+                                                        lse, do)):
+        assert _rel_err(g, r) <= 1e-4

@@ -1,0 +1,209 @@
+"""Where the port's training step goes, on one CUDA card.
+
+Usage (repository root, on a machine with a CUDA card and nvcc):
+
+    python3 tools/profile_torch_train.py [--steps 2] [--trace train.json]
+
+Builds the GPT training bench (``build_lm_train_program`` defaults: vocab
+32000, dim 512, 8 layers, 8 heads, bf16, Adam 3e-4) at batch 8 x 1024
+with ``bench.py``'s batch, runs 2 warm-up steps and times 5 unprofiled
+ones, then profiles ``--steps`` steps under ``torch.profiler`` and prints
+one JSON line: the step's wall ms (unprofiled and profiled), the device
+busy share of the profiled steps (kernel intervals merged, over their
+host wall time, which the profiler and the phase synchronizations
+inflate), device ms per step by kernel group (K4, K5, K6, GEMM, other
+kernels, copies) and by phase of the step (the forward ops, the backward
+ops — each ``generic_grad`` re-runs its forward op, so the forward
+phase's device time is also the cost of that recompute — and the Adam
+updates), each phase's range ms per step (host work, or its kernels
+where they take longer), and the kernels' launches per step.  The phases
+are profiler ranges this tool puts around the executor's op walk.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import paddle_tpu_torch as fluid  # noqa: E402
+from paddle_tpu_torch.framework.executor import Executor  # noqa: E402
+from paddle_tpu_torch.models import transformer  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import _common  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa  # noqa: E402
+from tools.profile_torch_serve import _busy_us  # noqa: E402
+
+BS, SEQ, VOCAB, SEED = 8, 1024, 32000, 0
+PHASES = ("train.forward", "train.backward", "train.optimizer")
+COUNTERS = {"K1": fa.flash_attention, "K4": fa.flash_attention_fwd,
+            "K5": fa.flash_attention_dq, "K6": fa.flash_attention_dkv}
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        # the LSE instance is K4 (demangled "..., true>", mangled
+        # "Lb1E"); K1, without LSE, must not run in training
+        lse = ", true>" in n or "lb1e" in n
+        return "K4 flash_attention_fwd" if lse else "K1"
+    if "flash_dq_kernel" in n:
+        return "K5 flash_attention_dq"
+    if "flash_dkv_kernel" in n:
+        return "K6 flash_attention_dkv"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if ("gemm" in n or "sm90_" in n or "cutlass" in n or "xmma" in n
+            or "nvjet" in n):
+        return "gemm"
+    return "other kernels"
+
+
+def _phase(op) -> str:
+    if op.type.startswith("adam"):
+        return "train.optimizer"
+    if op.type in ("generic_grad", "sum", "assign") or any(
+            n.endswith("@GRAD") for n in op.output_names()):
+        return "train.backward"
+    return "train.forward"
+
+
+class PhaseRanges:
+    """One profiler range over each run of consecutive ops of one phase.
+    The device is synchronized where the phase changes (three times a
+    step), so every kernel runs inside the host range of the phase that
+    launched it."""
+
+    def __init__(self):
+        self.phase, self.rf = None, None
+
+    def enter(self, phase):
+        if phase != self.phase:
+            self.close()
+            self.phase, self.rf = phase, record_function(phase)
+            self.rf.__enter__()
+
+    def close(self):
+        if self.rf is not None:
+            torch.cuda.synchronize()
+            self.rf.__exit__(None, None, None)
+        self.phase, self.rf = None, None
+
+    def wrap(self, run_op):
+        def run(op, env, ctx):
+            self.enter(_phase(op))
+            return run_op(op, env, ctx)
+        return staticmethod(run)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_train: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _common.load()
+    loss = transformer.build_lm_train_program(seq_len=SEQ)
+    fluid.default_startup_program().random_seed = SEED
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(fluid.default_startup_program())
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, VOCAB, (BS, SEQ, 1)).astype(np.int64)
+    feed = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+
+    ranges = PhaseRanges()
+
+    def step():
+        lv = exe.run(feed=feed, fetch_list=[loss])[0][0]
+        ranges.close()
+        return float(lv)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(5):
+        step()
+    wall_ms = (time.monotonic() - t0) / 5 * 1e3
+
+    Executor._run_op = ranges.wrap(Executor._run_op)
+    for f in COUNTERS.values():
+        f.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall_prof_ms = (time.monotonic() - t0) / args.steps * 1e3
+    launches = {k: f.launches / args.steps for k, f in COUNTERS.items()}
+
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.name in PHASES and e.device_type == DeviceType.CPU)
+    groups, by_phase, names, intervals = {}, {}, {}, []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in PHASES:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / args.steps
+        t = e.time_range.start
+        intervals.append((t, e.time_range.end))
+        phase = next((p for s, f, p in spans if s <= t <= f), "other")
+        g = _group(e.name)
+        groups[g] = groups.get(g, 0.0) + ms
+        by_phase.setdefault(phase, {})
+        by_phase[phase][g] = by_phase[phase].get(g, 0.0) + ms
+        m, c = names.get(e.name, (0.0, 0))
+        names[e.name] = (m + ms, c + 1)
+    host_ms = {}
+    for s0, f0, p in spans:
+        host_ms[p] = host_ms.get(p, 0.0) + (f0 - s0) / 1e3 / args.steps
+    window = max(f for _, f, _ in spans) - min(s for s, _, _ in spans)
+    busy = _busy_us(intervals) / window if window else 0.0
+    out = {"card": smi, "bs": BS, "seq": SEQ, "dtype": "bfloat16",
+           "step_ms_unprofiled": wall_ms,
+           "step_ms_profiled": wall_prof_ms,
+           "tok_s_unprofiled": BS * SEQ / (wall_ms / 1e3),
+           "device_busy_share_profiled": busy,
+           "device_ms_per_step_by_group": dict(sorted(groups.items())),
+           # a phase's range ends after a synchronize: its host ms is the
+           # longer of its host work and its kernels
+           "range_ms_per_step_by_phase": dict(sorted(host_ms.items())),
+           "device_ms_per_step_by_phase": {
+               p: {"total": sum(g.values()), **dict(sorted(g.items()))}
+               for p, g in sorted(by_phase.items())},
+           "launches_per_step": launches,
+           "top_kernels": [
+               {"name": n[:120], "ms_per_step": ms,
+                "count_per_step": c / args.steps}
+               for n, (ms, c) in sorted(names.items(),
+                                        key=lambda kv: -kv[1][0])[:15]],
+           "kernels_per_step": len(intervals) / args.steps}
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
