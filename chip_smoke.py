@@ -41,7 +41,7 @@ non-zero and no result line is printed):
    damped as serve_bench's spec rows damp them: tokens as v2's on the
    same weights, drafts accepted, K3 = 8 x (mixed steps + spec rounds),
    K2 = 8 x (mixed + decode steps) + 1 layer x k x draft runs;
-9. (the serving summary rows, printed with phase 13);
+9. (the serving summary rows, printed with phase 18);
 10. kernels K4-K6 (flash forward with logsumexp, dQ, dK/dV) against their
     plain versions, float32 and bfloat16, at the training bench shape
     [8, 8, 1024, 64] causal, a ragged [2, 4, 1000, 64] causal and
@@ -61,7 +61,36 @@ non-zero and no result line is printed):
     it): 2 warm-up steps, then 10 measured; every loss finite, the last
     below the first; step ms, tokens/s, peak memory and launch counts
     (K4 = 16, K5 = 8, K6 = 8, K1 = 0 per step);
-13. summary.
+13. kernels K7-K10 (the LSTM and GRU time loops, forward and BPTT)
+    against their plain versions, float32 and bfloat16: the LSTM at its
+    bench shape (B 64, T 96, H 512) and the GRU at the NMT encoder's (B 64,
+    T 64, H 512), each with full and with ragged lengths, and at three
+    awkward shapes (B 5, T 7, H 96; one row; a row of length 0); states
+    absolutely, gradients relative to each tensor's max |value|; with full
+    lengths each is timed beside its plain version and the card's bound
+    (no single PyTorch call computes the same function, so no library
+    time);
+14. LSTM parity, float32: the stacked-LSTM classifier of
+    ``rnn_bench.lstm_train_program`` at full width (vocab 30000, hidden
+    512, two layers, the second reversed), batch 16 x 32 with ragged
+    lengths, three Adam steps on the card and three on an explicit CPU
+    executor from the same state: losses within 1e-4 relative, step-1
+    grads of both recurrent weights and the embedding within 1e-3 of
+    their max |g|, and per step K7 = 4, K8 = 2 (each LSTM op runs its
+    forward again inside its grad op);
+15. LSTM bench, bfloat16, batch 64 x 96 as ``bench.py`` makes it: 2 warm-up
+    steps, 10 measured (the lowest measured loss below the first step's:
+    the classifier memorises its one batch, and at loss 0 a bf16 Adam step
+    can spike, so the last step need not be the lowest), then 3 steps on a
+    feed with ragged lengths, then the same forward program without grad
+    ops (test mode) on that feed: K7 = 2, K8 = 0;
+16. NMT parity, float32: ``rnn_bench.nmt_train_program`` (the attention-NMT
+    training program at the book's widths: dictionaries 30000, embedding,
+    hidden and attention 512), batch 8 x 16 + 16 ragged, card against CPU
+    as in 14; per step K9 = 4, K10 = 2;
+17. NMT bench, float32, batch 64 x 64 + 64 ragged: 2 + 10 steps, the loss
+    falls (judged as in 15);
+18. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...]}`` summary and the last line is ``{"ok": true, "device":
@@ -80,12 +109,14 @@ import torch
 import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
-from paddle_tpu_torch.models import gpt_bench
+from paddle_tpu_torch.models import gpt_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.cuda_kernels import _common
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
+from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k
+from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 from paddle_tpu_torch.ops.transformer_ops import _lm_fns
 from paddle_tpu_torch.serving import ServingEngine, pages_needed
@@ -108,32 +139,54 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "paged_attention_mq": pa.paged_attention_mq,
            "flash_attention_fwd": fa.flash_attention_fwd,
            "flash_attention_dq": fa.flash_attention_dq,
-           "flash_attention_dkv": fa.flash_attention_dkv}
+           "flash_attention_dkv": fa.flash_attention_dkv,
+           "lstm_forward": lstm_k.lstm_forward,
+           "lstm_backward": lstm_k.lstm_backward,
+           "gru_forward": gru_k.gru_forward,
+           "gru_backward": gru_k.gru_backward}
 # the training bench (bench.py bench_gpt_train): batch 8 x 1024, bf16
 TRAIN_BS, TRAIN_SEQ = 8, 1024
 
 
+_T0 = time.monotonic()
+
+
 def log(tag, obj):
-    print(f"{tag} {json.dumps(obj)}", flush=True)
+    """One result line; `at_s` is the seconds since the script started."""
+    print(f"{tag} {json.dumps({**obj, 'at_s': time.monotonic() - _T0})}",
+          flush=True)
 
 
-def time_ms(fn, iters=20):
+def time_ms(fn, iters=20, ahead=True):
     """Mean device time of one call, from CUDA events around `iters` calls
     after a warm-up.  The calls are queued behind a device spin
     (``torch.cuda._sleep``) that lasts longer than the host takes to
     enqueue them, so the events time the kernels back to back and not the
     host's launch rate (for a kernel shorter than its Python wrapper the
-    two differ).  The spin doubles until the host stays ahead of it."""
+    two differ).  The spin doubles until the host stays ahead of it, and
+    `iters` halves, because CUDA's launch queue is finite: a host
+    that fills it waits for the spin to end.  A call of hundreds of
+    launches should pass an `iters` that keeps the whole below about 500.
+    With ``ahead=False`` nothing is queued ahead: the events span `iters`
+    calls as the host issues them, which for a Python loop of small
+    kernels (the recurrent plain versions) is the host's rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if not ahead:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
     t0 = time.monotonic()
     fn()
     torch.cuda.synchronize()
     spin_s = 2 * iters * (time.monotonic() - t0) + 0.01
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
+    for _ in range(5):
         torch.cuda._sleep(int(spin_s * 2e9))  # cycles, at up to 2 GHz
         start.record()
         t0 = time.monotonic()
@@ -145,6 +198,7 @@ def time_ms(fn, iters=20):
         if host_s < spin_s / 2:
             return start.elapsed_time(end) / iters
         spin_s *= 2
+        iters = max(2, iters // 2)
     raise AssertionError(f"time_ms: the host could not enqueue {iters} "
                          f"calls ahead of the device")
 
@@ -805,20 +859,19 @@ def run_steps(exe, main, loss, feed, n, fetch=(), scope=None):
     return out
 
 
-def train_parity_phase():
-    loss, main, startup = train_program(PARITY_SEQ, "float32")
+def parity_run(tag, main, startup, loss, feed, grads, want, shape):
+    """Three steps of `main` on the card and three on an explicit CPU
+    executor from the same numpy state (the card's startup values): losses
+    within 1e-4 relative, the step-1 `grads` within 1e-3 of their max |g|,
+    and in every step exactly the launches `want`."""
     card = fluid.Executor(fluid.CUDAPlace(0))
     card.run(startup)
     scope = fluid.global_scope()
     state = {n: scope.find_np(n) for n, v in main.global_block().vars.items()
              if v.persistable}
-    params = [p.name for p in main.global_block().all_parameters()]
-    # the embedding, the first layer's WQ, the head
-    grads = [n + "@GRAD" for n in (params[0], params[4], params[-1])]
-    feed = train_batch(PARITY_BS, PARITY_SEQ)
     gpu = run_steps(card, main, loss, feed, 3, grads)
     for _, _, launches, _ in gpu:
-        check_launches("train_f32", launches, per_step_want())
+        check_launches(tag, launches, want)
     t0 = time.monotonic()
     cpu_scope = fluid.Scope()
     fluid.load_persistables(main, state, cpu_scope)
@@ -828,18 +881,28 @@ def train_parity_phase():
     loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(gpu, cpu)]
     grad_rel = {n: float(np.abs(gpu[0][1][n] - cpu[0][1][n]).max()
                          / np.abs(cpu[0][1][n]).max()) for n in grads}
-    res = {"bs": PARITY_BS, "seq": PARITY_SEQ, "dtype": "float32",
+    res = {**shape, "dtype": "float32",
            "gpu_losses": [r[0] for r in gpu],
            "cpu_losses": [r[0] for r in cpu], "loss_rel_err": loss_rel,
            "grad_rel_err_step1": grad_rel,
            "launches_per_step": gpu[-1][2],
            "gpu_step_s": [r[3] for r in gpu], "cpu_s": cpu_s}
-    log("train_parity", res)
+    log(tag, res)
     if max(loss_rel) > 1e-4 or max(grad_rel.values()) > 1e-3:
-        raise AssertionError(f"card and CPU training disagree: {res} "
+        raise AssertionError(f"{tag}: card and CPU training disagree: {res} "
                              f"(losses 1e-4 relative, grads 1e-3 of max "
                              f"|g|)")
     return res
+
+
+def train_parity_phase():
+    loss, main, startup = train_program(PARITY_SEQ, "float32")
+    params = [p.name for p in main.global_block().all_parameters()]
+    # the embedding, the first layer's WQ, the head
+    grads = [n + "@GRAD" for n in (params[0], params[4], params[-1])]
+    return parity_run("train_parity", main, startup, loss,
+                      train_batch(PARITY_BS, PARITY_SEQ), grads,
+                      per_step_want(), {"bs": PARITY_BS, "seq": PARITY_SEQ})
 
 
 # -- 12. bf16 training at the bench shape -------------------------------------
@@ -882,7 +945,280 @@ def train_bench_phase(card_name, smi):
     return res
 
 
-# -- 13. summary --------------------------------------------------------------
+# -- 13. kernels K7-K10 -------------------------------------------------------
+
+# (B, T, H, lengths or "full"/"ragged", timed)
+LSTM_SHAPES = [
+    (rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, rnn_bench.LSTM_HIDDEN, "full",
+     True),
+    (rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, rnn_bench.LSTM_HIDDEN, "ragged",
+     False),
+    (5, 7, 96, "ragged", False),
+    (1, 9, 96, [6], False),
+    (3, 5, 20, [5, 0, 3], False),
+]
+GRU_SHAPES = [(rnn_bench.NMT_BS, rnn_bench.NMT_SEQ, rnn_bench.NMT_DIM, ln, tm)
+              for _, _, _, ln, tm in LSTM_SHAPES[:2]] + LSTM_SHAPES[2:]
+NO_LIBRARY = ("null: no single PyTorch call computes it (cuDNN's LSTM takes "
+              "the input product in and no per-step mask; PyTorch's GRU "
+              "applies the reset gate after the candidate product)")
+
+
+def rnn_case(dev, dtype, gates, B, T, H, lengths):
+    g = torch.Generator(device=dev).manual_seed(SEED + B + T + H)
+    rng = np.random.RandomState(SEED + B + T)
+    if lengths == "full":
+        lengths = [T] * B
+    elif lengths == "ragged":
+        lengths = rng.randint(1, T + 1, (B,)).tolist()
+
+    def f(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    return {"x": f(B, T, gates * H, scale=0.3), "h0": f(B, H, scale=0.2),
+            "c0": f(B, H, scale=0.2), "w": f(H, gates * H, scale=0.05),
+            "lengths": torch.tensor(lengths, dtype=torch.int32, device=dev),
+            "dhs": f(B, T, H), "dcs": f(B, T, H), "steps": sum(lengths)}
+
+
+def rnn_bound(gates, a, B, T, H, backward, dtype):
+    """The card's bound for one call: each input read once and each output
+    written once, and 2*gates*H^2 flops per valid (row, step) forward,
+    three times that backward (recompute, dg W^T, dW).  It ignores that
+    the T steps depend on each other."""
+    size = a["x"].element_size()
+    n_states = 2 if gates == 4 else 1  # (h, c) or h
+    big, seq, st = B * T * gates * H, B * T * H, B * H
+    if backward:
+        # x, saved states, their cotangents, dx; w, dw; h0/c0 and dh0/dc0
+        elems = 2 * big + 2 * n_states * seq + 2 * gates * H * H \
+            + 2 * n_states * st
+    else:
+        # x, the states out; w; h0/c0 and hT/cT
+        elems = big + n_states * seq + gates * H * H + 2 * n_states * st
+    flops = 2 * gates * H * H * a["steps"] * (3 if backward else 1)
+    return bound(elems * size + B * 4, flops, dtype)
+
+
+def recurrent_kernel_phase(dev):
+    """K7/K8 (LSTM) and K9/K10 (GRU) against their plain versions; the
+    plain backward takes the plain forward's saved states, so each kernel
+    sees the same inputs as its plain version."""
+    rows = {k: [] for k in ("lstm_forward", "lstm_backward", "gru_forward",
+                            "gru_backward")}
+    for kind, gates, shapes in (("lstm", 4, LSTM_SHAPES),
+                                ("gru", 3, GRU_SHAPES)):
+        mod = lstm_k if kind == "lstm" else gru_k
+        fwd, bwd = (getattr(mod, f"{kind}_{d}") for d in ("forward",
+                                                          "backward"))
+        fwd_ref, bwd_ref = (getattr(mod, f"{kind}_{d}_ref")
+                            for d in ("forward", "backward"))
+        for dtype in DTYPES:
+            for B, T, H, lengths, timed in shapes:
+                a = rnn_case(dev, dtype, gates, B, T, H, lengths)
+                if kind == "lstm":
+                    ins = (a["x"], a["h0"], a["c0"], a["w"], a["lengths"])
+                    cts = (a["dhs"], a["dcs"])
+                else:
+                    ins = (a["x"], a["h0"], a["w"], a["lengths"])
+                    cts = (a["dhs"],)
+                got = fwd(*ins)
+                torch.cuda.synchronize()
+                ref = fwd_ref(*ins)
+                saved = ref[:len(cts)]  # (hs, cs) or (hs,)
+                grads = bwd(*ins, *saved, *cts)
+                torch.cuda.synchronize()
+                ref_g = bwd_ref(*ins, *saved, *cts)
+                shape = {"dtype": str(dtype).split(".")[1], "B": B, "T": T,
+                         "H": H, "valid_steps": a["steps"],
+                         "lengths": lengths if isinstance(lengths, str)
+                         else "given"}
+                f_row = {**shape, "max_abs_err": max(
+                    max_err(g, r) for g, r in zip(got, ref))}
+                b_row = {**shape,
+                         "max_abs_err": max(max_err(g, r)
+                                            for g, r in zip(grads, ref_g)),
+                         "max_rel_err": max(rel_err(g, r)
+                                            for g, r in zip(grads, ref_g))}
+                for row, back in ((f_row, False), (b_row, True)):
+                    row["bound_ms"], row["bound_by"] = rnn_bound(
+                        gates, a, B, T, H, back, dtype)
+                    row["bound_ignores"] = "the dependence between steps"
+                    row["library_ms"] = None
+                if timed:
+                    # device launches of one call: K7 T, K8 2T + 1, K9 2T,
+                    # K10 4T + 2; the plain versions are Python loops of
+                    # about a dozen small kernels a step, timed at the
+                    # rate the host issues them
+                    n_f = T * (1 if kind == "lstm" else 2)
+                    n_b = 2 * n_f + (1 if kind == "lstm" else 2)
+                    f_row.update({
+                        "device_launches": n_f,
+                        "kernel_ms": time_ms(lambda: fwd(*ins),
+                                             iters=max(2, 400 // n_f)),
+                        "plain_ms": time_ms(lambda: fwd_ref(*ins), iters=3,
+                                            ahead=False),
+                        "plain_ms_includes": "the host's launch rate"})
+                    b_row.update({
+                        "device_launches": n_b,
+                        "kernel_ms": time_ms(
+                            lambda: bwd(*ins, *saved, *cts),
+                            iters=max(2, 400 // n_b)),
+                        "plain_ms": time_ms(
+                            lambda: bwd_ref(*ins, *saved, *cts), iters=3,
+                            ahead=False),
+                        "plain_ms_includes": "the host's launch rate"})
+                rows[f"{kind}_forward"].append(f_row)
+                rows[f"{kind}_backward"].append(b_row)
+                log(f"{kind}_forward", f_row)
+                log(f"{kind}_backward", b_row)
+                if (f_row["max_abs_err"] > TOL[dtype]
+                        or b_row["max_rel_err"] > TOL[dtype]):
+                    raise AssertionError(
+                        f"a {kind} kernel disagrees with its plain version "
+                        f"at {shape}: forward {f_row['max_abs_err']}, "
+                        f"gradients {b_row['max_rel_err']} (tolerance "
+                        f"{TOL[dtype]}: states absolute, gradients relative "
+                        f"to max |g|)")
+    return rows
+
+
+def timed_row(rows, dtype):
+    name = str(dtype).split(".")[1]
+    return next(r for r in rows if "kernel_ms" in r and r["dtype"] == name)
+
+
+# -- 14-17. the recurrent training paths --------------------------------------
+
+LSTM_PARITY_BS, LSTM_PARITY_SEQ = 16, 32
+NMT_PARITY_BS, NMT_PARITY_SEQ = 8, 16
+LSTM_WANT = {"lstm_forward": 2 * rnn_bench.LSTM_LAYERS,
+             "lstm_backward": rnn_bench.LSTM_LAYERS}
+# the encoder's two directions
+NMT_WANT = {"gru_forward": 4, "gru_backward": 2}
+
+
+def rnn_program(which, seq, dtype="float32", train=True):
+    """One of the two recurrent programs at full width in fresh default
+    programs and scope; returns (loss, main, startup)."""
+    fluid.reset()
+    if which == "lstm":
+        loss = rnn_bench.lstm_train_program(seq_len=seq, dtype=dtype,
+                                            train=train)
+    else:
+        loss = rnn_bench.nmt_train_program(seq_len=seq)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, fluid.default_main_program(), startup
+
+
+def lstm_parity_phase():
+    loss, main, startup = rnn_program("lstm", LSTM_PARITY_SEQ)
+    grads = [n + "@GRAD" for n in ("embedding_0.w_0", "dynamic_lstm_0.w_0",
+                                   "dynamic_lstm_1.w_0")]
+    feed = rnn_bench.lstm_feed(LSTM_PARITY_BS, LSTM_PARITY_SEQ, ragged=True)
+    return parity_run("lstm_parity", main, startup, loss, feed, grads,
+                      LSTM_WANT, {"bs": LSTM_PARITY_BS,
+                                  "seq": LSTM_PARITY_SEQ})
+
+
+def nmt_parity_phase():
+    loss, main, startup = rnn_program("nmt", NMT_PARITY_SEQ)
+    grads = [n + "@GRAD" for n in ("s2s.src_emb", "s2s.enc_gru_f.w",
+                                   "s2s.enc_gru_b.w", "s2s.dec_w_h")]
+    feed = rnn_bench.nmt_feed(NMT_PARITY_BS, NMT_PARITY_SEQ)
+    return parity_run("nmt_parity", main, startup, loss, feed, grads,
+                      NMT_WANT, {"bs": NMT_PARITY_BS, "seq": NMT_PARITY_SEQ})
+
+
+def rnn_bench_run(tag, which, dtype, feed, want, card_name, smi, lr):
+    """2 warm-up steps and 10 measured ones of a recurrent program at full
+    width: losses finite and falling (the lowest measured one below the
+    first step's), step ms, sequences and tokens per
+    second (tokens = the feed's valid source steps), peak memory, and the
+    launches `want` in every step."""
+    bs, seq = feed[next(iter(feed))].shape[:2]
+    t0 = time.monotonic()
+    loss, main, startup = rnn_program(which, seq, dtype)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    warm = run_steps(exe, main, loss, feed, 2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed, 10))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_launches(tag, launches, {k: 10 * v for k, v in want.items()})
+    for _, _, per_step, _ in steps:
+        check_launches(tag, per_step, want)
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    tokens = int(sum(int(v.sum()) for k, v in feed.items()
+                     if k in ("words@LENGTH", "src@LENGTH", "tgt@LENGTH")))
+    res = {"card": card_name, "nvidia_smi": smi, "bs": bs, "seq": seq,
+           "dtype": dtype, "lr": lr, "tokens_per_step": tokens,
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "ops": len(main.global_block().ops),
+           "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
+           "step_ms_each": [r[3] * 1e3 for r in steps],
+           "seq_s": bs / (step_ms / 1e3),
+           "tok_s": tokens / (step_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / len(steps)
+                                 for k, v in launches.items()}}
+    log(tag, res)
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} are not finite or did "
+                             f"not fall")
+    return res, exe, main, loss
+
+
+def lstm_bench_phase(card_name, smi):
+    feed = rnn_bench.lstm_feed()
+    res, exe, main, loss = rnn_bench_run(
+        "lstm_bench", "lstm", "bfloat16", feed, LSTM_WANT, card_name, smi,
+        rnn_bench.LSTM_LR)
+    # the mask at full width: ragged lengths, the same program
+    ragged = rnn_bench.lstm_feed(ragged=True, seed=1)
+    steps = run_steps(exe, main, loss, ragged, 3)
+    for _, _, per_step, _ in steps:
+        check_launches("lstm_bench_ragged", per_step, LSTM_WANT)
+    res["ragged_losses"] = [r[0] for r in steps]
+    if not all(np.isfinite(res["ragged_losses"])):
+        raise AssertionError(f"lstm_bench: ragged losses "
+                             f"{res['ragged_losses']} are not finite")
+    # the forward program alone runs in test mode: K7 only
+    loss_t, main_t, startup_t = rnn_program("lstm", rnn_bench.LSTM_SEQ,
+                                            "bfloat16", train=False)
+    exe_t = fluid.Executor(fluid.CUDAPlace(0))
+    exe_t.run(startup_t)
+    (val,), launches = counted(lambda: exe_t.run(main_t, feed=ragged,
+                                                 fetch_list=[loss_t]))
+    check_launches("lstm_infer", launches,
+                   {"lstm_forward": rnn_bench.LSTM_LAYERS})
+    infer = {"bs": rnn_bench.LSTM_BS, "seq": rnn_bench.LSTM_SEQ,
+             "dtype": "bfloat16", "loss": float(val[0]),
+             "launches": launches}
+    log("lstm_infer", infer)
+    if not np.isfinite(infer["loss"]):
+        raise AssertionError(f"lstm_infer: loss {infer['loss']}")
+    return res, infer
+
+
+def nmt_bench_phase(card_name, smi):
+    res, _, _, _ = rnn_bench_run(
+        "nmt_bench", "nmt", "float32", rnn_bench.nmt_feed(), NMT_WANT,
+        card_name, smi, rnn_bench.NMT_LR)
+    return res
+
+
+# -- 18. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -896,7 +1232,7 @@ def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
             "shape": {k: row[k] for k in row
                       if k in ("shape", "dtype", "B", "H", "T", "D", "N",
                                "nh", "C", "dh", "ps", "maxp",
-                               "pool_pages", "causal")}}
+                               "pool_pages", "causal", "lengths")}}
 
 
 def errs_by_dtype(rows, key="max_abs_err"):
@@ -926,10 +1262,20 @@ def main():
     tr_rows, tr_sum = train_kernel_phase(dev)
     parity = train_parity_phase()
     bench = train_bench_phase(name, smi)
+    rnn_rows = recurrent_kernel_phase(dev)
+    lstm_parity = lstm_parity_phase()
+    lstm_bench, lstm_infer = lstm_bench_phase(name, smi)
+    nmt_parity = nmt_parity_phase()
+    nmt_bench = nmt_bench_phase(name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
-               "train_bf16_10_steps": bench["launches"]}
+               "train_bf16_10_steps": bench["launches"],
+               "lstm_f32_per_step": lstm_parity["launches_per_step"],
+               "lstm_bf16_10_steps": lstm_bench["launches"],
+               "lstm_infer": lstm_infer["launches"],
+               "nmt_f32_per_step": nmt_parity["launches_per_step"],
+               "nmt_f32_10_steps": nmt_bench["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -970,6 +1316,32 @@ def main():
                 "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}
         kernels.append(row)
+    # K7-K10: the row of the dtype the main path runs (the LSTM bench in
+    # bf16, the NMT bench in f32), the other dtype's numbers beside it
+    for kname, replaces, main_dt, other_dt, run in (
+            ("lstm_forward", "lstm.py:72", torch.bfloat16, torch.float32,
+             lstm_bench),
+            ("lstm_backward", "lstm.py:236", torch.bfloat16, torch.float32,
+             lstm_bench),
+            ("gru_forward", "gru.py:60", torch.float32, torch.bfloat16,
+             nmt_bench),
+            ("gru_backward", "gru.py:159", torch.float32, torch.bfloat16,
+             nmt_bench)):
+        err_key = "max_rel_err" if kname.endswith("backward") \
+            else "max_abs_err"
+        row = summary_row(kname, csrc + kname.split("_")[0] + ".cu",
+                          pallas + replaces, timed_row(rnn_rows[kname],
+                                                       main_dt),
+                          errs_by_dtype(rnn_rows[kname], err_key),
+                          run["launches"][kname], paths(kname))
+        row["max_err_by_dtype_is"] = err_key
+        row["library_ms_is"] = NO_LIBRARY
+        row["bound_ignores"] = "the dependence between the T steps"
+        other = timed_row(rnn_rows[kname], other_dt)
+        row["other_dtype_bench_shape"] = {
+            k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "max_abs_err")}
+        kernels.append(row)
     kernels[2]["verify_shape"] = {
         k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -986,6 +1358,18 @@ def main():
         {"run": "bench_bf16", **{k: bench[k] for k in (
             "bs", "seq", "losses", "step_ms", "tok_s", "peak_mem_gb",
             "launches_per_step")}}]
+    parity_keys = ("bs", "seq", "gpu_losses", "cpu_losses", "loss_rel_err",
+                   "grad_rel_err_step1", "launches_per_step")
+    bench_keys = ("bs", "seq", "dtype", "losses", "step_ms", "seq_s",
+                  "tok_s", "peak_mem_gb", "launches_per_step")
+    train_rows += [
+        {"run": "lstm_parity_f32", **{k: lstm_parity[k]
+                                      for k in parity_keys}},
+        {"run": "lstm_bench_bf16", **{k: lstm_bench[k] for k in bench_keys},
+         "ragged_losses": lstm_bench["ragged_losses"]},
+        {"run": "lstm_infer_bf16", **lstm_infer},
+        {"run": "nmt_parity_f32", **{k: nmt_parity[k] for k in parity_keys}},
+        {"run": "nmt_bench_f32", **{k: nmt_bench[k] for k in bench_keys}}]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows}), flush=True)

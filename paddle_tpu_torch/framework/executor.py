@@ -3,8 +3,9 @@
 The JAX package traces a whole block into one XLA computation
 (``paddle_tpu/framework/executor.py``); here each op's torch emitter runs
 in turn (modelled on its ``_lower_op``), threading a name → tensor
-environment.  Inputs come from the feeds, from earlier ops of the block,
-or from the scope; every persistable output is written back to the scope
+environment.  Inputs come from the feeds (a ragged feed is padded and
+gains its ``@LENGTH`` companion), from earlier ops of the block, or from
+the scope; every persistable output is written back to the scope
 BY REFERENCE — an op that updates a pool in place hands back the same
 tensor, so a KV pool is never copied.  The walk runs under
 ``torch.no_grad()``; only a ``generic_grad`` op turns autograd on, for its
@@ -19,6 +20,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..lod import LENGTH_SUFFIX, as_lod_tensor, is_lod_feed
 from ..ops.registry import EmitContext, get_op_info
 from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
 from .place import Place, default_place
@@ -56,8 +58,9 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
 
-        env = {name: self._feed_tensor(block, name, value)
-               for name, value in feed.items()}
+        env = {}
+        for name, value in feed.items():
+            env.update(self._feed_tensor(block, name, value))
         is_test = not any(op.type.endswith("_grad") for op in block.ops)
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step)
@@ -80,14 +83,25 @@ class Executor:
             return [to_numpy(env[n]) for n in fetch_names]
         return [env[n] for n in fetch_names]
 
-    def _feed_tensor(self, block, name, value) -> torch.Tensor:
+    def _feed_tensor(self, block, name, value) -> Dict[str, torch.Tensor]:
+        """One feed as name → tensor on the executor's device, in the
+        declared dtype.  A ragged feed (a LoDTensor, or a list of
+        sequences) for a ``lod_level > 0`` variable becomes the
+        bucket-padded dense tensor plus its int32 ``<name>@LENGTH``
+        companion."""
         var = block.var(name) if block.has_var(name) else None
-        if isinstance(value, torch.Tensor):
-            t = value
-        else:
-            t = torch.as_tensor(np.asarray(value))
         dt = torch_dtype(var.dtype) if var is not None and var.dtype else None
-        return t.to(device=self.device, dtype=dt)
+        if isinstance(value, torch.Tensor):
+            return {name: value.to(device=self.device, dtype=dt)}
+        if var is not None and var.lod_level > 0 and is_lod_feed(value):
+            padded, lengths = as_lod_tensor(value).to_padded(bucket=True)
+            return {
+                name: torch.as_tensor(padded).to(device=self.device,
+                                                 dtype=dt),
+                name + LENGTH_SUFFIX: torch.as_tensor(lengths).to(
+                    self.device)}
+        t = torch.as_tensor(np.asarray(value))
+        return {name: t.to(device=self.device, dtype=dt)}
 
     def _read_state(self, scope, block, name) -> torch.Tensor:
         v = scope.find(name)

@@ -8,5 +8,21 @@ from .nn import (  # noqa: F401
     softmax_with_cross_entropy,
 )
 from .fluid_compat import create_parameter  # noqa: F401
-from .sequence import propagate_length  # noqa: F401
-from .tensor import cast, elementwise_add, reshape, transpose  # noqa: F401
+from .sequence import (  # noqa: F401
+    dynamic_gru,
+    dynamic_lstm,
+    get_length_var,
+    propagate_length,
+    sequence_data,
+    sequence_embedding,
+    sequence_fc,
+    sequence_pool,
+    sequence_reverse,
+)
+from .tensor import (  # noqa: F401
+    cast,
+    concat,
+    elementwise_add,
+    reshape,
+    transpose,
+)

@@ -1,6 +1,6 @@
 """Tensor-building layer functions, the part of
-``paddle_tpu/layers/tensor.py`` that the LM tower and its loss build:
-cast, reshape, transpose, elementwise_add."""
+``paddle_tpu/layers/tensor.py`` that the ported models build: cast,
+concat, reshape, transpose, elementwise_add."""
 
 from __future__ import annotations
 
@@ -13,6 +13,17 @@ def cast(x, dtype):
     helper.append_op("cast", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]},
                      attrs={"out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0):
+    helper = LayerHelper("concat")
+    shape = list(input[0].shape)
+    shape[axis] = sum(i.shape[axis] for i in input) if all(
+        i.shape and i.shape[axis] > 0 for i in input) else -1
+    out = helper.create_tmp_variable(input[0].dtype, shape=tuple(shape))
+    helper.append_op("concat", inputs={"X": [i.name for i in input]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
     return out
 
 

@@ -7,5 +7,6 @@ from . import (  # noqa: F401
     math_ops,
     nn_ops,
     optimizer_ops,
+    sequence_ops,
     tensor_ops,
 )

@@ -18,6 +18,13 @@ JAX ops update the pools functionally, these write them IN PLACE on the
 scope's tensor and hand the same tensor back, so a pool is never copied.
 Attention goes through the kernel wrappers, which take the plain version
 for a CPU tensor and the CUDA kernel for a CUDA tensor.
+
+``attention_gru_decoder`` is the attention-NMT model's teacher-forced
+decoder (Bahdanau additive attention, ``score = v·tanh(W_q h + W_m
+enc)``, feeding a GRU cell).  The JAX package computes it outside any
+Pallas kernel, as a ``lax.scan`` that XLA compiles; here it is a Python
+loop over the target steps of stock PyTorch ops, and its gradient comes
+through ``generic_grad``.
 """
 
 from __future__ import annotations
@@ -334,3 +341,59 @@ def paged_page_copy(ctx, ins, attrs):
     kpool[:, dst] = kpool[:, src]
     vpool[:, dst] = vpool[:, src]
     return {"Out": [dst], "KPoolOut": [kpool], "VPoolOut": [vpool]}
+
+
+# ---------------------------------------------------------------------------
+# The attention-NMT decoder (training)
+
+
+def _attend(h, enc_proj, enc_out, enc_mask, w_q, v):
+    """h [B,H]; enc_proj [B,Ts,A]; enc_out [B,Ts,E]; enc_mask [B,Ts] →
+    (context [B,E], weights [B,Ts])."""
+    q = h @ w_q
+    e = torch.tanh(enc_proj + q[:, None, :]) @ v
+    e = torch.where(enc_mask > 0, e, -1e9)
+    a = torch.softmax(e, dim=-1)
+    return torch.einsum("bt,bte->be", a, enc_out), a
+
+
+def _gru_cell(xc, h, w_in, b_in, w_h):
+    """xc [B,Din] (input ++ context), h [B,H]; w_in [Din,3H], w_h [H,3H]."""
+    H = h.shape[-1]
+    g_in = xc @ w_in + b_in
+    g = g_in[..., :2 * H] + h @ w_h[:, :2 * H]
+    u = torch.sigmoid(g[..., :H])
+    r = torch.sigmoid(g[..., H:])
+    c = torch.tanh(g_in[..., 2 * H:] + (r * h) @ w_h[:, 2 * H:])
+    return u * h + (1 - u) * c
+
+
+@register_op("attention_gru_decoder",
+             non_diff_inputs=("EncLength", "TgtLength"))
+def attention_gru_decoder(ctx, ins, attrs):
+    """Teacher-forced attention decoder.
+
+    Inputs: EncOut [B,Ts,E], EncLength [B], TgtEmb [B,Tt,D], TgtLength [B],
+    H0 [B,H], WIn [D+E,3H], BIn [3H], WH [H,3H], WQuery [H,A], WMem [E,A],
+    V [A].  Outputs: Hidden [B,Tt,H], Context [B,Tt,E].  Every target step
+    is computed, padded ones too: the loss masks them."""
+    enc_out = ins["EncOut"][0]
+    enc_len = ins["EncLength"][0]
+    tgt = ins["TgtEmb"][0]
+    h = ins["H0"][0]
+    w_in, b_in = ins["WIn"][0], ins["BIn"][0]
+    w_h = ins["WH"][0]
+    w_q, w_m, v = ins["WQuery"][0], ins["WMem"][0], ins["V"][0]
+
+    Ts = enc_out.shape[1]
+    enc_mask = (torch.arange(Ts, device=enc_out.device)[None, :]
+                < enc_len[:, None]).float()
+    enc_proj = enc_out @ w_m  # [B,Ts,A], hoisted out of the loop
+    hs, ctxs = [], []
+    for t in range(tgt.shape[1]):
+        ctx_vec, _ = _attend(h, enc_proj, enc_out, enc_mask, w_q, v)
+        h = _gru_cell(torch.cat([tgt[:, t], ctx_vec], dim=-1), h, w_in,
+                      b_in, w_h)
+        hs.append(h)
+        ctxs.append(ctx_vec)
+    return {"Hidden": [torch.stack(hs, 1)], "Context": [torch.stack(ctxs, 1)]}

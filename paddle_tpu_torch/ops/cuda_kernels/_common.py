@@ -44,6 +44,10 @@ _SIGNATURES = {
                                 _F, _I, _P],
     "ptt_paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P],
+    "ptt_lstm_forward": [_P] * 9 + [_I] * 4 + [_P],
+    "ptt_lstm_backward": [_P] * 14 + [_I] * 4 + [_P],
+    "ptt_gru_forward": [_P] * 9 + [_I] * 4 + [_P],
+    "ptt_gru_backward": [_P] * 13 + [_I] * 4 + [_P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,9 +1,9 @@
 """Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
-that the startup program and the LM tower use: fill_constant,
-uniform_random, gaussian_random, assign, cast, reshape, transpose, slice
-and lookup_table.  Random ops draw from the context's per-op generator,
-on the context's device.  Shape ops may return views of their input; no
-emitter writes into an input."""
+that the startup program, the LM tower and the recurrent models use:
+fill_constant, uniform_random, gaussian_random, assign, cast, concat,
+reshape, transpose, slice and lookup_table.  Random ops draw from the
+context's per-op generator, on the context's device.  Shape ops may return
+views of their input; no emitter writes into an input."""
 
 from __future__ import annotations
 
@@ -52,6 +52,11 @@ def assign(ctx, ins, attrs):
 @register_op("cast")
 def cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("concat")
+def concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=int(attrs.get("axis", 0)))]}
 
 
 @register_op("reshape")

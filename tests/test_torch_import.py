@@ -35,6 +35,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.framework.backward\n"
         "import paddle_tpu_torch.serving\n"
         "import paddle_tpu_torch.ops.cuda_kernels._common\n"
+        "import paddle_tpu_torch.lod\n"
+        "import paddle_tpu_torch.ops.sequence_ops\n"
+        "import paddle_tpu_torch.ops.cuda_kernels.lstm\n"
+        "import paddle_tpu_torch.ops.cuda_kernels.gru\n"
+        "import paddle_tpu_torch.models.image_models\n"
+        "import paddle_tpu_torch.models.seq2seq\n"
+        "import paddle_tpu_torch.models.rnn_bench\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -93,4 +100,4 @@ def test_unregistered_op_raises_key_error():
     from paddle_tpu_torch.ops.registry import get_op_info
 
     with pytest.raises(KeyError, match="no torch emitter"):
-        get_op_info("lstm")
+        get_op_info("lstm_unit")

@@ -17,6 +17,8 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch.ops import attention_ops as t_attn
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as t_fa
+from paddle_tpu_torch.ops.cuda_kernels import gru as t_gru
+from paddle_tpu_torch.ops.cuda_kernels import lstm as t_lstm
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as t_pa
 from paddle_tpu_torch.serving import pages_needed
 
@@ -430,4 +432,103 @@ def test_flash_train_function_launches_kernels_on_card(cuda_device):
     ref_out, lse = t_fa.flash_attention_fwd_ref(qd, kd, vd)
     for g, r in zip(grads, t_fa.flash_attention_bwd_ref(qd, kd, vd, ref_out,
                                                         lse, do)):
+        assert _rel_err(g, r) <= 1e-4
+
+
+# K7-K10: a lane-friendly shape, an awkward one with a row of length 0, a
+# single row, and a width past one tile in every direction
+_RNN_SHAPES = [(8, 6, 128, [6, 6, 4, 6, 2, 6, 6, 5]), (3, 5, 20, [5, 0, 3]),
+               (1, 9, 96, [7]), (37, 4, 200, None)]
+
+
+def _rnn_case(device, dtype, gates, B, T, H, lengths):
+    rng = np.random.RandomState(B + T + H)
+    if lengths is None:
+        lengths = rng.randint(0, T + 1, (B,))
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device, dtype)
+
+    return {"x": f(B, T, gates * H, scale=0.3), "h0": f(B, H, scale=0.2),
+            "c0": f(B, H, scale=0.2), "w": f(H, gates * H, scale=0.1),
+            "lengths": torch.tensor(lengths, dtype=torch.int32,
+                                    device=device),
+            "dhs": f(B, T, H), "dcs": f(B, T, H)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,lengths", _RNN_SHAPES)
+def test_lstm_kernels_match_plain_on_card(cuda_device, dtype, B, T, H,
+                                          lengths):
+    a = _rnn_case(cuda_device, dtype, 4, B, T, H, lengths)
+    args = [a[k] for k in ("x", "h0", "c0", "w", "lengths")]
+    before = (t_lstm.lstm_forward.launches, t_lstm.lstm_backward.launches)
+    got = t_lstm.lstm_forward(*args)
+    torch.cuda.synchronize()
+    ref = t_lstm.lstm_forward_ref(*args)
+    for name, g, r in zip(("hs", "cs", "hT", "cT"), got, ref):
+        assert g.dtype == dtype
+        assert (g.float() - r.float()).abs().max().item() \
+            <= _CARD_TOL[dtype], name
+    grads = t_lstm.lstm_backward(*args, ref[0], ref[1], a["dhs"], a["dcs"])
+    torch.cuda.synchronize()
+    ref_g = t_lstm.lstm_backward_ref(*args, ref[0], ref[1], a["dhs"],
+                                     a["dcs"])
+    for name, g, r in zip(("dx", "dh0", "dc0", "dw"), grads, ref_g):
+        assert g.dtype == dtype
+        assert _rel_err(g, r) <= _BWD_TOL[dtype], name
+    assert (t_lstm.lstm_forward.launches - before[0],
+            t_lstm.lstm_backward.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,lengths", _RNN_SHAPES)
+def test_gru_kernels_match_plain_on_card(cuda_device, dtype, B, T, H,
+                                         lengths):
+    a = _rnn_case(cuda_device, dtype, 3, B, T, H, lengths)
+    args = [a[k] for k in ("x", "h0", "w", "lengths")]
+    hs, hT = t_gru.gru_forward(*args)
+    torch.cuda.synchronize()
+    ref_hs, ref_hT = t_gru.gru_forward_ref(*args)
+    assert (hs.float() - ref_hs.float()).abs().max().item() \
+        <= _CARD_TOL[dtype]
+    assert (hT.float() - ref_hT.float()).abs().max().item() \
+        <= _CARD_TOL[dtype]
+    grads = t_gru.gru_backward(*args, ref_hs, a["dhs"])
+    torch.cuda.synchronize()
+    ref_g = t_gru.gru_backward_ref(*args, ref_hs, a["dhs"])
+    for name, g, r in zip(("dx", "dh0", "dw"), grads, ref_g):
+        assert g.dtype == dtype
+        assert _rel_err(g, r) <= _BWD_TOL[dtype], name
+
+
+def test_recurrent_train_functions_launch_kernels_on_card(cuda_device):
+    """LSTMTrain and GRUTrain on CUDA tensors: one forward launch, one
+    backward launch each; a missing cell cotangent counts as zeros."""
+    a = _rnn_case(cuda_device, torch.float32, 4, 5, 7, 96, None)
+    leaves = [a[k].requires_grad_(True) for k in ("x", "h0", "c0", "w")]
+    before = (t_lstm.lstm_forward.launches, t_lstm.lstm_backward.launches)
+    hs, cs = t_lstm.LSTMTrain.apply(*leaves, a["lengths"])
+    grads = torch.autograd.grad([hs], leaves, [a["dhs"]])
+    torch.cuda.synchronize()
+    assert (t_lstm.lstm_forward.launches - before[0],
+            t_lstm.lstm_backward.launches - before[1]) == (1, 1)
+    plain = [t.detach() for t in leaves]
+    ref = t_lstm.lstm_backward_ref(*plain, a["lengths"], hs.detach(),
+                                   cs.detach(), a["dhs"],
+                                   torch.zeros_like(a["dcs"]))
+    for g, r in zip(grads, ref):
+        assert _rel_err(g, r) <= 1e-4
+    a = _rnn_case(cuda_device, torch.float32, 3, 5, 7, 96, None)
+    leaves = [a[k].requires_grad_(True) for k in ("x", "h0", "w")]
+    before = (t_gru.gru_forward.launches, t_gru.gru_backward.launches)
+    hs = t_gru.GRUTrain.apply(*leaves, a["lengths"])
+    grads = torch.autograd.grad([hs], leaves, [a["dhs"]])
+    torch.cuda.synchronize()
+    assert (t_gru.gru_forward.launches - before[0],
+            t_gru.gru_backward.launches - before[1]) == (1, 1)
+    ref = t_gru.gru_backward_ref(*[t.detach() for t in leaves], a["lengths"],
+                                 hs.detach(), a["dhs"])
+    for g, r in zip(grads, ref):
         assert _rel_err(g, r) <= 1e-4

@@ -2,22 +2,27 @@
 
 Usage (repository root, on a machine with a CUDA card and nvcc):
 
-    python3 tools/profile_torch_train.py [--steps 2] [--trace train.json]
+    python3 tools/profile_torch_train.py [--model gpt|lstm|seq2seq]
+                                         [--steps 2] [--trace train.json]
 
-Builds the GPT training bench (``build_lm_train_program`` defaults: vocab
-32000, dim 512, 8 layers, 8 heads, bf16, Adam 3e-4) at batch 8 x 1024
-with ``bench.py``'s batch, runs 2 warm-up steps and times 5 unprofiled
-ones, then profiles ``--steps`` steps under ``torch.profiler`` and prints
-one JSON line: the step's wall ms (unprofiled and profiled), the device
-busy share of the profiled steps (kernel intervals merged, over their
-host wall time, which the profiler and the phase synchronizations
-inflate), device ms per step by kernel group (K4, K5, K6, GEMM, other
-kernels, copies) and by phase of the step (the forward ops, the backward
-ops — each ``generic_grad`` re-runs its forward op, so the forward
-phase's device time is also the cost of that recompute — and the Adam
-updates), each phase's range ms per step (host work, or its kernels
-where they take longer), and the kernels' launches per step.  The phases
-are profiler ranges this tool puts around the executor's op walk.
+Builds one training program at its bench shape: ``gpt`` (the default) the
+GPT training bench (``build_lm_train_program`` defaults: vocab 32000, dim
+512, 8 layers, 8 heads, bf16, Adam 3e-4) at batch 8 x 1024 with
+``bench.py``'s batch; ``lstm`` the stacked-LSTM classifier of
+``models/rnn_bench.py`` (bf16, batch 64 x 96); ``seq2seq`` the
+attention-NMT program there (f32, batch 64 x 64 + 64, ragged).  It runs 2
+warm-up steps and times 5 unprofiled ones, then profiles ``--steps`` steps
+under ``torch.profiler`` and prints one JSON line: the step's wall ms
+(unprofiled and profiled), the device busy share of the profiled steps
+(kernel intervals merged, over their host wall time, which the profiler
+and the phase synchronizations inflate), device ms per step by kernel
+group (the hand-written kernels K4-K10, GEMM, other kernels, copies) and
+by phase of the step (the forward ops, the backward ops — each
+``generic_grad`` re-runs its forward op, so the forward phase's device
+time is also the cost of that recompute — and the Adam updates), each
+phase's range ms per step (host work, or its kernels where they take
+longer), and the kernels' launches per step.  The phases are profiler
+ranges this tool puts around the executor's op walk.
 """
 
 from __future__ import annotations
@@ -38,18 +43,50 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import paddle_tpu_torch as fluid  # noqa: E402
 from paddle_tpu_torch.framework.executor import Executor  # noqa: E402
-from paddle_tpu_torch.models import transformer  # noqa: E402
+from paddle_tpu_torch.models import rnn_bench, transformer  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import _common  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k  # noqa: E402
 from tools.profile_torch_serve import _busy_us  # noqa: E402
 
 BS, SEQ, VOCAB, SEED = 8, 1024, 32000, 0
 PHASES = ("train.forward", "train.backward", "train.optimizer")
 COUNTERS = {"K1": fa.flash_attention, "K4": fa.flash_attention_fwd,
-            "K5": fa.flash_attention_dq, "K6": fa.flash_attention_dkv}
+            "K5": fa.flash_attention_dq, "K6": fa.flash_attention_dkv,
+            "K7": lstm_k.lstm_forward, "K8": lstm_k.lstm_backward,
+            "K9": gru_k.gru_forward, "K10": gru_k.gru_backward}
 
 
-def _group(name: str) -> str:
+def _gpt():
+    loss = transformer.build_lm_train_program(seq_len=SEQ)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, VOCAB, (BS, SEQ, 1)).astype(np.int64)
+    return loss, {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}, \
+        BS * SEQ
+
+
+def _lstm():
+    feed = rnn_bench.lstm_feed()
+    return rnn_bench.lstm_train_program(), feed, \
+        int(feed["words@LENGTH"].sum())
+
+
+def _seq2seq():
+    feed = rnn_bench.nmt_feed()
+    return rnn_bench.nmt_train_program(), feed, \
+        int(feed["src@LENGTH"].sum() + feed["tgt@LENGTH"].sum())
+
+
+# model -> (function making (loss, feed, tokens per step), batch, length,
+# dtype)
+MODELS = {"gpt": (_gpt, BS, SEQ, "bfloat16"),
+          "lstm": (_lstm, rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, "bfloat16"),
+          "seq2seq": (_seq2seq, rnn_bench.NMT_BS, rnn_bench.NMT_SEQ,
+                      "float32")}
+
+
+def _group(name: str, model: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         # the LSE instance is K4 (demangled "..., true>", mangled
@@ -60,6 +97,20 @@ def _group(name: str) -> str:
         return "K5 flash_attention_dq"
     if "flash_dkv_kernel" in n:
         return "K6 flash_attention_dkv"
+    if "lstm_fwd_step" in n:
+        return "K7 lstm_forward"
+    if "lstm_bwd_" in n:
+        return "K8 lstm_backward (steps)"
+    if "gru_fwd_cand" in n:
+        return "K9 gru_forward (candidate)"
+    if "gru_gates" in n:
+        return "K9 and K10 (the gates kernel they share)"
+    if "gru_bwd_" in n:
+        return "K10 gru_backward (steps)"
+    if "rnn_dw_kernel" in n:
+        # the weight-gradient product after the time loop
+        return "K8 lstm_backward (dW)" if model == "lstm" \
+            else "K10 gru_backward (dW)"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if ("gemm" in n or "sm90_" in n or "cutlass" in n or "xmma" in n
@@ -107,6 +158,7 @@ class PhaseRanges:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(MODELS), default="gpt")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
@@ -120,13 +172,11 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _common.load()
-    loss = transformer.build_lm_train_program(seq_len=SEQ)
+    build, bs, seq, dtype = MODELS[args.model]
+    loss, feed, tokens = build()
     fluid.default_startup_program().random_seed = SEED
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(fluid.default_startup_program())
-    rng = np.random.RandomState(0)
-    toks = rng.randint(0, VOCAB, (BS, SEQ, 1)).astype(np.int64)
-    feed = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
 
     ranges = PhaseRanges()
 
@@ -167,7 +217,7 @@ def main(argv=None):
         t = e.time_range.start
         intervals.append((t, e.time_range.end))
         phase = next((p for s, f, p in spans if s <= t <= f), "other")
-        g = _group(e.name)
+        g = _group(e.name, args.model)
         groups[g] = groups.get(g, 0.0) + ms
         by_phase.setdefault(phase, {})
         by_phase[phase][g] = by_phase[phase].get(g, 0.0) + ms
@@ -178,10 +228,12 @@ def main(argv=None):
         host_ms[p] = host_ms.get(p, 0.0) + (f0 - s0) / 1e3 / args.steps
     window = max(f for _, f, _ in spans) - min(s for s, _, _ in spans)
     busy = _busy_us(intervals) / window if window else 0.0
-    out = {"card": smi, "bs": BS, "seq": SEQ, "dtype": "bfloat16",
+    out = {"card": smi, "model": args.model, "bs": bs, "seq": seq,
+           "dtype": dtype, "tokens_per_step": tokens,
+           "ops": len(fluid.default_main_program().global_block().ops),
            "step_ms_unprofiled": wall_ms,
            "step_ms_profiled": wall_prof_ms,
-           "tok_s_unprofiled": BS * SEQ / (wall_ms / 1e3),
+           "tok_s_unprofiled": tokens / (wall_ms / 1e3),
            "device_busy_share_profiled": busy,
            "device_ms_per_step_by_group": dict(sorted(groups.items())),
            # a phase's range ends after a synchronize: its host ms is the
