@@ -90,16 +90,51 @@ non-zero and no result line is printed):
     as in 14; per step K9 = 4, K10 = 2;
 17. NMT bench, float32, batch 64 x 64 + 64 ragged: 2 + 10 steps, the loss
     falls (judged as in 15);
-18. summary.
+18. kernels K11-K15 (the fused BatchNorm -> 1x1 convolution forward and
+    backward; the fused BatchNorm -> 3x3 convolution forward, its O-blocked
+    variant and backward) against their plain versions, float32 and
+    bfloat16: every distinct (op, shape, stride, residual) of ResNet-50's
+    fused bench program at batch 128 and 224 x 224 (read from its desc),
+    ResNet-18's stride-2 and residual 3x3 shapes, and an odd-H stride-2
+    3x3; outputs and gradients relative to each tensor's max |value|, the
+    f32 kernels against the plain version in float64 (inputs clear of the
+    ReLU's kink), the bf16 ones against it in bf16; K13 and K14 timed at
+    every 3x3 shape; at stage 2's 1x1 with a residual and its 3x3 each
+    kernel is timed beside its plain version (the unfused ATen, cuDNN and
+    torch.matmul composition) and the card's bound;
+19. ResNet-50 and ResNet-18 parity, float32: the fused NHWC programs of
+    ``resnet_bench`` at full width (class_dim 1000), batch 4, Momentum
+    0.001, against an explicit CPU executor from the same state.
+    ResNet-18 at 64 x 64, three free steps on each: losses within 1e-4
+    relative, step-1 grads of the stem filter, a fused 3x3 filter, a BN
+    scale and the fc weight within 1e-3 of their max |g|, every running
+    mean and variance within 1e-3 after three steps.  ResNet-50 at 128 x
+    128, where float32 itself holds its gradients only to about 2%
+    (RESNET_PARITY's comment): the card takes each of three steps from the
+    CPU's state before it, each loss within 1e-4, the fc grad within 1e-3,
+    the running statistics after step 1 within 1e-3, and the stem, fused
+    3x3 and BN-scale grads, and all grads together, no further from a
+    float64 CPU step's than twice the CPU's f32 ones; again with
+    PADDLE_TPU_BNCONV_VARIANT=v2: K13 0, K14 32, each loss within 1e-4 of
+    the CPU's and the step-1 loss within 1e-6 of v1's.  Per step K11 68,
+    K12 34, K13 32, K15 16 (ResNet-50) and K11 6, K12 3, K13 30, K15 15
+    (ResNet-18);
+20. ResNet-50 bench, bfloat16, batch 128, 224 x 224 (``bench.py``'s
+    configuration): 2 warm-up and 10 measured steps fused (the lowest
+    measured loss below the first; step ms, images/s, peak memory, the
+    launches of 19 every step), then the same program built unfused for
+    2 + 10 steps (no port kernel runs) and the two images/s side by side;
+21. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
-"train": [...]}`` summary and the last line is ``{"ok": true, "device":
+"train": [...]}`` summary (all 15 kernels) and the last line is ``{"ok": true, "device":
 {...}}``.  Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -109,11 +144,14 @@ import torch
 import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
-from paddle_tpu_torch.models import gpt_bench, rnn_bench
+from paddle_tpu_torch.framework import executor as texecutor
+from paddle_tpu_torch.models import gpt_bench, resnet_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.cuda_kernels import _common
+from paddle_tpu_torch.ops.cuda_kernels import bn_conv as bnc
+from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as bnmm
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
 from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k
 from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k
@@ -143,7 +181,12 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "lstm_forward": lstm_k.lstm_forward,
            "lstm_backward": lstm_k.lstm_backward,
            "gru_forward": gru_k.gru_forward,
-           "gru_backward": gru_k.gru_backward}
+           "gru_backward": gru_k.gru_backward,
+           "bn_matmul_fwd": bnmm.bn_matmul_fwd,
+           "bn_matmul_bwd": bnmm.bn_matmul_bwd,
+           "bn_conv3x3_fwd": bnc.bn_conv3x3_fwd,
+           "bn_conv3x3_fwd_v2": bnc.bn_conv3x3_fwd_v2,
+           "bn_conv3x3_bwd": bnc.bn_conv3x3_bwd}
 # the training bench (bench.py bench_gpt_train): batch 8 x 1024, bf16
 TRAIN_BS, TRAIN_SEQ = 8, 1024
 
@@ -210,7 +253,7 @@ def bound(nbytes, flops, dtype):
 
 
 def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
+    return (a.double() - b.double()).abs().max().item()
 
 
 # -- 1. the card --------------------------------------------------------------
@@ -710,8 +753,8 @@ TRAIN_SHAPES = [  # (B, H, T, D, causal, timed)
 
 
 def rel_err(got, ref):
-    ref = ref.float()
-    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    ref = ref.double()
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
 
 
 def train_kernel_phase(dev):
@@ -859,39 +902,61 @@ def run_steps(exe, main, loss, feed, n, fetch=(), scope=None):
     return out
 
 
-def parity_run(tag, main, startup, loss, feed, grads, want, shape):
+def parity_run(tag, main, startup, loss, feed, grads, want, shape,
+               state_names=(), state_step=3, loss_tol=(1e-4,) * 3,
+               grad_tol=None):
     """Three steps of `main` on the card and three on an explicit CPU
-    executor from the same numpy state (the card's startup values): losses
-    within 1e-4 relative, the step-1 `grads` within 1e-3 of their max |g|,
-    and in every step exactly the launches `want`."""
+    executor from the same numpy state (the card's startup values): each
+    step's loss within `loss_tol` relative (1e-4), the step-1 `grads`
+    within `grad_tol` of their max |g| (1e-3 each unless the dict says
+    otherwise), the persistable `state_names` after step `state_step`
+    within 1e-3 of their max |value|, and in every step exactly the
+    launches `want`."""
+    grad_tol = {n: (grad_tol or {}).get(n, 1e-3) for n in grads}
     card = fluid.Executor(fluid.CUDAPlace(0))
     card.run(startup)
     scope = fluid.global_scope()
     state = {n: scope.find_np(n) for n, v in main.global_block().vars.items()
              if v.persistable}
-    gpu = run_steps(card, main, loss, feed, 3, grads)
+
+    def steps(exe, sc):
+        first = run_steps(exe, main, loss, feed, state_step, grads, scope=sc)
+        snap = {n: (sc or fluid.global_scope()).find_np(n)
+                for n in state_names}
+        return first + run_steps(exe, main, loss, feed, 3 - state_step,
+                                 scope=sc), snap
+
+    gpu, gpu_state = steps(card, None)
     for _, _, launches, _ in gpu:
         check_launches(tag, launches, want)
     t0 = time.monotonic()
     cpu_scope = fluid.Scope()
     fluid.load_persistables(main, state, cpu_scope)
-    cpu = run_steps(fluid.Executor(fluid.CPUPlace()), main, loss, feed, 3,
-                    grads, scope=cpu_scope)
+    cpu, cpu_state = steps(fluid.Executor(fluid.CPUPlace()), cpu_scope)
     cpu_s = time.monotonic() - t0
     loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(gpu, cpu)]
     grad_rel = {n: float(np.abs(gpu[0][1][n] - cpu[0][1][n]).max()
                          / np.abs(cpu[0][1][n]).max()) for n in grads}
+    state_rel = {n: float(np.abs(gpu_state[n] - cpu_state[n]).max()
+                          / max(np.abs(cpu_state[n]).max(), 1e-12))
+                 for n in state_names}
     res = {**shape, "dtype": "float32",
            "gpu_losses": [r[0] for r in gpu],
            "cpu_losses": [r[0] for r in cpu], "loss_rel_err": loss_rel,
-           "grad_rel_err_step1": grad_rel,
+           "loss_tol": list(loss_tol),
+           "grad_rel_err_step1": grad_rel, "grad_tol": grad_tol,
+           "state_rel_err_max": max(state_rel.values(), default=0.0),
+           "state_after_step": state_step,
            "launches_per_step": gpu[-1][2],
            "gpu_step_s": [r[3] for r in gpu], "cpu_s": cpu_s}
     log(tag, res)
-    if max(loss_rel) > 1e-4 or max(grad_rel.values()) > 1e-3:
+    if (any(e > t for e, t in zip(loss_rel, loss_tol))
+            or any(grad_rel[n] > grad_tol[n] for n in grads)
+            or res["state_rel_err_max"] > 1e-3):
+        worst = sorted(state_rel.items(), key=lambda kv: -kv[1])[:3]
         raise AssertionError(f"{tag}: card and CPU training disagree: {res} "
-                             f"(losses 1e-4 relative, grads 1e-3 of max "
-                             f"|g|)")
+                             f"worst state {worst} (state 1e-3 of max "
+                             f"|value|)")
     return res
 
 
@@ -1085,8 +1150,9 @@ def recurrent_kernel_phase(dev):
 
 
 def timed_row(rows, dtype):
+    """The row of this dtype timed beside its plain version."""
     name = str(dtype).split(".")[1]
-    return next(r for r in rows if "kernel_ms" in r and r["dtype"] == name)
+    return next(r for r in rows if "plain_ms" in r and r["dtype"] == name)
 
 
 # -- 14-17. the recurrent training paths --------------------------------------
@@ -1218,7 +1284,496 @@ def nmt_bench_phase(card_name, smi):
     return res
 
 
-# -- 18. summary --------------------------------------------------------------
+# -- 18. kernels K11-K15 ------------------------------------------------------
+
+BN_TIMED_1X1 = ("1x1", 128, 28, 28, 512, 128, 1, True)   # stage 2's conv1
+BN_TIMED_3X3 = ("3x3", 128, 28, 28, 128, 128, 1, False)  # stage 2's conv2
+BN_EXTRA = [("3x3", 8, 7, 7, 64, 96, 2, True)]  # odd H and W at stride 2
+BN_NO_LIBRARY = ("null: no single PyTorch call computes the fused function "
+                 "(BatchNorm apply, residual and ReLU inside the "
+                 "convolution's operand); the plain version is that "
+                 "composition of ATen, cuDNN and torch.matmul calls")
+
+
+def fused_shapes(depth, bs, image):
+    """Every distinct (kind, N, H, W, K, O, stride, residual) of the fused
+    ops in the NHWC training program at this depth, batch and image size,
+    read from its desc (built, not run); H and W are X's, before a 1x1's
+    stride."""
+    fluid.reset()
+    resnet_bench.train_program(depth=depth, image=image)
+    block = fluid.default_main_program().global_block()
+    out = set()
+    for op in block.ops:
+        if op.type not in ("bn_act_conv1x1", "bn_act_conv3x3"):
+            continue
+        _, h, w, k = block.var(op.inputs["X"][0]).shape
+        o = block.var(op.inputs["Filter"][0]).shape[0]
+        out.add(("1x1" if op.type == "bn_act_conv1x1" else "3x3", bs, h, w,
+                 k, o, op.attrs["strides"][0], bool(op.inputs.get(
+                     "Residual"))))
+    fluid.reset()
+    return sorted(out)
+
+
+def bn_case(dev, dtype, kind, N, H, W, K, O, stride, has_r):
+    """Inputs of one fused op on the card, as the kernels see them: for a
+    1x1, x and r already read at the stride ([M, K]) and w [K, O]; for a
+    3x3, NHWC x and r and w HWIO, the weights scaled to 0.5/sqrt(fan
+    in)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + H + K + O + stride)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
+        return (torch.randn(*shape, generator=g, device=dev) * scale
+                + shift).to(dt)
+
+    if kind == "1x1":
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        xs, ws, dos = (N * Ho * Wo, K), (K, O), (N * Ho * Wo, O)
+        fan = K
+    else:
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        xs, ws, dos = (N, H, W, K), (3, 3, K, O), (N, Ho, Wo, O)
+        fan = 9 * K
+    return {"x": rnd(*xs, scale=1.5, shift=0.3),
+            "r": rnd(*xs) if has_r else None,
+            "gamma": (torch.rand(K, generator=g, device=dev) + 0.5),
+            "beta": rnd(K, scale=0.3, dt=torch.float32),
+            "mean": rnd(K, scale=0.1, shift=0.3, dt=torch.float32),
+            "var": torch.rand(K, generator=g, device=dev) + 2.0,
+            "w": rnd(*ws, scale=0.5 / fan ** 0.5), "do": rnd(*dos),
+            "rows_out": dos[0] if kind == "1x1" else N * Ho * Wo}
+
+
+BN_KINK = 1e-3  # the least |ReLU input| of an f32 case
+
+
+def bn_clear_of_kinks(a):
+    """Moves each element of x whose ReLU input (x - mean) * gamma *
+    rsqrt(var + eps) + beta [+ r] lies within BN_KINK of 0 out to 2
+    BN_KINK on its side, so that f32 and f64 take the same mask: an f32
+    kernel held to a float64 plain version would otherwise see an element
+    that flips move a gradient element by its whole value.  (The bf16
+    cases, the on-card tests and the training phases keep such elements:
+    there the plain version rounds as the kernel does.)"""
+    gi = a["gamma"].double() * torch.rsqrt(a["var"].double() + 1e-5)
+    pre = (a["x"].double() - a["mean"].double()) * gi + a["beta"].double()
+    if a["r"] is not None:
+        pre = pre + a["r"].double()
+    step = torch.where(pre >= 0, 2 * BN_KINK, -2 * BN_KINK) / gi
+    a["x"] = torch.where(pre.abs() < BN_KINK, a["x"].double() + step,
+                         a["x"].double()).to(a["x"].dtype)
+    return a
+
+
+def bn_bound(kind, a, O, backward, dtype):
+    """Each input read once, each output written once (the statistics
+    too), and 2 flops per multiply-add of the products: forward M_out K O
+    (times 9 taps for a 3x3), backward twice that (dA and dW); the
+    prologue's few flops an element are left out."""
+    size = a["x"].element_size()
+    xe, we = a["x"].numel(), a["w"].numel()
+    oe = a["do"].numel()
+    n_r = 0 if a["r"] is None else 1
+    K = a["gamma"].numel()
+    if backward:
+        elems = (2 + 2 * n_r) * xe + 2 * we + oe  # x, r, dx, dr; w, dw; dO
+        stats = 4 * K * 4 + 6 * K * 4
+    else:
+        elems = (1 + n_r) * xe + we + oe
+        stats = 4 * K * 4
+    taps = 9 if kind == "3x3" else 1
+    flops = 2 * a["rows_out"] * K * O * taps * (2 if backward else 1)
+    return bound(elems * size + stats, flops, dtype)
+
+
+def bn_calls(kind, a, stride, v2=False):
+    """(forward, plain forward, backward, plain backward) of one case as
+    zero-argument callables."""
+    args = tuple(a[k] for k in ("x", "gamma", "beta", "mean", "var", "w"))
+    if kind == "1x1":
+        return (lambda: bnmm.bn_matmul_fwd(*args, a["r"]),
+                lambda: bnmm.bn_matmul_fwd_ref(*args, a["r"]),
+                lambda: bnmm.bn_matmul_bwd(*args, a["do"], a["r"]),
+                lambda: bnmm.bn_matmul_bwd_ref(*args, a["do"], a["r"]))
+    fwd = bnc.bn_conv3x3_fwd_v2 if v2 else bnc.bn_conv3x3_fwd
+    return (lambda: fwd(*args, a["r"], stride=stride),
+            lambda: bnc.bn_conv3x3_fwd_ref(*args, a["r"], stride=stride),
+            lambda: bnc.bn_conv3x3_bwd(*args, a["do"], a["r"],
+                                       stride=stride),
+            lambda: bnc.bn_conv3x3_bwd_ref(*args, a["do"], a["r"],
+                                           stride=stride))
+
+
+def bn_double(a):
+    """The case's inputs in float64: what the f32 kernels are held to."""
+    return {k: v.double() if isinstance(v, torch.Tensor) else v
+            for k, v in a.items()}
+
+
+def bn_kernel_phase(dev):
+    """K11-K15 against their plain versions, float32 and bfloat16, at
+    every distinct fused shape of ResNet-50's bench program (batch 128,
+    224 x 224), the stride-2 and residual 3x3 shapes of ResNet-18, and an
+    odd-H stride-2 3x3; outputs and gradients relative to each tensor's
+    max |value|, by TOL.  The f32 kernels are held to the plain version in
+    float64 (so neither cuDNN's algorithm choice nor its summation order
+    moves the reading; inputs clear of the ReLU's kink,
+    ``bn_clear_of_kinks``), the bf16 ones to the plain version in bf16.  K13
+    and K14 are timed at every 3x3 shape; at stage 2's 1x1 with a residual
+    and stage 2's 3x3 each kernel is timed beside its plain version (in
+    its own dtype) and the bound."""
+    shapes = fused_shapes(50, resnet_bench.BS, resnet_bench.IMAGE)
+    shapes += [s for s in fused_shapes(18, resnet_bench.BS,
+                                       resnet_bench.IMAGE)
+               if s[0] == "3x3" and (s[6] == 2 or s[7]) and s not in shapes]
+    shapes += BN_EXTRA
+    names = {"1x1": ("bn_matmul_fwd", "bn_matmul_bwd"),
+             "3x3": ("bn_conv3x3_fwd", "bn_conv3x3_bwd")}
+    rows = {k: [] for k in ("bn_matmul_fwd", "bn_matmul_bwd",
+                            "bn_conv3x3_fwd", "bn_conv3x3_fwd_v2",
+                            "bn_conv3x3_bwd")}
+    for dtype in DTYPES:
+        for shape in shapes:
+            kind, N, H, W, K, O, stride, has_r = shape
+            a = bn_case(dev, dtype, *shape)
+            if dtype == torch.float32:
+                a = bn_clear_of_kinks(a)
+            fwd, _, bwd, _ = bn_calls(kind, a, stride)
+            out = fwd()
+            grads = bwd()
+            torch.cuda.synchronize()
+            ref_calls = bn_calls(kind, bn_double(a) if dtype == torch.float32
+                                 else a, stride)
+            ref = ref_calls[1]()
+            ref_g = ref_calls[3]()
+            desc = {"dtype": str(dtype).split(".")[1], "kind": kind, "N": N,
+                    "H": H, "W": W, "K": K, "O": O, "stride": stride,
+                    "residual": has_r,
+                    "plain_dtype": str(ref.dtype).split(".")[1]}
+            checks = [(names[kind][0], fwd, [out], [ref], False)]
+            if kind == "3x3":
+                v2 = bn_calls(kind, a, stride, v2=True)[0]
+                out2 = v2()
+                torch.cuda.synchronize()
+                checks.append(("bn_conv3x3_fwd_v2", v2, [out2], [ref],
+                               False))
+            checks.append((names[kind][1], bwd, grads, ref_g, True))
+            timed = (shape == BN_TIMED_1X1 or shape == BN_TIMED_3X3)
+            for name, kern, got, want, back in checks:
+                b_ms, b_by = bn_bound(kind, a, O, back, dtype)
+                row = {**desc,
+                       "max_rel_err": max(rel_err(g, r)
+                                          for g, r in zip(got, want)),
+                       "max_abs_err": max(max_err(g, r)
+                                          for g, r in zip(got, want)),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+                if name == "bn_conv3x3_fwd_v2":
+                    row["block_o"] = bnc._v2_block_o(O)
+                if timed or (kind == "3x3" and not back):
+                    row["kernel_ms"] = time_ms(kern, iters=10)
+                if timed:
+                    row["plain_ms"] = time_ms(
+                        bn_calls(kind, a, stride)[3 if back else 1], iters=5)
+                rows[name].append(row)
+                log(name, row)
+                if row["max_rel_err"] > TOL[dtype]:
+                    raise AssertionError(
+                        f"{name} disagrees with its plain version at "
+                        f"{desc}: {row} (tolerance {TOL[dtype]} of each "
+                        f"tensor's max |value|)")
+            del a, out, grads, ref, ref_g
+    return rows
+
+
+def v1_v2_times(rows):
+    """K13 against K14 at every 3x3 shape the phase timed: each kernel's
+    ms and K14's share of K13's time."""
+    v2 = {tuple(r[k] for k in ("dtype", "N", "H", "W", "K", "O", "stride",
+                               "residual")): r
+          for r in rows["bn_conv3x3_fwd_v2"]}
+    out = []
+    for r in rows["bn_conv3x3_fwd"]:
+        key = tuple(r[k] for k in ("dtype", "N", "H", "W", "K", "O",
+                                   "stride", "residual"))
+        if "kernel_ms" in r and "kernel_ms" in v2.get(key, {}):
+            out.append({"shape": dict(zip(
+                ("dtype", "N", "H", "W", "K", "O", "stride", "residual"),
+                key)), "v1_ms": r["kernel_ms"],
+                "v2_ms": v2[key]["kernel_ms"],
+                "v2_over_v1": v2[key]["kernel_ms"] / r["kernel_ms"]})
+    log("bn_conv3x3_v1_vs_v2", {"shapes": out})
+    return out
+
+
+# -- 19-20. ResNet training ---------------------------------------------------
+
+# (image, batch) of the f32 parity runs.  ResNet-50's f32 training is
+# ill-conditioned at these sizes: from one state its step-1 gradients lie
+# about 2% (in norm over all parameters; up to 27% of max |g| for the last
+# stage's filters) from a float64 run of the same step, on the CPU and on
+# the card alike, at 128 x 128 and at 224 x 224, and the next steps
+# inherit that spread (tools/resnet_conditioning.py --card).  ResNet-18
+# at 64 x 64 stays within 2e-5.
+RESNET_PARITY = {50: (128, 4), 18: (64, 4)}
+RESNET_PARITY_LR = 0.001
+# per step: each fused op once in the forward and once inside its
+# generic_grad's re-run of the forward, its backward once
+RESNET_WANT = {
+    50: {"bn_matmul_fwd": 68, "bn_matmul_bwd": 34, "bn_conv3x3_fwd": 32,
+         "bn_conv3x3_bwd": 16},
+    18: {"bn_matmul_fwd": 6, "bn_matmul_bwd": 3, "bn_conv3x3_fwd": 30,
+         "bn_conv3x3_bwd": 15}}
+
+
+def resnet_program(depth, image, dtype, lr, fuse=True):
+    """The NHWC training program of ``resnet_bench`` at this depth, image
+    size and dtype (class_dim 1000) in fresh default programs and scope;
+    returns (loss, main, startup)."""
+    fluid.reset()
+    loss, _ = resnet_bench.train_program(depth=depth, image=image,
+                                         dtype=dtype, learning_rate=lr,
+                                         fuse_bn=fuse)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, fluid.default_main_program(), startup
+
+
+def resnet_watched(block):
+    """The stem filter's, the first fused 3x3's filter and BN scale's and
+    the fc weight's gradient names."""
+    conv3 = next(op for op in block.ops if op.type == "bn_act_conv3x3")
+    return [n + "@GRAD" for n in (
+        "conv2d_0.w_0", conv3.inputs["Filter"][0], conv3.inputs["Scale"][0],
+        next(p.name for p in block.all_parameters()
+             if p.name.startswith("fc") and ".w_" in p.name))]
+
+
+def snapshot(block, scope=None):
+    return {n: (scope or fluid.global_scope()).find_np(n)
+            for n, v in block.vars.items() if v.persistable}
+
+
+def forced_steps(exe, main, loss, feed, states, grads, scope=None):
+    """One step from each numpy state of `states` (loaded by name before
+    it), the step-1 `grads` fetched; returns run_steps' rows."""
+    rows = []
+    for i, state in enumerate(states):
+        fluid.load_persistables(main, state, scope)
+        rows += run_steps(exe, main, loss, feed, 1, grads if i == 0 else (),
+                          scope=scope)
+    return rows
+
+
+def resnet50_parity_phase():
+    """ResNet-50 in f32 at 128 x 128, batch 4, held where f32 itself holds
+    (RESNET_PARITY's comment).  The CPU takes three f32 steps from the
+    card's startup state; the card takes each step from the CPU's state
+    before it (so every step starts equal, the velocities of steps 2 and 3
+    included), with v1 (K13) and again with v2 (K14); the CPU takes one
+    float64 step from the same start.  Held: each step's loss within 1e-4
+    relative of the CPU's, and v2's step-1 loss within 1e-6 of v1's (the
+    same function and rounding; later steps differ in cuDNN's and max
+    pooling's atomics); the fc weight's step-1 gradient within 1e-3 of
+    its max |g|, and the running statistics after step 1 within 1e-3; the
+    stem, first fused 3x3 and BN-scale gradients, each, and all gradients
+    together (in norm), no further from the float64 ones than twice the
+    CPU's f32 ones are.  Launches per step are RESNET_WANT[50] (v2: K14 in
+    place of K13).  The free-running card trajectory's losses are logged
+    beside the CPU's and float64's, not held."""
+    image, bs = RESNET_PARITY[50]
+    loss, main, startup = resnet_program(50, image, "float32",
+                                         RESNET_PARITY_LR)
+    block = main.global_block()
+    watched = resnet_watched(block)
+    names = sorted(p.name + "@GRAD" for p in block.all_parameters())
+    stats = [op.inputs[s][0] for op in block.ops if op.type == "batch_norm"
+             for s in ("Mean", "Variance")]
+    feed = resnet_bench.feed(bs, image)
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    states = [snapshot(block)]
+    t0 = time.monotonic()
+    cpu_scope = fluid.Scope()
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = forced_steps(cpu_exe, main, loss, feed, states[:1], names,
+                       cpu_scope)
+    for _ in range(2):
+        states.append(snapshot(block, cpu_scope))
+        cpu += run_steps(cpu_exe, main, loss, feed, 1, scope=cpu_scope)
+    cpu_s = time.monotonic() - t0
+    cpu_stats = {n: states[1][n] for n in stats}
+    free, _ = counted(lambda: run_steps(card, main, loss, feed, 3))
+    gpu, launches = counted(lambda: forced_steps(card, main, loss, feed,
+                                                 states[:1], names))
+    gpu_stats = {n: fluid.global_scope().find_np(n) for n in stats}
+    gpu += forced_steps(card, main, loss, feed, states[1:], ())
+    for _, _, per_step, _ in gpu:
+        check_launches("resnet50_parity", per_step, RESNET_WANT[50])
+    os.environ["PADDLE_TPU_BNCONV_VARIANT"] = "v2"
+    try:
+        v2, v2_launches = counted(lambda: forced_steps(card, main, loss,
+                                                       feed, states, ()))
+    finally:
+        del os.environ["PADDLE_TPU_BNCONV_VARIANT"]
+    v2_want = dict(RESNET_WANT[50], bn_conv3x3_fwd=0, bn_conv3x3_fwd_v2=32)
+    for _, _, per_step, _ in v2:
+        check_launches("resnet50_parity_v2", per_step, v2_want)
+    del card
+    t0 = time.monotonic()
+    loss64, main64, _ = resnet_program(50, image, "float64",
+                                       RESNET_PARITY_LR)
+    block64 = main64.global_block()
+    scope64 = fluid.Scope()
+    fluid.load_persistables(main64, {
+        n: a.astype(block64.vars[n].dtype) for n, a in states[0].items()},
+        scope64)
+    feed64 = dict(feed, image=feed["image"].astype(np.float64))
+    f64 = run_steps(fluid.Executor(fluid.CPUPlace()), main64, loss64,
+                    feed64, 1, names, scope=scope64)
+    f64_s = time.monotonic() - t0
+    g32, gc, g64 = gpu[0][1], cpu[0][1], f64[0][1]
+
+    def max_rel(a, b):
+        return float(np.abs(np.asarray(a, np.float64) - b).max()
+                     / np.abs(b).max())
+
+    def norm_rel(a):
+        num = sum(float(((np.asarray(a[n], np.float64) - g64[n]) ** 2).sum())
+                  for n in names)
+        return (num / sum(float((g64[n] ** 2).sum()) for n in names)) ** 0.5
+
+    loss_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(gpu, cpu)]
+    v2_rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(v2, gpu)]
+    fc = watched[3]
+    witness = {n: {"card": max_rel(g32[n], g64[n]),
+                   "cpu": max_rel(gc[n], g64[n])} for n in watched[:3]}
+    witness["all_norm"] = {"card": norm_rel(g32), "cpu": norm_rel(gc)}
+    res = {"depth": 50, "bs": bs, "image": image, "dtype": "float32",
+           "gpu_losses": [r[0] for r in gpu],
+           "cpu_losses": [r[0] for r in cpu], "loss_rel_err": loss_rel,
+           "loss_tol": [1e-4] * 3, "steps": "each from the CPU's state",
+           "grad_rel_err_step1": {fc: max_rel(g32[fc], gc[fc])},
+           "grad_tol": {fc: 1e-3},
+           "grad_vs_f64_step1": witness, "grad_vs_f64_tol": "2 x the CPU's",
+           "state_rel_err_max": max(max_rel(gpu_stats[n], cpu_stats[n])
+                                    for n in stats),
+           "state_after_step": 1,
+           "free_running_losses": {"card": [r[0] for r in free],
+                                   "cpu": [r[0] for r in cpu],
+                                   "f64_step1": f64[0][0]},
+           "launches_per_step": gpu[-1][2],
+           "gpu_step_s": [r[3] for r in gpu], "cpu_s": cpu_s,
+           "f64_s": f64_s}
+    log("resnet50_parity", res)
+    v2res = {"losses": [r[0] for r in v2], "v1_losses": res["gpu_losses"],
+             "loss_rel_err_vs_v1": v2_rel, "loss_tol_step1": 1e-6,
+             "loss_rel_err_vs_cpu": [abs(a[0] - b[0]) / abs(b[0])
+                                     for a, b in zip(v2, cpu)],
+             "launches_per_step": v2[-1][2], "launches": v2_launches}
+    log("resnet50_parity_v2", v2res)
+    bad = [f"step {i + 1} loss {e}" for i, e in enumerate(loss_rel)
+           if e > 1e-4]
+    bad += [f"v2 step {i + 1} loss vs the CPU {e}" for i, e in
+            enumerate(v2res["loss_rel_err_vs_cpu"]) if e > 1e-4]
+    bad += [f"v2 step-1 loss vs v1 {v2_rel[0]}"] if v2_rel[0] > 1e-6 else []
+    bad += [f"{fc} {res['grad_rel_err_step1'][fc]}"] \
+        if res["grad_rel_err_step1"][fc] > 1e-3 else []
+    bad += [f"statistics {res['state_rel_err_max']}"] \
+        if res["state_rel_err_max"] > 1e-3 else []
+    bad += [f"{n} vs float64 {w}" for n, w in witness.items()
+            if w["card"] > 2 * w["cpu"]]
+    if bad:
+        raise AssertionError(f"resnet50 card and CPU training disagree: "
+                             f"{bad}: {res}")
+    fluid.reset()
+    return res, v2res
+
+
+def resnet18_parity_phase():
+    """Three f32 steps of ResNet-18 at 64 x 64 on the card against three
+    on the CPU (``parity_run``), the running statistics after step 3."""
+    image, bs = RESNET_PARITY[18]
+    loss, main, startup = resnet_program(18, image, "float32",
+                                         RESNET_PARITY_LR)
+    block = main.global_block()
+    stats = [op.inputs[s][0] for op in block.ops if op.type == "batch_norm"
+             for s in ("Mean", "Variance")]
+    return parity_run("resnet18_parity", main, startup, loss,
+                      resnet_bench.feed(bs, image), resnet_watched(block),
+                      RESNET_WANT[18], {"depth": 18, "bs": bs,
+                                        "image": image}, stats)
+
+
+def resnet_bench_run(tag, fuse, card_name, smi):
+    """2 warm-up steps and 10 measured ones of ResNet-50's bench program
+    (bf16, batch 128, 224 x 224): losses finite and the lowest measured
+    below the first, step ms, images per second, peak memory and, fused,
+    exactly RESNET_WANT[50] launches a step (unfused: none)."""
+    t0 = time.monotonic()
+    loss, main, startup = resnet_program(resnet_bench.DEPTH,
+                                         resnet_bench.IMAGE,
+                                         resnet_bench.DTYPE, resnet_bench.LR,
+                                         fuse)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = resnet_bench.feed()
+    warm = run_steps(exe, main, loss, feed, 2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed, 10))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    want = RESNET_WANT[50] if fuse else {}
+    for _, _, per_step, _ in steps:
+        if fuse:
+            check_launches(tag, per_step, want)
+        elif any(per_step.values()):
+            raise AssertionError(f"{tag}: the unfused program launched "
+                                 f"{per_step}")
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    block = main.global_block()
+    res = {"card": card_name, "nvidia_smi": smi, "fused": fuse,
+           "depth": resnet_bench.DEPTH, "bs": resnet_bench.BS,
+           "image": resnet_bench.IMAGE, "dtype": resnet_bench.DTYPE,
+           "lr": resnet_bench.LR, "ops": len(block.ops),
+           "ops_run_per_step": sum(texecutor.live_ops(block, [loss.name])),
+           "params": sum(int(np.prod(p.shape))
+                         for p in block.all_parameters()),
+           "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
+           "step_ms_each": [r[3] * 1e3 for r in steps],
+           "img_s": resnet_bench.BS / (step_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / len(steps)
+                                 for k, v in launches.items()}}
+    log(tag, res)
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} are not finite or did "
+                             f"not fall")
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+def resnet_bench_phase(card_name, smi):
+    fused = resnet_bench_run("resnet50_bench_fused", True, card_name, smi)
+    unfused = resnet_bench_run("resnet50_bench_unfused", False, card_name,
+                               smi)
+    cmp = {"fused_img_s": fused["img_s"], "unfused_img_s": unfused["img_s"],
+           "fused_over_unfused": fused["img_s"] / unfused["img_s"],
+           "card": card_name, "nvidia_smi": smi}
+    log("resnet50_fused_vs_unfused", cmp)
+    return fused, unfused
+
+
+# -- 21. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -1267,6 +1822,11 @@ def main():
     lstm_bench, lstm_infer = lstm_bench_phase(name, smi)
     nmt_parity = nmt_parity_phase()
     nmt_bench = nmt_bench_phase(name, smi)
+    bn_rows = bn_kernel_phase(dev)
+    v1_v2 = v1_v2_times(bn_rows)
+    r50_parity, r50_v2 = resnet50_parity_phase()
+    r18_parity = resnet18_parity_phase()
+    r50_fused, r50_unfused = resnet_bench_phase(name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -1275,7 +1835,12 @@ def main():
                "lstm_bf16_10_steps": lstm_bench["launches"],
                "lstm_infer": lstm_infer["launches"],
                "nmt_f32_per_step": nmt_parity["launches_per_step"],
-               "nmt_f32_10_steps": nmt_bench["launches"]}
+               "nmt_f32_10_steps": nmt_bench["launches"],
+               "resnet50_f32_per_step": r50_parity["launches_per_step"],
+               "resnet50_v2_f32_3_steps": r50_v2["launches"],
+               "resnet18_f32_per_step": r18_parity["launches_per_step"],
+               "resnet50_bf16_10_steps": r50_fused["launches"],
+               "resnet50_unfused_bf16_10_steps": r50_unfused["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -1342,6 +1907,31 @@ def main():
             k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "max_abs_err")}
         kernels.append(row)
+    # K11-K15: the bf16 row (the bench's dtype) at the timed shape, the
+    # f32 row beside it; K14's launches are the v2 parity run's
+    for kname, src, replaces in (
+            ("bn_matmul_fwd", "bn_matmul.cu", "bn_matmul.py:161"),
+            ("bn_matmul_bwd", "bn_matmul.cu", "bn_matmul.py:195"),
+            ("bn_conv3x3_fwd", "bn_conv.cu", "bn_conv.py:352"),
+            ("bn_conv3x3_fwd_v2", "bn_conv.cu", "bn_conv.py:181"),
+            ("bn_conv3x3_bwd", "bn_conv.cu", "bn_conv.py:386")):
+        err_key = "max_rel_err"
+        run = r50_v2 if kname == "bn_conv3x3_fwd_v2" else r50_fused
+        main_row = timed_row(bn_rows[kname], torch.bfloat16)
+        row = summary_row(kname, csrc + src, pallas + replaces, main_row,
+                          errs_by_dtype(bn_rows[kname], err_key),
+                          run["launches"][kname], paths(kname))
+        row["max_err_by_dtype_is"] = err_key
+        row["library_ms_is"] = BN_NO_LIBRARY
+        row["shape"] = {k: main_row[k] for k in (
+            "dtype", "kind", "N", "H", "W", "K", "O", "stride", "residual")}
+        other = timed_row(bn_rows[kname], torch.float32)
+        row["other_dtype_bench_shape"] = {
+            k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "max_abs_err")}
+        if kname == "bn_conv3x3_fwd_v2":
+            row["v1_vs_v2_by_shape"] = v1_v2
+        kernels.append(row)
     kernels[2]["verify_shape"] = {
         k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -1369,7 +1959,23 @@ def main():
          "ragged_losses": lstm_bench["ragged_losses"]},
         {"run": "lstm_infer_bf16", **lstm_infer},
         {"run": "nmt_parity_f32", **{k: nmt_parity[k] for k in parity_keys}},
-        {"run": "nmt_bench_f32", **{k: nmt_bench[k] for k in bench_keys}}]
+        {"run": "nmt_bench_f32", **{k: nmt_bench[k] for k in bench_keys}},
+        {"run": "resnet50_parity_f32",
+         **{k: r50_parity[k] for k in parity_keys if k != "seq"},
+         "image": r50_parity["image"],
+         "state_rel_err_max": r50_parity["state_rel_err_max"],
+         "v2_loss_rel_err_vs_v1": r50_v2["loss_rel_err_vs_v1"],
+         "v2_launches_per_step": r50_v2["launches_per_step"]},
+        {"run": "resnet18_parity_f32",
+         **{k: r18_parity[k] for k in parity_keys if k != "seq"},
+         "image": r18_parity["image"],
+         "state_rel_err_max": r18_parity["state_rel_err_max"]}]
+    resnet_keys = ("fused", "bs", "image", "dtype", "losses", "step_ms",
+                   "img_s", "peak_mem_gb", "launches_per_step")
+    train_rows += [{"run": "resnet50_bench_bf16" + ("" if r["fused"]
+                                                    else "_unfused"),
+                    **{k: r[k] for k in resnet_keys}}
+                   for r in (r50_fused, r50_unfused)]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows}), flush=True)

@@ -7,7 +7,10 @@ environment.  Inputs come from the feeds (a ragged feed is padded and
 gains its ``@LENGTH`` companion), from earlier ops of the block, or from
 the scope; every persistable output is written back to the scope
 BY REFERENCE — an op that updates a pool in place hands back the same
-tensor, so a KV pool is never copied.  The walk runs under
+tensor, so a KV pool is never copied.  An op whose outputs nothing needs
+is skipped (``live_ops``): XLA drops such ops from the JAX package's
+compiled step, and the fusion pass relies on it for the batch-norm /
+ReLU chains whose only reader it replaced.  The walk runs under
 ``torch.no_grad()``; only a ``generic_grad`` op turns autograd on, for its
 own re-run of the forward op.  A block that holds grad ops runs with
 ``is_test`` false.
@@ -33,6 +36,30 @@ class OpLoweringError(RuntimeError):
 
 def _fetch_name(f) -> str:
     return f if isinstance(f, str) else f.name
+
+
+def live_ops(block, fetch_names) -> list:
+    """Which ops of `block` a run with `fetch_names` needs, one bool per op:
+    an op is live when it writes a persistable variable or a name that a
+    later live op reads or the caller fetches (or when it writes nothing).
+    Computed backward from the end, so a dead chain goes as a whole; a
+    name is never struck from the needed set when an op redefines it,
+    which keeps, never drops, an op in doubt."""
+    needed = set(fetch_names)
+    live = [False] * len(block.ops)
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        outs = [n for n in op.output_names() if n]
+        if not outs or any(n in needed or _persistable(block, n)
+                           for n in outs):
+            live[i] = True
+            needed.update(n for n in op.input_names() if n)
+    return live
+
+
+def _persistable(block, name) -> bool:
+    v = block._find_var_recursive(name)
+    return v is not None and v.persistable
 
 
 class Executor:
@@ -65,8 +92,9 @@ class Executor:
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step)
         self._step += 1
+        live = live_ops(block, fetch_names)
         with torch.no_grad():
-            for op in block.ops:
+            for op in (op for op, keep in zip(block.ops, live) if keep):
                 for n in op.input_names():
                     if n and n not in env:
                         env[n] = self._read_state(scope, block, n)

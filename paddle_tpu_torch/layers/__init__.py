@@ -1,11 +1,17 @@
 from .nn import (  # noqa: F401
+    accuracy,
+    batch_norm,
+    conv2d,
     data,
     embedding,
     fc,
     layer_norm,
     mean,
     multi_head_attention,
+    pool2d,
+    softmax,
     softmax_with_cross_entropy,
+    topk,
 )
 from .fluid_compat import create_parameter  # noqa: F401
 from .sequence import (  # noqa: F401

@@ -1,5 +1,6 @@
 """Layer functions building ops into the default main program — the part
-of ``paddle_tpu/layers/nn.py`` that ``decoder_lm`` and ``lm_loss`` build.
+of ``paddle_tpu/layers/nn.py`` that ``decoder_lm``, ``lm_loss`` and ResNet
+build.
 They only append descs; which ops have torch emitters is the registry's
 business."""
 
@@ -8,7 +9,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 from ..framework.core import Variable
-from ..framework.initializer import ConstantInitializer
+from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper
 from .sequence import propagate_length
 
@@ -200,3 +201,178 @@ def mean(x, name=None):
     helper.append_op("mean", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]})
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None,
+           data_format="NCHW"):
+    """A conv2d op with an OIHW filter drawn from N(0, sqrt(2 / fan_in)),
+    then the optional bias (an elementwise_add on the channel axis) and
+    activation."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    nhwc = data_format == "NHWC"
+    num_channels = input.shape[3] if nhwc else input.shape[1]
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    stride = stride if isinstance(stride, (list, tuple)) else (stride, stride)
+    padding = padding if isinstance(padding, (list, tuple)) else (
+        padding, padding)
+    dilation = dilation if isinstance(dilation, (list, tuple)) else (
+        dilation, dilation)
+    w = helper.create_parameter(
+        attr=param_attr if isinstance(param_attr, dict) else {},
+        shape=[num_filters, num_channels // groups, fs[0], fs[1]],
+        dtype=input.dtype,
+        default_initializer=NormalInitializer(
+            0.0, (2.0 / (fs[0] * fs[1] * num_channels)) ** 0.5),
+    )
+
+    def _od(i, k, s, p, d):
+        if i is None or i < 0:
+            return -1
+        ke = d * (k - 1) + 1
+        return (i + 2 * p - ke) // s + 1
+
+    h_ax, w_ax = (1, 2) if nhwc else (2, 3)
+    oh = _od(input.shape[h_ax], fs[0], stride[0], padding[0], dilation[0])
+    ow = _od(input.shape[w_ax], fs[1], stride[1], padding[1], dilation[1])
+    oshape = ((input.shape[0], oh, ow, num_filters) if nhwc
+              else (input.shape[0], num_filters, oh, ow))
+    out = helper.create_tmp_variable(input.dtype, shape=oshape)
+    helper.append_op(
+        "conv2d",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [out.name]},
+        attrs={"strides": list(stride), "paddings": list(padding),
+               "dilations": list(dilation), "groups": groups,
+               "data_format": data_format},
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            attr=bias_attr if isinstance(bias_attr, dict) else {},
+            shape=[num_filters], dtype=input.dtype, is_bias=True)
+        tmp = helper.create_tmp_variable(out.dtype, shape=out.shape)
+        helper.append_op(
+            "elementwise_add",
+            inputs={"X": [out.name], "Y": [b.name]},
+            outputs={"Out": [tmp.name]},
+            attrs={"axis": 3 if nhwc else 1},
+        )
+        out = tmp
+    return helper.append_activation(out)
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=None,
+           pool_padding=0, global_pooling=False, ceil_mode=False, name=None,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    nhwc = data_format == "NHWC"
+    ps = pool_size if isinstance(pool_size, (list, tuple)) else (
+        pool_size, pool_size)
+    st = pool_stride or ps
+    st = st if isinstance(st, (list, tuple)) else (st, st)
+    pd = pool_padding if isinstance(pool_padding, (list, tuple)) else (
+        pool_padding, pool_padding)
+
+    def _od(i, k, s, p):
+        if i is None or i < 0:
+            return -1
+        return (i + 2 * p - k) // s + 1
+
+    h_ax, w_ax = (1, 2) if nhwc else (2, 3)
+    if global_pooling:
+        oh = ow = 1
+    else:
+        oh = _od(input.shape[h_ax], ps[0], st[0], pd[0])
+        ow = _od(input.shape[w_ax], ps[1], st[1], pd[1])
+    ch = input.shape[3] if nhwc else input.shape[1]
+    oshape = ((input.shape[0], oh, ow, ch) if nhwc
+              else (input.shape[0], ch, oh, ow))
+    out = helper.create_tmp_variable(input.dtype, shape=oshape)
+    helper.append_op(
+        "pool2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": list(ps),
+               "strides": list(st), "paddings": list(pd),
+               "global_pooling": global_pooling,
+               "data_format": data_format},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None):
+    """A batch_norm op; scale, bias and the running Mean and Variance take
+    the input's dtype (bf16 in the ResNet bench)."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    c = input.shape[-1] if data_layout == "NHWC" else input.shape[1]
+    dtype = input.dtype
+    scale = helper.create_parameter(
+        attr=param_attr if isinstance(param_attr, dict) else {},
+        shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        attr=bias_attr if isinstance(bias_attr, dict) else {},
+        shape=[c], dtype=dtype, is_bias=True)
+    mean = helper.create_global_variable(shape=(c,), dtype=dtype)
+    variance = helper.create_global_variable(shape=(c,), dtype=dtype)
+    helper.set_initialized(mean, ConstantInitializer(0.0))
+    helper.set_initialized(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_tmp_variable(dtype, shape=(c,),
+                                            stop_gradient=True)
+    saved_var = helper.create_tmp_variable(dtype, shape=(c,),
+                                           stop_gradient=True)
+    out = helper.create_tmp_variable(dtype, shape=input.shape)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name], "Bias": [bias.name],
+                "Mean": [mean.name], "Variance": [variance.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [variance.name],
+                 "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout},
+    )
+    return helper.append_activation(out)
+
+
+def softmax(input, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(
+        input.dtype, shape=tuple(input.shape[:-1]) + (k,), stop_gradient=True)
+    indices = helper.create_tmp_variable(
+        "int64", shape=tuple(input.shape[:-1]) + (k,), stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name], "Indices": [indices.name]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1):
+    helper = LayerHelper("accuracy")
+    _, indices = topk(input, k)
+    acc = helper.create_tmp_variable("float32", shape=(1,),
+                                     stop_gradient=True)
+    correct = helper.create_tmp_variable("int64", shape=(1,),
+                                         stop_gradient=True)
+    total = helper.create_tmp_variable("int64", shape=(1,),
+                                       stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        inputs={"Indices": [indices.name], "Label": [label.name]},
+        outputs={"Accuracy": [acc.name], "Correct": [correct.name],
+                 "Total": [total.name]},
+    )
+    return acc

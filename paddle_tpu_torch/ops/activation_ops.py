@@ -1,7 +1,7 @@
 """Activation ops, the part of ``paddle_tpu/ops/activation_ops.py`` that
 the ported models use: ``gelu`` in the tanh form, which is
-``jax.nn.gelu``'s default (the LM tower), and ``tanh`` (the NMT decoder's
-initial state)."""
+``jax.nn.gelu``'s default (the LM tower), ``tanh`` (the NMT decoder's
+initial state), ``relu`` and ``softmax`` (ResNet)."""
 
 from __future__ import annotations
 
@@ -19,3 +19,13 @@ def gelu(ctx, ins, attrs):
 @register_op("tanh")
 def tanh(ctx, ins, attrs):
     return {"Out": [torch.tanh(ins["X"][0])]}
+
+
+@register_op("relu")
+def relu(ctx, ins, attrs):
+    return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register_op("softmax")
+def softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=-1)]}

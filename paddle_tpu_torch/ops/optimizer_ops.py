@@ -1,6 +1,6 @@
-"""Optimizer ops, the port of ``adam`` and ``adam_beta_pow_update`` in
-``paddle_tpu/ops/optimizer_ops.py``: f32 moments, a bf16 parameter
-updated through f32.  Each output is a new tensor, never an update in
+"""Optimizer ops, the port of ``adam``, ``adam_beta_pow_update`` and
+``momentum`` in ``paddle_tpu/ops/optimizer_ops.py``: f32 moments and
+velocities, a bf16 parameter updated through f32.  Each output is a new tensor, never an update in
 place, so a value fetched earlier in the step (a view of a parameter, such
 as the sliced position table) keeps its pre-update value, as in JAX."""
 
@@ -37,3 +37,20 @@ def adam_beta_pow_update(ctx, ins, attrs):
         "Beta1PowOut": [b1p * float(attrs["beta1"])],
         "Beta2PowOut": [b2p * float(attrs["beta2"])],
     }
+
+
+@register_op("momentum", grad=None)
+def momentum(ctx, ins, attrs):
+    """v' = mu·v + g; p' = p − lr·v' (Nesterov: p − lr·(g + mu·v')), the
+    velocity in its own dtype (f32 for a bf16 parameter)."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    mu = float(attrs["mu"])
+    g = g.to(v.dtype)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        upd = (g + mu * v_out) * lr
+    else:
+        upd = lr * v_out
+    return {"ParamOut": [(p.float() - upd).to(p.dtype)],
+            "VelocityOut": [v_out]}

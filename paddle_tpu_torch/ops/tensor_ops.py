@@ -1,7 +1,7 @@
 """Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
-that the startup program, the LM tower and the recurrent models use:
-fill_constant, uniform_random, gaussian_random, assign, cast, concat,
-reshape, transpose, slice and lookup_table.  Random ops draw from the
+that the startup program, the LM tower, the recurrent models and ResNet
+use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
+reshape, transpose, slice, lookup_table and top_k.  Random ops draw from the
 context's per-op generator, on the context's device.  Shape ops may return
 views of their input; no emitter writes into an input."""
 
@@ -99,3 +99,10 @@ def lookup_table(ctx, ins, attrs):
     out_shape = tuple(ids.shape[:-1] if ids.shape[-1] == 1 else ids.shape) \
         + (w.shape[-1],)
     return {"Out": [emb.reshape(out_shape)]}
+
+
+@register_op("top_k", grad=None)
+def top_k(ctx, ins, attrs):
+    """The k largest values along the last axis and their int64 indices."""
+    vals, idx = torch.topk(ins["X"][0], int(attrs["k"]), dim=-1)
+    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}

@@ -1,5 +1,6 @@
 """Optimizers: append update ops per parameter — the port of
-``Optimizer`` and ``AdamOptimizer`` in ``paddle_tpu/optimizer.py``, with
+``Optimizer``, ``AdamOptimizer`` and ``MomentumOptimizer`` in
+``paddle_tpu/optimizer.py``, with
 the same accumulator names and startup initializers.  The update ops land
 in the same block as forward and backward, so one ``Executor.run`` is one
 training step.
@@ -7,7 +8,7 @@ training step.
 Not ported yet (each raises ``NotImplementedError``): ``regularization=``,
 ``global_clip_norm=``, a parameter's ``gradient_clip`` and
 ``update_hooks`` (ROADMAP.md Queue A item 3b); the other optimizers come
-with the slices that train with them (items 5 and 6).
+with the slices that train with them (item 6).
 """
 
 from __future__ import annotations
@@ -145,4 +146,28 @@ class AdamOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "Velocity": [v.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer

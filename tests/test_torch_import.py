@@ -42,6 +42,12 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.image_models\n"
         "import paddle_tpu_torch.models.seq2seq\n"
         "import paddle_tpu_torch.models.rnn_bench\n"
+        "import paddle_tpu_torch.models.resnet\n"
+        "import paddle_tpu_torch.models.resnet_bench\n"
+        "import paddle_tpu_torch.training_fusion\n"
+        "import paddle_tpu_torch.autotune.knobs\n"
+        "import paddle_tpu_torch.ops.cuda_kernels.bn_matmul\n"
+        "import paddle_tpu_torch.ops.cuda_kernels.bn_conv\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"

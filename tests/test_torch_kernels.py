@@ -16,6 +16,8 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.ops import attention_ops as t_attn
+from paddle_tpu_torch.ops.cuda_kernels import bn_conv as t_bnc
+from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as t_bnmm
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as t_fa
 from paddle_tpu_torch.ops.cuda_kernels import gru as t_gru
 from paddle_tpu_torch.ops.cuda_kernels import lstm as t_lstm
@@ -532,3 +534,151 @@ def test_recurrent_train_functions_launch_kernels_on_card(cuda_device):
                                  hs.detach(), a["dhs"])
     for g, r in zip(grads, ref):
         assert _rel_err(g, r) <= 1e-4
+
+
+# K11-K15 (the fused BatchNorm -> 1x1 and 3x3 convolutions): odd widths
+# and channel counts, with and without the residual and the ReLU, stride
+# 2 with odd H and W, and a border case whose mean and beta lie far from 0
+# (a zero-padded raw input would normalize to relu(beta - mean * gi) > 0)
+_BN1_SHAPES = [(200, 64, 96, True, "relu", False),
+               (1000, 256, 128, False, "relu", False),
+               (37, 20, 5, True, None, False),
+               (130, 128, 64, False, "relu", True)]
+_BN3_SHAPES = [(2, 7, 7, 64, 96, 2, True, "relu", False),
+               (3, 8, 8, 128, 128, 1, False, "relu", False),
+               (1, 5, 9, 20, 33, 2, False, None, False),
+               (2, 6, 6, 64, 64, 1, True, "relu", True),
+               (2, 4, 4, 64, 256, 1, False, "relu", False)]
+_BN_GRADS = ("dx", "dgamma", "dbeta", "dmean", "dvar", "dw", "dr")
+
+
+def _bn_case(device, dtype, xshape, has_r, border, seed):
+    """(x, gamma, beta, mean, var, r): statistics f32, x and r in dtype."""
+    rng = np.random.RandomState(seed)
+    K = xshape[-1]
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    return (t(rng.randn(*xshape) * 1.5 + 0.3),
+            t(rng.rand(K) + 0.5, torch.float32),
+            t(rng.randn(K) * 0.3 + (5.0 if border else 0.0), torch.float32),
+            t(rng.randn(K) * 0.1 + (3.0 if border else 0.3), torch.float32),
+            t(rng.rand(K) + 2.0, torch.float32),
+            t(rng.randn(*xshape)) if has_r else None)
+
+
+@pytest.fixture
+def exact_f32(cuda_device, monkeypatch):
+    """The card with float32 convolutions and products exact: cuDNN's
+    default TF32 would put the plain versions' own error (about 1e-3) into
+    the comparison."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return cuda_device
+
+
+def _check_bn(dtype, out, ref, grads, ref_g):
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= _CARD_TOL[dtype]
+    assert len(grads) == len(ref_g)
+    for name, g, r in zip(_BN_GRADS, grads, ref_g):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _rel_err(g, r) <= _BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,has_r,act,border", _BN1_SHAPES)
+def test_bn_matmul_kernels_match_plain_on_card(exact_f32, dtype, M, K, N,
+                                               has_r, act, border):
+    cuda_device = exact_f32
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, (M, K), has_r, border,
+                                   M + K)
+    rng = np.random.RandomState(N)
+    w = torch.from_numpy((rng.randn(K, N) / np.sqrt(K)).astype(
+        np.float32)).to(cuda_device, dtype)
+    do = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = (t_bnmm.bn_matmul_fwd.launches, t_bnmm.bn_matmul_bwd.launches)
+    out = t_bnmm.bn_matmul_fwd(x, g, b, mu, var, w, r, act)
+    grads = t_bnmm.bn_matmul_bwd(x, g, b, mu, var, w, do, r, act)
+    torch.cuda.synchronize()
+    _check_bn(dtype, out, t_bnmm.bn_matmul_fwd_ref(x, g, b, mu, var, w, r,
+                                                    act),
+              grads, t_bnmm.bn_matmul_bwd_ref(x, g, b, mu, var, w, do, r,
+                                              act))
+    assert (t_bnmm.bn_matmul_fwd.launches - before[0],
+            t_bnmm.bn_matmul_bwd.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,K,O,stride,has_r,act,border", _BN3_SHAPES)
+def test_bn_conv_kernels_match_plain_on_card(exact_f32, dtype, N, H, W, K,
+                                             O, stride, has_r, act, border):
+    """K13 and K14 (at O 128 a block walks two 64-channel tiles, at O 256
+    two blocks share the O axis) against the plain forward, K15 against
+    the plain backward."""
+    cuda_device = exact_f32
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, (N, H, W, K), has_r,
+                                   border, N + H + K)
+    rng = np.random.RandomState(O)
+    w = torch.from_numpy((rng.randn(3, 3, K, O) / np.sqrt(9 * K)).astype(
+        np.float32)).to(cuda_device, dtype)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    do = torch.from_numpy(rng.randn(N, Ho, Wo, O).astype(np.float32)).to(
+        cuda_device, dtype)
+    fns = (t_bnc.bn_conv3x3_fwd, t_bnc.bn_conv3x3_fwd_v2,
+           t_bnc.bn_conv3x3_bwd)
+    before = [f.launches for f in fns]
+    args = (x, g, b, mu, var, w)
+    out = t_bnc.bn_conv3x3_fwd(*args, r, act, stride=stride)
+    grads = t_bnc.bn_conv3x3_bwd(*args, do, r, act, stride=stride)
+    torch.cuda.synchronize()
+    ref = t_bnc.bn_conv3x3_fwd_ref(*args, r, act, stride=stride)
+    _check_bn(dtype, out, ref, grads,
+              t_bnc.bn_conv3x3_bwd_ref(*args, do, r, act, stride=stride))
+    out2 = t_bnc.bn_conv3x3_fwd_v2(*args, r, act, stride=stride)
+    torch.cuda.synchronize()
+    assert (out2.float() - ref.float()).abs().max().item() \
+        <= _CARD_TOL[dtype]
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+
+
+def test_bn_train_functions_launch_kernels_on_card(exact_f32):
+    """BNMatmulTrain and BNConv3x3Train (v1 and v2) on CUDA tensors: one
+    forward and one backward launch each, gradients as the plain
+    backward's."""
+    cuda_device = exact_f32
+    x, g, b, mu, var, r = _bn_case(cuda_device, torch.float32, (96, 64),
+                                   True, False, 1)
+    w = torch.randn(64, 32, device=cuda_device) / 8
+    leaves = [t.requires_grad_(True) for t in (x, g, b, mu, var, w, r)]
+    before = (t_bnmm.bn_matmul_fwd.launches, t_bnmm.bn_matmul_bwd.launches)
+    out = t_bnmm.BNMatmulTrain.apply(*leaves, "relu", 1e-5)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (t_bnmm.bn_matmul_fwd.launches - before[0],
+            t_bnmm.bn_matmul_bwd.launches - before[1]) == (1, 1)
+    ref = t_bnmm.bn_matmul_bwd_ref(*[t.detach() for t in leaves[:6]], do,
+                                   r.detach(), "relu")
+    for name, gk, gr in zip(_BN_GRADS, grads, ref):
+        assert _rel_err(gk, gr) <= 1e-4, name
+    for variant, fwd in (("v1", t_bnc.bn_conv3x3_fwd),
+                         ("v2", t_bnc.bn_conv3x3_fwd_v2)):
+        x, g, b, mu, var, _ = _bn_case(cuda_device, torch.float32,
+                                       (2, 7, 7, 64), False, False, 2)
+        w = torch.randn(3, 3, 64, 48, device=cuda_device) / 24
+        leaves = [t.requires_grad_(True) for t in (x, g, b, mu, var, w)]
+        before = (fwd.launches, t_bnc.bn_conv3x3_bwd.launches)
+        out = t_bnc.BNConv3x3Train.apply(*leaves, None, "relu", 1e-5, 2,
+                                         variant)
+        do = torch.randn_like(out)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert (fwd.launches - before[0],
+                t_bnc.bn_conv3x3_bwd.launches - before[1]) == (1, 1)
+        ref = t_bnc.bn_conv3x3_bwd_ref(*[t.detach() for t in leaves], do,
+                                       None, "relu", stride=2)
+        for name, gk, gr in zip(_BN_GRADS, grads, ref):
+            assert _rel_err(gk, gr) <= 1e-4, (variant, name)

@@ -2,24 +2,29 @@
 
 Usage (repository root, on a machine with a CUDA card and nvcc):
 
-    python3 tools/profile_torch_train.py [--model gpt|lstm|seq2seq]
-                                         [--steps 2] [--trace train.json]
+    python3 tools/profile_torch_train.py \
+        [--model gpt|lstm|seq2seq|resnet50|resnet50_unfused] [--steps 2] \
+        [--trace train.json]
 
 Builds one training program at its bench shape: ``gpt`` (the default) the
 GPT training bench (``build_lm_train_program`` defaults: vocab 32000, dim
 512, 8 layers, 8 heads, bf16, Adam 3e-4) at batch 8 x 1024 with
 ``bench.py``'s batch; ``lstm`` the stacked-LSTM classifier of
 ``models/rnn_bench.py`` (bf16, batch 64 x 96); ``seq2seq`` the
-attention-NMT program there (f32, batch 64 x 64 + 64, ragged).  It runs 2
+attention-NMT program there (f32, batch 64 x 64 + 64, ragged);
+``resnet50`` the fused ResNet-50 bench of ``models/resnet_bench.py`` (bf16,
+batch 128, 224 x 224, Momentum) and ``resnet50_unfused`` the same program
+built without the BatchNorm -> conv fusion.  It runs 2
 warm-up steps and times 5 unprofiled ones, then profiles ``--steps`` steps
 under ``torch.profiler`` and prints one JSON line: the step's wall ms
 (unprofiled and profiled), the device busy share of the profiled steps
 (kernel intervals merged, over their host wall time, which the profiler
 and the phase synchronizations inflate), device ms per step by kernel
-group (the hand-written kernels K4-K10, GEMM, other kernels, copies) and
+group (the hand-written kernels K4-K15, GEMM, cuDNN convolutions, other
+kernels, copies) and
 by phase of the step (the forward ops, the backward ops — each
 ``generic_grad`` re-runs its forward op, so the forward phase's device
-time is also the cost of that recompute — and the Adam updates), each
+time is also the cost of that recompute — and the optimizer updates), each
 phase's range ms per step (host work, or its kernels where they take
 longer), and the kernels' launches per step.  The phases are profiler
 ranges this tool puts around the executor's op walk.
@@ -43,8 +48,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import paddle_tpu_torch as fluid  # noqa: E402
 from paddle_tpu_torch.framework.executor import Executor  # noqa: E402
-from paddle_tpu_torch.models import rnn_bench, transformer  # noqa: E402
+from paddle_tpu_torch.models import (  # noqa: E402
+    resnet_bench, rnn_bench, transformer)
 from paddle_tpu_torch.ops.cuda_kernels import _common  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import bn_conv as bnc  # noqa: E402
+from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as bnmm  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k  # noqa: E402
 from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k  # noqa: E402
@@ -55,7 +63,10 @@ PHASES = ("train.forward", "train.backward", "train.optimizer")
 COUNTERS = {"K1": fa.flash_attention, "K4": fa.flash_attention_fwd,
             "K5": fa.flash_attention_dq, "K6": fa.flash_attention_dkv,
             "K7": lstm_k.lstm_forward, "K8": lstm_k.lstm_backward,
-            "K9": gru_k.gru_forward, "K10": gru_k.gru_backward}
+            "K9": gru_k.gru_forward, "K10": gru_k.gru_backward,
+            "K11": bnmm.bn_matmul_fwd, "K12": bnmm.bn_matmul_bwd,
+            "K13": bnc.bn_conv3x3_fwd, "K14": bnc.bn_conv3x3_fwd_v2,
+            "K15": bnc.bn_conv3x3_bwd}
 
 
 def _gpt():
@@ -78,12 +89,23 @@ def _seq2seq():
         int(feed["src@LENGTH"].sum() + feed["tgt@LENGTH"].sum())
 
 
-# model -> (function making (loss, feed, tokens per step), batch, length,
-# dtype)
+def _resnet(fuse):
+    def build():
+        loss, _ = resnet_bench.train_program(fuse_bn=fuse)
+        return loss, resnet_bench.feed(), resnet_bench.BS
+    return build
+
+
+# model -> (function making (loss, feed, tokens or images per step),
+# batch, length or image size, dtype)
 MODELS = {"gpt": (_gpt, BS, SEQ, "bfloat16"),
           "lstm": (_lstm, rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, "bfloat16"),
           "seq2seq": (_seq2seq, rnn_bench.NMT_BS, rnn_bench.NMT_SEQ,
-                      "float32")}
+                      "float32"),
+          "resnet50": (_resnet(True), resnet_bench.BS, resnet_bench.IMAGE,
+                       resnet_bench.DTYPE),
+          "resnet50_unfused": (_resnet(False), resnet_bench.BS,
+                               resnet_bench.IMAGE, resnet_bench.DTYPE)}
 
 
 def _group(name: str, model: str) -> str:
@@ -107,6 +129,21 @@ def _group(name: str, model: str) -> str:
         return "K9 and K10 (the gates kernel they share)"
     if "gru_bwd_" in n:
         return "K10 gru_backward (steps)"
+    if "bnmm_fwd" in n:
+        return "K11 bn_matmul_fwd"
+    if "bnmm_bwd" in n:
+        return "K12 bn_matmul_bwd"
+    if "bnc_fwd_v2" in n or "bnc_prep" in n:
+        return "K14 bn_conv3x3_fwd_v2"
+    if "bnc_fwd" in n:
+        return "K13 bn_conv3x3_fwd"
+    if "bnc_bwd" in n:
+        return "K15 bn_conv3x3_bwd"
+    if "sum_splits" in n:
+        return "K12 and K15 (split sums)"
+    if model.startswith("resnet") and any(w in n for w in (
+            "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+        return "cuDNN conv"
     if "rnn_dw_kernel" in n:
         # the weight-gradient product after the time loop
         return "K8 lstm_backward (dW)" if model == "lstm" \
@@ -120,7 +157,7 @@ def _group(name: str, model: str) -> str:
 
 
 def _phase(op) -> str:
-    if op.type.startswith("adam"):
+    if op.type.startswith("adam") or op.type == "momentum":
         return "train.optimizer"
     if op.type in ("generic_grad", "sum", "assign") or any(
             n.endswith("@GRAD") for n in op.output_names()):
@@ -229,11 +266,14 @@ def main(argv=None):
     window = max(f for _, f, _ in spans) - min(s for s, _, _ in spans)
     busy = _busy_us(intervals) / window if window else 0.0
     out = {"card": smi, "model": args.model, "bs": bs, "seq": seq,
-           "dtype": dtype, "tokens_per_step": tokens,
+           "dtype": dtype,
+           ("images_per_step" if args.model.startswith("resnet")
+            else "tokens_per_step"): tokens,
            "ops": len(fluid.default_main_program().global_block().ops),
            "step_ms_unprofiled": wall_ms,
            "step_ms_profiled": wall_prof_ms,
-           "tok_s_unprofiled": tokens / (wall_ms / 1e3),
+           ("img_s_unprofiled" if args.model.startswith("resnet")
+            else "tok_s_unprofiled"): tokens / (wall_ms / 1e3),
            "device_busy_share_profiled": busy,
            "device_ms_per_step_by_group": dict(sorted(groups.items())),
            # a phase's range ends after a synchronize: its host ms is the
