@@ -45,11 +45,15 @@ non-zero and no result line is printed):
 10. kernels K4-K6 (flash forward with logsumexp, dQ, dK/dV) against their
     plain versions, float32 and bfloat16, at the training bench shape
     [8, 8, 1024, 64] causal, a ragged [2, 4, 1000, 64] causal and
-    non-causal, and a D = 128 case [2, 4, 512, 128]; out and lse
-    absolutely, dq, dk and dv relative to each tensor's max |value|; at
-    the bench shape each is timed beside its plain version, the card's
-    bound and PyTorch's scaled_dot_product_attention (forward for K4, its
-    backward, which yields dq, dk and dv together, for K5 and K6);
+    non-causal, a D = 128 case [2, 4, 512, 128], one short ragged tile
+    with a padded head dim [1, 1, 37, 40] and B*H = 1024 [64, 16, 128,
+    64]; out and lse absolutely, dq, dk and dv relative to each tensor's
+    max |value|; at the bench shape each is timed beside its plain
+    version, the card's bound and PyTorch's scaled_dot_product_attention
+    (forward for K4, its backward, which yields dq, dk and dv together,
+    for K5 and K6), and each bf16 row names its design (bf16 K4 and K6
+    run on the tensor cores) with its ratio to that call and its share
+    of the bound;
 11. training parity, float32: ``build_lm_train_program`` at full width
     and depth (vocab 32000, dim 512, 8 layers, 8 heads, Adam 3e-4), batch
     2 x 256, three steps on the card and three on an explicit CPU
@@ -101,7 +105,11 @@ non-zero and no result line is printed):
     ReLU's kink), the bf16 ones against it in bf16; K13 and K14 timed at
     every 3x3 shape; at stage 2's 1x1 with a residual and its 3x3 each
     kernel is timed beside its plain version (the unfused ATen, cuDNN and
-    torch.matmul composition) and the card's bound;
+    torch.matmul composition) and the card's bound; then the ``top_k`` op
+    that feeds ResNet's accuracy, on rows full of ties (all zeros; 128 x
+    1000 integers in [0, 4)), float32 and bfloat16: its indices on the
+    card equal a stable descending sort's (the lowest index first among
+    equal values, as ``jax.lax.top_k``) and the CPU's;
 19. ResNet-50 and ResNet-18 parity, float32: the fused NHWC programs of
     ``resnet_bench`` at full width (class_dim 1000), batch 4, Momentum
     0.001, against an explicit CPU executor from the same state.
@@ -156,6 +164,7 @@ from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
 from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k
 from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
+from paddle_tpu_torch.ops.registry import EmitContext, get_op_info
 from paddle_tpu_torch.ops.transformer_ops import _lm_fns
 from paddle_tpu_torch.serving import ServingEngine, pages_needed
 
@@ -749,7 +758,12 @@ TRAIN_SHAPES = [  # (B, H, T, D, causal, timed)
     (2, 4, 1000, 64, True, False),
     (2, 4, 1000, 64, False, False),
     (2, 4, 512, 128, True, False),
+    (1, 1, 37, 40, True, False),     # one short ragged tile, D padded to 64
+    (64, 16, 128, 64, True, False),  # B*H = 1024 blocks along grid.y
 ]
+# the body of each bf16 kernel of K4-K6: K4 and K6 on the tensor cores
+# (mma.sync); K5, like every f32 instance, FMA loops on the CUDA cores
+DESIGN = {"flash_attention_fwd": "mma", "flash_attention_dkv": "mma"}
 
 
 def rel_err(got, ref):
@@ -805,8 +819,15 @@ def train_kernel_phase(dev):
                 b_ms, b_by = bound(nbytes, flops, dtype)
                 rows[name].append({**shape, **errs, "bound_ms": b_ms,
                                    "bound_by": b_by})
+                if dtype == torch.bfloat16:
+                    rows[name][-1]["design"] = DESIGN.get(name, "cuda_cores")
             if timed:
                 timed_rows(q, k, v, do, bwd, causal, rows)
+                if dtype == torch.bfloat16:
+                    for name in rows:
+                        r = rows[name][-1]
+                        r["vs_library"] = r["kernel_ms"] / r["library_ms"]
+                        r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
             for name in rows:
                 log(name, rows[name][-1])
             fwd = rows["flash_attention_fwd"][-1]
@@ -1487,6 +1508,32 @@ def bn_kernel_phase(dev):
     return rows
 
 
+def top_k_phase(dev):
+    """The top_k op on ties, on the card and on the CPU, against a stable
+    descending sort of the same rows."""
+    info = get_op_info("top_k")
+    rng = np.random.RandomState(SEED)
+    cases = [(np.zeros((1, 10), np.float32), 3),
+             (rng.randint(0, 4, (128, 1000)).astype(np.float32), 5)]
+    rows = []
+    for x, k in cases:
+        want = np.argsort(-x, axis=1, kind="stable")[:, :k]
+        for dtype in DTYPES:
+            for d in (dev, torch.device("cpu")):
+                xt = torch.from_numpy(x).to(device=d, dtype=dtype)
+                got = info.emit(EmitContext(d, is_test=True), {"X": [xt]},
+                                {"k": k})["Indices"][0].cpu().numpy()
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"top_k on {d} ({dtype}) breaks ties otherwise than "
+                        f"a stable sort: {got[:2]} against {want[:2]}")
+            rows.append({"shape": list(x.shape), "k": k,
+                         "dtype": str(dtype).split(".")[1],
+                         "indices_equal": True})
+    log("top_k_ties", {"cases": rows})
+    return rows
+
+
 def v1_v2_times(rows):
     """K13 against K14 at every 3x3 shape the phase timed: each kernel's
     ms and K14's share of K13's time."""
@@ -1823,6 +1870,7 @@ def main():
     nmt_parity = nmt_parity_phase()
     nmt_bench = nmt_bench_phase(name, smi)
     bn_rows = bn_kernel_phase(dev)
+    top_k_phase(dev)
     v1_v2 = v1_v2_times(bn_rows)
     r50_parity, r50_v2 = resnet50_parity_phase()
     r18_parity = resnet18_parity_phase()
@@ -1876,6 +1924,8 @@ def main():
                                                        err_key),
                           bench["launches"][kname], paths(kname))
         row["max_err_by_dtype_is"] = err_key
+        row.update({k: tr_sum[kname][k]
+                    for k in ("design", "vs_library", "bound_share")})
         row["f32_bench_shape"] = {
             k: tr_rows[kname][0][k] for k in (
                 "kernel_ms", "plain_ms", "library_ms", "bound_ms",

@@ -21,6 +21,7 @@ def state_classes(block, feed_names=(), skip_types=("feed", "fetch")
     rw_state: List[str] = []
     written_state: List[str] = []
     seen_reads = set()
+    written_set = set()  # the names of written_state, for lookups
     for op in block.ops:
         if op.type in skip_types:
             continue
@@ -31,18 +32,21 @@ def state_classes(block, feed_names=(), skip_types=("feed", "fetch")
         for n in op.output_names():
             if not n:
                 continue
-            if n in seen_reads and n not in rw_state:
+            if n in seen_reads and n not in written_set:
                 rw_state.append(n)
                 written_state.append(n)
+                written_set.add(n)
             produced.add(n)
     for op in block.ops:
         if op.type in skip_types:
             continue
         for n in op.output_names():
-            if not n or n in written_state:
+            if not n or n in written_set:
                 continue
             v = block._find_var_recursive(n)
             if v is not None and v.persistable:
                 written_state.append(n)
-    external_reads = [n for n in external_reads if n not in rw_state]
+                written_set.add(n)
+    rw_set = set(rw_state)
+    external_reads = [n for n in external_reads if n not in rw_set]
     return external_reads, rw_state, written_state

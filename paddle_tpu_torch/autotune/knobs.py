@@ -3,8 +3,8 @@
 resolution order is trial override > the environment > stored winner >
 default; the port has the environment and the default only (trial
 overrides, stored winners and the other knobs come with the autotune
-item of ROADMAP.md Queue A 6).  Each call reads the environment afresh,
-so a test can set the variable between calls."""
+item, ROADMAP.md Queue A item 10).  Each call reads the environment
+afresh, so a test can set the variable between calls."""
 
 from __future__ import annotations
 

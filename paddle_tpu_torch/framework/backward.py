@@ -107,7 +107,7 @@ def append_backward(
             if getattr(v, hook, None):
                 raise NotImplementedError(
                     f"variable {name!r} asks for {hook}, which the port does "
-                    f"not carry yet (ROADMAP.md Queue A item 3b)")
+                    f"not carry yet (ROADMAP.md Queue A item 4)")
         if len(parts) == 1:
             if parts[0] != gname:
                 _ensure_grad_var(block, name, gname)

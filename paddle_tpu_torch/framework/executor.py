@@ -5,12 +5,15 @@ The JAX package traces a whole block into one XLA computation
 in turn (modelled on its ``_lower_op``), threading a name → tensor
 environment.  Inputs come from the feeds (a ragged feed is padded and
 gains its ``@LENGTH`` companion), from earlier ops of the block, or from
-the scope; every persistable output is written back to the scope
-BY REFERENCE — an op that updates a pool in place hands back the same
-tensor, so a KV pool is never copied.  An op whose outputs nothing needs
-is skipped (``live_ops``): XLA drops such ops from the JAX package's
-compiled step, and the fusion pass relies on it for the batch-norm /
-ReLU chains whose only reader it replaced.  The walk runs under
+the scope.  The block's written state — every persistable output, and
+every name read from the scope before an op writes it, as the JAX
+package's ``analysis/dataflow.state_classes`` classifies them — is
+written back to the scope BY REFERENCE: an op that updates a pool in
+place hands back the same tensor, so a KV pool is never copied.  An op
+whose outputs nothing needs is skipped (``live_ops``): XLA drops such ops
+from the JAX package's compiled step, and the fusion pass relies on it
+for the batch-norm / ReLU chains whose only reader it replaced.  The
+walk runs under
 ``torch.no_grad()``; only a ``generic_grad`` op turns autograd on, for its
 own re-run of the forward op.  A block that holds grad ops runs with
 ``is_test`` false.
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis.dataflow import state_classes
 from ..lod import LENGTH_SUFFIX, as_lod_tensor, is_lod_feed
 from ..ops.registry import EmitContext, get_op_info
 from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
@@ -40,26 +44,29 @@ def _fetch_name(f) -> str:
 
 def live_ops(block, fetch_names) -> list:
     """Which ops of `block` a run with `fetch_names` needs, one bool per op:
-    an op is live when it writes a persistable variable or a name that a
-    later live op reads or the caller fetches (or when it writes nothing).
-    Computed backward from the end, so a dead chain goes as a whole; a
-    name is never struck from the needed set when an op redefines it,
-    which keeps, never drops, an op in doubt."""
-    needed = set(fetch_names)
+    an op is live when it writes the block's written state (``written``,
+    which the run writes back to the scope), a name that a later live op
+    reads or the caller fetches, or nothing.  Computed backward from the
+    end, so a dead chain goes as a whole; a name is never struck from the
+    needed set when an op redefines it, which keeps, never drops, an op in
+    doubt.  The state is classified without the feeds, so a fed name that
+    an op rewrites also keeps its writer."""
+    needed = set(fetch_names) | set(written(block))
     live = [False] * len(block.ops)
     for i in range(len(block.ops) - 1, -1, -1):
         op = block.ops[i]
         outs = [n for n in op.output_names() if n]
-        if not outs or any(n in needed or _persistable(block, n)
-                           for n in outs):
+        if not outs or any(n in needed for n in outs):
             live[i] = True
             needed.update(n for n in op.input_names() if n)
     return live
 
 
-def _persistable(block, name) -> bool:
-    v = block._find_var_recursive(name)
-    return v is not None and v.persistable
+def written(block, feed_names=()) -> list:
+    """The names a run of `block` writes back to the scope: the
+    reference's written state (persistable outputs, and names read from
+    the scope before an op writes them)."""
+    return state_classes(block, feed_names)[2]
 
 
 class Executor:
@@ -88,6 +95,7 @@ class Executor:
         env = {}
         for name, value in feed.items():
             env.update(self._feed_tensor(block, name, value))
+        feed_names = list(env)
         is_test = not any(op.type.endswith("_grad") for op in block.ops)
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step)
@@ -99,11 +107,9 @@ class Executor:
                     if n and n not in env:
                         env[n] = self._read_state(scope, block, n)
                 self._run_op(op, env, ctx)
-        for op in block.ops:
-            for n in op.output_names():
-                v = block._find_var_recursive(n) if n else None
-                if v is not None and v.persistable and n in env:
-                    scope.set(n, env[n])
+        for n in written(block, feed_names):
+            if n in env:
+                scope.set(n, env[n])
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not computed")

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from .. import layers
 
-_REMAT = "remat=True is not ported yet (ROADMAP.md Queue A item 3b)"
+_REMAT = "remat=True is not ported yet (ROADMAP.md Queue A item 4)"
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",

@@ -147,9 +147,9 @@ class Seq2SeqAttention:
     def generate(self, src_words, beam_size=4, max_len=16):
         raise NotImplementedError(
             "Seq2SeqAttention.generate (compiled beam search) is not ported "
-            "yet: ROADMAP.md Queue A item 6")
+            "yet: ROADMAP.md Queue A item 5")
 
     def generate_composable(self, src_words, beam_size=4, max_len=16):
         raise NotImplementedError(
             "Seq2SeqAttention.generate_composable (While + beam_search ops) "
-            "is not ported yet: ROADMAP.md Queue A item 6")
+            "is not ported yet: ROADMAP.md Queue A item 5")

@@ -42,7 +42,7 @@ def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
 
     The JAX signature.  `sp_mode`/`sp_schedule` are recorded on the
     attention ops (no effect on one device); `dropout_prob > 0` and
-    `remat=True` are not ported yet (ROADMAP.md Queue A item 3b) and
+    `remat=True` are not ported yet (ROADMAP.md Queue A item 4) and
     raise."""
     if dropout_prob:
         raise NotImplementedError(

@@ -13,6 +13,9 @@ PyTorch versions.
   ``torch.autograd.Function`` whose forward runs K4 and whose backward
   runs K5 and K6 (``flash_attention_bwd``).
 
+bf16 K4 and K6 run on the tensor cores (``mma.sync``, ``csrc/mma.cuh``);
+their f32 instances, K1 and K5 run FMA loops on the CUDA cores.
+
 Contract: q, k, v [B, H, T, D] of one dtype → out [B, H, T, D],
 softmax(Q Kᵀ·scale [+ causal mask]) V with f32 scores and P cast to the
 value dtype before P·V; lse [B·H, T] f32.  The backward keeps the JAX

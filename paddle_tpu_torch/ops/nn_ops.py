@@ -12,6 +12,8 @@ variance is the population variance, as ``jnp.var`` computes it."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -73,7 +75,10 @@ def pool2d(ctx, ins, attrs):
     """Max or average pooling (``_pool_nd`` of the JAX package): windows
     padded with -inf for max; average over the window, or over its
     unpadded part when ``exclusive`` (the default) and there is padding;
-    ``global_pooling`` takes the whole map."""
+    ``global_pooling`` takes the whole map.  The padding is explicit and
+    the pooling unpadded, since torch's pooling refuses a pad over half
+    the window, which ``reduce_window`` takes: a window wholly in the
+    padding gives -inf (max) or 0/0 (exclusive average), as there."""
     x = ins["X"][0]
     nhwc = str(attrs.get("data_format", "NCHW")) == "NHWC"
     ksize = _pair(attrs.get("ksize", [2, 2]))
@@ -83,13 +88,18 @@ def pool2d(ctx, ins, attrs):
         ksize = list(x.shape[1:3] if nhwc else x.shape[2:])
         strides, pads = ksize, [0, 0]
     xc = _nchw(x, nhwc)
+    width = (pads[1], pads[1], pads[0], pads[0])  # F.pad: W first, then H
     if attrs.get("pooling_type", "max") == "max":
-        out = F.max_pool2d(xc, ksize, strides, pads)
+        out = F.max_pool2d(F.pad(xc, width, value=-math.inf), ksize,
+                           strides)
+    elif attrs.get("exclusive", True) and any(pads):
+        # each window's sum over its count of unpadded elements
+        ones = F.pad(torch.ones_like(xc[:1, :1]), width)
+        out = (F.avg_pool2d(F.pad(xc, width), ksize, strides,
+                            divisor_override=1)
+               / F.avg_pool2d(ones, ksize, strides, divisor_override=1))
     else:
-        out = F.avg_pool2d(
-            xc, ksize, strides, pads,
-            count_include_pad=not (attrs.get("exclusive", True)
-                                   and any(pads)))
+        out = F.avg_pool2d(F.pad(xc, width), ksize, strides)
     return {"Out": [_back(out, nhwc)]}
 
 

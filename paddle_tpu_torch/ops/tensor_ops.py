@@ -103,6 +103,10 @@ def lookup_table(ctx, ins, attrs):
 
 @register_op("top_k", grad=None)
 def top_k(ctx, ins, attrs):
-    """The k largest values along the last axis and their int64 indices."""
-    vals, idx = torch.topk(ins["X"][0], int(attrs["k"]), dim=-1)
-    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
+    """The k largest values along the last axis and their int64 indices.
+    Equal values keep the lowest indices, as ``jax.lax.top_k`` does: a
+    stable descending sort, then the first k (``torch.topk`` picks among
+    ties in no fixed order)."""
+    k = int(attrs["k"])
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}

@@ -7,7 +7,7 @@ training step.
 
 Not ported yet (each raises ``NotImplementedError``): ``regularization=``,
 ``global_clip_norm=``, a parameter's ``gradient_clip`` and
-``update_hooks`` (ROADMAP.md Queue A item 3b); the other optimizers come
+``update_hooks`` (ROADMAP.md Queue A item 4); the other optimizers come
 with the slices that train with them (item 6).
 """
 
@@ -21,7 +21,7 @@ from .framework.core import Variable
 from .framework.initializer import ConstantInitializer
 from .framework.layer_helper import LayerHelper
 
-_LATER = "ROADMAP.md Queue A item 3b"
+_LATER = "ROADMAP.md Queue A item 4"
 
 
 class Optimizer:

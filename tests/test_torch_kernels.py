@@ -158,6 +158,33 @@ def test_flash_train_function_takes_plain_versions_on_cpu():
         torch.testing.assert_close(g, r)
 
 
+def _rel_to_max(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def test_split_p_dv_product_keeps_the_f32_rounding_point():
+    """The bf16 K6 kernel forms dV = Pᵀ·dO on the tensor cores as two bf16
+    products, hi = bf16(P) and lo = bf16(P − hi), into one f32 sum; the
+    reference takes P and dO in f32.  Emulated here with f32 products:
+    with dO exactly bf16 each product is exact, so the split agrees with
+    the f32 Pᵀ·dO to about 2⁻¹⁶ of P, while bf16(P) alone is ~2⁻⁹ off."""
+    T, D = 128, 64
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(T, B=1, H=1, D=D, seed=3))
+    do = torch.from_numpy(np.random.RandomState(4).randn(1, 1, T, D)
+                          .astype(np.float32)).to(torch.bfloat16).float()
+    _, lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=True)
+    p, _ = t_fa._probs_and_ds(q, k, v, do, lse, torch.zeros_like(lse),
+                              True, 1.0 / D ** 0.5)
+    p, do = p[0, 0], do[0, 0]
+    ref = p.t() @ do
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    split = hi.t() @ do + lo.t() @ do
+    assert _rel_to_max(split, ref) <= 1e-5
+    assert _rel_to_max(hi.t() @ do, ref) > 1e-4
+
+
 def _paged_fixture(seed=0, N=4, nh=2, dh=16, P=9, ps=8):
     """The ragged fixture of tests/test_serving.py: full pages, a partial
     page, a single token, null-page tails."""
@@ -366,10 +393,18 @@ def test_paged_mq_kernel_matches_plain_on_card(cuda_device, dtype, C, dh,
     assert err <= _CARD_TOL[dtype], err
 
 
-# K4-K6: the bench head dim (64), a padded head dim (40) across a ragged
-# edge, the widest head (128) and the non-causal form
-_TRAIN_SHAPES = [(40, 64, True), (200, 40, True), (77, 128, True),
-                 (100, 64, False), (130, 64, False)]
+# K4-K6 (B, H, T, D, causal): the bench head dim (64), a padded head dim
+# (40) across a ragged edge, the widest head (128) and the non-causal form;
+# the GPT training bench shape; a single short ragged row block; a long
+# ragged non-causal T; D 128 across several tiles; and head dims that are
+# no whole number of 16-byte chunks (36, 100), which the bf16 tensor-core
+# kernels stage element by element
+_TRAIN_SHAPES = [(2, 4, 40, 64, True), (2, 4, 200, 40, True),
+                 (2, 4, 77, 128, True), (2, 4, 100, 64, False),
+                 (2, 4, 130, 64, False), (8, 8, 1024, 64, True),
+                 (1, 1, 37, 40, True), (2, 4, 1000, 64, False),
+                 (2, 4, 512, 128, True), (1, 2, 50, 36, True),
+                 (2, 2, 70, 100, False)]
 
 
 def _rel_err(got, ref):
@@ -380,11 +415,11 @@ def _rel_err(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,D,causal", _TRAIN_SHAPES)
-def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, T, D,
-                                                causal):
+@pytest.mark.parametrize("B,H,T,D,causal", _TRAIN_SHAPES)
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, B, H, T,
+                                                D, causal):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
-               for a in _qkv(T, B=2, H=4, D=D))
+               for a in _qkv(T, B=B, H=H, D=D))
     out, lse = t_fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     ref, ref_lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)
@@ -399,11 +434,11 @@ _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,D,causal", _TRAIN_SHAPES)
-def test_flash_bwd_kernels_match_plain_on_card(cuda_device, dtype, T, D,
-                                               causal):
+@pytest.mark.parametrize("B,H,T,D,causal", _TRAIN_SHAPES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, dtype, B, H, T,
+                                               D, causal):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
-               for a in _qkv(T, B=2, H=4, D=D))
+               for a in _qkv(T, B=B, H=H, D=D))
     do = torch.from_numpy(np.random.RandomState(7).randn(
         *q.shape).astype(np.float32)).to(cuda_device, dtype)
     out, lse = t_fa.flash_attention_fwd_ref(q, k, v, causal=causal)

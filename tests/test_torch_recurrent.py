@@ -682,9 +682,9 @@ def test_nmt_generation_is_not_ported_yet():
 
     model = Seq2SeqAttention(NV, NV, emb_dim=ND, hidden=ND, attn=ND)
     src = tfluid.layers.sequence_data("src", shape=[1], dtype="int64")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         model.generate(src)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         model.generate_composable(src)
 
 

@@ -110,6 +110,11 @@ MODELS = {"gpt": (_gpt, BS, SEQ, "bfloat16"),
 
 def _group(name: str, model: str) -> str:
     n = name.lower()
+    # the tensor-core bodies of bf16 K4 and K6
+    if "flash_fwd_mma_kernel" in n:
+        return "K4 flash_attention_fwd"
+    if "flash_dkv_mma_kernel" in n:
+        return "K6 flash_attention_dkv"
     if "flash_fwd_kernel" in n:
         # the LSE instance is K4 (demangled "..., true>", mangled
         # "Lb1E"); K1, without LSE, must not run in training
