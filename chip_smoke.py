@@ -15,6 +15,11 @@ non-zero and no result line is printed):
    in float32 and bfloat16, at the serving path's shapes, timed beside
    the plain version, the bound of the card and (flash only) PyTorch's
    scaled_dot_product_attention as a yardstick the port never calls;
+   each flash row names its design (f32 ``mma_3xtf32``, bf16 ``mma``,
+   both on the tensor cores) with its ratio to that call and its share of
+   the bound; the f32 bound counts three TF32 products at the tensor
+   cores' TF32 rate, and the phase's log rows (not the ``kernels`` line)
+   give the CUDA cores' bound of one f32 product beside it;
 4. fifo serve: the full-width GPT bench model (vocab 32000, dim 512, 8
    layers, 8 heads, max_len 1024, float32, random weights from a seed)
    behind the fifo ServingEngine (8 slots, page 16) answers 16 requests,
@@ -51,9 +56,10 @@ non-zero and no result line is printed):
     max |value|; at the bench shape each is timed beside its plain
     version, the card's bound and PyTorch's scaled_dot_product_attention
     (forward for K4, its backward, which yields dq, dk and dv together,
-    for K5 and K6), and each bf16 row names its design (bf16 K4 and K6
-    run on the tensor cores) with its ratio to that call and its share
-    of the bound;
+    for K5 and K6), and each row names its design (bf16 K4-K6 ``mma``;
+    f32 K4 ``mma_3xtf32``, bounded as K1 in 3; f32 K5 and K6
+    ``cuda_cores``) with its ratio to that call and its share of the
+    bound;
 11. training parity, float32: ``build_lm_train_program`` at full width
     and depth (vocab 32000, dim 512, 8 layers, 8 heads, Adam 3e-4), batch
     2 x 256, three steps on the card and three on an explicit CPU
@@ -172,6 +178,9 @@ from paddle_tpu_torch.serving import ServingEngine, pages_needed
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA cores: the kernels' FMA loops
               torch.bfloat16: 989e12}
+# the dense TF32 rate of the tensor cores, which the f32 flash forward
+# (K1, f32 K4) runs on in 3xTF32: three TF32 products per f32 product
+PEAK_TF32 = 495e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -255,10 +264,41 @@ def time_ms(fn, iters=20, ahead=True):
                          f"calls ahead of the device")
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the body of each flash kernel by dtype: every bf16 one and the f32
+# forward run on the tensor cores (mma.sync; f32 in 3xTF32), f32 K5 and K6
+# FMA loops on the CUDA cores
+DESIGN = {torch.bfloat16: {"flash_attention": "mma",
+                           "flash_attention_fwd": "mma",
+                           "flash_attention_dq": "mma",
+                           "flash_attention_dkv": "mma"},
+          torch.float32: {"flash_attention": "mma_3xtf32",
+                          "flash_attention_fwd": "mma_3xtf32",
+                          "flash_attention_dq": "cuda_cores",
+                          "flash_attention_dkv": "cuda_cores"}}
+
+
+def flash_bound(name, nbytes, flops, dtype):
+    """(bound_ms, bound_by, extra fields) of a flash kernel, by its body:
+    a 3xTF32 body does three TF32 products per f32 product at the tensor
+    cores' TF32 rate, and its log row keeps the CUDA cores' bound of the
+    one f32 product beside it; every other body is bounded at its dtype's
+    rate."""
+    if DESIGN[dtype][name] != "mma_3xtf32":
+        return (*bound(nbytes, flops, dtype), {})
+    b_ms, b_by = bound(nbytes, 3 * flops, dtype, peak=PEAK_TF32)
+    return b_ms, b_by, {"bound_cuda_cores_ms": bound(nbytes, flops, dtype)[0]}
+
+
+def ratios(row):
+    """The kernel's time over the library call's and the bound's share."""
+    row["vs_library"] = row["kernel_ms"] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
 
 
 def max_err(a, b):
@@ -317,10 +357,13 @@ def flash_phase(dev):
                 itemsize = q.element_size()
                 nbytes = 4 * B * H * T * D * itemsize
                 flops = 2 * D * T * (T + 1) * B * H  # causal QK^T and PV
-                b_ms, b_by = bound(nbytes, flops, dtype)
+                b_ms, b_by, extra = flash_bound("flash_attention", nbytes,
+                                                flops, dtype)
                 row = {
                     "dtype": str(dtype).split(".")[1], "B": B, "H": H,
-                    "T": T, "D": D, "max_abs_err": err,
+                    "T": T, "D": D,
+                    "design": DESIGN[dtype]["flash_attention"], **extra,
+                    "max_abs_err": err,
                     "kernel_ms": time_ms(
                         lambda: fa.flash_attention(q, k, v, causal=True)),
                     "plain_ms": time_ms(
@@ -330,6 +373,7 @@ def flash_phase(dev):
                         lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=True)),
                     "bound_ms": b_ms, "bound_by": b_by}
+                ratios(row)
                 rows.append(row)
                 log("flash_attention", row)
                 if err > TOL[dtype]:
@@ -761,9 +805,6 @@ TRAIN_SHAPES = [  # (B, H, T, D, causal, timed)
     (1, 1, 37, 40, True, False),     # one short ragged tile, D padded to 64
     (64, 16, 128, 64, True, False),  # B*H = 1024 blocks along grid.y
 ]
-# the body of each bf16 kernel of K4-K6: K4 and K6 on the tensor cores
-# (mma.sync); K5, like every f32 instance, FMA loops on the CUDA cores
-DESIGN = {"flash_attention_fwd": "mma", "flash_attention_dkv": "mma"}
 
 
 def rel_err(got, ref):
@@ -816,18 +857,14 @@ def train_kernel_phase(dev):
                     6 * tensor_bytes + 2 * row_bytes, 8 * D * pairs),
             }
             for name, (errs, nbytes, flops) in checks.items():
-                b_ms, b_by = bound(nbytes, flops, dtype)
-                rows[name].append({**shape, **errs, "bound_ms": b_ms,
+                b_ms, b_by, extra = flash_bound(name, nbytes, flops, dtype)
+                rows[name].append({**shape, "design": DESIGN[dtype][name],
+                                   **extra, **errs, "bound_ms": b_ms,
                                    "bound_by": b_by})
-                if dtype == torch.bfloat16:
-                    rows[name][-1]["design"] = DESIGN.get(name, "cuda_cores")
             if timed:
                 timed_rows(q, k, v, do, bwd, causal, rows)
-                if dtype == torch.bfloat16:
-                    for name in rows:
-                        r = rows[name][-1]
-                        r["vs_library"] = r["kernel_ms"] / r["library_ms"]
-                        r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+                for name in rows:
+                    ratios(rows[name][-1])
             for name in rows:
                 log(name, rows[name][-1])
             fwd = rows["flash_attention_fwd"][-1]
@@ -1896,11 +1933,12 @@ def main():
         return {p: c[kernel] for p, c in by_path.items()}
 
     kernels = [
-        summary_row("flash_attention", csrc + "flash_attention.cu",
-                    pallas + "flash_attention.py:213", fl_sum,
-                    errs_by_dtype(fl_rows),
-                    fifo_row["launches"]["flash_attention"],
-                    paths("flash_attention")),
+        {**summary_row("flash_attention", csrc + "flash_attention.cu",
+                       pallas + "flash_attention.py:213", fl_sum,
+                       errs_by_dtype(fl_rows),
+                       fifo_row["launches"]["flash_attention"],
+                       paths("flash_attention")),
+         **{k: fl_sum[k] for k in ("design", "vs_library", "bound_share")}},
         summary_row("paged_attention", csrc + "paged_attention.cu",
                     pallas + "paged_attention.py:177", pg_sum,
                     errs_by_dtype(pg_rows),
@@ -1927,9 +1965,9 @@ def main():
         row.update({k: tr_sum[kname][k]
                     for k in ("design", "vs_library", "bound_share")})
         row["f32_bench_shape"] = {
-            k: tr_rows[kname][0][k] for k in (
-                "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
+            k: v for k, v in tr_rows[kname][0].items() if k in (
+                "design", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "vs_library", "bound_share", "max_abs_err")}
         kernels.append(row)
     # K7-K10: the row of the dtype the main path runs (the LSTM bench in
     # bf16, the NMT bench in f32), the other dtype's numbers beside it

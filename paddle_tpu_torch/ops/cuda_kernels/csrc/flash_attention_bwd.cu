@@ -16,14 +16,17 @@
 // Bound on an H100: causal, dQ is 6*D*T*(T+1)/2 flops per (b, h) (three
 // products over the visible pairs) and dK/dV 8*D*T*(T+1)/2 (four); the
 // traffic is 5 (dQ) or 6 (dK/dV) [T, D] tensors plus the two f32 rows.
-// At the training shapes (T = 1024, D = 64) f32 is bound by the 67 TFLOP/s
-// of the CUDA cores and bf16 by device memory.
+// At the GPT training shape ([8, 8, 1024, 64] causal) both dtypes are
+// bound by operations: f32 by the 67 TFLOP/s of the CUDA cores (dQ 0.192
+// ms), bf16 by the card's 989 TFLOP/s (dQ 12.9 GFLOP, 0.0130 ms; dK/dV
+// 0.0174 ms).  Each kernel has two bodies, one per dtype.
 //
-// Design: the register tiling of K1 (flash_attention.cu).  A block of 128
-// threads owns one 64-row tile; thread (ty, tx) of the 8 x 16 grid holds
-// rows ty*8 .. ty*8+7 and the score columns tx + 16*j (j < 4), so a row's
-// 16 threads sit in one half-warp and the tile that feeds the second
-// product passes through shared memory with a warp barrier only.
+// f32 K5 and K6, on the CUDA cores (flash_dq_kernel, flash_dkv_kernel;
+// their f32 instances beat SDPA's f32 backward).  A block of 128 threads
+// owns one 64-row tile; thread (ty, tx) of an 8 x 16 grid holds rows
+// ty*8 .. ty*8+7 and the score columns tx + 16*j (j < 4), so a row's 16
+// threads sit in one half-warp and the tile that feeds the second product
+// passes through shared memory with a warp barrier only.
 //   K5: one block per (b*h, Q tile).  It stages the Q and dO tiles and its
 //   rows' lse and delta once, then walks the K/V tiles up to the diagonal
 //   (all of them when non-causal), forming S and dP, then dS, and adding
@@ -35,12 +38,9 @@
 //   dV += P^T dO and dK += dS^T Q accumulate into registers and are written
 //   once.  Early K tiles walk the most Q tiles and launch first.
 // Rows and keys past T are masked in the kernels (no lse is read for
-// them), so any T works.  This CUDA-core body serves K5 and f32 K6.
+// them), so any T works.
 //
-// bf16 K6 has its own body on the tensor cores, flash_dkv_mma_kernel.  At
-// the GPT training shape ([8, 8, 1024, 64] causal) its four products are
-// 17.2 GFLOP, 0.0174 ms at the card's 989 TFLOP/s (the bound), against
-// 0.257 ms on the CUDA cores alone.
+// bf16 K6 on the tensor cores, flash_dkv_mma_kernel (mma.sync m16n8k16):
 //   - One block of 4 warps per (b*h, 64-row K tile), 16 K rows a warp; K
 //     and V stay bf16 in shared memory and their A fragments are read by
 //     ldmatrix for each Q tile (registers hold the two D-wide
@@ -60,6 +60,23 @@
 //     the A fragment of dK += dS^T Q (Q through ldmatrix.trans).  P and dS
 //     never touch shared memory.
 //   - dK and dV go from f32 registers to bf16, written once.
+//
+// bf16 K5 on the tensor cores, flash_dq_mma_kernel: K6's design turned
+// around, three products a tile against K6's five.
+//   - One block of 4 warps per (b*h, 64-row Q tile), 16 Q rows a warp.
+//     Late Q tiles launch first.  Q and dO are staged once and their A
+//     fragments (ldmatrix) stay in registers for the whole K walk; each
+//     lane reads lse and delta of its two rows once.
+//   - K and V tiles (bf16, 64 rows) come through a two-stage cp.async
+//     ring, zero past T and past d (element by element when d % 8 != 0);
+//     the walk stops at the diagonal under causal.
+//   - S = Q K^T and dP = dO V^T by mma.sync m16n8k16, K and V through
+//     ldmatrix as row-major [key][d] tiles.  P = exp(S * scale - lse), zero
+//     where masked; masks only on the diagonal and the ragged last K tile.
+//   - dS = P (dP - delta) scale is rounded to bf16 in registers and packed
+//     into the A fragment of dQ += dS K, K read again from its tile with
+//     ldmatrix.trans: dS never touches shared memory.
+//   - dQ goes from f32 registers to bf16 once.
 // mma.cuh holds the fragment layouts and the loaders.
 
 #include <math.h>
@@ -535,6 +552,184 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// -- bf16 K5 on the tensor cores ----------------------------------------------
+
+template <int DP>
+constexpr size_t dq_mma_smem_bytes() {
+  return (size_t)6 * kB * (DP + 8) * sizeof(bf16);  // Q, dO, 2 x (K, V)
+}
+
+// 4 warps of 16 Q rows each (kThreads)
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int t_len, int d, int causal, float scale, int vec) {
+  using namespace mma;
+  constexpr int LD = DP + 8;
+  constexpr int KC = DP / 16;  // 16-wide k-chunks of the head dim
+  constexpr int NO = DP / 8;   // 8-wide n-tiles of dQ
+  constexpr int NS = kB / 8;   // 8-wide n-tiles of a score tile (keys)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kB][LD]
+  bf16* dos = qs + kB * LD;                      // [kB][LD]
+  bf16* ks = dos + kB * LD;                      // [2][kB][LD]
+  bf16* vs = ks + 2 * kB * LD;                   // [2][kB][LD]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // late Q tiles walk the most
+  const int q0 = qt * kB;
+  const size_t base = (size_t)blockIdx.y * t_len * d;
+  const size_t rbase = (size_t)blockIdx.y * t_len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // this warp's first Q row
+  const float scale_log2 = scale * kLog2e;
+  const int n_kt_all = (t_len + kB - 1) / kB;
+  // kB rows in both tiles: the diagonal tile of Q tile qt is K tile qt, the
+  // walk's last
+  const int n_kt = causal ? min(n_kt_all, qt + 1) : n_kt_all;
+
+  load_tile<kB, DP, LD, kThreads>(qs, q + base, q0, t_len, d, vec);
+  load_tile<kB, DP, LD, kThreads>(dos, dout + base, q0, t_len, d, vec);
+  load_tile<kB, DP, LD, kThreads>(ks, k + base, 0, t_len, d, vec);
+  load_tile<kB, DP, LD, kThreads>(vs, v + base, 0, t_len, d, vec);
+  cp_async_commit();
+
+  // rows g and g + 8: lse * log2(e) and delta, 0 past T
+  float lsl[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    lsl[h] = r < t_len ? lse[rbase + r] * kLog2e : 0.f;
+    dl[h] = r < t_len ? delta[rbase + r] : 0.f;
+  }
+
+  uint32_t qf[KC][4], df[KC][4];  // Q's and dO's A fragments, held
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; tile kt - 1's buffers are free
+    if (kt == 0) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const int off = (warp * 16 + a_row(lane)) * LD + c * 16 + a_col(lane);
+        ldsm_x4(qf[c], qs + off);
+        ldsm_x4(df[c], dos + off);
+      }
+    }
+    if (kt + 1 < n_kt) {
+      const int nb = (kt + 1) & 1;
+      load_tile<kB, DP, LD, kThreads>(ks + nb * kB * LD, k + base,
+                                      (kt + 1) * kB, t_len, d, vec);
+      load_tile<kB, DP, LD, kThreads>(vs + nb * kB * LD, v + base,
+                                      (kt + 1) * kB, t_len, d, vec);
+    }
+    cp_async_commit();
+    const int k0 = kt * kB;
+    const bf16* kb = ks + (kt & 1) * kB * LD;
+    const bf16* vb = vs + (kt & 1) * kB * LD;
+
+    // S = Q K^T: rows this warp's queries, columns the tile's keys
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, kb + (np * 16 + b_row(lane)) * LD + c * 16 + b_col(lane));
+        mma_bf16(s[2 * np], qf[c], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[c], b[2], b[3]);
+      }
+
+    // P = exp(S scale - lse), zero where masked (diagonal and ragged tiles)
+    const bool masked = (causal && kt == qt) || k0 + kB > t_len;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], scale_log2, -lsl[e >> 1]));
+        if (masked) {
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = row0 + g + 8 * (e >> 1);
+          if (kj >= t_len || (causal && kj > qi)) p = 0.f;
+        }
+        s[n][e] = p;
+      }
+
+    // dP = dO V^T
+    float dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, vb + (np * 16 + b_row(lane)) * LD + c * 16 + b_col(lane));
+        mma_bf16(dp[2 * np], df[c], b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], df[c], b[2], b[3]);
+      }
+
+    // dS = P (dP - delta) scale, in place of dP
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
+
+    // dQ += bf16(dS) K, K as B from its [key][d] tile by ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      uint32_t a[4];
+      acc_to_a(a, dp, j);
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, kb + (j * 16 + bt_row(lane)) * LD + np * 16 + bt_col(lane));
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  store_acc(dq + base, acc, row0, t_len, d, 1.f, 1.f, vec);
+}
+
+template <int DP>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int t_len,
+                          int d, int causal, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = dq_mma_smem_bytes<DP>();
+  auto kern = flash_dq_mma_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  using mma::aligned16;
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout) && aligned16(dq);
+  const dim3 grid((t_len + kB - 1) / kB, bh);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), t_len, d, causal, scale, vec);
+  return cudaGetLastError();
+}
+
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(
@@ -619,8 +814,10 @@ extern "C" int ptt_flash_attention_dq(const void* q, const void* k,
   switch (dtype) {
     case ptt::kFloat32:
       return (int)ptt::dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, t_len, d, causal, scale, s);
-    case ptt::kBFloat16:
-      return (int)ptt::dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, t_len, d, causal, scale, s);
+    case ptt::kBFloat16:  // the tensor-core body
+      if (d <= 64)
+        return (int)ptt::launch_dq_mma<64>(q, k, v, dout, lse, delta, dq, bh, t_len, d, causal, scale, s);
+      return (int)ptt::launch_dq_mma<128>(q, k, v, dout, lse, delta, dq, bh, t_len, d, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -328,11 +328,14 @@ _CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,causal", [(40, 64, True), (128, 64, True),
                                         (200, 40, True), (77, 128, True),
-                                        (100, 64, False)])
+                                        (100, 64, False), (300, 128, True),
+                                        (90, 38, True), (150, 100, False)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, T, D, causal):
     """The serving shapes (D 64), a head dim padded inside the kernel
-    (40), the widest head (128, two output column groups) and the
-    non-causal form."""
+    (40), the widest head (128) in one and in several K tiles, the
+    non-causal form, and head dims that are no whole number of 16-byte
+    chunks (38 in both dtypes, 100 in bf16), which the kernels stage
+    element by element."""
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in _qkv(T, B=2, H=4, D=D))
     out = t_fa.flash_attention(q, k, v, causal=causal)
@@ -396,15 +399,16 @@ def test_paged_mq_kernel_matches_plain_on_card(cuda_device, dtype, C, dh,
 # K4-K6 (B, H, T, D, causal): the bench head dim (64), a padded head dim
 # (40) across a ragged edge, the widest head (128) and the non-causal form;
 # the GPT training bench shape; a single short ragged row block; a long
-# ragged non-causal T; D 128 across several tiles; and head dims that are
-# no whole number of 16-byte chunks (36, 100), which the bf16 tensor-core
-# kernels stage element by element
+# ragged non-causal T; D 128 across several tiles, also with a ragged T;
+# and head dims that are no whole number of 16-byte chunks (36, 100 and,
+# for f32 too, 38), which the tensor-core kernels stage element by element
 _TRAIN_SHAPES = [(2, 4, 40, 64, True), (2, 4, 200, 40, True),
                  (2, 4, 77, 128, True), (2, 4, 100, 64, False),
                  (2, 4, 130, 64, False), (8, 8, 1024, 64, True),
                  (1, 1, 37, 40, True), (2, 4, 1000, 64, False),
                  (2, 4, 512, 128, True), (1, 2, 50, 36, True),
-                 (2, 2, 70, 100, False)]
+                 (2, 2, 70, 100, False), (1, 2, 300, 128, True),
+                 (2, 2, 190, 100, True), (1, 2, 90, 38, True)]
 
 
 def _rel_err(got, ref):

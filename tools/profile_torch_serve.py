@@ -52,7 +52,9 @@ ENGINE_KW = {"fifo": {},
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    # the forward's bodies: flash_fwd_tf32_kernel (f32, the serve's
+    # dtype) and flash_fwd_mma_kernel (bf16)
+    if "flash_fwd_tf32_kernel" in n or "flash_fwd_mma_kernel" in n:
         return "flash_attention (K1)"
     if "paged_attn_mq_kernel" in n:
         return "paged_attention_mq (K3)"

@@ -110,19 +110,17 @@ MODELS = {"gpt": (_gpt, BS, SEQ, "bfloat16"),
 
 def _group(name: str, model: str) -> str:
     n = name.lower()
-    # the tensor-core bodies of bf16 K4 and K6
-    if "flash_fwd_mma_kernel" in n:
-        return "K4 flash_attention_fwd"
-    if "flash_dkv_mma_kernel" in n:
-        return "K6 flash_attention_dkv"
-    if "flash_fwd_kernel" in n:
-        # the LSE instance is K4 (demangled "..., true>", mangled
-        # "Lb1E"); K1, without LSE, must not run in training
+    # the forward's two bodies, flash_fwd_mma_kernel (bf16) and
+    # flash_fwd_tf32_kernel (f32): the LSE instance is K4 (demangled
+    # "..., true>", mangled "Lb1E"); K1, without LSE, must not run in
+    # training
+    if "flash_fwd_mma_kernel" in n or "flash_fwd_tf32_kernel" in n:
         lse = ", true>" in n or "lb1e" in n
         return "K4 flash_attention_fwd" if lse else "K1"
-    if "flash_dq_kernel" in n:
+    # dQ and dK/dV: the tensor-core bodies (bf16) and the CUDA-core ones
+    if "flash_dq_mma_kernel" in n or "flash_dq_kernel" in n:
         return "K5 flash_attention_dq"
-    if "flash_dkv_kernel" in n:
+    if "flash_dkv_mma_kernel" in n or "flash_dkv_kernel" in n:
         return "K6 flash_attention_dkv"
     if "lstm_fwd_step" in n:
         return "K7 lstm_forward"
