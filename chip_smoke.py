@@ -108,12 +108,16 @@ non-zero and no result line is printed):
     ResNet-18's stride-2 and residual 3x3 shapes, and an odd-H stride-2
     3x3; outputs and gradients relative to each tensor's max |value|, the
     f32 kernels against the plain version in float64 (inputs clear of the
-    ReLU's kink), the bf16 ones against it in bf16; K13 and K14 timed at
-    every 3x3 shape; at stage 2's 1x1 with a residual and its 3x3 each
-    kernel is timed beside its plain version (the unfused ATen, cuDNN and
-    torch.matmul composition) and the card's bound; then the ``top_k`` op
-    that feeds ResNet's accuracy, on rows full of ties (all zeros; 128 x
-    1000 integers in [0, 4)), float32 and bfloat16: its indices on the
+    ReLU's kink), the bf16 ones against it in bf16, with each bf16
+    output's distance to the float64 function logged beside the plain
+    version's; each row names its body (bf16 K12 and K15 ``mma``, the rest
+    ``cuda_cores``); K13 and K14 timed at every 3x3 shape, K12 and K15 in
+    bf16 at every ResNet-50 shape; at stage 2's 1x1 with a residual and its
+    3x3 each kernel is timed beside its plain version (the unfused ATen,
+    cuDNN and torch.matmul composition) and the card's bound; then the
+    ``top_k`` op that feeds ResNet's accuracy, on rows full of ties (all
+    zeros; 128 x 1000 integers in [0, 4)), float32 and bfloat16: its
+    indices on the
     card equal a stable descending sort's (the lowest index first among
     equal values, as ``jax.lax.top_k``) and the CPU's;
 19. ResNet-50 and ResNet-18 parity, float32: the fused NHWC programs of
@@ -281,6 +285,14 @@ DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                           "flash_attention_fwd": "mma_3xtf32",
                           "flash_attention_dq": "cuda_cores",
                           "flash_attention_dkv": "cuda_cores"}}
+# K11-K15: the bf16 backward kernels (K12, K15) run on the tensor cores
+# (mma.sync, csrc/bn_mma.cuh), the forward ones and every f32 instance
+# on the CUDA cores (csrc/bn_gemm.cuh)
+BN_KERNELS = ("bn_matmul_fwd", "bn_matmul_bwd", "bn_conv3x3_fwd",
+              "bn_conv3x3_fwd_v2", "bn_conv3x3_bwd")
+DESIGN[torch.bfloat16].update(
+    {k: "mma" if k.endswith("_bwd") else "cuda_cores" for k in BN_KERNELS})
+DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "cuda_cores"))
 
 
 def flash_bound(name, nbytes, flops, dtype):
@@ -1469,6 +1481,18 @@ def bn_double(a):
             for k, v in a.items()}
 
 
+BN_OUTPUTS = {False: ("out",),
+              True: ("dx", "dgamma", "dbeta", "dmean", "dvar", "dw", "dr")}
+
+
+def bn_f64_errs(names, got, plain, want):
+    """{output: {"kernel": d, "plain": d}}: each bf16 output's and its
+    plain version's distance to the function in float64 from the same
+    inputs (max |error| over max |value|)."""
+    return {n: {"kernel": rel_err(g, w), "plain": rel_err(p, w)}
+            for n, g, p, w in zip(names, got, plain, want)}
+
+
 def bn_kernel_phase(dev):
     """K11-K15 against their plain versions, float32 and bfloat16, at
     every distinct fused shape of ResNet-50's bench program (batch 128,
@@ -1477,20 +1501,22 @@ def bn_kernel_phase(dev):
     max |value|, by TOL.  The f32 kernels are held to the plain version in
     float64 (so neither cuDNN's algorithm choice nor its summation order
     moves the reading; inputs clear of the ReLU's kink,
-    ``bn_clear_of_kinks``), the bf16 ones to the plain version in bf16.  K13
-    and K14 are timed at every 3x3 shape; at stage 2's 1x1 with a residual
-    and stage 2's 3x3 each kernel is timed beside its plain version (in
-    its own dtype) and the bound."""
+    ``bn_clear_of_kinks``), the bf16 ones to the plain version in bf16,
+    and each bf16 output's distance to the float64 function from the same
+    inputs is logged beside the plain version's (``f64_err``).  K13 and K14
+    are timed at every 3x3 shape, K12 and K15 in bf16 at every ResNet-50
+    shape; at stage 2's 1x1 with a residual and stage 2's 3x3 each kernel
+    is timed beside its plain version (in its own dtype) and the bound.
+    Each row names its kernel's body by dtype (``DESIGN``)."""
     shapes = fused_shapes(50, resnet_bench.BS, resnet_bench.IMAGE)
+    r50 = set(shapes)
     shapes += [s for s in fused_shapes(18, resnet_bench.BS,
                                        resnet_bench.IMAGE)
                if s[0] == "3x3" and (s[6] == 2 or s[7]) and s not in shapes]
     shapes += BN_EXTRA
     names = {"1x1": ("bn_matmul_fwd", "bn_matmul_bwd"),
              "3x3": ("bn_conv3x3_fwd", "bn_conv3x3_bwd")}
-    rows = {k: [] for k in ("bn_matmul_fwd", "bn_matmul_bwd",
-                            "bn_conv3x3_fwd", "bn_conv3x3_fwd_v2",
-                            "bn_conv3x3_bwd")}
+    rows = {k: [] for k in BN_KERNELS}
     for dtype in DTYPES:
         for shape in shapes:
             kind, N, H, W, K, O, stride, has_r = shape
@@ -1505,6 +1531,14 @@ def bn_kernel_phase(dev):
                                  else a, stride)
             ref = ref_calls[1]()
             ref_g = ref_calls[3]()
+            f64 = {}
+            if dtype == torch.bfloat16:
+                x64 = bn_calls(kind, bn_double(a), stride)
+                f64 = {False: bn_f64_errs(BN_OUTPUTS[False], [out], [ref],
+                                          [x64[1]()]),
+                       True: bn_f64_errs(BN_OUTPUTS[True], grads, ref_g,
+                                         x64[3]())}
+                del x64
             desc = {"dtype": str(dtype).split(".")[1], "kind": kind, "N": N,
                     "H": H, "W": W, "K": K, "O": O, "stride": stride,
                     "residual": has_r,
@@ -1520,7 +1554,7 @@ def bn_kernel_phase(dev):
             timed = (shape == BN_TIMED_1X1 or shape == BN_TIMED_3X3)
             for name, kern, got, want, back in checks:
                 b_ms, b_by = bn_bound(kind, a, O, back, dtype)
-                row = {**desc,
+                row = {**desc, "design": DESIGN[dtype][name],
                        "max_rel_err": max(rel_err(g, r)
                                           for g, r in zip(got, want)),
                        "max_abs_err": max(max_err(g, r)
@@ -1529,7 +1563,10 @@ def bn_kernel_phase(dev):
                        "library_ms": None}
                 if name == "bn_conv3x3_fwd_v2":
                     row["block_o"] = bnc._v2_block_o(O)
-                if timed or (kind == "3x3" and not back):
+                elif f64:
+                    row["f64_err"] = f64[back]
+                if timed or (kind == "3x3" and not back) or (
+                        back and dtype == torch.bfloat16 and shape in r50):
                     row["kernel_ms"] = time_ms(kern, iters=10)
                 if timed:
                     row["plain_ms"] = time_ms(
@@ -2011,11 +2048,12 @@ def main():
                           run["launches"][kname], paths(kname))
         row["max_err_by_dtype_is"] = err_key
         row["library_ms_is"] = BN_NO_LIBRARY
+        row["design"] = main_row["design"]
         row["shape"] = {k: main_row[k] for k in (
             "dtype", "kind", "N", "H", "W", "K", "O", "stride", "residual")}
         other = timed_row(bn_rows[kname], torch.float32)
         row["other_dtype_bench_shape"] = {
-            k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",
+            k: other[k] for k in ("dtype", "design", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "max_abs_err")}
         if kname == "bn_conv3x3_fwd_v2":
             row["v1_vs_v2_by_shape"] = v1_v2

@@ -178,13 +178,17 @@ def bn_conv3x3_bwd(x, gamma, beta, mean, var, w_hwio, do, r=None,
     dgb = new(2, K, dtype=torch.float32, device=dev)
     if N * H * W and O:
         tiles_m = cdiv(N * H * W, 64)
-        s, chunk = splits(9 * cdiv(K, 64) * cdiv(O, 64), N * Ho * Wo)
+        s, chunk = splits(9 * cdiv(K, 64) * cdiv(O, 64), N * Ho * Wo,
+                          x.dtype)
         dw_part = torch.empty(9, s, K, O, dtype=torch.float32, device=dev)
         gb_part = torch.empty(tiles_m, 2, K, dtype=torch.float32, device=dev)
+        # the bf16 kernel's normalized, padded activation, read by its dW
+        apad = torch.empty(N, H + 2, W + 2, K, dtype=x.dtype, device=dev) \
+            if x.dtype == torch.bfloat16 else None
         _common.launch("ptt_bn_conv3x3_bwd", x.contiguous(),
                        None if r is None else r.contiguous(), prm, prm4,
                        w_hwio.contiguous(), do.to(w_hwio.dtype).contiguous(),
-                       dx, dr, dw, dw_part, gb_part, dgb, N, H, W, K, O,
+                       dx, dr, dw, dw_part, gb_part, dgb, apad, N, H, W, K, O,
                        stride, s, chunk, code, _common.dtype_code(x),
                        device=dev)
         bn_conv3x3_bwd.launches += 1

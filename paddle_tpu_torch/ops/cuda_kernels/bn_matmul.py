@@ -79,13 +79,16 @@ def closed_forms(inv, g, dgamma, dbeta):
     return -inv * g * dbeta, -0.5 * inv * inv * g * dgamma
 
 
-def splits(tiles: int, red: int):
+def splits(tiles: int, red: int, dtype=torch.float32):
     """(splits, chunk) of a reduction of length `red` for a weight-gradient
     product of `tiles` output tiles: enough splits for about two blocks per
-    SM of the card (132), each at least 256 long, the chunk a multiple of
-    16.  Depends on the shapes only, so reruns sum in the same order."""
-    s = max(1, min(cdiv(264, tiles), cdiv(red, 256)))
-    chunk = cdiv(cdiv(red, s), 16) * 16
+    SM of the card (132) for the CUDA-core product's 256 threads (f32), or
+    eight for the tensor-core product's 128 (bf16), each at least 256 long,
+    the chunk a multiple of the products' reduction step (16; 64 for
+    bf16).  Depends on the shapes only, so reruns sum in the same order."""
+    per_sm, step = (8, 64) if dtype == torch.bfloat16 else (2, 16)
+    s = max(1, min(cdiv(132 * per_sm, tiles), cdiv(red, 256)))
+    chunk = cdiv(cdiv(red, s), step) * step
     return cdiv(red, chunk), chunk
 
 
@@ -202,7 +205,7 @@ def bn_matmul_bwd(x, gamma, beta, mean, var, w, do, r=None, act="relu",
     dw = new(K, N, dtype=w.dtype, device=dev)
     dgb = new(2, K, dtype=torch.float32, device=dev)
     if M and N:
-        s, chunk = splits(cdiv(K, 64) * cdiv(N, 64), M)
+        s, chunk = splits(cdiv(K, 64) * cdiv(N, 64), M, x.dtype)
         dw_part = torch.empty(s, K, N, dtype=torch.float32, device=dev)
         gb_part = torch.empty(cdiv(M, 64), 2, K, dtype=torch.float32,
                               device=dev)

@@ -34,14 +34,32 @@
 //
 // Bound on an H100: 18 M_out K O flops forward and 36 backward, far above
 // the bytes at ResNet's shapes: compute-bound on paper at the bf16
-// tensor-core rate.  This first design sums on the CUDA cores in f32 for
-// both types (see bn_gemm.cuh); what it keeps from the TPU design is that
-// no normalized activation, tap copy or dilated gradient is ever written
-// to device memory (K14 writes its one padded copy by design).
+// tensor-core rate.  K13, K14 and the f32 K15 sum on the CUDA cores in f32
+// (see bn_gemm.cuh); what they keep from the TPU design is that no
+// normalized activation, tap copy or dilated gradient is ever written to
+// device memory (K14 writes its one padded copy by design).
+//
+// K15 in bf16 runs its products on the tensor cores (bn_mma.cuh), in five
+// launches: (1) a prep pass writes the padded, normalized activation apad
+// [N, H+2, W+2, K] in bf16, the prologue evaluated once per element of X
+// (zero on the border: padding after the prologue); (2) dA, an implicit
+// GEMM whose A rows are input pixels: each (pixel, tap) is a contiguous
+// run of O channels of dO at ((h+1-ky)/s, (w+1-kx)/s) or zero (stride 2:
+// the parity test), staged 16 bytes a chunk by cp.async with zero fill,
+// the pixel decoded once per block and the tap's source once per stage;
+// B is W[ky,kx] as a [k][o] tile; the epilogue is K12's (bn_mma.cuh
+// da_epilogue); (3) dW[ky,kx] = apad(tap)^T dO per (K tile, O tile, tap x
+// M split): both operands plain 16-byte rows of apad and dO, an output
+// pixel decoded once per staged chunk by multiplies (bn_mma.cuh FastDiv);
+// (4), (5) the two fixed-order sums
+// as above (dgamma and dbeta in f64).  The whole prologue's cost is one
+// pass over X, not one per tap and O tile, and the one extra tensor is
+// apad (read by dW nine times over, once per tap, mostly from L2).
 
 #include <algorithm>
 
 #include "bn_gemm.cuh"
+#include "bn_mma.cuh"
 
 namespace ptt {
 namespace {
@@ -288,6 +306,209 @@ bnc_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
                 g.O);
 }
 
+// K15 in bf16 on the tensor cores (bn_mma.cuh).
+using bnmma::TileRM;
+using bnmma::TileRR;
+using bf16 = __nv_bfloat16;
+
+// K15 bf16 (1): apad[n, hp, wp, k] = prologue(X[n, hp-1, wp-1, k]) inside,
+// 0 on the border, in bf16.  grid: N * (H + 2), one padded row a block; a
+// thread takes 8-channel chunks of the row (16 bytes when VEC).
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+bnc_bwd_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
+             const float* __restrict__ prm, bf16* __restrict__ apad, Geom g,
+             int act) {
+  const int hp = blockIdx.x % (g.H + 2), n = blockIdx.x / (g.H + 2);
+  const int kc = (g.K + 7) / 8, wpad = g.W + 2;
+  const bool row_in = hp >= 1 && hp <= g.H;
+  bf16* out = apad + (size_t)blockIdx.x * wpad * g.K;
+  for (int e = threadIdx.x; e < wpad * kc; e += blockDim.x) {
+    const int wp = e / kc, k0 = (e - wp * kc) * 8;
+    const bool in = row_in && wp >= 1 && wp <= g.W;
+    const size_t off =
+        ((size_t)(n * g.H + hp - 1) * g.W + wp - 1) * g.K + k0;
+    uint4 xr = make_uint4(0, 0, 0, 0), rr = xr, orr;
+    bf16* xv = reinterpret_cast<bf16*>(&xr);
+    bf16* rv = reinterpret_cast<bf16*>(&rr);
+    bf16* ov = reinterpret_cast<bf16*>(&orr);
+    if (in) {
+      if constexpr (VEC) {
+        xr = *reinterpret_cast<const uint4*>(x + off);
+        if (res != nullptr) rr = *reinterpret_cast<const uint4*>(res + off);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (k0 + u < g.K) {
+            xv[u] = x[off + u];
+            if (res != nullptr) rv[u] = res[off + u];
+          }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float v = 0.f;
+      if (in && k0 + u < g.K) {
+        const Chan c = chan(prm, g.K, k0 + u);
+        v = pre_act(to_f(xv[u]), c.mu, c.gi, c.b);
+        if (res != nullptr) v = __fadd_rn(v, to_f(rv[u]));
+        if (act == 1) v = fmaxf(v, 0.f);
+      }
+      ov[u] = __float2bfloat16(v);
+    }
+    bf16* o = out + (size_t)wp * g.K + k0;
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(o) = orr;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < g.K) o[u] = ov[u];
+    }
+  }
+}
+
+// K15 bf16 (2): A rows are input pixels (this thread's four decoded
+// once), the reduction (tap, o) in steps of 64 channels o within each tap
+// through a ring of two; B = W[tap] [K][O] rows k.
+template <bool VEC>
+struct ConvDA {
+  static constexpr bool kPost = false;
+  static constexpr int kBK = 64, kStages = 2, kRows = kBK / 16;
+  TileRR<kBK>* sa;
+  TileRR<kBK>* sb;
+  const bf16* dout;
+  const bf16* w;
+  Geom g;
+  int col0, osteps;
+  int pn[kRows], ph[kRows], pw[kRows];
+  bool pok[kRows];
+  __device__ void stage(int buf, int step) const {
+    const int tap = step / osteps;
+    const int o0 = (step - tap * osteps) * kBK;
+    const int dy = tap / 3, dxx = tap - 3 * dy;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+      int ho = ph[i] + 1 - dy, wo = pw[i] + 1 - dxx;
+      bool v = pok[i] && ho >= 0 && wo >= 0;
+      if (g.s == 2) {
+        v = v && !((ho | wo) & 1);
+        ho >>= 1;
+        wo >>= 1;
+      }
+      v = v && ho < g.Ho && wo < g.Wo;
+      const int na = v ? bnmma::chunk_len(o0 + c, g.O) : 0;
+      bnmma::stage_chunk<VEC>(
+          &sa[buf].v[r][c],
+          na ? dout + ((size_t)(pn[i] * g.Ho + ho) * g.Wo + wo) * g.O + o0 + c
+             : dout,
+          na);
+      const int k = col0 + r;
+      const int nb = k < g.K ? bnmma::chunk_len(o0 + c, g.O) : 0;
+      bnmma::stage_chunk<VEC>(
+          &sb[buf].v[r][c],
+          nb ? w + ((size_t)tap * g.K + k) * g.O + o0 + c : w, nb);
+    }
+  }
+  __device__ const TileRR<kBK>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRR<kBK>& b(int buf) const { return sb[buf]; }
+};
+
+// K15 bf16 (3): A^T rows are output pixels m of one tap, read from apad at
+// (n, ho*s + ky, wo*s + kx), B = dO [m][o]; the reduction m in [r_begin,
+// r_end), 64 a step through a ring of two.
+template <bool VEC>
+struct ConvDW {
+  static constexpr bool kPost = false;
+  static constexpr int kBK = 64, kStages = 2;
+  TileRM<kBK>* sa;
+  TileRM<kBK>* sb;
+  const bf16* apad;
+  const bf16* dout;
+  Geom g;
+  bnmma::FastDiv div_wo, div_ho;
+  int dy, dxx, row0, col0, r_begin, r_end;
+  __device__ void stage(int buf, int step) const {
+    const int m0 = r_begin + step * kBK;
+#pragma unroll
+    for (int i = 0; i < kBK / 16; ++i) {
+      const int r = bnmma::rm_row(i), c = bnmma::rm_col(i);
+      const int m = m0 + r;
+      const bool ok = m < r_end;
+      int na = 0, nd = 0;
+      const bf16* pa = apad;
+      const bf16* pd = dout;
+      if (ok) {
+        const int t = div_wo.div(m), wo = m - t * g.Wo;
+        const int n = div_ho.div(t), ho = t - n * g.Ho;
+        na = bnmma::chunk_len(row0 + c, g.K);
+        pa = apad + ((size_t)(n * (g.H + 2) + ho * g.s + dy) * (g.W + 2) +
+                     wo * g.s + dxx) * g.K + row0 + c;
+        nd = bnmma::chunk_len(col0 + c, g.O);
+        pd = dout + (size_t)m * g.O + col0 + c;
+      }
+      bnmma::stage_chunk<VEC>(&sa[buf].v[r][c], na ? pa : apad, na);
+      bnmma::stage_chunk<VEC>(&sb[buf].v[r][c], nd ? pd : dout, nd);
+    }
+  }
+  __device__ const TileRM<kBK>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRM<kBK>& b(int buf) const { return sb[buf]; }
+};
+
+// K15 bf16 (2). grid: ceil(N*H*W / 64) * ceil(K / 64), block b = pixel
+// tile b / tiles_k, K tile b % tiles_k.
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnc_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
+               const float* __restrict__ prm4, const bf16* __restrict__ w,
+               const bf16* __restrict__ dout, bf16* __restrict__ dx,
+               bf16* __restrict__ dr, float* __restrict__ gb_part, Geom g,
+               int act) {
+  using Op = ConvDA<VEC>;
+  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages> sm;
+  const int rows = g.N * g.H * g.W;
+  const int tiles_k = (g.K + bnmma::kBN - 1) / bnmma::kBN;
+  const int mt = blockIdx.x / tiles_k, kt = blockIdx.x - mt * tiles_k;
+  const int row0 = mt * bnmma::kBM, col0 = kt * bnmma::kBN;
+  const int osteps = (g.O + Op::kBK - 1) / Op::kBK;
+  Op op{sm.ring.a, sm.ring.b, dout, w, g, col0, osteps, {}, {}, {}, {}};
+#pragma unroll
+  for (int i = 0; i < Op::kRows; ++i) {
+    const int p = row0 + bnmma::rr_row<Op::kBK>(i);
+    const int wq = p % g.W, t = p / g.W;
+    op.pn[i] = t / g.H;
+    op.ph[i] = t % g.H;
+    op.pw[i] = wq;
+    op.pok[i] = p < rows;
+  }
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, 9 * osteps);
+  bnmma::da_epilogue<VEC>(acc, x, res, prm4, dx, dr, gb_part, mt, row0,
+                          rows, col0, g.K, act, sm);
+}
+
+// K15 bf16 (3). grid: (ceil(K / 64), ceil(O / 64), 9 * splits), z = tap *
+// splits + split, as bnc_bwd_dw.
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnc_bwd_dw_mma(const bf16* __restrict__ apad, const bf16* __restrict__ dout,
+               float* __restrict__ part, Geom g, bnmma::FastDiv div_wo,
+               bnmma::FastDiv div_ho, int splits, int chunk) {
+  using Op = ConvDW<VEC>;
+  __shared__ __align__(16) TileRM<Op::kBK> sa[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK> sb[Op::kStages];
+  const int z = blockIdx.z, tap = z / splits, sp = z - tap * splits;
+  const int m_out = g.N * g.Ho * g.Wo;
+  const int r_begin = sp * chunk, r_end = min(m_out, r_begin + chunk);
+  const int row0 = blockIdx.x * bnmma::kBM, col0 = blockIdx.y * bnmma::kBN;
+  Op op{sa, sb, apad, dout, g, div_wo, div_ho, tap / 3, tap % 3, row0,
+        col0, r_begin, r_end};
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, (r_end - r_begin + Op::kBK - 1) / Op::kBK);
+  bnmma::store_part<VEC>(acc, part + (size_t)z * g.K * g.O, row0, g.K, col0,
+                         g.O);
+}
+
 Geom geom(int N, int H, int W, int K, int O, int s) {
   return {N, H, W, K, O, (H - 1) / s + 1, (W - 1) / s + 1, s};
 }
@@ -347,6 +568,39 @@ cudaError_t bwd(const void* x, const void* r, const void* prm,
   return launch_sum_splits<float>(gb_part, dgb, 1, tiles_m, 2 * g.K, stream);
 }
 
+template <bool VEC>
+cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
+                    const void* prm4, const void* w, const void* dout,
+                    void* dx, void* dr, void* dw, float* dw_part,
+                    float* gb_part, float* dgb, void* apad, Geom g,
+                    int splits, int chunk, int act, cudaStream_t stream) {
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* rt = static_cast<const bf16*>(r);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  bf16* ap = static_cast<bf16*>(apad);
+  const int tiles_m = ceil_div(g.N * g.H * g.W, bnmma::kBM);
+  const long long blocks = (long long)tiles_m * ceil_div(g.K, bnmma::kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bnc_bwd_da_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm4), static_cast<const bf16*>(w),
+      dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, g, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bnc_bwd_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm), ap, g, act);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bnc_bwd_dw_mma<VEC><<<dim3(ceil_div(g.K, bnmma::kBM),
+                             ceil_div(g.O, bnmma::kBN), 9 * splits),
+                        bnmma::kThreads, 0, stream>>>(
+      ap, dot, dw_part, g, bnmma::fast_div(g.Wo), bnmma::fast_div(g.Ho),
+      splits, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_sum_splits<bf16>(dw_part, static_cast<bf16*>(dw), 9, splits,
+                                g.K * g.O, stream);
+  if (err != cudaSuccess) return err;
+  return bnmma::launch_sum_tiles_f64(gb_part, dgb, tiles_m, 2 * g.K, stream);
+}
+
 }  // namespace
 }  // namespace ptt
 
@@ -383,12 +637,14 @@ extern "C" int ptt_bn_conv3x3_fwd_v2(const void* x, const void* r,
 // As the forward, plus prm4 [4, K] f32 (mean, inv, gamma, beta), dO [N,
 // Ho, Wo, O]; writes dx, dr (when r is given) [N, H, W, K], dw [3, 3, K, O]
 // in w's type and dgb [2, K] f32 (dgamma, dbeta), using dw_part [9,
-// splits, K, O] and gb_part [ceil(N*H*W / 64), 2, K] f32 scratch.
+// splits, K, O] and gb_part [ceil(N*H*W / 64), 2, K] f32 scratch, and for
+// bf16 apad [N, H+2, W+2, K] bf16 scratch (null for f32).
 extern "C" int ptt_bn_conv3x3_bwd(const void* x, const void* r,
                                   const void* prm, const void* prm4,
                                   const void* w, const void* dout, void* dx,
                                   void* dr, void* dw, void* dw_part,
-                                  void* gb_part, void* dgb, int N, int H,
+                                  void* gb_part, void* dgb, void* apad,
+                                  int N, int H,
                                   int W, int K, int O, int stride,
                                   int splits, int chunk, int act, int dtype,
                                   void* stream) {
@@ -397,9 +653,18 @@ extern "C" int ptt_bn_conv3x3_bwd(const void* x, const void* r,
   auto* dwp = static_cast<float*>(dw_part);
   auto* gbp = static_cast<float*>(gb_part);
   auto* gb = static_cast<float*>(dgb);
-  if (dtype == ptt::kBFloat16)
-    return ptt::bwd<__nv_bfloat16>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
-                                   gbp, gb, g, splits, chunk, act, s);
+  if (dtype == ptt::kBFloat16) {
+    // 16-byte staging when every row is whole 16-byte chunks
+    const bool vec = K % 8 == 0 && O % 8 == 0 && ptt::mma::aligned16(x) &&
+                     (r == nullptr || ptt::mma::aligned16(r)) &&
+                     ptt::mma::aligned16(w) && ptt::mma::aligned16(dout) &&
+                     ptt::mma::aligned16(apad);
+    if (vec)
+      return ptt::bwd_mma<true>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                                gbp, gb, apad, g, splits, chunk, act, s);
+    return ptt::bwd_mma<false>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                               gbp, gb, apad, g, splits, chunk, act, s);
+  }
   return ptt::bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp, gbp, gb,
                          g, splits, chunk, act, s);
 }

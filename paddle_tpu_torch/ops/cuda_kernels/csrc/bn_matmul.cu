@@ -19,7 +19,8 @@
 //       the prologue as it is loaded, each split's f32 sums to its own
 //       slice of a partial buffer;
 //   (c) the splits summed in a fixed order, cast once to W's type;
-//   (d) the M tiles' column sums summed to dgamma, dbeta (f32).
+//   (d) the M tiles' column sums summed to dgamma, dbeta (f32; the bf16
+//       instance sums them in f64, bn_mma.cuh sum_tiles_f64).
 // The TPU kernel carries dW, dgamma and dbeta in VMEM across a sequential
 // grid; blocks here run in no order, so each resident accumulator became a
 // second pass over per-block partial sums, which keeps reruns
@@ -27,14 +28,29 @@
 // dbeta in closed form in the wrapper, as in the JAX wrapper.
 //
 // Bound on an H100: 2 M K N flops forward and 4 M K N backward; at
-// ResNet-50's shapes (K, N in 64..2048) the products are compute-bound on
-// paper (989 TFLOP/s bf16).  This first design runs them on the CUDA cores
-// in f32 (67 TFLOP/s at best, less from shared memory with 4 x 4 register
-// tiles), for both input types; tensor cores (mma.sync / wgmma for bf16)
-// are left for a later design.  What the design does keep: X is read, and
-// A recomputed, inside the product, never written.
+// ResNet-50's shapes (K, N in 64..2048) the forward is compute-bound on
+// paper (989 TFLOP/s bf16), the backward with a residual bound by its
+// bytes (X, R, dX, dR, dO).  The forward and the f32 backward run on the
+// CUDA cores in f32 (bn_gemm.cuh).  The bf16 backward runs on the tensor
+// cores (bn_mma.cuh: mma.sync m16n8k16, f32 accumulators) and moves its
+// bytes 16 at a time:
+//   (a) dO and W staged by cp.async16 (TileRR), the blocks of one M tile
+//       adjacent in the grid so that its dO rows are read from device
+//       memory about once; the fragment epilogue reads X, R and writes
+//       dX, dR as bf16 pairs and sums the dgamma / dbeta columns in a
+//       fixed order (lanes by shuffles, warps through shared memory);
+//   (b) X, R and dO staged raw by cp.async16 (TileRM), the prologue run
+//       once per staged element in shared memory with each thread's two
+//       channels' (mean, gamma * inv, beta) hoisted, rows past the split
+//       zeroed after it; then A and B load by ldmatrix.trans.
+// X and R are read twice (once in each pass), as in the first design.
+// Channel counts that are not a multiple of 8 (or unaligned tensors) take
+// the same tensor-core body with element-wise staging (VEC false).
+// What every design keeps: X is read, and A recomputed, inside the
+// product, never written.
 
 #include "bn_gemm.cuh"
+#include "bn_mma.cuh"
 
 namespace ptt {
 namespace {
@@ -132,6 +148,182 @@ bnmm_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
   store_partial(acc, part + (size_t)z * K * N, row0, K, col0, N, N);
 }
 
+// K12 in bf16 on the tensor cores (bn_mma.cuh).
+using bnmma::TileRM;
+using bnmma::TileRR;
+using bf16 = __nv_bfloat16;
+
+// (a) A = dO [M][N] (rows m), B = W [K][N] (rows k), reduction n, 32 a
+// step through a ring of three.
+template <bool VEC>
+struct MmDA {
+  static constexpr bool kPost = false;
+  static constexpr int kBK = 32, kStages = 3;
+  TileRR<kBK>* sa;
+  TileRR<kBK>* sb;
+  const bf16* dout;
+  const bf16* w;
+  int M, K, N, row0, col0;
+  __device__ void stage(int buf, int step) const {
+    const int n0 = step * kBK;
+#pragma unroll
+    for (int i = 0; i < kBK / 16; ++i) {
+      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+      const int m = row0 + r, k = col0 + r;
+      const int na = m < M ? bnmma::chunk_len(n0 + c, N) : 0;
+      bnmma::stage_chunk<VEC>(&sa[buf].v[r][c],
+                              na ? dout + (size_t)m * N + n0 + c : dout, na);
+      const int nb = k < K ? bnmma::chunk_len(n0 + c, N) : 0;
+      bnmma::stage_chunk<VEC>(&sb[buf].v[r][c],
+                              nb ? w + (size_t)k * N + n0 + c : w, nb);
+    }
+  }
+  __device__ const TileRR<kBK>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRR<kBK>& b(int buf) const { return sb[buf]; }
+};
+
+// (b) A^T = prologue(X) [m][k] (rows k of C), B = dO [m][n], reduction m
+// in [r_begin, r_end): X, R and dO staged raw, then post() applies the
+// prologue in place, each thread to the channel pair k0 + 2 (tid % 32);
+// 32 a step through a ring of three (the raw R tile takes the room a
+// deeper step would need).
+template <bool VEC>
+struct MmDW {
+  static constexpr bool kPost = true;
+  static constexpr int kBK = 32, kStages = 3;
+  TileRM<kBK>* sx;
+  TileRM<kBK>* sr;
+  TileRM<kBK>* sd;
+  const bf16* x;
+  const bf16* res;
+  const bf16* dout;
+  int K, N, row0, col0, r_begin, r_end, act;
+  Chan ch[2];
+  __device__ void stage(int buf, int step) const {
+    const int m0 = r_begin + step * kBK;
+#pragma unroll
+    for (int i = 0; i < kBK / 16; ++i) {
+      const int r = bnmma::rm_row(i), c = bnmma::rm_col(i);
+      const int m = m0 + r;
+      const bool ok = m < r_end;
+      const int nx = ok ? bnmma::chunk_len(row0 + c, K) : 0;
+      const size_t off = (size_t)m * K + row0 + c;
+      bnmma::stage_chunk<VEC>(&sx[buf].v[r][c], nx ? x + off : x, nx);
+      if (res != nullptr)
+        bnmma::stage_chunk<VEC>(&sr[buf].v[r][c], nx ? res + off : res, nx);
+      const int nd = ok ? bnmma::chunk_len(col0 + c, N) : 0;
+      bnmma::stage_chunk<VEC>(&sd[buf].v[r][c],
+                              nd ? dout + (size_t)m * N + col0 + c : dout,
+                              nd);
+    }
+  }
+  __device__ void post(int buf, int step) const {
+    const int m0 = r_begin + step * kBK;
+    const int cp = 2 * (threadIdx.x & 31);
+    const bool k0_ok = row0 + cp < K, k1_ok = row0 + cp + 1 < K;
+#pragma unroll
+    for (int i = 0; i < kBK / 4; ++i) {
+      const int r = (threadIdx.x >> 5) + 4 * i;
+      auto* px = reinterpret_cast<__nv_bfloat162*>(&sx[buf].v[r][cp]);
+      const float2 xf = __bfloat1622float2(*px);
+      float v0 = pre_act(xf.x, ch[0].mu, ch[0].gi, ch[0].b);
+      float v1 = pre_act(xf.y, ch[1].mu, ch[1].gi, ch[1].b);
+      if (res != nullptr) {
+        const float2 rf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&sr[buf].v[r][cp]));
+        v0 = __fadd_rn(v0, rf.x);
+        v1 = __fadd_rn(v1, rf.y);
+      }
+      if (act == 1) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      const bool m_ok = m0 + r < r_end;
+      *px = __floats2bfloat162_rn(m_ok && k0_ok ? v0 : 0.f,
+                                  m_ok && k1_ok ? v1 : 0.f);
+    }
+  }
+  __device__ const TileRM<kBK>& a(int buf) const { return sx[buf]; }
+  __device__ const TileRM<kBK>& b(int buf) const { return sd[buf]; }
+};
+
+__device__ __forceinline__ Chan chan_or_zero(const float* prm, int K, int k) {
+  return k < K ? chan(prm, K, k) : Chan{k, 0.f, 0.f, 0.f};
+}
+
+// (a) grid: ceil(M / 64) * ceil(K / 64), block b = M tile (b / tiles_k),
+// K tile (b % tiles_k).
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnmm_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                const float* __restrict__ prm4, const bf16* __restrict__ w,
+                const bf16* __restrict__ dout, bf16* __restrict__ dx,
+                bf16* __restrict__ dr, float* __restrict__ gb_part, int M,
+                int K, int N, int act) {
+  using Op = MmDA<VEC>;
+  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages> sm;
+  const int tiles_k = (K + bnmma::kBN - 1) / bnmma::kBN;
+  const int mt = blockIdx.x / tiles_k, kt = blockIdx.x - mt * tiles_k;
+  const int row0 = mt * bnmma::kBM, col0 = kt * bnmma::kBN;
+  Op op{sm.ring.a, sm.ring.b, dout, w, M, K, N, row0, col0};
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, (N + Op::kBK - 1) / Op::kBK);
+  bnmma::da_epilogue<VEC>(acc, x, res, prm4, dx, dr, gb_part, mt, row0, M,
+                          col0, K, act, sm);
+}
+
+// (b) grid: (ceil(K / 64), ceil(N / 64), splits), as bnmm_bwd_dw.
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnmm_bwd_dw_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                const float* __restrict__ prm, const bf16* __restrict__ dout,
+                float* __restrict__ part, int M, int K, int N, int chunk,
+                int act) {
+  using Op = MmDW<VEC>;
+  __shared__ __align__(16) TileRM<Op::kBK> sx[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK> sr[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK> sd[Op::kStages];
+  const int z = blockIdx.z;
+  const int r_begin = z * chunk, r_end = min(M, r_begin + chunk);
+  const int row0 = blockIdx.x * bnmma::kBM, col0 = blockIdx.y * bnmma::kBN;
+  const int k = row0 + 2 * (threadIdx.x & 31);
+  Op op{sx, sr, sd, x, res, dout, K, N, row0, col0, r_begin, r_end, act,
+        {chan_or_zero(prm, K, k), chan_or_zero(prm, K, k + 1)}};
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, (r_end - r_begin + Op::kBK - 1) / Op::kBK);
+  bnmma::store_part<VEC>(acc, part + (size_t)z * K * N, row0, K, col0, N);
+}
+
+template <bool VEC>
+cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
+                    const void* prm4, const void* w, const void* dout,
+                    void* dx, void* dr, void* dw, float* dw_part,
+                    float* gb_part, float* dgb, int M, int K, int N,
+                    int splits, int chunk, int act, cudaStream_t stream) {
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* rt = static_cast<const bf16*>(r);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const int tiles_m = ceil_div(M, bnmma::kBM);
+  const long long blocks = (long long)tiles_m * ceil_div(K, bnmma::kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bnmm_bwd_da_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm4), static_cast<const bf16*>(w),
+      dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, M, K, N,
+      act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bnmm_bwd_dw_mma<VEC><<<dim3(ceil_div(K, bnmma::kBM),
+                              ceil_div(N, bnmma::kBN), splits),
+                         bnmma::kThreads, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm), dot, dw_part, M, K, N, chunk,
+      act);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_sum_splits<bf16>(dw_part, static_cast<bf16*>(dw), 1, splits,
+                                K * N, stream);
+  if (err != cudaSuccess) return err;
+  return bnmma::launch_sum_tiles_f64(gb_part, dgb, tiles_m, 2 * K, stream);
+}
+
 template <typename T>
 cudaError_t fwd(const void* x, const void* r, const void* prm, const void* w,
                 void* out, int M, int K, int N, int act,
@@ -200,10 +392,17 @@ extern "C" int ptt_bn_matmul_bwd(const void* x, const void* r,
   auto* dwp = static_cast<float*>(dw_part);
   auto* gbp = static_cast<float*>(gb_part);
   auto* gb = static_cast<float*>(dgb);
-  if (dtype == ptt::kBFloat16)
-    return ptt::bwd<__nv_bfloat16>(x, r, prm, prm4, w, dout, dx, dr, dw,
-                                   dwp, gbp, gb, M, K, N, splits, chunk, act,
-                                   s);
+  if (dtype == ptt::kBFloat16) {
+    // 16-byte staging when every row is whole 16-byte chunks
+    const bool vec = K % 8 == 0 && N % 8 == 0 && ptt::mma::aligned16(x) &&
+                     (r == nullptr || ptt::mma::aligned16(r)) &&
+                     ptt::mma::aligned16(w) && ptt::mma::aligned16(dout);
+    if (vec)
+      return ptt::bwd_mma<true>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                                gbp, gb, M, K, N, splits, chunk, act, s);
+    return ptt::bwd_mma<false>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                               gbp, gb, M, K, N, splits, chunk, act, s);
+  }
   return ptt::bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp, gbp, gb,
                          M, K, N, splits, chunk, act, s);
 }

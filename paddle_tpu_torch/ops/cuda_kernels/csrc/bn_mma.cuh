@@ -1,0 +1,493 @@
+// The tensor-core tile product of the fused BatchNorm -> convolution
+// backward kernels in bf16 (bn_matmul.cu: K12; bn_conv.cu: K15), built on
+// mma.cuh's m16n8k16 product and ldmatrix loads, and the epilogues they
+// share.  The f32 instances keep bn_gemm.cuh's CUDA-core product.
+//
+// A block of 128 threads (4 warps, 2 x 2) computes one 64 x 64 tile of
+// C = A B in f32 accumulators, each warp a 32 x 32 quarter: 2 x 4 m16n8
+// accumulators, 8 mma.sync per 16-deep reduction step.  The reduction
+// advances BK (32 or 64, the operator's choice) at a time through a ring
+// of shared-memory buffers filled by cp.async, the next steps' loads in
+// flight while one is summed.  An operand tile sits in shared memory in
+// one of two layouts, chosen by which of its indices is contiguous in
+// device memory:
+//   TileRR [64][BK]   row (m or n) by reduction: rows contiguous along the
+//                     reduction (dO rows in dA, W rows, the gathered dO
+//                     pixels of K15's dA), read by ldmatrix as A
+//                     (a_row/a_col) or B (b_row/b_col);
+//   TileRM [BK][64]   reduction by row: rows contiguous along the output's
+//                     row or column index (X and dO in the dW products),
+//                     read by ldmatrix.trans as A (at_row/at_col below) or
+//                     B (bt_row/bt_col).
+// Row strides of BK + 8 and 64 + 8 bf16 (80 or 144 bytes) put the eight
+// 16-byte rows of one 8 x 8 matrix in distinct banks.  A stager fills a
+// tile 16 bytes a chunk: 8 bf16, BK / 16 chunks a thread, each chunk's
+// device address computed once per tile row (the index decoding of a
+// pixel happens per chunk, never per element).  A chunk is one cp.async16
+// with zero fill when VEC (every contiguous extent a multiple of 8
+// elements and every base 16-byte aligned); otherwise its elements are
+// loaded one by one with zeros past the extent, which the loop's barrier
+// makes visible.  Both forms run the same tensor-core body: only the
+// staging differs.
+//
+// mma_loop's order per step: wait for the step's group, barrier, issue the
+// loads of step + stages - 1 (into the buffer summed a step ago), run the
+// operator's in-place pass over the step's tiles if it has one (K12's dW
+// applies the BatchNorm prologue there, once per staged element) and a
+// barrier, then the BK / 16 x 8 products.  The tensor cores add into
+// their f32 accumulator with truncation (round toward zero), so a long
+// reduction carried in one accumulator drifts toward zero, and the drift
+// is coherent across the rows that dgamma and dbeta sum (in bf16 at
+// ResNet-50's shapes it put those sums 3-9 times further from float64
+// than the CUDA-core design).  Each step's products therefore start from
+// zero and are added to the running sums by an ordinary f32 add (to
+// nearest).
+#pragma once
+
+#include "bn_gemm.cuh"
+#include "mma.cuh"
+
+namespace ptt {
+namespace bnmma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64, kBN = 64, kThreads = 128;
+
+// An operand tile of a reduction step of BK (32 or 64)
+template <int BK>
+struct TileRR {
+  bf16 v[kBM][BK + 8];
+};
+template <int BK>
+struct TileRM {
+  bf16 v[BK][kBM + 8];
+};
+
+// ldmatrix.trans row addresses for A from a [k][m] tile: matrix j = l / 8
+// holds k rows (j / 2) * 8.., m columns (j % 2) * 8.., so the four
+// registers are a0..a3 of the m16n8k16 A fragment.
+__device__ __forceinline__ int at_row(int l) {
+  return (l & 7) + ((l >> 4) << 3);
+}
+__device__ __forceinline__ int at_col(int l) { return ((l >> 3) & 1) << 3; }
+
+// A fragments of a warp's two m16 tiles (rows wr..wr+31), reduction kk..
+template <int BK>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[2][4],
+                                       const TileRR<BK>& t, int wr, int kk,
+                                       int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+    mma::ldsm_x4(a[mi], &t.v[wr + mi * 16 + mma::a_row(lane)]
+                            [kk + mma::a_col(lane)]);
+}
+template <int BK>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[2][4],
+                                       const TileRM<BK>& t, int wr, int kk,
+                                       int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+    mma::ldsm_x4_trans(a[mi], &t.v[kk + at_row(lane)]
+                                  [wr + mi * 16 + at_col(lane)]);
+}
+
+// B fragments (b0, b1) of a warp's four n8 tiles (columns wc..wc+31)
+template <int BK>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4][2],
+                                       const TileRR<BK>& t, int wc, int kk,
+                                       int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t r[4];
+    mma::ldsm_x4(r, &t.v[wc + p * 16 + mma::b_row(lane)]
+                        [kk + mma::b_col(lane)]);
+    b[2 * p][0] = r[0];
+    b[2 * p][1] = r[1];
+    b[2 * p + 1][0] = r[2];
+    b[2 * p + 1][1] = r[3];
+  }
+}
+template <int BK>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4][2],
+                                       const TileRM<BK>& t, int wc, int kk,
+                                       int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t r[4];
+    mma::ldsm_x4_trans(r, &t.v[kk + mma::bt_row(lane)]
+                              [wc + p * 16 + mma::bt_col(lane)]);
+    b[2 * p][0] = r[0];
+    b[2 * p][1] = r[1];
+    b[2 * p + 1][0] = r[2];
+    b[2 * p + 1][1] = r[3];
+  }
+}
+
+// Chunk i (< BK / 16) of this thread in a TileRR / TileRM stage: (row,
+// col).  A TileRR row is BK / 8 chunks, a TileRM row 8.
+template <int BK>
+__device__ __forceinline__ int rr_row(int i) {
+  return (threadIdx.x + i * kThreads) / (BK / 8);
+}
+template <int BK>
+__device__ __forceinline__ int rr_col(int i) {
+  return ((threadIdx.x + i * kThreads) % (BK / 8)) * 8;
+}
+__device__ __forceinline__ int rm_row(int i) {
+  return (threadIdx.x + i * kThreads) >> 3;
+}
+__device__ __forceinline__ int rm_col(int i) {
+  return ((threadIdx.x + i * kThreads) & 7) << 3;
+}
+
+// Up to 8 contiguous bf16 from src (the first n valid, the rest zero)
+// into dst.  VEC: n is 0 or 8, one 16-byte cp.async (src must then be a
+// readable address even when n is 0: pass the operand's base).
+template <bool VEC>
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
+                                            int n) {
+  if constexpr (VEC) {
+    mma::cp_async16(dst, src, n > 0);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      dst[u] = u < n ? src[u] : __float2bfloat16(0.f);
+  }
+}
+
+// n / d for 0 <= n < 2^31 by a multiply-high, an add and a shift
+// (Granlund and Montgomery): with s = ceil(log2 d) and mul = floor(2^32
+// (2^s - d) / d) + 1, n / d = (umulhi(n, mul) + n) >> s, the add within 32
+// bits as umulhi(n, mul) < n.  A staging map that decodes a pixel per
+// chunk would otherwise spend most of its instructions in integer
+// division.
+struct FastDiv {
+  int d;
+  uint32_t mul, s;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((uint32_t)n, mul) + (uint32_t)n) >> s);
+  }
+};
+
+inline FastDiv fast_div(int d) {
+  uint32_t s = 0;
+  while ((1ull << s) < (unsigned long long)d) ++s;
+  const unsigned long long mul =
+      ((1ull << 32) * ((1ull << s) - (unsigned long long)d)) / d + 1;
+  return {d, (uint32_t)mul, s};
+}
+
+// valid elements of the 8-chunk at index c of an extent `len`
+__device__ __forceinline__ int chunk_len(int c, int len) {
+  return max(0, min(8, len - c));
+}
+
+// d = a b: one m16n8k16 product into fresh accumulators (C = 0)
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// The tile product over `nsteps` reduction steps of Op::kBK, through a
+// ring of Op::kStages buffers.  Op provides
+//   kBK, kStages      its step and ring depth;
+//   stage(buf, step)  loads of step into ring buffer buf (chunks above);
+//   kPost, post(buf, step)  an in-place pass over the step's tiles;
+//   a(buf), b(buf)    the A and B tiles (TileRR or TileRM) of buf.
+template <class Op>
+__device__ __forceinline__ void mma_loop(float (&acc)[2][4][4], Op& op,
+                                         int nsteps) {
+  constexpr int BK = Op::kBK, S = Op::kStages;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nsteps) op.stage(s, s);
+    mma::cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    mma::cp_async_wait<S - 2>();
+    __syncthreads();
+    const int buf = step % S;
+    const int nxt = step + S - 1;
+    if (nxt < nsteps) op.stage(nxt % S, nxt);
+    mma::cp_async_commit();
+    if constexpr (Op::kPost) {
+      op.post(buf, step);
+      __syncthreads();
+    }
+    float part[2][4][4];
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+      frag_a(a, op.a(buf), wr, kk, lane);
+      frag_b(b, op.b(buf), wc, kk, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          if (kk == 0)
+            mma_bf16_first(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+          else
+            mma::mma_bf16(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] += part[mi][nj][e];
+  }
+  mma::cp_async_wait<0>();
+}
+
+// Shared memory of the dA kernels: the operand ring, and over it, once the
+// product is done, the f32 C tile (row stride kBN + 8 floats: the lanes'
+// float2 stores of one fragment row fall in distinct banks); the tile's 64
+// channels' (mean, inv, gamma * inv, beta) and the four warps' column
+// sums.
+template <int BK, int STAGES>
+struct DaSmem {
+  union {
+    struct {
+      TileRR<BK> a[STAGES];
+      TileRR<BK> b[STAGES];
+    } ring;
+    float c[kBM][kBN + 8];
+  };
+  float mu[kBN], inv[kBN], gi[kBN], b[kBN];
+  float sx[kThreads / 32][kBN], sd[kThreads / 32][kBN];
+};
+
+// The dA epilogue of K12 and K15: for the C tile at (row0, col0) of dA
+// [rows, K] (rows are pixels of X, columns its channels), recompute pre
+// from X (and R) with prm4 [4, K] f32 = mean, inv, gamma, beta as the
+// forward does (pre_act's rounding chain, so the mask agrees with the
+// plain version bit for bit), mask dpre = pre > 0 ? dA : 0 for relu,
+// write dX = dpre * gamma * inv and dR = dpre, and write the tile's column
+// sums of dpre * xhat and dpre to gb_part[tile][0][k] and [tile][1][k].
+// The accumulators go to shared memory by their fragment map (c0 c1 at
+// row g, columns 2t..; c2 c3 at row g + 8); then thread tid takes the
+// 8-channel chunk (tid % 8) * 8 of rows tid / 8 + 16 i, i < 4, so X, R,
+// dX and dR move 16 bytes a thread, a row's 128 bytes by 8 neighbouring
+// lanes (element by element when not VEC), its four rows' loads issued
+// before any is used.  The column sums run in a fixed order: each thread
+// over its 4 rows, then xor shuffles 8 and 16 over the warp's lanes of
+// one chunk, then the four warps in order.
+template <bool VEC, class Smem>
+__device__ __forceinline__ void da_epilogue(
+    const float (&acc)[2][4][4], const bf16* __restrict__ x,
+    const bf16* __restrict__ res, const float* __restrict__ prm4,
+    bf16* __restrict__ dx, bf16* __restrict__ dr, float* __restrict__ gb_part,
+    int tile, int row0, int rows, int col0, int K, int act, Smem& sm) {
+  constexpr int kRows = kBM * 8 / kThreads;  // rows a thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // every warp's last fragment loads of the ring are done
+  {
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          *reinterpret_cast<float2*>(
+              &sm.c[wr + mi * 16 + g + 8 * h][wc + nj * 8 + 2 * t]) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+  }
+  if (tid < kBN) {
+    const int k = col0 + tid;
+    const bool ok = k < K;
+    const float inv = ok ? __ldg(prm4 + K + k) : 0.f;
+    sm.mu[tid] = ok ? __ldg(prm4 + k) : 0.f;
+    sm.inv[tid] = inv;
+    sm.gi[tid] = __fmul_rn(inv, ok ? __ldg(prm4 + 2 * K + k) : 0.f);
+    sm.b[tid] = ok ? __ldg(prm4 + 3 * K + k) : 0.f;
+  }
+  const int cc = (tid & 7) * 8, k0 = col0 + cc;
+  const int nk = max(0, min(8, K - k0));  // valid channels of the chunk
+  uint4 xr[kRows], rr[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = row0 + (tid >> 3) + 16 * i;
+    xr[i] = rr[i] = make_uint4(0, 0, 0, 0);
+    if (row >= rows || nk == 0) continue;
+    const size_t off = (size_t)row * K + k0;
+    if constexpr (VEC) {
+      xr[i] = *reinterpret_cast<const uint4*>(x + off);
+      if (res != nullptr) rr[i] = *reinterpret_cast<const uint4*>(res + off);
+    } else {
+      bf16* xv = reinterpret_cast<bf16*>(&xr[i]);
+      bf16* rv = reinterpret_cast<bf16*>(&rr[i]);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (u < nk) {
+          xv[u] = x[off + u];
+          if (res != nullptr) rv[u] = res[off + u];
+        }
+    }
+  }
+  __syncthreads();  // the C tile and the channel parameters
+  float sx[8], sd[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) sx[u] = sd[u] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = (tid >> 3) + 16 * i, row = row0 + r;
+    if (row >= rows || nk == 0) continue;
+    const bf16* xv = reinterpret_cast<const bf16*>(&xr[i]);
+    const bf16* rv = reinterpret_cast<const bf16*>(&rr[i]);
+    const float4 a0 = *reinterpret_cast<const float4*>(&sm.c[r][cc]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&sm.c[r][cc + 4]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    uint4 dxr, drr;
+    bf16* dxv = reinterpret_cast<bf16*>(&dxr);
+    bf16* dpv = reinterpret_cast<bf16*>(&drr);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int cl = cc + u;
+      const float xf = to_f(xv[u]), mu = sm.mu[cl], gi = sm.gi[cl];
+      float pre = pre_act(xf, mu, gi, sm.b[cl]);
+      if (res != nullptr) pre = __fadd_rn(pre, to_f(rv[u]));
+      const float dpre = (act == 1 && !(pre > 0.f)) ? 0.f : av[u];
+      dxv[u] = __float2bfloat16(dpre * gi);
+      dpv[u] = __float2bfloat16(dpre);
+      if (u < nk) {
+        sx[u] += dpre * ((xf - mu) * sm.inv[cl]);
+        sd[u] += dpre;
+      }
+    }
+    const size_t off = (size_t)row * K + k0;
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(dx + off) = dxr;
+      if (dr != nullptr) *reinterpret_cast<uint4*>(dr + off) = drr;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (u < nk) {
+          dx[off + u] = dxv[u];
+          if (dr != nullptr) dr[off + u] = dpv[u];
+        }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int o = 8; o < 32; o <<= 1) {
+      sx[u] += __shfl_xor_sync(kFullMask, sx[u], o);
+      sd[u] += __shfl_xor_sync(kFullMask, sd[u], o);
+    }
+  if (lane < 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      sm.sx[warp][cc + u] = sx[u];
+      sm.sd[warp][cc + u] = sd[u];
+    }
+  }
+  __syncthreads();
+  if (tid < kBN && col0 + tid < K) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      a += sm.sx[w][tid];
+      b += sm.sd[w][tid];
+    }
+    float* p = gb_part + (size_t)tile * 2 * K + col0 + tid;
+    p[0] = a;
+    p[K] = b;
+  }
+}
+
+// Store the accumulator tile at (row0, col0) of part [rows, cols] f32
+// (row stride cols), as float2 pairs when PAIRS (cols even).
+template <bool PAIRS>
+__device__ __forceinline__ void store_part(const float (&acc)[2][4][4],
+                                           float* __restrict__ part,
+                                           int row0, int rows, int col0,
+                                           int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wr + mi * 16 + g + 8 * h;
+      if (row >= rows) continue;
+      float* p = part + (size_t)row * cols;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int c = col0 + wc + nj * 8 + 2 * t;
+        if constexpr (PAIRS) {
+          if (c < cols) mma::store_pair(p + c, acc[mi][nj][2 * h],
+                                        acc[mi][nj][2 * h + 1]);
+        } else {
+          if (c < cols) p[c] = acc[mi][nj][2 * h];
+          if (c + 1 < cols) p[c + 1] = acc[mi][nj][2 * h + 1];
+        }
+      }
+    }
+}
+
+namespace {
+
+// dgamma, dbeta from the dA tiles' column sums gb_part [tiles, 2K]:
+// out[e] = sum over t of part[t * count + e] in f64, in a fixed order
+// (lane y sums t = y, y + 16, ..., then lane 0 the 16 lane sums in
+// order), rounded once to f32.  An f32 sum over ResNet's thousands of
+// tiles would lie further from float64 than the tiles' own f32 sums do.
+// grid: ceil(count / 32), block (32, 16).
+__global__ void __launch_bounds__(512)
+sum_tiles_f64(const float* __restrict__ part, float* __restrict__ out,
+              int tiles, int count) {
+  __shared__ double lanes[16][33];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  double s = 0.0;
+  if (e < count) {
+    // eight loads in flight a thread, summed in the order of t
+    int t = threadIdx.y;
+    for (; t + 16 * 7 < tiles; t += 16 * 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = part[(size_t)(t + 16 * u) * count + e];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += (double)v[u];
+    }
+    for (; t < tiles; t += 16) s += (double)part[(size_t)t * count + e];
+  }
+  lanes[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < count) {
+    double t = 0.0;
+    for (int y = 0; y < 16; ++y) t += lanes[y][threadIdx.x];
+    out[e] = (float)t;
+  }
+}
+
+inline cudaError_t launch_sum_tiles_f64(const float* part, float* out,
+                                        int tiles, int count,
+                                        cudaStream_t stream) {
+  sum_tiles_f64<<<(count + 31) / 32, dim3(32, 16), 0, stream>>>(
+      part, out, tiles, count);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+}  // namespace bnmma
+}  // namespace ptt

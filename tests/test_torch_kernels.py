@@ -588,6 +588,14 @@ _BN3_SHAPES = [(2, 7, 7, 64, 96, 2, True, "relu", False),
                (1, 5, 9, 20, 33, 2, False, None, False),
                (2, 6, 6, 64, 64, 1, True, "relu", True),
                (2, 4, 4, 64, 256, 1, False, "relu", False)]
+# ResNet-50's four 3x3 shapes (K = O = 64, 128, 256, 512 at 56, 28, 14 and
+# 7 pixels square) at batch 2, and 1x1s of the same widths over as many
+# pixels: the tensor-core tiles at every channel count the main path runs
+_BN_RESNET_C = [(56, 64), (28, 128), (14, 256), (7, 512)]
+_BN1_SHAPES += [(2 * hw * hw, c, c, False, "relu", False)
+                for hw, c in _BN_RESNET_C]
+_BN3_SHAPES += [(2, hw, hw, c, c, 1, False, "relu", False)
+                for hw, c in _BN_RESNET_C]
 _BN_GRADS = ("dx", "dgamma", "dbeta", "dmean", "dvar", "dw", "dr")
 
 
@@ -681,6 +689,38 @@ def test_bn_conv_kernels_match_plain_on_card(exact_f32, dtype, N, H, W, K,
     assert (out2.float() - ref.float()).abs().max().item() \
         <= _CARD_TOL[dtype]
     assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("1x1", (200, 64, 96, True)), ("1x1", (37, 20, 5, True)),
+    ("3x3", (2, 7, 7, 64, 96, 2, True)), ("3x3", (1, 5, 9, 20, 33, 2, True)),
+    ("3x3", (2, 14, 14, 256, 256, 1, False))])
+def test_bn_bwd_kernels_rerun_bit_identical_on_card(cuda_device, kind,
+                                                    shape):
+    """K12 and K15 in bf16: two calls on the same inputs give the same
+    bits in every output (fixed-order sums, no atomics)."""
+    dtype = torch.bfloat16
+    rng = np.random.RandomState(7)
+    if kind == "1x1":
+        M, K, N, has_r = shape
+        xs, ws, dos, extra = (M, K), (K, N), (M, N), {}
+        fn = t_bnmm.bn_matmul_bwd
+    else:
+        n, H, W, K, O, stride, has_r = shape
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        xs, ws, dos, extra = (n, H, W, K), (3, 3, K, O), (n, Ho, Wo, O), \
+            {"stride": stride}
+        fn = t_bnc.bn_conv3x3_bwd
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, xs, has_r, False, 3)
+    w = torch.from_numpy((rng.randn(*ws) / np.sqrt(K)).astype(
+        np.float32)).to(cuda_device, dtype)
+    do = torch.from_numpy(rng.randn(*dos).astype(np.float32)).to(
+        cuda_device, dtype)
+    first = fn(x, g, b, mu, var, w, do, r, "relu", **extra)
+    second = fn(x, g, b, mu, var, w, do, r, "relu", **extra)
+    torch.cuda.synchronize()
+    for name, a, c in zip(_BN_GRADS, first, second):
+        assert torch.equal(a, c), name
 
 
 def test_bn_train_functions_launch_kernels_on_card(exact_f32):

@@ -142,8 +142,8 @@ def _group(name: str, model: str) -> str:
         return "K13 bn_conv3x3_fwd"
     if "bnc_bwd" in n:
         return "K15 bn_conv3x3_bwd"
-    if "sum_splits" in n:
-        return "K12 and K15 (split sums)"
+    if "sum_splits" in n or "sum_tiles" in n:
+        return "K12 and K15 (split and tile sums)"
     if model.startswith("resnet") and any(w in n for w in (
             "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
         return "cuDNN conv"
