@@ -110,16 +110,16 @@ non-zero and no result line is printed):
     f32 kernels against the plain version in float64 (inputs clear of the
     ReLU's kink), the bf16 ones against it in bf16, with each bf16
     output's distance to the float64 function logged beside the plain
-    version's; each row names its body (bf16 K12 and K15 ``mma``, the rest
-    ``cuda_cores``); K13 and K14 timed at every 3x3 shape, K12 and K15 in
-    bf16 at every ResNet-50 shape; at stage 2's 1x1 with a residual and its
-    3x3 each kernel is timed beside its plain version (the unfused ATen,
-    cuDNN and torch.matmul composition) and the card's bound; then the
-    ``top_k`` op that feeds ResNet's accuracy, on rows full of ties (all
-    zeros; 128 x 1000 integers in [0, 4)), float32 and bfloat16: its
-    indices on the
-    card equal a stable descending sort's (the lowest index first among
-    equal values, as ``jax.lax.top_k``) and the CPU's;
+    version's (the forwards' too); each row names its body (bf16 K11, K12,
+    K13 and K15 ``mma``, K14 and f32 ``cuda_cores``); K13 and K14 timed at
+    every 3x3 shape, K11, K12 and K15 in bf16 at every ResNet-50 shape; at
+    stage 2's 1x1 with a residual and its 3x3 each kernel is timed beside
+    its plain version (the unfused ATen, cuDNN and torch.matmul
+    composition) and the card's bound; then the ``top_k`` op that feeds
+    ResNet's accuracy, on rows full of ties (all zeros; 128 x 1000
+    integers in [0, 4)), float32 and bfloat16: its indices on the card
+    equal a stable descending sort's (the lowest index first among equal
+    values, as ``jax.lax.top_k``) and the CPU's;
 19. ResNet-50 and ResNet-18 parity, float32: the fused NHWC programs of
     ``resnet_bench`` at full width (class_dim 1000), batch 4, Momentum
     0.001, against an explicit CPU executor from the same state.
@@ -285,13 +285,14 @@ DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                           "flash_attention_fwd": "mma_3xtf32",
                           "flash_attention_dq": "cuda_cores",
                           "flash_attention_dkv": "cuda_cores"}}
-# K11-K15: the bf16 backward kernels (K12, K15) run on the tensor cores
-# (mma.sync, csrc/bn_mma.cuh), the forward ones and every f32 instance
-# on the CUDA cores (csrc/bn_gemm.cuh)
+# K11-K15: in bf16 K11, K12, K13 and K15 run on the tensor cores
+# (mma.sync, csrc/bn_mma.cuh), K14 and every f32 instance on the CUDA
+# cores (csrc/bn_gemm.cuh)
 BN_KERNELS = ("bn_matmul_fwd", "bn_matmul_bwd", "bn_conv3x3_fwd",
               "bn_conv3x3_fwd_v2", "bn_conv3x3_bwd")
 DESIGN[torch.bfloat16].update(
-    {k: "mma" if k.endswith("_bwd") else "cuda_cores" for k in BN_KERNELS})
+    {k: "cuda_cores" if k == "bn_conv3x3_fwd_v2" else "mma"
+     for k in BN_KERNELS})
 DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "cuda_cores"))
 
 
@@ -1504,10 +1505,10 @@ def bn_kernel_phase(dev):
     ``bn_clear_of_kinks``), the bf16 ones to the plain version in bf16,
     and each bf16 output's distance to the float64 function from the same
     inputs is logged beside the plain version's (``f64_err``).  K13 and K14
-    are timed at every 3x3 shape, K12 and K15 in bf16 at every ResNet-50
-    shape; at stage 2's 1x1 with a residual and stage 2's 3x3 each kernel
-    is timed beside its plain version (in its own dtype) and the bound.
-    Each row names its kernel's body by dtype (``DESIGN``)."""
+    are timed at every 3x3 shape, K11, K12 and K15 in bf16 at every
+    ResNet-50 shape; at stage 2's 1x1 with a residual and stage 2's 3x3
+    each kernel is timed beside its plain version (in its own dtype) and
+    the bound.  Each row names its kernel's body by dtype (``DESIGN``)."""
     shapes = fused_shapes(50, resnet_bench.BS, resnet_bench.IMAGE)
     r50 = set(shapes)
     shapes += [s for s in fused_shapes(18, resnet_bench.BS,
@@ -1566,7 +1567,7 @@ def bn_kernel_phase(dev):
                 elif f64:
                     row["f64_err"] = f64[back]
                 if timed or (kind == "3x3" and not back) or (
-                        back and dtype == torch.bfloat16 and shape in r50):
+                        dtype == torch.bfloat16 and shape in r50):
                     row["kernel_ms"] = time_ms(kern, iters=10)
                 if timed:
                     row["plain_ms"] = time_ms(

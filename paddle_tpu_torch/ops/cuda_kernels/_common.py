@@ -50,7 +50,7 @@ _SIGNATURES = {
     "ptt_gru_backward": [_P] * 13 + [_I] * 4 + [_P],
     "ptt_bn_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "ptt_bn_matmul_bwd": [_P] * 12 + [_I] * 7 + [_P],
-    "ptt_bn_conv3x3_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    "ptt_bn_conv3x3_fwd": [_P] * 6 + [_I] * 8 + [_P],
     "ptt_bn_conv3x3_fwd_v2": [_P] * 6 + [_I] * 9 + [_P],
     "ptt_bn_conv3x3_bwd": [_P] * 13 + [_I] * 10 + [_P],
 }

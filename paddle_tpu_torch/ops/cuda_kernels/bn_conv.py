@@ -120,10 +120,13 @@ def bn_conv3x3_fwd(x, gamma, beta, mean, var, w_hwio, r=None, act="relu",
     if out.numel() == 0:
         return out
     prm = device_params(gamma, beta, mean, var, eps)[0]
+    # the bf16 kernel's normalized, padded activation, read by its taps
+    apad = torch.empty(N, H + 2, W + 2, K, dtype=x.dtype, device=x.device) \
+        if x.dtype == torch.bfloat16 else None
     _common.launch("ptt_bn_conv3x3_fwd", x.contiguous(),
                    None if r is None else r.contiguous(), prm,
-                   w_hwio.contiguous(), out, N, H, W, K, O, stride, code,
-                   _common.dtype_code(x), device=x.device)
+                   w_hwio.contiguous(), apad, out, N, H, W, K, O, stride,
+                   code, _common.dtype_code(x), device=x.device)
     bn_conv3x3_fwd.launches += 1
     return out
 

@@ -8,41 +8,52 @@
 // in VMEM and sum nine shifted [H*W, K] x [K, O] products per image.  Here
 // the convolution is an implicit GEMM: rows are output pixels, columns
 // output channels, and the reduction runs over the nine taps x K input
-// channels (bn_gemm.cuh's tile product).
+// channels (bn_mma.cuh's tile product for K13 and K15 in bf16,
+// bn_gemm.cuh's for K14 and the f32 instances).
 //
-// K13: each block computes a 64-pixel x 64-channel tile of the output; the
-// A slab is gathered from X through the prologue as it is staged, with the
-// padding applied AFTER the prologue (an out-of-image tap is 0, not
-// act(beta - mean * gamma * inv)), and stride 2 read directly (Ho =
-// (H - 1) / 2 + 1, so odd H and W work too).
+// K13 (f32): each block computes a 64-pixel x 64-channel tile of the
+// output; the A slab is gathered from X through the prologue as it is
+// staged, with the padding applied AFTER the prologue (an out-of-image tap
+// is 0, not act(beta - mean * gamma * inv)), and stride 2 read directly
+// (Ho = (H - 1) / 2 + 1, so odd H and W work too).
 // K14: the v2 design normalizes each image once into VMEM scratch and
 // walks the weight in O blocks; blocks here share no scratch, so it is two
 // launches: a prep pass writes the padded, normalized activation
 // [N, H+2, W+2, K] in W's type once, then the tap product reads it with
 // no prologue and no bounds tests, a block owning the O block the port's
 // _v2_block_o picks (walked 64 channels at a time).
-// K15, one C entry point, four launches: (a) dA = the transposed taps,
+// K15 (f32), one C entry point, four launches: (a) dA = the transposed taps,
 // rows are input pixels and the reduction runs over taps x O, an output
 // pixel (h + 1 - ky) / s contributing only where it is whole and inside
-// (stride 2 computed directly, no dilated dO), with the epilogue K12
-// shares (dX, dR, the dgamma / dbeta column sums per tile); (b) dW[ky,kx]
-// = tap^T dO per (K tile, O tile, tap x M split), the tap recomputed
-// through the prologue as it is loaded; (c) the splits summed in a fixed
-// order into HWIO dW, cast once; (d) dgamma, dbeta from the tile sums.
-// The TPU design's resident dW / dgamma / dbeta accumulators became those
-// second passes, so reruns are bit-reproducible.
+// (stride 2 computed directly, no dilated dO), with the epilogue K12 shares
+// (dX, dR, the dgamma / dbeta column sums per tile); (b) dW[ky,kx] = tap^T
+// dO per (K tile, O tile, tap x M split), the tap recomputed through the
+// prologue as it is loaded; (c) the splits summed in a fixed order into HWIO
+// dW, cast once; (d) dgamma, dbeta from the tile sums.  The TPU design's
+// resident dW / dgamma / dbeta accumulators became those second passes, so
+// reruns are bit-reproducible.
 //
 // Bound on an H100: 18 M_out K O flops forward and 36 backward, far above
 // the bytes at ResNet's shapes: compute-bound on paper at the bf16
-// tensor-core rate.  K13, K14 and the f32 K15 sum on the CUDA cores in f32
-// (see bn_gemm.cuh); what they keep from the TPU design is that no
+// tensor-core rate.  K14 and the f32 K13 and K15 sum on the CUDA cores in
+// f32 (see bn_gemm.cuh); what they keep from the TPU design is that no
 // normalized activation, tap copy or dilated gradient is ever written to
 // device memory (K14 writes its one padded copy by design).
 //
-// K15 in bf16 runs its products on the tensor cores (bn_mma.cuh), in five
-// launches: (1) a prep pass writes the padded, normalized activation apad
-// [N, H+2, W+2, K] in bf16, the prologue evaluated once per element of X
-// (zero on the border: padding after the prologue); (2) dA, an implicit
+// In bf16, K13 and K15 run their products on the tensor cores
+// (bn_mma.cuh), and both begin with one prep pass (bnc_pad_prep) that
+// writes the padded, normalized activation apad [N, H+2, W+2, K] in bf16,
+// the prologue evaluated once per element of X (zero on the border:
+// padding after the prologue).
+// K13 bf16, two launches: (1) the prep pass; (2) an implicit GEMM whose A
+// rows are output pixels: each (pixel, tap) is a contiguous run of K
+// channels of apad at ((n (H+2) + ho s + ky) (W+2) + wo s + kx) K, staged
+// 16 bytes a chunk by cp.async with no bounds test, the pixel decoded once
+// per block and the tap's offset once per step; B is W[ky,kx] as a [k][o]
+// tile (ldmatrix.trans); the blocks of one pixel tile adjacent in the grid
+// (its apad rows come from L2 for the second O tile); the output leaves
+// 16 bytes a thread through shared memory (bn_mma.cuh store_tile).
+// K15 bf16, five launches: (1) the prep pass; (2) dA, an implicit
 // GEMM whose A rows are input pixels: each (pixel, tap) is a contiguous
 // run of O channels of dO at ((h+1-ky)/s, (w+1-kx)/s) or zero (stride 2:
 // the parity test), staged 16 bytes a chunk by cp.async with zero fill,
@@ -306,17 +317,18 @@ bnc_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
                 g.O);
 }
 
-// K15 in bf16 on the tensor cores (bn_mma.cuh).
+// K13 and K15 in bf16 on the tensor cores (bn_mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
 
-// K15 bf16 (1): apad[n, hp, wp, k] = prologue(X[n, hp-1, wp-1, k]) inside,
-// 0 on the border, in bf16.  grid: N * (H + 2), one padded row a block; a
-// thread takes 8-channel chunks of the row (16 bytes when VEC).
+// K13 bf16 (1), K15 bf16 (1): apad[n, hp, wp, k] = prologue(X[n, hp-1,
+// wp-1, k]) inside, 0 on the border, in bf16.  grid: N * (H + 2), one
+// padded row a block; a thread takes 8-channel chunks of the row (16 bytes
+// when VEC).
 template <bool VEC>
 __global__ void __launch_bounds__(256)
-bnc_bwd_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
+bnc_pad_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
              const float* __restrict__ prm, bf16* __restrict__ apad, Geom g,
              int act) {
   const int hp = blockIdx.x % (g.H + 2), n = blockIdx.x / (g.H + 2);
@@ -366,6 +378,50 @@ bnc_bwd_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
     }
   }
 }
+
+// K13 bf16 (2): A rows are output pixels (this thread's four decoded once
+// to the apad offset of their top-left tap), the reduction (tap, k) in
+// steps of 64 channels k within each tap through a ring of two: a chunk of
+// A is 8 channels of apad at the row's offset plus the tap's, never out of
+// bounds (the border is apad's zeros); B = W[tap] [K][O] as a [k][o]
+// tile.  Channels past K are zero in both (the chunks' zero fill).
+template <bool VEC>
+struct ConvFwd {
+  static constexpr bool kPost = false;
+  static constexpr int kBK = 64, kStages = 2, kRows = kBK / 16;
+  struct Ring {
+    TileRR<kBK> a[kStages];
+    TileRM<kBK> b[kStages];
+  };
+  TileRR<kBK>* sa;
+  TileRM<kBK>* sb;
+  const bf16* apad;
+  const bf16* w;
+  int K, O, wpad, col0, ksteps;
+  size_t base[kRows];
+  bool pok[kRows];
+  __device__ void stage(int buf, int step) const {
+    const int tap = step / ksteps;
+    const int k0 = (step - tap * ksteps) * kBK;
+    const int dy = tap / 3, dxx = tap - 3 * dy;
+    const size_t toff = ((size_t)dy * wpad + dxx) * K + k0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+      const int na = pok[i] ? bnmma::chunk_len(k0 + c, K) : 0;
+      bnmma::stage_chunk<VEC>(&sa[buf].v[r][c],
+                              na ? apad + base[i] + toff + c : apad, na);
+      const int kr = bnmma::rm_row(i), oc = bnmma::rm_col(i);
+      const int k = k0 + kr;
+      const int nb = k < K ? bnmma::chunk_len(col0 + oc, O) : 0;
+      bnmma::stage_chunk<VEC>(
+          &sb[buf].v[kr][oc],
+          nb ? w + ((size_t)tap * K + k) * O + col0 + oc : w, nb);
+    }
+  }
+  __device__ const TileRR<kBK>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRM<kBK>& b(int buf) const { return sb[buf]; }
+};
 
 // K15 bf16 (2): A rows are input pixels (this thread's four decoded
 // once), the reduction (tap, o) in steps of 64 channels o within each tap
@@ -454,6 +510,35 @@ struct ConvDW {
   __device__ const TileRM<kBK>& a(int buf) const { return sa[buf]; }
   __device__ const TileRM<kBK>& b(int buf) const { return sb[buf]; }
 };
+
+// K13 bf16 (2). grid: ceil(N*Ho*Wo / 64) * ceil(O / 64), block b = pixel
+// tile b / tiles_o, O tile b % tiles_o.
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnc_fwd_mma(const bf16* __restrict__ apad, const bf16* __restrict__ w,
+            bf16* __restrict__ out, Geom g) {
+  using Op = ConvFwd<VEC>;
+  __shared__ __align__(16) bnmma::OutSmem<typename Op::Ring> sm;
+  const int rows = g.N * g.Ho * g.Wo;
+  const int tiles_o = (g.O + bnmma::kBN - 1) / bnmma::kBN;
+  const int mt = blockIdx.x / tiles_o, ot = blockIdx.x - mt * tiles_o;
+  const int row0 = mt * bnmma::kBM, col0 = ot * bnmma::kBN;
+  const int ksteps = (g.K + Op::kBK - 1) / Op::kBK;
+  Op op{sm.ring.a, sm.ring.b, apad, w, g.K, g.O, g.W + 2, col0, ksteps,
+        {}, {}};
+#pragma unroll
+  for (int i = 0; i < Op::kRows; ++i) {
+    const int p = row0 + bnmma::rr_row<Op::kBK>(i);
+    const int wo = p % g.Wo, t = p / g.Wo;
+    const int n = t / g.Ho, ho = t - n * g.Ho;
+    op.base[i] =
+        ((size_t)(n * (g.H + 2) + ho * g.s) * (g.W + 2) + wo * g.s) * g.K;
+    op.pok[i] = p < rows;
+  }
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, 9 * ksteps);
+  bnmma::store_tile<VEC>(acc, sm.c, out, row0, rows, col0, g.O);
+}
 
 // K15 bf16 (2). grid: ceil(N*H*W / 64) * ceil(K / 64), block b = pixel
 // tile b / tiles_k, K tile b % tiles_k.
@@ -569,6 +654,24 @@ cudaError_t bwd(const void* x, const void* r, const void* prm,
 }
 
 template <bool VEC>
+cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
+                    const void* w, void* apad, void* out, Geom g, int act,
+                    cudaStream_t stream) {
+  bf16* ap = static_cast<bf16*>(apad);
+  bnc_pad_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(r),
+      static_cast<const float*>(prm), ap, g, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)ceil_div(g.N * g.Ho * g.Wo, bnmma::kBM) *
+                           ceil_div(g.O, bnmma::kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bnc_fwd_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      ap, static_cast<const bf16*>(w), static_cast<bf16*>(out), g);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
 cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
                     const void* prm4, const void* w, const void* dout,
                     void* dx, void* dr, void* dw, float* dw_part,
@@ -586,7 +689,7 @@ cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
       dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, g, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bnc_bwd_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+  bnc_pad_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
       xt, rt, static_cast<const float*>(prm), ap, g, act);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bnc_bwd_dw_mma<VEC><<<dim3(ceil_div(g.K, bnmma::kBM),
@@ -605,16 +708,24 @@ cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
 }  // namespace ptt
 
 // x, r [N, H, W, K] (r may be null), prm [3, K] f32 (mean, gamma * inv,
-// beta), w [3, 3, K, O] (HWIO), out [N, Ho, Wo, O]; act 1 = relu.
+// beta), w [3, 3, K, O] (HWIO), out [N, Ho, Wo, O]; act 1 = relu.  For
+// bf16, apad [N, H+2, W+2, K] bf16 scratch (null for f32).
 extern "C" int ptt_bn_conv3x3_fwd(const void* x, const void* r,
-                                  const void* prm, const void* w, void* out,
-                                  int N, int H, int W, int K, int O,
-                                  int stride, int act, int dtype,
+                                  const void* prm, const void* w, void* apad,
+                                  void* out, int N, int H, int W, int K,
+                                  int O, int stride, int act, int dtype,
                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const ptt::Geom g = ptt::geom(N, H, W, K, O, stride);
-  if (dtype == ptt::kBFloat16)
-    return ptt::fwd<__nv_bfloat16>(x, r, prm, w, out, g, act, s);
+  if (dtype == ptt::kBFloat16) {
+    // 16-byte staging and stores when every row is whole 16-byte chunks
+    const bool vec = K % 8 == 0 && O % 8 == 0 && ptt::mma::aligned16(x) &&
+                     (r == nullptr || ptt::mma::aligned16(r)) &&
+                     ptt::mma::aligned16(w) && ptt::mma::aligned16(apad) &&
+                     ptt::mma::aligned16(out);
+    if (vec) return ptt::fwd_mma<true>(x, r, prm, w, apad, out, g, act, s);
+    return ptt::fwd_mma<false>(x, r, prm, w, apad, out, g, act, s);
+  }
   return ptt::fwd<float>(x, r, prm, w, out, g, act, s);
 }
 

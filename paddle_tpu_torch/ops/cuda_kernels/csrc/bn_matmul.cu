@@ -8,7 +8,16 @@
 // Forward (K11): Out = act((X - mean) * gamma * rsqrt(var + eps) + beta
 // [+ R]) W.  Each block computes a 64 x 64 tile of Out; X (and R) are read
 // through the prologue as the A slab is staged into shared memory, so the
-// normalized activation never reaches device memory.
+// normalized activation never reaches device memory.  In f32 the product
+// runs on the CUDA cores (bn_gemm.cuh, A through PrologueA).  In bf16 it
+// runs on the tensor cores (bn_mma.cuh), bound by its bytes at ResNet's
+// 1x1s with a residual (X and R are most of them): X and R are staged raw
+// by cp.async16 (TileRR, rows m), post() applies the prologue in place in
+// shared memory once per staged element (channels past K give 0), W is
+// staged as a [k][n] tile (TileRM, ldmatrix.trans), the blocks of one M
+// tile sit next to each other in the grid so that X and R come from
+// device memory about once, and Out leaves 16 bytes a thread through
+// shared memory (store_tile).
 //
 // Backward (K12), one C entry point, four launches:
 //   (a) dA = dO W^T per (M tile, K tile), with the epilogue that
@@ -27,13 +36,15 @@
 // bit-reproducible (no atomics).  dmean and dvar follow from dgamma and
 // dbeta in closed form in the wrapper, as in the JAX wrapper.
 //
-// Bound on an H100: 2 M K N flops forward and 4 M K N backward; at
-// ResNet-50's shapes (K, N in 64..2048) the forward is compute-bound on
-// paper (989 TFLOP/s bf16), the backward with a residual bound by its
-// bytes (X, R, dX, dR, dO).  The forward and the f32 backward run on the
-// CUDA cores in f32 (bn_gemm.cuh).  The bf16 backward runs on the tensor
-// cores (bn_mma.cuh: mma.sync m16n8k16, f32 accumulators) and moves its
-// bytes 16 at a time:
+// Bound on an H100: 2 M K N flops forward and 4 M K N backward, against
+// the bytes of X, R, W and Out (dX, dR, dO too backward): in bf16 the
+// forward does K N / (K (1 + r) + N) flops a byte, below the card's 295 at
+// most of ResNet-50's 1x1s (57 at stage 2's with a residual, K 512, N
+// 128), so it is bound by bytes unless K and N are both large, and the
+// backward with a residual is bound by bytes.  The f32 instances run on
+// the CUDA cores in f32 (bn_gemm.cuh).  The bf16 forward (above) and
+// backward run on the tensor cores (bn_mma.cuh: mma.sync m16n8k16, f32
+// accumulators) and move their bytes 16 at a time; the backward:
 //   (a) dO and W staged by cp.async16 (TileRR), the blocks of one M tile
 //       adjacent in the grid so that its dO rows are read from device
 //       memory about once; the fragment epilogue reads X, R and writes
@@ -148,10 +159,102 @@ bnmm_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
   store_partial(acc, part + (size_t)z * K * N, row0, K, col0, N, N);
 }
 
-// K12 in bf16 on the tensor cores (bn_mma.cuh).
+// K11 and K12 in bf16 on the tensor cores (bn_mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
+
+// K11: A = act(BN(X) [+ R]) [m][k], X and R staged raw (TileRR, rows m)
+// with the step's 32 channels' (mean, gamma * inv, beta) beside them (a
+// [3][32] f32 table, one 16-byte chunk each for 24 threads; the channel is
+// the tile's column, so it moves with k0), then post() applies the
+// prologue in place, each thread to the channel pair k0 + 2 (tid % 16) of
+// rows tid / 16 + 8 i.  A channel past K takes zero parameters (the
+// table's zero fill), so its zero-filled elements leave the prologue as
+// act(0) = 0 (real parameters would give act(beta - mean * gi), not 0);
+// W's rows past K are zero-filled too.  B = W [k][n] (TileRM).  32 a step
+// through a ring of three (the raw R tile takes the room a deeper step
+// would need).  The table is read from shared memory: loading the pair's
+// parameters from device memory (L1) in post() took up to 17% longer.
+template <bool VEC>
+struct MmFwd {
+  static constexpr bool kPost = true;
+  static constexpr int kBK = 32, kStages = 3;
+  struct Ring {
+    TileRR<kBK> x[kStages];
+    TileRR<kBK> r[kStages];
+    TileRM<kBK> w[kStages];
+    float p[kStages][3][kBK];
+  };
+  TileRR<kBK>* sx;
+  TileRR<kBK>* sr;
+  TileRM<kBK>* sw;
+  float (*sp)[3][kBK];
+  const bf16* x;
+  const bf16* res;
+  const bf16* w;
+  const float* prm;
+  int M, K, N, row0, col0, act;
+  __device__ void stage(int buf, int step) const {
+    const int k0 = step * kBK;
+#pragma unroll
+    for (int i = 0; i < kBK / 16; ++i) {
+      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+      const int m = row0 + r;
+      const int nx = m < M ? bnmma::chunk_len(k0 + c, K) : 0;
+      const size_t off = (size_t)m * K + k0 + c;
+      bnmma::stage_chunk<VEC>(&sx[buf].v[r][c], nx ? x + off : x, nx);
+      if (res != nullptr)
+        bnmma::stage_chunk<VEC>(&sr[buf].v[r][c], nx ? res + off : res, nx);
+      const int kr = bnmma::rm_row(i), nc = bnmma::rm_col(i);
+      const int k = k0 + kr;
+      const int nw = k < K ? bnmma::chunk_len(col0 + nc, N) : 0;
+      bnmma::stage_chunk<VEC>(&sw[buf].v[kr][nc],
+                              nw ? w + (size_t)k * N + col0 + nc : w, nw);
+    }
+    constexpr int kPrmChunks = kBK / 4;  // 16-byte chunks of a table row
+    if (threadIdx.x < 3 * kPrmChunks) {
+      const int j = threadIdx.x / kPrmChunks;
+      const int c = (threadIdx.x - j * kPrmChunks) * 4;
+      const int n = max(0, min(4, K - (k0 + c)));  // K % 8 == 0 when VEC
+      float* dst = &sp[buf][j][c];
+      const float* src = prm + (size_t)j * K + k0 + c;
+      if constexpr (VEC) {
+        mma::cp_async16(dst, n ? src : prm, n > 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) dst[u] = u < n ? src[u] : 0.f;
+      }
+    }
+  }
+  __device__ void post(int buf, int step) const {
+    const int cp = 2 * (threadIdx.x & 15);
+    const float2 mu = *reinterpret_cast<const float2*>(&sp[buf][0][cp]);
+    const float2 gi = *reinterpret_cast<const float2*>(&sp[buf][1][cp]);
+    const float2 be = *reinterpret_cast<const float2*>(&sp[buf][2][cp]);
+#pragma unroll
+    for (int i = 0; i < bnmma::kBM * kBK / (2 * bnmma::kThreads); ++i) {
+      const int r = (threadIdx.x >> 4) + 8 * i;
+      auto* px = reinterpret_cast<__nv_bfloat162*>(&sx[buf].v[r][cp]);
+      const float2 xf = __bfloat1622float2(*px);
+      float v0 = pre_act(xf.x, mu.x, gi.x, be.x);
+      float v1 = pre_act(xf.y, mu.y, gi.y, be.y);
+      if (res != nullptr) {
+        const float2 rf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&sr[buf].v[r][cp]));
+        v0 = __fadd_rn(v0, rf.x);
+        v1 = __fadd_rn(v1, rf.y);
+      }
+      if (act == 1) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      *px = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  __device__ const TileRR<kBK>& a(int buf) const { return sx[buf]; }
+  __device__ const TileRM<kBK>& b(int buf) const { return sw[buf]; }
+};
 
 // (a) A = dO [M][N] (rows m), B = W [K][N] (rows k), reduction n, 32 a
 // step through a ring of three.
@@ -251,6 +354,25 @@ __device__ __forceinline__ Chan chan_or_zero(const float* prm, int K, int k) {
   return k < K ? chan(prm, K, k) : Chan{k, 0.f, 0.f, 0.f};
 }
 
+// K11 bf16. grid: ceil(M / 64) * ceil(N / 64), block b = M tile (b /
+// tiles_n), N tile (b % tiles_n).
+template <bool VEC>
+__global__ void __launch_bounds__(bnmma::kThreads)
+bnmm_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
+             const float* __restrict__ prm, const bf16* __restrict__ w,
+             bf16* __restrict__ out, int M, int K, int N, int act) {
+  using Op = MmFwd<VEC>;
+  __shared__ __align__(16) bnmma::OutSmem<typename Op::Ring> sm;
+  const int tiles_n = (N + bnmma::kBN - 1) / bnmma::kBN;
+  const int mt = blockIdx.x / tiles_n, nt = blockIdx.x - mt * tiles_n;
+  const int row0 = mt * bnmma::kBM, col0 = nt * bnmma::kBN;
+  Op op{sm.ring.x, sm.ring.r, sm.ring.w, sm.ring.p, x, res, w, prm, M, K,
+        N, row0, col0, act};
+  float acc[2][4][4];
+  bnmma::mma_loop(acc, op, (K + Op::kBK - 1) / Op::kBK);
+  bnmma::store_tile<VEC>(acc, sm.c, out, row0, M, col0, N);
+}
+
 // (a) grid: ceil(M / 64) * ceil(K / 64), block b = M tile (b / tiles_k),
 // K tile (b % tiles_k).
 template <bool VEC>
@@ -292,6 +414,20 @@ bnmm_bwd_dw_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
   float acc[2][4][4];
   bnmma::mma_loop(acc, op, (r_end - r_begin + Op::kBK - 1) / Op::kBK);
   bnmma::store_part<VEC>(acc, part + (size_t)z * K * N, row0, K, col0, N);
+}
+
+template <bool VEC>
+cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
+                    const void* w, void* out, int M, int K, int N, int act,
+                    cudaStream_t stream) {
+  const long long blocks =
+      (long long)ceil_div(M, bnmma::kBM) * ceil_div(N, bnmma::kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bnmm_fwd_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(r),
+      static_cast<const float*>(prm), static_cast<const bf16*>(w),
+      static_cast<bf16*>(out), M, K, N, act);
+  return cudaGetLastError();
 }
 
 template <bool VEC>
@@ -372,8 +508,14 @@ extern "C" int ptt_bn_matmul_fwd(const void* x, const void* r,
                                  int M, int K, int N, int act, int dtype,
                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBFloat16)
-    return ptt::fwd<__nv_bfloat16>(x, r, prm, w, out, M, K, N, act, s);
+  if (dtype == ptt::kBFloat16) {
+    // 16-byte staging and stores when every row is whole 16-byte chunks
+    const bool vec = K % 8 == 0 && N % 8 == 0 && ptt::mma::aligned16(x) &&
+                     (r == nullptr || ptt::mma::aligned16(r)) &&
+                     ptt::mma::aligned16(w) && ptt::mma::aligned16(out);
+    if (vec) return ptt::fwd_mma<true>(x, r, prm, w, out, M, K, N, act, s);
+    return ptt::fwd_mma<false>(x, r, prm, w, out, M, K, N, act, s);
+  }
   return ptt::fwd<float>(x, r, prm, w, out, M, K, N, act, s);
 }
 

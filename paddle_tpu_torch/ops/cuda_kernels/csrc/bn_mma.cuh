@@ -1,7 +1,8 @@
 // The tensor-core tile product of the fused BatchNorm -> convolution
-// backward kernels in bf16 (bn_matmul.cu: K12; bn_conv.cu: K15), built on
-// mma.cuh's m16n8k16 product and ldmatrix loads, and the epilogues they
-// share.  The f32 instances keep bn_gemm.cuh's CUDA-core product.
+// kernels in bf16 (bn_matmul.cu: K11 forward, K12 backward; bn_conv.cu: K13
+// forward, K15 backward), built on mma.cuh's m16n8k16 product and ldmatrix
+// loads, and the epilogues they share.  The f32 instances (and K14) keep
+// bn_gemm.cuh's CUDA-core product.
 //
 // A block of 128 threads (4 warps, 2 x 2) computes one 64 x 64 tile of
 // C = A B in f32 accumulators, each warp a 32 x 32 quarter: 2 x 4 m16n8
@@ -13,12 +14,13 @@
 // device memory:
 //   TileRR [64][BK]   row (m or n) by reduction: rows contiguous along the
 //                     reduction (dO rows in dA, W rows, the gathered dO
-//                     pixels of K15's dA), read by ldmatrix as A
-//                     (a_row/a_col) or B (b_row/b_col);
+//                     pixels of K15's dA, X rows of K11, the apad taps of
+//                     K13), read by ldmatrix as A (a_row/a_col) or B
+//                     (b_row/b_col);
 //   TileRM [BK][64]   reduction by row: rows contiguous along the output's
-//                     row or column index (X and dO in the dW products),
-//                     read by ldmatrix.trans as A (at_row/at_col below) or
-//                     B (bt_row/bt_col).
+//                     row or column index (X and dO in the dW products, W
+//                     in the forwards), read by ldmatrix.trans as A
+//                     (at_row/at_col below) or B (bt_row/bt_col).
 // Row strides of BK + 8 and 64 + 8 bf16 (80 or 144 bytes) put the eight
 // 16-byte rows of one 8 x 8 matrix in distinct banks.  A stager fills a
 // tile 16 bytes a chunk: 8 bf16, BK / 16 chunks a thread, each chunk's
@@ -273,6 +275,75 @@ struct DaSmem {
   float sx[kThreads / 32][kBN], sd[kThreads / 32][kBN];
 };
 
+// The accumulators into the shared f32 C tile c by their fragment map (c0
+// c1 at row g, columns 2t..; c2 c3 at row g + 8), after a barrier: every
+// warp's last fragment loads of the ring that c overlays are done.
+__device__ __forceinline__ void acc_to_smem(const float (&acc)[2][4][4],
+                                            float (&c)[kBM][kBN + 8]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+  __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        *reinterpret_cast<float2*>(
+            &c[wr + mi * 16 + g + 8 * h][wc + nj * 8 + 2 * t]) =
+            make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+}
+
+// Shared memory of the forward kernels (K11, K13): the operand ring, and
+// over it, once the product is done, the f32 C tile of store_tile.
+template <class Ring>
+struct OutSmem {
+  union {
+    Ring ring;
+    float c[kBM][kBN + 8];
+  };
+};
+
+// The output epilogue of the forward kernels: the accumulator tile at
+// (row0, col0) of out [rows, cols] bf16 (row stride cols), rounded once
+// to bf16.  The accumulators go to the shared C tile c; then thread tid
+// stores the 8-column chunk (tid % 8) * 8 of rows tid / 8 + 16 i, i < 4:
+// 16 bytes a thread, a row's 128 bytes by 8 neighbouring lanes (element by
+// element, the first chunk_len of the chunk, when not VEC).
+template <bool VEC>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
+                                           float (&c)[kBM][kBN + 8],
+                                           bf16* __restrict__ out, int row0,
+                                           int rows, int col0, int cols) {
+  acc_to_smem(acc, c);
+  __syncthreads();
+  const int tid = threadIdx.x, cc = (tid & 7) * 8;
+  const int n = chunk_len(col0 + cc, cols);
+  if (n == 0) return;
+#pragma unroll
+  for (int i = 0; i < kBM * 8 / kThreads; ++i) {
+    const int r = (tid >> 3) + 16 * i, row = row0 + r;
+    if (row >= rows) continue;
+    const float4 a0 = *reinterpret_cast<const float4*>(&c[r][cc]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&c[r][cc + 4]);
+    uint4 v;
+    v.x = mma::pack_bf16(a0.x, a0.y);
+    v.y = mma::pack_bf16(a0.z, a0.w);
+    v.z = mma::pack_bf16(a1.x, a1.y);
+    v.w = mma::pack_bf16(a1.z, a1.w);
+    bf16* o = out + (size_t)row * cols + col0 + cc;
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(o) = v;
+    } else {
+      const bf16* vv = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (u < n) o[u] = vv[u];
+    }
+  }
+}
+
 // The dA epilogue of K12 and K15: for the C tile at (row0, col0) of dA
 // [rows, K] (rows are pixels of X, columns its channels), recompute pre
 // from X (and R) with prm4 [4, K] f32 = mean, inv, gamma, beta as the
@@ -296,20 +367,7 @@ __device__ __forceinline__ void da_epilogue(
     int tile, int row0, int rows, int col0, int K, int act, Smem& sm) {
   constexpr int kRows = kBM * 8 / kThreads;  // rows a thread
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();  // every warp's last fragment loads of the ring are done
-  {
-    const int g = lane >> 2, t = lane & 3;
-    const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          *reinterpret_cast<float2*>(
-              &sm.c[wr + mi * 16 + g + 8 * h][wc + nj * 8 + 2 * t]) =
-              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-  }
+  acc_to_smem(acc, sm.c);
   if (tid < kBN) {
     const int k = col0 + tid;
     const bool ok = k < K;

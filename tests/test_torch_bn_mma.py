@@ -1,5 +1,5 @@
-"""The block, staging and fragment maps of the tensor-core backward
-kernels K12 (``csrc/bn_matmul.cu``, bf16) and K15 (``csrc/bn_conv.cu``,
+"""The block, staging and fragment maps of the tensor-core kernels K11 and
+K12 (``csrc/bn_matmul.cu``, bf16) and K13 and K15 (``csrc/bn_conv.cu``,
 bf16), built on ``csrc/bn_mma.cuh``, emulated in numpy on the CPU.
 
 The kernels run only on a card (``test_torch_kernels.py`` holds them
@@ -9,8 +9,9 @@ they cut the work and where each thread's data goes:
 - the ldmatrix maps of both tile layouts (a [row][reduction] tile read
   as A or B, a [reduction][row] tile read as A or B through ``.trans``)
   feeding m16n8k16 products, against the tile's matrix product; the C
-  fragment lane map covering each (row, column) of a 64 x 64 tile once;
-  the shared-memory rows of each ldmatrix phase in distinct banks;
+  fragment lane map and the forward's output store map each covering
+  each (row, column) of a 64 x 64 tile once; the shared-memory rows of
+  each ldmatrix phase in distinct banks;
 - the whole backward, tile by tile, in float64: the flattened dA grid,
   the chunk staging maps with their zero fill and ragged channel tails,
   K15's transposed taps with the stride-2 parity rule, its prep pass
@@ -19,7 +20,13 @@ they cut the work and where each thread's data goes:
   ``sum_splits``' fixed order, the epilogue's thread / shuffle / warp
   order of the dgamma and dbeta column sums and their sum over tiles,
   against the port's plain versions in float64 within 1e-12 of each
-  tensor's max |value|.
+  tensor's max |value|;
+- the whole forward the same way: K13's prep pass and its (output pixel,
+  tap) rows of the padded activation at stride 1 and 2, never out of
+  bounds, W's [k][o] tiles, the ragged channel tails; K11's raw X and R
+  tiles, its in-place prologue with the step's channels and the K tail
+  zeroed; both grids with the blocks of one row tile adjacent, and the
+  output store map.
 """
 
 import numpy as np
@@ -33,8 +40,10 @@ BM = BN = 64
 THREADS = 128
 LD_RM = BM + 8  # a [reduction][row] tile's row stride in bf16
 # the reduction step of each product: K12's dA and dW 32 (in dW the raw R
-# tile takes the room), K15's dA and dW 64
+# tile takes the room), K15's dA and dW 64, K11 32 (the raw R tile again),
+# K13 64
 BK_K12_DA, BK_K12_DW, BK_K15 = 32, 32, 64
+BK_K11, BK_K13 = 32, 64
 
 
 def ld_rr(bk):
@@ -105,7 +114,9 @@ def test_fast_div_matches_integer_division():
 
 
 def get8(flat, off, n):
-    """A staged chunk: the first n elements from flat[off:], zeros after."""
+    """A staged chunk: the first n elements from flat[off:], zeros after;
+    a chunk with elements to load lies inside its tensor."""
+    assert n == 0 or 0 <= off <= flat.size - n, (off, n, flat.size)
     out = np.zeros(8)
     out[:n] = flat[off:off + n]
     return out
@@ -194,12 +205,15 @@ def test_c_fragment_map_covers_the_tile_once():
 
 
 @pytest.mark.parametrize("bk", [32, 64])
-@pytest.mark.parametrize("a_layout,b_layout", [("rr", "rr"), ("rm", "rm")])
+@pytest.mark.parametrize("a_layout,b_layout",
+                         [("rr", "rr"), ("rm", "rm"), ("rr", "rm")])
 def test_fragment_maps_multiply_the_staged_tiles(a_layout, b_layout, bk):
     """One bk-deep stage through mma_loop's loads: A from a [64][bk] tile
     (a_row/a_col) or a [bk][64] tile (at_row/at_col, .trans), B from a
     [64][bk] tile (b_row/b_col) or a [bk][64] tile (bt_row/bt_col,
-    .trans); the accumulators, placed by the C map, equal the product."""
+    .trans); the accumulators, placed by the C map, equal the product.
+    rr/rr is the dA products', rm/rm the dW products', rr/rm the
+    forwards' (A rows of pixels, B = W [k][o])."""
     rng = np.random.RandomState(0)
     ta = rng.randint(-4, 5, (BM, ld_rr(bk)) if a_layout == "rr"
                      else (bk, LD_RM)).astype(np.float64)
@@ -242,6 +256,30 @@ def test_fragment_maps_multiply_the_staged_tiles(a_layout, b_layout, bk):
             if w == warp:
                 C[row, col] = acc[mi, nj, lane, e]
     np.testing.assert_array_equal(C, A @ B)
+
+
+def store_cells():
+    """bn_mma.cuh store_tile: (tid, row, first column) of each 8-column
+    chunk of the C tile a thread stores: chunk (tid % 8) * 8 of rows
+    tid / 8 + 16 i, i < 4."""
+    for tid in range(THREADS):
+        for i in range(BM * 8 // THREADS):
+            yield tid, (tid >> 3) + 16 * i, (tid & 7) * 8
+
+
+def test_store_tile_map_covers_the_tile_once():
+    seen = np.zeros((BM, BN), int)
+    for _, row, col in store_cells():
+        seen[row, col:col + 8] += 1
+    assert (seen == 1).all()
+    # a warp's lanes store whole 128-byte rows: 8 neighbouring lanes a row
+    for warp in range(THREADS // 32):
+        for i in range(BM * 8 // THREADS):
+            rows = {}
+            for tid in range(32 * warp, 32 * warp + 32):
+                rows.setdefault((tid >> 3) + 16 * i, []).append(tid)
+            assert all(len(t) == 8 and t == list(range(t[0], t[0] + 8))
+                       for t in rows.values())
 
 
 @pytest.mark.parametrize("ld", [ld_rr(32), ld_rr(64), LD_RM])
@@ -427,20 +465,14 @@ def k12_emulated(x, r, mu, inv, gam, b, w, do, act):
     return dx, dgb[0], dgb[1], dw, dr
 
 
-def k15_emulated(x, r, mu, inv, gam, b, w, do, act, s):
-    """K15 bf16's five launches, in float64."""
+def pad_prep(x, r, mu, gi, b, act):
+    """bn_conv.cu bnc_pad_prep (K13 and K15 bf16, launch 1): apad [N, H+2,
+    W+2, K] flat, one padded row a block, 8-channel chunks, the prologue
+    inside and 0 on the border (padding after the prologue)."""
     N, H, W, K = x.shape
-    O = w.shape[3]
-    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
-    gi = inv * gam
-    prm4 = np.stack([mu, inv, gam, b])
-    rows = N * H * W
-    xf, wf, dof = x.ravel(), w.ravel(), do.ravel()
+    xf = x.ravel()
     rf = None if r is None else r.ravel()
-    x2 = x.reshape(rows, K)
-    r2 = None if r is None else r.reshape(rows, K)
-    # (1) prep: apad, one padded row a block, 8-channel chunks
-    apad = np.zeros(N * (H + 2) * (W + 2) * K)
+    apad = np.full(N * (H + 2) * (W + 2) * K, np.nan)
     kc = cdiv(K, 8)
     for blk in range(N * (H + 2)):
         n, hp = divmod(blk, H + 2)
@@ -457,6 +489,162 @@ def k15_emulated(x, r, mu, inv, gam, b, w, do, act, s):
                     v = prologue(xf[off], None if r is None else rf[off],
                                  mu[k], gi[k], b[k], act)
                 apad[(blk * (W + 2) + wp) * K + k] = v
+    assert not np.isnan(apad).any()  # every element written
+    return apad
+
+
+def store_tile(acc, out, written, row0, rows, col0, cols):
+    """bn_mma.cuh store_tile: the accumulators placed in the shared C tile
+    by the C fragment map, then each thread's 8-column chunks of its four
+    rows, the first chunk_len of each (all 8 when VEC); `written` counts
+    each output element's stores."""
+    c = np.full((BM, BN), np.nan)
+    for *_, row, col in frag_cells():
+        c[row, col] = acc[row, col]
+    for _, rr, cc in store_cells():
+        row = row0 + rr
+        n = chunk_len(col0 + cc, cols)
+        if row >= rows or n == 0:
+            continue
+        out[row, col0 + cc:col0 + cc + n] = c[rr, cc:cc + n]
+        written[row, col0 + cc:col0 + cc + n] += 1
+
+
+def k13_emulated(x, r, mu, inv, gam, b, w, act, s):
+    """K13 bf16's two launches, in float64: the prep pass, then the
+    implicit GEMM over (tap, 64-channel step) with A rows of output pixels
+    read from apad, B = W[tap] [k][o], the flattened grid (the O tiles of
+    one pixel tile adjacent)."""
+    N, H, W, K = x.shape
+    O = w.shape[3]
+    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+    apad = pad_prep(x, r, mu, inv * gam, b, act)
+    wf = w.ravel()
+    rows = N * Ho * Wo
+    tiles_m, tiles_o = cdiv(rows, BM), cdiv(O, BN)
+    ksteps = cdiv(K, BK_K13)
+    out = np.zeros((rows, O))
+    written = np.zeros((rows, O), int)
+    for blk in range(tiles_m * tiles_o):
+        mt, ot = divmod(blk, tiles_o)
+        row0, col0 = mt * BM, ot * BN
+        base = {}  # each tile row's top-left tap in apad, decoded once
+        for rr in range(BM):
+            p = row0 + rr
+            wo, t = p % Wo, p // Wo
+            n, ho = t // Ho, t % Ho
+            base[rr] = (((n * (H + 2) + ho * s) * (W + 2) + wo * s) * K
+                        if p < rows else None)
+        acc = np.zeros((BM, BN))
+        for step in range(9 * ksteps):
+            tap, kstep = divmod(step, ksteps)
+            k0 = kstep * BK_K13
+            dy, dxx = divmod(tap, 3)
+            toff = (dy * (W + 2) + dxx) * K + k0
+            ta = np.zeros((BM, ld_rr(BK_K13)))
+            tb = np.zeros((BK_K13, LD_RM))
+            for rr, c in rr_chunks(BK_K13):
+                na = chunk_len(k0 + c, K) if base[rr] is not None else 0
+                ta[rr, c:c + 8] = get8(apad, (base[rr] or 0) + toff + c, na)
+            for kr, oc in rm_chunks(BK_K13):
+                k = k0 + kr
+                nb = chunk_len(col0 + oc, O) if k < K else 0
+                tb[kr, oc:oc + 8] = get8(wf, (tap * K + k) * O + col0 + oc,
+                                         nb)
+            acc += ta[:, :BK_K13] @ tb[:, :BN]
+        store_tile(acc, out, written, row0, rows, col0, O)
+    assert (written == 1).all()
+    return out.reshape(N, Ho, Wo, O)
+
+
+def k11_table(prm, k0, K):
+    """MmFwd's parameter table of the step at k0: [3][32] f32, row j the
+    channels k0.. of prm[j] in 16-byte chunks of 4, zero past K."""
+    table = np.full((3, BK_K11), np.nan)
+    for tid in range(3 * BK_K11 // 4):
+        j, c = divmod(tid, BK_K11 // 4)
+        c *= 4
+        n = max(0, min(4, K - (k0 + c)))
+        table[j, c:c + 4] = 0.0
+        table[j, c:c + n] = prm[j, k0 + c:k0 + c + n]
+    return table
+
+
+def k11_post(tx, tr, table, act):
+    """MmFwd::post on one staged [64][32] X tile (and R), in place: thread
+    tid takes the channel pair 2 (tid % 16) of rows tid / 16 + 8 i, i < 8,
+    with the pair's (mean, gi, beta) from the step's table.  Returns how
+    often each element was visited."""
+    seen = np.zeros((BM, BK_K11), int)
+    for tid in range(THREADS):
+        cp = 2 * (tid & 15)
+        for u in range(2):
+            mu, gi, b = table[:, cp + u]
+            for i in range(BM * BK_K11 // (2 * THREADS)):
+                rr = (tid >> 4) + 8 * i
+                tx[rr, cp + u] = prologue(
+                    tx[rr, cp + u], None if tr is None else tr[rr, cp + u],
+                    mu, gi, b, act)
+                seen[rr, cp + u] += 1
+    return seen
+
+
+def k11_emulated(x, r, mu, inv, gam, b, w, act):
+    """K11 bf16 in float64: per (M tile, N tile) of the flattened grid, X
+    and R staged raw with the step's parameter table, the prologue in
+    place, B = W [k][n], the store map.  Also returns each step's A and B
+    tiles after the prologue."""
+    M, K = x.shape
+    N = w.shape[1]
+    prm = np.stack([mu, inv * gam, b])
+    xf, wf = x.ravel(), w.ravel()
+    rf = None if r is None else r.ravel()
+    tiles_m, tiles_n = cdiv(M, BM), cdiv(N, BN)
+    out = np.zeros((M, N))
+    written = np.zeros((M, N), int)
+    a_tiles = []
+    for blk in range(tiles_m * tiles_n):
+        mt, nt = divmod(blk, tiles_n)
+        row0, col0 = mt * BM, nt * BN
+        acc = np.zeros((BM, BN))
+        for step in range(cdiv(K, BK_K11)):
+            k0 = step * BK_K11
+            tx = np.zeros((BM, ld_rr(BK_K11)))
+            tr = None if r is None else np.zeros((BM, ld_rr(BK_K11)))
+            tw = np.zeros((BK_K11, LD_RM))
+            for rr, c in rr_chunks(BK_K11):
+                m = row0 + rr
+                nx = chunk_len(k0 + c, K) if m < M else 0
+                tx[rr, c:c + 8] = get8(xf, m * K + k0 + c, nx)
+                if r is not None:
+                    tr[rr, c:c + 8] = get8(rf, m * K + k0 + c, nx)
+            for kr, nc in rm_chunks(BK_K11):
+                k = k0 + kr
+                nw = chunk_len(col0 + nc, N) if k < K else 0
+                tw[kr, nc:nc + 8] = get8(wf, k * N + col0 + nc, nw)
+            seen = k11_post(tx, tr, k11_table(prm, k0, K), act)
+            assert (seen[:, :BK_K11] == 1).all()
+            a_tiles.append((k0, tx[:, :BK_K11].copy(), tw[:, :BN].copy()))
+            acc += tx[:, :BK_K11] @ tw[:, :BN]
+        store_tile(acc, out, written, row0, M, col0, N)
+    assert (written == 1).all()
+    return out, a_tiles
+
+
+def k15_emulated(x, r, mu, inv, gam, b, w, do, act, s):
+    """K15 bf16's five launches, in float64."""
+    N, H, W, K = x.shape
+    O = w.shape[3]
+    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+    gi = inv * gam
+    prm4 = np.stack([mu, inv, gam, b])
+    rows = N * H * W
+    xf, wf, dof = x.ravel(), w.ravel(), do.ravel()
+    rf = None if r is None else r.ravel()
+    x2 = x.reshape(rows, K)
+    r2 = None if r is None else r.reshape(rows, K)
+    # (1) prep: apad
+    apad = pad_prep(x, r, mu, gi, b, act)
     # (2) dA: rows input pixels, the reduction (tap, o)
     tiles_m, tiles_k = cdiv(rows, BM), cdiv(K, BN)
     osteps = cdiv(O, BK_K15)
@@ -600,3 +788,72 @@ def test_emulated_k15_matches_plain_float64(N, H, W, K, O, stride, has_r,
     got = [dx, dg, db, dw] + ([dr] if has_r else [])
     want = [ref[0], ref[1], ref[2], ref[5]] + ([ref[6]] if has_r else [])
     _check(got, want, ("dx", "dgamma", "dbeta", "dw", "dr"))
+
+
+def _emulate_fwd(fn, a, act, *extra):
+    mu, inv, gam, b, _ = t_bnmm.stats(a["gamma"], a["beta"], a["mean"],
+                                      a["var"], 1e-5, torch.float64)
+    r = None if a["r"] is None else a["r"].numpy()
+    return fn(a["x"].numpy(), r, mu.numpy(), inv.numpy(), gam.numpy(),
+              b.numpy(), a["w"].numpy(), act, *extra)
+
+
+# (M, K, N, residual, act, border): a partial M tile, two K steps and two
+# N tiles; the ragged K 20 / N 5; a ragged K tail with the border case
+# (act(beta - mean * gi) > 0 past K unless zeroed); K 64 N 96
+@pytest.mark.parametrize("M,K,N,has_r,act,border", [
+    (130, 64, 72, True, "relu", False),
+    (37, 20, 5, True, None, False),
+    (70, 20, 16, False, "relu", True),
+    (64, 64, 96, False, "relu", False)])
+def test_emulated_k11_matches_plain_float64(M, K, N, has_r, act, border):
+    a = _inputs((M, K), (K, N), (M, N), has_r, border, M + K)
+    ref = t_bnmm.bn_matmul_fwd_ref(a["x"], a["gamma"], a["beta"], a["mean"],
+                                   a["var"], a["w"], a["r"], act)
+    out, _ = _emulate_fwd(k11_emulated, a, act)
+    _check([out], [ref], ("out",))
+
+
+def test_emulated_k11_zeroes_the_k_tail_of_a():
+    """Channels past K contribute nothing, and A's tail is itself zero:
+    with the border case's statistics the prologue of a zero-filled
+    element, act(beta - mean * gi), is far from 0, yet A's tail columns
+    are 0 after post() because a channel past K takes zero parameters
+    (the table's zero fill; act(0) = 0); W's tail rows are zero-filled as
+    well.  So neither
+    operand's tail carries a value, and a non-finite one cannot reach the
+    sums."""
+    M, K, N = 70, 20, 16
+    a = _inputs((M, K), (K, N), (M, N), False, True, 1)
+    mu, _, _, b, gi = t_bnmm.stats(a["gamma"], a["beta"], a["mean"],
+                                   a["var"], 1e-5, torch.float64)
+    assert (torch.relu(b - mu * gi) > 1.0).all()
+    _, tiles = _emulate_fwd(k11_emulated, a, "relu")
+    for k0, ta, tw in tiles:
+        tail = max(0, K - k0)
+        if tail < BK_K11:
+            assert (ta[:, tail:] == 0).all()
+            assert (tw[tail:] == 0).all()
+        assert (ta[:, :tail] != 0).any()
+
+
+# (N, H, W, K, O, stride, residual, act, border): stride 1 and 2, odd H
+# and W, the ragged K 20 / O 33, two K steps a tap and two O tiles, two
+# pixel tiles, the border (zero padding after the prologue)
+@pytest.mark.parametrize("N,H,W,K,O,stride,has_r,act,border", [
+    (2, 5, 7, 16, 8, 1, True, "relu", False),
+    (2, 7, 5, 16, 16, 2, True, "relu", False),
+    (1, 5, 9, 20, 33, 2, False, None, False),
+    (1, 6, 6, 16, 16, 1, False, "relu", True),
+    (1, 5, 5, 72, 80, 1, False, "relu", False),
+    (1, 9, 9, 8, 16, 1, True, "relu", True)])
+def test_emulated_k13_matches_plain_float64(N, H, W, K, O, stride, has_r,
+                                            act, border):
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    a = _inputs((N, H, W, K), (3, 3, K, O), (N, Ho, Wo, O), has_r, border,
+                N + H + K)
+    ref = t_bnc.bn_conv3x3_fwd_ref(a["x"], a["gamma"], a["beta"], a["mean"],
+                                   a["var"], a["w"], a["r"], act,
+                                   stride=stride)
+    out = _emulate_fwd(k13_emulated, a, act, stride)
+    _check([out], [ref], ("out",))

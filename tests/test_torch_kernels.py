@@ -723,6 +723,59 @@ def test_bn_bwd_kernels_rerun_bit_identical_on_card(cuda_device, kind,
         assert torch.equal(a, c), name
 
 
+def _off_alignment(t):
+    """t's values in a tensor whose data lies one element past a 16-byte
+    boundary: the kernels then stage element by element."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# The bf16 forwards' tensor-core bodies (K11, K13): element-wise staging
+# (a channel count not a multiple of 8, or x and r off 16-byte alignment),
+# odd H and W at stride 2, a residual, a ragged K with the border case
+# (a channel past K must contribute nothing)
+@pytest.mark.parametrize("kind,shape,has_r,act,border,unaligned", [
+    ("1x1", (37, 20, 5), True, "relu", False, False),
+    ("1x1", (70, 20, 16), False, "relu", True, False),
+    ("1x1", (200, 64, 96), True, "relu", False, True),
+    ("3x3", (1, 5, 9, 20, 33, 2), False, None, False, False),
+    ("3x3", (2, 7, 7, 64, 96, 2), True, "relu", False, False),
+    ("3x3", (2, 9, 5, 16, 24, 2), True, "relu", True, True)])
+def test_bn_fwd_mma_bodies_match_plain_on_card(cuda_device, kind, shape,
+                                               has_r, act, border,
+                                               unaligned):
+    """bf16 K11 and K13 against their plain versions in bf16 (relative to
+    max |value|), one launch a call, and the same bits on a rerun."""
+    dtype = torch.bfloat16
+    rng = np.random.RandomState(11)
+    if kind == "1x1":
+        M, K, N = shape
+        xs, ws, extra = (M, K), (K, N), {}
+        fn, ref_fn = t_bnmm.bn_matmul_fwd, t_bnmm.bn_matmul_fwd_ref
+    else:
+        n, H, W, K, O, stride = shape
+        xs, ws, extra = (n, H, W, K), (3, 3, K, O), {"stride": stride}
+        fn, ref_fn = t_bnc.bn_conv3x3_fwd, t_bnc.bn_conv3x3_fwd_ref
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, xs, has_r, border,
+                                   sum(shape))
+    if unaligned:
+        x = _off_alignment(x)
+        r = None if r is None else _off_alignment(r)
+    w = torch.from_numpy((rng.randn(*ws) / np.sqrt(np.prod(ws[:-1])))
+                         .astype(np.float32)).to(cuda_device, dtype)
+    before = fn.launches
+    out = fn(x, g, b, mu, var, w, r, act, **extra)
+    again = fn(x, g, b, mu, var, w, r, act, **extra)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 2
+    ref = ref_fn(x, g, b, mu, var, w, r, act, **extra)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert _rel_err(out, ref) <= _CARD_TOL[dtype]
+    assert torch.equal(out, again)
+
+
 def test_bn_train_functions_launch_kernels_on_card(exact_f32):
     """BNMatmulTrain and BNConv3x3Train (v1 and v2) on CUDA tensors: one
     forward and one backward launch each, gradients as the plain

@@ -132,6 +132,8 @@ def _group(name: str, model: str) -> str:
         return "K9 and K10 (the gates kernel they share)"
     if "gru_bwd_" in n:
         return "K10 gru_backward (steps)"
+    if "bnc_pad_prep" in n:
+        return "K13 and K15 (the bf16 prep pass they share)"
     if "bnmm_fwd" in n:
         return "K11 bn_matmul_fwd"
     if "bnmm_bwd" in n:
