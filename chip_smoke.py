@@ -19,7 +19,12 @@ non-zero and no result line is printed):
    both on the tensor cores) with its ratio to that call and its share of
    the bound; the f32 bound counts three TF32 products at the tensor
    cores' TF32 rate, and the phase's log rows (not the ``kernels`` line)
-   give the CUDA cores' bound of one f32 product beside it;
+   give the CUDA cores' bound of one f32 product beside it.  K2 (design
+   ``split_kv_cuda_cores``) runs the 8 ragged slots of a decode step, all
+   8 at ctx 1024 and one alone at 1024, each timed warm (``kernel_ms``:
+   100 calls on one pool, whose pages stay in the 50 MB L2) and cold
+   (``kernel_cold_ms``: each call on the next of 8 or more pool copies,
+   one per layer as a serve's ``kpool[i]``, at least 100 MB a round);
 4. fifo serve: the full-width GPT bench model (vocab 32000, dim 512, 8
    layers, 8 heads, max_len 1024, float32, random weights from a seed)
    behind the fifo ServingEngine (8 slots, page 16) answers 16 requests,
@@ -34,7 +39,9 @@ non-zero and no result line is printed):
    mixed step's shape (4 chunk lanes of 32 rows) and the speculative
    verify's (8 slots of 5 rows), float32 and bfloat16, ragged, with an
    idle lane, a mid-page start, a chunk across a page, a lane near 1024
-   and every unseen pool slot poisoned;
+   and every unseen pool slot poisoned; design ``split_kv_mma`` (bf16) or
+   ``split_kv_mma_3xtf32`` (f32, bounded as K1's f32 body), timed warm
+   and cold as K2;
 7. v2 serve (8 slots, page 16, chunk 32, 4 lanes, the default
    watermark): the 16 requests (tokens as the fifo card run's), the 16
    prefix-heavy requests of ``gpt_bench.prefix_prompts`` (prefix hits and
@@ -294,15 +301,22 @@ DESIGN[torch.bfloat16].update(
     {k: "cuda_cores" if k == "bn_conv3x3_fwd_v2" else "mma"
      for k in BN_KERNELS})
 DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "cuda_cores"))
+# K2 and K3 split a slot's page walk across blocks and stage pages by
+# cp.async into rings (csrc/paged_split.cuh); K2 scores on the CUDA cores
+# in both dtypes, K3 on the tensor cores (f32 in 3xTF32)
+for _dt in DTYPES:
+    DESIGN[_dt]["paged_attention"] = "split_kv_cuda_cores"
+DESIGN[torch.bfloat16]["paged_attention_mq"] = "split_kv_mma"
+DESIGN[torch.float32]["paged_attention_mq"] = "split_kv_mma_3xtf32"
 
 
 def flash_bound(name, nbytes, flops, dtype):
-    """(bound_ms, bound_by, extra fields) of a flash kernel, by its body:
-    a 3xTF32 body does three TF32 products per f32 product at the tensor
-    cores' TF32 rate, and its log row keeps the CUDA cores' bound of the
-    one f32 product beside it; every other body is bounded at its dtype's
-    rate."""
-    if DESIGN[dtype][name] != "mma_3xtf32":
+    """(bound_ms, bound_by, extra fields) of an attention kernel, by its
+    body: a 3xTF32 body does three TF32 products per f32 product at the
+    tensor cores' TF32 rate, and its log row keeps the CUDA cores' bound of
+    the one f32 product beside it; every other body is bounded at its
+    dtype's rate."""
+    if not DESIGN[dtype][name].endswith("mma_3xtf32"):
         return (*bound(nbytes, flops, dtype), {})
     b_ms, b_by = bound(nbytes, 3 * flops, dtype, peak=PEAK_TF32)
     return b_ms, b_by, {"bound_cuda_cores_ms": bound(nbytes, flops, dtype)[0]}
@@ -409,58 +423,114 @@ def _poison_unseen(kp, vp, pt, cl, ps):
     return kp.masked_fill(mask, 1e9), vp.masked_fill(mask, 1e9)
 
 
-def paged_phase(dev):
-    """K2 at the engine's decode shape: N 8, nh 8, dh 64, ps 16, maxp 64,
-    the engine's 513-page pool, ragged ctx_lens with 1, partial pages and
-    1024; unused slots poisoned."""
-    N, nh, dh = SLOTS, HEADS, DIM // HEADS
-    maxp = pages_needed(MAX_LEN, PAGE)
-    ctx = [1, 17, 1024, 300, 64, 999, 5, 512]
-    rng = np.random.RandomState(SEED)
-    pt = np.zeros((N, maxp), np.int32)
+# K2's timed cases: the engine's decode step (ragged, 1 to 1024), all 8
+# slots at 1024, and one slot alone at 1024 (the case split-KV is for)
+PAGED_CASES = {"decode": [1, 17, 1024, 300, 64, 999, 5, 512],
+               "full_1024": [1024] * SLOTS,
+               "one_1024": [1024]}
+# a cold reading rotates each call over distinct pools, one per layer as
+# the serve's kpool[i], at least this many and enough to touch COLD_BYTES
+# a round: twice the H100's 50 MB L2
+COLD_POOLS, COLD_BYTES = LAYERS, 100e6
+
+
+def page_table(rng, lens, maxp):
+    """Distinct random pages of the 513-page pool for each slot's first
+    ceil(len / PAGE) entries, null past them (an all-null row for 0)."""
+    pt = np.zeros((len(lens), maxp), np.int32)
     perm = iter(rng.permutation(np.arange(1, NUM_PAGES)))
-    for n, L in enumerate(ctx):
+    for n, L in enumerate(lens):
         for j in range(pages_needed(L, PAGE)):
             pt[n, j] = next(perm)
-    pt_t = torch.from_numpy(pt)
+    return torch.from_numpy(pt)
+
+
+def cold_pools(kp, vp, nbytes):
+    """Copies of the pools for a cold reading: COLD_POOLS or more, enough
+    that a round through them touches COLD_BYTES of K/V."""
+    n = max(COLD_POOLS, -(-int(COLD_BYTES) // int(nbytes)))
+    return [(kp.clone(), vp.clone()) for _ in range(n)]
+
+
+def warm_cold_ms(call, kp, vp, kv_bytes):
+    """(warm ms, cold ms, pools) of `call(kp, vp)`: warm, 100 calls on one
+    pool (its pages stay in L2); cold, each call on the next of several
+    pool copies (``cold_pools``), as a serve's layers each read their own
+    pool while the weights pass through L2 between them."""
+    warm = time_ms(lambda: call(kp, vp), iters=100)
+    pools = cold_pools(kp, vp, kv_bytes)
+    n = len(pools)
+    cold = time_ms(lambda: [call(k, v) for k, v in pools],
+                   iters=max(2, 200 // n)) / n
+    del pools
+    torch.cuda.empty_cache()
+    return warm, cold, n
+
+
+def paged_case(dev, dtype, ctx, seed=SEED + 1):
+    """K2's inputs at the engine's decode shape for ctx_lens `ctx`: q, the
+    513-page pools with every slot no context sees poisoned, the table and
+    the lengths on the card, and the K/V bytes the call needs."""
+    nh, dh = HEADS, DIM // HEADS
+    maxp = pages_needed(MAX_LEN, PAGE)
+    pt_t = page_table(np.random.RandomState(SEED), ctx, maxp)
     cl_t = torch.tensor(ctx, dtype=torch.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(len(ctx), nh, dh, generator=g, device=dev).to(dtype)
+    kp, vp = (torch.randn(NUM_PAGES, nh, PAGE, dh, generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    kp, vp = _poison_unseen(kp, vp, pt_t, cl_t, PAGE)
+    kv = sum(ctx) * nh * dh * 2 * q.element_size()
+    return q, kp, vp, pt_t.to(dev), cl_t.to(dev), kv
+
+
+def paged_phase(dev):
+    """K2 at the engine's decode shape: nh 8, dh 64, ps 16, maxp 64, the
+    engine's 513-page pool, unused slots poisoned; ragged ctx_lens with 1,
+    partial pages and 1024 (the 8 slots of a decode step), all 8 slots at
+    1024, and one slot alone at 1024; each timed warm and cold."""
+    nh, dh = HEADS, DIM // HEADS
+    maxp = pages_needed(MAX_LEN, PAGE)
     rows, summary = [], None
-    for dtype in DTYPES:
-        g = torch.Generator(device=dev).manual_seed(SEED + 1)
-        q = torch.randn(N, nh, dh, generator=g, device=dev).to(dtype)
-        kp, vp = (torch.randn(NUM_PAGES, nh, PAGE, dh, generator=g,
-                              device=dev).to(dtype) for _ in range(2))
-        kp, vp = _poison_unseen(kp, vp, pt_t, cl_t, PAGE)
-        pt_d, cl_d = pt_t.to(dev), cl_t.to(dev)
-        out = pa.paged_attention(q, kp, vp, pt_d, cl_d)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_ref(q, kp, vp, pt_d, cl_d)
-        err = max_err(out, ref)
-        if not torch.isfinite(out.float()).all():
-            raise AssertionError("paged_attention read a poisoned slot")
-        itemsize = q.element_size()
-        kv = sum(ctx) * nh * dh * 2 * itemsize
-        table = sum(pages_needed(L, PAGE) for L in ctx) * 4 + N * 4
-        nbytes = kv + 2 * q.numel() * itemsize + table
-        flops = 4 * sum(ctx) * nh * dh
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        row = {"dtype": str(dtype).split(".")[1], "N": N, "nh": nh,
-               "dh": dh, "ps": PAGE, "maxp": maxp, "pool_pages": NUM_PAGES,
-               "ctx_lens": ctx, "max_abs_err": err,
-               "kernel_ms": time_ms(
-                   lambda: pa.paged_attention(q, kp, vp, pt_d, cl_d),
-                   iters=100),
-               "plain_ms": time_ms(
-                   lambda: pa.paged_attention_ref(q, kp, vp, pt_d, cl_d)),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        rows.append(row)
-        log("paged_attention", row)
-        if err > TOL[dtype]:
-            raise AssertionError(
-                f"paged_attention disagrees with its plain version: {row} "
-                f"(tolerance {TOL[dtype]})")
-        if dtype == torch.float32:
-            summary = row
+    for case, ctx in PAGED_CASES.items():
+        N = len(ctx)
+        for dtype in DTYPES:
+            q, kp, vp, pt_d, cl_d, kv = paged_case(dev, dtype, ctx)
+            out = pa.paged_attention(q, kp, vp, pt_d, cl_d)
+            torch.cuda.synchronize()
+            ref = pa.paged_attention_ref(q, kp, vp, pt_d, cl_d)
+            err = max_err(out, ref)
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError("paged_attention read a poisoned slot")
+            itemsize = q.element_size()
+            table = sum(pages_needed(L, PAGE) for L in ctx) * 4 + N * 4
+            nbytes = kv + 2 * q.numel() * itemsize + table
+            flops = 4 * sum(ctx) * nh * dh
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            warm, cold, n_pools = warm_cold_ms(
+                lambda k, v: pa.paged_attention(q, k, v, pt_d, cl_d), kp,
+                vp, kv)
+            row = {"case": case, "dtype": str(dtype).split(".")[1], "N": N,
+                   "nh": nh, "dh": dh, "ps": PAGE, "maxp": maxp,
+                   "pool_pages": NUM_PAGES, "ctx_lens": ctx,
+                   "design": DESIGN[dtype]["paged_attention"],
+                   "max_abs_err": err, "kernel_ms": warm,
+                   "kernel_cold_ms": cold, "cold_pools": n_pools,
+                   "plain_ms": time_ms(
+                       lambda: pa.paged_attention_ref(q, kp, vp, pt_d,
+                                                      cl_d)),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / warm,
+                   "bound_share_cold": b_ms / cold}
+            rows.append(row)
+            log("paged_attention", row)
+            if err > TOL[dtype]:
+                raise AssertionError(
+                    f"paged_attention disagrees with its plain version: "
+                    f"{row} (tolerance {TOL[dtype]})")
+            if dtype == torch.float32 and case == "decode":
+                summary = row
+            del q, kp, vp, out, ref
     return rows, summary
 
 
@@ -664,13 +734,9 @@ def mq_phase(dev):
         N = len(lanes)
         q0 = [s for s, _ in lanes]
         ctx = [max(s + n, 1) for s, n in lanes]
-        pt = np.zeros((N, maxp), np.int32)
-        perm = iter(rng.permutation(np.arange(1, NUM_PAGES)))
-        for n, (L, (_, rows_n)) in enumerate(zip(ctx, lanes)):
-            if rows_n:  # an idle lane keeps its all-null table row
-                for j in range(pages_needed(L, PAGE)):
-                    pt[n, j] = next(perm)
-        pt_t = torch.from_numpy(pt)
+        # an idle lane keeps its all-null table row
+        pt_t = page_table(rng, [L if n else 0 for L, (_, n) in
+                                zip(ctx, lanes)], maxp)
         cl_t = torch.tensor(ctx, dtype=torch.int32)
         for dtype in DTYPES:
             g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -698,16 +764,23 @@ def mq_phase(dev):
             pairs = sum(min(s + c + 1, L) for L, s in zip(ctx, q0)
                         for c in range(C))
             flops = 4 * dh * nh * pairs
-            b_ms, b_by = bound(nbytes, flops, dtype)
+            b_ms, b_by, extra = flash_bound("paged_attention_mq", nbytes,
+                                            flops, dtype)
+            warm, cold, n_pools = warm_cold_ms(
+                lambda k, v: pa.paged_attention_mq(q, k, v, *args[3:]), kp,
+                vp, kv)
             row = {"shape": shape, "dtype": str(dtype).split(".")[1],
                    "N": N, "nh": nh, "C": C, "dh": dh, "ps": PAGE,
                    "maxp": maxp, "pool_pages": NUM_PAGES,
-                   "q_starts": q0, "ctx_lens": ctx, "max_abs_err": err,
-                   "kernel_ms": time_ms(lambda: pa.paged_attention_mq(*args),
-                                        iters=100),
+                   "q_starts": q0, "ctx_lens": ctx,
+                   "design": DESIGN[dtype]["paged_attention_mq"], **extra,
+                   "max_abs_err": err, "kernel_ms": warm,
+                   "kernel_cold_ms": cold, "cold_pools": n_pools,
                    "plain_ms": time_ms(
                        lambda: pa.paged_attention_mq_ref(*args)),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / warm,
+                   "bound_share_cold": b_ms / cold}
             rows.append(row)
             log("paged_attention_mq", row)
             if err > TOL[dtype]:
@@ -1988,6 +2061,14 @@ def main():
                     v2_launch["paged_attention_mq"],
                     paths("paged_attention_mq")),
     ]
+    # K2 and K3: every case and dtype, warm and cold, beside the bound
+    for row, timed in ((kernels[1], pg_rows), (kernels[2], mq_rows)):
+        row["design"] = {r["dtype"]: r["design"] for r in timed}
+        row["cases"] = [{k: r[k] for k in (
+            "case", "shape", "dtype", "kernel_ms", "kernel_cold_ms",
+            "cold_pools", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "bound_share_cold", "max_abs_err") if k in r}
+            for r in timed]
     for kname, replaces, err_key in (
             ("flash_attention_fwd", "flash_attention.py:342", "max_abs_err"),
             ("flash_attention_dq", "flash_attention.py:235", "max_rel_err"),

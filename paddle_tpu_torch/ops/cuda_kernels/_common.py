@@ -40,10 +40,8 @@ _SIGNATURES = {
                                _F, _I, _P],
     "ptt_flash_attention_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _F, _I, _P],
-    "ptt_paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _I, _P],
-    "ptt_paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _F, _I, _P],
+    "ptt_paged_attention_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "ptt_paged_attention_mq_fwd": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
     "ptt_lstm_forward": [_P] * 9 + [_I] * 4 + [_P],
     "ptt_lstm_backward": [_P] * 14 + [_I] * 4 + [_P],
     "ptt_gru_forward": [_P] * 9 + [_I] * 4 + [_P],

@@ -31,6 +31,13 @@ finite garbage that callers mask.
 The kernels take float32 or bfloat16 pools and dh ≤ 128.  The
 preconditions ``ctx_lens >= 1`` and ``q_starts >= 0`` are not checked on
 the host: checking would synchronise.
+
+Both kernels split a slot's page walk across blocks (``csrc/
+paged_split.cuh``): ``PAGES_PER_SPLIT`` pages a block, ``MQ_ROWS`` query
+rows a K3 block.  Each block writes a partial softmax per row, f32
+(m, l) pairs and unnormalized accumulators, which the wrapper allocates
+and a second kernel merges into the output.  The constants mirror the CUDA sources' ``kPagesPerSplit``
+and ``kMqRows`` (``tests/test_torch_paged_split.py`` reads them there).
 """
 
 from __future__ import annotations
@@ -38,6 +45,24 @@ from __future__ import annotations
 import torch
 
 from . import _common
+
+PAGES_PER_SPLIT = 8  # csrc/paged_split.cuh kPagesPerSplit
+MQ_ROWS = 64         # csrc/paged_attention_mq.cu kMqRows
+
+
+def n_splits(maxp):
+    """Blocks the walk of one (slot, head[, row tile]) is cut into."""
+    return -(-maxp // PAGES_PER_SPLIT)
+
+
+def _partials(rows, maxp, dh, device):
+    """The split partials of `rows` output rows in one f32 allocation:
+    (the buffer, which the caller holds through the launch, the address of
+    its (m, l) pairs, of its accumulators)."""
+    S = n_splits(maxp)
+    buf = torch.empty(rows * S * (2 + dh), dtype=torch.float32,
+                      device=device)
+    return buf, buf.data_ptr(), buf.data_ptr() + rows * S * 2 * 4
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, ctx_lens,
@@ -140,9 +165,11 @@ def paged_attention(q, k_pages, v_pages, page_table, ctx_lens, scale=None):
     s = scale if scale is not None else 1.0 / (dh ** 0.5)
     q = q.contiguous()
     out = torch.empty_like(q)
+    buf, ml, acc = _partials(N * nh, maxp, dh, q.device)
     _common.launch("ptt_paged_attention_fwd", q, k_pages, v_pages,
                    _i32(page_table, q.device), _i32(ctx_lens, q.device),
-                   out, N, nh, dh, ps, maxp, float(s), code, device=q.device)
+                   out, ml, acc, N, nh, dh, ps, maxp, float(s), code,
+                   device=q.device)
     paged_attention.launches += 1
     return out
 
@@ -172,10 +199,11 @@ def paged_attention_mq(q, k_pages, v_pages, page_table, ctx_lens, q_starts,
     s = scale if scale is not None else 1.0 / (dh ** 0.5)
     q = q.contiguous()
     out = torch.empty_like(q)
+    buf, ml, acc = _partials(N * nh * C, maxp, dh, q.device)
     _common.launch("ptt_paged_attention_mq_fwd", q, k_pages, v_pages,
                    _i32(page_table, q.device), _i32(ctx_lens, q.device),
-                   _i32(q_starts, q.device), out, N, nh, C, dh, ps, maxp,
-                   float(s), code, device=q.device)
+                   _i32(q_starts, q.device), out, ml, acc, N, nh, C, dh, ps,
+                   maxp, float(s), code, device=q.device)
     paged_attention_mq.launches += 1
     return out
 

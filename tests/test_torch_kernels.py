@@ -345,47 +345,95 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, T, D, causal):
     assert err <= _CARD_TOL[dtype], err
 
 
+# K2 on the card: (maxp, ps, dh, ctx_lens).  The small fixture; the
+# serving decode shape with ctx 1024 (maxp * ps) and contexts ending on,
+# just before and just after a split boundary (128 keys: 8 pages of 16);
+# one slot alone at ctx 1024; a context past maxp * ps; a padded head dim
+# (40) at page 8 and one that is no whole number of 16-byte chunks (38)
+_PAGED_CARD = {
+    "fixture": None,
+    "ctx1024": (64, 16, 64, [1, 17, 1024, 300, 64, 999, 5, 512]),
+    "split_boundary": (64, 16, 64, [128, 127, 129, 256, 1, 1024, 136, 8]),
+    "long_alone": (64, 16, 64, [1024]),
+    "past_table": (20, 8, 40, [200, 1, 161, 159]),
+    "odd_dh": (12, 16, 38, [100, 17, 192, 1]),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
-    q, kp, vp, pt, cl, ps = _paged_fixture(dh=64, ps=16, P=9)
-    pt_ = np.array([[1, 2, 3], [4, 0, 0], [5, 6, 0], [7, 8, 2]], np.int32)
-    cl_ = np.array([40, 3, 16, 1], np.int32)
-    kn, vn = _poison_unseen(kp, vp, pt_, cl_, ps)
+@pytest.mark.parametrize("case", sorted(_PAGED_CARD))
+def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    if _PAGED_CARD[case] is None:
+        q, kp, vp, pt, cl, ps = _paged_fixture(dh=64, ps=16, P=9)
+        pt_ = np.array([[1, 2, 3], [4, 0, 0], [5, 6, 0], [7, 8, 2]],
+                       np.int32)
+        cl_ = np.array([40, 3, 16, 1], np.int32)
+    else:
+        maxp, ps, dh, ctx = _PAGED_CARD[case]
+        rng = np.random.RandomState(len(ctx) + dh)
+        N, nh = len(ctx), 4
+        P = N * maxp + 1
+        q = rng.randn(N, nh, dh).astype(np.float32)
+        kp = rng.randn(P, nh, ps, dh).astype(np.float32)
+        vp = rng.randn(P, nh, ps, dh).astype(np.float32)
+        pt_ = np.zeros((N, maxp), np.int32)
+        pages = iter(rng.permutation(np.arange(1, P)))
+        for n, L in enumerate(ctx):
+            for j in range(min(pages_needed(L, ps), maxp)):
+                pt_[n, j] = next(pages)
+        cl_ = np.array(ctx, np.int32)
+    kn, vn = _poison_unseen(kp, vp, pt_, np.minimum(cl_, pt_.shape[1] * ps),
+                            ps)
     args = [a.to(cuda_device) for a in _t(q, kn, vn, pt_, cl_)]
     args[:3] = [a.to(dtype) for a in args[:3]]
     out = t_pa.paged_attention(*args)
     torch.cuda.synchronize()
     ref = t_pa.paged_attention_ref(*args)
+    assert torch.isfinite(out.float()).all()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= _CARD_TOL[dtype], err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,dh,ps", [(5, 64, 16), (32, 64, 16), (1, 64, 16),
-                                     (70, 40, 8), (9, 128, 16)])
+                                     (70, 40, 8), (9, 128, 16), (64, 64, 16),
+                                     (48, 38, 16)])
+@pytest.mark.parametrize("maxp", [12, 64])
 def test_paged_mq_kernel_matches_plain_on_card(cuda_device, dtype, C, dh,
-                                               ps):
+                                               ps, maxp):
     """The verify shape (C 5) and the chunk shape (C 32) at the serving
     head dim, the decode-like C 1, more rows than one row tile at a
-    padded head dim (C 70, dh 40, page 8) and the widest head (128), with
-    a mid-page start, a chunk across a page boundary, an idle lane and
-    a poisoned pool."""
-    rng = np.random.RandomState(C + dh)
-    nh, P, maxp = 4, 40, 12
-    q = rng.randn(5, nh, C, dh).astype(np.float32)
+    padded head dim (C 70, dh 40, page 8), the widest head (128), a block
+    of 64 rows, 48 rows (three m-tiles, taken as four) at a head dim that
+    is no whole number of 16-byte chunks (38), with a mid-page start, a
+    chunk across a page boundary, an idle lane and a poisoned pool.  At
+    maxp 64 (the serving table) two more lanes start just before the
+    split boundary at 8 pages and near 1024, where ctx passes maxp * ps
+    and is clamped."""
+    rng = np.random.RandomState(C + dh + maxp)
+    nh = 4
+    q0 = [0, 11, 0, 3 * ps - 2, 5 * ps + 1]
+    rows = [C, C, 0, min(C, 4), C]
+    if maxp == 64:
+        q0 += [8 * ps - 3, 64 * ps - 10]
+        rows += [C, C]
+    N = len(q0)
+    P = N * maxp + 1
+    q = rng.randn(N, nh, C, dh).astype(np.float32)
     kp = rng.randn(P, nh, ps, dh).astype(np.float32)
     vp = rng.randn(P, nh, ps, dh).astype(np.float32)
-    q0 = np.array([0, 11, 0, 3 * ps - 2, 5 * ps + 1], np.int32)
-    cl = np.minimum(np.maximum(q0 + np.array([C, C, 0, min(C, 4), C]), 1),
-                    maxp * ps).astype(np.int32)
-    pt = np.zeros((5, maxp), np.int32)
+    q0 = np.array(q0, np.int32)
+    cl = np.maximum(q0 + np.array(rows), 1).astype(np.int32)
+    if maxp == 12:
+        cl = np.minimum(cl, maxp * ps).astype(np.int32)
+    pt = np.zeros((N, maxp), np.int32)
     pages = iter(rng.permutation(np.arange(1, P)))
-    for n in range(5):
+    for n in range(N):
         if n == 2:
             continue  # the idle lane keeps an all-null row
-        for j in range(pages_needed(int(cl[n]), ps)):
+        for j in range(min(pages_needed(int(cl[n]), ps), maxp)):
             pt[n, j] = next(pages)
-    kn, vn = _poison_unseen(kp, vp, pt, cl, ps)
+    kn, vn = _poison_unseen(kp, vp, pt, np.minimum(cl, maxp * ps), ps)
     args = [a.to(cuda_device) for a in _t(q, kn, vn, pt, cl, q0)]
     args[:3] = [a.to(dtype) for a in args[:3]]
     out = t_pa.paged_attention_mq(*args)

@@ -56,9 +56,12 @@ def _group(name: str) -> str:
     # dtype) and flash_fwd_mma_kernel (bf16)
     if "flash_fwd_tf32_kernel" in n or "flash_fwd_mma_kernel" in n:
         return "flash_attention (K1)"
-    if "paged_attn_mq_kernel" in n:
+    # the split walks and their combines: paged_attn_mq_split_kernel,
+    # paged_attn_mq_combine_kernel (K3); paged_attn_split_kernel,
+    # paged_attn_combine_kernel (K2)
+    if "paged_attn_mq" in n:
         return "paged_attention_mq (K3)"
-    if "paged_attn_kernel" in n:
+    if "paged_attn" in n:
         return "paged_attention (K2)"
     if "memcpy" in n or "memset" in n:
         return "copies"
