@@ -82,8 +82,16 @@ non-zero and no result line is printed):
     against their plain versions, float32 and bfloat16: the LSTM at its
     bench shape (B 64, T 96, H 512) and the GRU at the NMT encoder's (B 64,
     T 64, H 512), each with full and with ragged lengths, and at three
-    awkward shapes (B 5, T 7, H 96; one row; a row of length 0); states
-    absolutely, gradients relative to each tensor's max |value|; with full
+    awkward shapes (B 5, T 7, H 96; one row; a row of length 0), the LSTM
+    also at B 160, T 6, H 512 (more batch groups than the persistent grid
+    runs at once) and at B 4, T 5, H 528 and H 1152 (widths whose W slice
+    does not fit in shared memory); states absolutely, gradients relative
+    to each tensor's max |value|; each LSTM row logs the body that ran and
+    its device launches, both read from the launches the kernel library
+    counted in the parity call, kernel by kernel, where it launched them
+    (``lstm.device_launches``), and fails unless that is the body
+    ``lstm.route`` chose before the launch (``persistent``: K7 one launch,
+    K8 two; ``steps``: T and 2T + 1); both bodies must run; with full
     lengths each is timed beside its plain version and the card's bound
     (no single PyTorch call computes the same function, so no library
     time);
@@ -1157,20 +1165,71 @@ def train_bench_phase(card_name, smi):
 # -- 13. kernels K7-K10 -------------------------------------------------------
 
 # (B, T, H, lengths or "full"/"ragged", timed)
+RNN_AWKWARD = [(5, 7, 96, "ragged", False), (1, 9, 96, [6], False),
+               (3, 5, 20, [5, 0, 3], False)]
 LSTM_SHAPES = [
     (rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, rnn_bench.LSTM_HIDDEN, "full",
      True),
     (rnn_bench.LSTM_BS, rnn_bench.LSTM_SEQ, rnn_bench.LSTM_HIDDEN, "ragged",
      False),
-    (5, 7, 96, "ragged", False),
-    (1, 9, 96, [6], False),
-    (3, 5, 20, [5, 0, 3], False),
+    *RNN_AWKWARD,
+    # 10 batch groups x 32 column slices, more blocks than an H100 holds at
+    # once: the persistent grid runs the groups a few at a time
+    (160, 6, 512, "ragged", False),
+    # widths whose W slice does not fit in a block's shared memory on an
+    # H100 (lstm.route): H 528 the f32 backward (the f32 forward and bf16
+    # fit), H 1152 both directions in both dtypes take the step route
+    (4, 5, 528, "ragged", False),
+    (4, 5, 1152, "ragged", False),
 ]
 GRU_SHAPES = [(rnn_bench.NMT_BS, rnn_bench.NMT_SEQ, rnn_bench.NMT_DIM, ln, tm)
-              for _, _, _, ln, tm in LSTM_SHAPES[:2]] + LSTM_SHAPES[2:]
+              for _, _, _, ln, tm in LSTM_SHAPES[:2]] + RNN_AWKWARD
 NO_LIBRARY = ("null: no single PyTorch call computes it (cuDNN's LSTM takes "
               "the input product in and no per-step mask; PyTorch's GRU "
               "applies the reset gate after the candidate product)")
+
+
+# the LSTM's kernels as ``lstm.KERNELS`` names them, by direction: each
+# route's time-loop kernels, and the backward's dW kernel (the bf16
+# persistent route's own, else rnn_dw_kernel), launched after either loop
+LSTM_KERNELS = {
+    False: ({"persistent": ("lstm_fwd_persistent",),
+             "steps": ("lstm_fwd_step",)}, ()),
+    True: ({"persistent": ("lstm_bwd_persistent",),
+            "steps": ("lstm_bwd_gates", "lstm_bwd_dh")},
+           ("lstm_dw_mma", "rnn_dw_kernel"))}
+
+
+def kernels_launched(dev, fn):
+    """(fn's result, {kernel name: launches}) of one call of `fn`: the
+    device launches of the LSTM's kernels that the kernel library counted
+    during the call, where it launched each (``lstm.device_launches``)."""
+    before = lstm_k.device_launches(dev)
+    out = fn()
+    after = lstm_k.device_launches(dev)
+    return out, {k: n - before[k] for k, n in after.items() if n > before[k]}
+
+
+def lstm_body(counts, backward):
+    """(route, device launches) of one K7 (``backward``: K8) call, read
+    from `counts`, {kernel name: launches} of the kernels it launched
+    (``kernels_launched``; a name may be the profiler's, which holds the
+    kernel's own): the route whose
+    loop kernels ran, and the launches of those and of the dW kernel.
+    Raises unless exactly one route's loop kernels ran."""
+    loops, dw = LSTM_KERNELS[backward]
+
+    def launched(names):
+        return sum(c for name, c in counts.items()
+                   if any(k in name for k in names))
+
+    n = {body: launched(names) for body, names in loops.items()}
+    ran = [body for body, c in n.items() if c]
+    if len(ran) != 1:
+        raise AssertionError(f"an LSTM {'backward' if backward else 'forward'}"
+                             f" call ran the loop kernels of "
+                             f"{ran or 'no route'}: {counts}")
+    return ran[0], n[ran[0]] + launched(dw)
 
 
 def rnn_case(dev, dtype, gates, B, T, H, lengths):
@@ -1232,12 +1291,11 @@ def recurrent_kernel_phase(dev):
                 else:
                     ins = (a["x"], a["h0"], a["w"], a["lengths"])
                     cts = (a["dhs"],)
-                got = fwd(*ins)
-                torch.cuda.synchronize()
+                got, k_f = kernels_launched(dev, lambda: fwd(*ins))
                 ref = fwd_ref(*ins)
                 saved = ref[:len(cts)]  # (hs, cs) or (hs,)
-                grads = bwd(*ins, *saved, *cts)
-                torch.cuda.synchronize()
+                grads, k_b = kernels_launched(
+                    dev, lambda: bwd(*ins, *saved, *cts))
                 ref_g = bwd_ref(*ins, *saved, *cts)
                 shape = {"dtype": str(dtype).split(".")[1], "B": B, "T": T,
                          "H": H, "valid_steps": a["steps"],
@@ -1255,22 +1313,39 @@ def recurrent_kernel_phase(dev):
                         gates, a, B, T, H, back, dtype)
                     row["bound_ignores"] = "the dependence between steps"
                     row["library_ms"] = None
+                if kind == "lstm":
+                    # the route and device launches the library counted; the
+                    # route must be the one lstm.route names before the
+                    # launch, with K7 1 launch (steps T), K8 2: the loop,
+                    # dW (steps 2T + 1)
+                    for row, back, counts in ((f_row, False, k_f),
+                                              (b_row, True, k_b)):
+                        body, n = lstm_body(counts, back)
+                        want = lstm_k.route(a["x"], backward=back)
+                        want_n = (2 if back else 1) if want == "persistent" \
+                            else (2 * T + 1 if back else T)
+                        row.update({"route": body, "device_launches": n})
+                        if (body, n) != (want, want_n):
+                            raise AssertionError(
+                                f"{kind} {'backward' if back else 'forward'}"
+                                f" at {shape}: ran {body} in {n} launches, "
+                                f"lstm.route chose {want} ({want_n})")
+                else:
+                    # device launches of one call: K9 2T, K10 4T + 2
+                    f_row["device_launches"] = 2 * T
+                    b_row["device_launches"] = 4 * T + 2
+                n_f, n_b = f_row["device_launches"], b_row["device_launches"]
                 if timed:
-                    # device launches of one call: K7 T, K8 2T + 1, K9 2T,
-                    # K10 4T + 2; the plain versions are Python loops of
-                    # about a dozen small kernels a step, timed at the
-                    # rate the host issues them
-                    n_f = T * (1 if kind == "lstm" else 2)
-                    n_b = 2 * n_f + (1 if kind == "lstm" else 2)
+                    # the plain versions are Python loops of about a dozen
+                    # small kernels a step, timed at the rate the host
+                    # issues them
                     f_row.update({
-                        "device_launches": n_f,
                         "kernel_ms": time_ms(lambda: fwd(*ins),
                                              iters=max(2, 400 // n_f)),
                         "plain_ms": time_ms(lambda: fwd_ref(*ins), iters=3,
                                             ahead=False),
                         "plain_ms_includes": "the host's launch rate"})
                     b_row.update({
-                        "device_launches": n_b,
                         "kernel_ms": time_ms(
                             lambda: bwd(*ins, *saved, *cts),
                             iters=max(2, 400 // n_b)),
@@ -1290,6 +1365,13 @@ def recurrent_kernel_phase(dev):
                         f"gradients {b_row['max_rel_err']} (tolerance "
                         f"{TOL[dtype]}: states absolute, gradients relative "
                         f"to max |g|)")
+    # both LSTM bodies, as the library counted their launches, are held
+    # to the plain versions
+    for name in ("lstm_forward", "lstm_backward"):
+        taken = {r["route"] for r in rows[name]}
+        if taken != {"persistent", "steps"}:
+            raise AssertionError(f"{name}: LSTM_SHAPES took the routes "
+                                 f"{sorted(taken)}, not both")
     return rows
 
 
@@ -2101,14 +2183,23 @@ def main():
              nmt_bench)):
         err_key = "max_rel_err" if kname.endswith("backward") \
             else "max_abs_err"
-        row = summary_row(kname, csrc + kname.split("_")[0] + ".cu",
-                          pallas + replaces, timed_row(rnn_rows[kname],
-                                                       main_dt),
+        main_row = timed_row(rnn_rows[kname], main_dt)
+        # the LSTM's source is that of the body the timed row ran
+        src = "gru.cu" if kname.startswith("gru") else \
+            "lstm_persistent.cuh" if main_row["route"] == "persistent" \
+            else "lstm.cu"
+        row = summary_row(kname, csrc + src, pallas + replaces, main_row,
                           errs_by_dtype(rnn_rows[kname], err_key),
                           run["launches"][kname], paths(kname))
         row["max_err_by_dtype_is"] = err_key
         row["library_ms_is"] = NO_LIBRARY
         row["bound_ignores"] = "the dependence between the T steps"
+        if kname.startswith("lstm"):
+            # "route" stays "cuda": the contract's word for the language;
+            # the body and its device launches are the library's count
+            row.update({"body": main_row["route"],
+                        "device_launches": main_row["device_launches"],
+                        "steps_route_source": csrc + "lstm.cu"})
         other = timed_row(rnn_rows[kname], other_dt)
         row["other_dtype_bench_shape"] = {
             k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types after the kernel's own, (dtype, stream)
-# close every launch
+# close every launch; ``ptt_lstm_capacity``, ``ptt_lstm_smem_bytes`` and
+# ``ptt_lstm_device_launches`` are queries (no stream, see ``query``)
 _SIGNATURES = {
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                 _P],
@@ -42,8 +43,11 @@ _SIGNATURES = {
                                 _I, _F, _I, _P],
     "ptt_paged_attention_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ptt_paged_attention_mq_fwd": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-    "ptt_lstm_forward": [_P] * 9 + [_I] * 4 + [_P],
-    "ptt_lstm_backward": [_P] * 14 + [_I] * 4 + [_P],
+    "ptt_lstm_forward": [_P] * 12 + [_I] * 5 + [_P],
+    "ptt_lstm_backward": [_P] * 15 + [_I] * 5 + [_P],
+    "ptt_lstm_capacity": [_I] * 3 + [ctypes.POINTER(_I)],
+    "ptt_lstm_smem_bytes": [_I] * 3 + [ctypes.POINTER(_I)],
+    "ptt_lstm_device_launches": [_I, ctypes.POINTER(_I)],
     "ptt_gru_forward": [_P] * 9 + [_I] * 4 + [_P],
     "ptt_gru_backward": [_P] * 13 + [_I] * 4 + [_P],
     "ptt_bn_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
@@ -140,10 +144,12 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def dtype_code(t: torch.Tensor) -> int:
-    if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
-    return _DTYPE_CODES[t.dtype]
+def dtype_code(t) -> int:
+    """The C code of a tensor's dtype, or of a dtype."""
+    dt = t.dtype if isinstance(t, torch.Tensor) else t
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dt}")
+    return _DTYPE_CODES[dt]
 
 
 def launch(name: str, *args, device: torch.device):
@@ -159,3 +165,17 @@ def launch(name: str, *args, device: torch.device):
     if rc != 0:
         raise RuntimeError(
             f"{name} failed: {lib.ptt_error_string(rc).decode()} ({rc})")
+
+
+def query(name: str, *args, device: torch.device) -> int:
+    """Call C query `name` with `args` and a pointer to one int on
+    `device` (current for the call only); returns that int.  Raises as
+    ``launch`` does."""
+    lib = load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} failed: {lib.ptt_error_string(rc).decode()} ({rc})")
+    return out.value

@@ -20,6 +20,12 @@ dg·Wᵀ, dW takes f32 h_{t-1} and f32 dg, dx is dg in the input's dtype, and
 dw is summed in f32 and cast once.  The plain versions round at the same
 points.  Any B, T, H; a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.
+
+On a CUDA tensor each kernel has two bodies, and ``route`` picks one
+before the launch by a shape rule (see there): ``"persistent"``, one
+cooperative launch that runs the whole time loop (K8: then one launch for
+dW), or ``"steps"``, a launch a step (K7 T launches, K8 2T + 1).  Nothing
+retries the other body after an error.
 """
 
 from __future__ import annotations
@@ -97,13 +103,74 @@ def lstm_backward_ref(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
             dw.to(w.dtype))
 
 
+# the persistent kernels' tile: a block owns 16 hidden columns (a slice)
+# for the whole call and runs 16 batch rows (a group) at a time
+# (csrc/lstm_persistent.cuh)
+_ROWS = _COLS = 16
+_ROUTES = {"steps": 0, "persistent": 1}
+_capacity = {}
+
+
+def capacity(device, H, dtype, backward=False):
+    """Blocks of the persistent forward (with ``backward``, the backward's
+    loop) that fit on `device` at once at hidden width `H` in `dtype`, each
+    with its slice of W in shared memory: the C query
+    ``ptt_lstm_capacity``, 0 when a block's shared memory exceeds the
+    device's opt-in limit, else the blocks a multiprocessor holds times
+    the multiprocessors."""
+    key = (device.index, H, dtype, bool(backward))
+    if key not in _capacity:
+        _capacity[key] = _common.query(
+            "ptt_lstm_capacity", H, _common.dtype_code(dtype),
+            int(backward), device=device)
+    return _capacity[key]
+
+
+def route(x_proj, backward=False):
+    """The body K7 (with ``backward``, K8) runs for CUDA inputs shaped as
+    ``x_proj`` [B,T,4H], by this shape rule, chosen before the launch:
+    ``"persistent"`` when one block of each of the ceil(H/16) column
+    slices fits on the card at once (``capacity`` >= ceil(H/16)); the
+    grid then runs min(ceil(B/16), capacity // ceil(H/16)) batch groups
+    at a time, so B does not enter, nor does T.  Otherwise ``"steps"``.
+    A block's shared memory grows with H (``ptt_lstm_smem_bytes``; at H
+    512 143 KB forward and 180 KB backward in bf16, 209 and 227 KB in
+    f32), so with 227 KB a block, as on an H100, the persistent route
+    takes the f32 forward to H 576, the f32 backward to H 512, the bf16
+    forward to H 1088 and the bf16 backward to H 832."""
+    H = x_proj.shape[2] // 4
+    blocks = capacity(x_proj.device, H, x_proj.dtype, backward)
+    return "persistent" if blocks >= -(-H // _COLS) else "steps"
+
+
+# the kernels K7 and K8 launch, in the order of the C query
+# ``ptt_lstm_device_launches``'s kernel codes (csrc/lstm.cu, LstmKernel)
+KERNELS = ("lstm_fwd_persistent", "lstm_fwd_step", "lstm_bwd_persistent",
+           "lstm_bwd_gates", "lstm_bwd_dh", "lstm_dw_mma", "rnn_dw_kernel")
+
+
+def device_launches(device):
+    """{kernel name: device launches} that K7 and K8 have made since the
+    kernel library was loaded, counted by the C entry points where each
+    kernel is launched (``ptt_lstm_device_launches``)."""
+    return {name: _common.query("ptt_lstm_device_launches", i,
+                                device=device)
+            for i, name in enumerate(KERNELS)}
+
+
+def _counters(B, dev):
+    """The persistent kernels' barrier: one counter a batch group, zero."""
+    return torch.zeros(-(-B // _ROWS), dtype=torch.int32, device=dev)
+
+
 def _empty_forward(x_proj, h0, c0, B, T, H):
     hs = x_proj.new_empty(B, T, H)
     return hs, hs.clone(), h0.clone(), c0.clone()
 
 
 def lstm_forward(x_proj, h0, c0, w, lengths):
-    """K7: (hs [B,T,H], cs [B,T,H], hT [B,H], cT [B,H])."""
+    """K7: (hs [B,T,H], cs [B,T,H], hT [B,H], cT [B,H]); on CUDA tensors
+    the body ``route(x_proj)`` names."""
     B, T, H = check_inputs("lstm_forward", 4, x_proj, w, lengths, h0, c0)
     if B == 0 or T == 0:
         return _empty_forward(x_proj, h0, c0, B, T, H)
@@ -113,22 +180,29 @@ def lstm_forward(x_proj, h0, c0, w, lengths):
         raise ValueError(f"lstm_forward: no kernel for {x_proj.device}")
     check_launchable("lstm_forward", B, T, H, 4)
     dev = x_proj.device
-    hbuf = torch.empty(2, B, H, dtype=torch.float32, device=dev)
-    hbuf[0] = h0
-    c = c0.float().clone()
+    body = route(x_proj)
+    if body == "persistent":
+        hbuf = c = None
+        counters = _counters(B, dev)
+    else:
+        hbuf = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+        hbuf[0] = h0
+        c = c0.float().clone()
+        counters = None
     hs, cs = x_proj.new_empty(B, T, H), x_proj.new_empty(B, T, H)
     hT, cT = x_proj.new_empty(B, H), x_proj.new_empty(B, H)
     _common.launch("ptt_lstm_forward", x_proj.contiguous(), w.contiguous(),
-                   hbuf, c, hs, cs, hT, cT,
-                   lengths.to(torch.int32).contiguous(), B, T, H,
-                   _common.dtype_code(x_proj), device=dev)
+                   h0.contiguous(), c0.contiguous(), hbuf, c, hs, cs, hT, cT,
+                   lengths.to(torch.int32).contiguous(), counters, B, T, H,
+                   _common.dtype_code(x_proj), _ROUTES[body], device=dev)
     lstm_forward.launches += 1
     return hs, cs, hT, cT
 
 
 def lstm_backward(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
     """K8: (dx [B,T,4H], dh0, dc0 [B,H], dw [H,4H]) from the saved hs, cs
-    and their cotangents."""
+    and their cotangents; on CUDA tensors the body
+    ``route(x_proj, backward=True)`` names."""
     B, T, H = check_inputs("lstm_backward", 4, x_proj, w, lengths, h0, c0)
     check_saved("lstm_backward", B, T, H, x_proj, hs, cs, dhs, dcs)
     if B == 0 or T == 0:
@@ -147,13 +221,15 @@ def lstm_backward(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
     dg32 = None if dt == torch.float32 else torch.empty(
         B, T, 4 * H, dtype=torch.float32, device=dev)
     dw = torch.empty(H, 4 * H, dtype=dt, device=dev)
+    body = route(x_proj, backward=True)
+    counters = _counters(B, dev) if body == "persistent" else None
     _common.launch("ptt_lstm_backward", x_proj.contiguous(), w.contiguous(),
                    h0.contiguous(), c0.contiguous(),
                    hs.to(dt).contiguous(), cs.to(dt).contiguous(),
                    dhs.to(dt).contiguous(), dcs.to(dt).contiguous(),
                    carry[0], carry[1], dx, dg32, dw,
-                   lengths.to(torch.int32).contiguous(), B, T, H,
-                   _common.dtype_code(x_proj), device=dev)
+                   lengths.to(torch.int32).contiguous(), counters, B, T, H,
+                   _common.dtype_code(x_proj), _ROUTES[body], device=dev)
     lstm_backward.launches += 1
     return dx, carry[0].to(h0.dtype), carry[1].to(c0.dtype), dw
 

@@ -571,6 +571,58 @@ def test_lstm_kernels_match_plain_on_card(cuda_device, dtype, B, T, H,
             t_lstm.lstm_backward.launches - before[1]) == (1, 1)
 
 
+# B 160 at H 512: more batch groups than the persistent grid runs at once;
+# H 528 and H 1152: W slices that do not fit a block's shared memory on an
+# H100 (the f32 backward at 528; both directions, both dtypes at 1152)
+_LSTM_ROUTE_SHAPES = [*_RNN_SHAPES, (160, 3, 512, None), (4, 3, 528, None),
+                      (4, 3, 1152, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_routes_by_shape_and_both_match_plain_on_card(cuda_device,
+                                                           dtype):
+    """lstm.route's shape rule against the card's own capacity query: the
+    persistent loop where one block of each of the ceil(H/16) column
+    slices fits at once, whatever B, else the step kernels; at every
+    shape the kernels the library counted as launched are that body's,
+    and its results match the plain versions."""
+    dw = "lstm_dw_mma" if dtype == torch.bfloat16 else "rnn_dw_kernel"
+    ran_by_route = {
+        False: {"persistent": {"lstm_fwd_persistent"},
+                "steps": {"lstm_fwd_step"}},
+        True: {"persistent": {"lstm_bwd_persistent", dw},
+               "steps": {"lstm_bwd_gates", "lstm_bwd_dh", "rnn_dw_kernel"}}}
+
+    def ran(fn):
+        before = t_lstm.device_launches(cuda_device)
+        out = fn()
+        after = t_lstm.device_launches(cuda_device)
+        return out, {k for k, n in after.items() if n > before[k]}
+
+    for B, T, H, lengths in _LSTM_ROUTE_SHAPES:
+        a = _rnn_case(cuda_device, dtype, 4, B, T, H, lengths)
+        routes = {}
+        for back in (False, True):
+            fits = t_lstm.capacity(cuda_device, H, dtype, back) >= -(-H // 16)
+            routes[back] = t_lstm.route(a["x"], backward=back)
+            assert routes[back] == ("persistent" if fits else "steps"), \
+                (B, T, H, back)
+        args = [a[k] for k in ("x", "h0", "c0", "w", "lengths")]
+        got, kernels = ran(lambda: t_lstm.lstm_forward(*args))
+        assert kernels == ran_by_route[False][routes[False]], (B, T, H)
+        ref = t_lstm.lstm_forward_ref(*args)
+        for g, r in zip(got, ref):
+            assert (g.float() - r.float()).abs().max().item() \
+                <= _CARD_TOL[dtype], (B, T, H)
+        grads, kernels = ran(lambda: t_lstm.lstm_backward(
+            *args, ref[0], ref[1], a["dhs"], a["dcs"]))
+        assert kernels == ran_by_route[True][routes[True]], (B, T, H)
+        ref_g = t_lstm.lstm_backward_ref(*args, ref[0], ref[1], a["dhs"],
+                                         a["dcs"])
+        for g, r in zip(grads, ref_g):
+            assert _rel_err(g, r) <= _BWD_TOL[dtype], (B, T, H)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,lengths", _RNN_SHAPES)
 def test_gru_kernels_match_plain_on_card(cuda_device, dtype, B, T, H,

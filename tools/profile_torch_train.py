@@ -122,8 +122,13 @@ def _group(name: str, model: str) -> str:
         return "K5 flash_attention_dq"
     if "flash_dkv_mma_kernel" in n or "flash_dkv_kernel" in n:
         return "K6 flash_attention_dkv"
-    if "lstm_fwd_step" in n:
+    # the LSTM's persistent bodies (one launch a call) and step bodies
+    if "lstm_fwd_persistent" in n or "lstm_fwd_step" in n:
         return "K7 lstm_forward"
+    if "lstm_bwd_persistent" in n:
+        return "K8 lstm_backward (loop)"
+    if "lstm_dw_mma" in n:
+        return "K8 lstm_backward (dW)"
     if "lstm_bwd_" in n:
         return "K8 lstm_backward (steps)"
     if "gru_fwd_cand" in n:
