@@ -82,19 +82,22 @@ non-zero and no result line is printed):
     against their plain versions, float32 and bfloat16: the LSTM at its
     bench shape (B 64, T 96, H 512) and the GRU at the NMT encoder's (B 64,
     T 64, H 512), each with full and with ragged lengths, and at three
-    awkward shapes (B 5, T 7, H 96; one row; a row of length 0), the LSTM
+    awkward shapes (B 5, T 7, H 96; one row; a row of length 0), both
     also at B 160, T 6, H 512 (more batch groups than the persistent grid
-    runs at once) and at B 4, T 5, H 528 and H 1152 (widths whose W slice
-    does not fit in shared memory); states absolutely, gradients relative
-    to each tensor's max |value|; each LSTM row logs the body that ran and
-    its device launches, both read from the launches the kernel library
-    counted in the parity call, kernel by kernel, where it launched them
-    (``lstm.device_launches``), and fails unless that is the body
-    ``lstm.route`` chose before the launch (``persistent``: K7 one launch,
-    K8 two; ``steps``: T and 2T + 1); both bodies must run; with full
-    lengths each is timed beside its plain version and the card's bound
-    (no single PyTorch call computes the same function, so no library
-    time);
+    runs at once), the LSTM at B 4, T 5, H 528 and H 1152 and the GRU at
+    B 4, T 5 and the two widths past 512 at which ``gru.smem_bytes``
+    first exceeds the card's shared memory a block for some body and for
+    every body (``gru.steps_widths``: widths whose W slice does not fit);
+    states absolutely, gradients relative to each tensor's max |value|;
+    each row logs the body that ran and its device launches, both read
+    from the launches the kernel library counted in the parity call,
+    kernel by kernel, where it launched them (``lstm.device_launches``,
+    ``gru.device_launches``), and fails unless that is the body the
+    module's ``route`` chose before the launch (``persistent``: K7 one
+    launch, K8 two, K9 one, K10 three; ``steps``: T, 2T + 1, 2T and 4T +
+    2); both bodies of each kernel must run; with full lengths each is
+    timed beside its plain version and the card's bound (no single
+    PyTorch call computes the same function, so no library time);
 14. LSTM parity, float32: the stacked-LSTM classifier of
     ``rnn_bench.lstm_train_program`` at full width (vocab 30000, hidden
     512, two layers, the second reversed), batch 16 x 32 with ragged
@@ -1183,41 +1186,62 @@ LSTM_SHAPES = [
     (4, 5, 1152, "ragged", False),
 ]
 GRU_SHAPES = [(rnn_bench.NMT_BS, rnn_bench.NMT_SEQ, rnn_bench.NMT_DIM, ln, tm)
-              for _, _, _, ln, tm in LSTM_SHAPES[:2]] + RNN_AWKWARD
+              for _, _, _, ln, tm in LSTM_SHAPES[:2]] + RNN_AWKWARD + [
+    # 10 batch groups x 32 column slices, more blocks than an H100 holds at
+    # once: the persistent grid runs the groups a few at a time
+    (160, 6, 512, "ragged", False)]
+# and at run time the widths whose W slice does not fit in a block's shared
+# memory on the card (gru.steps_widths)
 NO_LIBRARY = ("null: no single PyTorch call computes it (cuDNN's LSTM takes "
               "the input product in and no per-step mask; PyTorch's GRU "
               "applies the reset gate after the candidate product)")
 
 
-# the LSTM's kernels as ``lstm.KERNELS`` names them, by direction: each
-# route's time-loop kernels, and the backward's dW kernel (the bf16
-# persistent route's own, else rnn_dw_kernel), launched after either loop
-LSTM_KERNELS = {
-    False: ({"persistent": ("lstm_fwd_persistent",),
-             "steps": ("lstm_fwd_step",)}, ()),
-    True: ({"persistent": ("lstm_bwd_persistent",),
-            "steps": ("lstm_bwd_gates", "lstm_bwd_dh")},
-           ("lstm_dw_mma", "rnn_dw_kernel"))}
+# each recurrent cell's kernels as its module's ``KERNELS`` names them, by
+# direction: each route's time-loop kernels, and the backward's dW kernels,
+# launched after either loop (the LSTM's bf16 persistent route has its own)
+RNN_KERNELS = {
+    "lstm": {False: ({"persistent": ("lstm_fwd_persistent",),
+                      "steps": ("lstm_fwd_step",)}, ()),
+             True: ({"persistent": ("lstm_bwd_persistent",),
+                     "steps": ("lstm_bwd_gates", "lstm_bwd_dh")},
+                    ("lstm_dw_mma", "rnn_dw_kernel"))},
+    "gru": {False: ({"persistent": ("gru_fwd_persistent",),
+                     "steps": ("gru_gates", "gru_fwd_cand")}, ()),
+            True: ({"persistent": ("gru_bwd_persistent",),
+                    "steps": ("gru_gates", "gru_bwd_cand", "gru_bwd_drh",
+                              "gru_bwd_dh")},
+                   ("rnn_dw_kernel",))}}
 
 
-def kernels_launched(dev, fn):
+def rnn_launches(kind, route, T):
+    """(forward, backward) device launches of one call: K7 1 or T, K8 the
+    loop and dW, 2 or 2T + 1; K9 1 or 2T, K10 the loop and dW's two, 3 or
+    4T + 2."""
+    if kind == "lstm":
+        return (1, 2) if route == "persistent" else (T, 2 * T + 1)
+    return (1, 3) if route == "persistent" else (2 * T, 4 * T + 2)
+
+
+def kernels_launched(mod, dev, fn):
     """(fn's result, {kernel name: launches}) of one call of `fn`: the
-    device launches of the LSTM's kernels that the kernel library counted
-    during the call, where it launched each (``lstm.device_launches``)."""
-    before = lstm_k.device_launches(dev)
+    device launches of the cell's kernels that the kernel library counted
+    during the call, where it launched each (``mod.device_launches``,
+    `mod` the ``lstm`` or ``gru`` kernel module)."""
+    before = mod.device_launches(dev)
     out = fn()
-    after = lstm_k.device_launches(dev)
+    after = mod.device_launches(dev)
     return out, {k: n - before[k] for k, n in after.items() if n > before[k]}
 
 
-def lstm_body(counts, backward):
-    """(route, device launches) of one K7 (``backward``: K8) call, read
-    from `counts`, {kernel name: launches} of the kernels it launched
-    (``kernels_launched``; a name may be the profiler's, which holds the
-    kernel's own): the route whose
-    loop kernels ran, and the launches of those and of the dW kernel.
-    Raises unless exactly one route's loop kernels ran."""
-    loops, dw = LSTM_KERNELS[backward]
+def rnn_body(kind, counts, backward):
+    """(route, device launches) of one call of the `kind` ("lstm" or
+    "gru") kernel of that direction, read from `counts`, {kernel name:
+    launches} of the kernels it launched (``kernels_launched``; a name may
+    be the profiler's, which holds the kernel's own): the route whose loop
+    kernels ran, and the launches of those and of the dW kernels.  Raises
+    unless exactly one route's loop kernels ran."""
+    loops, dw = RNN_KERNELS[kind][backward]
 
     def launched(names):
         return sum(c for name, c in counts.items()
@@ -1226,7 +1250,7 @@ def lstm_body(counts, backward):
     n = {body: launched(names) for body, names in loops.items()}
     ran = [body for body, c in n.items() if c]
     if len(ran) != 1:
-        raise AssertionError(f"an LSTM {'backward' if backward else 'forward'}"
+        raise AssertionError(f"a {kind} {'backward' if backward else 'forward'}"
                              f" call ran the loop kernels of "
                              f"{ran or 'no route'}: {counts}")
     return ran[0], n[ran[0]] + launched(dw)
@@ -1275,8 +1299,10 @@ def recurrent_kernel_phase(dev):
     sees the same inputs as its plain version."""
     rows = {k: [] for k in ("lstm_forward", "lstm_backward", "gru_forward",
                             "gru_backward")}
+    gru_shapes = GRU_SHAPES + [(4, 5, H, "ragged", False)
+                               for H in gru_k.steps_widths(dev)]
     for kind, gates, shapes in (("lstm", 4, LSTM_SHAPES),
-                                ("gru", 3, GRU_SHAPES)):
+                                ("gru", 3, gru_shapes)):
         mod = lstm_k if kind == "lstm" else gru_k
         fwd, bwd = (getattr(mod, f"{kind}_{d}") for d in ("forward",
                                                           "backward"))
@@ -1291,11 +1317,11 @@ def recurrent_kernel_phase(dev):
                 else:
                     ins = (a["x"], a["h0"], a["w"], a["lengths"])
                     cts = (a["dhs"],)
-                got, k_f = kernels_launched(dev, lambda: fwd(*ins))
+                got, k_f = kernels_launched(mod, dev, lambda: fwd(*ins))
                 ref = fwd_ref(*ins)
                 saved = ref[:len(cts)]  # (hs, cs) or (hs,)
                 grads, k_b = kernels_launched(
-                    dev, lambda: bwd(*ins, *saved, *cts))
+                    mod, dev, lambda: bwd(*ins, *saved, *cts))
                 ref_g = bwd_ref(*ins, *saved, *cts)
                 shape = {"dtype": str(dtype).split(".")[1], "B": B, "T": T,
                          "H": H, "valid_steps": a["steps"],
@@ -1313,27 +1339,20 @@ def recurrent_kernel_phase(dev):
                         gates, a, B, T, H, back, dtype)
                     row["bound_ignores"] = "the dependence between steps"
                     row["library_ms"] = None
-                if kind == "lstm":
-                    # the route and device launches the library counted; the
-                    # route must be the one lstm.route names before the
-                    # launch, with K7 1 launch (steps T), K8 2: the loop,
-                    # dW (steps 2T + 1)
-                    for row, back, counts in ((f_row, False, k_f),
-                                              (b_row, True, k_b)):
-                        body, n = lstm_body(counts, back)
-                        want = lstm_k.route(a["x"], backward=back)
-                        want_n = (2 if back else 1) if want == "persistent" \
-                            else (2 * T + 1 if back else T)
-                        row.update({"route": body, "device_launches": n})
-                        if (body, n) != (want, want_n):
-                            raise AssertionError(
-                                f"{kind} {'backward' if back else 'forward'}"
-                                f" at {shape}: ran {body} in {n} launches, "
-                                f"lstm.route chose {want} ({want_n})")
-                else:
-                    # device launches of one call: K9 2T, K10 4T + 2
-                    f_row["device_launches"] = 2 * T
-                    b_row["device_launches"] = 4 * T + 2
+                # the route and device launches the library counted; the
+                # route must be the one the module's route names before the
+                # launch, with its launches (rnn_launches)
+                for row, back, counts in ((f_row, False, k_f),
+                                          (b_row, True, k_b)):
+                    body, n = rnn_body(kind, counts, back)
+                    want = mod.route(a["x"], backward=back)
+                    want_n = rnn_launches(kind, want, T)[back]
+                    row.update({"route": body, "device_launches": n})
+                    if (body, n) != (want, want_n):
+                        raise AssertionError(
+                            f"{kind} {'backward' if back else 'forward'}"
+                            f" at {shape}: ran {body} in {n} launches, "
+                            f"{kind}.route chose {want} ({want_n})")
                 n_f, n_b = f_row["device_launches"], b_row["device_launches"]
                 if timed:
                     # the plain versions are Python loops of about a dozen
@@ -1365,12 +1384,12 @@ def recurrent_kernel_phase(dev):
                         f"gradients {b_row['max_rel_err']} (tolerance "
                         f"{TOL[dtype]}: states absolute, gradients relative "
                         f"to max |g|)")
-    # both LSTM bodies, as the library counted their launches, are held
-    # to the plain versions
-    for name in ("lstm_forward", "lstm_backward"):
-        taken = {r["route"] for r in rows[name]}
+    # both bodies of each kernel, as the library counted their launches,
+    # are held to the plain versions
+    for name, taken in rows.items():
+        taken = {r["route"] for r in taken}
         if taken != {"persistent", "steps"}:
-            raise AssertionError(f"{name}: LSTM_SHAPES took the routes "
+            raise AssertionError(f"{name}: its shapes took the routes "
                                  f"{sorted(taken)}, not both")
     return rows
 
@@ -2184,22 +2203,22 @@ def main():
         err_key = "max_rel_err" if kname.endswith("backward") \
             else "max_abs_err"
         main_row = timed_row(rnn_rows[kname], main_dt)
-        # the LSTM's source is that of the body the timed row ran
-        src = "gru.cu" if kname.startswith("gru") else \
-            "lstm_persistent.cuh" if main_row["route"] == "persistent" \
-            else "lstm.cu"
+        # the source is that of the body the timed row ran
+        cell = kname.split("_")[0]
+        steps_src = f"{cell}.cu"
+        src = f"{cell}_persistent.cuh" if main_row["route"] == "persistent" \
+            else steps_src
         row = summary_row(kname, csrc + src, pallas + replaces, main_row,
                           errs_by_dtype(rnn_rows[kname], err_key),
                           run["launches"][kname], paths(kname))
         row["max_err_by_dtype_is"] = err_key
         row["library_ms_is"] = NO_LIBRARY
         row["bound_ignores"] = "the dependence between the T steps"
-        if kname.startswith("lstm"):
-            # "route" stays "cuda": the contract's word for the language;
-            # the body and its device launches are the library's count
-            row.update({"body": main_row["route"],
-                        "device_launches": main_row["device_launches"],
-                        "steps_route_source": csrc + "lstm.cu"})
+        # "route" stays "cuda": the contract's word for the language; the
+        # body and its device launches are the library's count
+        row.update({"body": main_row["route"],
+                    "device_launches": main_row["device_launches"],
+                    "steps_route_source": csrc + steps_src})
         other = timed_row(rnn_rows[kname], other_dt)
         row["other_dtype_bench_shape"] = {
             k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",

@@ -47,11 +47,11 @@ def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
     if dropout_prob:
         raise NotImplementedError(
             "decoder_lm: dropout is not ported yet (ROADMAP.md Queue A "
-            "item 3b)")
+            "item 4)")
     if remat:
         raise NotImplementedError(
             "decoder_lm: remat is not ported yet (ROADMAP.md Queue A "
-            "item 3b)")
+            "item 4)")
     emb = layers.embedding(tokens, size=[vocab_size, dim], dtype=dtype)
     pos = _positions(tokens, dim, max_len, dtype)
     x = layers.elementwise_add(emb, pos, axis=1)

@@ -32,8 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types after the kernel's own, (dtype, stream)
-# close every launch; ``ptt_lstm_capacity``, ``ptt_lstm_smem_bytes`` and
-# ``ptt_lstm_device_launches`` are queries (no stream, see ``query``)
+# close every launch; ``ptt_{lstm,gru}_capacity``, ``_smem_bytes`` and
+# ``_device_launches`` are queries (no stream, see ``query``)
 _SIGNATURES = {
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                 _P],
@@ -48,8 +48,11 @@ _SIGNATURES = {
     "ptt_lstm_capacity": [_I] * 3 + [ctypes.POINTER(_I)],
     "ptt_lstm_smem_bytes": [_I] * 3 + [ctypes.POINTER(_I)],
     "ptt_lstm_device_launches": [_I, ctypes.POINTER(_I)],
-    "ptt_gru_forward": [_P] * 9 + [_I] * 4 + [_P],
-    "ptt_gru_backward": [_P] * 13 + [_I] * 4 + [_P],
+    "ptt_gru_forward": [_P] * 12 + [_I] * 5 + [_P],
+    "ptt_gru_backward": [_P] * 15 + [_I] * 5 + [_P],
+    "ptt_gru_capacity": [_I] * 3 + [ctypes.POINTER(_I)],
+    "ptt_gru_smem_bytes": [_I] * 3 + [ctypes.POINTER(_I)],
+    "ptt_gru_device_launches": [_I, ctypes.POINTER(_I)],
     "ptt_bn_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "ptt_bn_matmul_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "ptt_bn_conv3x3_fwd": [_P] * 6 + [_I] * 8 + [_P],

@@ -1,11 +1,14 @@
 """What the LSTM and GRU wrappers share (``lstm.py``, ``gru.py``): the
 padded-step mask and the reverse-within-length view of
 ``paddle_tpu/ops/pallas_kernels/_common.py`` as plain functions on
-tensors, and the checks the kernels' entry points rely on."""
+tensors, the checks the kernels' entry points rely on, and the shape rule
+that picks a kernel's body on a CUDA tensor."""
 
 from __future__ import annotations
 
 import torch
+
+from . import _common
 
 
 def step_mask(lengths, T, dtype):
@@ -90,3 +93,47 @@ def check_launchable(name, B, T, H, gates):
     if (max(B, H) + 15) // 16 > 65535:
         raise ValueError(f"{name}: B = {B} or H = {H} needs more than 65535 "
                          f"tiles of 16 rows (grid.y)")
+
+
+# the persistent kernels' tile: a block owns 16 hidden columns (a slice)
+# for the whole call and runs 16 batch rows (a group) at a time
+# (csrc/persistent.cuh)
+ROWS = COLS = 16
+ROUTES = {"steps": 0, "persistent": 1}
+_capacity = {}
+
+
+def capacity(query, device, H, dtype, backward):
+    """Blocks of a persistent kernel that fit on `device` at once at hidden
+    width `H` in `dtype`, each with its slice of W in shared memory: the C
+    query `query` (``ptt_lstm_capacity``, ``ptt_gru_capacity``), 0 when a
+    block's shared memory exceeds the device's opt-in limit, else the
+    blocks a multiprocessor holds times the multiprocessors."""
+    key = (query, device.index, H, dtype, bool(backward))
+    if key not in _capacity:
+        _capacity[key] = _common.query(query, H, _common.dtype_code(dtype),
+                                       int(backward), device=device)
+    return _capacity[key]
+
+
+def route(query, x_proj, gates, backward):
+    """``"persistent"`` when one block of each of the ceil(H/16) column
+    slices of x_proj [B,T,gates·H] fits on its card at once (``capacity``
+    by `query` >= ceil(H/16)), else ``"steps"``; B and T do not enter."""
+    H = x_proj.shape[2] // gates
+    blocks = capacity(query, x_proj.device, H, x_proj.dtype, backward)
+    return "persistent" if blocks >= -(-H // COLS) else "steps"
+
+
+def device_launches(query, kernels, device):
+    """{kernel name: device launches} counted by the C query `query` for
+    each of `kernels`, in the order of its kernel codes."""
+    return {name: _common.query(query, i, device=device)
+            for i, name in enumerate(kernels)}
+
+
+def group_counters(B, dev, per_group=1):
+    """The persistent kernels' barriers: `per_group` counters for each
+    batch group of B's, zero."""
+    return torch.zeros(per_group * -(-B // ROWS), dtype=torch.int32,
+                       device=dev)

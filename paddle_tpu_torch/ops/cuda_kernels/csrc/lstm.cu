@@ -275,49 +275,14 @@ const void* bwd_kernel() { return (const void*)lstm_bwd_persistent<T>; }
 // with its shared memory at hidden width h (0 if one block does not fit).
 template <typename T>
 cudaError_t capacity(int h, bool backward, int* blocks) {
-  *blocks = 0;
-  int dev, optin, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes<T>(h, backward);
-  if (smem > (size_t)optin) return cudaSuccess;
-  const void* k = backward ? bwd_kernel<T>() : fwd_kernel<T>();
-  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
+  return rnn_p::capacity(backward ? bwd_kernel<T>() : fwd_kernel<T>(),
+                         smem_bytes<T>(h, backward), blocks);
 }
 
-// The persistent grid: (slices, rows) with rows = min(groups, the blocks
-// that fit at once / slices); a grid row serves every rows-th batch group.
-// Also sets the kernel's shared memory.  Refused when one row of slices
-// does not fit (the caller's shape rule routes such a width to the steps).
 template <typename T>
 cudaError_t persistent_grid(int batch, int h, bool backward, dim3* grid) {
-  int blocks;
-  const cudaError_t err = capacity<T>(h, backward, &blocks);
-  if (err != cudaSuccess) return err;
-  const int slices = (h + kCols - 1) / kCols;
-  const int groups = (batch + kRows - 1) / kRows;
-  const int rows = groups < blocks / slices ? groups : blocks / slices;
-  if (rows < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *grid = dim3(slices, rows);
-  return cudaSuccess;
-}
-
-// the 16-byte copies need whole chunks a row and an aligned base
-template <typename T>
-int vec(const void* p, int k) {
-  return mma::aligned16(p) && k % Cfg<T>::E == 0;
+  return rnn_p::persistent_grid(backward ? bwd_kernel<T>() : fwd_kernel<T>(),
+                                smem_bytes<T>(h, backward), batch, h, grid);
 }
 
 // dW after the persistent loop: bf16 on the tensor cores (dwk), f32 the

@@ -14,14 +14,9 @@
 //
 // A block owns a slice of 16 hidden columns j, that is the 64 gate columns
 // j, H+j, 2H+j, 3H+j, for the whole call, and runs the time loop of a
-// batch group of 16 rows at a time.  The grid is (slices, rows), rows =
-// min(groups, the blocks that fit at once / slices), launched with
-// cudaLaunchCooperativeKernel so that every block is resident at once (a
-// grid too large is refused, it never hangs); grid row y serves groups y,
-// y + rows, ... one after another.  Groups share no data, each has its own
-// barrier counter, and the blocks of a grid row take the same groups in
-// the same order, so a group's blocks are always resident together.  What
-// stays in the block:
+// batch group of 16 rows at a time (the grid, the group barrier, the
+// staging and the warps' products are persistent.cuh's, which the GRU's
+// loops share).  What stays in the block:
 // - its slice of W in shared memory (the forward's, and the backward's
 //   gate recompute, W[:, gate columns]; the backward's dh product
 //   W[j, :]), read from device memory once a call;
@@ -38,12 +33,7 @@
 //   columns, and round(dg_t) is dx[:, t], so step t's dh product reads its
 //   group's rows of dx[:, t].
 // A row is written once and never again, so the one exchange a step needs
-// is a barrier among the blocks of a group: a monotonic counter a group,
-// zeroed by the wrapper.  A block publishes its step by __syncthreads, a
-// fence and an atomicAdd; a reader spins on an acquire load until all the
-// group's blocks have published, then __syncthreads.  Rows written by other
-// blocks are read through L2 only (cp.async.cg, ld.global.cg): a line in
-// L1 may hold a neighbour's columns from before they were written.
+// is one arrival a block at the group's barrier.
 //
 // The backward does not recompute the gates inside the loop: the gate
 // pre-activations x_t + round(h_{t-1}) W depend on saved states only, so
@@ -53,44 +43,22 @@
 // the prologue holds W[:, gate columns], the loop W[j, :], in the same
 // shared memory, and f32 fits (128 KiB each at H 512) where both together
 // would not.
-//
-// Products: a warp multiplies its 16 rows by a run of 128-byte k chunks
-// of the operand (64 bf16 or 32 f32), staged by cp.async into a ring of
-// buffers of its own (the next chunks' copies overlap this chunk's
-// product); a step's product is split over the warps by k, and their
-// partial tiles are summed through shared memory.  bf16 runs on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation: the products are exact, only the
-// order of the sums changes); f32 runs FMA on the CUDA cores, a lane 4
-// rows by 8 (gates) or 2 (dh) columns, operands read as float4.
-//
-// A group barrier still closed after 10 s is a fault of the kernel: it
-// traps, and the launch fails with an error instead of spinning on.
 #pragma once
 
 #include "bn_mma.cuh"
-#include "mma.cuh"
-#include "recurrent.cuh"
+#include "persistent.cuh"
 
 namespace ptt {
 namespace {
 namespace lstm_p {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;  // one thread a (row, column) pair
-constexpr int kRows = 16;              // batch rows of a group
-constexpr int kCols = 16;              // hidden columns of a slice
+using namespace rnn_p;
+
 constexpr int kGateCols = 4 * kCols;   // gate columns of a slice
-
+// W[:, gate cols] row stride
 template <typename T>
-struct Cfg {
-  static constexpr int E = 16 / sizeof(T);      // elements a 16-byte chunk
-  static constexpr int KC = 128 / sizeof(T);    // k of a staged chunk
-  static constexpr int LDA = KC + E;            // staged row stride
-  static constexpr int LDW = kGateCols + E;     // W[:, gate cols] row stride
-};
-
-__host__ __device__ constexpr int chunks(int k, int kc) {
-  return (k + kc - 1) / kc;
+__host__ __device__ constexpr int ldw() {
+  return kGateCols + Cfg<T>::E;
 }
 
 // W[j, :] row stride: 4H rounded up to whole chunks, plus 16 bytes, so
@@ -102,7 +70,7 @@ __host__ __device__ constexpr int ldr(int h) {
 
 template <typename T>
 __host__ __device__ constexpr size_t wc_bytes(int h) {
-  return (size_t)chunks(h, Cfg<T>::KC) * Cfg<T>::KC * Cfg<T>::LDW * sizeof(T);
+  return (size_t)chunks(h, Cfg<T>::KC) * Cfg<T>::KC * ldw<T>() * sizeof(T);
 }
 
 template <typename T>
@@ -110,25 +78,6 @@ __host__ __device__ constexpr size_t wr_bytes(int h) {
   return (size_t)kRows * ldr<T>(h) * sizeof(T);
 }
 
-// staged chunks in flight a warp: at H 512 the forward's warp has one
-// (bf16) or two (f32) chunks a step, the backward's dh product four (bf16,
-// all in flight) or eight (f32, three in flight: as deep as shared memory
-// allows)
-template <typename T>
-__host__ __device__ constexpr int nbuf(bool backward) {
-  return backward ? (sizeof(T) == 2 ? 4 : 3) : 2;
-}
-
-// the warps' staging buffers: 144-byte rows in either type
-constexpr size_t kChunkBytes = (size_t)kRows * (128 + 16);
-static_assert(kChunkBytes == kRows * Cfg<float>::LDA * sizeof(float) &&
-                  kChunkBytes ==
-                      kRows * Cfg<__nv_bfloat16>::LDA * sizeof(__nv_bfloat16),
-              "one chunk size for both types");
-template <typename T>
-__host__ __device__ constexpr size_t stage_bytes(bool backward) {
-  return (size_t)kWarps * nbuf<T>(backward) * kChunkBytes;
-}
 constexpr size_t kRedBytes = (size_t)kWarps * kRows * kGateCols * sizeof(float);
 
 // dynamic shared memory of a block: the W region, the warps' staging
@@ -143,284 +92,7 @@ size_t smem_bytes(int h, bool backward) {
   return w_bytes<T>(h, backward) + stage_bytes<T>(backward) + kRedBytes;
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// A group barrier that has not opened after this long is a fault in the
-// kernel: it traps (the launch fails with an error) rather than spin on.
-constexpr unsigned long long kSpinLimitNs = 10000000000ull;
-
-// wait until the group's counter reaches `target`; the whole block waits
-__device__ __forceinline__ void group_wait(const unsigned* counter,
-                                           unsigned target) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = global_ns();
-    while (ld_acquire(counter) < target)
-      if (global_ns() - t0 > kSpinLimitNs) __trap();
-  }
-  __syncthreads();
-}
-
-// publish this block's writes of the step to its group
-__device__ __forceinline__ void group_arrive(unsigned* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-  }
-}
-
-// loads of what another block (or another thread of this one) wrote
-// during the call: through L2, never a line cached in L1
-__device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg_f(const __nv_bfloat16* p) {
-  const unsigned short v = __ldcg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-
-// One operand of 16 rows: row r at src + r * stride for r < nrows (zero
-// beyond), columns k < K (zero beyond).  `vec`: K and stride whole 16-byte
-// chunks and src 16-byte aligned, so a chunk is wholly inside or outside.
-template <typename T>
-struct Rows {
-  const T* src;
-  size_t stride;
-  int nrows, K;
-  bool vec;
-};
-
-// Stage k chunk `s` of the operand into dst (16 x LDA), by the warp
-template <typename T>
-__device__ __forceinline__ void stage_chunk(T* dst, const Rows<T>& a, int s) {
-  using C = Cfg<T>;
-  constexpr int CH = C::KC / C::E;  // 16-byte chunks a row: 8
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < kRows * CH / 32; ++i) {
-    const int e = lane + 32 * i;
-    const int r = e / CH, c = (e % CH) * C::E;
-    const int k = s * C::KC + c;
-    T* d = dst + r * C::LDA + c;
-    const T* p = a.src + (size_t)r * a.stride + k;
-    if (a.vec) {
-      const bool ok = r < a.nrows && k < a.K;
-      mma::cp_async16(d, ok ? p : a.src, ok);
-    } else {
-#pragma unroll
-      for (int u = 0; u < C::E; ++u)
-        d[u] = from_f<T>(r < a.nrows && k + u < a.K ? ldcg_f(p + u) : 0.f);
-    }
-  }
-}
-
-// body(staged chunk, s) for the operand's chunks [s0, s1), by the warp,
-// with the copies of the next NBUF - 1 chunks in flight during a body.
-// Every round commits one cp.async group (empty past s1), so "all but
-// NBUF - 1 groups done" always means "chunk s has landed".
-template <int NBUF, typename T, typename Body>
-__device__ __forceinline__ void warp_stream(T* buf, const Rows<T>& a, int s0,
-                                            int s1, Body body) {
-  constexpr int SZ = kRows * Cfg<T>::LDA;
-#pragma unroll
-  for (int i = 0; i < NBUF - 1; ++i) {
-    if (s0 + i < s1) stage_chunk(buf + i * SZ, a, s0 + i);
-    mma::cp_async_commit();
-  }
-  for (int s = s0; s < s1; ++s) {
-    const int i = s - s0;
-    if (s + NBUF - 1 < s1)
-      stage_chunk(buf + ((i + NBUF - 1) % NBUF) * SZ, a, s + NBUF - 1);
-    mma::cp_async_commit();
-    mma::cp_async_wait<NBUF - 1>();
-    __syncwarp();
-    body(buf + (i % NBUF) * SZ, s);
-    __syncwarp();
-  }
-}
-
-// A warp's 16 x 64 tile of gate sums, a staged chunk times W[:, gate
-// columns] (Kp x LDW, column c = gate * 16 + hidden column).
-template <typename T>
-struct GateTile;
-
-template <>
-struct GateTile<__nv_bfloat16> {
-  using C = Cfg<__nv_bfloat16>;
-  float acc[8][4];  // n-tile, C fragment
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  }
-  __device__ __forceinline__ void mul_add(const __nv_bfloat16* a,
-                                          const __nv_bfloat16* wc, int k0) {
-    const int l = threadIdx.x & 31;
-#pragma unroll
-    for (int ks = 0; ks < C::KC / 16; ++ks) {
-      uint32_t af[4];
-      mma::ldsm_x4(af, a + mma::a_row(l) * C::LDA + ks * 16 + mma::a_col(l));
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bf[4];
-        mma::ldsm_x4_trans(bf, wc + (size_t)(k0 + ks * 16 + mma::bt_row(l)) *
-                                        C::LDW + p * 16 + mma::bt_col(l));
-        mma::mma_bf16(acc[2 * p], af, bf[0], bf[1]);
-        mma::mma_bf16(acc[2 * p + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-  // f(row, column, value) for each of the lane's 32 sums
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f(g + 8 * (i >> 1), n * 8 + 2 * t + (i & 1), acc[n][i]);
-  }
-};
-
-template <>
-struct GateTile<float> {
-  using C = Cfg<float>;
-  float acc[4][8];  // rows 4 lr + i; columns 4 lc + q and 32 + 4 lc + q
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
-  }
-  __device__ __forceinline__ void mul_add(const float* a, const float* wc,
-                                          int k0) {
-    const int l = threadIdx.x & 31, lr = l >> 3, lc = l & 7;
-#pragma unroll 2
-    for (int kk = 0; kk < C::KC; kk += 4) {
-      float av[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(a + (4 * lr + i) * C::LDA + kk);
-        av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* wr = wc + (size_t)(k0 + kk + u) * C::LDW;
-        const float4 b0 = *reinterpret_cast<const float4*>(wr + 4 * lc);
-        const float4 b1 = *reinterpret_cast<const float4*>(wr + 32 + 4 * lc);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            acc[i][q] = fmaf(av[i][u], bv[q], acc[i][q]);
-      }
-    }
-  }
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int l = threadIdx.x & 31, lr = l >> 3, lc = l & 7;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        f(4 * lr + i, (q >> 2) * 32 + 4 * lc + (q & 3), acc[i][q]);
-  }
-};
-
-// A warp's 16 x 16 tile of dh sums, a staged chunk of round(dg) times
-// W[j, :]^T (W's rows j of the slice, 16 x LDR: the [n][k] layout).
-template <typename T>
-struct DhTile;
-
-template <>
-struct DhTile<__nv_bfloat16> {
-  using C = Cfg<__nv_bfloat16>;
-  float acc[2][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  }
-  __device__ __forceinline__ void mul_add(const __nv_bfloat16* a,
-                                          const __nv_bfloat16* wr, int ld,
-                                          int k0) {
-    const int l = threadIdx.x & 31;
-#pragma unroll
-    for (int ks = 0; ks < C::KC / 16; ++ks) {
-      uint32_t af[4], bf[4];
-      mma::ldsm_x4(af, a + mma::a_row(l) * C::LDA + ks * 16 + mma::a_col(l));
-      mma::ldsm_x4(bf, wr + mma::b_row(l) * ld + k0 + ks * 16 + mma::b_col(l));
-      mma::mma_bf16(acc[0], af, bf[0], bf[1]);
-      mma::mma_bf16(acc[1], af, bf[2], bf[3]);
-    }
-  }
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f(g + 8 * (i >> 1), n * 8 + 2 * t + (i & 1), acc[n][i]);
-  }
-};
-
-template <>
-struct DhTile<float> {
-  using C = Cfg<float>;
-  float acc[4][2];  // rows 4 lr + i, columns 2 lc + c
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-  }
-  __device__ __forceinline__ void mul_add(const float* a, const float* wr,
-                                          int ld, int k0) {
-    const int l = threadIdx.x & 31, lr = l >> 3, lc = l & 7;
-#pragma unroll 4
-    for (int kk = 0; kk < C::KC; kk += 4) {
-      float4 av[4], bv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = *reinterpret_cast<const float4*>(a + (4 * lr + i) * C::LDA + kk);
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        bv[c] = *reinterpret_cast<const float4*>(wr + (2 * lc + c) * ld + k0 + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float s = acc[i][c];
-          s = fmaf(av[i].x, bv[c].x, s);
-          s = fmaf(av[i].y, bv[c].y, s);
-          s = fmaf(av[i].z, bv[c].z, s);
-          acc[i][c] = fmaf(av[i].w, bv[c].w, s);
-        }
-    }
-  }
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int l = threadIdx.x & 31, lr = l >> 3, lc = l & 7;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) f(4 * lr + i, 2 * lc + c, acc[i][c]);
-  }
-};
-
-// W[:, gate columns] of slice j0 into wc (Kp x LDW), zero past H
+// W[:, gate columns] of slice j0 into wc (Kp x ldw), zero past H
 template <typename T>
 __device__ __forceinline__ void load_wc(T* wc, const T* __restrict__ w,
                                         int j0, int h) {
@@ -429,8 +101,8 @@ __device__ __forceinline__ void load_wc(T* wc, const T* __restrict__ w,
   for (int e = threadIdx.x; e < kp * kGateCols; e += kThreads) {
     const int k = e / kGateCols, c = e % kGateCols;
     const int j = j0 + c % kCols;
-    wc[k * C::LDW + c] = k < h && j < h ? w[(size_t)k * 4 * h + (c / kCols) * h + j]
-                                        : from_f<T>(0.f);
+    wc[k * ldw<T>() + c] = k < h && j < h ? w[(size_t)k * 4 * h + (c / kCols) * h + j]
+                                          : from_f<T>(0.f);
   }
 }
 
@@ -444,18 +116,6 @@ __device__ __forceinline__ void load_wr(T* wr, const T* __restrict__ w,
     const int j = j0 + r;
     wr[r * ld + c] = j < h && c < 4 * h ? w[(size_t)j * 4 * h + c] : from_f<T>(0.f);
   }
-}
-
-// The operand rows of step t's product: round(h_{t-1}) is h0 at t = 0,
-// else hs[:, t-1], for the group's rows from b0
-template <typename T>
-__device__ __forceinline__ Rows<T> prev_rows(const T* h0, const T* hs, int b0,
-                                             int batch, int t, int t_len,
-                                             int h, bool vec) {
-  const int nrows = min(kRows, batch - b0);
-  if (t == 0) return {h0 + (size_t)b0 * h, (size_t)h, nrows, h, vec};
-  return {hs + ((size_t)b0 * t_len + t - 1) * h, (size_t)t_len * h, nrows, h,
-          vec};
 }
 
 // Forward, the whole time loop.  grid: (ceil(H / 16), grid rows); grid
@@ -499,11 +159,11 @@ lstm_fwd_persistent(const T* __restrict__ x, const T* __restrict__ w,
       for (int g = 0; g < 4; ++g)
         xg[g] = own ? to_f(x[row * 4 * h + g * h + j]) : 0.f;
       if (t > 0) group_wait(counter, slices * t);
-      GateTile<T> tile;
+      GateTile<T, kGateCols> tile;
       tile.zero();
       warp_stream<NBUF>(
           buf, prev_rows(h0, hs, b0, batch, t, t_len, h, vec_h != 0), s0, s1,
-          [&](const T* a, int sc) { tile.mul_add(a, wc, sc * C::KC); });
+          [&](const T* a, int sc) { tile.mul_add(a, wc, ldw<T>(), sc * C::KC); });
       float* mine = red + warp * kRows * kGateCols;
       tile.each(
           [&](int rr, int cl, float v) { mine[rr * kGateCols + cl] = v; });
@@ -574,11 +234,11 @@ lstm_bwd_persistent(const T* __restrict__ x, const T* __restrict__ w,
   for (int q = warp; q < my_groups * t_len; q += kWarps) {
     const int b0 = (blockIdx.y + q / t_len * gridDim.y) * kRows;
     const int t = q % t_len;
-    GateTile<T> tile;
+    GateTile<T, kGateCols> tile;
     tile.zero();
     warp_stream<NBUF>(
         buf, prev_rows(h0, hs, b0, batch, t, t_len, h, vec_h != 0), 0, nsub,
-        [&](const T* a, int sc) { tile.mul_add(a, wsm, sc * C::KC); });
+        [&](const T* a, int sc) { tile.mul_add(a, wsm, ldw<T>(), sc * C::KC); });
     tile.each([&](int rr, int cl, float v) {
       const int bb = b0 + rr, jc = j0 + cl % kCols;
       if (bb < batch && jc < h) {

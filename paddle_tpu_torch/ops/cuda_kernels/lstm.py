@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _common
+from . import _common, _recurrent
 from ._recurrent import (check_inputs, check_launchable, check_saved,
                          prev_states, step_mask)
 
@@ -103,27 +103,12 @@ def lstm_backward_ref(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
             dw.to(w.dtype))
 
 
-# the persistent kernels' tile: a block owns 16 hidden columns (a slice)
-# for the whole call and runs 16 batch rows (a group) at a time
-# (csrc/lstm_persistent.cuh)
-_ROWS = _COLS = 16
-_ROUTES = {"steps": 0, "persistent": 1}
-_capacity = {}
-
-
 def capacity(device, H, dtype, backward=False):
     """Blocks of the persistent forward (with ``backward``, the backward's
-    loop) that fit on `device` at once at hidden width `H` in `dtype`, each
-    with its slice of W in shared memory: the C query
-    ``ptt_lstm_capacity``, 0 when a block's shared memory exceeds the
-    device's opt-in limit, else the blocks a multiprocessor holds times
-    the multiprocessors."""
-    key = (device.index, H, dtype, bool(backward))
-    if key not in _capacity:
-        _capacity[key] = _common.query(
-            "ptt_lstm_capacity", H, _common.dtype_code(dtype),
-            int(backward), device=device)
-    return _capacity[key]
+    loop) that fit on `device` at once at hidden width `H` in `dtype`: the
+    C query ``ptt_lstm_capacity`` (``_recurrent.capacity``)."""
+    return _recurrent.capacity("ptt_lstm_capacity", device, H, dtype,
+                               backward)
 
 
 def route(x_proj, backward=False):
@@ -138,9 +123,7 @@ def route(x_proj, backward=False):
     f32), so with 227 KB a block, as on an H100, the persistent route
     takes the f32 forward to H 576, the f32 backward to H 512, the bf16
     forward to H 1088 and the bf16 backward to H 832."""
-    H = x_proj.shape[2] // 4
-    blocks = capacity(x_proj.device, H, x_proj.dtype, backward)
-    return "persistent" if blocks >= -(-H // _COLS) else "steps"
+    return _recurrent.route("ptt_lstm_capacity", x_proj, 4, backward)
 
 
 # the kernels K7 and K8 launch, in the order of the C query
@@ -153,14 +136,8 @@ def device_launches(device):
     """{kernel name: device launches} that K7 and K8 have made since the
     kernel library was loaded, counted by the C entry points where each
     kernel is launched (``ptt_lstm_device_launches``)."""
-    return {name: _common.query("ptt_lstm_device_launches", i,
-                                device=device)
-            for i, name in enumerate(KERNELS)}
-
-
-def _counters(B, dev):
-    """The persistent kernels' barrier: one counter a batch group, zero."""
-    return torch.zeros(-(-B // _ROWS), dtype=torch.int32, device=dev)
+    return _recurrent.device_launches("ptt_lstm_device_launches", KERNELS,
+                                      device)
 
 
 def _empty_forward(x_proj, h0, c0, B, T, H):
@@ -183,7 +160,7 @@ def lstm_forward(x_proj, h0, c0, w, lengths):
     body = route(x_proj)
     if body == "persistent":
         hbuf = c = None
-        counters = _counters(B, dev)
+        counters = _recurrent.group_counters(B, dev)
     else:
         hbuf = torch.empty(2, B, H, dtype=torch.float32, device=dev)
         hbuf[0] = h0
@@ -194,7 +171,8 @@ def lstm_forward(x_proj, h0, c0, w, lengths):
     _common.launch("ptt_lstm_forward", x_proj.contiguous(), w.contiguous(),
                    h0.contiguous(), c0.contiguous(), hbuf, c, hs, cs, hT, cT,
                    lengths.to(torch.int32).contiguous(), counters, B, T, H,
-                   _common.dtype_code(x_proj), _ROUTES[body], device=dev)
+                   _common.dtype_code(x_proj), _recurrent.ROUTES[body],
+                   device=dev)
     lstm_forward.launches += 1
     return hs, cs, hT, cT
 
@@ -222,14 +200,16 @@ def lstm_backward(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
         B, T, 4 * H, dtype=torch.float32, device=dev)
     dw = torch.empty(H, 4 * H, dtype=dt, device=dev)
     body = route(x_proj, backward=True)
-    counters = _counters(B, dev) if body == "persistent" else None
+    counters = _recurrent.group_counters(B, dev) \
+        if body == "persistent" else None
     _common.launch("ptt_lstm_backward", x_proj.contiguous(), w.contiguous(),
                    h0.contiguous(), c0.contiguous(),
                    hs.to(dt).contiguous(), cs.to(dt).contiguous(),
                    dhs.to(dt).contiguous(), dcs.to(dt).contiguous(),
                    carry[0], carry[1], dx, dg32, dw,
                    lengths.to(torch.int32).contiguous(), counters, B, T, H,
-                   _common.dtype_code(x_proj), _ROUTES[body], device=dev)
+                   _common.dtype_code(x_proj), _recurrent.ROUTES[body],
+                   device=dev)
     lstm_backward.launches += 1
     return dx, carry[0].to(h0.dtype), carry[1].to(c0.dtype), dw
 

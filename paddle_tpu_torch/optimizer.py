@@ -8,7 +8,7 @@ training step.
 Not ported yet (each raises ``NotImplementedError``): ``regularization=``,
 ``global_clip_norm=``, a parameter's ``gradient_clip`` and
 ``update_hooks`` (ROADMAP.md Queue A item 4); the other optimizers come
-with the slices that train with them (item 6).
+with the slices that train with them (item 4).
 """
 
 from __future__ import annotations

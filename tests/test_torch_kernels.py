@@ -644,6 +644,60 @@ def test_gru_kernels_match_plain_on_card(cuda_device, dtype, B, T, H,
         assert _rel_err(g, r) <= _BWD_TOL[dtype], name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_routes_by_shape_and_both_match_plain_on_card(cuda_device,
+                                                          dtype):
+    """gru.route's shape rule against the card's own capacity query: the
+    persistent loop where one block of each of the ceil(H/16) column
+    slices fits at once, whatever B, else the step kernels; at every
+    shape the device launches the library counted are that body's (K9
+    persistent 1, steps 2T; K10 persistent 1 and dW's 2, steps 4T + 2),
+    and its results match the plain versions.  B 160 at H 512 has more
+    batch groups than the persistent grid runs at once."""
+    def want(route, back, T):
+        if not back:
+            return ({"gru_fwd_persistent": 1} if route == "persistent" else
+                    {"gru_gates": T, "gru_fwd_cand": T})
+        return ({"gru_bwd_persistent": 1, "rnn_dw_kernel": 2}
+                if route == "persistent" else
+                {"gru_gates": T, "gru_bwd_cand": T, "gru_bwd_drh": T,
+                 "gru_bwd_dh": T, "rnn_dw_kernel": 2})
+
+    def ran(fn):
+        before = t_gru.device_launches(cuda_device)
+        out = fn()
+        after = t_gru.device_launches(cuda_device)
+        return out, {k: n - before[k] for k, n in after.items()
+                     if n > before[k]}
+
+    some, none = t_gru.steps_widths(cuda_device)
+    taken = set()
+    for B, T, H, lengths in [*_RNN_SHAPES, (160, 3, 512, None),
+                             (4, 3, some, None), (4, 3, none, None)]:
+        a = _rnn_case(cuda_device, dtype, 3, B, T, H, lengths)
+        routes = {}
+        for back in (False, True):
+            fits = t_gru.capacity(cuda_device, H, dtype, back) >= -(-H // 16)
+            routes[back] = t_gru.route(a["x"], backward=back)
+            assert routes[back] == ("persistent" if fits else "steps"), \
+                (B, T, H, back)
+            taken.add(routes[back])
+        args = [a[k] for k in ("x", "h0", "w", "lengths")]
+        got, counts = ran(lambda: t_gru.gru_forward(*args))
+        assert counts == want(routes[False], False, T), (B, T, H)
+        ref = t_gru.gru_forward_ref(*args)
+        for g, r in zip(got, ref):
+            assert (g.float() - r.float()).abs().max().item() \
+                <= _CARD_TOL[dtype], (B, T, H)
+        grads, counts = ran(lambda: t_gru.gru_backward(*args, ref[0],
+                                                       a["dhs"]))
+        assert counts == want(routes[True], True, T), (B, T, H)
+        ref_g = t_gru.gru_backward_ref(*args, ref[0], a["dhs"])
+        for g, r in zip(grads, ref_g):
+            assert _rel_err(g, r) <= _BWD_TOL[dtype], (B, T, H)
+    assert taken == {"persistent", "steps"}
+
+
 def test_recurrent_train_functions_launch_kernels_on_card(cuda_device):
     """LSTMTrain and GRUTrain on CUDA tensors: one forward launch, one
     backward launch each; a missing cell cotangent counts as zeros."""

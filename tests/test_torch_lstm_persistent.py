@@ -515,11 +515,11 @@ def test_bf16_dh_tile_fragment_maps():
 
 @pytest.mark.parametrize("tile", ["gates", "dh"])
 def test_f32_tile_lanes_own_each_sum_once(tile):
-    """GateTile<float> (lane: rows 4 lr + i, columns 4 lc + q and 32 + 4 lc
-    + q) and DhTile<float> (rows 4 lr + i, columns 2 lc + c), lr = lane /
-    8, lc = lane % 8: every (row, column) of the warp's tile has one
-    owner, and the float4 loads a lane makes give it exactly the operands
-    of its sums."""
+    """GateTile<float, 64> (lane: rows lr + 4 i, columns 4 lc + q and 32 +
+    4 lc + q) and DhTile<float> (rows lr + 4 i, columns lc + 8 c), lr =
+    lane / 8, lc = lane % 8: every (row, column) of the warp's tile has
+    one owner, and the float4 loads a lane makes give it exactly the
+    operands of its sums."""
     rng = np.random.RandomState(4)
     ncol = 64 if tile == "gates" else 16
     a = rng.randint(-4, 5, (16, 32)).astype(np.float64)
@@ -527,12 +527,12 @@ def test_f32_tile_lanes_own_each_sum_once(tile):
     out = np.full((16, ncol), np.nan)
     for lane in range(32):
         lr, lc = lane >> 3, lane & 7
-        rows = [4 * lr + i for i in range(4)]
+        rows = [lr + 4 * i for i in range(4)]
         if tile == "gates":
             cols = [4 * lc + q for q in range(4)] + \
                    [32 + 4 * lc + q for q in range(4)]
         else:
-            cols = [2 * lc, 2 * lc + 1]
+            cols = [lc, lc + 8]
         for r in rows:
             for c in cols:
                 assert np.isnan(out[r, c])

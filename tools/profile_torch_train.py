@@ -131,10 +131,14 @@ def _group(name: str, model: str) -> str:
         return "K8 lstm_backward (dW)"
     if "lstm_bwd_" in n:
         return "K8 lstm_backward (steps)"
-    if "gru_fwd_cand" in n:
-        return "K9 gru_forward (candidate)"
+    # the GRU's persistent bodies (one launch a call) and step bodies,
+    # whose gates kernel both directions launch
+    if "gru_fwd_persistent" in n or "gru_fwd_cand" in n:
+        return "K9 gru_forward"
+    if "gru_bwd_persistent" in n:
+        return "K10 gru_backward (loop)"
     if "gru_gates" in n:
-        return "K9 and K10 (the gates kernel they share)"
+        return "K9 and K10 (the step route's gates kernel)"
     if "gru_bwd_" in n:
         return "K10 gru_backward (steps)"
     if "bnc_pad_prep" in n:

@@ -19,7 +19,7 @@ each other) with the bound's share and the time a step (the call over T),
 and splits K8's device time between its kernels under ``torch.profiler``
 (the loop and the dW product).  Prints one JSON line with the card's name
 and power limit, the route each call took and its device launches (read
-from the kernels ``torch.profiler`` sees, ``chip_smoke.lstm_body``; a
+from the kernels ``torch.profiler`` sees, ``chip_smoke.rnn_body``; a
 tree without ``lstm.route`` has the step kernels only), nvcc's ptxas
 report of the LSTM kernels and the dynamic shared memory a block of the
 persistent kernels asks for (the library's ``ptt_lstm_smem_bytes``).
@@ -76,14 +76,15 @@ def smi():
         timeout=60).stdout.strip()
 
 
-def ptxas_report(log_path):
-    """{kernel entry: [ptxas lines]} for the LSTM kernels."""
+def ptxas_report(log_path, names=KERNEL_NAMES):
+    """{kernel entry: [ptxas lines]} for the kernels whose entry names hold
+    one of `names` (the LSTM's by default)."""
     out, name = {}, None
     with open(log_path) as f:
         for line in f:
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-                name = name if any(k in name for k in KERNEL_NAMES) else None
+                name = name if any(k in name for k in names) else None
                 if name:
                     out[name] = []
             elif name and ("registers" in line or "spill" in line):
@@ -175,8 +176,28 @@ def kernels_seen(torch, fn):
     return counts
 
 
-def device_ms_by_kernel(torch, fn, calls=5):
-    """Device ms a call of `fn`, by kernel name (torch.profiler)."""
+def launched(torch, mod, dev, fn, names=KERNEL_NAMES):
+    """{kernel name: device launches} of one call of `fn`: the library's
+    own tally (``mod.device_launches``) where the tree has one, else the
+    kernels of `names` that torch.profiler saw (which another CUPTI user
+    on the machine can leave blind)."""
+    if hasattr(mod, "device_launches"):
+        before = mod.device_launches(dev)
+        fn()
+        after = mod.device_launches(dev)
+        return {k: n - before[k] for k, n in after.items() if n > before[k]}
+    counts = {}
+    for name, n in kernels_seen(torch, fn).items():
+        k = next((k for k in names if k in name), None)
+        if k is not None:
+            counts[k] = counts.get(k, 0) + n
+    return counts
+
+
+def device_ms_by_kernel(torch, fn, calls=5, names=KERNEL_NAMES):
+    """Device ms a call of `fn`, by the first of `names` (the LSTM's
+    kernels by default) in each kernel's name, else "other"
+    (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,7 +210,7 @@ def device_ms_by_kernel(torch, fn, calls=5):
     out = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = next((k for k in KERNEL_NAMES if k in e.name), "other")
+            name = next((k for k in names if k in e.name), "other")
             out[name] = out.get(name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / calls
     return out
@@ -234,9 +255,10 @@ def timing(args, torch, cs):
                     ("lstm_backward",
                      lambda: lstm_k.lstm_backward(*ins, *plain[:2], a["dhs"],
                                                   a["dcs"]), True)):
-                # the route and launches the profiler sees; a tree without
-                # lstm.route has the step kernels only
-                body, launches = cs.lstm_body(kernels_seen(torch, fn), back)
+                # the route and launches of the library's tally; a tree
+                # without lstm.route has the step kernels only
+                body, launches = cs.rnn_body(
+                    "lstm", launched(torch, lstm_k, dev, fn), back)
                 if route and body != route(a["x"], backward=back):
                     raise AssertionError(f"{name} ran {body}, not the "
                                          f"route lstm.route chose")
