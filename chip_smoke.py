@@ -58,15 +58,16 @@ non-zero and no result line is printed):
     plain versions, float32 and bfloat16, at the training bench shape
     [8, 8, 1024, 64] causal, a ragged [2, 4, 1000, 64] causal and
     non-causal, a D = 128 case [2, 4, 512, 128], one short ragged tile
-    with a padded head dim [1, 1, 37, 40] and B*H = 1024 [64, 16, 128,
-    64]; out and lse absolutely, dq, dk and dv relative to each tensor's
-    max |value|; at the bench shape each is timed beside its plain
-    version, the card's bound and PyTorch's scaled_dot_product_attention
-    (forward for K4, its backward, which yields dq, dk and dv together,
-    for K5 and K6), and each row names its design (bf16 K4-K6 ``mma``;
-    f32 K4 ``mma_3xtf32``, bounded as K1 in 3; f32 K5 and K6
-    ``cuda_cores``) with its ratio to that call and its share of the
-    bound;
+    with a padded head dim [1, 1, 37, 40], B*H = 1024 [64, 16, 128, 64]
+    and a head dim that is no whole number of 16-byte chunks in either
+    dtype [1, 2, 77, 38] (staged element by element); out and lse
+    absolutely, dq, dk and dv relative to each tensor's max |value|; at
+    the bench shape each is timed beside its plain version, the card's
+    bound and PyTorch's scaled_dot_product_attention (forward for K4, its
+    backward, which yields dq, dk and dv together, for K5 and K6), and
+    each row names its design (bf16 K4-K6 ``mma``; f32 K4-K6
+    ``mma_3xtf32``, bounded as K1 in 3) with its ratio to that call and
+    its share of the bound;
 11. training parity, float32: ``build_lm_train_program`` at full width
     and depth (vocab 32000, dim 512, 8 layers, 8 heads, Adam 3e-4), batch
     2 x 256, three steps on the card and three on an explicit CPU
@@ -200,8 +201,9 @@ from paddle_tpu_torch.serving import ServingEngine, pages_needed
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA cores: the kernels' FMA loops
               torch.bfloat16: 989e12}
-# the dense TF32 rate of the tensor cores, which the f32 flash forward
-# (K1, f32 K4) runs on in 3xTF32: three TF32 products per f32 product
+# the dense TF32 rate of the tensor cores, which the f32 flash kernels
+# (K1, f32 K4-K6) and f32 K3 run on in 3xTF32: three TF32 products per f32
+# product
 PEAK_TF32 = 495e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -292,17 +294,16 @@ def bound(nbytes, flops, dtype, peak=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the body of each flash kernel by dtype: every bf16 one and the f32
-# forward run on the tensor cores (mma.sync; f32 in 3xTF32), f32 K5 and K6
-# FMA loops on the CUDA cores
+# the body of each flash kernel by dtype: all run on the tensor cores
+# (mma.sync), bf16 in m16n8k16, f32 in 3xTF32
 DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                            "flash_attention_fwd": "mma",
                            "flash_attention_dq": "mma",
                            "flash_attention_dkv": "mma"},
           torch.float32: {"flash_attention": "mma_3xtf32",
                           "flash_attention_fwd": "mma_3xtf32",
-                          "flash_attention_dq": "cuda_cores",
-                          "flash_attention_dkv": "cuda_cores"}}
+                          "flash_attention_dq": "mma_3xtf32",
+                          "flash_attention_dkv": "mma_3xtf32"}}
 # K11-K15: in bf16 K11, K12, K13 and K15 run on the tensor cores
 # (mma.sync, csrc/bn_mma.cuh), K14 and every f32 instance on the CUDA
 # cores (csrc/bn_gemm.cuh)
@@ -901,6 +902,7 @@ TRAIN_SHAPES = [  # (B, H, T, D, causal, timed)
     (2, 4, 512, 128, True, False),
     (1, 1, 37, 40, True, False),     # one short ragged tile, D padded to 64
     (64, 16, 128, 64, True, False),  # B*H = 1024 blocks along grid.y
+    (1, 2, 77, 38, True, False),     # d % 4 != 0: staged element by element
 ]
 
 

@@ -136,19 +136,26 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = big + small to about 2^-22 relative (the header's 3xTF32)
+// x = big + small to about 2^-22 relative (the header's 3xTF32).  RAW
+// passes small unrounded: mma.sync reads only the top 19 bits of a .tf32
+// operand, so small arrives truncated to TF32, about 2^-21 relative to x,
+// for two integer operations fewer an element.
+template <bool RAW = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
+  const float rest = x - __uint_as_float(big);
+  small = RAW ? __float_as_uint(rest) : to_tf32(rest);
 }
 
 // Split four f32 held as b32 (an ldmatrix result) into big and small
+template <bool RAW = false>
 __device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
                                            uint32_t (&big)[4],
                                            uint32_t (&small)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+  for (int i = 0; i < 4; ++i)
+    split_tf32<RAW>(__uint_as_float(x[i]), big[i], small[i]);
 }
 
 // c += a b in 3xTF32: small terms first, then big by big
@@ -165,23 +172,24 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 
 // The split A fragment of an 8-key chunk from its score accumulator c,
 // keys permuted as the header says: (c0, c2, c1, c3)
+template <bool RAW = false>
 __device__ __forceinline__ void acc_to_a_tf32(uint32_t (&big)[4],
                                               uint32_t (&small)[4],
                                               const float (&c)[4]) {
-  split_tf32(c[0], big[0], small[0]);
-  split_tf32(c[2], big[1], small[1]);
-  split_tf32(c[1], big[2], small[2]);
-  split_tf32(c[3], big[3], small[3]);
+  split_tf32<RAW>(c[0], big[0], small[0]);
+  split_tf32<RAW>(c[2], big[1], small[1]);
+  split_tf32<RAW>(c[1], big[2], small[2]);
+  split_tf32<RAW>(c[3], big[3], small[3]);
 }
 
 // The split B registers of P V for one 8-key chunk and one n-tile: `v`
 // points at the chunk's key row 2t, column g of the n-tile, in a tile of
 // row stride LD; b0 is key 2t, b1 key 2t + 1 (the permuted keys)
-template <int LD>
+template <int LD, bool RAW = false>
 __device__ __forceinline__ void ld_v_tf32(const float* v, uint32_t (&big)[2],
                                           uint32_t (&small)[2]) {
-  split_tf32(v[0], big[0], small[0]);
-  split_tf32(v[LD], big[1], small[1]);
+  split_tf32<RAW>(v[0], big[0], small[0]);
+  split_tf32<RAW>(v[LD], big[1], small[1]);
 }
 
 // two f32 -> one b32 of bf16 (round to nearest even), `lo` in the low half

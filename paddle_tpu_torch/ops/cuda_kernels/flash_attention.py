@@ -13,11 +13,9 @@ PyTorch versions.
   ``torch.autograd.Function`` whose forward runs K4 and whose backward
   runs K5 and K6 (``flash_attention_bwd``).
 
-The forward (K1 and K4) has two bodies, both on the tensor cores
-(``mma.sync``, ``csrc/mma.cuh``): bf16 in m16n8k16, f32 in 3xTF32 (each f32
-product as three TF32 products of split operands, near f32 accuracy).
-bf16 K5 and K6 run on the tensor cores too; f32 K5 and K6 run FMA loops on
-the CUDA cores.
+Each kernel has two bodies, both on the tensor cores (``mma.sync``,
+``csrc/mma.cuh``): bf16 in m16n8k16, f32 in 3xTF32 (each f32 product as
+three TF32 products of split operands, near f32 accuracy).
 
 Contract: q, k, v [B, H, T, D] of one dtype → out [B, H, T, D],
 softmax(Q Kᵀ·scale [+ causal mask]) V with f32 scores and P cast to the

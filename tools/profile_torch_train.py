@@ -117,10 +117,10 @@ def _group(name: str, model: str) -> str:
     if "flash_fwd_mma_kernel" in n or "flash_fwd_tf32_kernel" in n:
         lse = ", true>" in n or "lb1e" in n
         return "K4 flash_attention_fwd" if lse else "K1"
-    # dQ and dK/dV: the tensor-core bodies (bf16) and the CUDA-core ones
-    if "flash_dq_mma_kernel" in n or "flash_dq_kernel" in n:
+    # dQ and dK/dV: the bf16 bodies (mma) and the f32 ones (tf32)
+    if "flash_dq_mma_kernel" in n or "flash_dq_tf32_kernel" in n:
         return "K5 flash_attention_dq"
-    if "flash_dkv_mma_kernel" in n or "flash_dkv_kernel" in n:
+    if "flash_dkv_mma_kernel" in n or "flash_dkv_tf32_kernel" in n:
         return "K6 flash_attention_dkv"
     # the LSTM's persistent bodies (one launch a call) and step bodies
     if "lstm_fwd_persistent" in n or "lstm_fwd_step" in n:
