@@ -129,8 +129,11 @@ non-zero and no result line is printed):
     f32 kernels against the plain version in float64 (inputs clear of the
     ReLU's kink), the bf16 ones against it in bf16, with each bf16
     output's distance to the float64 function logged beside the plain
-    version's (the forwards' too); each row names its body (bf16 K11, K12,
-    K13 and K15 ``mma``, K14 and f32 ``cuda_cores``); K13 and K14 timed at
+    version's (the forwards' too); each row names its body (every bf16
+    kernel ``mma``, f32 K13 and K14 ``mma_3xtf32``, bounded at three TF32
+    products per f32 product with the CUDA cores' bound beside it, f32
+    K11, K12 and K15 ``cuda_cores``) and K14's whether it has K13's bits;
+    K13 and K14 timed at
     every 3x3 shape, K11, K12 and K15 in bf16 at every ResNet-50 shape; at
     stage 2's 1x1 with a residual and its 3x3 each kernel is timed beside
     its plain version (the unfused ATen, cuDNN and torch.matmul
@@ -159,8 +162,10 @@ non-zero and no result line is printed):
 20. ResNet-50 bench, bfloat16, batch 128, 224 x 224 (``bench.py``'s
     configuration): 2 warm-up and 10 measured steps fused (the lowest
     measured loss below the first; step ms, images/s, peak memory, the
-    launches of 19 every step), then the same program built unfused for
-    2 + 10 steps (no port kernel runs) and the two images/s side by side;
+    launches of 19 every step), the same fused program again under
+    PADDLE_TPU_BNCONV_VARIANT=v2 (K13 0, K14 32 a step), then the program
+    built unfused for 2 + 10 steps (no port kernel runs) and the three
+    images/s side by side;
 21. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
@@ -202,8 +207,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA cores: the kernels' FMA loops
               torch.bfloat16: 989e12}
 # the dense TF32 rate of the tensor cores, which the f32 flash kernels
-# (K1, f32 K4-K6) and f32 K3 run on in 3xTF32: three TF32 products per f32
-# product
+# (K1, f32 K4-K6), f32 K3 and the f32 3x3 forwards (K13, K14) run on in
+# 3xTF32: three TF32 products per f32 product
 PEAK_TF32 = 495e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -304,15 +309,16 @@ DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                           "flash_attention_fwd": "mma_3xtf32",
                           "flash_attention_dq": "mma_3xtf32",
                           "flash_attention_dkv": "mma_3xtf32"}}
-# K11-K15: in bf16 K11, K12, K13 and K15 run on the tensor cores
-# (mma.sync, csrc/bn_mma.cuh), K14 and every f32 instance on the CUDA
-# cores (csrc/bn_gemm.cuh)
+# K11-K15: every bf16 body runs on the tensor cores (mma.sync,
+# csrc/bn_mma.cuh; K14 csrc/bn_conv.cu bnc_fwd_wide); the f32 3x3
+# forwards (K13, K14) on them in 3xTF32 (bnc_fwd_wide), f32 K11, K12 and
+# K15 on the CUDA cores (csrc/bn_gemm.cuh)
 BN_KERNELS = ("bn_matmul_fwd", "bn_matmul_bwd", "bn_conv3x3_fwd",
               "bn_conv3x3_fwd_v2", "bn_conv3x3_bwd")
-DESIGN[torch.bfloat16].update(
-    {k: "cuda_cores" if k == "bn_conv3x3_fwd_v2" else "mma"
-     for k in BN_KERNELS})
+DESIGN[torch.bfloat16].update(dict.fromkeys(BN_KERNELS, "mma"))
 DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "cuda_cores"))
+DESIGN[torch.float32].update(dict.fromkeys(
+    ("bn_conv3x3_fwd", "bn_conv3x3_fwd_v2"), "mma_3xtf32"))
 # K2 and K3 split a slot's page walk across blocks and stage pages by
 # cp.async into rings (csrc/paged_split.cuh); K2 scores on the CUDA cores
 # in both dtypes, K3 on the tensor cores (f32 in 3xTF32)
@@ -1613,11 +1619,13 @@ def bn_clear_of_kinks(a):
     return a
 
 
-def bn_bound(kind, a, O, backward, dtype):
+def bn_bound(kind, a, O, backward, dtype, design="cuda_cores"):
     """Each input read once, each output written once (the statistics
     too), and 2 flops per multiply-add of the products: forward M_out K O
     (times 9 taps for a 3x3), backward twice that (dA and dW); the
-    prologue's few flops an element are left out."""
+    prologue's few flops an element are left out.  The products at the
+    dtype's rate, or for a 3xTF32 body (``design``) three TF32 products
+    per f32 product at the tensor cores' TF32 rate, as ``flash_bound``."""
     size = a["x"].element_size()
     xe, we = a["x"].numel(), a["w"].numel()
     oe = a["do"].numel()
@@ -1631,6 +1639,8 @@ def bn_bound(kind, a, O, backward, dtype):
         stats = 4 * K * 4
     taps = 9 if kind == "3x3" else 1
     flops = 2 * a["rows_out"] * K * O * taps * (2 if backward else 1)
+    if design.endswith("mma_3xtf32"):
+        return bound(elems * size + stats, 3 * flops, dtype, peak=PEAK_TF32)
     return bound(elems * size + stats, flops, dtype)
 
 
@@ -1730,16 +1740,21 @@ def bn_kernel_phase(dev):
             checks.append((names[kind][1], bwd, grads, ref_g, True))
             timed = (shape == BN_TIMED_1X1 or shape == BN_TIMED_3X3)
             for name, kern, got, want, back in checks:
-                b_ms, b_by = bn_bound(kind, a, O, back, dtype)
-                row = {**desc, "design": DESIGN[dtype][name],
+                design = DESIGN[dtype][name]
+                b_ms, b_by = bn_bound(kind, a, O, back, dtype, design)
+                row = {**desc, "design": design,
                        "max_rel_err": max(rel_err(g, r)
                                           for g, r in zip(got, want)),
                        "max_abs_err": max(max_err(g, r)
                                           for g, r in zip(got, want)),
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": None}
+                if design.endswith("mma_3xtf32"):
+                    row["bound_cuda_cores_ms"] = bn_bound(kind, a, O, back,
+                                                          dtype)[0]
                 if name == "bn_conv3x3_fwd_v2":
                     row["block_o"] = bnc._v2_block_o(O)
+                    row["equals_v1"] = torch.equal(out2, out)
                 elif f64:
                     row["f64_err"] = f64[back]
                 if timed or (kind == "3x3" and not back) or (
@@ -1823,6 +1838,9 @@ RESNET_WANT = {
          "bn_conv3x3_bwd": 16},
     18: {"bn_matmul_fwd": 6, "bn_matmul_bwd": 3, "bn_conv3x3_fwd": 30,
          "bn_conv3x3_bwd": 15}}
+# ResNet-50 under PADDLE_TPU_BNCONV_VARIANT=v2: K14 in K13's place
+RESNET_V2_WANT = dict(RESNET_WANT[50], bn_conv3x3_fwd=0,
+                      bn_conv3x3_fwd_v2=32)
 
 
 def resnet_program(depth, image, dtype, lr, fuse=True):
@@ -1915,9 +1933,8 @@ def resnet50_parity_phase():
                                                        feed, states, ()))
     finally:
         del os.environ["PADDLE_TPU_BNCONV_VARIANT"]
-    v2_want = dict(RESNET_WANT[50], bn_conv3x3_fwd=0, bn_conv3x3_fwd_v2=32)
     for _, _, per_step, _ in v2:
-        check_launches("resnet50_parity_v2", per_step, v2_want)
+        check_launches("resnet50_parity_v2", per_step, RESNET_V2_WANT)
     del card
     t0 = time.monotonic()
     loss64, main64, _ = resnet_program(50, image, "float64",
@@ -2004,11 +2021,11 @@ def resnet18_parity_phase():
                                         "image": image}, stats)
 
 
-def resnet_bench_run(tag, fuse, card_name, smi):
+def resnet_bench_run(tag, fuse, card_name, smi, want=RESNET_WANT[50]):
     """2 warm-up steps and 10 measured ones of ResNet-50's bench program
     (bf16, batch 128, 224 x 224): losses finite and the lowest measured
     below the first, step ms, images per second, peak memory and, fused,
-    exactly RESNET_WANT[50] launches a step (unfused: none)."""
+    exactly `want` launches a step (unfused: none)."""
     t0 = time.monotonic()
     loss, main, startup = resnet_program(resnet_bench.DEPTH,
                                          resnet_bench.IMAGE,
@@ -2026,7 +2043,7 @@ def resnet_bench_run(tag, fuse, card_name, smi):
     steps, launches = counted(lambda: run_steps(exe, main, loss, feed, 10))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    want = RESNET_WANT[50] if fuse else {}
+    want = want if fuse else {}
     for _, _, per_step, _ in steps:
         if fuse:
             check_launches(tag, per_step, want)
@@ -2062,13 +2079,21 @@ def resnet_bench_run(tag, fuse, card_name, smi):
 
 def resnet_bench_phase(card_name, smi):
     fused = resnet_bench_run("resnet50_bench_fused", True, card_name, smi)
+    os.environ["PADDLE_TPU_BNCONV_VARIANT"] = "v2"
+    try:
+        v2 = resnet_bench_run("resnet50_bench_fused_v2", True, card_name,
+                              smi, RESNET_V2_WANT)
+    finally:
+        del os.environ["PADDLE_TPU_BNCONV_VARIANT"]
     unfused = resnet_bench_run("resnet50_bench_unfused", False, card_name,
                                smi)
-    cmp = {"fused_img_s": fused["img_s"], "unfused_img_s": unfused["img_s"],
+    cmp = {"fused_img_s": fused["img_s"], "fused_v2_img_s": v2["img_s"],
+           "unfused_img_s": unfused["img_s"],
            "fused_over_unfused": fused["img_s"] / unfused["img_s"],
+           "fused_v2_over_fused": v2["img_s"] / fused["img_s"],
            "card": card_name, "nvidia_smi": smi}
     log("resnet50_fused_vs_unfused", cmp)
-    return fused, unfused
+    return fused, v2, unfused
 
 
 # -- 21. summary --------------------------------------------------------------
@@ -2125,7 +2150,7 @@ def main():
     v1_v2 = v1_v2_times(bn_rows)
     r50_parity, r50_v2 = resnet50_parity_phase()
     r18_parity = resnet18_parity_phase()
-    r50_fused, r50_unfused = resnet_bench_phase(name, smi)
+    r50_fused, r50_fused_v2, r50_unfused = resnet_bench_phase(name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -2139,6 +2164,7 @@ def main():
                "resnet50_v2_f32_3_steps": r50_v2["launches"],
                "resnet18_f32_per_step": r18_parity["launches_per_step"],
                "resnet50_bf16_10_steps": r50_fused["launches"],
+               "resnet50_v2_bf16_10_steps": r50_fused_v2["launches"],
                "resnet50_unfused_bf16_10_steps": r50_unfused["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
@@ -2227,7 +2253,7 @@ def main():
                                   "bound_ms", "bound_by", "max_abs_err")}
         kernels.append(row)
     # K11-K15: the bf16 row (the bench's dtype) at the timed shape, the
-    # f32 row beside it; K14's launches are the v2 parity run's
+    # f32 row beside it; K14's launches are the v2 bench run's
     for kname, src, replaces in (
             ("bn_matmul_fwd", "bn_matmul.cu", "bn_matmul.py:161"),
             ("bn_matmul_bwd", "bn_matmul.cu", "bn_matmul.py:195"),
@@ -2235,7 +2261,7 @@ def main():
             ("bn_conv3x3_fwd_v2", "bn_conv.cu", "bn_conv.py:181"),
             ("bn_conv3x3_bwd", "bn_conv.cu", "bn_conv.py:386")):
         err_key = "max_rel_err"
-        run = r50_v2 if kname == "bn_conv3x3_fwd_v2" else r50_fused
+        run = r50_fused_v2 if kname == "bn_conv3x3_fwd_v2" else r50_fused
         main_row = timed_row(bn_rows[kname], torch.bfloat16)
         row = summary_row(kname, csrc + src, pallas + replaces, main_row,
                           errs_by_dtype(bn_rows[kname], err_key),
@@ -2248,7 +2274,9 @@ def main():
         other = timed_row(bn_rows[kname], torch.float32)
         row["other_dtype_bench_shape"] = {
             k: other[k] for k in ("dtype", "design", "kernel_ms", "plain_ms",
-                                  "bound_ms", "bound_by", "max_abs_err")}
+                                  "bound_ms", "bound_by",
+                                  "bound_cuda_cores_ms", "max_abs_err")
+            if k in other}
         if kname == "bn_conv3x3_fwd_v2":
             row["v1_vs_v2_by_shape"] = v1_v2
         kernels.append(row)
@@ -2292,10 +2320,11 @@ def main():
          "state_rel_err_max": r18_parity["state_rel_err_max"]}]
     resnet_keys = ("fused", "bs", "image", "dtype", "losses", "step_ms",
                    "img_s", "peak_mem_gb", "launches_per_step")
-    train_rows += [{"run": "resnet50_bench_bf16" + ("" if r["fused"]
-                                                    else "_unfused"),
-                    **{k: r[k] for k in resnet_keys}}
-                   for r in (r50_fused, r50_unfused)]
+    train_rows += [{"run": run, **{k: r[k] for k in resnet_keys}}
+                   for run, r in (("resnet50_bench_bf16", r50_fused),
+                                  ("resnet50_bench_bf16_v2", r50_fused_v2),
+                                  ("resnet50_bench_bf16_unfused",
+                                   r50_unfused))]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows}), flush=True)

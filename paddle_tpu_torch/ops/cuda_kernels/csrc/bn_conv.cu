@@ -8,51 +8,58 @@
 // in VMEM and sum nine shifted [H*W, K] x [K, O] products per image.  Here
 // the convolution is an implicit GEMM: rows are output pixels, columns
 // output channels, and the reduction runs over the nine taps x K input
-// channels (bn_mma.cuh's tile product for K13 and K15 in bf16,
-// bn_gemm.cuh's for K14 and the f32 instances).
-//
-// K13 (f32): each block computes a 64-pixel x 64-channel tile of the
-// output; the A slab is gathered from X through the prologue as it is
-// staged, with the padding applied AFTER the prologue (an out-of-image tap
-// is 0, not act(beta - mean * gamma * inv)), and stride 2 read directly
-// (Ho = (H - 1) / 2 + 1, so odd H and W work too).
-// K14: the v2 design normalizes each image once into VMEM scratch and
-// walks the weight in O blocks; blocks here share no scratch, so it is two
-// launches: a prep pass writes the padded, normalized activation
-// [N, H+2, W+2, K] in W's type once, then the tap product reads it with
-// no prologue and no bounds tests, a block owning the O block the port's
-// _v2_block_o picks (walked 64 channels at a time).
-// K15 (f32), one C entry point, four launches: (a) dA = the transposed taps,
-// rows are input pixels and the reduction runs over taps x O, an output
-// pixel (h + 1 - ky) / s contributing only where it is whole and inside
-// (stride 2 computed directly, no dilated dO), with the epilogue K12 shares
-// (dX, dR, the dgamma / dbeta column sums per tile); (b) dW[ky,kx] = tap^T
-// dO per (K tile, O tile, tap x M split), the tap recomputed through the
-// prologue as it is loaded; (c) the splits summed in a fixed order into HWIO
-// dW, cast once; (d) dgamma, dbeta from the tile sums.  The TPU design's
-// resident dW / dgamma / dbeta accumulators became those second passes, so
-// reruns are bit-reproducible.
+// channels.
 //
 // Bound on an H100: 18 M_out K O flops forward and 36 backward, far above
-// the bytes at ResNet's shapes: compute-bound on paper at the bf16
-// tensor-core rate.  K14 and the f32 K13 and K15 sum on the CUDA cores in
-// f32 (see bn_gemm.cuh); what they keep from the TPU design is that no
-// normalized activation, tap copy or dilated gradient is ever written to
-// device memory (K14 writes its one padded copy by design).
+// the bytes at ResNet's shapes: compute-bound on paper, at the bf16
+// tensor-core rate in bf16 and, for the f32 forwards, at the TF32 rate
+// times three (3xTF32, below).  Every forward begins with one prep pass
+// (bnc_pad_prep) that writes the padded, normalized activation apad [N,
+// H+2, W+2, K] in the input's type, the prologue evaluated once per
+// element of X (zero on the border: padding after the prologue), 16 bytes
+// a thread; bf16 K15 takes the same pass.  That one tensor (29.5 MB in
+// bf16 at stage 2, written and read back) is what the forwards write
+// beyond their output: no tap copy is ever written.
 //
-// In bf16, K13 and K15 run their products on the tensor cores
-// (bn_mma.cuh), and both begin with one prep pass (bnc_pad_prep) that
-// writes the padded, normalized activation apad [N, H+2, W+2, K] in bf16,
-// the prologue evaluated once per element of X (zero on the border:
-// padding after the prologue).
-// K13 bf16, two launches: (1) the prep pass; (2) an implicit GEMM whose A
-// rows are output pixels: each (pixel, tap) is a contiguous run of K
-// channels of apad at ((n (H+2) + ho s + ky) (W+2) + wo s + kx) K, staged
-// 16 bytes a chunk by cp.async with no bounds test, the pixel decoded once
-// per block and the tap's offset once per step; B is W[ky,kx] as a [k][o]
-// tile (ldmatrix.trans); the blocks of one pixel tile adjacent in the grid
-// (its apad rows come from L2 for the second O tile); the output leaves
-// 16 bytes a thread through shared memory (bn_mma.cuh store_tile).
+// K13 bf16, two launches: (1) the prep pass; (2) bnc_fwd_mma, an implicit
+// GEMM on bn_mma.cuh's 64 x 64 tiles (4 warps) whose A rows are output
+// pixels: each (pixel, tap) is a contiguous run of K channels of apad at
+// ((n (H+2) + ho s + ky) (W+2) + wo s + kx) K, staged 16 bytes a chunk by
+// cp.async with no bounds test, the pixel decoded once per block and the
+// tap's offset once per step; B is W[ky,kx] as a [k][o] tile
+// (ldmatrix.trans); the blocks of one pixel tile adjacent in the grid (its
+// apad rows come from L2 for the second O tile); the output leaves 16
+// bytes a thread through shared memory (bn_mma.cuh store_tile).
+// K14 (bf16 and f32) and f32 K13, two launches: (1) the prep pass; (2)
+// bnc_fwd_wide, the same implicit GEMM with a block owning 64 pixels x
+// its O block (f32 K13: 128 channels, 64 when O <= 64; K14:
+// _v2_block_o, 128 or 256, else O), walked in passes of up to 128
+// channels (bf16: 8 warps of 32 x 32; f32: 4 warps of 32 x 64, which
+// split each A fragment once for 8 n-tiles; 4 warps of 32 x 32 at 64
+// wide), so each staged A chunk serves all 128 channels of a pass; the
+// reduction in 64-channel (bf16) or 32-channel (f32) steps through a ring
+// of three cp.async stages in dynamic shared memory.  bf16 runs
+// mma.sync m16n8k16; f32 runs m16n8k8 TF32 products in 3xTF32 (mma.cuh:
+// each operand x = big + small, three products a b = a_small b_big +
+// a_big b_small + a_big b_big, small passed unrounded), A read by
+// ldmatrix as 8 x 4 f32 matrices and B by 32-bit lane loads (ldmatrix
+// cannot transpose 32-bit elements), each fragment split as it is read.
+// One TF32 product keeps 11 bits and would miss the f32 tolerance 1e-4.
+// Each step's products are summed into zeroed registers and added to the
+// running sums in f32 (bn_mma.cuh's rule against the tensor cores'
+// truncating accumulation), so every output element is summed in one
+// order whatever the block's width: f32 K13 and K14 give the same bits.
+// K15 (f32), one C entry point, four launches on bn_gemm.cuh's CUDA-core
+// tile: (a) dA = the transposed taps, rows are input pixels and the
+// reduction runs over taps x O, an output pixel (h + 1 - ky) / s
+// contributing only where it is whole and inside (stride 2 computed
+// directly, no dilated dO), with the epilogue K12 shares (dX, dR, the
+// dgamma / dbeta column sums per tile); (b) dW[ky,kx] = tap^T dO per (K
+// tile, O tile, tap x M split), the tap recomputed through the prologue as
+// it is loaded; (c) the splits summed in a fixed order into HWIO dW, cast
+// once; (d) dgamma, dbeta from the tile sums.  The TPU design's resident dW
+// / dgamma / dbeta accumulators became those second passes, so reruns are
+// bit-reproducible.
 // K15 bf16, five launches: (1) the prep pass; (2) dA, an implicit
 // GEMM whose A rows are input pixels: each (pixel, tap) is a contiguous
 // run of O channels of dO at ((h+1-ky)/s, (w+1-kx)/s) or zero (stride 2:
@@ -80,54 +87,7 @@ struct Geom {
 };
 
 struct Pix {
-  int n, h, w;  // forward: h, w = the top-left tap's input row, column
-};
-
-// A(m, (tap, k)) = prologue(X[n, ho*s-1+ky, wo*s-1+kx, k]), 0 outside.
-template <typename T>
-struct TapA {
-  using RowCtx = Pix;
-  struct Red {
-    int dy, dx;
-    Chan c;
-  };
-  const T* x;
-  const T* res;
-  const float* prm;
-  Geom g;
-  int act;
-  __device__ Pix row(int m) const {
-    const int wo = m % g.Wo, t = m / g.Wo;
-    return {t / g.Ho, (t % g.Ho) * g.s - 1, wo * g.s - 1};
-  }
-  __device__ Red red(int r) const {
-    const int tap = r / g.K, k = r - tap * g.K;
-    return {tap / 3, tap % 3, chan(prm, g.K, k)};
-  }
-  __device__ float get(const Pix& p, const Red& q) const {
-    const int hi = p.h + q.dy, wi = p.w + q.dx;
-    if (hi < 0 || hi >= g.H || wi < 0 || wi >= g.W) return 0.f;
-    const size_t off = ((size_t)(p.n * g.H + hi) * g.W + wi) * g.K + q.c.k;
-    return prologue(x, res, off, q.c, act);
-  }
-};
-
-// K14's A from the padded, normalized scratch [N, H+2, W+2, K].
-template <typename T>
-struct PaddedA {
-  using RowCtx = size_t;
-  const T* a;
-  Geom g;
-  __device__ size_t row(int m) const {
-    const int wo = m % g.Wo, t = m / g.Wo;
-    const int n = t / g.Ho, ho = t % g.Ho;
-    return ((size_t)(n * (g.H + 2) + ho * g.s) * (g.W + 2) + wo * g.s) * g.K;
-  }
-  __device__ size_t red(int r) const {
-    const int tap = r / g.K, k = r - tap * g.K;
-    return ((size_t)(tap / 3) * (g.W + 2) + tap % 3) * g.K + k;
-  }
-  __device__ float get(size_t a0, size_t b0) const { return to_f(a[a0 + b0]); }
+  int n, h, w;
 };
 
 // dA's A: rows are input pixels (n, h, w), the reduction (tap, o):
@@ -198,84 +158,6 @@ struct TapAT {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ void store_out(const float (&acc)[4][4],
-                                          T* __restrict__ out, int row0,
-                                          int rows, int col0, int cols,
-                                          int ld) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = row0 + ty * 4 + i;
-    if (m >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c < cols) out[(size_t)m * ld + c] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// K13. grid: (ceil(N*Ho*Wo / 64), ceil(O / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnc_fwd(const T* __restrict__ x, const T* __restrict__ res,
-        const float* __restrict__ prm, const T* __restrict__ w,
-        T* __restrict__ out, Geom g, int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int rows = g.N * g.Ho * g.Wo;
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  float acc[4][4];
-  gemm_tile<true, true>(acc, TapA<T>{x, res, prm, g, act},
-                        StridedB<T>{w, (size_t)g.O, 1}, row0, rows, col0,
-                        g.O, 0, 9 * g.K, sm);
-  store_out(acc, out, row0, rows, col0, g.O, g.O);
-}
-
-// K14 (1): apad[n, hp, wp, k] = prologue(X[n, hp-1, wp-1, k]) inside, 0 on
-// the border.  Grid-stride over every element of apad.
-template <typename T>
-__global__ void bnc_prep(const T* __restrict__ x, const T* __restrict__ res,
-                         const float* __restrict__ prm, T* __restrict__ apad,
-                         Geom g, int act) {
-  const size_t total = (size_t)g.N * (g.H + 2) * (g.W + 2) * g.K;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(e % g.K);
-    size_t t = e / g.K;
-    const int wp = (int)(t % (g.W + 2));
-    t /= (g.W + 2);
-    const int hp = (int)(t % (g.H + 2));
-    const int n = (int)(t / (g.H + 2));
-    float v = 0.f;
-    if (hp >= 1 && hp <= g.H && wp >= 1 && wp <= g.W) {
-      const size_t off = ((size_t)(n * g.H + hp - 1) * g.W + wp - 1) * g.K + k;
-      v = prologue(x, res, off, chan(prm, g.K, k), act);
-    }
-    apad[e] = from_f<T>(v);
-  }
-}
-
-// K14 (2). grid: (ceil(N*Ho*Wo / 64), ceil(O / block_o)); a block walks
-// its block_o channels 64 at a time.
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnc_fwd_v2(const T* __restrict__ apad, const T* __restrict__ w,
-           T* __restrict__ out, Geom g, int block_o) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int rows = g.N * g.Ho * g.Wo;
-  const int row0 = blockIdx.x * kGM;
-  const int c_begin = blockIdx.y * block_o;
-  const int c_end = min(g.O, c_begin + block_o);
-  for (int col0 = c_begin; col0 < c_end; col0 += kGN) {
-    float acc[4][4];
-    gemm_tile<true, true>(acc, PaddedA<T>{apad, g},
-                          StridedB<T>{w, (size_t)g.O, 1}, row0, rows, col0,
-                          c_end, 0, 9 * g.K, sm);
-    store_out(acc, out, row0, rows, col0, c_end, g.O);
-  }
-}
-
 // K15 (a). grid: (ceil(N*H*W / 64), ceil(K / 64)).
 template <typename T>
 __global__ void __launch_bounds__(kGThreads)
@@ -317,40 +199,42 @@ bnc_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
                 g.O);
 }
 
-// K13 and K15 in bf16 on the tensor cores (bn_mma.cuh).
+// K13, K14 and K15 on the tensor cores (bn_mma.cuh, mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
 
-// K13 bf16 (1), K15 bf16 (1): apad[n, hp, wp, k] = prologue(X[n, hp-1,
-// wp-1, k]) inside, 0 on the border, in bf16.  grid: N * (H + 2), one
-// padded row a block; a thread takes 8-channel chunks of the row (16 bytes
-// when VEC).
-template <bool VEC>
+// The first launch of K13, K14 (both dtypes) and bf16 K15: apad[n, hp,
+// wp, k] = prologue(X[n, hp-1, wp-1, k]) inside, 0 on the border, in T.
+// grid: N * (H + 2), one padded row a block; a thread takes 16-byte chunks
+// of the row (8 bf16 or 4 f32 channels; loaded and stored as one uint4
+// when VEC, element by element otherwise).
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
-bnc_pad_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
-             const float* __restrict__ prm, bf16* __restrict__ apad, Geom g,
+bnc_pad_prep(const T* __restrict__ x, const T* __restrict__ res,
+             const float* __restrict__ prm, T* __restrict__ apad, Geom g,
              int act) {
+  constexpr int E = 16 / sizeof(T);  // channels a chunk
   const int hp = blockIdx.x % (g.H + 2), n = blockIdx.x / (g.H + 2);
-  const int kc = (g.K + 7) / 8, wpad = g.W + 2;
+  const int kc = (g.K + E - 1) / E, wpad = g.W + 2;
   const bool row_in = hp >= 1 && hp <= g.H;
-  bf16* out = apad + (size_t)blockIdx.x * wpad * g.K;
+  T* out = apad + (size_t)blockIdx.x * wpad * g.K;
   for (int e = threadIdx.x; e < wpad * kc; e += blockDim.x) {
-    const int wp = e / kc, k0 = (e - wp * kc) * 8;
+    const int wp = e / kc, k0 = (e - wp * kc) * E;
     const bool in = row_in && wp >= 1 && wp <= g.W;
     const size_t off =
         ((size_t)(n * g.H + hp - 1) * g.W + wp - 1) * g.K + k0;
     uint4 xr = make_uint4(0, 0, 0, 0), rr = xr, orr;
-    bf16* xv = reinterpret_cast<bf16*>(&xr);
-    bf16* rv = reinterpret_cast<bf16*>(&rr);
-    bf16* ov = reinterpret_cast<bf16*>(&orr);
+    T* xv = reinterpret_cast<T*>(&xr);
+    T* rv = reinterpret_cast<T*>(&rr);
+    T* ov = reinterpret_cast<T*>(&orr);
     if (in) {
       if constexpr (VEC) {
         xr = *reinterpret_cast<const uint4*>(x + off);
         if (res != nullptr) rr = *reinterpret_cast<const uint4*>(res + off);
       } else {
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
+        for (int u = 0; u < E; ++u)
           if (k0 + u < g.K) {
             xv[u] = x[off + u];
             if (res != nullptr) rv[u] = res[off + u];
@@ -358,7 +242,7 @@ bnc_pad_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
       }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < E; ++u) {
       float v = 0.f;
       if (in && k0 + u < g.K) {
         const Chan c = chan(prm, g.K, k0 + u);
@@ -366,14 +250,14 @@ bnc_pad_prep(const bf16* __restrict__ x, const bf16* __restrict__ res,
         if (res != nullptr) v = __fadd_rn(v, to_f(rv[u]));
         if (act == 1) v = fmaxf(v, 0.f);
       }
-      ov[u] = __float2bfloat16(v);
+      ov[u] = from_f<T>(v);
     }
-    bf16* o = out + (size_t)wp * g.K + k0;
+    T* o = out + (size_t)wp * g.K + k0;
     if constexpr (VEC) {
       *reinterpret_cast<uint4*>(o) = orr;
     } else {
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < E; ++u)
         if (k0 + u < g.K) o[u] = ov[u];
     }
   }
@@ -594,37 +478,282 @@ bnc_bwd_dw_mma(const bf16* __restrict__ apad, const bf16* __restrict__ dout,
                          g.O);
 }
 
+// -- K14 (bf16 and f32) and f32 K13: the wide tap product -------------------
+
+// The tiling of bnc_fwd_wide for element type T and a pass BN channels
+// wide (64 or 128): 64 output pixels x BN channels a pass, warps 2 x (BN /
+// WN), each 32 x WN (WN 64 for an f32 128-wide pass, so each split A
+// fragment serves 8 n-tiles; else 32); the reduction (tap, k) in steps of
+// BK channels (64 bf16 or 32 f32: a 16-byte chunk is 8 or 4 of them, so an
+// A row of a step is 8 chunks in both); A [64][BK + LDA pad] rows of apad, B
+// [BK][BN + 8] rows of W[tap] (contiguous along O).  A's row stride is 144
+// bytes in both dtypes, so the 8 rows of an ldmatrix phase fall in
+// distinct 16-byte bank groups; B's is BN + 8 elements: for bf16 the
+// .trans rows likewise, for f32 a lane (g, t) reads word (kk + t) (BN + 8)
+// + n + g, bank 8 t + g, all 32 distinct.
+template <typename T, int BN>
+struct Wide {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int E = 16 / sizeof(T);  // elements a chunk
+  static constexpr int BK = kF32 ? 32 : 64;
+  static constexpr int WN = kF32 && BN == 128 ? 64 : 32;
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = 64 * kWarpsN;  // 2 warp rows
+  // blocks an SM the registers are sized for (__launch_bounds__): two of
+  // a 128-wide pass (f32: 8 warps of 32 x 64, up to 255 registers a
+  // thread for their 128 accumulators; bf16: 16 warps of 32 x 32, up to
+  // 128), three of a 64-wide one (12 warps, up to 168; at four it spilled,
+  // and bf16 ran 1.7% slower at ResNet-50's stage 1, f32 0.5% faster)
+  static constexpr int kMinBlocks = BN == 64 ? 3 : 2;
+  static constexpr int LDA = BK + (kF32 ? 4 : 8);
+  static constexpr int LDB = BN + 8;
+  static constexpr int LDC = BN + 8;  // the f32 C tile of the epilogue
+  static constexpr int kStages = 3;  // the ring's depth
+  static constexpr int kAChunks = 64 * (BK / E) / kThreads;  // a thread's
+  static constexpr int kBChunks = BK * (BN / E) / kThreads;
+  static constexpr int kStage = 64 * LDA + BK * LDB;  // elements a stage
+  static constexpr size_t kRing = (size_t)kStages * kStage * sizeof(T);
+  static constexpr size_t kCTile = (size_t)64 * LDC * sizeof(float);
+  static constexpr size_t kSmem = kRing > kCTile ? kRing : kCTile;
+  static_assert(kAChunks * kThreads == 64 * (BK / E), "whole A chunks");
+  static_assert(kBChunks * kThreads == BK * (BN / E), "whole B chunks");
+};
+
+// The loads of reduction step `step` = (tap, k0) into ring stage `buf`:
+// A chunk i of this thread is 8 bf16 or 4 f32 channels of apad at its
+// pixel's top-left tap (base[i], decoded once) plus the tap's offset,
+// never out of bounds (the border is apad's zeros); B is W[tap] rows k0..
+// columns col0.., zero past K and past the block's c_end.
+template <typename T, int BN, bool VEC>
+__device__ __forceinline__ void wide_stage(
+    T* __restrict__ buf, const T* __restrict__ apad,
+    const T* __restrict__ w, const size_t (&base)[Wide<T, BN>::kAChunks],
+    const Geom& g, int col0, int c_end, int ksteps, int step) {
+  using L = Wide<T, BN>;
+  constexpr int E = L::E;
+  const int tap = step / ksteps;
+  const int k0 = (step - tap * ksteps) * L::BK;
+  const int dy = tap / 3, dxx = tap - 3 * dy;
+  const size_t toff = ((size_t)dy * (g.W + 2) + dxx) * g.K + k0;
+  T* sa = buf;
+  T* sb = buf + 64 * L::LDA;
+#pragma unroll
+  for (int i = 0; i < L::kAChunks; ++i) {
+    const int e = threadIdx.x + i * L::kThreads;
+    const int r = e / (L::BK / E), c = (e % (L::BK / E)) * E;
+    const int n =
+        base[i] != ~(size_t)0 ? bnmma::chunk_len<E>(k0 + c, g.K) : 0;
+    bnmma::stage_chunk<VEC>(sa + r * L::LDA + c,
+                            n ? apad + base[i] + toff + c : apad, n);
+  }
+#pragma unroll
+  for (int i = 0; i < L::kBChunks; ++i) {
+    const int e = threadIdx.x + i * L::kThreads;
+    const int kr = e / (BN / E), oc = (e % (BN / E)) * E;
+    const int k = k0 + kr;
+    const int n = k < g.K ? bnmma::chunk_len<E>(col0 + oc, c_end) : 0;
+    bnmma::stage_chunk<VEC>(
+        sb + kr * L::LDB + oc,
+        n ? w + ((size_t)tap * g.K + k) * g.O + col0 + oc : w, n);
+  }
+}
+
+// One step's products of a warp (rows wr.., columns wc..) into `part`,
+// from zero.  bf16: m16n8k16, A by ldmatrix (a_row/a_col), B by
+// ldmatrix.trans from the [k][o] tile (bt_row/bt_col), the first product
+// of the step with C = 0.  f32: m16n8k8 in 3xTF32, A by ldmatrix as 8 x 4
+// f32 matrices (a_row/tf32_a_col: a0..a3 = (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4)), B by 32-bit loads of rows kk + t and kk + t + 4, column g
+// of each n-tile (b0, b1); every fragment is split into big and small as
+// it is read (small unrounded, mma.cuh split_tf32<true>).
+template <typename T, int BN>
+__device__ __forceinline__ void wide_products(
+    float (&part)[2][Wide<T, BN>::WN / 8][4], const T* __restrict__ sa,
+    const T* __restrict__ sb, int wr, int wc, int lane) {
+  using L = Wide<T, BN>;
+  constexpr int NT = L::WN / 8;  // n-tiles of the warp
+  if constexpr (L::kF32) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][nj][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < L::BK; kk += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        uint32_t x[4];
+        mma::ldsm_x4(x, sa + (wr + mi * 16 + mma::a_row(lane)) * L::LDA +
+                            kk + mma::tf32_a_col(lane));
+        mma::split_tf32<true>(x, ab[mi], as[mi]);
+      }
+      const float* bp = sb + (kk + t) * L::LDB + wc + g;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        uint32_t bb0, bs0, bb1, bs1;
+        mma::split_tf32<true>(bp[nj * 8], bb0, bs0);
+        mma::split_tf32<true>(bp[4 * L::LDB + nj * 8], bb1, bs1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma::mma_3xtf32(part[mi][nj], ab[mi], as[mi], bb0, bb1, bs0, bs1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < L::BK; kk += 16) {
+      uint32_t a[2][4], b[NT][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mma::ldsm_x4(a[mi], sa + (wr + mi * 16 + mma::a_row(lane)) * L::LDA +
+                                kk + mma::a_col(lane));
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t r[4];
+        mma::ldsm_x4_trans(r, sb + (kk + mma::bt_row(lane)) * L::LDB + wc +
+                                  p * 16 + mma::bt_col(lane));
+        b[2 * p][0] = r[0];
+        b[2 * p][1] = r[1];
+        b[2 * p + 1][0] = r[2];
+        b[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          if (kk == 0)
+            bnmma::mma_bf16_first(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+          else
+            mma::mma_bf16(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+        }
+    }
+  }
+}
+
+// K14 (2), both dtypes, and f32 K13 (2): the tap product from apad.
+// grid: ceil(N*Ho*Wo / 64) * ceil(O / block_o), block b = pixel tile b /
+// blocks_o, O block b % blocks_o (the O blocks of one pixel tile
+// adjacent, so its apad rows come from L2 after the first).  The block
+// walks its O block [c_begin, c_end) in passes of BN channels; a pass
+// sums the 9 * ceil(K / BK) steps through a ring of kStages cp.async
+// stages (the next kStages - 1 steps' loads in flight while one is
+// summed), each step's products into zeroed registers and then added to
+// the running sums in f32 (bn_mma.cuh: the tensor cores' accumulation
+// truncates), so every output element is summed in the same order
+// whatever BN, block_o or the warp that holds it: K13 and K14 give the
+// same bits.  The pass's accumulators go through the f32 C tile (over the
+// ring) to 16-byte stores, a row's chunks by neighbouring threads, masked
+// at c_end.
+template <typename T, int BN, bool VEC>
+__global__ void __launch_bounds__(Wide<T, BN>::kThreads,
+                                  Wide<T, BN>::kMinBlocks)
+bnc_fwd_wide(const T* __restrict__ apad, const T* __restrict__ w,
+             T* __restrict__ out, Geom g, int block_o) {
+  using L = Wide<T, BN>;
+  constexpr int E = L::E, S = L::kStages, NT = L::WN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* ct = reinterpret_cast<float*>(smem);
+  const int rows = g.N * g.Ho * g.Wo;
+  const int blocks_o = (g.O + block_o - 1) / block_o;
+  const int mt = blockIdx.x / blocks_o, ob = blockIdx.x - mt * blocks_o;
+  const int row0 = mt * 64;
+  const int c_begin = ob * block_o, c_end = min(g.O, c_begin + block_o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = (warp / L::kWarpsN) * 32, wc = (warp % L::kWarpsN) * L::WN;
+  size_t base[L::kAChunks];  // ~0: a row past the last pixel
+#pragma unroll
+  for (int i = 0; i < L::kAChunks; ++i) {
+    const int p = row0 + (threadIdx.x + i * L::kThreads) / (L::BK / E);
+    const int wo = p % g.Wo, t = p / g.Wo;
+    const int n = t / g.Ho, ho = t - n * g.Ho;
+    base[i] = p < rows ? ((size_t)(n * (g.H + 2) + ho * g.s) * (g.W + 2) +
+                          wo * g.s) * g.K
+                       : ~(size_t)0;
+  }
+  const int ksteps = (g.K + L::BK - 1) / L::BK, nsteps = 9 * ksteps;
+  for (int col0 = c_begin; col0 < c_end; col0 += BN) {
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < nsteps)
+        wide_stage<T, BN, VEC>(ring + s * L::kStage, apad, w, base, g, col0,
+                               c_end, ksteps, s);
+      mma::cp_async_commit();
+    }
+    for (int step = 0; step < nsteps; ++step) {
+      mma::cp_async_wait<S - 2>();
+      __syncthreads();
+      const int nxt = step + S - 1;
+      if (nxt < nsteps)
+        wide_stage<T, BN, VEC>(ring + (nxt % S) * L::kStage, apad, w, base,
+                               g, col0, c_end, ksteps, nxt);
+      mma::cp_async_commit();
+      const T* sa = ring + (step % S) * L::kStage;
+      float part[2][NT][4];
+      wide_products<T, BN>(part, sa, sa + 64 * L::LDA, wr, wc, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] += part[mi][nj][e];
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();  // every warp's last reads of the ring are done
+    const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+          *reinterpret_cast<float2*>(
+              &ct[(wr + mi * 16 + gq + 8 * h) * L::LDC + wc + nj * 8 +
+                  2 * tq]) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 64 * (BN / E) / L::kThreads; ++i) {
+      const int e = threadIdx.x + i * L::kThreads;
+      const int r = e / (BN / E), cc = (e % (BN / E)) * E;
+      const int row = row0 + r;
+      const int n = bnmma::chunk_len<E>(col0 + cc, c_end);
+      if (row >= rows || n == 0) continue;
+      uint4 v;
+      T* vv = reinterpret_cast<T*>(&v);
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const float4 c =
+            *reinterpret_cast<const float4*>(ct + r * L::LDC + cc + 4 * q);
+        vv[4 * q] = from_f<T>(c.x);
+        vv[4 * q + 1] = from_f<T>(c.y);
+        vv[4 * q + 2] = from_f<T>(c.z);
+        vv[4 * q + 3] = from_f<T>(c.w);
+      }
+      T* o = out + (size_t)row * g.O + col0 + cc;
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(o) = v;
+      } else {
+#pragma unroll
+        for (int u = 0; u < E; ++u)
+          if (u < n) o[u] = vv[u];
+      }
+    }
+    __syncthreads();  // the C tile is read before the next pass stages
+  }
+}
+
 Geom geom(int N, int H, int W, int K, int O, int s) {
   return {N, H, W, K, O, (H - 1) / s + 1, (W - 1) / s + 1, s};
-}
-
-template <typename T>
-cudaError_t fwd(const void* x, const void* r, const void* prm, const void* w,
-                void* out, Geom g, int act, cudaStream_t stream) {
-  dim3 grid(ceil_div(g.N * g.Ho * g.Wo, kGM), ceil_div(g.O, kGN));
-  bnc_fwd<T><<<grid, kGThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const float*>(prm), static_cast<const T*>(w),
-      static_cast<T*>(out), g, act);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t fwd_v2(const void* x, const void* r, const void* prm,
-                   const void* w, void* apad, void* out, Geom g, int block_o,
-                   int act, cudaStream_t stream) {
-  const size_t total = (size_t)g.N * (g.H + 2) * (g.W + 2) * g.K;
-  const int blocks = (int)std::min<size_t>((total + 255) / 256, 132 * 16);
-  bnc_prep<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const float*>(prm), static_cast<T*>(apad), g, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(g.N * g.Ho * g.Wo, kGM), ceil_div(g.O, block_o));
-  bnc_fwd_v2<T><<<grid, kGThreads, 0, stream>>>(
-      static_cast<const T*>(apad), static_cast<const T*>(w),
-      static_cast<T*>(out), g, block_o);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -658,7 +787,7 @@ cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
                     const void* w, void* apad, void* out, Geom g, int act,
                     cudaStream_t stream) {
   bf16* ap = static_cast<bf16*>(apad);
-  bnc_pad_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+  bnc_pad_prep<bf16, VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(r),
       static_cast<const float*>(prm), ap, g, act);
   cudaError_t err = cudaGetLastError();
@@ -669,6 +798,69 @@ cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
   bnc_fwd_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
       ap, static_cast<const bf16*>(w), static_cast<bf16*>(out), g);
   return cudaGetLastError();
+}
+
+// The tap product of K13 (f32) and K14 at the pass width BN.  Past the
+// card's opt-in shared-memory limit the attribute call fails and its
+// error is returned.
+template <typename T, int BN, bool VEC>
+cudaError_t launch_wide(const T* apad, const T* w, T* out, Geom g,
+                        int block_o, cudaStream_t stream) {
+  using L = Wide<T, BN>;
+  auto kern = bnc_fwd_wide<T, BN, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)ceil_div(g.N * g.Ho * g.Wo, 64) *
+                           ceil_div(g.O, block_o);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kern<<<(int)blocks, L::kThreads, L::kSmem, stream>>>(apad, w, out, g,
+                                                       block_o);
+  return cudaGetLastError();
+}
+
+// K14 (both dtypes) and f32 K13: the prep pass, then the wide tap product
+// with a block owning block_o channels (K13: 128), in passes of 64 channels
+// when block_o <= 64 (O = 64), else 128 (O = 96 takes one pass with its
+// last 32 columns zero; a 256-wide block two).
+template <typename T, bool VEC>
+cudaError_t fwd_wide(const void* x, const void* r, const void* prm,
+                     const void* w, void* apad, void* out, Geom g,
+                     int block_o, int act, cudaStream_t stream) {
+  T* ap = static_cast<T*>(apad);
+  bnc_pad_prep<T, VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const float*>(prm), ap, g, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
+  if (block_o <= 64)
+    return launch_wide<T, 64, VEC>(ap, wt, ot, g, block_o, stream);
+  return launch_wide<T, 128, VEC>(ap, wt, ot, g, block_o, stream);
+}
+
+// 16-byte staging, prep and stores when every row is whole 16-byte chunks
+// of T (K and O multiples of 8 bf16 or 4 f32) and every tensor is 16-byte
+// aligned
+bool vec_ok(int dtype, int K, int O, const void* x, const void* r,
+            const void* w, const void* apad, const void* out) {
+  const int e = dtype == kBFloat16 ? 8 : 4;
+  return K % e == 0 && O % e == 0 && mma::aligned16(x) &&
+         (r == nullptr || mma::aligned16(r)) && mma::aligned16(w) &&
+         mma::aligned16(apad) && mma::aligned16(out);
+}
+
+template <typename T>
+cudaError_t dispatch_wide(const void* x, const void* r, const void* prm,
+                          const void* w, void* apad, void* out, Geom g,
+                          int block_o, int act, int dtype,
+                          cudaStream_t stream) {
+  if (vec_ok(dtype, g.K, g.O, x, r, w, apad, out))
+    return fwd_wide<T, true>(x, r, prm, w, apad, out, g, block_o, act,
+                             stream);
+  return fwd_wide<T, false>(x, r, prm, w, apad, out, g, block_o, act,
+                            stream);
 }
 
 template <bool VEC>
@@ -689,7 +881,7 @@ cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
       dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, g, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bnc_pad_prep<VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+  bnc_pad_prep<bf16, VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
       xt, rt, static_cast<const float*>(prm), ap, g, act);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bnc_bwd_dw_mma<VEC><<<dim3(ceil_div(g.K, bnmma::kBM),
@@ -708,8 +900,8 @@ cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
 }  // namespace ptt
 
 // x, r [N, H, W, K] (r may be null), prm [3, K] f32 (mean, gamma * inv,
-// beta), w [3, 3, K, O] (HWIO), out [N, Ho, Wo, O]; act 1 = relu.  For
-// bf16, apad [N, H+2, W+2, K] bf16 scratch (null for f32).
+// beta), w [3, 3, K, O] (HWIO), out [N, Ho, Wo, O]; act 1 = relu; apad
+// [N, H+2, W+2, K] scratch in x's type.
 extern "C" int ptt_bn_conv3x3_fwd(const void* x, const void* r,
                                   const void* prm, const void* w, void* apad,
                                   void* out, int N, int H, int W, int K,
@@ -718,19 +910,17 @@ extern "C" int ptt_bn_conv3x3_fwd(const void* x, const void* r,
   auto s = static_cast<cudaStream_t>(stream);
   const ptt::Geom g = ptt::geom(N, H, W, K, O, stride);
   if (dtype == ptt::kBFloat16) {
-    // 16-byte staging and stores when every row is whole 16-byte chunks
-    const bool vec = K % 8 == 0 && O % 8 == 0 && ptt::mma::aligned16(x) &&
-                     (r == nullptr || ptt::mma::aligned16(r)) &&
-                     ptt::mma::aligned16(w) && ptt::mma::aligned16(apad) &&
-                     ptt::mma::aligned16(out);
-    if (vec) return ptt::fwd_mma<true>(x, r, prm, w, apad, out, g, act, s);
+    if (ptt::vec_ok(dtype, K, O, x, r, w, apad, out))
+      return ptt::fwd_mma<true>(x, r, prm, w, apad, out, g, act, s);
     return ptt::fwd_mma<false>(x, r, prm, w, apad, out, g, act, s);
   }
-  return ptt::fwd<float>(x, r, prm, w, out, g, act, s);
+  // f32: 128-channel blocks (64 when O <= 64), faster than 64-channel
+  // ones at ResNet-50's 3x3 shapes and summed in the same order
+  return ptt::dispatch_wide<float>(x, r, prm, w, apad, out, g,
+                                   O <= 64 ? 64 : 128, act, dtype, s);
 }
 
-// As ptt_bn_conv3x3_fwd, through the scratch apad [N, H+2, W+2, K] in w's
-// type, a block owning block_o output channels.
+// As ptt_bn_conv3x3_fwd, a block owning block_o output channels.
 extern "C" int ptt_bn_conv3x3_fwd_v2(const void* x, const void* r,
                                      const void* prm, const void* w,
                                      void* apad, void* out, int N, int H,
@@ -739,10 +929,12 @@ extern "C" int ptt_bn_conv3x3_fwd_v2(const void* x, const void* r,
                                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const ptt::Geom g = ptt::geom(N, H, W, K, O, stride);
+  if (block_o <= 0) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
-    return ptt::fwd_v2<__nv_bfloat16>(x, r, prm, w, apad, out, g, block_o,
-                                      act, s);
-  return ptt::fwd_v2<float>(x, r, prm, w, apad, out, g, block_o, act, s);
+    return ptt::dispatch_wide<__nv_bfloat16>(x, r, prm, w, apad, out, g,
+                                             block_o, act, dtype, s);
+  return ptt::dispatch_wide<float>(x, r, prm, w, apad, out, g, block_o, act,
+                                   dtype, s);
 }
 
 // As the forward, plus prm4 [4, K] f32 (mean, inv, gamma, beta), dO [N,

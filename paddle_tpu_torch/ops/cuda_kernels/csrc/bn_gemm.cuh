@@ -1,5 +1,5 @@
-// The tile product shared by the fused BatchNorm -> convolution kernels
-// (bn_matmul.cu: K11, K12; bn_conv.cu: K13, K14, K15), and the pieces of
+// The CUDA-core tile product of the f32 fused BatchNorm -> convolution
+// kernels (bn_matmul.cu: K11, K12; bn_conv.cu: K15), and the pieces of
 // their epilogues that the 1x1 and 3x3 kernels have in common.
 //
 // gemm_tile computes one 64 x 64 tile of C = A B, summed in f32 over a

@@ -1,8 +1,9 @@
 // The tensor-core tile product of the fused BatchNorm -> convolution
 // kernels in bf16 (bn_matmul.cu: K11 forward, K12 backward; bn_conv.cu: K13
 // forward, K15 backward), built on mma.cuh's m16n8k16 product and ldmatrix
-// loads, and the epilogues they share.  The f32 instances (and K14) keep
-// bn_gemm.cuh's CUDA-core product.
+// loads, and the epilogues they share; bn_conv.cu's wide tap product (K14,
+// f32 K13) stages its chunks and runs its bf16 products with these pieces
+// too.  f32 K11, K12 and K15 keep bn_gemm.cuh's CUDA-core product.
 //
 // A block of 128 threads (4 warps, 2 x 2) computes one 64 x 64 tile of
 // C = A B in f32 accumulators, each warp a 32 x 32 quarter: 2 x 4 m16n8
@@ -143,18 +144,18 @@ __device__ __forceinline__ int rm_col(int i) {
   return ((threadIdx.x + i * kThreads) & 7) << 3;
 }
 
-// Up to 8 contiguous bf16 from src (the first n valid, the rest zero)
-// into dst.  VEC: n is 0 or 8, one 16-byte cp.async (src must then be a
-// readable address even when n is 0: pass the operand's base).
-template <bool VEC>
-__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
-                                            int n) {
+// One 16-byte chunk of T (8 bf16 or 4 f32) from src (the first n valid,
+// the rest zero) into dst.  VEC: n is 0 or the whole chunk, one 16-byte
+// cp.async (src must then be a readable address even when n is 0: pass
+// the operand's base).
+template <bool VEC, typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* src, int n) {
   if constexpr (VEC) {
     mma::cp_async16(dst, src, n > 0);
   } else {
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
-      dst[u] = u < n ? src[u] : __float2bfloat16(0.f);
+    for (int u = 0; u < 16 / (int)sizeof(T); ++u)
+      dst[u] = u < n ? src[u] : from_f<T>(0.f);
   }
 }
 
@@ -180,9 +181,10 @@ inline FastDiv fast_div(int d) {
   return {d, (uint32_t)mul, s};
 }
 
-// valid elements of the 8-chunk at index c of an extent `len`
+// valid elements of the E-element chunk at index c of an extent `len`
+template <int E = 8>
 __device__ __forceinline__ int chunk_len(int c, int len) {
-  return max(0, min(8, len - c));
+  return max(0, min(E, len - c));
 }
 
 // d = a b: one m16n8k16 product into fresh accumulators (C = 0)

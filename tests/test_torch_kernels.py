@@ -816,9 +816,9 @@ def test_bn_matmul_kernels_match_plain_on_card(exact_f32, dtype, M, K, N,
 @pytest.mark.parametrize("N,H,W,K,O,stride,has_r,act,border", _BN3_SHAPES)
 def test_bn_conv_kernels_match_plain_on_card(exact_f32, dtype, N, H, W, K,
                                              O, stride, has_r, act, border):
-    """K13 and K14 (at O 128 a block walks two 64-channel tiles, at O 256
-    two blocks share the O axis) against the plain forward, K15 against
-    the plain backward."""
+    """K13 and K14 (at O 128 one block owns the O axis, at O 256 two
+    blocks share it, at O 512 each walks 256 channels in two passes)
+    against the plain forward, K15 against the plain backward."""
     cuda_device = exact_f32
     x, g, b, mu, var, r = _bn_case(cuda_device, dtype, (N, H, W, K), has_r,
                                    border, N + H + K)
@@ -928,6 +928,46 @@ def test_bn_fwd_mma_bodies_match_plain_on_card(cuda_device, kind, shape,
     assert out.dtype == dtype and out.shape == ref.shape
     assert _rel_err(out, ref) <= _CARD_TOL[dtype]
     assert torch.equal(out, again)
+
+
+# The wide tap product (K14 in both dtypes, f32 K13; csrc/bn_conv.cu
+# bnc_fwd_wide): element-wise staging (a channel count off 16 bytes, or x
+# and r off 16-byte alignment), odd H and W at stride 2, a 200-wide O
+# block walked as 128 + 72 channels, a 256-wide block of O 512
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,has_r,border,unaligned", [
+    ((1, 5, 9, 20, 33, 2), False, False, False),
+    ((2, 9, 5, 16, 24, 2), True, True, True),
+    ((2, 6, 6, 64, 200, 1), True, False, False),
+    ((1, 7, 7, 64, 512, 1), False, False, True)])
+def test_bn_conv_wide_bodies_match_plain_on_card(exact_f32, dtype, shape,
+                                                 has_r, border, unaligned):
+    """K14 (and K13 in f32) against the plain forward, one launch a call,
+    the same bits on a rerun; K13 and K14 sum each output element in one
+    order, so in f32 they give the same bits."""
+    cuda_device = exact_f32
+    n, H, W, K, O, stride = shape
+    rng = np.random.RandomState(13)
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, (n, H, W, K), has_r,
+                                   border, sum(shape))
+    if unaligned:
+        x = _off_alignment(x)
+        r = None if r is None else _off_alignment(r)
+    w = torch.from_numpy((rng.randn(3, 3, K, O) / np.sqrt(9 * K)).astype(
+        np.float32)).to(cuda_device, dtype)
+    args = (x, g, b, mu, var, w, r, "relu")
+    before = t_bnc.bn_conv3x3_fwd_v2.launches
+    out = t_bnc.bn_conv3x3_fwd_v2(*args, stride=stride)
+    again = t_bnc.bn_conv3x3_fwd_v2(*args, stride=stride)
+    v1 = t_bnc.bn_conv3x3_fwd(*args, stride=stride)
+    torch.cuda.synchronize()
+    assert t_bnc.bn_conv3x3_fwd_v2.launches - before == 2
+    ref = t_bnc.bn_conv3x3_fwd_ref(*args, stride=stride)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert _rel_err(out, ref) <= _CARD_TOL[dtype]
+    assert torch.equal(out, again)
+    if dtype == torch.float32:
+        assert torch.equal(out, v1)
 
 
 def test_bn_train_functions_launch_kernels_on_card(exact_f32):

@@ -27,7 +27,11 @@ by phase of the step (the forward ops, the backward ops — each
 time is also the cost of that recompute — and the optimizer updates), each
 phase's range ms per step (host work, or its kernels where they take
 longer), and the kernels' launches per step.  The phases are profiler
-ranges this tool puts around the executor's op walk.
+ranges this tool puts around the executor's op walk.  The fused 3x3
+forward is K13 unless ``PADDLE_TPU_BNCONV_VARIANT=v2`` (K14) is set, which
+the line records.  The prep pass that K13, K14 and K15 each launch
+(``bnc_pad_prep``) counts in the group of the kernel that called it: the
+next ``bnc_`` kernel on the stream, which reads what it wrote.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import paddle_tpu_torch as fluid  # noqa: E402
+from paddle_tpu_torch.autotune import knobs  # noqa: E402
 from paddle_tpu_torch.framework.executor import Executor  # noqa: E402
 from paddle_tpu_torch.models import (  # noqa: E402
     resnet_bench, rnn_bench, transformer)
@@ -108,6 +113,9 @@ MODELS = {"gpt": (_gpt, BS, SEQ, "bfloat16"),
                                resnet_bench.IMAGE, resnet_bench.DTYPE)}
 
 
+PREP = "the prep pass"
+
+
 def _group(name: str, model: str) -> str:
     n = name.lower()
     # the forward's two bodies, flash_fwd_mma_kernel (bf16) and
@@ -142,12 +150,13 @@ def _group(name: str, model: str) -> str:
     if "gru_bwd_" in n:
         return "K10 gru_backward (steps)"
     if "bnc_pad_prep" in n:
-        return "K13 and K15 (the bf16 prep pass they share)"
+        return PREP
     if "bnmm_fwd" in n:
         return "K11 bn_matmul_fwd"
     if "bnmm_bwd" in n:
         return "K12 bn_matmul_bwd"
-    if "bnc_fwd_v2" in n or "bnc_prep" in n:
+    # the wide tap product: K14 in both dtypes, and f32 K13
+    if "bnc_fwd_wide" in n and knobs.bnconv_variant() == "v2":
         return "K14 bn_conv3x3_fwd_v2"
     if "bnc_fwd" in n:
         return "K13 bn_conv3x3_fwd"
@@ -260,15 +269,21 @@ def main(argv=None):
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events
                    if e.name in PHASES and e.device_type == DeviceType.CPU)
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and e.name not in PHASES),
+                     key=lambda e: e.time_range.start)
     groups, by_phase, names, intervals = {}, {}, {}, []
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in PHASES:
-            continue
+    for i, e in enumerate(kernels):
         ms = e.time_range.elapsed_us() / 1e3 / args.steps
         t = e.time_range.start
         intervals.append((t, e.time_range.end))
         phase = next((p for s, f, p in spans if s <= t <= f), "other")
         g = _group(e.name, args.model)
+        if g == PREP:  # the group of its caller
+            caller = next((k for k in kernels[i + 1:] if "bnc_" in k.name
+                           and _group(k.name, args.model) != PREP), None)
+            if caller is not None:
+                g = _group(caller.name, args.model)
         groups[g] = groups.get(g, 0.0) + ms
         by_phase.setdefault(phase, {})
         by_phase[phase][g] = by_phase[phase].get(g, 0.0) + ms
@@ -279,7 +294,9 @@ def main(argv=None):
         host_ms[p] = host_ms.get(p, 0.0) + (f0 - s0) / 1e3 / args.steps
     window = max(f for _, f, _ in spans) - min(s for s, _, _ in spans)
     busy = _busy_us(intervals) / window if window else 0.0
-    out = {"card": smi, "model": args.model, "bs": bs, "seq": seq,
+    out = {"card": smi, "model": args.model,
+           "bnconv_variant": knobs.bnconv_variant(),
+           "bs": bs, "seq": seq,
            "dtype": dtype,
            ("images_per_step" if args.model.startswith("resnet")
             else "tokens_per_step"): tokens,
