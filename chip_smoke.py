@@ -130,11 +130,13 @@ non-zero and no result line is printed):
     ReLU's kink), the bf16 ones against it in bf16, with each bf16
     output's distance to the float64 function logged beside the plain
     version's (the forwards' too); each row names its body (every bf16
-    kernel ``mma``, f32 K13 and K14 ``mma_3xtf32``, bounded at three TF32
-    products per f32 product with the CUDA cores' bound beside it, f32
-    K11, K12 and K15 ``cuda_cores``) and K14's whether it has K13's bits;
+    kernel ``mma``, f32 K12, K13, K14 and K15 ``mma_3xtf32``, bounded at
+    three TF32 products per f32 product with the CUDA cores' bound beside
+    it, f32 K11 ``cuda_cores``) and K14's whether it has K13's bits;
     K13 and K14 timed at
-    every 3x3 shape, K11, K12 and K15 in bf16 at every ResNet-50 shape; at
+    every 3x3 shape, K11, K12 and K15 in both dtypes at every ResNet-50
+    shape, and one row (``bn_f32_resnet50_step``) sums launches x kernel
+    ms of f32 K11, K12 and K15 over the fused ops of ResNet-50's step; at
     stage 2's 1x1 with a residual and its 3x3 each kernel is timed beside
     its plain version (the unfused ATen, cuDNN and torch.matmul
     composition) and the card's bound; then the ``top_k`` op that feeds
@@ -207,8 +209,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA cores: the kernels' FMA loops
               torch.bfloat16: 989e12}
 # the dense TF32 rate of the tensor cores, which the f32 flash kernels
-# (K1, f32 K4-K6), f32 K3 and the f32 3x3 forwards (K13, K14) run on in
-# 3xTF32: three TF32 products per f32 product
+# (K1, f32 K4-K6), f32 K3 and the f32 fused BatchNorm backwards and 3x3
+# forwards (K12, K13, K14, K15) run on in 3xTF32: three TF32 products per
+# f32 product
 PEAK_TF32 = 495e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -310,15 +313,15 @@ DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                           "flash_attention_dq": "mma_3xtf32",
                           "flash_attention_dkv": "mma_3xtf32"}}
 # K11-K15: every bf16 body runs on the tensor cores (mma.sync,
-# csrc/bn_mma.cuh; K14 csrc/bn_conv.cu bnc_fwd_wide); the f32 3x3
-# forwards (K13, K14) on them in 3xTF32 (bnc_fwd_wide), f32 K11, K12 and
-# K15 on the CUDA cores (csrc/bn_gemm.cuh)
+# csrc/bn_mma.cuh; K14 csrc/bn_conv.cu bnc_fwd_wide); in f32 the
+# backwards (K12, K15: bn_mma.cuh's tiles) and the 3x3 forwards (K13,
+# K14: bnc_fwd_wide) on them in 3xTF32, f32 K11 on the CUDA cores
+# (csrc/bn_gemm.cuh)
 BN_KERNELS = ("bn_matmul_fwd", "bn_matmul_bwd", "bn_conv3x3_fwd",
               "bn_conv3x3_fwd_v2", "bn_conv3x3_bwd")
 DESIGN[torch.bfloat16].update(dict.fromkeys(BN_KERNELS, "mma"))
-DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "cuda_cores"))
-DESIGN[torch.float32].update(dict.fromkeys(
-    ("bn_conv3x3_fwd", "bn_conv3x3_fwd_v2"), "mma_3xtf32"))
+DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "mma_3xtf32"))
+DESIGN[torch.float32]["bn_matmul_fwd"] = "cuda_cores"
 # K2 and K3 split a slot's page walk across blocks and stage pages by
 # cp.async into rings (csrc/paged_split.cuh); K2 scores on the CUDA cores
 # in both dtypes, K3 on the tensor cores (f32 in 3xTF32)
@@ -1548,25 +1551,65 @@ BN_NO_LIBRARY = ("null: no single PyTorch call computes the fused function "
                  "composition of ATen, cuDNN and torch.matmul calls")
 
 
-def fused_shapes(depth, bs, image):
-    """Every distinct (kind, N, H, W, K, O, stride, residual) of the fused
-    ops in the NHWC training program at this depth, batch and image size,
+def fused_shape_counts(depth, bs, image):
+    """{(kind, N, H, W, K, O, stride, residual): fused ops of that shape}
+    of the NHWC training program at this depth, batch and image size,
     read from its desc (built, not run); H and W are X's, before a 1x1's
     stride."""
     fluid.reset()
     resnet_bench.train_program(depth=depth, image=image)
     block = fluid.default_main_program().global_block()
-    out = set()
+    out = {}
     for op in block.ops:
         if op.type not in ("bn_act_conv1x1", "bn_act_conv3x3"):
             continue
         _, h, w, k = block.var(op.inputs["X"][0]).shape
         o = block.var(op.inputs["Filter"][0]).shape[0]
-        out.add(("1x1" if op.type == "bn_act_conv1x1" else "3x3", bs, h, w,
-                 k, o, op.attrs["strides"][0], bool(op.inputs.get(
-                     "Residual"))))
+        key = ("1x1" if op.type == "bn_act_conv1x1" else "3x3", bs, h, w,
+               k, o, op.attrs["strides"][0],
+               bool(op.inputs.get("Residual")))
+        out[key] = out.get(key, 0) + 1
     fluid.reset()
-    return sorted(out)
+    return out
+
+
+def fused_shapes(depth, bs, image):
+    """Every distinct fused shape of the program (``fused_shape_counts``),
+    sorted."""
+    return sorted(fused_shape_counts(depth, bs, image))
+
+
+# launches a ResNet step makes per fused op of a shape (RESNET_WANT): the
+# forward twice (the op, then its generic_grad's re-run), the backward once
+BN_STEP_LAUNCHES = {"bn_matmul_fwd": 2, "bn_matmul_bwd": 1,
+                    "bn_conv3x3_bwd": 1}
+
+
+def bn_step_sum(rows, counts, dtype):
+    """Sum over the fused ops of a ResNet step of launches x kernel ms (and
+    x bound ms) of K11, K12 and K15 in `dtype`, from the rows timed at
+    each shape; the launches must add up to RESNET_WANT[50]."""
+    dt = str(dtype).split(".")[1]
+    out = {"dtype": dt}
+    for name, per_op in BN_STEP_LAUNCHES.items():
+        launches = ms = bound_ms = 0.0
+        for row in rows[name]:
+            key = (row["kind"], row["N"], row["H"], row["W"], row["K"],
+                   row["O"], row["stride"], row["residual"])
+            if row["dtype"] != dt or key not in counts:
+                continue
+            n = per_op * counts[key]
+            launches += n
+            ms += n * row["kernel_ms"]
+            bound_ms += n * row["bound_ms"]
+        if launches != RESNET_WANT[50][name]:
+            raise AssertionError(
+                f"{name}: {launches} launches over ResNet-50's fused shapes, "
+                f"not the {RESNET_WANT[50][name]} of a step")
+        out[name] = {"launches": int(launches), "kernel_ms": ms,
+                     "bound_ms": bound_ms}
+    out["kernel_ms"] = sum(out[n]["kernel_ms"] for n in BN_STEP_LAUNCHES)
+    return out
 
 
 def bn_case(dev, dtype, kind, N, H, W, K, O, stride, has_r):
@@ -1691,12 +1734,13 @@ def bn_kernel_phase(dev):
     ``bn_clear_of_kinks``), the bf16 ones to the plain version in bf16,
     and each bf16 output's distance to the float64 function from the same
     inputs is logged beside the plain version's (``f64_err``).  K13 and K14
-    are timed at every 3x3 shape, K11, K12 and K15 in bf16 at every
-    ResNet-50 shape; at stage 2's 1x1 with a residual and stage 2's 3x3
+    are timed at every 3x3 shape, K11, K12 and K15 in both dtypes at every
+    ResNet-50 shape, and the f32 ones summed over ResNet-50's step
+    (``bn_step_sum``); at stage 2's 1x1 with a residual and stage 2's 3x3
     each kernel is timed beside its plain version (in its own dtype) and
     the bound.  Each row names its kernel's body by dtype (``DESIGN``)."""
-    shapes = fused_shapes(50, resnet_bench.BS, resnet_bench.IMAGE)
-    r50 = set(shapes)
+    r50 = fused_shape_counts(50, resnet_bench.BS, resnet_bench.IMAGE)
+    shapes = sorted(r50)
     shapes += [s for s in fused_shapes(18, resnet_bench.BS,
                                        resnet_bench.IMAGE)
                if s[0] == "3x3" and (s[6] == 2 or s[7]) and s not in shapes]
@@ -1757,8 +1801,7 @@ def bn_kernel_phase(dev):
                     row["equals_v1"] = torch.equal(out2, out)
                 elif f64:
                     row["f64_err"] = f64[back]
-                if timed or (kind == "3x3" and not back) or (
-                        dtype == torch.bfloat16 and shape in r50):
+                if timed or (kind == "3x3" and not back) or shape in r50:
                     row["kernel_ms"] = time_ms(kern, iters=10)
                 if timed:
                     row["plain_ms"] = time_ms(
@@ -1771,6 +1814,7 @@ def bn_kernel_phase(dev):
                         f"{desc}: {row} (tolerance {TOL[dtype]} of each "
                         f"tensor's max |value|)")
             del a, out, grads, ref, ref_g
+    log("bn_f32_resnet50_step", bn_step_sum(rows, r50, torch.float32))
     return rows
 
 

@@ -185,9 +185,9 @@ def bn_conv3x3_bwd(x, gamma, beta, mean, var, w_hwio, do, r=None,
                           x.dtype)
         dw_part = torch.empty(9, s, K, O, dtype=torch.float32, device=dev)
         gb_part = torch.empty(tiles_m, 2, K, dtype=torch.float32, device=dev)
-        # the bf16 kernel's normalized, padded activation, read by its dW
-        apad = torch.empty(N, H + 2, W + 2, K, dtype=x.dtype, device=dev) \
-            if x.dtype == torch.bfloat16 else None
+        # the normalized, padded activation the prep pass writes and dW
+        # reads (f32: 110 MB at ResNet-50's stage 1, batch 128)
+        apad = torch.empty(N, H + 2, W + 2, K, dtype=x.dtype, device=dev)
         _common.launch("ptt_bn_conv3x3_bwd", x.contiguous(),
                        None if r is None else r.contiguous(), prm, prm4,
                        w_hwio.contiguous(), do.to(w_hwio.dtype).contiguous(),

@@ -12,14 +12,14 @@
 //
 // Bound on an H100: 18 M_out K O flops forward and 36 backward, far above
 // the bytes at ResNet's shapes: compute-bound on paper, at the bf16
-// tensor-core rate in bf16 and, for the f32 forwards, at the TF32 rate
-// times three (3xTF32, below).  Every forward begins with one prep pass
-// (bnc_pad_prep) that writes the padded, normalized activation apad [N,
-// H+2, W+2, K] in the input's type, the prologue evaluated once per
+// tensor-core rate in bf16 and, in f32, at the TF32 rate times three
+// (3xTF32, below).  Every forward and the backward begin with one prep
+// pass (bnc_pad_prep) that writes the padded, normalized activation apad
+// [N, H+2, W+2, K] in the input's type, the prologue evaluated once per
 // element of X (zero on the border: padding after the prologue), 16 bytes
-// a thread; bf16 K15 takes the same pass.  That one tensor (29.5 MB in
-// bf16 at stage 2, written and read back) is what the forwards write
-// beyond their output: no tap copy is ever written.
+// a thread.  That one tensor (29.5 MB in bf16 at stage 2, 59 MB in f32,
+// written and read back) is what the kernels write beyond their outputs:
+// no tap copy is ever written.
 //
 // K13 bf16, two launches: (1) the prep pass; (2) bnc_fwd_mma, an implicit
 // GEMM on bn_mma.cuh's 64 x 64 tiles (4 warps) whose A rows are output
@@ -49,30 +49,29 @@
 // running sums in f32 (bn_mma.cuh's rule against the tensor cores'
 // truncating accumulation), so every output element is summed in one
 // order whatever the block's width: f32 K13 and K14 give the same bits.
-// K15 (f32), one C entry point, four launches on bn_gemm.cuh's CUDA-core
-// tile: (a) dA = the transposed taps, rows are input pixels and the
-// reduction runs over taps x O, an output pixel (h + 1 - ky) / s
-// contributing only where it is whole and inside (stride 2 computed
-// directly, no dilated dO), with the epilogue K12 shares (dX, dR, the
-// dgamma / dbeta column sums per tile); (b) dW[ky,kx] = tap^T dO per (K
-// tile, O tile, tap x M split), the tap recomputed through the prologue as
-// it is loaded; (c) the splits summed in a fixed order into HWIO dW, cast
-// once; (d) dgamma, dbeta from the tile sums.  The TPU design's resident dW
-// / dgamma / dbeta accumulators became those second passes, so reruns are
-// bit-reproducible.
-// K15 bf16, five launches: (1) the prep pass; (2) dA, an implicit
-// GEMM whose A rows are input pixels: each (pixel, tap) is a contiguous
-// run of O channels of dO at ((h+1-ky)/s, (w+1-kx)/s) or zero (stride 2:
-// the parity test), staged 16 bytes a chunk by cp.async with zero fill,
-// the pixel decoded once per block and the tap's source once per stage;
-// B is W[ky,kx] as a [k][o] tile; the epilogue is K12's (bn_mma.cuh
-// da_epilogue); (3) dW[ky,kx] = apad(tap)^T dO per (K tile, O tile, tap x
-// M split): both operands plain 16-byte rows of apad and dO, an output
-// pixel decoded once per staged chunk by multiplies (bn_mma.cuh FastDiv);
-// (4), (5) the two fixed-order sums
-// as above (dgamma and dbeta in f64).  The whole prologue's cost is one
-// pass over X, not one per tap and O tile, and the one extra tensor is
-// apad (read by dW nine times over, once per tap, mostly from L2).
+// K15 (bf16 and f32), five launches on bn_mma.cuh's 64 x 64 tiles (bf16
+// m16n8k16; f32 m16n8k8 in 3xTF32 under the rules above: fragments split
+// as read, small halves unrounded, each step's products summed from zero
+// and added in f32): (1) dA, an implicit GEMM whose A rows are input
+// pixels: each (pixel, tap) is a contiguous run of O channels of dO at
+// ((h+1-ky)/s, (w+1-kx)/s) or zero (stride 2: the parity test; stride 2 is
+// computed directly, no dilated dO), staged 16 bytes a chunk by cp.async
+// with zero fill, the pixel decoded once per block and the tap's source
+// once per stage; B is W[ky,kx] as a [k][o] tile; the epilogue is K12's
+// (bn_mma.cuh da_epilogue: pre recomputed with pre_act's rounding chain,
+// dX, dR 16 bytes a thread, the dgamma / dbeta column sums per tile in a
+// fixed order); (2) the prep pass; (3) dW[ky,kx] = apad(tap)^T dO per (K
+// tile, O tile, tap x M split): both operands plain 16-byte rows of apad
+// and dO, an output pixel decoded once per staged chunk by multiplies
+// (bn_mma.cuh FastDiv), read as fragments by ldmatrix.trans (bf16) or
+// 32-bit lane loads (f32); (4) the splits summed in a fixed order into
+// HWIO dW, cast once; (5) dgamma, dbeta from the tile sums in f64.  A step
+// is 128 bytes of a row in both dtypes (64 bf16, 32 f32), so the rings
+// take the same shared memory.  The TPU design's resident dW / dgamma /
+// dbeta accumulators became those second passes, so reruns are
+// bit-reproducible.  The whole prologue's cost is one pass over X, not
+// one per tap and O tile, and the one extra tensor is apad (read by dW
+// nine times over, once per tap, mostly from L2).
 
 #include <algorithm>
 
@@ -86,125 +85,12 @@ struct Geom {
   int N, H, W, K, O, Ho, Wo, s;
 };
 
-struct Pix {
-  int n, h, w;
-};
-
-// dA's A: rows are input pixels (n, h, w), the reduction (tap, o):
-// dO[n, (h+1-ky)/s, (w+1-kx)/s, o] where that is a whole pixel of dO.
-template <typename T>
-struct TransTapA {
-  using RowCtx = Pix;
-  struct Red {
-    int dy, dx, o;
-  };
-  const T* dout;
-  Geom g;
-  __device__ Pix row(int m) const {
-    const int w = m % g.W, t = m / g.W;
-    return {t / g.H, t % g.H, w};
-  }
-  __device__ Red red(int r) const {
-    const int tap = r / g.O;
-    return {tap / 3, tap % 3, r - tap * g.O};
-  }
-  __device__ float get(const Pix& p, const Red& q) const {
-    int ho = p.h + 1 - q.dy, wo = p.w + 1 - q.dx;
-    if (ho < 0 || wo < 0) return 0.f;
-    if (g.s == 2) {
-      if ((ho | wo) & 1) return 0.f;
-      ho >>= 1;
-      wo >>= 1;
-    }
-    if (ho >= g.Ho || wo >= g.Wo) return 0.f;
-    return to_f(dout[((size_t)(p.n * g.Ho + ho) * g.Wo + wo) * g.O + q.o]);
-  }
-};
-
-// dA's B: B((tap, o), k) = W[ky, kx, k, o].
-template <typename T>
-struct TapWT {
-  using ColCtx = size_t;
-  const T* w;
-  int K, O;
-  __device__ size_t red(int r) const {
-    const int tap = r / O;
-    return (size_t)tap * K * O + (r - tap * O);
-  }
-  __device__ size_t col(int k) const { return (size_t)k * O; }
-  __device__ float get(size_t a, size_t b) const { return to_f(w[a + b]); }
-};
-
-// dW's A for one tap: rows k, the reduction over output pixels m:
-// prologue(X[n, ho*s-1+ky, wo*s-1+kx, k]), 0 outside (offset -1).
-template <typename T>
-struct TapAT {
-  using RowCtx = Chan;
-  const T* x;
-  const T* res;
-  const float* prm;
-  Geom g;
-  int dy, dx, act;
-  __device__ Chan row(int k) const { return chan(prm, g.K, k); }
-  __device__ long long red(int m) const {
-    const int wo = m % g.Wo, t = m / g.Wo;
-    const int n = t / g.Ho, ho = t % g.Ho;
-    const int hi = ho * g.s - 1 + dy, wi = wo * g.s - 1 + dx;
-    if (hi < 0 || hi >= g.H || wi < 0 || wi >= g.W) return -1;
-    return ((long long)(n * g.H + hi) * g.W + wi) * g.K;
-  }
-  __device__ float get(const Chan& c, long long off) const {
-    return off < 0 ? 0.f : prologue(x, res, (size_t)off + c.k, c, act);
-  }
-};
-
-// K15 (a). grid: (ceil(N*H*W / 64), ceil(K / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnc_bwd_da(const T* __restrict__ x, const T* __restrict__ res,
-           const float* __restrict__ prm4, const T* __restrict__ w,
-           const T* __restrict__ dout, T* __restrict__ dx,
-           T* __restrict__ dr, float* __restrict__ gb_part, Geom g,
-           int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int rows = g.N * g.H * g.W;
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  float acc[4][4];
-  gemm_tile<true, false>(acc, TransTapA<T>{dout, g}, TapWT<T>{w, g.K, g.O},
-                         row0, rows, col0, g.K, 0, 9 * g.O, sm);
-  dA_epilogue<T>(acc, x, res, prm4, dx, dr, gb_part, row0, rows, col0, g.K,
-                 act, sm);
-}
-
-// K15 (b). grid: (ceil(K / 64), ceil(O / 64), 9 * splits); z = tap *
-// splits + split sums output pixels [split * chunk, ...) into
-// part[z][K][O].
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnc_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
-           const float* __restrict__ prm, const T* __restrict__ dout,
-           float* __restrict__ part, Geom g, int splits, int chunk,
-           int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int z = blockIdx.z, tap = z / splits, sp = z - tap * splits;
-  const int m_out = g.N * g.Ho * g.Wo;
-  const int r_begin = sp * chunk, r_end = min(m_out, r_begin + chunk);
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  float acc[4][4];
-  gemm_tile<false, true>(acc,
-                         TapAT<T>{x, res, prm, g, tap / 3, tap % 3, act},
-                         StridedB<T>{dout, (size_t)g.O, 1}, row0, g.K, col0,
-                         g.O, r_begin, r_end, sm);
-  store_partial(acc, part + (size_t)z * g.K * g.O, row0, g.K, col0, g.O,
-                g.O);
-}
-
 // K13, K14 and K15 on the tensor cores (bn_mma.cuh, mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
 
-// The first launch of K13, K14 (both dtypes) and bf16 K15: apad[n, hp,
+// The first launch of K13 and K14, the second of K15 (both dtypes): apad[n, hp,
 // wp, k] = prologue(X[n, hp-1, wp-1, k]) inside, 0 on the border, in T.
 // grid: N * (H + 2), one padded row a block; a thread takes 16-byte chunks
 // of the row (8 bf16 or 4 f32 channels; loaded and stored as one uint4
@@ -307,17 +193,20 @@ struct ConvFwd {
   __device__ const TileRM<kBK>& b(int buf) const { return sb[buf]; }
 };
 
-// K15 bf16 (2): A rows are input pixels (this thread's four decoded
-// once), the reduction (tap, o) in steps of 64 channels o within each tap
-// through a ring of two; B = W[tap] [K][O] rows k.
-template <bool VEC>
+// K15 (2), both dtypes: A rows are input pixels (this thread's four
+// decoded once), the reduction (tap, o) in steps of 128 bytes of channels
+// o (64 bf16, 32 f32) within each tap through a ring of two; B = W[tap]
+// [K][O] rows k.
+template <typename T, bool VEC>
 struct ConvDA {
   static constexpr bool kPost = false;
-  static constexpr int kBK = 64, kStages = 2, kRows = kBK / 16;
-  TileRR<kBK>* sa;
-  TileRR<kBK>* sb;
-  const bf16* dout;
-  const bf16* w;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int kBK = 8 * E, kStages = 2;
+  static constexpr int kRows = bnmma::tile_chunks<kBK, T>();
+  TileRR<kBK, T>* sa;
+  TileRR<kBK, T>* sb;
+  const T* dout;
+  const T* w;
   Geom g;
   int col0, osteps;
   int pn[kRows], ph[kRows], pw[kRows];
@@ -328,7 +217,7 @@ struct ConvDA {
     const int dy = tap / 3, dxx = tap - 3 * dy;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+      const int r = bnmma::rr_row<kBK, T>(i), c = bnmma::rr_col<kBK, T>(i);
       int ho = ph[i] + 1 - dy, wo = pw[i] + 1 - dxx;
       bool v = pok[i] && ho >= 0 && wo >= 0;
       if (g.s == 2) {
@@ -337,62 +226,64 @@ struct ConvDA {
         wo >>= 1;
       }
       v = v && ho < g.Ho && wo < g.Wo;
-      const int na = v ? bnmma::chunk_len(o0 + c, g.O) : 0;
+      const int na = v ? bnmma::chunk_len<E>(o0 + c, g.O) : 0;
       bnmma::stage_chunk<VEC>(
           &sa[buf].v[r][c],
           na ? dout + ((size_t)(pn[i] * g.Ho + ho) * g.Wo + wo) * g.O + o0 + c
              : dout,
           na);
       const int k = col0 + r;
-      const int nb = k < g.K ? bnmma::chunk_len(o0 + c, g.O) : 0;
+      const int nb = k < g.K ? bnmma::chunk_len<E>(o0 + c, g.O) : 0;
       bnmma::stage_chunk<VEC>(
           &sb[buf].v[r][c],
           nb ? w + ((size_t)tap * g.K + k) * g.O + o0 + c : w, nb);
     }
   }
-  __device__ const TileRR<kBK>& a(int buf) const { return sa[buf]; }
-  __device__ const TileRR<kBK>& b(int buf) const { return sb[buf]; }
+  __device__ const TileRR<kBK, T>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRR<kBK, T>& b(int buf) const { return sb[buf]; }
 };
 
-// K15 bf16 (3): A^T rows are output pixels m of one tap, read from apad at
-// (n, ho*s + ky, wo*s + kx), B = dO [m][o]; the reduction m in [r_begin,
-// r_end), 64 a step through a ring of two.
-template <bool VEC>
+// K15 (3), both dtypes: A^T rows are output pixels m of one tap, read
+// from apad at (n, ho*s + ky, wo*s + kx), B = dO [m][o]; the reduction m
+// in [r_begin, r_end), 64 bf16 or 32 f32 rows a step (the same bytes)
+// through a ring of two.
+template <typename T, bool VEC>
 struct ConvDW {
   static constexpr bool kPost = false;
-  static constexpr int kBK = 64, kStages = 2;
-  TileRM<kBK>* sa;
-  TileRM<kBK>* sb;
-  const bf16* apad;
-  const bf16* dout;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int kBK = 8 * E, kStages = 2;
+  TileRM<kBK, T>* sa;
+  TileRM<kBK, T>* sb;
+  const T* apad;
+  const T* dout;
   Geom g;
   bnmma::FastDiv div_wo, div_ho;
   int dy, dxx, row0, col0, r_begin, r_end;
   __device__ void stage(int buf, int step) const {
     const int m0 = r_begin + step * kBK;
 #pragma unroll
-    for (int i = 0; i < kBK / 16; ++i) {
-      const int r = bnmma::rm_row(i), c = bnmma::rm_col(i);
+    for (int i = 0; i < bnmma::tile_chunks<kBK, T>(); ++i) {
+      const int r = bnmma::rm_row<T>(i), c = bnmma::rm_col<T>(i);
       const int m = m0 + r;
       const bool ok = m < r_end;
       int na = 0, nd = 0;
-      const bf16* pa = apad;
-      const bf16* pd = dout;
+      const T* pa = apad;
+      const T* pd = dout;
       if (ok) {
         const int t = div_wo.div(m), wo = m - t * g.Wo;
         const int n = div_ho.div(t), ho = t - n * g.Ho;
-        na = bnmma::chunk_len(row0 + c, g.K);
+        na = bnmma::chunk_len<E>(row0 + c, g.K);
         pa = apad + ((size_t)(n * (g.H + 2) + ho * g.s + dy) * (g.W + 2) +
                      wo * g.s + dxx) * g.K + row0 + c;
-        nd = bnmma::chunk_len(col0 + c, g.O);
+        nd = bnmma::chunk_len<E>(col0 + c, g.O);
         pd = dout + (size_t)m * g.O + col0 + c;
       }
       bnmma::stage_chunk<VEC>(&sa[buf].v[r][c], na ? pa : apad, na);
       bnmma::stage_chunk<VEC>(&sb[buf].v[r][c], nd ? pd : dout, nd);
     }
   }
-  __device__ const TileRM<kBK>& a(int buf) const { return sa[buf]; }
-  __device__ const TileRM<kBK>& b(int buf) const { return sb[buf]; }
+  __device__ const TileRM<kBK, T>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRM<kBK, T>& b(int buf) const { return sb[buf]; }
 };
 
 // K13 bf16 (2). grid: ceil(N*Ho*Wo / 64) * ceil(O / 64), block b = pixel
@@ -424,17 +315,17 @@ bnc_fwd_mma(const bf16* __restrict__ apad, const bf16* __restrict__ w,
   bnmma::store_tile<VEC>(acc, sm.c, out, row0, rows, col0, g.O);
 }
 
-// K15 bf16 (2). grid: ceil(N*H*W / 64) * ceil(K / 64), block b = pixel
-// tile b / tiles_k, K tile b % tiles_k.
-template <bool VEC>
+// K15 (2). grid: ceil(N*H*W / 64) * ceil(K / 64), block b = pixel tile
+// b / tiles_k, K tile b % tiles_k.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(bnmma::kThreads)
-bnc_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
-               const float* __restrict__ prm4, const bf16* __restrict__ w,
-               const bf16* __restrict__ dout, bf16* __restrict__ dx,
-               bf16* __restrict__ dr, float* __restrict__ gb_part, Geom g,
+bnc_bwd_da_mma(const T* __restrict__ x, const T* __restrict__ res,
+               const float* __restrict__ prm4, const T* __restrict__ w,
+               const T* __restrict__ dout, T* __restrict__ dx,
+               T* __restrict__ dr, float* __restrict__ gb_part, Geom g,
                int act) {
-  using Op = ConvDA<VEC>;
-  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages> sm;
+  using Op = ConvDA<T, VEC>;
+  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages, T> sm;
   const int rows = g.N * g.H * g.W;
   const int tiles_k = (g.K + bnmma::kBN - 1) / bnmma::kBN;
   const int mt = blockIdx.x / tiles_k, kt = blockIdx.x - mt * tiles_k;
@@ -443,7 +334,7 @@ bnc_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
   Op op{sm.ring.a, sm.ring.b, dout, w, g, col0, osteps, {}, {}, {}, {}};
 #pragma unroll
   for (int i = 0; i < Op::kRows; ++i) {
-    const int p = row0 + bnmma::rr_row<Op::kBK>(i);
+    const int p = row0 + bnmma::rr_row<Op::kBK, T>(i);
     const int wq = p % g.W, t = p / g.W;
     op.pn[i] = t / g.H;
     op.ph[i] = t % g.H;
@@ -456,16 +347,17 @@ bnc_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
                           rows, col0, g.K, act, sm);
 }
 
-// K15 bf16 (3). grid: (ceil(K / 64), ceil(O / 64), 9 * splits), z = tap *
-// splits + split, as bnc_bwd_dw.
-template <bool VEC>
+// K15 (3). grid: (ceil(K / 64), ceil(O / 64), 9 * splits); z = tap *
+// splits + split sums output pixels [split * chunk, ...) into
+// part[z][K][O].
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(bnmma::kThreads)
-bnc_bwd_dw_mma(const bf16* __restrict__ apad, const bf16* __restrict__ dout,
+bnc_bwd_dw_mma(const T* __restrict__ apad, const T* __restrict__ dout,
                float* __restrict__ part, Geom g, bnmma::FastDiv div_wo,
                bnmma::FastDiv div_ho, int splits, int chunk) {
-  using Op = ConvDW<VEC>;
-  __shared__ __align__(16) TileRM<Op::kBK> sa[Op::kStages];
-  __shared__ __align__(16) TileRM<Op::kBK> sb[Op::kStages];
+  using Op = ConvDW<T, VEC>;
+  __shared__ __align__(16) TileRM<Op::kBK, T> sa[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK, T> sb[Op::kStages];
   const int z = blockIdx.z, tap = z / splits, sp = z - tap * splits;
   const int m_out = g.N * g.Ho * g.Wo;
   const int r_begin = sp * chunk, r_end = min(m_out, r_begin + chunk);
@@ -756,32 +648,6 @@ Geom geom(int N, int H, int W, int K, int O, int s) {
   return {N, H, W, K, O, (H - 1) / s + 1, (W - 1) / s + 1, s};
 }
 
-template <typename T>
-cudaError_t bwd(const void* x, const void* r, const void* prm,
-                const void* prm4, const void* w, const void* dout, void* dx,
-                void* dr, void* dw, float* dw_part, float* gb_part,
-                float* dgb, Geom g, int splits, int chunk, int act,
-                cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(r);
-  const T* dot = static_cast<const T*>(dout);
-  const int tiles_m = ceil_div(g.N * g.H * g.W, kGM);
-  bnc_bwd_da<T><<<dim3(tiles_m, ceil_div(g.K, kGN)), kGThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm4), static_cast<const T*>(w), dot,
-      static_cast<T*>(dx), static_cast<T*>(dr), gb_part, g, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bnc_bwd_dw<T><<<dim3(ceil_div(g.K, kGM), ceil_div(g.O, kGN), 9 * splits),
-                  kGThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm), dot, dw_part, g, splits, chunk,
-      act);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_sum_splits<T>(dw_part, static_cast<T*>(dw), 9, splits,
-                             g.K * g.O, stream);
-  if (err != cudaSuccess) return err;
-  return launch_sum_splits<float>(gb_part, dgb, 1, tiles_m, 2 * g.K, stream);
-}
-
 template <bool VEC>
 cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
                     const void* w, void* apad, void* out, Geom g, int act,
@@ -863,37 +729,54 @@ cudaError_t dispatch_wide(const void* x, const void* r, const void* prm,
                             stream);
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
                     const void* prm4, const void* w, const void* dout,
                     void* dx, void* dr, void* dw, float* dw_part,
                     float* gb_part, float* dgb, void* apad, Geom g,
                     int splits, int chunk, int act, cudaStream_t stream) {
-  const bf16* xt = static_cast<const bf16*>(x);
-  const bf16* rt = static_cast<const bf16*>(r);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  bf16* ap = static_cast<bf16*>(apad);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  const T* dot = static_cast<const T*>(dout);
+  T* ap = static_cast<T*>(apad);
   const int tiles_m = ceil_div(g.N * g.H * g.W, bnmma::kBM);
   const long long blocks = (long long)tiles_m * ceil_div(g.K, bnmma::kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bnc_bwd_da_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm4), static_cast<const bf16*>(w),
-      dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, g, act);
+  bnc_bwd_da_mma<T, VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm4), static_cast<const T*>(w), dot,
+      static_cast<T*>(dx), static_cast<T*>(dr), gb_part, g, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bnc_pad_prep<bf16, VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
+  bnc_pad_prep<T, VEC><<<g.N * (g.H + 2), 256, 0, stream>>>(
       xt, rt, static_cast<const float*>(prm), ap, g, act);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bnc_bwd_dw_mma<VEC><<<dim3(ceil_div(g.K, bnmma::kBM),
-                             ceil_div(g.O, bnmma::kBN), 9 * splits),
-                        bnmma::kThreads, 0, stream>>>(
+  bnc_bwd_dw_mma<T, VEC><<<dim3(ceil_div(g.K, bnmma::kBM),
+                                ceil_div(g.O, bnmma::kBN), 9 * splits),
+                           bnmma::kThreads, 0, stream>>>(
       ap, dot, dw_part, g, bnmma::fast_div(g.Wo), bnmma::fast_div(g.Ho),
       splits, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_sum_splits<bf16>(dw_part, static_cast<bf16*>(dw), 9, splits,
-                                g.K * g.O, stream);
+  err = launch_sum_splits<T>(dw_part, static_cast<T*>(dw), 9, splits,
+                             g.K * g.O, stream);
   if (err != cudaSuccess) return err;
   return bnmma::launch_sum_tiles_f64(gb_part, dgb, tiles_m, 2 * g.K, stream);
+}
+
+// K15 in T: 16-byte staging, prep and stores when every row is whole
+// 16-byte chunks of T and every tensor is 16-byte aligned
+template <typename T>
+cudaError_t dispatch_bwd(const void* x, const void* r, const void* prm,
+                         const void* prm4, const void* w, const void* dout,
+                         void* dx, void* dr, void* dw, float* dw_part,
+                         float* gb_part, float* dgb, void* apad, Geom g,
+                         int splits, int chunk, int act, int dtype,
+                         cudaStream_t stream) {
+  if (vec_ok(dtype, g.K, g.O, x, r, w, apad, dout))
+    return bwd_mma<T, true>(x, r, prm, prm4, w, dout, dx, dr, dw, dw_part,
+                            gb_part, dgb, apad, g, splits, chunk, act,
+                            stream);
+  return bwd_mma<T, false>(x, r, prm, prm4, w, dout, dx, dr, dw, dw_part,
+                           gb_part, dgb, apad, g, splits, chunk, act, stream);
 }
 
 }  // namespace
@@ -940,8 +823,8 @@ extern "C" int ptt_bn_conv3x3_fwd_v2(const void* x, const void* r,
 // As the forward, plus prm4 [4, K] f32 (mean, inv, gamma, beta), dO [N,
 // Ho, Wo, O]; writes dx, dr (when r is given) [N, H, W, K], dw [3, 3, K, O]
 // in w's type and dgb [2, K] f32 (dgamma, dbeta), using dw_part [9,
-// splits, K, O] and gb_part [ceil(N*H*W / 64), 2, K] f32 scratch, and for
-// bf16 apad [N, H+2, W+2, K] bf16 scratch (null for f32).
+// splits, K, O] and gb_part [ceil(N*H*W / 64), 2, K] f32 scratch and apad
+// [N, H+2, W+2, K] scratch in x's type.
 extern "C" int ptt_bn_conv3x3_bwd(const void* x, const void* r,
                                   const void* prm, const void* prm4,
                                   const void* w, const void* dout, void* dx,
@@ -956,18 +839,11 @@ extern "C" int ptt_bn_conv3x3_bwd(const void* x, const void* r,
   auto* dwp = static_cast<float*>(dw_part);
   auto* gbp = static_cast<float*>(gb_part);
   auto* gb = static_cast<float*>(dgb);
-  if (dtype == ptt::kBFloat16) {
-    // 16-byte staging when every row is whole 16-byte chunks
-    const bool vec = K % 8 == 0 && O % 8 == 0 && ptt::mma::aligned16(x) &&
-                     (r == nullptr || ptt::mma::aligned16(r)) &&
-                     ptt::mma::aligned16(w) && ptt::mma::aligned16(dout) &&
-                     ptt::mma::aligned16(apad);
-    if (vec)
-      return ptt::bwd_mma<true>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
-                                gbp, gb, apad, g, splits, chunk, act, s);
-    return ptt::bwd_mma<false>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
-                               gbp, gb, apad, g, splits, chunk, act, s);
-  }
-  return ptt::bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp, gbp, gb,
-                         g, splits, chunk, act, s);
+  if (dtype == ptt::kBFloat16)
+    return ptt::dispatch_bwd<__nv_bfloat16>(x, r, prm, prm4, w, dout, dx, dr,
+                                            dw, dwp, gbp, gb, apad, g, splits,
+                                            chunk, act, dtype, s);
+  return ptt::dispatch_bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                                  gbp, gb, apad, g, splits, chunk, act, dtype,
+                                  s);
 }

@@ -19,46 +19,48 @@
 // device memory about once, and Out leaves 16 bytes a thread through
 // shared memory (store_tile).
 //
-// Backward (K12), one C entry point, four launches:
-//   (a) dA = dO W^T per (M tile, K tile), with the epilogue that
-//       recomputes pre from X, R and the statistics, masks pre > 0, writes
-//       dX = dpre * gamma * inv and dR = dpre, and writes the tile's
-//       column sums of dpre * xhat and dpre (bn_gemm.cuh dA_epilogue);
-//   (b) dW = A^T dO per (K tile, N tile, M split), A recomputed through
-//       the prologue as it is loaded, each split's f32 sums to its own
-//       slice of a partial buffer;
+// Backward (K12), one C entry point, four launches, both dtypes on the
+// tensor cores (bn_mma.cuh: bf16 mma.sync m16n8k16; f32 m16n8k8 TF32
+// products in 3xTF32, each fragment split as it is read, small halves
+// unrounded; f32 accumulators, each step's products summed from zero):
+//   (a) dA = dO W^T per (M tile, K tile): dO and W staged by cp.async16
+//       (TileRR), the blocks of one M tile adjacent in the grid so that
+//       its dO rows are read from device memory about once; the epilogue
+//       (bn_mma.cuh da_epilogue) recomputes pre from X, R and the
+//       statistics, masks pre > 0, writes dX = dpre * gamma * inv and
+//       dR = dpre 16 bytes a thread through shared memory, and sums the
+//       tile's dgamma / dbeta columns in a fixed order (lanes by
+//       shuffles, warps through shared memory);
+//   (b) dW = A^T dO per (K tile, N tile, M split): X, R and dO staged raw
+//       by cp.async16 (TileRM), the prologue run once per staged element
+//       in place in shared memory with each thread's two channels' (mean,
+//       gamma * inv, beta) hoisted, rows past the split zeroed after it;
+//       A and B then load by ldmatrix.trans (bf16) or 32-bit lane loads
+//       (f32); each split's f32 sums to its own slice of a partial buffer;
 //   (c) the splits summed in a fixed order, cast once to W's type;
-//   (d) the M tiles' column sums summed to dgamma, dbeta (f32; the bf16
-//       instance sums them in f64, bn_mma.cuh sum_tiles_f64).
-// The TPU kernel carries dW, dgamma and dbeta in VMEM across a sequential
-// grid; blocks here run in no order, so each resident accumulator became a
-// second pass over per-block partial sums, which keeps reruns
-// bit-reproducible (no atomics).  dmean and dvar follow from dgamma and
-// dbeta in closed form in the wrapper, as in the JAX wrapper.
+//   (d) the M tiles' column sums summed to dgamma, dbeta in f64
+//       (bn_mma.cuh sum_tiles_f64).
+// A step is 64 bytes of a row in both dtypes (32 bf16 or 16 f32), so the
+// rings (three stages) take the same shared memory.  The TPU kernel
+// carries dW, dgamma and dbeta in VMEM across a sequential grid; blocks
+// here run in no order, so each resident accumulator became a second pass
+// over per-block partial sums, which keeps reruns bit-reproducible (no
+// atomics).  dmean and dvar follow from dgamma and dbeta in closed form in
+// the wrapper, as in the JAX wrapper.
 //
 // Bound on an H100: 2 M K N flops forward and 4 M K N backward, against
 // the bytes of X, R, W and Out (dX, dR, dO too backward): in bf16 the
 // forward does K N / (K (1 + r) + N) flops a byte, below the card's 295 at
 // most of ResNet-50's 1x1s (57 at stage 2's with a residual, K 512, N
 // 128), so it is bound by bytes unless K and N are both large, and the
-// backward with a residual is bound by bytes.  The f32 instances run on
-// the CUDA cores in f32 (bn_gemm.cuh).  The bf16 forward (above) and
-// backward run on the tensor cores (bn_mma.cuh: mma.sync m16n8k16, f32
-// accumulators) and move their bytes 16 at a time; the backward:
-//   (a) dO and W staged by cp.async16 (TileRR), the blocks of one M tile
-//       adjacent in the grid so that its dO rows are read from device
-//       memory about once; the fragment epilogue reads X, R and writes
-//       dX, dR as bf16 pairs and sums the dgamma / dbeta columns in a
-//       fixed order (lanes by shuffles, warps through shared memory);
-//   (b) X, R and dO staged raw by cp.async16 (TileRM), the prologue run
-//       once per staged element in shared memory with each thread's two
-//       channels' (mean, gamma * inv, beta) hoisted, rows past the split
-//       zeroed after it; then A and B load by ldmatrix.trans.
-// X and R are read twice (once in each pass), as in the first design.
-// Channel counts that are not a multiple of 8 (or unaligned tensors) take
-// the same tensor-core body with element-wise staging (VEC false).
-// What every design keeps: X is read, and A recomputed, inside the
-// product, never written.
+// backward with a residual is bound by bytes in both dtypes (in f32 at
+// three TF32 products per f32 product: 0.26 ms of bytes against 0.16 of
+// products at stage 2).  X and R are read twice (once in each pass), as
+// in the first design.  Channel counts that are not a multiple of a
+// 16-byte chunk (or unaligned tensors) take the same tensor-core body with
+// element-wise staging (VEC false).  The f32 forward runs on the CUDA
+// cores (bn_gemm.cuh, A through PrologueA).  What every design keeps: X is
+// read, and A recomputed, inside the product, never written.
 
 #include "bn_gemm.cuh"
 #include "bn_mma.cuh"
@@ -81,21 +83,6 @@ struct PrologueA {
   }
 };
 
-// A^T(k, m) = prologue(X[m, k]): rows k, reduction m (the dW product).
-template <typename T>
-struct PrologueAT {
-  using RowCtx = Chan;
-  const T* x;
-  const T* res;
-  const float* prm;
-  int K, act;
-  __device__ Chan row(int k) const { return chan(prm, K, k); }
-  __device__ size_t red(int m) const { return (size_t)m * K; }
-  __device__ float get(const Chan& c, size_t off) const {
-    return prologue(x, res, off + c.k, c, act);
-  }
-};
-
 // grid: (ceil(M / 64), ceil(N / 64)).
 template <typename T>
 __global__ void __launch_bounds__(kGThreads)
@@ -105,7 +92,7 @@ bnmm_fwd(const T* __restrict__ x, const T* __restrict__ res,
   __shared__ __align__(16) GemmSmem sm;
   const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
   float acc[4][4];
-  gemm_tile<true, true>(acc, PrologueA<T>{x, res, prm, K, act},
+  gemm_tile(acc, PrologueA<T>{x, res, prm, K, act},
                         StridedB<T>{w, (size_t)N, 1}, row0, M, col0, N, 0,
                         K, sm);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -121,45 +108,7 @@ bnmm_fwd(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
-// (a) grid: (ceil(M / 64), ceil(K / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnmm_bwd_da(const T* __restrict__ x, const T* __restrict__ res,
-            const float* __restrict__ prm4, const T* __restrict__ w,
-            const T* __restrict__ dout, T* __restrict__ dx,
-            T* __restrict__ dr, float* __restrict__ gb_part, int M, int K,
-            int N, int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  float acc[4][4];
-  // dA(m, k) = sum_n dO(m, n) W(k, n)
-  gemm_tile<true, false>(acc, StridedA<T>{dout, (size_t)N, 1},
-                         StridedB<T>{w, 1, (size_t)N}, row0, M, col0, K, 0,
-                         N, sm);
-  dA_epilogue<T>(acc, x, res, prm4, dx, dr, gb_part, row0, M, col0, K, act,
-                 sm);
-}
-
-// (b) grid: (ceil(K / 64), ceil(N / 64), splits); split z sums m in
-// [z * chunk, min((z + 1) * chunk, M)) into part[z][K][N].
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnmm_bwd_dw(const T* __restrict__ x, const T* __restrict__ res,
-            const float* __restrict__ prm, const T* __restrict__ dout,
-            float* __restrict__ part, int M, int K, int N, int chunk,
-            int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  const int z = blockIdx.z;
-  const int r_begin = z * chunk, r_end = min(M, r_begin + chunk);
-  float acc[4][4];
-  gemm_tile<false, true>(acc, PrologueAT<T>{x, res, prm, K, act},
-                         StridedB<T>{dout, (size_t)N, 1}, row0, K, col0, N,
-                         r_begin, r_end, sm);
-  store_partial(acc, part + (size_t)z * K * N, row0, K, col0, N, N);
-}
-
-// K11 and K12 in bf16 on the tensor cores (bn_mma.cuh).
+// bf16 K11 and K12 (both dtypes) on the tensor cores (bn_mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
@@ -256,65 +205,68 @@ struct MmFwd {
   __device__ const TileRM<kBK>& b(int buf) const { return sw[buf]; }
 };
 
-// (a) A = dO [M][N] (rows m), B = W [K][N] (rows k), reduction n, 32 a
-// step through a ring of three.
-template <bool VEC>
+// (a) A = dO [M][N] (rows m), B = W [K][N] (rows k), reduction n, 64
+// bytes a row a step (32 bf16, 16 f32) through a ring of three.
+template <typename T, bool VEC>
 struct MmDA {
   static constexpr bool kPost = false;
-  static constexpr int kBK = 32, kStages = 3;
-  TileRR<kBK>* sa;
-  TileRR<kBK>* sb;
-  const bf16* dout;
-  const bf16* w;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int kBK = 4 * E, kStages = 3;
+  TileRR<kBK, T>* sa;
+  TileRR<kBK, T>* sb;
+  const T* dout;
+  const T* w;
   int M, K, N, row0, col0;
   __device__ void stage(int buf, int step) const {
     const int n0 = step * kBK;
 #pragma unroll
-    for (int i = 0; i < kBK / 16; ++i) {
-      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+    for (int i = 0; i < bnmma::tile_chunks<kBK, T>(); ++i) {
+      const int r = bnmma::rr_row<kBK, T>(i), c = bnmma::rr_col<kBK, T>(i);
       const int m = row0 + r, k = col0 + r;
-      const int na = m < M ? bnmma::chunk_len(n0 + c, N) : 0;
+      const int na = m < M ? bnmma::chunk_len<E>(n0 + c, N) : 0;
       bnmma::stage_chunk<VEC>(&sa[buf].v[r][c],
                               na ? dout + (size_t)m * N + n0 + c : dout, na);
-      const int nb = k < K ? bnmma::chunk_len(n0 + c, N) : 0;
+      const int nb = k < K ? bnmma::chunk_len<E>(n0 + c, N) : 0;
       bnmma::stage_chunk<VEC>(&sb[buf].v[r][c],
                               nb ? w + (size_t)k * N + n0 + c : w, nb);
     }
   }
-  __device__ const TileRR<kBK>& a(int buf) const { return sa[buf]; }
-  __device__ const TileRR<kBK>& b(int buf) const { return sb[buf]; }
+  __device__ const TileRR<kBK, T>& a(int buf) const { return sa[buf]; }
+  __device__ const TileRR<kBK, T>& b(int buf) const { return sb[buf]; }
 };
 
 // (b) A^T = prologue(X) [m][k] (rows k of C), B = dO [m][n], reduction m
 // in [r_begin, r_end): X, R and dO staged raw, then post() applies the
-// prologue in place, each thread to the channel pair k0 + 2 (tid % 32);
-// 32 a step through a ring of three (the raw R tile takes the room a
-// deeper step would need).
-template <bool VEC>
+// prologue in place, each thread to the channel pair k0 + 2 (tid % 32),
+// rounded to T as the product's operand; 32 bf16 or 16 f32 rows a step
+// (the same bytes) through a ring of three (the raw R tile takes the room
+// a deeper step would need).
+template <typename T, bool VEC>
 struct MmDW {
   static constexpr bool kPost = true;
-  static constexpr int kBK = 32, kStages = 3;
-  TileRM<kBK>* sx;
-  TileRM<kBK>* sr;
-  TileRM<kBK>* sd;
-  const bf16* x;
-  const bf16* res;
-  const bf16* dout;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int kBK = 4 * E, kStages = 3;
+  TileRM<kBK, T>* sx;
+  TileRM<kBK, T>* sr;
+  TileRM<kBK, T>* sd;
+  const T* x;
+  const T* res;
+  const T* dout;
   int K, N, row0, col0, r_begin, r_end, act;
   Chan ch[2];
   __device__ void stage(int buf, int step) const {
     const int m0 = r_begin + step * kBK;
 #pragma unroll
-    for (int i = 0; i < kBK / 16; ++i) {
-      const int r = bnmma::rm_row(i), c = bnmma::rm_col(i);
+    for (int i = 0; i < bnmma::tile_chunks<kBK, T>(); ++i) {
+      const int r = bnmma::rm_row<T>(i), c = bnmma::rm_col<T>(i);
       const int m = m0 + r;
       const bool ok = m < r_end;
-      const int nx = ok ? bnmma::chunk_len(row0 + c, K) : 0;
+      const int nx = ok ? bnmma::chunk_len<E>(row0 + c, K) : 0;
       const size_t off = (size_t)m * K + row0 + c;
       bnmma::stage_chunk<VEC>(&sx[buf].v[r][c], nx ? x + off : x, nx);
       if (res != nullptr)
         bnmma::stage_chunk<VEC>(&sr[buf].v[r][c], nx ? res + off : res, nx);
-      const int nd = ok ? bnmma::chunk_len(col0 + c, N) : 0;
+      const int nd = ok ? bnmma::chunk_len<E>(col0 + c, N) : 0;
       bnmma::stage_chunk<VEC>(&sd[buf].v[r][c],
                               nd ? dout + (size_t)m * N + col0 + c : dout,
                               nd);
@@ -327,13 +279,12 @@ struct MmDW {
 #pragma unroll
     for (int i = 0; i < kBK / 4; ++i) {
       const int r = (threadIdx.x >> 5) + 4 * i;
-      auto* px = reinterpret_cast<__nv_bfloat162*>(&sx[buf].v[r][cp]);
-      const float2 xf = __bfloat1622float2(*px);
+      T* px = &sx[buf].v[r][cp];
+      const float2 xf = mma::load_pair(px);
       float v0 = pre_act(xf.x, ch[0].mu, ch[0].gi, ch[0].b);
       float v1 = pre_act(xf.y, ch[1].mu, ch[1].gi, ch[1].b);
       if (res != nullptr) {
-        const float2 rf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&sr[buf].v[r][cp]));
+        const float2 rf = mma::load_pair(&sr[buf].v[r][cp]);
         v0 = __fadd_rn(v0, rf.x);
         v1 = __fadd_rn(v1, rf.y);
       }
@@ -342,12 +293,11 @@ struct MmDW {
         v1 = fmaxf(v1, 0.f);
       }
       const bool m_ok = m0 + r < r_end;
-      *px = __floats2bfloat162_rn(m_ok && k0_ok ? v0 : 0.f,
-                                  m_ok && k1_ok ? v1 : 0.f);
+      mma::store_pair(px, m_ok && k0_ok ? v0 : 0.f, m_ok && k1_ok ? v1 : 0.f);
     }
   }
-  __device__ const TileRM<kBK>& a(int buf) const { return sx[buf]; }
-  __device__ const TileRM<kBK>& b(int buf) const { return sd[buf]; }
+  __device__ const TileRM<kBK, T>& a(int buf) const { return sx[buf]; }
+  __device__ const TileRM<kBK, T>& b(int buf) const { return sd[buf]; }
 };
 
 __device__ __forceinline__ Chan chan_or_zero(const float* prm, int K, int k) {
@@ -375,15 +325,15 @@ bnmm_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
 
 // (a) grid: ceil(M / 64) * ceil(K / 64), block b = M tile (b / tiles_k),
 // K tile (b % tiles_k).
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(bnmma::kThreads)
-bnmm_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                const float* __restrict__ prm4, const bf16* __restrict__ w,
-                const bf16* __restrict__ dout, bf16* __restrict__ dx,
-                bf16* __restrict__ dr, float* __restrict__ gb_part, int M,
-                int K, int N, int act) {
-  using Op = MmDA<VEC>;
-  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages> sm;
+bnmm_bwd_da_mma(const T* __restrict__ x, const T* __restrict__ res,
+                const float* __restrict__ prm4, const T* __restrict__ w,
+                const T* __restrict__ dout, T* __restrict__ dx,
+                T* __restrict__ dr, float* __restrict__ gb_part, int M, int K,
+                int N, int act) {
+  using Op = MmDA<T, VEC>;
+  __shared__ __align__(16) bnmma::DaSmem<Op::kBK, Op::kStages, T> sm;
   const int tiles_k = (K + bnmma::kBN - 1) / bnmma::kBN;
   const int mt = blockIdx.x / tiles_k, kt = blockIdx.x - mt * tiles_k;
   const int row0 = mt * bnmma::kBM, col0 = kt * bnmma::kBN;
@@ -394,17 +344,18 @@ bnmm_bwd_da_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
                           col0, K, act, sm);
 }
 
-// (b) grid: (ceil(K / 64), ceil(N / 64), splits), as bnmm_bwd_dw.
-template <bool VEC>
+// (b) grid: (ceil(K / 64), ceil(N / 64), splits); split z sums m in
+// [z * chunk, min((z + 1) * chunk, M)) into part[z][K][N].
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(bnmma::kThreads)
-bnmm_bwd_dw_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                const float* __restrict__ prm, const bf16* __restrict__ dout,
+bnmm_bwd_dw_mma(const T* __restrict__ x, const T* __restrict__ res,
+                const float* __restrict__ prm, const T* __restrict__ dout,
                 float* __restrict__ part, int M, int K, int N, int chunk,
                 int act) {
-  using Op = MmDW<VEC>;
-  __shared__ __align__(16) TileRM<Op::kBK> sx[Op::kStages];
-  __shared__ __align__(16) TileRM<Op::kBK> sr[Op::kStages];
-  __shared__ __align__(16) TileRM<Op::kBK> sd[Op::kStages];
+  using Op = MmDW<T, VEC>;
+  __shared__ __align__(16) TileRM<Op::kBK, T> sx[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK, T> sr[Op::kStages];
+  __shared__ __align__(16) TileRM<Op::kBK, T> sd[Op::kStages];
   const int z = blockIdx.z;
   const int r_begin = z * chunk, r_end = min(M, r_begin + chunk);
   const int row0 = blockIdx.x * bnmma::kBM, col0 = blockIdx.y * bnmma::kBN;
@@ -430,34 +381,54 @@ cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 cudaError_t bwd_mma(const void* x, const void* r, const void* prm,
                     const void* prm4, const void* w, const void* dout,
                     void* dx, void* dr, void* dw, float* dw_part,
                     float* gb_part, float* dgb, int M, int K, int N,
                     int splits, int chunk, int act, cudaStream_t stream) {
-  const bf16* xt = static_cast<const bf16*>(x);
-  const bf16* rt = static_cast<const bf16*>(r);
-  const bf16* dot = static_cast<const bf16*>(dout);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  const T* dot = static_cast<const T*>(dout);
   const int tiles_m = ceil_div(M, bnmma::kBM);
   const long long blocks = (long long)tiles_m * ceil_div(K, bnmma::kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bnmm_bwd_da_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm4), static_cast<const bf16*>(w),
-      dot, static_cast<bf16*>(dx), static_cast<bf16*>(dr), gb_part, M, K, N,
-      act);
+  bnmm_bwd_da_mma<T, VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      xt, rt, static_cast<const float*>(prm4), static_cast<const T*>(w), dot,
+      static_cast<T*>(dx), static_cast<T*>(dr), gb_part, M, K, N, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bnmm_bwd_dw_mma<VEC><<<dim3(ceil_div(K, bnmma::kBM),
-                              ceil_div(N, bnmma::kBN), splits),
-                         bnmma::kThreads, 0, stream>>>(
+  bnmm_bwd_dw_mma<T, VEC><<<dim3(ceil_div(K, bnmma::kBM),
+                                 ceil_div(N, bnmma::kBN), splits),
+                            bnmma::kThreads, 0, stream>>>(
       xt, rt, static_cast<const float*>(prm), dot, dw_part, M, K, N, chunk,
       act);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_sum_splits<bf16>(dw_part, static_cast<bf16*>(dw), 1, splits,
-                                K * N, stream);
+  err = launch_sum_splits<T>(dw_part, static_cast<T*>(dw), 1, splits, K * N,
+                             stream);
   if (err != cudaSuccess) return err;
   return bnmma::launch_sum_tiles_f64(gb_part, dgb, tiles_m, 2 * K, stream);
+}
+
+// K12 in T: 16-byte staging and dX / dR stores (VEC) when every row is
+// whole 16-byte chunks of T and every input is 16-byte aligned
+template <typename T>
+cudaError_t dispatch_bwd(const void* x, const void* r, const void* prm,
+                         const void* prm4, const void* w, const void* dout,
+                         void* dx, void* dr, void* dw, float* dw_part,
+                         float* gb_part, float* dgb, int M, int K, int N,
+                         int splits, int chunk, int act,
+                         cudaStream_t stream) {
+  constexpr int e = 16 / sizeof(T);
+  const bool vec = K % e == 0 && N % e == 0 && mma::aligned16(x) &&
+                   (r == nullptr || mma::aligned16(r)) &&
+                   mma::aligned16(w) && mma::aligned16(dout);
+  if (vec)
+    return bwd_mma<T, true>(x, r, prm, prm4, w, dout, dx, dr, dw, dw_part,
+                            gb_part, dgb, M, K, N, splits, chunk, act,
+                            stream);
+  return bwd_mma<T, false>(x, r, prm, prm4, w, dout, dx, dr, dw, dw_part,
+                           gb_part, dgb, M, K, N, splits, chunk, act, stream);
 }
 
 template <typename T>
@@ -470,32 +441,6 @@ cudaError_t fwd(const void* x, const void* r, const void* prm, const void* w,
       static_cast<const float*>(prm), static_cast<const T*>(w),
       static_cast<T*>(out), M, K, N, act);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t bwd(const void* x, const void* r, const void* prm,
-                const void* prm4, const void* w, const void* dout, void* dx,
-                void* dr, void* dw, float* dw_part, float* gb_part,
-                float* dgb, int M, int K, int N, int splits, int chunk,
-                int act, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(r);
-  const T* dot = static_cast<const T*>(dout);
-  const int tiles_m = ceil_div(M, kGM);
-  bnmm_bwd_da<T><<<dim3(tiles_m, ceil_div(K, kGN)), kGThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm4), static_cast<const T*>(w), dot,
-      static_cast<T*>(dx), static_cast<T*>(dr), gb_part, M, K, N, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bnmm_bwd_dw<T><<<dim3(ceil_div(K, kGM), ceil_div(N, kGN), splits),
-                   kGThreads, 0, stream>>>(
-      xt, rt, static_cast<const float*>(prm), dot, dw_part, M, K, N, chunk,
-      act);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_sum_splits<T>(dw_part, static_cast<T*>(dw), 1, splits, K * N,
-                             stream);
-  if (err != cudaSuccess) return err;
-  return launch_sum_splits<float>(gb_part, dgb, 1, tiles_m, 2 * K, stream);
 }
 
 }  // namespace
@@ -534,17 +479,10 @@ extern "C" int ptt_bn_matmul_bwd(const void* x, const void* r,
   auto* dwp = static_cast<float*>(dw_part);
   auto* gbp = static_cast<float*>(gb_part);
   auto* gb = static_cast<float*>(dgb);
-  if (dtype == ptt::kBFloat16) {
-    // 16-byte staging when every row is whole 16-byte chunks
-    const bool vec = K % 8 == 0 && N % 8 == 0 && ptt::mma::aligned16(x) &&
-                     (r == nullptr || ptt::mma::aligned16(r)) &&
-                     ptt::mma::aligned16(w) && ptt::mma::aligned16(dout);
-    if (vec)
-      return ptt::bwd_mma<true>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
-                                gbp, gb, M, K, N, splits, chunk, act, s);
-    return ptt::bwd_mma<false>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
-                               gbp, gb, M, K, N, splits, chunk, act, s);
-  }
-  return ptt::bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp, gbp, gb,
-                         M, K, N, splits, chunk, act, s);
+  if (dtype == ptt::kBFloat16)
+    return ptt::dispatch_bwd<__nv_bfloat16>(x, r, prm, prm4, w, dout, dx, dr,
+                                            dw, dwp, gbp, gb, M, K, N, splits,
+                                            chunk, act, s);
+  return ptt::dispatch_bwd<float>(x, r, prm, prm4, w, dout, dx, dr, dw, dwp,
+                                  gbp, gb, M, K, N, splits, chunk, act, s);
 }

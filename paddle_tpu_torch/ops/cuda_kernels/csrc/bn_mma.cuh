@@ -1,51 +1,62 @@
 // The tensor-core tile product of the fused BatchNorm -> convolution
-// kernels in bf16 (bn_matmul.cu: K11 forward, K12 backward; bn_conv.cu: K13
-// forward, K15 backward), built on mma.cuh's m16n8k16 product and ldmatrix
-// loads, and the epilogues they share; bn_conv.cu's wide tap product (K14,
-// f32 K13) stages its chunks and runs its bf16 products with these pieces
-// too.  f32 K11, K12 and K15 keep bn_gemm.cuh's CUDA-core product.
+// kernels (bn_matmul.cu: bf16 K11 forward, K12 backward in both dtypes;
+// bn_conv.cu: bf16 K13 forward, K15 backward in both dtypes), built on
+// mma.cuh's products and ldmatrix loads, and the epilogues they share;
+// bn_conv.cu's wide tap product (K14, f32 K13) stages its chunks and runs
+// its bf16 products with these pieces too.  f32 K11 keeps bn_gemm.cuh's
+// CUDA-core product.
 //
 // A block of 128 threads (4 warps, 2 x 2) computes one 64 x 64 tile of
 // C = A B in f32 accumulators, each warp a 32 x 32 quarter: 2 x 4 m16n8
-// accumulators, 8 mma.sync per 16-deep reduction step.  The reduction
-// advances BK (32 or 64, the operator's choice) at a time through a ring
-// of shared-memory buffers filled by cp.async, the next steps' loads in
-// flight while one is summed.  An operand tile sits in shared memory in
-// one of two layouts, chosen by which of its indices is contiguous in
-// device memory:
+// accumulators.  bf16 runs m16n8k16, 8 mma.sync per 16-deep reduction
+// step; f32 runs m16n8k8 TF32 products in 3xTF32 (mma.cuh: each fragment
+// split into big and small as it is read, small passed unrounded, three
+// products a b = a_small b_big + a_big b_small + a_big b_big), 24 mma.sync
+// per 8-deep step.  The reduction advances BK (the operator's choice) at a
+// time through a ring of shared-memory buffers filled by cp.async, the
+// next steps' loads in flight while one is summed.  An operand tile sits
+// in shared memory in one of two layouts, chosen by which of its indices
+// is contiguous in device memory:
 //   TileRR [64][BK]   row (m or n) by reduction: rows contiguous along the
 //                     reduction (dO rows in dA, W rows, the gathered dO
 //                     pixels of K15's dA, X rows of K11, the apad taps of
 //                     K13), read by ldmatrix as A (a_row/a_col) or B
-//                     (b_row/b_col);
+//                     (b_row/b_col); f32 as 8 x 4 f32 matrices
+//                     (tf32_a_col, tf32_b_col);
 //   TileRM [BK][64]   reduction by row: rows contiguous along the output's
-//                     row or column index (X and dO in the dW products, W
-//                     in the forwards), read by ldmatrix.trans as A
-//                     (at_row/at_col below) or B (bt_row/bt_col).
-// Row strides of BK + 8 and 64 + 8 bf16 (80 or 144 bytes) put the eight
-// 16-byte rows of one 8 x 8 matrix in distinct banks.  A stager fills a
-// tile 16 bytes a chunk: 8 bf16, BK / 16 chunks a thread, each chunk's
-// device address computed once per tile row (the index decoding of a
-// pixel happens per chunk, never per element).  A chunk is one cp.async16
-// with zero fill when VEC (every contiguous extent a multiple of 8
-// elements and every base 16-byte aligned); otherwise its elements are
-// loaded one by one with zeros past the extent, which the loop's barrier
-// makes visible.  Both forms run the same tensor-core body: only the
-// staging differs.
+//                     row or column index (X, apad and dO in the dW
+//                     products, W in the forwards), read by ldmatrix.trans
+//                     as A (at_row/at_col below) or B (bt_row/bt_col) in
+//                     bf16, by 32-bit lane loads in f32 (.trans cannot
+//                     transpose 32-bit elements).
+// A TileRR row is BK elements plus 16 bytes, so the eight 16-byte rows of
+// one ldmatrix phase fall in distinct banks (80 or 144 bytes in bf16, 80
+// or 144 in f32 at BK 16 or 32); a TileRM row is 64 + 8 elements: in bf16
+// the .trans rows likewise, in f32 72 words, so lane (g, t) of a fragment
+// load reads bank 8 t + g (+ a constant), all 32 distinct.  A stager fills
+// a tile 16 bytes a chunk (8 bf16 or 4 f32), each chunk's device address
+// computed once per tile row (the index decoding of a pixel happens per
+// chunk, never per element).  A chunk is one cp.async16 with zero fill
+// when VEC (every contiguous extent a multiple of a chunk and every base
+// 16-byte aligned); otherwise its elements are loaded one by one with
+// zeros past the extent, which the loop's barrier makes visible.  Both
+// forms run the same tensor-core body: only the staging differs.
 //
 // mma_loop's order per step: wait for the step's group, barrier, issue the
 // loads of step + stages - 1 (into the buffer summed a step ago), run the
 // operator's in-place pass over the step's tiles if it has one (K12's dW
 // applies the BatchNorm prologue there, once per staged element) and a
-// barrier, then the BK / 16 x 8 products.  The tensor cores add into
-// their f32 accumulator with truncation (round toward zero), so a long
-// reduction carried in one accumulator drifts toward zero, and the drift
-// is coherent across the rows that dgamma and dbeta sum (in bf16 at
+// barrier, then the step's products.  The tensor cores add into their f32
+// accumulator with truncation (round toward zero), so a long reduction
+// carried in one accumulator drifts toward zero, and the drift is
+// coherent across the rows that dgamma and dbeta sum (in bf16 at
 // ResNet-50's shapes it put those sums 3-9 times further from float64
 // than the CUDA-core design).  Each step's products therefore start from
 // zero and are added to the running sums by an ordinary f32 add (to
-// nearest).
+// nearest), in both dtypes.
 #pragma once
+
+#include <type_traits>
 
 #include "bn_gemm.cuh"
 #include "mma.cuh"
@@ -57,14 +68,16 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 64, kBN = 64, kThreads = 128;
 
-// An operand tile of a reduction step of BK (32 or 64)
-template <int BK>
+// An operand tile of a reduction step of BK elements of T (bf16 or f32)
+template <int BK, typename T = bf16>
 struct TileRR {
-  bf16 v[kBM][BK + 8];
+  using Elem = T;
+  T v[kBM][BK + 16 / sizeof(T)];
 };
-template <int BK>
+template <int BK, typename T = bf16>
 struct TileRM {
-  bf16 v[BK][kBM + 8];
+  using Elem = T;
+  T v[BK][kBM + 8];
 };
 
 // ldmatrix.trans row addresses for A from a [k][m] tile: matrix j = l / 8
@@ -127,21 +140,101 @@ __device__ __forceinline__ void frag_b(uint32_t (&b)[4][2],
   }
 }
 
-// Chunk i (< BK / 16) of this thread in a TileRR / TileRM stage: (row,
-// col).  A TileRR row is BK / 8 chunks, a TileRM row 8.
+// The f32 fragments of one 8-deep step, each split into big and small as
+// it is read (mma.cuh split_tf32<true>).  A of a warp's two m16 tiles:
+// from a TileRR by ldmatrix as 8 x 4 f32 matrices (a0..a3 = (g, t), (g+8,
+// t), (g, t+4), (g+8, t+4)); from a TileRM by lanes, (g, t) reading rows
+// kk + t and kk + t + 4, columns wr + 16 mi + g and + 8.
 template <int BK>
+__device__ __forceinline__ void frag_a(uint32_t (&big)[2][4],
+                                       uint32_t (&small)[2][4],
+                                       const TileRR<BK, float>& t, int wr,
+                                       int kk, int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    uint32_t x[4];
+    mma::ldsm_x4(x, &t.v[wr + mi * 16 + mma::a_row(lane)]
+                        [kk + mma::tf32_a_col(lane)]);
+    mma::split_tf32<true>(x, big[mi], small[mi]);
+  }
+}
+template <int BK>
+__device__ __forceinline__ void frag_a(uint32_t (&big)[2][4],
+                                       uint32_t (&small)[2][4],
+                                       const TileRM<BK, float>& t, int wr,
+                                       int kk, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const float* p0 = &t.v[kk + q][wr + mi * 16 + g];
+    const float* p1 = &t.v[kk + q + 4][wr + mi * 16 + g];
+    const uint32_t x[4] = {__float_as_uint(p0[0]), __float_as_uint(p0[8]),
+                           __float_as_uint(p1[0]), __float_as_uint(p1[8])};
+    mma::split_tf32<true>(x, big[mi], small[mi]);
+  }
+}
+
+// B (b0, b1) of a warp's four n8 tiles, split: from a TileRR ([n][k]) by
+// ldmatrix (b_row/tf32_b_col: registers 0, 1 of n-tile 2p, 2, 3 of 2p +
+// 1); from a TileRM ([k][n]) by lanes, (g, t) reading rows kk + t and
+// kk + t + 4, column wc + 8 nj + g.
+template <int BK>
+__device__ __forceinline__ void frag_b(uint32_t (&big)[4][2],
+                                       uint32_t (&small)[4][2],
+                                       const TileRR<BK, float>& t, int wc,
+                                       int kk, int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t r[4];
+    mma::ldsm_x4(r, &t.v[wc + p * 16 + mma::b_row(lane)]
+                        [kk + mma::tf32_b_col(lane)]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma::split_tf32<true>(__uint_as_float(r[j]), big[2 * p + j / 2][j % 2],
+                            small[2 * p + j / 2][j % 2]);
+  }
+}
+template <int BK>
+__device__ __forceinline__ void frag_b(uint32_t (&big)[4][2],
+                                       uint32_t (&small)[4][2],
+                                       const TileRM<BK, float>& t, int wc,
+                                       int kk, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    mma::split_tf32<true>(t.v[kk + q][wc + nj * 8 + g], big[nj][0],
+                          small[nj][0]);
+    mma::split_tf32<true>(t.v[kk + q + 4][wc + nj * 8 + g], big[nj][1],
+                          small[nj][1]);
+  }
+}
+
+// Chunk i of this thread in a TileRR / TileRM stage of T: (row, col).  A
+// chunk is E = 16 / sizeof(T) elements; a TileRR row is BK / E chunks, a
+// TileRM row 64 / E; a thread takes chunks tid, tid + 128, ...
+template <int BK, typename T = bf16>
 __device__ __forceinline__ int rr_row(int i) {
-  return (threadIdx.x + i * kThreads) / (BK / 8);
+  return (threadIdx.x + i * kThreads) / (BK * (int)sizeof(T) / 16);
 }
-template <int BK>
+template <int BK, typename T = bf16>
 __device__ __forceinline__ int rr_col(int i) {
-  return ((threadIdx.x + i * kThreads) % (BK / 8)) * 8;
+  constexpr int E = 16 / sizeof(T);
+  return ((threadIdx.x + i * kThreads) % (BK / E)) * E;
 }
+template <typename T = bf16>
 __device__ __forceinline__ int rm_row(int i) {
-  return (threadIdx.x + i * kThreads) >> 3;
+  return (threadIdx.x + i * kThreads) / (kBM * (int)sizeof(T) / 16);
 }
+template <typename T = bf16>
 __device__ __forceinline__ int rm_col(int i) {
-  return ((threadIdx.x + i * kThreads) & 7) << 3;
+  constexpr int E = 16 / sizeof(T);
+  return ((threadIdx.x + i * kThreads) % (kBM / E)) * E;
+}
+
+// 16-byte chunks a thread stages of one [64][BK] or [BK][64] tile of T
+template <int BK, typename T>
+__host__ __device__ constexpr int tile_chunks() {
+  return kBM * BK * (int)sizeof(T) / (16 * kThreads);
 }
 
 // One 16-byte chunk of T (8 bf16 or 4 f32) from src (the first n valid,
@@ -199,16 +292,62 @@ __device__ __forceinline__ void mma_bf16_first(float (&d)[4],
         "f"(0.f));
 }
 
+// One reduction step's products of a warp (rows wr.., columns wc..) into
+// `part`, from zero: bf16 m16n8k16 (the first with C = 0), f32 m16n8k8 in
+// 3xTF32, small terms first, each fragment split as it is read.
+template <int BK, class TA, class TB>
+__device__ __forceinline__ void step_products(float (&part)[2][4][4],
+                                              const TA& ta, const TB& tb,
+                                              int wr, int wc, int lane) {
+  if constexpr (std::is_same<typename TA::Elem, float>::value) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][nj][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+      frag_a(ab, as, ta, wr, kk, lane);
+      frag_b(bb, bs, tb, wc, kk, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          mma::mma_3xtf32(part[mi][nj], ab[mi], as[mi], bb[nj][0],
+                          bb[nj][1], bs[nj][0], bs[nj][1]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+      frag_a(a, ta, wr, kk, lane);
+      frag_b(b, tb, wc, kk, lane);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          if (kk == 0)
+            mma_bf16_first(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+          else
+            mma::mma_bf16(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
+        }
+    }
+  }
+}
+
 // The tile product over `nsteps` reduction steps of Op::kBK, through a
 // ring of Op::kStages buffers.  Op provides
 //   kBK, kStages      its step and ring depth;
 //   stage(buf, step)  loads of step into ring buffer buf (chunks above);
 //   kPost, post(buf, step)  an in-place pass over the step's tiles;
-//   a(buf), b(buf)    the A and B tiles (TileRR or TileRM) of buf.
+//   a(buf), b(buf)    the A and B tiles (TileRR or TileRM, both of one
+//                     element type) of buf.
 template <class Op>
 __device__ __forceinline__ void mma_loop(float (&acc)[2][4][4], Op& op,
                                          int nsteps) {
-  constexpr int BK = Op::kBK, S = Op::kStages;
+  constexpr int S = Op::kStages;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
 #pragma unroll
@@ -234,21 +373,7 @@ __device__ __forceinline__ void mma_loop(float (&acc)[2][4][4], Op& op,
       __syncthreads();
     }
     float part[2][4][4];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-      frag_a(a, op.a(buf), wr, kk, lane);
-      frag_b(b, op.b(buf), wc, kk, lane);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          if (kk == 0)
-            mma_bf16_first(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
-          else
-            mma::mma_bf16(part[mi][nj], a[mi], b[nj][0], b[nj][1]);
-        }
-    }
+    step_products<Op::kBK>(part, op.a(buf), op.b(buf), wr, wc, lane);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -264,12 +389,12 @@ __device__ __forceinline__ void mma_loop(float (&acc)[2][4][4], Op& op,
 // float2 stores of one fragment row fall in distinct banks); the tile's 64
 // channels' (mean, inv, gamma * inv, beta) and the four warps' column
 // sums.
-template <int BK, int STAGES>
+template <int BK, int STAGES, typename T = bf16>
 struct DaSmem {
   union {
     struct {
-      TileRR<BK> a[STAGES];
-      TileRR<BK> b[STAGES];
+      TileRR<BK, T> a[STAGES];
+      TileRR<BK, T> b[STAGES];
     } ring;
     float c[kBM][kBN + 8];
   };
@@ -355,19 +480,23 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
 // sums of dpre * xhat and dpre to gb_part[tile][0][k] and [tile][1][k].
 // The accumulators go to shared memory by their fragment map (c0 c1 at
 // row g, columns 2t..; c2 c3 at row g + 8); then thread tid takes the
-// 8-channel chunk (tid % 8) * 8 of rows tid / 8 + 16 i, i < 4, so X, R,
-// dX and dR move 16 bytes a thread, a row's 128 bytes by 8 neighbouring
-// lanes (element by element when not VEC), its four rows' loads issued
-// before any is used.  The column sums run in a fixed order: each thread
-// over its 4 rows, then xor shuffles 8 and 16 over the warp's lanes of
-// one chunk, then the four warps in order.
-template <bool VEC, class Smem>
+// 16-byte chunk of E channels (E = 8 bf16, 4 f32; CH = 64 / E chunks a
+// row) at (tid % CH) * E of rows tid / CH + (128 / CH) i, so X, R, dX and
+// dR move 16 bytes a thread, a row's chunks by neighbouring lanes (element
+// by element when not VEC), its rows' loads issued before any is used.
+// The column sums run in a fixed order: each thread over its rows in
+// order, then xor shuffles CH, 2 CH, .. 16 over the warp's lanes of one
+// chunk (bf16 8 and 16, f32 16), then the four warps in order.
+template <bool VEC, typename T, class Smem>
 __device__ __forceinline__ void da_epilogue(
-    const float (&acc)[2][4][4], const bf16* __restrict__ x,
-    const bf16* __restrict__ res, const float* __restrict__ prm4,
-    bf16* __restrict__ dx, bf16* __restrict__ dr, float* __restrict__ gb_part,
+    const float (&acc)[2][4][4], const T* __restrict__ x,
+    const T* __restrict__ res, const float* __restrict__ prm4,
+    T* __restrict__ dx, T* __restrict__ dr, float* __restrict__ gb_part,
     int tile, int row0, int rows, int col0, int K, int act, Smem& sm) {
-  constexpr int kRows = kBM * 8 / kThreads;  // rows a thread
+  constexpr int E = 16 / sizeof(T);       // channels a chunk
+  constexpr int CH = kBN / E;             // chunks a row
+  constexpr int kStride = kThreads / CH;  // rows between a thread's rows
+  constexpr int kRows = kBM / kStride;    // rows a thread
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   acc_to_smem(acc, sm.c);
   if (tid < kBN) {
@@ -379,12 +508,12 @@ __device__ __forceinline__ void da_epilogue(
     sm.gi[tid] = __fmul_rn(inv, ok ? __ldg(prm4 + 2 * K + k) : 0.f);
     sm.b[tid] = ok ? __ldg(prm4 + 3 * K + k) : 0.f;
   }
-  const int cc = (tid & 7) * 8, k0 = col0 + cc;
-  const int nk = max(0, min(8, K - k0));  // valid channels of the chunk
+  const int cc = (tid % CH) * E, k0 = col0 + cc;
+  const int nk = max(0, min(E, K - k0));  // valid channels of the chunk
   uint4 xr[kRows], rr[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int row = row0 + (tid >> 3) + 16 * i;
+    const int row = row0 + tid / CH + kStride * i;
     xr[i] = rr[i] = make_uint4(0, 0, 0, 0);
     if (row >= rows || nk == 0) continue;
     const size_t off = (size_t)row * K + k0;
@@ -392,10 +521,10 @@ __device__ __forceinline__ void da_epilogue(
       xr[i] = *reinterpret_cast<const uint4*>(x + off);
       if (res != nullptr) rr[i] = *reinterpret_cast<const uint4*>(res + off);
     } else {
-      bf16* xv = reinterpret_cast<bf16*>(&xr[i]);
-      bf16* rv = reinterpret_cast<bf16*>(&rr[i]);
+      T* xv = reinterpret_cast<T*>(&xr[i]);
+      T* rv = reinterpret_cast<T*>(&rr[i]);
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < E; ++u)
         if (u < nk) {
           xv[u] = x[off + u];
           if (res != nullptr) rv[u] = res[off + u];
@@ -403,30 +532,36 @@ __device__ __forceinline__ void da_epilogue(
     }
   }
   __syncthreads();  // the C tile and the channel parameters
-  float sx[8], sd[8];
+  float sx[E], sd[E];
 #pragma unroll
-  for (int u = 0; u < 8; ++u) sx[u] = sd[u] = 0.f;
+  for (int u = 0; u < E; ++u) sx[u] = sd[u] = 0.f;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int r = (tid >> 3) + 16 * i, row = row0 + r;
+    const int r = tid / CH + kStride * i, row = row0 + r;
     if (row >= rows || nk == 0) continue;
-    const bf16* xv = reinterpret_cast<const bf16*>(&xr[i]);
-    const bf16* rv = reinterpret_cast<const bf16*>(&rr[i]);
-    const float4 a0 = *reinterpret_cast<const float4*>(&sm.c[r][cc]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&sm.c[r][cc + 4]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    uint4 dxr, drr;
-    bf16* dxv = reinterpret_cast<bf16*>(&dxr);
-    bf16* dpv = reinterpret_cast<bf16*>(&drr);
+    const T* xv = reinterpret_cast<const T*>(&xr[i]);
+    const T* rv = reinterpret_cast<const T*>(&rr[i]);
+    float av[E];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(&sm.c[r][cc + 4 * q]);
+      av[4 * q] = a.x;
+      av[4 * q + 1] = a.y;
+      av[4 * q + 2] = a.z;
+      av[4 * q + 3] = a.w;
+    }
+    uint4 dxr, drr;
+    T* dxv = reinterpret_cast<T*>(&dxr);
+    T* dpv = reinterpret_cast<T*>(&drr);
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
       const int cl = cc + u;
       const float xf = to_f(xv[u]), mu = sm.mu[cl], gi = sm.gi[cl];
       float pre = pre_act(xf, mu, gi, sm.b[cl]);
       if (res != nullptr) pre = __fadd_rn(pre, to_f(rv[u]));
       const float dpre = (act == 1 && !(pre > 0.f)) ? 0.f : av[u];
-      dxv[u] = __float2bfloat16(dpre * gi);
-      dpv[u] = __float2bfloat16(dpre);
+      dxv[u] = from_f<T>(dpre * gi);
+      dpv[u] = from_f<T>(dpre);
       if (u < nk) {
         sx[u] += dpre * ((xf - mu) * sm.inv[cl]);
         sd[u] += dpre;
@@ -438,7 +573,7 @@ __device__ __forceinline__ void da_epilogue(
       if (dr != nullptr) *reinterpret_cast<uint4*>(dr + off) = drr;
     } else {
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < E; ++u)
         if (u < nk) {
           dx[off + u] = dxv[u];
           if (dr != nullptr) dr[off + u] = dpv[u];
@@ -446,15 +581,15 @@ __device__ __forceinline__ void da_epilogue(
     }
   }
 #pragma unroll
-  for (int u = 0; u < 8; ++u)
+  for (int u = 0; u < E; ++u)
 #pragma unroll
-    for (int o = 8; o < 32; o <<= 1) {
+    for (int o = CH; o < 32; o <<= 1) {
       sx[u] += __shfl_xor_sync(kFullMask, sx[u], o);
       sd[u] += __shfl_xor_sync(kFullMask, sd[u], o);
     }
-  if (lane < 8) {
+  if (lane < CH) {
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < E; ++u) {
       sm.sx[warp][cc + u] = sx[u];
       sm.sd[warp][cc + u] = sd[u];
     }

@@ -261,6 +261,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
+// two neighbouring elements of T (4-byte aligned bf16, 8-byte f32) as f32
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }

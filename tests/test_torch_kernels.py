@@ -886,6 +886,56 @@ def _off_alignment(t):
     return out
 
 
+# The f32 backwards on the tensor cores in 3xTF32 (K12, K15; csrc/bn_mma.cuh):
+# element-wise staging (a channel count off 16 bytes, or x and r off
+# 16-byte alignment), odd H and W at stride 2, a residual, the border case
+@pytest.mark.parametrize("kind,shape,has_r,act,border,unaligned", [
+    ("1x1", (37, 18, 22), True, "relu", False, False),
+    ("1x1", (200, 64, 96), True, "relu", True, True),
+    ("1x1", (130, 128, 64), False, None, False, False),
+    ("3x3", (1, 5, 9, 18, 33, 2), False, None, False, False),
+    ("3x3", (2, 7, 7, 64, 96, 2), True, "relu", False, True),
+    ("3x3", (2, 9, 5, 16, 24, 2), True, "relu", True, False)])
+def test_bn_bwd_tf32_bodies_match_plain_on_card(exact_f32, kind, shape,
+                                                has_r, act, border,
+                                                unaligned):
+    """f32 K12 and K15 against their plain versions (relative to each
+    tensor's max |value|), one launch a call, the same bits on a rerun."""
+    cuda_device = exact_f32
+    dtype = torch.float32
+    rng = np.random.RandomState(17)
+    if kind == "1x1":
+        M, K, N = shape
+        xs, ws, dos, extra = (M, K), (K, N), (M, N), {}
+        fn, ref_fn = t_bnmm.bn_matmul_bwd, t_bnmm.bn_matmul_bwd_ref
+    else:
+        n, H, W, K, O, stride = shape
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        xs, ws, dos = (n, H, W, K), (3, 3, K, O), (n, Ho, Wo, O)
+        extra = {"stride": stride}
+        fn, ref_fn = t_bnc.bn_conv3x3_bwd, t_bnc.bn_conv3x3_bwd_ref
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, xs, has_r, border,
+                                   sum(shape))
+    if unaligned:
+        x = _off_alignment(x)
+        r = None if r is None else _off_alignment(r)
+    w = torch.from_numpy((rng.randn(*ws) / np.sqrt(np.prod(ws[:-1])))
+                         .astype(np.float32)).to(cuda_device, dtype)
+    do = torch.from_numpy(rng.randn(*dos).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = fn.launches
+    grads = fn(x, g, b, mu, var, w, do, r, act, **extra)
+    again = fn(x, g, b, mu, var, w, do, r, act, **extra)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 2
+    ref_g = ref_fn(x, g, b, mu, var, w, do, r, act, **extra)
+    assert len(grads) == len(ref_g)
+    for name, got, want, rerun in zip(_BN_GRADS, grads, ref_g, again):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert _rel_err(got, want) <= _BWD_TOL[dtype], name
+        assert torch.equal(got, rerun), name
+
+
 # The bf16 forwards' tensor-core bodies (K11, K13): element-wise staging
 # (a channel count not a multiple of 8, or x and r off 16-byte alignment),
 # odd H and W at stride 2, a residual, a ragged K with the border case

@@ -10,9 +10,10 @@ batch 128, 224 x 224, read from the program's desc) it builds the kernels,
 runs the forward (K11 for a 1x1, K13 and K14 for a 3x3) and the backward
 (K12, K15) once on the same inputs as ``chip_smoke.bn_case`` makes them,
 and holds each output against the plain version in float64 from the same
-inputs: the distance (max |error| over max |value|, each tensor) of the
-kernel and of the plain version in the kernel's dtype (K14's output as
-``out_v2``, and whether it has K13's bits).  Two kernels that differ only
+inputs (f32 inputs moved clear of the ReLU's kink, ``chip_smoke.
+bn_clear_of_kinks``): the distance (max |error| over max |value|, each
+tensor) of the kernel and of the plain version in the kernel's dtype
+(K14's output as ``out_v2``, and whether it has K13's bits).  Two kernels that differ only
 in the order of their sums are told apart there, not by their distance to
 the plain version.  Then it times each kernel (CUDA events,
 ``chip_smoke.time_ms``) beside its bound (``chip_smoke.bn_bound``: each
@@ -78,6 +79,10 @@ def main():
         if only and not only & set(KIND_KERNELS[kind]):
             continue
         a = cs.bn_case(dev, dtype, *shape)
+        if dtype == torch.float32:
+            # as the smoke: no f32 ReLU input within 1e-3 of the kink,
+            # where f32 and float64 may take different masks
+            a = cs.bn_clear_of_kinks(a)
         fwd, plain_fwd, bwd, plain_bwd = cs.bn_calls(kind, a, stride)
         x64 = cs.bn_calls(kind, cs.bn_double(a), stride)
         out, grads = fwd(), bwd()
