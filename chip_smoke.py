@@ -130,9 +130,9 @@ non-zero and no result line is printed):
     ReLU's kink), the bf16 ones against it in bf16, with each bf16
     output's distance to the float64 function logged beside the plain
     version's (the forwards' too); each row names its body (every bf16
-    kernel ``mma``, f32 K12, K13, K14 and K15 ``mma_3xtf32``, bounded at
-    three TF32 products per f32 product with the CUDA cores' bound beside
-    it, f32 K11 ``cuda_cores``) and K14's whether it has K13's bits;
+    kernel ``mma``, every f32 one ``mma_3xtf32``, bounded at three TF32
+    products per f32 product with the CUDA cores' bound beside it) and
+    K14's whether it has K13's bits;
     K13 and K14 timed at
     every 3x3 shape, K11, K12 and K15 in both dtypes at every ResNet-50
     shape, and one row (``bn_f32_resnet50_step``) sums launches x kernel
@@ -312,16 +312,13 @@ DESIGN = {torch.bfloat16: {"flash_attention": "mma",
                           "flash_attention_fwd": "mma_3xtf32",
                           "flash_attention_dq": "mma_3xtf32",
                           "flash_attention_dkv": "mma_3xtf32"}}
-# K11-K15: every bf16 body runs on the tensor cores (mma.sync,
-# csrc/bn_mma.cuh; K14 csrc/bn_conv.cu bnc_fwd_wide); in f32 the
-# backwards (K12, K15: bn_mma.cuh's tiles) and the 3x3 forwards (K13,
-# K14: bnc_fwd_wide) on them in 3xTF32, f32 K11 on the CUDA cores
-# (csrc/bn_gemm.cuh)
+# K11-K15: every body runs on the tensor cores (mma.sync), bf16 in
+# m16n8k16, f32 in 3xTF32: K11, K12, K15 and bf16 K13 on csrc/bn_mma.cuh's
+# 64 x 64 tiles, K14 and f32 K13 on csrc/bn_conv.cu's bnc_fwd_wide
 BN_KERNELS = ("bn_matmul_fwd", "bn_matmul_bwd", "bn_conv3x3_fwd",
               "bn_conv3x3_fwd_v2", "bn_conv3x3_bwd")
 DESIGN[torch.bfloat16].update(dict.fromkeys(BN_KERNELS, "mma"))
 DESIGN[torch.float32].update(dict.fromkeys(BN_KERNELS, "mma_3xtf32"))
-DESIGN[torch.float32]["bn_matmul_fwd"] = "cuda_cores"
 # K2 and K3 split a slot's page walk across blocks and stage pages by
 # cp.async into rings (csrc/paged_split.cuh); K2 scores on the CUDA cores
 # in both dtypes, K3 on the tensor cores (f32 in 3xTF32)

@@ -75,7 +75,6 @@
 
 #include <algorithm>
 
-#include "bn_gemm.cuh"
 #include "bn_mma.cuh"
 
 namespace ptt {

@@ -5,19 +5,20 @@
 // (paddle_tpu/ops/pallas_kernels/bn_matmul.py: _fwd_kernel, _bwd_body).
 // A 1x1 convolution in NHWC is a product [M = N*H*W, K] x [K, N_out].
 //
-// Forward (K11): Out = act((X - mean) * gamma * rsqrt(var + eps) + beta
-// [+ R]) W.  Each block computes a 64 x 64 tile of Out; X (and R) are read
-// through the prologue as the A slab is staged into shared memory, so the
-// normalized activation never reaches device memory.  In f32 the product
-// runs on the CUDA cores (bn_gemm.cuh, A through PrologueA).  In bf16 it
-// runs on the tensor cores (bn_mma.cuh), bound by its bytes at ResNet's
-// 1x1s with a residual (X and R are most of them): X and R are staged raw
-// by cp.async16 (TileRR, rows m), post() applies the prologue in place in
-// shared memory once per staged element (channels past K give 0), W is
-// staged as a [k][n] tile (TileRM, ldmatrix.trans), the blocks of one M
-// tile sit next to each other in the grid so that X and R come from
-// device memory about once, and Out leaves 16 bytes a thread through
-// shared memory (store_tile).
+// Forward (K11), both dtypes on the tensor cores (bn_mma.cuh: bf16 mma.sync
+// m16n8k16; f32 m16n8k8 TF32 products in 3xTF32, each fragment split as it is
+// read, small halves unrounded; each step's products summed from zero): Out =
+// act((X - mean) * gamma * rsqrt(var + eps) + beta [+ R]) W.  Each block
+// computes a 64 x 64 tile of Out, bound by its bytes at ResNet's 1x1s with a
+// residual (X and R are most of them): X and R are staged raw by cp.async16
+// (TileRR, rows m), post() applies the prologue in place in shared memory
+// once per staged element (channels past K give 0; in bf16 the result is
+// rounded to bf16 as the product's operand, in f32 it stays unrounded and the
+// fragment loads split it), W is staged as a [k][n] tile (TileRM:
+// ldmatrix.trans in bf16, 32-bit lane loads in f32), the blocks of one M tile
+// sit next to each other in the grid so that X and R come from device memory
+// about once, and Out leaves 16 bytes a thread through shared memory
+// (store_tile).  The normalized activation never reaches device memory.
 //
 // Backward (K12), one C entry point, four launches, both dtypes on the
 // tensor cores (bn_mma.cuh: bf16 mma.sync m16n8k16; f32 m16n8k8 TF32
@@ -55,109 +56,79 @@
 // 128), so it is bound by bytes unless K and N are both large, and the
 // backward with a residual is bound by bytes in both dtypes (in f32 at
 // three TF32 products per f32 product: 0.26 ms of bytes against 0.16 of
-// products at stage 2).  X and R are read twice (once in each pass), as
-// in the first design.  Channel counts that are not a multiple of a
-// 16-byte chunk (or unaligned tensors) take the same tensor-core body with
-// element-wise staging (VEC false).  The f32 forward runs on the CUDA
-// cores (bn_gemm.cuh, A through PrologueA).  What every design keeps: X is
-// read, and A recomputed, inside the product, never written.
+// products at stage 2), and so is the forward in f32 (0.138 ms of bytes
+// against 0.080 of products at stage 2).  X and R are read twice (once
+// in each pass), as in the first design.  Channel counts that are not a
+// multiple of a 16-byte chunk (or unaligned tensors) take the same
+// tensor-core body with element-wise staging (VEC false).  What every
+// design keeps: X is read, and A recomputed, inside the product, never
+// written.
 
-#include "bn_gemm.cuh"
 #include "bn_mma.cuh"
 
 namespace ptt {
 namespace {
 
-// A(m, k) = prologue(X[m, k]): rows m, reduction k (contiguous).
-template <typename T>
-struct PrologueA {
-  using RowCtx = size_t;
-  const T* x;
-  const T* res;
-  const float* prm;
-  int K, act;
-  __device__ size_t row(int m) const { return (size_t)m * K; }
-  __device__ Chan red(int k) const { return chan(prm, K, k); }
-  __device__ float get(size_t off, const Chan& c) const {
-    return prologue(x, res, off + c.k, c, act);
-  }
-};
-
-// grid: (ceil(M / 64), ceil(N / 64)).
-template <typename T>
-__global__ void __launch_bounds__(kGThreads)
-bnmm_fwd(const T* __restrict__ x, const T* __restrict__ res,
-         const float* __restrict__ prm, const T* __restrict__ w,
-         T* __restrict__ out, int M, int K, int N, int act) {
-  __shared__ __align__(16) GemmSmem sm;
-  const int row0 = blockIdx.x * kGM, col0 = blockIdx.y * kGN;
-  float acc[4][4];
-  gemm_tile(acc, PrologueA<T>{x, res, prm, K, act},
-                        StridedB<T>{w, (size_t)N, 1}, row0, M, col0, N, 0,
-                        K, sm);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = row0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = col0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// bf16 K11 and K12 (both dtypes) on the tensor cores (bn_mma.cuh).
+// K11 and K12 on the tensor cores (bn_mma.cuh).
 using bnmma::TileRM;
 using bnmma::TileRR;
 using bf16 = __nv_bfloat16;
 
-// K11: A = act(BN(X) [+ R]) [m][k], X and R staged raw (TileRR, rows m)
-// with the step's 32 channels' (mean, gamma * inv, beta) beside them (a
-// [3][32] f32 table, one 16-byte chunk each for 24 threads; the channel is
-// the tile's column, so it moves with k0), then post() applies the
-// prologue in place, each thread to the channel pair k0 + 2 (tid % 16) of
-// rows tid / 16 + 8 i.  A channel past K takes zero parameters (the
-// table's zero fill), so its zero-filled elements leave the prologue as
-// act(0) = 0 (real parameters would give act(beta - mean * gi), not 0);
-// W's rows past K are zero-filled too.  B = W [k][n] (TileRM).  32 a step
-// through a ring of three (the raw R tile takes the room a deeper step
-// would need).  The table is read from shared memory: loading the pair's
-// parameters from device memory (L1) in post() took up to 17% longer.
-template <bool VEC>
+// K11: A = act(BN(X) [+ R]) [m][k], X and R staged raw (TileRR, rows m) with
+// the step's channels' (mean, gamma * inv, beta) beside them (a [3][BK] f32
+// table, one 16-byte chunk each for 3 BK / 4 threads: 24 in bf16, 12 in f32;
+// the channel is the tile's column, so it moves with k0), then post() applies
+// the prologue in place, each thread to the channel pair k0 + 2 (tid % (BK /
+// 2)) of rows tid / (BK / 2) + (256 / BK) i (8 threads a row in f32, 16 in
+// bf16).  The two rows of one bank phase (the warp in bf16, a half warp's
+// float2 in f32) then share 4 of their 32 banks (adjacent rows, 20 words
+// apart); taking rows 4 apart instead (80 words, no conflict) was level in
+// f32 and lost up to 7.5% in bf16 on an H100.  A channel past K takes zero
+// parameters (the table's zero fill), so its zero-filled elements leave the
+// prologue as act(0) = 0 (real parameters would give act(beta - mean * gi),
+// not 0); W's rows past K are zero-filled too.  B = W [k][n] (TileRM).  A
+// step is 64 bytes of a row in both dtypes (32 bf16, 16 f32) through a ring
+// of three (the raw R tile takes the room a deeper step would need).  The
+// table is read from shared memory: loading the pair's parameters from device
+// memory (L1) in post() took up to 17% longer.
+template <typename T, bool VEC>
 struct MmFwd {
   static constexpr bool kPost = true;
-  static constexpr int kBK = 32, kStages = 3;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int kBK = 4 * E, kStages = 3;
+  static constexpr int kPairs = kBK / 2;   // channel pairs of a step
+  static constexpr int kRows = 256 / kBK;  // rows of a post() pass
   struct Ring {
-    TileRR<kBK> x[kStages];
-    TileRR<kBK> r[kStages];
-    TileRM<kBK> w[kStages];
+    TileRR<kBK, T> x[kStages];
+    TileRR<kBK, T> r[kStages];
+    TileRM<kBK, T> w[kStages];
     float p[kStages][3][kBK];
   };
-  TileRR<kBK>* sx;
-  TileRR<kBK>* sr;
-  TileRM<kBK>* sw;
+  TileRR<kBK, T>* sx;
+  TileRR<kBK, T>* sr;
+  TileRM<kBK, T>* sw;
   float (*sp)[3][kBK];
-  const bf16* x;
-  const bf16* res;
-  const bf16* w;
+  const T* x;
+  const T* res;
+  const T* w;
   const float* prm;
   int M, K, N, row0, col0, act;
   __device__ void stage(int buf, int step) const {
     const int k0 = step * kBK;
+    // the chunks a thread stages of a [64][BK] X tile, and as many of the
+    // [BK][64] W tile: 2 in both dtypes (64 bytes a row a step)
 #pragma unroll
-    for (int i = 0; i < kBK / 16; ++i) {
-      const int r = bnmma::rr_row<kBK>(i), c = bnmma::rr_col<kBK>(i);
+    for (int i = 0; i < bnmma::tile_chunks<kBK, T>(); ++i) {
+      const int r = bnmma::rr_row<kBK, T>(i), c = bnmma::rr_col<kBK, T>(i);
       const int m = row0 + r;
-      const int nx = m < M ? bnmma::chunk_len(k0 + c, K) : 0;
+      const int nx = m < M ? bnmma::chunk_len<E>(k0 + c, K) : 0;
       const size_t off = (size_t)m * K + k0 + c;
       bnmma::stage_chunk<VEC>(&sx[buf].v[r][c], nx ? x + off : x, nx);
       if (res != nullptr)
         bnmma::stage_chunk<VEC>(&sr[buf].v[r][c], nx ? res + off : res, nx);
-      const int kr = bnmma::rm_row(i), nc = bnmma::rm_col(i);
+      const int kr = bnmma::rm_row<T>(i), nc = bnmma::rm_col<T>(i);
       const int k = k0 + kr;
-      const int nw = k < K ? bnmma::chunk_len(col0 + nc, N) : 0;
+      const int nw = k < K ? bnmma::chunk_len<E>(col0 + nc, N) : 0;
       bnmma::stage_chunk<VEC>(&sw[buf].v[kr][nc],
                               nw ? w + (size_t)k * N + col0 + nc : w, nw);
     }
@@ -165,7 +136,8 @@ struct MmFwd {
     if (threadIdx.x < 3 * kPrmChunks) {
       const int j = threadIdx.x / kPrmChunks;
       const int c = (threadIdx.x - j * kPrmChunks) * 4;
-      const int n = max(0, min(4, K - (k0 + c)));  // K % 8 == 0 when VEC
+      // K % 4 == 0 when VEC (K whole 16-byte chunks of T), so n is 0 or 4
+      const int n = max(0, min(4, K - (k0 + c)));
       float* dst = &sp[buf][j][c];
       const float* src = prm + (size_t)j * K + k0 + c;
       if constexpr (VEC) {
@@ -177,20 +149,19 @@ struct MmFwd {
     }
   }
   __device__ void post(int buf, int step) const {
-    const int cp = 2 * (threadIdx.x & 15);
+    const int cp = 2 * (threadIdx.x % kPairs), r0 = threadIdx.x / kPairs;
     const float2 mu = *reinterpret_cast<const float2*>(&sp[buf][0][cp]);
     const float2 gi = *reinterpret_cast<const float2*>(&sp[buf][1][cp]);
     const float2 be = *reinterpret_cast<const float2*>(&sp[buf][2][cp]);
 #pragma unroll
-    for (int i = 0; i < bnmma::kBM * kBK / (2 * bnmma::kThreads); ++i) {
-      const int r = (threadIdx.x >> 4) + 8 * i;
-      auto* px = reinterpret_cast<__nv_bfloat162*>(&sx[buf].v[r][cp]);
-      const float2 xf = __bfloat1622float2(*px);
+    for (int i = 0; i < bnmma::kBM / kRows; ++i) {
+      const int r = r0 + kRows * i;
+      T* px = &sx[buf].v[r][cp];
+      const float2 xf = mma::load_pair(px);
       float v0 = pre_act(xf.x, mu.x, gi.x, be.x);
       float v1 = pre_act(xf.y, mu.y, gi.y, be.y);
       if (res != nullptr) {
-        const float2 rf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&sr[buf].v[r][cp]));
+        const float2 rf = mma::load_pair(&sr[buf].v[r][cp]);
         v0 = __fadd_rn(v0, rf.x);
         v1 = __fadd_rn(v1, rf.y);
       }
@@ -198,11 +169,11 @@ struct MmFwd {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
-      *px = __floats2bfloat162_rn(v0, v1);
+      mma::store_pair(px, v0, v1);
     }
   }
-  __device__ const TileRR<kBK>& a(int buf) const { return sx[buf]; }
-  __device__ const TileRM<kBK>& b(int buf) const { return sw[buf]; }
+  __device__ const TileRR<kBK, T>& a(int buf) const { return sx[buf]; }
+  __device__ const TileRM<kBK, T>& b(int buf) const { return sw[buf]; }
 };
 
 // (a) A = dO [M][N] (rows m), B = W [K][N] (rows k), reduction n, 64
@@ -304,14 +275,14 @@ __device__ __forceinline__ Chan chan_or_zero(const float* prm, int K, int k) {
   return k < K ? chan(prm, K, k) : Chan{k, 0.f, 0.f, 0.f};
 }
 
-// K11 bf16. grid: ceil(M / 64) * ceil(N / 64), block b = M tile (b /
-// tiles_n), N tile (b % tiles_n).
-template <bool VEC>
+// K11. grid: ceil(M / 64) * ceil(N / 64), block b = M tile (b / tiles_n),
+// N tile (b % tiles_n).
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(bnmma::kThreads)
-bnmm_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ res,
-             const float* __restrict__ prm, const bf16* __restrict__ w,
-             bf16* __restrict__ out, int M, int K, int N, int act) {
-  using Op = MmFwd<VEC>;
+bnmm_fwd_mma(const T* __restrict__ x, const T* __restrict__ res,
+             const float* __restrict__ prm, const T* __restrict__ w,
+             T* __restrict__ out, int M, int K, int N, int act) {
+  using Op = MmFwd<T, VEC>;
   __shared__ __align__(16) bnmma::OutSmem<typename Op::Ring> sm;
   const int tiles_n = (N + bnmma::kBN - 1) / bnmma::kBN;
   const int mt = blockIdx.x / tiles_n, nt = blockIdx.x - mt * tiles_n;
@@ -367,18 +338,32 @@ bnmm_bwd_dw_mma(const T* __restrict__ x, const T* __restrict__ res,
   bnmma::store_part<VEC>(acc, part + (size_t)z * K * N, row0, K, col0, N);
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 cudaError_t fwd_mma(const void* x, const void* r, const void* prm,
                     const void* w, void* out, int M, int K, int N, int act,
                     cudaStream_t stream) {
   const long long blocks =
       (long long)ceil_div(M, bnmma::kBM) * ceil_div(N, bnmma::kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bnmm_fwd_mma<VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(r),
-      static_cast<const float*>(prm), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), M, K, N, act);
+  bnmm_fwd_mma<T, VEC><<<(int)blocks, bnmma::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const float*>(prm), static_cast<const T*>(w),
+      static_cast<T*>(out), M, K, N, act);
   return cudaGetLastError();
+}
+
+// K11 in T: 16-byte staging and stores (VEC) when every row is whole
+// 16-byte chunks of T and every tensor is 16-byte aligned
+template <typename T>
+cudaError_t dispatch_fwd(const void* x, const void* r, const void* prm,
+                         const void* w, void* out, int M, int K, int N,
+                         int act, cudaStream_t stream) {
+  constexpr int e = 16 / sizeof(T);
+  const bool vec = K % e == 0 && N % e == 0 && mma::aligned16(x) &&
+                   (r == nullptr || mma::aligned16(r)) &&
+                   mma::aligned16(w) && mma::aligned16(out);
+  if (vec) return fwd_mma<T, true>(x, r, prm, w, out, M, K, N, act, stream);
+  return fwd_mma<T, false>(x, r, prm, w, out, M, K, N, act, stream);
 }
 
 template <typename T, bool VEC>
@@ -431,18 +416,6 @@ cudaError_t dispatch_bwd(const void* x, const void* r, const void* prm,
                            gb_part, dgb, M, K, N, splits, chunk, act, stream);
 }
 
-template <typename T>
-cudaError_t fwd(const void* x, const void* r, const void* prm, const void* w,
-                void* out, int M, int K, int N, int act,
-                cudaStream_t stream) {
-  dim3 grid(ceil_div(M, kGM), ceil_div(N, kGN));
-  bnmm_fwd<T><<<grid, kGThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const float*>(prm), static_cast<const T*>(w),
-      static_cast<T*>(out), M, K, N, act);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace ptt
 
@@ -453,15 +426,10 @@ extern "C" int ptt_bn_matmul_fwd(const void* x, const void* r,
                                  int M, int K, int N, int act, int dtype,
                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBFloat16) {
-    // 16-byte staging and stores when every row is whole 16-byte chunks
-    const bool vec = K % 8 == 0 && N % 8 == 0 && ptt::mma::aligned16(x) &&
-                     (r == nullptr || ptt::mma::aligned16(r)) &&
-                     ptt::mma::aligned16(w) && ptt::mma::aligned16(out);
-    if (vec) return ptt::fwd_mma<true>(x, r, prm, w, out, M, K, N, act, s);
-    return ptt::fwd_mma<false>(x, r, prm, w, out, M, K, N, act, s);
-  }
-  return ptt::fwd<float>(x, r, prm, w, out, M, K, N, act, s);
+  if (dtype == ptt::kBFloat16)
+    return ptt::dispatch_fwd<__nv_bfloat16>(x, r, prm, w, out, M, K, N, act,
+                                            s);
+  return ptt::dispatch_fwd<float>(x, r, prm, w, out, M, K, N, act, s);
 }
 
 // As the forward, plus prm4 [4, K] f32 (mean, inv, gamma, beta), dO [M, N];

@@ -1,10 +1,11 @@
 // The tensor-core tile product of the fused BatchNorm -> convolution
-// kernels (bn_matmul.cu: bf16 K11 forward, K12 backward in both dtypes;
-// bn_conv.cu: bf16 K13 forward, K15 backward in both dtypes), built on
-// mma.cuh's products and ldmatrix loads, and the epilogues they share;
-// bn_conv.cu's wide tap product (K14, f32 K13) stages its chunks and runs
-// its bf16 products with these pieces too.  f32 K11 keeps bn_gemm.cuh's
-// CUDA-core product.
+// kernels (bn_matmul.cu: K11 forward and K12 backward; bn_conv.cu: K13
+// forward in bf16 and K15 backward; each in both dtypes unless a dtype is
+// named), built on mma.cuh's products and ldmatrix loads, the epilogues
+// they share, and the BatchNorm prologue pieces and fixed-order partial
+// sums every fused kernel uses (Chan, pre_act, sum_splits); bn_conv.cu's
+// wide tap product (K14, f32 K13) stages its chunks and runs its bf16
+// products with these pieces too.
 //
 // A block of 128 threads (4 warps, 2 x 2) computes one 64 x 64 tile of
 // C = A B in f32 accumulators, each warp a 32 x 32 quarter: 2 x 4 m16n8
@@ -58,10 +59,71 @@
 
 #include <type_traits>
 
-#include "bn_gemm.cuh"
 #include "mma.cuh"
 
 namespace ptt {
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// One channel's forward prologue parameters, from prm [3, K] f32: the
+// batch mean, gamma * rsqrt(var + eps) and beta.
+struct Chan {
+  int k;
+  float mu, gi, b;
+};
+
+__device__ __forceinline__ Chan chan(const float* __restrict__ prm, int K,
+                                     int k) {
+  return {k, __ldg(prm + k), __ldg(prm + K + k), __ldg(prm + 2 * K + k)};
+}
+
+// pre = (x - mu) * gi + b [+ r], each step rounded on its own (the _rn
+// intrinsics are never contracted into an FMA), so it is bit for bit the
+// plain version's chain of elementwise ops: a mask pre > 0 then agrees
+// with it everywhere, even where pre is within a rounding of 0.
+__device__ __forceinline__ float pre_act(float x, float mu, float gi,
+                                         float b) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, mu), gi), b);
+}
+
+namespace {
+
+// out[g * count + e] = sum over s < splits of part[(g * splits + s) *
+// count + e], in a fixed order (bit-reproducible): block (32, 16); lane y
+// sums s = y, y + 16, ..., then lane 0 adds the 16 lane sums in order.
+// grid: (ceil(count / 32), groups).
+template <typename TO>
+__global__ void __launch_bounds__(512)
+sum_splits(const float* __restrict__ part, TO* __restrict__ out,
+           int splits, int count) {
+  __shared__ float lanes[16][33];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  const size_t g = blockIdx.y;
+  float s = 0.f;
+  if (e < count)
+    for (int i = threadIdx.y; i < splits; i += 16)
+      s += part[(g * splits + i) * count + e];
+  lanes[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < count) {
+    float t = 0.f;
+    for (int y = 0; y < 16; ++y) t += lanes[y][threadIdx.x];
+    out[g * count + e] = from_f<TO>(t);
+  }
+}
+
+template <typename TO>
+inline cudaError_t launch_sum_splits(const float* part, TO* out, int groups,
+                                     int splits, int count,
+                                     cudaStream_t stream) {
+  dim3 grid((count + 31) / 32, groups);
+  sum_splits<TO><<<grid, dim3(32, 16), 0, stream>>>(part, out, splits,
+                                                    count);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 namespace bnmma {
 
 using bf16 = __nv_bfloat16;
@@ -433,39 +495,48 @@ struct OutSmem {
 };
 
 // The output epilogue of the forward kernels: the accumulator tile at
-// (row0, col0) of out [rows, cols] bf16 (row stride cols), rounded once
-// to bf16.  The accumulators go to the shared C tile c; then thread tid
-// stores the 8-column chunk (tid % 8) * 8 of rows tid / 8 + 16 i, i < 4:
-// 16 bytes a thread, a row's 128 bytes by 8 neighbouring lanes (element by
-// element, the first chunk_len of the chunk, when not VEC).
-template <bool VEC>
+// (row0, col0) of out [rows, cols] of T (row stride cols), rounded once to
+// T.  The accumulators go to the shared C tile c; then thread tid stores
+// the 16-byte chunk of E columns (E = 8 bf16, 4 f32; CH = 64 / E chunks a
+// row) at (tid % CH) * E of rows tid / CH + (128 / CH) i: a row's 128
+// bytes (bf16) or 256 (f32) by neighbouring lanes (element by element, the
+// first chunk_len of the chunk, when not VEC).  Rows past `rows` are never
+// stored: the forward's A rows there are act(beta - mean * gi), not 0.
+template <bool VEC, typename T>
 __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
                                            float (&c)[kBM][kBN + 8],
-                                           bf16* __restrict__ out, int row0,
+                                           T* __restrict__ out, int row0,
                                            int rows, int col0, int cols) {
+  constexpr int E = 16 / sizeof(T);       // columns a chunk
+  constexpr int CH = kBN / E;             // chunks a row
+  constexpr int kStride = kThreads / CH;  // rows between a thread's rows
   acc_to_smem(acc, c);
   __syncthreads();
-  const int tid = threadIdx.x, cc = (tid & 7) * 8;
-  const int n = chunk_len(col0 + cc, cols);
+  const int tid = threadIdx.x, cc = (tid % CH) * E;
+  const int n = chunk_len<E>(col0 + cc, cols);
   if (n == 0) return;
 #pragma unroll
-  for (int i = 0; i < kBM * 8 / kThreads; ++i) {
-    const int r = (tid >> 3) + 16 * i, row = row0 + r;
+  for (int i = 0; i < kBM / kStride; ++i) {
+    const int r = tid / CH + kStride * i, row = row0 + r;
     if (row >= rows) continue;
-    const float4 a0 = *reinterpret_cast<const float4*>(&c[r][cc]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&c[r][cc + 4]);
     uint4 v;
-    v.x = mma::pack_bf16(a0.x, a0.y);
-    v.y = mma::pack_bf16(a0.z, a0.w);
-    v.z = mma::pack_bf16(a1.x, a1.y);
-    v.w = mma::pack_bf16(a1.z, a1.w);
-    bf16* o = out + (size_t)row * cols + col0 + cc;
+    if constexpr (std::is_same<T, float>::value) {
+      v = *reinterpret_cast<const uint4*>(&c[r][cc]);
+    } else {
+      const float4 a0 = *reinterpret_cast<const float4*>(&c[r][cc]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&c[r][cc + 4]);
+      v.x = mma::pack_bf16(a0.x, a0.y);
+      v.y = mma::pack_bf16(a0.z, a0.w);
+      v.z = mma::pack_bf16(a1.x, a1.y);
+      v.w = mma::pack_bf16(a1.z, a1.w);
+    }
+    T* o = out + (size_t)row * cols + col0 + cc;
     if constexpr (VEC) {
       *reinterpret_cast<uint4*>(o) = v;
     } else {
-      const bf16* vv = reinterpret_cast<const bf16*>(&v);
+      const T* vv = reinterpret_cast<const T*>(&v);
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < E; ++u)
         if (u < n) o[u] = vv[u];
     }
   }

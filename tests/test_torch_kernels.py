@@ -980,6 +980,46 @@ def test_bn_fwd_mma_bodies_match_plain_on_card(cuda_device, kind, shape,
     assert torch.equal(out, again)
 
 
+# The f32 forward on the tensor cores in 3xTF32 (K11, csrc/bn_matmul.cu
+# bnmm_fwd_mma<float>): element-wise staging (a channel count off 16
+# bytes, K or N % 4 != 0, or x and r off 16-byte alignment), a residual,
+# the border case (a channel past K must contribute nothing, and a row
+# past M, whose A row is act(beta - mean * gi), must not be stored), N < 64
+# and N = 96 (a partial second N tile)
+@pytest.mark.parametrize("shape,has_r,act,border,unaligned", [
+    ((37, 18, 22), True, "relu", False, False),
+    ((70, 20, 16), False, "relu", True, False),
+    ((130, 64, 30), True, None, False, False),
+    ((200, 64, 96), True, "relu", False, True),
+    ((130, 128, 64), False, "relu", True, True),
+    ((1000, 256, 96), True, "relu", True, False)])
+def test_bn_fwd_tf32_body_matches_plain_on_card(exact_f32, shape, has_r,
+                                                act, border, unaligned):
+    """f32 K11 against its plain version in f32 (relative to max
+    |value|), one launch a call, and the same bits on a rerun."""
+    cuda_device = exact_f32
+    dtype = torch.float32
+    M, K, N = shape
+    rng = np.random.RandomState(19)
+    x, g, b, mu, var, r = _bn_case(cuda_device, dtype, (M, K), has_r,
+                                   border, sum(shape))
+    if unaligned:
+        x = _off_alignment(x)
+        r = None if r is None else _off_alignment(r)
+    w = torch.from_numpy((rng.randn(K, N) / np.sqrt(K)).astype(
+        np.float32)).to(cuda_device, dtype)
+    fn = t_bnmm.bn_matmul_fwd
+    before = fn.launches
+    out = fn(x, g, b, mu, var, w, r, act)
+    again = fn(x, g, b, mu, var, w, r, act)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 2
+    ref = t_bnmm.bn_matmul_fwd_ref(x, g, b, mu, var, w, r, act)
+    assert out.dtype == dtype and out.shape == ref.shape == (M, N)
+    assert _rel_err(out, ref) <= _CARD_TOL[dtype]
+    assert torch.equal(out, again)
+
+
 # The wide tap product (K14 in both dtypes, f32 K13; csrc/bn_conv.cu
 # bnc_fwd_wide): element-wise staging (a channel count off 16 bytes, or x
 # and r off 16-byte alignment), odd H and W at stride 2, a 200-wide O
