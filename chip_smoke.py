@@ -168,11 +168,44 @@ non-zero and no result line is printed):
     PADDLE_TPU_BNCONV_VARIANT=v2 (K13 0, K14 32 a step), then the program
     built unfused for 2 + 10 steps (no port kernel runs) and the three
     images/s side by side;
-21. summary.
+21. K steps a dispatch (``Executor.run(steps_per_dispatch=K)``, one
+    replay of a captured CUDA graph, ``framework/step_loop.py``), GPT
+    training at the bench width, K = 4, in f32 at batch 2 x 256 and in
+    bf16 at 8 x 1024: from one state, SPREAD_RUNS runs of 4 eager steps
+    (the largest distance between two is the eager spread, printed, of the
+    losses and of each persistable tensor; where they part, the ops whose
+    outputs part first, from a checksum of every op's outputs in two more
+    runs), then from that state the first dispatch (eager), the second
+    (capture, then replay) and a third (replay) against the first eager
+    run: losses within SPREAD_FACTOR of the losses' spread and each tensor
+    within SPREAD_FACTOR of its own, so bitwise where the eager runs agree
+    to the bit; launches at capture K x 16 K4, K x 8
+    K5 and K6, none at a replay; then (bf16) 12 eager and 12 replayed
+    steps, each ending in the loss fetch: step ms, tok/s, peak memory
+    (eager; a replay allocates nothing), the memory reserved, and the
+    graphs' shared pool;
+22. on that GPT, each held as 21 to the spread of eager runs from its
+    own start: ``fetch_every="last"`` (a second key, its own capture),
+    with the graphs' shared pool and the card's reserved memory at one
+    key and at two, and a replay after an eager ``run()`` replaced the
+    scope's state; one executor dispatching a small MLP against two
+    scopes in turn, each equal to the bit to its own eager steps; a small
+    program holding ``uniform_random`` warns naming it, runs its K steps
+    eagerly and equals K runs;
+23. ``DeviceFeeder(steps=4)`` (pinned memory, its own stream) drives two
+    GPT dispatches, held to the spread of eager runs of the same 8 steps
+    against two numpy-fed ones from the same state;
+24. fused ResNet-50 at the bench shape, K = 2, as 21: launches at
+    capture 2 x (K11 68, K12 34, K13 32, K15 16), 12 eager and 12
+    replayed steps; then whether one cooperative launch (K7's persistent
+    body) captures into a graph (one call in a process of its own; a
+    record, not a check);
+25. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
-"train": [...]}`` summary (all 15 kernels) and the last line is ``{"ok": true, "device":
-{...}}``.  Without CUDA the script exits 2 and prints no result.
+"train": [...], "step_loop": [...]}`` summary (all 15 kernels) and the
+last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -182,6 +215,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1035,9 +1069,10 @@ def train_program(seq, dtype):
     return loss, fluid.default_main_program(), startup
 
 
-def train_batch(bs, seq):
-    """bench.py's batch: tokens from RandomState(0), targets shifted."""
-    rng = np.random.RandomState(0)
+def train_batch(bs, seq, seed=0):
+    """bench.py's batch: tokens from RandomState(seed) (bench.py: 0),
+    targets shifted."""
+    rng = np.random.RandomState(seed)
     toks = rng.randint(0, VOCAB, (bs, seq, 1)).astype(np.int64)
     return {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
 
@@ -2137,7 +2172,551 @@ def resnet_bench_phase(card_name, smi):
     return fused, v2, unfused
 
 
-# -- 21. summary --------------------------------------------------------------
+# -- 21-24. K steps a dispatch: the captured step loop -------------------------
+
+# GPT training at the bench shape takes 4 steps a dispatch, ResNet-50 2
+STEP_LOOP_K = {"gpt": 4, "resnet50": 2}
+# timed steps of each route
+STEP_LOOP_TIMED = 12
+# eager runs from one state: the eager spread is the largest distance
+# between any two of them
+SPREAD_RUNS = 6
+# where eager runs from one state part (an op whose sums depend on the
+# order atomics land in), a graph's losses and each state tensor are held
+# to this multiple of their spread: the graph-to-eager distance is a draw
+# from the same spread
+SPREAD_FACTOR = 2.0
+
+
+def persistables(main):
+    return [n for n, v in main.global_block().vars.items() if v.persistable]
+
+
+def snap(names):
+    """The scope's values of `names`, cloned on the card."""
+    scope = fluid.global_scope()
+    return {n: scope.find(n).detach().clone() for n in names}
+
+
+def restore(state):
+    """Replace the scope's entries by copies of `state` (new tensors, as
+    an eager run() or Scope.set leaves them)."""
+    for n, t in state.items():
+        fluid.global_scope().set(n, t.clone())
+
+
+def distance(losses_a, state_a, losses_b, state_b):
+    """Whether two runs agree to the bit, and how far apart they are: the
+    losses' largest relative distance (`loss_rel`), and each state
+    tensor's that differs, as the norm of the difference relative to the
+    tensor's norm (`tensors`; the largest is `state_rel`, in `worst`).
+    The norm sums every element's part, where a largest element
+    difference is one rounding flip (bf16 parameters, Adam's second
+    moments) and jumps by whole units in the last place; that largest,
+    relative to the tensor's max |value|, is `state_max_rel`.  `flips`
+    holds each differing tensor's one flip of its largest element in the
+    same measure: its dtype's eps times its max |value|, over its norm."""
+    la, lb = np.asarray(losses_a, np.float64), np.asarray(losses_b,
+                                                          np.float64)
+    loss_rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    tensors, flips, peak = {}, {}, 0.0
+    for n, b in state_b.items():
+        a = state_a[n]
+        if not torch.equal(a, b):
+            eps = torch.finfo(b.dtype).eps
+            diff, b = a.double() - b.double(), b.double()
+            norm, top = b.norm().clamp_min(1e-30), b.abs().max()
+            tensors[n] = (diff.norm() / norm).item()
+            flips[n] = (eps * top / norm).item()
+            peak = max(peak, (diff.abs().max()
+                              / top.clamp_min(1e-30)).item())
+    worst = max(tensors, key=tensors.get, default=None)
+    return {"bitwise": loss_rel == 0.0 and not tensors, "loss_rel": loss_rel,
+            "state_rel": tensors.get(worst, 0.0), "worst": worst,
+            "state_max_rel": peak, "tensors": tensors, "flips": flips}
+
+
+def eager_runs(exe, main, loss, blocks, k, start):
+    """SPREAD_RUNS runs from `start`, each k eager steps per stacked block
+    of `blocks`: (losses, state) each."""
+    names = list(start)
+    runs = []
+    for _ in range(SPREAD_RUNS):
+        restore(start)
+        losses = []
+        for stacked in blocks:
+            losses += eager_steps(exe, main, loss, stacked, k)
+        runs.append((losses, snap(names)))
+    return runs
+
+
+def spread_of(runs):
+    """The eager spread of runs from one state: the largest distance
+    between any two of them, of the losses and of each state tensor."""
+    pairs = [distance(*a, *b) for i, a in enumerate(runs)
+             for b in runs[i + 1:]]
+    tensors = {}
+    for pair in pairs:
+        for n, d in pair["tensors"].items():
+            tensors[n] = max(tensors.get(n, 0.0), d)
+    worst = max(tensors, key=tensors.get, default=None)
+    return {"runs": len(runs), "bitwise": all(p["bitwise"] for p in pairs),
+            "loss_rel": max(p["loss_rel"] for p in pairs),
+            "state_rel": tensors.get(worst, 0.0), "worst": worst,
+            "state_max_rel": max(p["state_max_rel"] for p in pairs),
+            "tensors": tensors}
+
+
+def brief(d):
+    """A ``distance`` or ``spread_of`` without its per-tensor tables."""
+    return {k: v for k, v in d.items() if k not in ("tensors", "flips")}
+
+
+def hold(tag, what, got, spread):
+    """`got` (a ``distance``) within the eager `spread` (``spread_of``):
+    to the bit where every eager run agrees to the bit; else its losses
+    within SPREAD_FACTOR of the losses' spread, and each state tensor
+    within SPREAD_FACTOR of that tensor's spread or within one rounding
+    flip of its largest element (``distance``'s `flips`), whichever is
+    more: a tensor whose elements part by rare flips (a bf16 bias) has a
+    spread of whichever few elements flipped, and every run that is not
+    bitwise may flip its largest.  Returns `got` in brief, with the
+    largest share of its bound that the losses and a tensor take."""
+    over, share = [], {"loss": 0.0, "state": 0.0}
+    floor = (lambda n: 0.0) if spread["bitwise"] else got["flips"].get
+    for part, n, d, lim in (
+            [("loss", "losses", got["loss_rel"],
+              SPREAD_FACTOR * spread["loss_rel"])]
+            + [("state", n, d, max(SPREAD_FACTOR
+                                   * spread["tensors"].get(n, 0.0),
+                                   floor(n)))
+               for n, d in got["tensors"].items()]):
+        if d > lim:
+            over.append((n, d, lim))
+        if d > 0:
+            share[part] = max(share[part],
+                              d / lim if lim > 0 else float("inf"))
+    if over:
+        raise AssertionError(
+            f"{tag}: {what} is not within {SPREAD_FACTOR} x the spread of "
+            f"{spread['runs']} eager runs; (name, distance, bound): "
+            f"{over[:8]}, {len(over)} in all; {brief(got)}")
+    return {**brief(got), "share_of_bound": share}
+
+
+def bits_sum(t):
+    """An exact checksum of a tensor's bits: its elements read as integers
+    of their width, summed plainly and weighted by position (1 + index mod
+    1021), in int64; the weights catch two changes that cancel in the
+    plain sum (+1 and -1 ulp, as atomics' rounding leaves them)."""
+    t = t.detach().contiguous().view(-1)
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[t.element_size()]
+    v = t.view(as_int).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device) % 1021 + 1
+    return torch.stack([v.sum(), (v * w).sum()])
+
+
+def parting_ops(exe, main, loss, stacked, k, state, show=5):
+    """Where two eager runs of k steps from `state` part: both run with a
+    checksum of every op's outputs, compared op by op in walk order; the
+    first `show` ops whose outputs differ (step, op index, type, and the
+    forward type a ``generic_grad`` re-runs) and how many differ."""
+    runs = []
+    patched = texecutor.Executor.__dict__["_run_op"]
+    inner = patched.__func__
+
+    def checked(op, env, ctx):
+        inner(op, env, ctx)
+        sums = [bits_sum(env[n]) for n in op.output_names()
+                if n and env.get(n) is not None]
+        runs[-1].append((exe._walking[0], op.type,
+                         op.attrs.get("__fwd_type__"),
+                         torch.stack(sums) if sums else None))
+
+    texecutor.Executor._run_op = staticmethod(checked)
+    try:
+        for _ in range(2):
+            restore(state)
+            runs.append([])
+            eager_steps(exe, main, loss, stacked, k)
+    finally:
+        texecutor.Executor._run_op = patched
+    per_step = len(runs[0]) // k
+    parted = [{"step": j // per_step, "op_index": a[0], "op": a[1],
+               "fwd": a[2]}
+              for j, (a, b) in enumerate(zip(*runs))
+              if a[3] is not None and not torch.equal(a[3], b[3])]
+    return {"ops_walked": len(runs[0]), "ops_parted": len(parted),
+            "first": parted[:show]}
+
+
+def eager_steps(exe, main, loss, stacked, k):
+    """`k` run() calls, one slice of the stacked feed each; the losses."""
+    return [float(exe.run(main, feed={n: v[i] for n, v in stacked.items()},
+                          fetch_list=[loss])[0][0]) for i in range(k)]
+
+
+def dispatch(exe, main, loss, stacked, k, fetch_every="all"):
+    out = exe.run(main, feed=stacked, fetch_list=[loss],
+                  steps_per_dispatch=k, fetch_every=fetch_every)[0]
+    return [float(v) for v in np.asarray(out).reshape(-1)]
+
+
+def loop_parity(tag, exe, main, loss, stacked, k, want):
+    """From one state: SPREAD_RUNS eager runs of k steps (their spread;
+    where two part, the ops that part first), then, each from that state
+    and held to the spread against the first eager run, the first
+    dispatch (eager, the warm-up), the second (capture, then replay;
+    launches at capture k x `want`) and a third (a replay alone, after the
+    scope's entries were replaced; no launch)."""
+    names = persistables(main)
+    s0 = snap(names)
+    runs = eager_runs(exe, main, loss, [stacked], k, s0)
+    spread = spread_of(runs)
+    if not spread["bitwise"]:
+        spread["parting"] = parting_ops(exe, main, loss, stacked, k, s0)
+    la, sa = runs[0]
+    restore(s0)
+    lc = dispatch(exe, main, loss, stacked, k)
+    first = hold(tag, "the first (eager) dispatch",
+                 distance(lc, snap(names), la, sa), spread)
+    restore(s0)
+    ld, launches = counted(lambda: dispatch(exe, main, loss, stacked, k))
+    check_launches(tag + " capture", launches,
+                   {n: k * v for n, v in want.items()})
+    replay = hold(tag, "the replay", distance(ld, snap(names), la, sa),
+                  spread)
+    restore(s0)
+    le, again = counted(lambda: dispatch(exe, main, loss, stacked, k))
+    if any(again.values()):
+        raise AssertionError(f"{tag}: a replay made Python launches {again}")
+    replay2 = hold(tag, "the second replay",
+                   distance(le, snap(names), la, sa), spread)
+    return {"k": k, "eager_losses": la, "dispatch1_losses": lc,
+            "replay_losses": ld, "replay2_losses": le,
+            "eager_spread": brief(spread), "dispatch1_vs_eager": first,
+            "replay_vs_eager": replay, "replay2_vs_eager": replay2,
+            "spread_factor": SPREAD_FACTOR,
+            "launches_at_capture": launches}
+
+
+def loop_timing(exe, main, loss, stacked, k, per_step_items):
+    """STEP_LOOP_TIMED eager steps, then as many replayed ones, each ending
+    in the loss fetch; ms a step, items/s, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    for _ in range(STEP_LOOP_TIMED // k):
+        eager_steps(exe, main, loss, stacked, k)
+    eager_s = time.monotonic() - t0
+    peak_eager = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    for _ in range(STEP_LOOP_TIMED // k):
+        dispatch(exe, main, loss, stacked, k)
+    replay_s = time.monotonic() - t0
+    eager_ms = eager_s / STEP_LOOP_TIMED * 1e3
+    replay_ms = replay_s / STEP_LOOP_TIMED * 1e3
+    return {"steps_timed": STEP_LOOP_TIMED, "eager_step_ms": eager_ms,
+            "replay_step_ms": replay_ms, "replay_speedup": eager_ms / replay_ms,
+            "eager_items_s": per_step_items / (eager_ms / 1e3),
+            "replay_items_s": per_step_items / (replay_ms / 1e3),
+            "peak_mem_gb_eager": peak_eager / 1e9,
+            # a replay allocates nothing: its memory is the graph's pool,
+            # reserved since the capture
+            "peak_mem_gb_replay": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "pool_gb": graph_pool_gb(exe)}
+
+
+def gpt_stacked(bs, seq, k):
+    batches = [train_batch(bs, seq, seed=i) for i in range(k)]
+    return {n: np.stack([b[n] for b in batches]) for n in batches[0]}
+
+
+def step_loop_gpt_phase(card_name, smi):
+    """21. GPT training at the bench width and shape (bf16, batch 8 x
+    1024), 4 steps a dispatch: parity of the first dispatch and of a
+    replay with eager steps from the same state, launches at capture,
+    eager against replayed step ms; then the f32 parity shape (batch 2 x
+    256) the same way, which puts the 3xTF32 flash bodies in a graph."""
+    k = STEP_LOOP_K["gpt"]
+    rows = {}
+    for dtype, (bs, seq) in (("float32", (PARITY_BS, PARITY_SEQ)),
+                             ("bfloat16", (TRAIN_BS, TRAIN_SEQ))):
+        loss, main, startup = train_program(seq, dtype)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        stacked = gpt_stacked(bs, seq, k)
+        row = {"dtype": dtype, "bs": bs, "seq": seq,
+               **loop_parity(f"step_loop_gpt_{dtype}", exe, main, loss,
+                             stacked, k, per_step_want())}
+        if dtype == "bfloat16":
+            row.update(loop_timing(exe, main, loss, stacked, k, bs * seq))
+            row["tok_s_eager"] = row.pop("eager_items_s")
+            row["tok_s_replay"] = row.pop("replay_items_s")
+            ctx = {"exe": exe, "main": main, "loss": loss,
+                   "stacked": stacked, "k": k}
+        else:
+            exe.close()
+        rows[dtype] = row
+    res = {"card": card_name, "nvidia_smi": smi, **rows["bfloat16"],
+           "f32_parity": rows["float32"]}
+    log("step_loop_gpt", res)
+    return res, ctx
+
+
+def graph_pool_gb(exe):
+    """GB of the card's memory in the pool `exe`'s graphs share."""
+    pool = exe._graph_pool
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool or ())
+               ) / 1e9 if pool is not None else 0.0
+
+
+def two_scopes_check(k):
+    """A small MLP, f32, on one executor, dispatched against two scopes in
+    turn (for each: an eager dispatch, a capture, two replays): each equals
+    k eager steps of its own from its own state, to the bit, and the two
+    loops share no state buffer."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[64])
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=x, size=256, act="relu")
+        cost = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(input=h, size=10), y))
+        fluid.optimizer.Momentum(learning_rate=0.01,
+                                 momentum=0.9).minimize(cost)
+    startup.random_seed = SEED
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scopes = [fluid.Scope(), fluid.Scope()]
+    exe.run(startup, scope=scopes[0])
+    names = persistables(main)
+    for n in names:
+        t = scopes[0].find(n)
+        scopes[1].set(n, t * 0.5 if t.is_floating_point() else t.clone())
+    rng = np.random.RandomState(SEED)
+    for d in range(4):
+        for j, scope in enumerate(scopes):
+            feed = {"x": rng.randn(k, 32, 64).astype(np.float32),
+                    "y": rng.randint(0, 10, (k, 32, 1)).astype(np.int64)}
+            twin = fluid.Scope()
+            for n in names:
+                twin.set(n, scope.find(n).clone())
+            ref = fluid.Executor(fluid.CUDAPlace(0))
+            want = np.stack([ref.run(main, feed={n: v[i] for n, v in
+                                                 feed.items()},
+                                     fetch_list=[cost], scope=twin)[0]
+                             for i in range(k)])
+            got = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                          steps_per_dispatch=k)[0]
+            if not (np.array_equal(got, want) and all(
+                    torch.equal(scope.find(n), twin.find(n))
+                    for n in names)):
+                raise AssertionError(
+                    f"step_loop_two_scopes: scope {j}, dispatch {d} differs "
+                    f"from its own eager steps")
+    loops = [entry.loop for entry in exe._loops.values()]
+    ptrs = [{t.untyped_storage().data_ptr() for t in loop.state.values()}
+            for loop in loops if loop is not None]
+    if len(ptrs) != 2 or ptrs[0] & ptrs[1]:
+        raise AssertionError(f"step_loop_two_scopes: {len(ptrs)} loops, or "
+                             f"their state buffers overlap")
+    exe.close()
+    return {"scopes": 2, "dispatches_each": 4, "bitwise": True}
+
+
+def step_loop_last_and_unsafe_phase(ctx):
+    """22. On the GPT, each from a state of its own and held to the spread
+    of SPREAD_RUNS eager runs from it: ``fetch_every="last"`` (a second
+    key, its own capture) against the eager runs, with the memory the
+    graphs' shared pool and the card hold while both keys are live; a
+    replay right after an eager run() replaced the scope's state against
+    the eager continuation.  Then two scopes in turn on one executor
+    (``two_scopes_check``), and a small program with ``uniform_random``,
+    which must warn, run its K steps eagerly and equal them."""
+    exe, main, loss, stacked, k = (ctx[n] for n in ("exe", "main", "loss",
+                                                    "stacked", "k"))
+    names = persistables(main)
+    pool_one_key = graph_pool_gb(exe)
+    reserved_one_key = torch.cuda.memory_reserved() / 1e9
+    s0 = snap(names)
+    runs = eager_runs(exe, main, loss, [stacked], k, s0)
+    spread = spread_of(runs)
+    restore(s0)
+    dispatch(exe, main, loss, stacked, k, "last")  # eager: the warm-up
+    restore(s0)
+    last = dispatch(exe, main, loss, stacked, k, "last")  # capture, replay
+    last_vs_eager = hold("step_loop_last", "fetch_every='last'",
+                         distance(last, snap(names), runs[0][0][-1:],
+                                  runs[0][1]), spread)
+    memory = {"keys_live": 2, "pool_gb_one_key": pool_one_key,
+              "pool_gb_two_keys": graph_pool_gb(exe),
+              "reserved_gb_one_key": reserved_one_key,
+              "reserved_gb_two_keys": torch.cuda.memory_reserved() / 1e9}
+
+    exe.run(main, feed={n: v[0] for n, v in stacked.items()},
+            fetch_list=[loss])  # replaces the scope's entries
+    s1 = snap(names)
+    replay = dispatch(exe, main, loss, stacked, k)
+    s_replay = snap(names)
+    runs1 = eager_runs(exe, main, loss, [stacked], k, s1)
+    adopt = hold("step_loop_adopt", "a replay after an eager run()",
+                 distance(replay, s_replay, *runs1[0]), spread_of(runs1))
+    two_scopes = two_scopes_check(k)
+
+    prog = fluid.Program()  # beside the GPT's programs and scope
+    with fluid.program_guard(prog, fluid.Program()):
+        fluid.layers.data(name="x", shape=[3])
+    block = prog.global_block()
+    for n in ("noise", "out"):
+        block.create_var(name=n, shape=(2, 3), dtype="float32")
+    block.append_op("uniform_random", outputs={"Out": ["noise"]},
+                    attrs={"shape": [2, 3], "dtype": "float32"})
+    block.append_op("elementwise_add", inputs={"X": ["x"], "Y": ["noise"]},
+                    outputs={"Out": ["out"]}, attrs={"axis": -1})
+    x = np.random.RandomState(SEED).randn(k, 2, 3).astype(np.float32)
+    noisy = fluid.Executor(fluid.CUDAPlace(0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fused = noisy.run(prog, feed={"x": x}, fetch_list=["out"],
+                          scope=fluid.Scope(), rng_step=3,
+                          steps_per_dispatch=k)[0]
+    said = [str(w.message) for w in caught]
+    if not any("loop-unsafe" in m and "'uniform_random'" in m for m in said):
+        raise AssertionError(f"step_loop_unsafe: no warning naming "
+                             f"uniform_random: {said}")
+    seq = np.stack([fluid.Executor(fluid.CUDAPlace(0)).run(
+        prog, feed={"x": x[i]}, fetch_list=["out"], scope=fluid.Scope(),
+        rng_step=3 + i)[0] for i in range(k)])
+    if not np.array_equal(fused, seq) or any(
+            entry.loop is not None for entry in noisy._loops.values()):
+        raise AssertionError("step_loop_unsafe: the eager K steps differ "
+                             "from K runs, or a loop was captured")
+    res = {"last_vs_eager": last_vs_eager, "last_spread": brief(spread),
+           "memory": memory, "adopt_vs_eager": adopt,
+           "adopt_spread": brief(spread_of(runs1)), "two_scopes": two_scopes,
+           "unsafe_warning": said[0], "unsafe_equal": True}
+    log("step_loop_last_and_unsafe", res)
+    return res
+
+
+def step_loop_feeder_phase(ctx):
+    """23. ``DeviceFeeder(steps=4)`` drives two GPT dispatches from pinned
+    memory on its own stream; from one state, the losses and state equal
+    two numpy-fed dispatches', held to the spread of SPREAD_RUNS eager runs
+    of the same 8 steps from that state."""
+    exe, main, loss, k = (ctx[n] for n in ("exe", "main", "loss", "k"))
+    names = persistables(main)
+    feeder = fluid.DataFeeder(feed_list=["tokens", "targets"],
+                              place=fluid.CUDAPlace(0), program=main)
+    blocks = [gpt_stacked(TRAIN_BS, TRAIN_SEQ, k) for _ in range(2)]
+    blocks[1] = {n: np.roll(v, 1, axis=0) for n, v in blocks[1].items()}
+
+    def reader():
+        for blk in blocks:
+            for i in range(k):
+                yield list(zip(blk["tokens"][i], blk["targets"][i]))
+
+    s0 = snap(names)
+    spread = spread_of(eager_runs(exe, main, loss, blocks, k, s0))
+    restore(s0)
+    fed = []
+    for blk in fluid.DeviceFeeder(feeder, reader, steps=k):
+        if blk["tokens"].device != feeder.place.device:
+            raise AssertionError("DeviceFeeder: a block off the card")
+        fed += dispatch(exe, main, loss, blk, k)
+    s_fed = snap(names)
+    restore(s0)
+    ref = []
+    for blk in blocks:
+        ref += dispatch(exe, main, loss, blk, k)
+    got = hold("step_loop_feeder", "the DeviceFeeder dispatches",
+               distance(fed, s_fed, ref, snap(names)), spread)
+    res = {"dispatches": len(blocks), "k": k, "feeder_losses": fed,
+           "numpy_losses": ref, "feeder_vs_numpy": got,
+           "spread_8_steps": brief(spread)}
+    log("step_loop_feeder", res)
+    return res
+
+
+def step_loop_resnet50_phase(card_name, smi):
+    """24. Fused ResNet-50 at the bench shape (bf16, batch 128, 224 x 224,
+    Momentum(0.1, 0.9)), 2 steps a dispatch: parity as 21, launches of
+    K11-K15 at capture, eager against replayed step ms."""
+    k = STEP_LOOP_K["resnet50"]
+    loss, main, startup = resnet_program(resnet_bench.DEPTH,
+                                         resnet_bench.IMAGE,
+                                         resnet_bench.DTYPE, resnet_bench.LR)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    feeds = [resnet_bench.feed(seed=i) for i in range(k)]
+    stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+    res = {"card": card_name, "nvidia_smi": smi, "fused": True,
+           "bs": resnet_bench.BS, "image": resnet_bench.IMAGE,
+           "dtype": resnet_bench.DTYPE,
+           **loop_parity("step_loop_resnet50", exe, main, loss, stacked, k,
+                         RESNET_WANT[50]),
+           **loop_timing(exe, main, loss, stacked, k, resnet_bench.BS)}
+    res["img_s_eager"] = res.pop("eager_items_s")
+    res["img_s_replay"] = res.pop("replay_items_s")
+    log("step_loop_resnet50", res)
+    exe.close()
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+COOPERATIVE_PROBE = r"""
+import json, torch
+from paddle_tpu_torch.ops.cuda_kernels import lstm
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+B, T, H = 64, 8, 512
+def f(*shape, s):
+    return (torch.randn(*shape, generator=g, device=dev) * s).bfloat16()
+x, h0, c0, w = f(B, T, 4 * H, s=0.3), f(B, H, s=0.2), f(B, H, s=0.2), \
+    f(H, 4 * H, s=0.05)
+lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+want = lstm.lstm_forward(x, h0, c0, w, lengths)
+torch.cuda.synchronize()
+res = {"kernel": "lstm_forward", "route": lstm.route(x), "B": B, "T": T,
+       "H": H, "dtype": "bfloat16", "torch": torch.__version__,
+       "cuda": torch.version.cuda}
+graph = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(graph):
+        got = lstm.lstm_forward(x, h0, c0, w, lengths)
+    graph.replay()
+    torch.cuda.synchronize()
+    res.update(captures=True,
+               equal=all(torch.equal(a, b) for a, b in zip(got, want)))
+except Exception as e:
+    res.update(captures=False, error=f"{type(e).__name__}: {e}"[:600])
+print(json.dumps(res))
+"""
+
+
+def cooperative_capture_probe():
+    """Whether one cooperative launch (K7's persistent body,
+    ``cudaLaunchCooperativeKernel``) captures into a CUDA graph on this
+    toolkit: one call, in a process of its own so that a broken capture
+    cannot touch this one.  A record for the next slice, not a check."""
+    out = subprocess.run([sys.executable, "-c", COOPERATIVE_PROBE],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if out.returncode == 0 and lines else {
+        "captures": None, "returncode": out.returncode,
+        "stderr": out.stderr[-600:]}
+    log("step_loop_cooperative_probe", res)
+    return res
+
+
+# -- 25. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -2192,6 +2771,15 @@ def main():
     r50_parity, r50_v2 = resnet50_parity_phase()
     r18_parity = resnet18_parity_phase()
     r50_fused, r50_fused_v2, r50_unfused = resnet_bench_phase(name, smi)
+    sl_gpt, sl_ctx = step_loop_gpt_phase(name, smi)
+    sl_last = step_loop_last_and_unsafe_phase(sl_ctx)
+    sl_feeder = step_loop_feeder_phase(sl_ctx)
+    sl_ctx["exe"].close()
+    sl_ctx.clear()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    sl_r50 = step_loop_resnet50_phase(name, smi)
+    coop = cooperative_capture_probe()
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -2366,9 +2954,30 @@ def main():
                                   ("resnet50_bench_bf16_v2", r50_fused_v2),
                                   ("resnet50_bench_bf16_unfused",
                                    r50_unfused))]
+    loop_keys = ("k", "replay_vs_eager", "eager_spread",
+                 "launches_at_capture", "eager_step_ms", "replay_step_ms",
+                 "replay_speedup", "peak_mem_gb_eager", "peak_mem_gb_replay",
+                 "reserved_gb", "pool_gb")
+    step_loop_rows = [
+        {"phase": "step_loop_gpt", "dtype": "bfloat16", "bs": TRAIN_BS,
+         "seq": TRAIN_SEQ, **{k: sl_gpt[k] for k in loop_keys},
+         "tok_s_eager": sl_gpt["tok_s_eager"],
+         "tok_s_replay": sl_gpt["tok_s_replay"],
+         "f32_parity": {k: sl_gpt["f32_parity"][k] for k in (
+             "bs", "seq", "replay_vs_eager", "eager_spread",
+             "launches_at_capture")}},
+        {"phase": "step_loop_resnet50", "dtype": resnet_bench.DTYPE,
+         "bs": resnet_bench.BS, **{k: sl_r50[k] for k in loop_keys},
+         "img_s_eager": sl_r50["img_s_eager"],
+         "img_s_replay": sl_r50["img_s_replay"]},
+        {"phase": "step_loop_last_and_unsafe", **sl_last},
+        {"phase": "step_loop_feeder", **{k: sl_feeder[k] for k in (
+            "dispatches", "k", "feeder_vs_numpy", "spread_8_steps")}},
+        {"phase": "step_loop_cooperative_probe", **coop}]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
-                      "train": train_rows}), flush=True)
+                      "train": train_rows, "step_loop": step_loop_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,7 +8,10 @@ Fluid-style usage, on the card unless the caller asks for the CPU:
     exe = fluid.Executor(fluid.CPUPlace())
 
 Training: ``optimizer.Adam(...).minimize(loss)`` appends the desc-level
-backward and the updates; one ``exe.run`` is one step.
+backward and the updates; one ``exe.run`` is one step, and
+``exe.run(steps_per_dispatch=K)`` is K, on the card one replay of a
+captured CUDA graph (``framework/step_loop.py``).  ``reader`` and
+``DataFeeder``/``DeviceFeeder`` feed it.
 
 The JAX package ``paddle_tpu`` is the reference this package is held
 against; nothing here imports it or JAX."""
@@ -16,6 +19,8 @@ against; nothing here imports it or JAX."""
 from . import layers  # noqa: F401
 from . import ops  # noqa: F401  (registers the op emitters)
 from . import optimizer  # noqa: F401
+from . import reader  # noqa: F401
+from .data_feeder import DataFeeder, DeviceFeeder  # noqa: F401
 from .framework import unique_name
 from .framework.core import (  # noqa: F401
     Program,

@@ -1,10 +1,21 @@
 """Dataflow analysis over Program/Block/Operator descs — the part of
 ``paddle_tpu/analysis/dataflow.py`` that the HBM estimate
-(``analysis/memory.py``) calls: the state classification."""
+(``analysis/memory.py``), the executor and the step loop's safety report
+(``framework/step_loop.py``) call: the state classification and the
+nested-block attrs."""
 
 from __future__ import annotations
 
 from typing import List, Tuple
+
+# attr names holding nested-block indices (while/static_rnn/recompute use
+# sub_block; cond uses one per branch)
+SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
+
+
+def sub_block_indices(op) -> List[int]:
+    """Indices of the nested blocks an op's attrs reference, in attr order."""
+    return [op.attrs[key] for key in SUB_BLOCK_ATTRS if key in op.attrs]
 
 
 def state_classes(block, feed_names=(), skip_types=("feed", "fetch")

@@ -5,11 +5,14 @@ The IR is the same desc graph the JAX package builds: layer functions append
 ops and variables, the executor walks a block.  Only the dtype mapping
 differs — bfloat16 maps to ``torch.bfloat16`` — and only the part of the IR
 the serving and training paths use is carried (no JSON/proto
-serialization, no clone).
+serialization, no clone).  Every mutation through the IR's methods bumps
+``Program._version``, and ``_cache_token`` is a never-reused id: together
+they key the executor's captured step loops (``framework/step_loop.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -168,11 +171,13 @@ class Block:
             name = unique_name.generate("tmp")
         v = Variable(self, name, **kw)
         self.vars[name] = v
+        self.program._bump()
         return v
 
     def create_parameter(self, name, shape, dtype, **kw) -> Parameter:
         p = Parameter(self, name, shape, dtype, **kw)
         self.vars[name] = p
+        self.program._bump()
         return p
 
     def var(self, name: str) -> Variable:
@@ -202,15 +207,23 @@ class Block:
         # (ops/registry.py EmitContext.generator)
         op.attrs.setdefault("__uid__", self.program._take_uid())
         self.ops.append(op)
+        self.program._bump()
         return op
 
 
 class Program:
     """A whole model: list of blocks, block 0 is global."""
 
+    # process-wide monotonic id source: unlike id(), tokens are never reused
+    # after garbage collection, so an executor's cached step loop cannot
+    # alias between a dead Program and a new one at the same address
+    _token_counter = itertools.count()
+
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self.current_block_idx = 0
+        self._version = 0  # bumped on mutation; executor cache key component
+        self._cache_token = next(Program._token_counter)
         self._next_uid = 0
         self.random_seed = 0
 
@@ -223,6 +236,20 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None) -> Block:
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
+    def _bump(self):
+        self._version += 1
 
     def __repr__(self):
         return f"Program(blocks={len(self.blocks)}, " \

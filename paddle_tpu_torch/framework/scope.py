@@ -12,6 +12,7 @@ enter the scope.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
@@ -28,8 +29,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class Scope:
+    # never-reused ids, as ``Program._cache_token``: an executor's captured
+    # step loops are keyed by the scope they train, and id() can alias
+    _token_counter = itertools.count()
+
     def __init__(self):
         self._vars: Dict[str, torch.Tensor] = {}
+        self._cache_token = next(Scope._token_counter)
 
     def set(self, name: str, value):
         """Store a tensor by reference.  numpy (or anything ``np.asarray``

@@ -34,5 +34,5 @@ def accuracy(ctx, ins, attrs):
     n = pred.shape[0]
     return {"Accuracy": [(correct / n).reshape(1)],
             "Correct": [correct.to(torch.int64).reshape(1)],
-            "Total": [torch.tensor([n], dtype=torch.int64,
-                                   device=pred.device)]}
+            "Total": [torch.full((1,), n, dtype=torch.int64,
+                                 device=pred.device)]}

@@ -40,6 +40,10 @@ class OpInfo:
     non_diff_inputs: tuple = ()
     # output slots never given cotangents (saved statistics, probabilities)
     non_diff_outputs: tuple = ()
+    # draws from EmitContext.generator, which is seeded on the host per
+    # run: a captured step loop would replay one step's draws K times, so
+    # framework/step_loop.safety_report keeps such a block eager
+    draws_rng: bool = False
 
 
 _REGISTRY: Dict[str, OpInfo] = {}

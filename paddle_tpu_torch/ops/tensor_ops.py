@@ -24,7 +24,7 @@ def fill_constant(ctx, ins, attrs):
                                dtype=dt, device=ctx.device)]}
 
 
-@register_op("uniform_random", grad=None)
+@register_op("uniform_random", grad=None, draws_rng=True)
 def uniform_random(ctx, ins, attrs):
     dt = torch_dtype(attrs.get("dtype", "float32"))
     lo = float(attrs.get("min", -1.0))
@@ -34,7 +34,7 @@ def uniform_random(ctx, ins, attrs):
     return {"Out": [out.to(dt)]}
 
 
-@register_op("gaussian_random", grad=None)
+@register_op("gaussian_random", grad=None, draws_rng=True)
 def gaussian_random(ctx, ins, attrs):
     dt = torch_dtype(attrs.get("dtype", "float32"))
     mean = float(attrs.get("mean", 0.0))

@@ -178,4 +178,5 @@ def _fuse_block(block, limit=None) -> int:
         fused += 1
     if fused:
         block.ops[:] = new_ops
+        block.program._bump()
     return fused
