@@ -200,11 +200,38 @@ non-zero and no result line is printed):
     replayed steps; then whether one cooperative launch (K7's persistent
     body) captures into a graph (one call in a process of its own; a
     record, not a check);
-25. summary.
+25. the training options (``optimizer``, ``regularizer``, ``clip``,
+    ``learning_rate_decay``, ``ModelAverage``): (a) the options GPT
+    (bench.py's model with ``Adam(polynomial_decay(3e-4, 1000, 3e-5),
+    L2Decay(1e-4), global_clip_norm=1.0)``, built through the public
+    API) in f32 at 2 x 256, three card steps against an explicit-CPU
+    executor as in 11, the step-1 learning rate equal on both and to the
+    schedule's f32 closed form; (b) the same in bf16 at 8 x 1024: 10
+    eager steps (K4 16, K5 8, K6 8 each; the loss falls), then from that
+    state the spread of SPREAD_RUNS eager runs of 12 steps, and 3
+    dispatches of K = 4 (launches at capture 4 x the per-step want) whose
+    12 losses and state are held to it and whose 12 learning rates equal
+    the closed form; 12 eager and 12 replayed steps timed beside 21's
+    plain-Adam rows; (c) each of the 9 optimizer classes (Momentum also
+    Nesterov) on a small f32 MLP with both regularizers and every clip
+    kind (a parameter's own by value, by norm and by global norm, the
+    optimizer's global norm, an error clip): losses and every persistable
+    after 3 card steps within 1e-5 of 3 explicit-CPU steps (by norm),
+    then K = 2 dispatches (eager, capture, replay) each equal to the bit
+    to eager steps; (d) ``ModelAverage`` on that MLP under K = 2:
+    ``apply`` (each average its window's mean) and ``restore`` after the
+    first replay, the next replays equal to the bit to eager steps from
+    the raw parameters; (e) the book: fit_a_line on synthetic uci_housing
+    to a loss under 0.1 on the card, recognize_digits' conv net three card
+    steps against the CPU as in 11 (synthetic mnist); (f) a
+    ``print_gradient`` program under K = 2 warns naming ``print`` and
+    equals 2 eager steps to the bit.  The MLP and book paths reach no
+    port kernel and are checked to launch none;
+26. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
-"train": [...], "step_loop": [...]}`` summary (all 15 kernels) and the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+"train": [...], "step_loop": [...], "options": {...}}`` summary (all 15
+kernels) and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits 2 and prints no result.
 """
 
@@ -1102,14 +1129,16 @@ def run_steps(exe, main, loss, feed, n, fetch=(), scope=None):
 
 def parity_run(tag, main, startup, loss, feed, grads, want, shape,
                state_names=(), state_step=3, loss_tol=(1e-4,) * 3,
-               grad_tol=None):
+               grad_tol=None, fetched=None):
     """Three steps of `main` on the card and three on an explicit CPU
     executor from the same numpy state (the card's startup values): each
     step's loss within `loss_tol` relative (1e-4), the step-1 `grads`
     within `grad_tol` of their max |g| (1e-3 each unless the dict says
     otherwise), the persistable `state_names` after step `state_step`
     within 1e-3 of their max |value|, and in every step exactly the
-    launches `want`."""
+    launches `want` (none at all where `want` is empty: a path that
+    reaches no port kernel).  The card's step-1 fetches of `grads` go
+    into the dict `fetched` when one is given."""
     grad_tol = {n: (grad_tol or {}).get(n, 1e-3) for n in grads}
     card = fluid.Executor(fluid.CUDAPlace(0))
     card.run(startup)
@@ -1126,7 +1155,13 @@ def parity_run(tag, main, startup, loss, feed, grads, want, shape,
 
     gpu, gpu_state = steps(card, None)
     for _, _, launches, _ in gpu:
-        check_launches(tag, launches, want)
+        if want:
+            check_launches(tag, launches, want)
+        elif any(launches.values()):
+            raise AssertionError(f"{tag}: a path that reaches no port "
+                                 f"kernel launched {launches}")
+    if fetched is not None:
+        fetched.update(gpu[0][1])
     t0 = time.monotonic()
     cpu_scope = fluid.Scope()
     fluid.load_persistables(main, state, cpu_scope)
@@ -2716,7 +2751,460 @@ def cooperative_capture_probe():
     return res
 
 
-# -- 25. summary --------------------------------------------------------------
+# -- 25. training options -----------------------------------------------------
+
+# the options GPT trains as LM users train it: Adam over a decaying rate,
+# with weight decay and a global-norm clip
+OPT_LR, OPT_DECAY_STEPS, OPT_END_LR = 3e-4, 1000, 3e-5
+OPT_DECAY, OPT_CLIP = 1e-4, 1.0
+OPT_EAGER_STEPS = 10
+OPT_DISPATCHES = 3  # of STEP_LOOP_K["gpt"] steps each: 12 replayed steps
+# the small f32 MLP that every optimizer class trains: the card's state
+# after 3 steps within this of the CPU's, by norm (``distance``'s measure)
+OPT_MLP_TOL = 1e-5
+OPT_MLP_K = 2
+OPT_CLASSES = {
+    "SGD": lambda kw: fluid.optimizer.SGD(0.05, **kw),
+    "Momentum": lambda kw: fluid.optimizer.Momentum(0.02, 0.9, **kw),
+    "Momentum_nesterov": lambda kw: fluid.optimizer.Momentum(
+        0.02, 0.9, use_nesterov=True, **kw),
+    "Adagrad": lambda kw: fluid.optimizer.Adagrad(0.02, **kw),
+    "Adam": lambda kw: fluid.optimizer.Adam(1e-3, **kw),
+    "Adamax": lambda kw: fluid.optimizer.Adamax(1e-3, **kw),
+    "DecayedAdagrad": lambda kw: fluid.optimizer.DecayedAdagrad(0.02, **kw),
+    "RMSProp": lambda kw: fluid.optimizer.RMSProp(1e-3, momentum=0.5, **kw),
+    "Adadelta": lambda kw: fluid.optimizer.Adadelta(**kw),
+}
+
+
+def options_program(seq, dtype):
+    """The options GPT in fresh default programs and scope: bench.py's
+    model (``decoder_lm`` + ``lm_loss`` at the bench width) with
+    ``Adam(polynomial_decay(3e-4, 1000, 3e-5), L2Decay(1e-4),
+    global_clip_norm=1.0)``, built through the public API; returns
+    (loss, learning-rate var, main, startup)."""
+    fluid.reset()
+    tokens = fluid.layers.data("tokens", shape=[seq, 1], dtype="int64")
+    targets = fluid.layers.data("targets", shape=[seq, 1], dtype="int64")
+    logits = transformer.decoder_lm(tokens, VOCAB, DIM, LAYERS, HEADS,
+                                    max_len=seq, dtype=dtype)
+    loss = transformer.lm_loss(logits, targets, dtype=dtype)
+    lr = fluid.learning_rate_decay.polynomial_decay(
+        OPT_LR, decay_steps=OPT_DECAY_STEPS, end_learning_rate=OPT_END_LR)
+    fluid.optimizer.Adam(
+        learning_rate=lr, regularization=fluid.regularizer.L2Decay(OPT_DECAY),
+        global_clip_norm=OPT_CLIP).minimize(loss)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, lr, fluid.default_main_program(), startup
+
+
+def schedule_f32(step):
+    """polynomial_decay at `step` in f32, each op rounded as the port's
+    ops round it: clip, scale (a product, then a sum), pow 1, scale."""
+    f = np.float32
+    frac = f(min(step, OPT_DECAY_STEPS)) * f(-1.0 / OPT_DECAY_STEPS) + f(1.0)
+    return float(frac * f(OPT_LR - OPT_END_LR) + f(OPT_END_LR))
+
+
+def options_parity_phase():
+    """25a. The options GPT in f32 at 2 x 256: parity_run's three card
+    steps against an explicit-CPU executor, the step-1 learning rate equal
+    on both and to the schedule's closed form."""
+    loss, lr, main, startup = options_program(PARITY_SEQ, "float32")
+    params = [p.name for p in main.global_block().all_parameters()]
+    grads = [n + "@GRAD" for n in (params[0], params[4], params[-1])]
+    fetched = {}
+    res = parity_run("options_parity", main, startup, loss,
+                     train_batch(PARITY_BS, PARITY_SEQ), grads + [lr.name],
+                     per_step_want(), {"bs": PARITY_BS, "seq": PARITY_SEQ},
+                     grad_tol={lr.name: 0.0}, fetched=fetched)
+    got = float(fetched[lr.name][0])
+    if got != schedule_f32(1):
+        raise AssertionError(f"options_parity: step-1 learning rate {got!r} "
+                             f"!= the schedule's {schedule_f32(1)!r}")
+    res["lr_step1"] = got
+    return res
+
+
+def options_blocks(k):
+    """OPT_DISPATCHES stacked blocks of k bench batches, seeds 100 on."""
+    out = []
+    for d in range(OPT_DISPATCHES):
+        batches = [train_batch(TRAIN_BS, TRAIN_SEQ, seed=100 + k * d + i)
+                   for i in range(k)]
+        out.append({n: np.stack([b[n] for b in batches])
+                    for n in batches[0]})
+    return out
+
+
+def options_bench_phase(card_name, smi, plain):
+    """25b. The options GPT in bf16 at the bench shape (8 x 1024): 10
+    eager steps (K4/K5/K6 16/8/8 each, the loss falls), then from that
+    state SPREAD_RUNS eager runs of 12 steps (their spread), the key's
+    first dispatch (eager), then 3 dispatches of K = 4 (capture, replays;
+    launches at capture K x the per-step want): their 12 losses and the
+    state held to the spread, their 12 learning rates equal to the
+    schedule's closed form; then 12 eager against 12 replayed steps,
+    beside phase 21's plain-Adam rows (`plain`)."""
+    k = STEP_LOOP_K["gpt"]
+    t0 = time.monotonic()
+    loss, lr, main, startup = options_program(TRAIN_SEQ, "bfloat16")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed,
+                                                OPT_EAGER_STEPS))
+    check_launches("options_bf16", launches,
+                   {n: OPT_EAGER_STEPS * v for n, v in
+                    per_step_want().items()})
+    for _, _, each, _ in steps:
+        check_launches("options_bf16 step", each, per_step_want())
+    losses = [r[0] for r in steps]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"options_bf16: losses {losses} are not finite "
+                             f"or did not fall")
+    names = persistables(main)
+    blocks = options_blocks(k)
+    s0 = snap(names)
+    runs = eager_runs(exe, main, loss, blocks, k, s0)
+    spread = spread_of(runs)
+    restore(s0)
+    exe.run(main, feed=blocks[0], fetch_list=[loss, lr],
+            steps_per_dispatch=k)  # the key's first dispatch: eager
+    restore(s0)
+    outs, at_capture = counted(lambda: [
+        exe.run(main, feed=b, fetch_list=[loss, lr], steps_per_dispatch=k)
+        for b in blocks])
+    check_launches("options_bf16 capture", at_capture,
+                   {n: k * v for n, v in per_step_want().items()})
+    replay_losses = [float(v) for o in outs for v in np.ravel(o[0])]
+    replay_lrs = [float(v) for o in outs for v in np.ravel(o[1])]
+    want_lrs = [schedule_f32(OPT_EAGER_STEPS + i + 1)
+                for i in range(k * OPT_DISPATCHES)]
+    if replay_lrs != want_lrs:
+        raise AssertionError(f"options_bf16: replayed learning rates "
+                             f"{replay_lrs} != the schedule's {want_lrs}")
+    held = hold("options_bf16", f"{k * OPT_DISPATCHES} replayed steps",
+                distance(replay_losses, snap(names), *runs[0]), spread)
+    # the timing's memory is a step's, as phase 21's: no snapshot lives
+    # on, and the timed key (the loss alone) is the executor's only loop
+    del runs, s0, outs
+    exe.close()
+    for _ in range(2):  # the timed key's eager dispatch, then its capture
+        dispatch(exe, main, loss, blocks[0], k)
+    timing = loop_timing(exe, main, loss, blocks[0], k,
+                         TRAIN_BS * TRAIN_SEQ)
+    block = main.global_block()
+    types = [op.type for op in block.ops]
+    res = {"card": card_name, "nvidia_smi": smi, "bs": TRAIN_BS,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16", "k": k,
+           "params": len(block.all_parameters()), "ops": len(types),
+           "ops_by_type": {t: types.count(t) for t in (
+               "squared_l2_norm", "elementwise_mul", "scale", "sum",
+               "increment", "adam")},
+           "startup_s": startup_s, "eager_losses": losses,
+           "eager_step_ms_each": [r[3] * 1e3 for r in steps],
+           "launches_10_steps": launches,
+           "replay_losses": replay_losses, "replay_lrs": replay_lrs,
+           "eager_spread_12_steps": brief(spread), "replay_vs_eager": held,
+           "launches_at_capture": at_capture, **timing,
+           "plain_adam_eager_step_ms": plain["eager_step_ms"],
+           "plain_adam_replay_step_ms": plain["replay_step_ms"],
+           "plain_adam_peak_mem_gb_eager": plain["peak_mem_gb_eager"]}
+    res["tok_s_eager"] = res.pop("eager_items_s")
+    res["tok_s_replay"] = res.pop("replay_items_s")
+    log("options_bench", res)
+    exe.close()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+def options_mlp(name, average=None, print_grad=False, width=128):
+    """A small f32 MLP (64 -> 3 hidden layers -> 10) with every option:
+    the first layer's own L1 decay and clip by value, the second's clip by
+    norm and an error clip on its output, the third's clip by global
+    norm, the optimizer's L2 decay and global-norm clip; `average` adds a
+    ModelAverage window, `print_grad` a print of the second layer's
+    gradient.  Returns (main, startup, cost, ModelAverage or None)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[64])
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=x, size=width, act="relu",
+                            param_attr=fluid.ParamAttr(
+                                gradient_clip=fluid.clip.GradientClipByValue(
+                                    0.01),
+                                regularizer=fluid.regularizer.L1Decay(1e-3)))
+        h = fluid.layers.fc(input=h, size=width, act="tanh",
+                            param_attr=fluid.ParamAttr(
+                                gradient_clip=fluid.clip.GradientClipByNorm(
+                                    0.5)))
+        h.error_clip = fluid.clip.ErrorClipByValue(0.05)
+        h.print_gradient = print_grad
+        h = fluid.layers.fc(
+            input=h, size=width, act="sigmoid", param_attr=fluid.ParamAttr(
+                gradient_clip=fluid.clip.GradientClipByGlobalNorm(0.5)))
+        cost = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            fluid.layers.fc(input=h, size=10), y))
+        OPT_CLASSES[name](dict(
+            regularization=fluid.regularizer.L2Decay(1e-3),
+            global_clip_norm=1.0)).minimize(cost)
+        ma = fluid.optimizer.ModelAverage(max_average_window=average,
+                                          program=main) if average else None
+    startup.random_seed = SEED
+    return main, startup, cost, ma
+
+
+def mlp_feed(rng, lead=(), bs=32):
+    return {"x": rng.randn(*lead, bs, 64).astype(np.float32),
+            "y": rng.randint(0, 10, (*lead, bs, 1)).astype(np.int64)}
+
+
+def state_rel(got, want):
+    """Each tensor's distance by norm, relative to `want`'s norm."""
+    out = {}
+    for n, w in want.items():
+        w = np.asarray(w, np.float64)
+        out[n] = float(np.linalg.norm(np.asarray(got[n], np.float64) - w)
+                       / max(float(np.linalg.norm(w)), 1e-30))
+    return out
+
+
+def twin_scope(main, scope):
+    twin = fluid.Scope()
+    for n in persistables(main):
+        twin.set(n, scope.find(n).clone())
+    return twin
+
+
+def same_bits(main, sa, sb):
+    return all(torch.equal(sa.find(n), sb.find(n)) for n in persistables(main))
+
+
+def k_dispatches(tag, exe, main, cost, scope, rng, dispatches, between=None):
+    """`dispatches` dispatches of OPT_MLP_K steps against `scope` (the
+    first eager, the second captured, the rest replays), each equal to
+    the bit to OPT_MLP_K eager steps of a twin scope from the same state;
+    `between(d)` runs after dispatch d."""
+    k = OPT_MLP_K
+    for d in range(dispatches):
+        feed = mlp_feed(rng, (k,))
+        twin = twin_scope(main, scope)
+        ref = fluid.Executor(fluid.CUDAPlace(0))
+        want = np.stack([ref.run(main, feed={n: v[i] for n, v in
+                                             feed.items()},
+                                 fetch_list=[cost], scope=twin)[0]
+                         for i in range(k)])
+        got = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                      steps_per_dispatch=k)[0]
+        if not (np.array_equal(got, want) and same_bits(main, scope, twin)):
+            raise AssertionError(f"{tag}: dispatch {d} differs from "
+                                 f"{k} eager steps from its state")
+        if between is not None:
+            between(d)
+
+
+def options_mlp_phase():
+    """25c. Every optimizer class with every regularizer and clip kind
+    (``options_mlp``): 3 card steps against 3 explicit-CPU steps from the
+    card's startup state, losses and every persistable within OPT_MLP_TOL;
+    then K = 2 dispatches (eager, capture, replay) each bitwise against
+    eager steps.  No port kernel runs here."""
+    rows = {}
+    for name in OPT_CLASSES:
+        main, startup, cost, _ = options_mlp(name)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        names = persistables(main)
+        cpu_scope = fluid.Scope()
+        fluid.load_persistables(main, {n: scope.find_np(n) for n in names},
+                                cpu_scope)
+        cpu = fluid.Executor(fluid.CPUPlace())
+        rng = np.random.RandomState(SEED)
+        feeds = [mlp_feed(rng) for _ in range(3)]
+        (card_l, cpu_l), launches = counted(lambda: [
+            [float(e.run(main, feed=f, fetch_list=[cost], scope=sc)[0][0])
+             for f in feeds] for e, sc in ((exe, scope), (cpu, cpu_scope))])
+        if any(launches.values()):
+            raise AssertionError(f"options_mlp {name}: launched {launches}")
+        rel = state_rel({n: scope.find_np(n) for n in names},
+                        {n: cpu_scope.find_np(n) for n in names})
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        worst = max(rel, key=rel.get)
+        if loss_rel > OPT_MLP_TOL or rel[worst] > OPT_MLP_TOL:
+            raise AssertionError(
+                f"options_mlp {name}: card and CPU disagree: losses "
+                f"{card_l} vs {cpu_l}, worst state {worst} {rel[worst]}")
+        k_dispatches(f"options_mlp {name}", exe, main, cost, scope,
+                     np.random.RandomState(SEED + 1), 3)
+        exe.close()
+        rows[name] = {"card_losses": card_l, "cpu_losses": cpu_l,
+                      "loss_rel": loss_rel, "state_rel_max": rel[worst],
+                      "worst": worst, "k2_bitwise": True}
+    res = {"tol": OPT_MLP_TOL, "k": OPT_MLP_K, "classes": rows}
+    log("options_mlp", res)
+    return res
+
+
+def options_average_phase():
+    """25d. ModelAverage (window 3) on the options MLP with Adam, K = 2:
+    after the first replay ``apply`` swaps the averages in (each the
+    window sums over the counts) and ``restore`` puts the raw parameters
+    back; the next replays equal eager steps from the raw parameters, to
+    the bit."""
+    main, startup, cost, ma = options_mlp("Adam", average=3)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    seen = {}
+
+    def swap(d):
+        if d != 1:
+            return
+        raw = {p.name: scope.find(p.name).clone() for p in ma._params}
+        with ma.apply(exe, scope=scope):
+            for p in ma._params:
+                acc = ma._accs[p.name]
+                n = sum(float(scope.find(acc[c])[0])
+                        for c in ("num_acc", "old_num_acc"))
+                want = ((scope.find(acc["sum_1"]) + scope.find(acc["sum_2"]))
+                        / n).to(raw[p.name].dtype)
+                if not torch.equal(scope.find(p.name), want):
+                    raise AssertionError(f"options_average: {p.name} is not "
+                                         f"its window's mean")
+            seen["moved"] = not torch.equal(
+                scope.find(ma._params[0].name), raw[ma._params[0].name])
+        if not all(torch.equal(scope.find(n), t) for n, t in raw.items()):
+            raise AssertionError("options_average: restore did not give the "
+                                 "raw parameters back")
+
+    k_dispatches("options_average", exe, main, cost, scope,
+                 np.random.RandomState(SEED + 2), 4, between=swap)
+    exe.close()
+    if not seen.get("moved"):
+        raise AssertionError("options_average: the average equals the raw "
+                             "parameters")
+    res = {"window": 3, "k": OPT_MLP_K, "dispatches": 4,
+           "apply_restore_after_dispatch": 1, "bitwise": True}
+    log("options_average", res)
+    return res
+
+
+def options_print_phase():
+    """25f. The options MLP (width 8, batch 4) with ``print_gradient``:
+    K = 2 warns that the block is loop-unsafe naming its ``print`` op,
+    runs 2 eager steps, and equals 2 eager runs to the bit."""
+    main, startup, cost, _ = options_mlp("SGD", print_grad=True, width=8)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    k = OPT_MLP_K
+    feed = mlp_feed(np.random.RandomState(SEED + 3), (k,), bs=4)
+    twin = twin_scope(main, scope)
+    want = np.stack([fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed={n: v[i] for n, v in feed.items()}, fetch_list=[cost],
+        scope=twin)[0] for i in range(k)])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                      steps_per_dispatch=k)[0]
+    said = [str(w.message) for w in caught]
+    if not any("loop-unsafe" in m and "'print'" in m for m in said):
+        raise AssertionError(f"options_print: no warning naming print: "
+                             f"{said}")
+    if not (np.array_equal(got, want) and same_bits(main, scope, twin)) \
+            or any(e.loop is not None for e in exe._loops.values()):
+        raise AssertionError("options_print: the eager K steps differ from "
+                             "K runs, or a loop was captured")
+    res = {"warning": said[0], "equal": True}
+    log("options_print", res)
+    return res
+
+
+def options_book_phase():
+    """25e. The book paths on the card, data in synthetic mode (a
+    DATA_HOME with nothing in it): fit_a_line's SGD reaches a loss under
+    0.1 in 30 epochs of uci_housing; recognize_digits' conv net (two
+    ``simple_img_conv_pool``, ``cross_entropy``, Adam) gives parity_run's
+    three card steps against the CPU.  Neither reaches a port kernel."""
+    common = fluid.dataset.common
+    home = common.DATA_HOME
+    common.DATA_HOME = os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "_no_dataset_files")
+    try:
+        fluid.reset()
+        x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        cost = fluid.layers.mean(fluid.layers.square_error_cost(
+            input=fluid.layers.fc(input=x, size=1), label=y))
+        fluid.optimizer.SGD(learning_rate=0.05).minimize(cost)
+        fluid.default_startup_program().random_seed = SEED
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(fluid.default_startup_program())
+        samples = list(fluid.dataset.uci_housing.train(n=512)())
+        mode = common.data_mode("uci_housing")
+        xs = np.stack([s[0] for s in samples]).astype(np.float32)
+        ys = np.stack([s[1] for s in samples]).astype(np.float32)
+        ys = ys.reshape(-1, 1) / max(1.0, float(np.abs(ys).max()))
+        losses = []
+        for _ in range(30):
+            for i in range(0, len(xs), 64):
+                out = exe.run(feed={"x": xs[i:i + 64], "y": ys[i:i + 64]},
+                              fetch_list=[cost])
+            losses.append(float(out[0][0]))
+        if mode != "synthetic" or not losses[-1] < 0.1:
+            raise AssertionError(f"fit_a_line ({mode}): losses {losses}")
+
+        fluid.reset()
+        img = fluid.layers.data(name="img", shape=[1, 28, 28])
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=8, pool_size=2,
+            pool_stride=2, act="relu")
+        h = fluid.nets.simple_img_conv_pool(
+            input=h, filter_size=5, num_filters=16, pool_size=2,
+            pool_stride=2, act="relu")
+        prob = fluid.layers.softmax(fluid.layers.fc(input=h, size=10))
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(input=prob,
+                                                            label=label))
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+        startup = fluid.default_startup_program()
+        startup.random_seed = SEED
+        digits = list(fluid.dataset.mnist.train(n=64)())
+        feed = {"img": np.stack([d[0] for d in digits]).reshape(
+                    -1, 1, 28, 28).astype(np.float32),
+                "label": np.array([[d[1]] for d in digits], np.int64)}
+        conv = parity_run("book_conv_parity", fluid.default_main_program(),
+                          startup, loss, feed, ["conv2d_0.w_0@GRAD",
+                                                "fc_0.w_0@GRAD"], {},
+                          {"bs": 64, "image": 28})
+        conv["data_mode"] = common.data_mode("mnist")
+    finally:
+        common.DATA_HOME = home
+    res = {"fit_a_line": {"data_mode": mode, "losses_by_epoch": losses},
+           "recognize_digits_conv": conv}
+    log("options_book", res)
+    return res
+
+
+def options_phase(card_name, smi, plain):
+    """25. the training options, sub-phases a to f."""
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return {"gpt_parity_f32": options_parity_phase(),
+            "gpt_bench_bf16": options_bench_phase(card_name, smi, plain),
+            "mlp_every_class": options_mlp_phase(),
+            "model_average": options_average_phase(),
+            "book": options_book_phase(),
+            "print": options_print_phase()}
+
+
+# -- 26. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -2780,6 +3268,7 @@ def main():
     torch.cuda.empty_cache()
     sl_r50 = step_loop_resnet50_phase(name, smi)
     coop = cooperative_capture_probe()
+    opts = options_phase(name, smi, sl_gpt)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -2794,7 +3283,9 @@ def main():
                "resnet18_f32_per_step": r18_parity["launches_per_step"],
                "resnet50_bf16_10_steps": r50_fused["launches"],
                "resnet50_v2_bf16_10_steps": r50_fused_v2["launches"],
-               "resnet50_unfused_bf16_10_steps": r50_unfused["launches"]}
+               "resnet50_unfused_bf16_10_steps": r50_unfused["launches"],
+               "gpt_options_bf16_10_steps":
+                   opts["gpt_bench_bf16"]["launches_10_steps"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -2974,9 +3465,32 @@ def main():
         {"phase": "step_loop_feeder", **{k: sl_feeder[k] for k in (
             "dispatches", "k", "feeder_vs_numpy", "spread_8_steps")}},
         {"phase": "step_loop_cooperative_probe", **coop}]
+    ob = opts["gpt_bench_bf16"]
+    options_rows = {
+        "gpt_parity_f32": {k: opts["gpt_parity_f32"][k] for k in (
+            "bs", "seq", "gpu_losses", "cpu_losses", "loss_rel_err",
+            "grad_rel_err_step1", "launches_per_step", "lr_step1")},
+        "gpt_bench_bf16": {k: ob[k] for k in (
+            "bs", "seq", "k", "params", "ops", "eager_losses",
+            "replay_vs_eager", "eager_spread_12_steps",
+            "launches_at_capture", "eager_step_ms", "replay_step_ms",
+            "plain_adam_eager_step_ms", "plain_adam_replay_step_ms",
+            "peak_mem_gb_eager", "plain_adam_peak_mem_gb_eager",
+            "tok_s_eager", "tok_s_replay")},
+        "mlp_every_class": {n: {k: r[k] for k in ("loss_rel",
+                                                   "state_rel_max")}
+                            for n, r in opts["mlp_every_class"][
+                                "classes"].items()},
+        "model_average": opts["model_average"],
+        "book": {"fit_a_line_last_loss":
+                 opts["book"]["fit_a_line"]["losses_by_epoch"][-1],
+                 "conv_loss_rel_err": opts["book"][
+                     "recognize_digits_conv"]["loss_rel_err"]},
+        "print": opts["print"]}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
-                      "train": train_rows, "step_loop": step_loop_rows}),
+                      "train": train_rows, "step_loop": step_loop_rows,
+                      "options": options_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,8 +7,12 @@ Fluid-style usage, on the card unless the caller asks for the CPU:
     exe = fluid.Executor()              # CUDAPlace(0); raises without CUDA
     exe = fluid.Executor(fluid.CPUPlace())
 
-Training: ``optimizer.Adam(...).minimize(loss)`` appends the desc-level
-backward and the updates; one ``exe.run`` is one step, and
+Training: ``optimizer.Adam(...).minimize(loss)`` (or SGD, Momentum,
+Adagrad, Adamax, DecayedAdagrad, RMSProp, Adadelta) appends the
+desc-level backward, the gradient clips (``clip``), the weight decay
+(``regularizer``) and the updates, with a constant learning rate or a
+schedule (``learning_rate_decay``); ``optimizer.ModelAverage`` keeps
+windowed parameter averages.  One ``exe.run`` is one step, and
 ``exe.run(steps_per_dispatch=K)`` is K, on the card one replay of a
 captured CUDA graph (``framework/step_loop.py``).  ``reader`` and
 ``DataFeeder``/``DeviceFeeder`` feed it.
@@ -19,9 +23,15 @@ against; nothing here imports it or JAX."""
 from . import layers  # noqa: F401
 from . import ops  # noqa: F401  (registers the op emitters)
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
+from . import nets  # noqa: F401
+from . import learning_rate_decay  # noqa: F401
+from . import dataset  # noqa: F401
 from . import reader  # noqa: F401
 from .data_feeder import DataFeeder, DeviceFeeder  # noqa: F401
 from .framework import unique_name
+from .framework.backward import append_backward, calc_gradient  # noqa: F401
 from .framework.core import (  # noqa: F401
     Program,
     default_main_program,
@@ -31,6 +41,7 @@ from .framework.core import (  # noqa: F401
     switch_startup_program,
 )
 from .framework.executor import Executor  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework.scope import (  # noqa: F401
     Scope,

@@ -6,8 +6,10 @@ for grad op descs, accumulates duplicate gradients with `sum` ops, and
 appends the grad ops to the same block.  The program this builds is the
 JAX package's op for op; each grad op's computation comes from the port's
 registry (``generic_grad``: autograd over a re-run of the forward
-emitter).  ``calc_gradient`` and the print / error-clip hooks of a
-variable are not ported yet.
+emitter).  Where a variable's gradient materializes, a variable marked
+``print_gradient`` gets a ``print`` of it and one with an ``error_clip``
+(``clip.ErrorClipByValue``) gets its clip, before any upstream grad op
+reads it.  ``calc_gradient`` is not ported (ROADMAP.md Queue A item 4).
 """
 
 from __future__ import annotations
@@ -62,8 +64,11 @@ def append_backward(
     loss: Variable,
     parameter_list: Optional[List[str]] = None,
     no_grad_set: Optional[Set[str]] = None,
+    callbacks=None,
 ):
-    """Append grad ops for `loss` to its block; returns [(param, grad_var)]."""
+    """Append grad ops for `loss` to its block; returns [(param, grad_var)].
+    Each of `callbacks` is called as ``cb(block, {"grad_names": [...]})``
+    once the gradients have materialized (``clip.error_clip_callback``)."""
     block = loss.block
     no_grad = set(no_grad_set or ())
     for v in block.vars.values():
@@ -102,12 +107,6 @@ def append_backward(
         gname = grad_var_name(name)
         if name in finalized:
             return gname
-        v = block._find_var_recursive(name)
-        for hook in ("print_gradient", "error_clip"):
-            if getattr(v, hook, None):
-                raise NotImplementedError(
-                    f"variable {name!r} asks for {hook}, which the port does "
-                    f"not carry yet (ROADMAP.md Queue A item 4)")
         if len(parts) == 1:
             if parts[0] != gname:
                 _ensure_grad_var(block, name, gname)
@@ -120,6 +119,15 @@ def append_backward(
                 "sum", inputs={"X": list(parts)}, outputs={"Out": [gname]}
             )
         finalized.add(name)
+        v = block._find_var_recursive(name)
+        if v is not None and getattr(v, "print_gradient", False):
+            block.append_op(
+                "print", inputs={"X": [gname]}, outputs={"Out": [gname]},
+                attrs={"message": f"{gname}: "})
+        ec = getattr(v, "error_clip", None) if v is not None else None
+        if ec is not None:
+            ec.append_clip_op(block, gname)
+            v._error_clip_applied = True
         return gname
 
     def record(name: str, grad_name: str):
@@ -197,4 +205,18 @@ def append_backward(
                 feed_grads += 1
     if not result and not feed_grads:
         raise ValueError("append_backward produced no parameter gradients")
+    if callbacks:
+        grad_names = [grad_var_name(p.name) for p, _ in result]
+        grad_names += [grad_var_name(v.name) for v in block.vars.values()
+                       if v.is_data and not v.stop_gradient
+                       and grad_var_name(v.name) in block.vars]
+        for cb in callbacks:
+            cb(block, {"grad_names": grad_names})
     return result
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Not ported: the JAX package's vector-Jacobian product of arbitrary
+    targets and inputs."""
+    raise NotImplementedError(
+        "calc_gradient is not ported yet (ROADMAP.md Queue A item 4)")

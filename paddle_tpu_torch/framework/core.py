@@ -5,13 +5,14 @@ The IR is the same desc graph the JAX package builds: layer functions append
 ops and variables, the executor walks a block.  Only the dtype mapping
 differs — bfloat16 maps to ``torch.bfloat16`` — and only the part of the IR
 the serving and training paths use is carried (no JSON/proto
-serialization, no clone).  Every mutation through the IR's methods bumps
-``Program._version``, and ``_cache_token`` is a never-reused id: together
-they key the executor's captured step loops (``framework/step_loop.py``).
+serialization; ``clone`` copies in memory).  Every mutation through the
+IR's methods bumps ``Program._version``, and ``_cache_token`` is a
+never-reused id: together they key the executor's captured step loops (``framework/step_loop.py``).
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 from typing import Any, Dict, List, Optional
 
@@ -250,6 +251,30 @@ class Program:
 
     def _bump(self):
         self._version += 1
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy with its own blocks, variables and ops (the variables
+        keep every attribute: regularizer, clip, accumulator owner); with
+        `for_test`, batch_norm and dropout ops get ``is_test``."""
+        p = Program()
+        p.blocks = []
+        for b in self.blocks:
+            nb = Block(p, b.idx, b.parent_idx)
+            for name, v in b.vars.items():
+                nv = copy.copy(v)
+                nv.block = nb
+                nb.vars[name] = nv
+            for op in b.ops:
+                nop = Operator(nb, op.type, op.inputs, op.outputs,
+                               copy.deepcopy(op.attrs))
+                if for_test and op.type in ("dropout", "batch_norm"):
+                    nop.attrs["is_test"] = True
+                nb.ops.append(nop)
+            p.blocks.append(nb)
+        p.current_block_idx = self.current_block_idx
+        p._next_uid = self._next_uid
+        p.random_seed = self.random_seed
+        return p
 
     def __repr__(self):
         return f"Program(blocks={len(self.blocks)}, " \

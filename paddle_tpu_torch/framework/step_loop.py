@@ -68,10 +68,12 @@ def safety_report(program, block_id: int = 0) -> dict:
     Returns ``{"safe": bool, "reasons": [str, ...]}``.  Unsafe programs
     make ``Executor.run(steps_per_dispatch=K)`` fall back LOUDLY to K
     sequential steps (same results, none of the overhead amortization).
-    Besides the JAX package's reasons (host I/O, nested blocks), an op
-    that draws from ``EmitContext.generator`` is unsafe here: that
+    Besides the JAX package's reasons (host I/O, nested blocks), two are
+    the port's own: an op that draws from ``EmitContext.generator`` (that
     generator is seeded on the host from (seed, step, uid), so a graph
-    would replay one step's draws K times."""
+    would replay one step's draws K times), and a ``print`` op, which
+    reads its tensor on the host (``jax.debug.print`` runs inside the
+    JAX package's compiled loop; a graph would print nothing)."""
     from ..analysis import dataflow
 
     block = program.blocks[block_id]
@@ -85,6 +87,10 @@ def safety_report(program, block_id: int = 0) -> dict:
             reasons.append(
                 f"op #{i} {op.type!r}: nested control-flow block "
                 f"(data-dependent trip count/shape)")
+        elif op.type == "print":
+            reasons.append(
+                f"op #{i} 'print': reads its tensor on the host each step "
+                f"(a captured loop would print nothing)")
         elif _draws_rng(op):
             reasons.append(
                 f"op #{i} {op.type!r}: draws from a generator seeded on "

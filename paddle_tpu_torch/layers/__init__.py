@@ -2,6 +2,7 @@ from .nn import (  # noqa: F401
     accuracy,
     batch_norm,
     conv2d,
+    cross_entropy,
     data,
     embedding,
     fc,
@@ -11,8 +12,11 @@ from .nn import (  # noqa: F401
     pool2d,
     softmax,
     softmax_with_cross_entropy,
+    square_error_cost,
     topk,
 )
+from .ops import *  # noqa: F401,F403
+from .control_flow import increment  # noqa: F401
 from .fluid_compat import create_parameter  # noqa: F401
 from .sequence import (  # noqa: F401
     dynamic_gru,
@@ -30,5 +34,6 @@ from .tensor import (  # noqa: F401
     concat,
     elementwise_add,
     reshape,
+    scale,
     transpose,
 )

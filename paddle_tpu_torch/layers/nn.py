@@ -1,6 +1,6 @@
 """Layer functions building ops into the default main program — the part
-of ``paddle_tpu/layers/nn.py`` that ``decoder_lm``, ``lm_loss`` and ResNet
-build.
+of ``paddle_tpu/layers/nn.py`` that ``decoder_lm``, ``lm_loss``, ResNet
+and the book's fit_a_line and recognize_digits build.
 They only append descs; which ops have torch emitters is the registry's
 business."""
 
@@ -179,6 +179,31 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
                      attrs={"shape": [0, 0, D]})
     out = fc(merged, D, num_flatten_dims=2, bias_attr=False)
     return propagate_length(queries, out)
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("elementwise_sub",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [minus_out.name]}, attrs={"axis": -1})
+    sq = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("square", inputs={"X": [minus_out.name]},
+                     outputs={"Out": [sq.name]})
+    return sq
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(
+        input.dtype, shape=tuple(input.shape[:-1]) + (1,))
+    helper.append_op(
+        "cross_entropy",
+        inputs={"X": [input.name], "Label": [label.name]},
+        outputs={"Y": [out.name]},
+        attrs={"soft_label": soft_label},
+    )
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False):

@@ -1,6 +1,6 @@
 """Tensor-building layer functions, the part of
 ``paddle_tpu/layers/tensor.py`` that the ported models build: cast,
-concat, reshape, transpose, elementwise_add."""
+concat, reshape, transpose, scale and the elementwise ops."""
 
 from __future__ import annotations
 
@@ -44,9 +44,22 @@ def transpose(x, perm, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
+def scale(x, scale=1.0, bias=0.0, name=None):
+    helper = LayerHelper("scale", name=name)
     out = helper.create_tmp_variable(x.dtype, shape=x.shape)
-    helper.append_op("elementwise_add", inputs={"X": [x.name], "Y": [y.name]},
+    helper.append_op("scale", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"scale": scale, "bias": bias})
+    return out
+
+
+def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
                      outputs={"Out": [out.name]}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_add", x, y, axis, act, name)

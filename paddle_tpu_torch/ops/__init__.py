@@ -3,6 +3,7 @@
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
+    control_flow_ops,
     loss_ops,
     math_ops,
     nn_ops,

@@ -1,5 +1,6 @@
-"""``softmax_with_cross_entropy`` and ``accuracy``, the port of their
-emitters in ``paddle_tpu/ops/loss_ops.py``: hard or soft labels;
+"""``cross_entropy``, ``softmax_with_cross_entropy`` and ``accuracy``, the
+port of their emitters in ``paddle_tpu/ops/loss_ops.py``: hard labels
+(int64, gathered as indices) or soft ones;
 ``Label`` takes no grad and ``Softmax`` no cotangent; ``accuracy`` is a
 metric, not differentiated."""
 
@@ -8,6 +9,21 @@ from __future__ import annotations
 import torch
 
 from .registry import register_op
+
+
+@register_op("cross_entropy", non_diff_inputs=("Label",))
+def cross_entropy(ctx, ins, attrs):
+    """-log of the label's probability (X holds probabilities), with the
+    JAX emitter's 1e-8 inside the log."""
+    x = ins["X"][0]
+    label = ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        idx = label.reshape(x.shape[:-1] + (1,)).long()
+        loss = -torch.log(x.gather(-1, idx) + eps)
+    return {"Y": [loss]}
 
 
 @register_op("softmax_with_cross_entropy", non_diff_inputs=("Label",),

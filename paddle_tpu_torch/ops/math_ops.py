@@ -1,9 +1,16 @@
 """Math ops, the port of the part of ``paddle_tpu/ops/math_ops.py`` that
-the LM tower and its backward use: elementwise_add/sub/mul/div with the
+the models, the regularizers, the gradient clips and the learning-rate
+schedules use: elementwise_add/sub/mul/div/pow/max/min with the
 reference's ``axis`` broadcast (y's shape aligns to x starting at `axis`,
-default -1 = trailing alignment), the flattening matmul ``mul``, ``sum``
-and ``mean``.  The GEMMs go to ``torch.matmul`` (cuBLAS on the card), as
-the JAX package leaves them to XLA."""
+default -1 = trailing alignment), the flattening matmul ``mul``, ``sum``,
+``mean``, ``scale``, ``sign``, ``clip``, ``clip_by_norm`` and
+``squared_l2_norm``.  The GEMMs go to ``torch.matmul`` (cuBLAS on the
+card), as the JAX package leaves them to XLA.
+
+Dtypes follow the JAX ops: a bf16 gradient times an f32 ``[1]`` scale is
+f32, ``squared_l2_norm`` sums in its input's dtype, and ``maximum`` and
+``minimum`` split the gradient at a tie, as ``jnp.maximum`` does.
+``clip_by_norm`` chooses with ``torch.where``, on the device."""
 
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ import math
 
 import torch
 
+from .activation_ops import jclip
 from .registry import register_op
 
 
@@ -41,6 +49,9 @@ for _name, _fn in [
     ("elementwise_sub", torch.sub),
     ("elementwise_mul", torch.mul),
     ("elementwise_div", torch.div),
+    ("elementwise_pow", torch.pow),
+    ("elementwise_max", torch.maximum),
+    ("elementwise_min", torch.minimum),
 ]:
     register_op(_name, _ew(_fn))
 
@@ -70,3 +81,36 @@ def sum_op(ctx, ins, attrs):
 @register_op("mean")
 def mean(ctx, ins, attrs):
     return {"Out": [ins["X"][0].mean().reshape(1)]}
+
+
+@register_op("scale")
+def scale(ctx, ins, attrs):
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [ins["X"][0] * s + b]}
+    return {"Out": [(ins["X"][0] + b) * s]}
+
+
+@register_op("sign")
+def sign(ctx, ins, attrs):
+    return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@register_op("clip")
+def clip(ctx, ins, attrs):
+    return {"Out": [jclip(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    mn = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    return {"Out": [torch.where(norm > mn, x * (mn / norm), x)]}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.sum(x * x).reshape(1)]}

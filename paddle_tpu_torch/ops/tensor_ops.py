@@ -1,15 +1,19 @@
 """Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
 that the startup program, the LM tower, the recurrent models and ResNet
 use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
-reshape, transpose, slice, lookup_table and top_k.  Random ops draw from the
-context's per-op generator, on the context's device.  Shape ops may return
-views of their input; no emitter writes into an input."""
+reshape, transpose, slice, lookup_table, top_k, and the training options'
+print, increment and pruning_mask.  Random ops draw from the context's
+per-op generator, on the context's device.  Shape ops may return views of
+their input; no emitter writes into an input.  ``print`` reads its tensor
+on the host, so a block holding it never rides a captured step loop
+(``framework/step_loop.safety_report``)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..framework.core import torch_dtype
+from ..framework.scope import to_numpy
 from .registry import register_op
 
 
@@ -83,14 +87,35 @@ def slice_op(ctx, ins, attrs):
     return {"Out": [x[tuple(idx)]]}
 
 
+class _Gather(torch.autograd.Function):
+    """``w.index_select(0, flat)`` whose backward sums the rows'
+    cotangents into dW by ``index_put_(accumulate=True)``: on the card
+    that sorts the ids and adds each row's cotangents in one order, where
+    autograd's ``index_add_`` adds them by atomics in whatever order the
+    warps land, so two runs (or a replay and an eager run) from one state
+    part.  XLA's scatter-add gives the JAX package one order too."""
+
+    @staticmethod
+    def forward(ctx, w, flat):
+        ctx.save_for_backward(flat)
+        ctx.w_shape = w.shape
+        return w.index_select(0, flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        dw = g.new_zeros(ctx.w_shape).index_put_((flat,), g, accumulate=True)
+        return dw, None
+
+
 @register_op("lookup_table", non_diff_inputs=("Ids",))
 def lookup_table(ctx, ins, attrs):
-    """Embedding lookup.  Its grad (autograd of ``index_select``) is a
-    scatter-add into W, with atomics on the card."""
+    """Embedding lookup; its grad is ``_Gather``'s deterministic
+    scatter-add into W."""
     w = ins["W"][0]
     ids = ins["Ids"][0]
     flat = ids.reshape(-1).long()
-    emb = w.index_select(0, flat)
+    emb = _Gather.apply(w, flat)
     pad = attrs.get("padding_idx")
     if pad is not None and pad >= 0:
         emb = torch.where((flat == int(pad))[:, None],
@@ -110,3 +135,35 @@ def top_k(ctx, ins, attrs):
     k = int(attrs["k"])
     vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}
+
+
+@register_op("print")
+def print_op(ctx, ins, attrs):
+    """Debug print: passes its input through and prints it, after
+    ``message``, unless ``print_phase`` is ``"none"``."""
+    x = ins["X"][0]
+    if attrs.get("print_phase", "forward") != "none":
+        print(f"{attrs.get('message', '')}{to_numpy(x)}", flush=True)
+    return {"Out": [x]}
+
+
+@register_op("increment")
+def increment(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] + attrs.get("step", 1.0)]}
+
+
+@register_op("pruning_mask", grad=None)
+def pruning_mask(ctx, ins, attrs):
+    """A static pruning mask from a parameter's magnitudes: the smallest
+    ``sparsity_ratio`` of them by count get 0, the rest 1 (f32).  The sort
+    is stable, so among equal magnitudes the lowest indices are pruned
+    first, as ``jnp.argsort`` orders them."""
+    x = ins["X"][0].float()
+    ratio = float(attrs.get("sparsity_ratio", 0.5))
+    absx = torch.abs(x).reshape(-1)
+    n = absx.shape[0]
+    k = int(max(0.0, min(1.0, ratio)) * n)
+    order = torch.argsort(absx, stable=True)
+    mask = torch.zeros(n, dtype=torch.float32, device=x.device)
+    mask[order[k:]] = 1.0
+    return {"Out": [mask.reshape(x.shape)]}

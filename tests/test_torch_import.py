@@ -52,6 +52,16 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.reader.decorator\n"
         "import paddle_tpu_torch.reader.creator\n"
         "import paddle_tpu_torch.data_feeder\n"
+        "import paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.clip\n"
+        "import paddle_tpu_torch.learning_rate_decay\n"
+        "import paddle_tpu_torch.nets\n"
+        "import paddle_tpu_torch.dataset.common\n"
+        "import paddle_tpu_torch.dataset.mnist\n"
+        "import paddle_tpu_torch.dataset.uci_housing\n"
+        "import paddle_tpu_torch.ops.control_flow_ops\n"
+        "import paddle_tpu_torch.layers.ops\n"
+        "import paddle_tpu_torch.layers.control_flow\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
@@ -80,12 +90,21 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
                         hits.append(f"{os.path.relpath(path, _REPO)}: "
                                     f"{m.group(0).strip()}")
     assert not hits, hits
-    # the step loop and the data plane are among the scanned modules
+    # the step loop, the data plane and the training options are among
+    # the scanned modules
     assert {os.path.join("framework", "step_loop.py"),
             os.path.join("reader", "__init__.py"),
             os.path.join("reader", "decorator.py"),
             os.path.join("reader", "creator.py"),
-            "data_feeder.py"} <= scanned
+            "data_feeder.py", "regularizer.py", "clip.py",
+            "learning_rate_decay.py", "nets.py",
+            os.path.join("dataset", "__init__.py"),
+            os.path.join("dataset", "common.py"),
+            os.path.join("dataset", "mnist.py"),
+            os.path.join("dataset", "uci_housing.py"),
+            os.path.join("ops", "control_flow_ops.py"),
+            os.path.join("layers", "ops.py"),
+            os.path.join("layers", "control_flow.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():

@@ -184,3 +184,38 @@ def test_capture_error_names_the_op_and_is_not_retried(cuda_device,
         with pytest.raises(step_loop.StepLoopError, match="'mean'"):
             exe.run(main, feed=_feeds(), fetch_list=[loss],
                     steps_per_dispatch=K)
+
+
+def test_embedding_backward_is_the_same_bits_every_run(cuda_device):
+    """``lookup_table``'s grad adds each row's cotangents in one order
+    (``index_put_`` with ``accumulate``, sorted by row), so 8,192 bf16
+    tokens into 512 rows, many to a row, give the same dW every run: what
+    lets a replay of the bf16 GPT equal its eager steps to the bit."""
+    info = registry.get_op_info("lookup_table")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn(512, 64, device=cuda_device, generator=gen).bfloat16()
+    ids = torch.randint(0, 512, (8, 1024, 1), device=cuda_device,
+                        generator=gen)
+    ct = torch.randn(8, 1024, 64, device=cuda_device,
+                     generator=gen).bfloat16()
+    ctx = registry.EmitContext(cuda_device, is_test=False)
+    attrs = {"__fwd_type__": "lookup_table",
+             "__fwd_attrs__": {"padding_idx": -1},
+             "__fwd_input_slots__": ["Ids", "W"],
+             "__fwd_output_slots__": ["Out"], "__wanted__": {("W", 0)}}
+    out = info.emit(ctx, {"W": [w], "Ids": [ids]}, {"padding_idx": -1})
+    grad = registry.get_op_info("generic_grad").emit
+    runs = [grad(ctx, {"W": [w], "Ids": [ids], "Out": out["Out"],
+                       "Out@GRAD": [ct]}, attrs)["W@GRAD"][0]
+            for _ in range(5)]
+    for dw in runs[1:]:
+        assert torch.equal(dw, runs[0])
+    # against the float64 sum: each of a row's n bf16 additions rounds by
+    # at most 2^-9 of a partial sum, itself at most the row's sum of |ct|
+    flat_ids, rows = ids.reshape(-1), ct.reshape(-1, 64).double()
+    want = torch.zeros(512, 64, dtype=torch.float64,
+                       device=cuda_device).index_add_(0, flat_ids, rows)
+    mag = torch.zeros_like(want).index_add_(0, flat_ids, rows.abs())
+    n = torch.bincount(flat_ids, minlength=512).double()[:, None]
+    assert bool(((runs[0].double() - want).abs()
+                 <= n * mag * 2.0 ** -9).all())

@@ -405,7 +405,9 @@ def test_unported_options_raise():
         ttransformer.decoder_lm(toks, V, D, L, NH, T, dropout_prob=0.1)
     with pytest.raises(NotImplementedError, match="remat"):
         ttransformer.decoder_lm(toks, V, D, L, NH, T, remat=True)
-    with pytest.raises(NotImplementedError, match="regularization"):
-        tfluid.optimizer.Adam(1e-3, regularization=object())
-    with pytest.raises(NotImplementedError, match="global_clip_norm"):
-        tfluid.optimizer.Adam(1e-3, global_clip_norm=1.0)
+    with pytest.raises(NotImplementedError, match="calc_gradient.*Queue A"):
+        tfluid.calc_gradient(toks, toks)
+    for fetch in (tfluid.dataset.common.download,
+                  tfluid.dataset.common.fetch):
+        with pytest.raises(NotImplementedError, match="Queue A"):
+            fetch("https://example.invalid/x", "mnist", None)
