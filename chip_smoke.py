@@ -227,11 +227,45 @@ non-zero and no result line is printed):
     ``print_gradient`` program under K = 2 warns naming ``print`` and
     equals 2 eager steps to the bit.  The MLP and book paths reach no
     port kernel and are checked to launch none;
-26. summary.
+26. generation: (a) K1 against its plain version at the generation
+    prefill's shapes ([8, 8, 64, 64] and P 37, causal, f32 and bf16; the
+    P 64 rows timed beside the plain version, the bound and SDPA);
+    (b) the GPT bench width (vocab 32000, dim 512, 8 layers, 8 heads,
+    ``max_len`` 256, seed 0) in f32: ``DecoderLM.generate`` greedy at
+    batch 4, P 64, G 32 against an explicit-CPU executor (as 5), each
+    token within 1e-4 of the card tower's best logit at its position
+    (teacher forcing), K1 = 8 a call; ``beam_generate`` at batch 2, K 4,
+    G 32 without and with an eos, held to the CPU's by
+    ``first_parting`` (scores within 1e-4, ids equal up to a tie, which
+    random weights make likely), the best lane's score its tower
+    log-prob within 1e-3, K
+    1 within 1e-4 of the tower's best, the best lane against greedy's
+    log-prob logged (beam search does not promise to beat greedy);
+    sampling (temperature 0.8, top_k 40, and top_k 1): a pinned step
+    replays, another differs, every token within the top 40 of an
+    explicit-CPU tower's logits, top_k 1 within 1e-4 of the tower's best;
+    (c) the same width in bf16 at ``bench.py``'s decode shape (batch 8, P
+    64, G 192): 1 + 3 calls, decoded tok/s, wall, peak memory, K1 = 8 a
+    call, the op run once under ``torch.cuda.set_sync_debug_mode`` (no
+    host sync allowed), one profiled call (device busy share, K1's
+    share); (d) the attention NMT at the book's widths (dictionaries
+    30000, widths 512), batch 8, source 64 ragged, beam 4, 16 steps:
+    ``generate`` against an explicit-CPU executor and
+    ``generate_composable`` against ``generate``, each by
+    ``first_parting`` (scores within 1e-4, ids equal up to the first f32
+    tie, which the fused op breaks by vocab index and the composable
+    loop by per-lane rank; lengths exactly where ids are equal, the
+    composable loop's stopping before eos), K9 = 2 a call in each; (e)
+    control flow at small size: ``While`` sums 0..9, 3 SGD
+    steps of a ``StaticRNN`` and of a ragged ``DynamicRNN`` against the
+    CPU (losses and state 1e-4), ``ifelse``'s gradients against the CPU's
+    for each branch (1e-4; the untaken branch's zero);
+27. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
-"train": [...], "step_loop": [...], "options": {...}}`` summary (all 15
-kernels) and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+"train": [...], "step_loop": [...], "options": {...}, "generate":
+{...}}`` summary (all 15 kernels) and the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA the script
 exits 2 and prints no result.
 """
 
@@ -3204,7 +3238,641 @@ def options_phase(card_name, smi, plain):
             "print": options_print_phase()}
 
 
-# -- 26. summary --------------------------------------------------------------
+# -- 26. generation ---------------------------------------------------------
+
+# the GPT generation runs (bench.py bench_gpt_generate: P 64, G 192, batch
+# 8, bf16); the position table holds P + G = 256 rows
+GEN_MAX_LEN, GEN_P, GEN_G, GEN_BS = 256, 64, 32, 4
+GEN_BENCH_BS, GEN_BENCH_G, GEN_BENCH_CALLS = 8, 192, 3
+BEAM_BS, BEAM_K = 2, 4
+SAMPLE_TEMP, SAMPLE_TOP_K = 0.8, 40
+# the NMT book's widths at generation: beam 4, 16 target steps
+NMT_GEN_BS, NMT_GEN_SRC, NMT_GEN_BEAM, NMT_GEN_LEN = 8, 64, 4, 16
+# K1 at the prefill's shape (batch 8, 8 heads, P 64, dh 64) and an odd P
+GEN_FLASH_SHAPES = [(8, HEADS, 64, DIM // HEADS), (8, HEADS, 37,
+                                                   DIM // HEADS)]
+
+
+def gen_model(dtype):
+    """The GPT bench width (vocab 32000, dim 512, 8 layers, 8 heads) with
+    a 256-row position table, its tower over P + G = 96 tokens built and
+    its startup run on the card from SEED, in fresh default programs and
+    scope; returns (lm, tower logits)."""
+    fluid.reset()
+    lm = transformer.DecoderLM(VOCAB, DIM, LAYERS, HEADS,
+                               max_len=GEN_MAX_LEN, dtype=dtype)
+    logits = lm.logits(fluid.layers.data("tokens", shape=[GEN_P + GEN_G, 1],
+                                         dtype="int64"))
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    return lm, logits
+
+
+def gen_program(make):
+    """`make(prompt)` over a [GEN_P, 1] prompt in a program of its own;
+    returns (program, its outputs)."""
+    prog = fluid.Program()
+    with fluid.program_guard(prog):
+        outs = make(fluid.layers.data("prompt", shape=[GEN_P, 1],
+                                      dtype="int64"))
+    return prog, outs
+
+
+def gen_prompts(bs, seed):
+    return np.random.RandomState(seed).randint(
+        0, VOCAB, (bs, GEN_P, 1)).astype(np.int64)
+
+
+def tower_logits(exe, logits, prompts, ids, scope=None):
+    """The tower's f32 logits [B, P + G, V] over prompt + ids."""
+    full = np.concatenate([prompts, ids[:, :, None]], axis=1)
+    return exe.run(feed={"tokens": full}, fetch_list=[logits],
+                   scope=scope)[0].astype(np.float32)
+
+
+def seq_logprob(lg, P, seq, eos=-1):
+    """Sum of log-probs of `seq` [B, G] under tower logits [B, P + G, V],
+    in float64, up to and including its first eos (a beam lane's score
+    stops growing there)."""
+    z = lg.astype(np.float64)
+    lp = z - z.max(-1, keepdims=True)
+    lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+    tot = np.zeros(seq.shape[0])
+    live = np.ones(seq.shape[0], bool)
+    for t in range(seq.shape[1]):
+        tot += np.where(live, lp[np.arange(len(seq)), P + t - 1, seq[:, t]],
+                        0.0)
+        if eos >= 0:
+            live &= seq[:, t] != eos
+    return tot
+
+
+def tower_gaps(lg, P, ids):
+    """How far below the tower's best logit each generated token lies
+    (max over the run) and how many are the tower's argmax."""
+    B, G = ids.shape
+    steps = lg[:, P - 1:P + G - 1]  # [B, G, V]
+    chosen = np.take_along_axis(steps, ids[:, :, None], axis=2)[..., 0]
+    return (float((steps.max(-1) - chosen).max()),
+            int((steps.argmax(-1) == ids).sum()))
+
+
+def gen_flash_rows(dev):
+    """K1 against its plain version at the generation prefill's shapes,
+    causal, f32 and bf16; the rows at P 64 (the bench's prefill) are
+    timed beside the plain version, the bound and SDPA."""
+    rows = []
+    for dtype in DTYPES:
+        for B, H, T, D in GEN_FLASH_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(SEED + 64 + T)
+            q, k, v = (torch.randn(B, H, T, D, generator=g, device=dev)
+                       .to(dtype) for _ in range(3))
+            out = fa.flash_attention(q, k, v, causal=True)
+            ref = fa.flash_attention_ref(q, k, v, causal=True)
+            row = {"dtype": str(dtype).split(".")[1], "B": B, "H": H,
+                   "T": T, "D": D, "causal": True,
+                   "max_abs_err": max_err(out, ref), "tol": TOL[dtype]}
+            if row["max_abs_err"] > TOL[dtype]:
+                raise AssertionError(f"K1 at a generation prefill shape "
+                                     f"disagrees with its plain version: "
+                                     f"{row}")
+            if T == GEN_P:
+                nbytes = 4 * B * H * T * D * q.element_size()
+                flops = 2 * D * T * (T + 1) * B * H
+                b_ms, b_by, extra = flash_bound("flash_attention", nbytes,
+                                                flops, dtype)
+                row.update({
+                    "design": DESIGN[dtype]["flash_attention"],
+                    "kernel_ms": time_ms(lambda: fa.flash_attention(
+                        q, k, v, causal=True)),
+                    "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                        q, k, v, causal=True)),
+                    "library_ms": time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True)),
+                    "bound_ms": b_ms, "bound_by": b_by, **extra})
+                ratios(row)
+            rows.append(row)
+            log("gen_flash_attention", row)
+    return rows
+
+
+def no_host_sync(lm, prompts, max_gen):
+    """One ``gpt_decode`` call, its emitter run directly on the card's
+    tensors under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing calls it made (must be none) and the number of
+    warnings seen in all."""
+    with fluid.program_guard(fluid.Program()):
+        slots = lm._decode_inputs(fluid.layers.data(
+            "sync.prompt", shape=[prompts.shape[1], 1], dtype="int64"))
+    scope = fluid.global_scope()
+    dev = torch.device("cuda", 0)
+    ins = {s: [scope.find(n) for n in names] for s, names in slots.items()
+           if s != "Tokens"}
+    ins["Tokens"] = [torch.as_tensor(prompts, device=dev)]
+    ctx = EmitContext(dev, is_test=True)
+    attrs = {"n_heads": HEADS, "max_gen": max_gen, "eos_id": -1,
+             "eps": 1e-5, "temperature": 0.0, "top_k": 0}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.no_grad():
+                get_op_info("gpt_decode").emit(ctx, ins, attrs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own notice ("a prototype feature ...") is no sync
+    syncs = [str(w.message)[:160] for w in seen
+             if "called a synchronizing" in str(w.message)]
+    torch.cuda.synchronize()
+    return syncs, len(seen)
+
+
+def profile_generate(exe, prog, feed, fetch):
+    """One generate call under torch.profiler: device busy share of its
+    wall (kernel intervals merged; the profiler inflates the wall), device
+    ms in all and in K1's bodies, and the kernel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        exe.run(prog, feed=feed, fetch_list=fetch)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    spans, k1_us = [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if "flash_fwd" in e.name:
+            k1_us += e.time_range.elapsed_us()
+    busy, end = 0.0, None
+    for s, f in sorted(spans):
+        if end is None or s > end:
+            busy, end = busy + f - s, f
+        elif f > end:
+            busy, end = busy + f - end, f
+    if not spans:
+        return {"profiled": "not measured: the profiler saw no device "
+                            "event"}
+    return {"wall_ms_profiled": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "k1_device_ms": k1_us / 1e3,
+            "k1_share_of_device": k1_us / busy if busy else 0.0,
+            "kernels": len(spans)}
+
+
+def gpt_parity_and_sampling(lm, logits):
+    """The f32 model: greedy parity with an explicit-CPU executor and
+    teacher forcing on the card (a); beams with and without eos (c);
+    sampling's properties (d)."""
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.global_scope()
+    arrays = [scope.find_np(p.name) for p in lm._params]
+    scope_cpu = cpu_scope(lm, arrays)
+    cpu = fluid.Executor(fluid.CPUPlace())
+
+    # (a) greedy, batch 4, P 64, G 32
+    prompts = gen_prompts(GEN_BS, SEED + 1)
+    prog, (ids,) = gen_program(lambda p: [lm.generate(p, max_gen=GEN_G)])
+    feed = {"prompt": prompts}
+    card.run(prog, feed=feed, fetch_list=[ids])  # the first call
+    (gpu_ids,), launches = counted(
+        lambda: card.run(prog, feed=feed, fetch_list=[ids]))
+    check_launches("gpt_generate_f32", launches,
+                   {"flash_attention": LAYERS})
+    t0 = time.monotonic()
+    (cpu_ids,) = cpu.run(prog, feed=feed, fetch_list=[ids], scope=scope_cpu)
+    cpu_s = time.monotonic() - t0
+    plist = [p[:, 0].tolist() for p in prompts]
+    greedy = agree("gpt_generate_agreement", lm, scope_cpu, plist,
+                   cpu_ids.tolist(), gpu_ids.tolist(), cpu_s=cpu_s)
+    gap, argmax_hits = tower_gaps(tower_logits(card, logits, prompts,
+                                               gpu_ids), GEN_P, gpu_ids)
+    res = {"greedy": {**greedy, "bs": GEN_BS, "P": GEN_P, "G": GEN_G,
+                      "launches": launches,
+                      "teacher_forcing_max_gap": gap,
+                      "teacher_forcing_argmax": argmax_hits,
+                      "teacher_forcing_of": gpu_ids.size}}
+    log("gpt_generate_teacher_forcing", res["greedy"])
+    if gap > 1e-4:
+        raise AssertionError(f"a greedy token lies {gap} below the tower's "
+                             f"best logit (stable_argmax's slack 1e-4)")
+
+    # (c) beams: batch 2, K 4, G 32, without and with eos; beside them
+    # K 1 and greedy on the same prompts
+    bprompts = gen_prompts(BEAM_BS, SEED + 2)
+    bfeed = {"prompt": bprompts}
+    res["beam"] = []
+    eos = -1
+    for _ in range(2):
+        prog_b, outs = gen_program(lambda p: [
+            *lm.beam_generate(p, max_gen=GEN_G, beam_size=BEAM_K,
+                              eos_id=eos),
+            lm.beam_generate(p, max_gen=GEN_G, beam_size=1, eos_id=eos)[0],
+            lm.generate(p, max_gen=GEN_G, eos_id=eos)])
+        (g_ids, g_sc, g_k1, g_greedy), launches = counted(
+            lambda: card.run(prog_b, feed=bfeed, fetch_list=list(outs)))
+        check_launches("gpt_beam_f32", launches,
+                       {"flash_attention": 3 * LAYERS})
+        c_ids, c_sc, _, _ = cpu.run(prog_b, feed=bfeed,
+                                    fetch_list=list(outs), scope=scope_cpu)
+
+        def beam_run(exe, full, scope=None, eos=eos):
+            def go(n):
+                if n == GEN_G:  # the runs above
+                    return full
+                prog, outs = gen_program(lambda p: list(lm.beam_generate(
+                    p, max_gen=n, beam_size=BEAM_K, eos_id=eos)))
+                return exe.run(prog, feed=bfeed, fetch_list=list(outs),
+                               scope=scope)
+            return go
+
+        parting = first_parting(
+            "gpt beam, card against CPU", beam_run(card, (g_ids, g_sc)),
+            beam_run(cpu, (c_ids, c_sc), scope_cpu), GEN_G, 1e-4)
+        best_lp = seq_logprob(tower_logits(card, logits, bprompts,
+                                           g_ids[:, 0]), GEN_P, g_ids[:, 0],
+                              eos)
+        greedy_lp = seq_logprob(tower_logits(card, logits, bprompts,
+                                             g_greedy), GEN_P, g_greedy, eos)
+        k1 = g_k1[:, 0]
+        k1_gap, _ = tower_gaps(tower_logits(card, logits, bprompts, k1),
+                               GEN_P, k1) if eos < 0 else (0.0, 0)
+        row = {"eos": eos, "bs": BEAM_BS, "K": BEAM_K, "G": GEN_G,
+               "card_vs_cpu": parting,
+               "best_lane_scores": g_sc[:, 0].tolist(),
+               "best_lane_tower_logprob": best_lp.tolist(),
+               "greedy_logprob": greedy_lp.tolist(),
+               "best_at_least_greedy": int((g_sc[:, 0] >= greedy_lp
+                                            - 1e-3).sum()),
+               "k1_tower_max_gap": k1_gap,
+               "k1_equal_greedy": bool((k1 == g_greedy).all()),
+               "launches": launches}
+        res["beam"].append(row)
+        log("gpt_beam_generate", row)
+        if np.abs(g_sc[:, 0] - best_lp).max() > 1e-3 or k1_gap > 1e-4:
+            raise AssertionError(f"beam bookkeeping: the best lane's score "
+                                 f"is not its tower log-prob (1e-3), or K 1 "
+                                 f"left the tower's best (1e-4): {row}")
+        if eos >= 0:
+            for lane in g_ids.reshape(-1, GEN_G):
+                hit = np.where(lane == eos)[0]
+                if hit.size and (lane[hit[0]:] != eos).any():
+                    raise AssertionError(f"tokens after eos: {lane}")
+        # the second pass takes an eos that the first one's lanes emit
+        eos = int(np.bincount(g_ids.ravel()).argmax())
+
+    # (d) sampling: temperature 0.8, top_k 40 (and top_k 1), batch 4
+    prog_s, outs = gen_program(lambda p: [
+        lm.generate(p, max_gen=GEN_G, temperature=SAMPLE_TEMP,
+                    top_k=SAMPLE_TOP_K),
+        lm.generate(p, max_gen=GEN_G, temperature=SAMPLE_TEMP, top_k=1)])
+
+    def sample(step):
+        return card.run(prog_s, feed=feed, fetch_list=list(outs),
+                        rng_step=step)
+
+    s_a, k1_a = sample(11)
+    s_b, _ = sample(11)
+    s_c, _ = sample(12)
+    k1_gap, _ = tower_gaps(tower_logits(card, logits, prompts, k1_a),
+                           GEN_P, k1_a)
+    lg_cpu = tower_logits(cpu, logits, prompts, s_a, scope=scope_cpu)
+    steps = lg_cpu[:, GEN_P - 1:GEN_P + GEN_G - 1]
+    kth = np.sort(steps, axis=-1)[..., -SAMPLE_TOP_K]
+    chosen = np.take_along_axis(steps, s_a[:, :, None], axis=2)[..., 0]
+    row = {"temperature": SAMPLE_TEMP, "top_k": SAMPLE_TOP_K,
+           "replays": bool((s_a == s_b).all()),
+           "other_step_differs": bool((s_a != s_c).any()),
+           "tokens_off_greedy": int((s_a != gpu_ids).sum()),
+           "top_k_margin_min": float((chosen - kth).min()),
+           "top_k1_max_gap": k1_gap,
+           "top_k1_equal_greedy": int((k1_a == gpu_ids).sum()),
+           "of": s_a.size}
+    res["sampling"] = row
+    log("gpt_sampling", row)
+    if not (row["replays"] and row["other_step_differs"]
+            and row["top_k_margin_min"] >= -1e-4 and k1_gap <= 1e-4):
+        raise AssertionError(f"sampling's properties fail: {row}")
+    return res
+
+
+def gpt_bench_generate(card_name, smi):
+    """(b): bf16 at bench.py's shape, batch 8, P 64, G 192: one call to
+    warm up, GEN_BENCH_CALLS measured (decoded tok/s = B·G over the wall
+    of one call, to the fetched ids), K1 launched 8 times a call, peak
+    memory, one profiled call, and no host sync inside the op."""
+    lm, _ = gen_model("bfloat16")
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    prompts = np.random.RandomState(0).randint(
+        0, VOCAB, (GEN_BENCH_BS, GEN_P, 1)).astype(np.int64)
+    prog, (ids,) = gen_program(lambda p: [lm.generate(
+        p, max_gen=GEN_BENCH_G)])
+    feed = {"prompt": prompts}
+    card.run(prog, feed=feed, fetch_list=[ids])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, launches = [], []
+    for _ in range(GEN_BENCH_CALLS):
+        t0 = time.monotonic()
+        (out,), n = counted(lambda: card.run(prog, feed=feed,
+                                             fetch_list=[ids]))
+        walls.append(time.monotonic() - t0)
+        check_launches("gpt_generate_bf16", n, {"flash_attention": LAYERS})
+        launches.append(n)
+    if not ((0 <= out) & (out < VOCAB)).all():
+        raise AssertionError("generated ids out of the vocab")
+    syncs, warned = no_host_sync(lm, prompts, GEN_BENCH_G)
+    prof = profile_generate(card, prog, feed, [ids])
+    res = {"card": card_name, "nvidia_smi": smi, "dtype": "bfloat16",
+           "bs": GEN_BENCH_BS, "P": GEN_P, "G": GEN_BENCH_G,
+           "wall_ms": [w * 1e3 for w in walls],
+           "tok_s": [GEN_BENCH_BS * GEN_BENCH_G / w for w in walls],
+           "tok_s_best": GEN_BENCH_BS * GEN_BENCH_G / min(walls),
+           "ms_per_step": min(walls) * 1e3 / GEN_BENCH_G,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_call": launches[-1],
+           "host_syncs_in_op": syncs, "sync_debug_warnings": warned,
+           **prof}
+    log("gpt_generate_bench", res)
+    if syncs:
+        raise AssertionError(f"gpt_decode synchronized with the host: "
+                             f"{syncs}")
+    return res
+
+
+def first_parting(tag, run_a, run_b, steps, tol):
+    """Hold two beam decoders to each other: `run_x(L)` decodes L steps
+    and returns (ids [B, K, L], scores [B, K]).  Equal ids and scores
+    within `tol` over all `steps`, or else, decoding 1, 2, ... steps,
+    equal ids and scores up to the first step where the ids part, and
+    there the scores within `tol`: the two broke a tie (at random
+    weights the beams' candidates lie within 1e-4 of one another, and
+    two candidates' f32 sums can round to one value) in different ways.
+    Returns the step where they parted (None if never) and the scores'
+    distance."""
+    a, b = run_a(steps), run_b(steps)
+    err = float(np.abs(a[1] - b[1]).max())
+    if (a[0] == b[0]).all() and err <= tol:
+        return {"parted_at": None, "score_max_abs_err": err}
+    for n in range(1, steps + 1):
+        a, b = run_a(n), run_b(n)
+        err = float(np.abs(a[1] - b[1]).max())
+        if err > tol:
+            raise AssertionError(f"{tag}: after {n} steps the scores are "
+                                 f"{err} apart (tolerance {tol})")
+        if (a[0] != b[0]).any():
+            return {"parted_at": n, "score_max_abs_err": err}
+    raise AssertionError(f"{tag}: {steps} steps part, no shorter run does")
+
+
+def nmt_generate_phase():
+    """The attention NMT at the book's widths (dictionaries 30000,
+    embedding, hidden and attention 512), batch 8, source 64 ragged, beam
+    4, 16 steps: ``generate`` on the card against an explicit-CPU
+    executor and ``generate_composable`` against ``generate`` on the card,
+    each held by ``first_parting`` (scores within 1e-4; ids equal up to
+    a tie; lengths exactly where the ids are, the composable loop's
+    stopping before eos), K9 twice a call in each."""
+    fluid.reset()
+    progs = {}
+
+    def programs(n):
+        """generate and generate_composable decoding n steps, in programs
+        of their own (the parameters are the scope's, by name)."""
+        if n not in progs:
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                gen, comp_prog, comp = rnn_bench.nmt_generate_programs(
+                    seq_len=NMT_GEN_SRC, beam_size=NMT_GEN_BEAM, max_len=n)
+            progs[n] = (main, startup, gen, comp_prog, comp)
+        return progs[n]
+
+    main, startup, gen, comp_prog, comp = programs(NMT_GEN_LEN)
+    startup.random_seed = SEED
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    state = {n: fluid.global_scope().find_np(n)
+             for n, v in main.global_block().vars.items() if v.persistable}
+    cpu_sc = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_sc)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    nf = rnn_bench.nmt_feed(NMT_GEN_BS, NMT_GEN_SRC)
+    feed = {"src": nf["src"], "src@LENGTH": nf["src@LENGTH"]}
+    want = {"gru_forward": 2}
+    card.run(main, feed=feed, fetch_list=list(gen))
+    t0 = time.monotonic()
+    g, launches = counted(lambda: card.run(main, feed=feed,
+                                           fetch_list=list(gen)))
+    wall = time.monotonic() - t0
+    check_launches("nmt_generate", launches, want)
+    t0 = time.monotonic()
+    c, c_launches = counted(lambda: card.run(comp_prog, feed=feed,
+                                             fetch_list=list(comp)))
+    comp_wall = time.monotonic() - t0
+    check_launches("nmt_generate_composable", c_launches, want)
+    t0 = time.monotonic()
+    cg = cpu.run(main, feed=feed, fetch_list=list(gen), scope=cpu_sc)
+    cpu_s = time.monotonic() - t0
+
+    def run(which, exe, scope=None):
+        def go(n):
+            if n == NMT_GEN_LEN:  # the runs above
+                return {("gen", "card"): g, ("comp", "card"): c,
+                        ("gen", "cpu"): cg}[(which, exe)][:2]
+            m, _, gn, cp, cm = programs(n)
+            prog, outs = (m, gn) if which == "gen" else (cp, cm)
+            x = card if exe == "card" else cpu
+            return x.run(prog, feed=feed, fetch_list=list(outs),
+                         scope=cpu_sc if exe == "cpu" else None)[:2]
+        return go
+
+    vs_cpu = first_parting("nmt generate, card against CPU",
+                           run("gen", "card"), run("gen", "cpu"),
+                           NMT_GEN_LEN, 1e-4)
+    vs_gen = first_parting("nmt generate_composable against generate",
+                           run("comp", "card"), run("gen", "card"),
+                           NMT_GEN_LEN, 1e-4)
+    has_eos = (g[0] == 1).any(-1)
+    res = {"bs": NMT_GEN_BS, "src": NMT_GEN_SRC, "beam": NMT_GEN_BEAM,
+           "max_len": NMT_GEN_LEN, "card_vs_cpu": vs_cpu,
+           "composable_vs_generate": vs_gen,
+           "lanes_with_eos": int(has_eos.sum()),
+           "wall_ms": wall * 1e3, "composable_wall_ms": comp_wall * 1e3,
+           "cpu_s": cpu_s, "launches": launches,
+           "composable_launches": c_launches}
+    log("nmt_generate", res)
+    if vs_cpu["parted_at"] is None and (g[2] != cg[2]).any():
+        raise AssertionError(f"NMT lengths: card and CPU disagree: {res}")
+    if vs_gen["parted_at"] is None and (c[2] != g[2] - has_eos).any():
+        raise AssertionError(f"NMT lengths: the composable loop's are not "
+                             f"generate's short of the eos: {res}")
+    return res
+
+
+def cf_sgd_steps(tag, build, feed):
+    """3 SGD steps of the program `build()` makes, on the card and on an
+    explicit-CPU executor from the card's startup state: losses within
+    1e-4 relative, every persistable within 1e-4 of its max |value|."""
+    fluid.reset()
+    loss = build()
+    main = fluid.default_main_program()
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    scope = fluid.global_scope()
+    names = [n for n, v in main.global_block().vars.items()
+             if v.persistable]
+    state = {n: scope.find_np(n) for n in names}
+    cpu_sc = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_sc)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    gl = [float(card.run(main, feed=feed, fetch_list=[loss])[0].ravel()[0])
+          for _ in range(3)]
+    cl = [float(cpu.run(main, feed=feed, fetch_list=[loss],
+                        scope=cpu_sc)[0].ravel()[0]) for _ in range(3)]
+    state_rel = max(float(np.abs(scope.find_np(n) - cpu_sc.find_np(n)).max()
+                          / max(np.abs(cpu_sc.find_np(n)).max(), 1e-12))
+                    for n in names)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    res = {"gpu_losses": gl, "cpu_losses": cl, "loss_rel_err": loss_rel,
+           "state_rel_err_max": state_rel}
+    log(tag, res)
+    if loss_rel > 1e-4 or state_rel > 1e-4:
+        raise AssertionError(f"{tag}: card and CPU disagree: {res}")
+    return res
+
+
+def control_flow_phase():
+    """``While`` sums 0..9 on the card; 3 SGD steps of a ``StaticRNN``
+    and of a ragged ``DynamicRNN``, card against CPU; ``ifelse``'s
+    gradients on the card against the CPU's for both branches (1e-4 of
+    max |g|).  No port kernel runs here."""
+    res = {}
+    fluid.reset()
+    i = fluid.layers.fill_constant(shape=[1], dtype="float32", value=0)
+    n = fluid.layers.fill_constant(shape=[1], dtype="float32", value=10)
+    total = fluid.layers.fill_constant(shape=[1], dtype="float32", value=0)
+    cond = fluid.layers.less_than(i, n)
+    w = fluid.layers.While(cond)
+    with w.block():
+        fluid.layers.assign(fluid.layers.elementwise_add(total, i), total)
+        fluid.layers.increment(i, 1.0)
+        fluid.layers.less_than(i, n, cond=cond)
+    (tot,), launches = counted(lambda: fluid.Executor(
+        fluid.CUDAPlace(0)).run(feed={}, fetch_list=[total]))
+    res["while_total"] = float(tot.ravel()[0])
+    if res["while_total"] != 45.0 or any(launches.values()):
+        raise AssertionError(f"While on the card: {res}, {launches}")
+
+    def static_rnn():
+        x = fluid.layers.data(name="x", shape=[5, 8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        rnn = fluid.layers.StaticRNN()
+        with rnn.step():
+            h_prev = rnn.memory(shape=[16], batch_ref=x)
+            h = fluid.layers.fc(input=[rnn.step_input(x), h_prev], size=16,
+                                act="tanh")
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        logits = fluid.layers.fc(input=fluid.layers.reshape(
+            rnn(), [-1, 5 * 16]), size=2)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        return loss
+
+    def dynamic_rnn():
+        x = fluid.layers.sequence_data(name="x", shape=[4], dtype="float32")
+        rnn = fluid.layers.DynamicRNN()
+        with rnn.block():
+            x_t = rnn.step_input(x)
+            h_prev = rnn.memory(shape=[8], batch_ref=x)
+            h = fluid.layers.fc(input=[x_t, h_prev], size=8, act="relu")
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        pooled = fluid.layers.sequence_pool(rnn(), pool_type="sum")
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(input=pooled, size=1),
+            fluid.layers.data(name="y", shape=[1], dtype="float32")))
+        fluid.optimizer.SGD(learning_rate=0.02).minimize(loss)
+        return loss
+
+    rng = np.random.RandomState(SEED)
+    labels = rng.randint(0, 2, (64, 1)).astype(np.int64)
+    res["static_rnn"] = cf_sgd_steps("cf_static_rnn", static_rnn, {
+        "x": rng.rand(64, 5, 8).astype(np.float32) + labels[:, :, None] * .5,
+        "y": labels})
+    seqs = [rng.rand(k, 4).astype(np.float32) for k in (3, 6, 1, 4)]
+    res["dynamic_rnn"] = cf_sgd_steps("cf_dynamic_rnn", dynamic_rnn, {
+        "x": fluid.lod.LoDTensor.from_sequences(seqs),
+        "y": rng.rand(4, 1).astype(np.float32)})
+
+    fluid.reset()
+    fluid.default_startup_program().random_seed = SEED
+    x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+    flag = fluid.layers.data(name="flag", shape=[1], dtype="float32",
+                             append_batch_size=False)
+    out = fluid.layers.ifelse(
+        flag, lambda: [fluid.layers.fc(input=x, size=3, act="tanh")],
+        lambda: [fluid.layers.scale(fluid.layers.fc(input=x, size=3), -1.0)])
+    loss = fluid.layers.mean(fluid.layers.elementwise_mul(out, out))
+    grads = fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)[1]
+    gnames = [g.name for _, g in grads]
+    main = fluid.default_main_program()
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(fluid.default_startup_program())
+    state = {n: fluid.global_scope().find_np(n)
+             for n, v in main.global_block().vars.items() if v.persistable}
+    errs = {}
+    for f in (1.0, 0.0):
+        cpu_sc = fluid.Scope()
+        fluid.load_persistables(main, state, cpu_sc)
+        fluid.load_persistables(main, state)
+        feed = {"x": rng.randn(2, 4).astype(np.float32),
+                "flag": np.asarray([f], np.float32)}
+        g = card.run(main, feed=feed, fetch_list=gnames)
+        c = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                                 fetch_list=gnames,
+                                                 scope=cpu_sc)
+        errs[str(f)] = max(float(np.abs(a - b).max()
+                                 / max(np.abs(b).max(), 1e-12))
+                           for a, b in zip(g, c))
+        zero = sum(int(not np.abs(a).any()) for a in g)
+        if errs[str(f)] > 1e-4 or zero != 2:
+            raise AssertionError(f"ifelse gradients, flag {f}: rel err "
+                                 f"{errs[str(f)]}, {zero} zero grads "
+                                 f"(the untaken branch's 2)")
+    res["ifelse_grad_rel_err"] = errs
+    log("control_flow", res)
+    return res
+
+
+def generation_phase(dev, card_name, smi):
+    """26. generation: the GPT (a) greedy parity, (b) the bf16 bench, (c)
+    beams, (d) sampling; K1 at the prefill's shapes; the NMT; control
+    flow."""
+    fluid.reset()
+    torch.cuda.empty_cache()
+    flash_rows = gen_flash_rows(dev)
+    lm, logits = gen_model("float32")
+    res = gpt_parity_and_sampling(lm, logits)
+    res["bench_bf16"] = gpt_bench_generate(card_name, smi)
+    res["flash_rows"] = flash_rows
+    res["nmt"] = nmt_generate_phase()
+    res["control_flow"] = control_flow_phase()
+    return res
+
+
+# -- 27. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -3269,6 +3937,7 @@ def main():
     sl_r50 = step_loop_resnet50_phase(name, smi)
     coop = cooperative_capture_probe()
     opts = options_phase(name, smi, sl_gpt)
+    gen = generation_phase(dev, name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -3285,7 +3954,13 @@ def main():
                "resnet50_v2_bf16_10_steps": r50_fused_v2["launches"],
                "resnet50_unfused_bf16_10_steps": r50_unfused["launches"],
                "gpt_options_bf16_10_steps":
-                   opts["gpt_bench_bf16"]["launches_10_steps"]}
+                   opts["gpt_bench_bf16"]["launches_10_steps"],
+               "gpt_generate_f32": gen["greedy"]["launches"],
+               "gpt_generate_bf16_per_call":
+                   gen["bench_bf16"]["launches_per_call"],
+               "gpt_beam_and_greedy_f32": gen["beam"][0]["launches"],
+               "nmt_generate": gen["nmt"]["launches"],
+               "nmt_generate_composable": gen["nmt"]["composable_launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -3298,7 +3973,11 @@ def main():
                        errs_by_dtype(fl_rows),
                        fifo_row["launches"]["flash_attention"],
                        paths("flash_attention")),
-         **{k: fl_sum[k] for k in ("design", "vs_library", "bound_share")}},
+         **{k: fl_sum[k] for k in ("design", "vs_library", "bound_share")},
+         "generation_prefill": [r for r in gen["flash_rows"]
+                                if "kernel_ms" in r],
+         "generation_max_abs_err_by_dtype": errs_by_dtype(
+             gen["flash_rows"])},
         summary_row("paged_attention", csrc + "paged_attention.cu",
                     pallas + "paged_attention.py:177", pg_sum,
                     errs_by_dtype(pg_rows),
@@ -3487,10 +4166,32 @@ def main():
                  "conv_loss_rel_err": opts["book"][
                      "recognize_digits_conv"]["loss_rel_err"]},
         "print": opts["print"]}
+    gb, nmt = gen["bench_bf16"], gen["nmt"]
+    generate_rows = {
+        "gpt_greedy_f32": {k: gen["greedy"][k] for k in (
+            "bs", "P", "G", "identical", "of", "parted",
+            "teacher_forcing_max_gap")},
+        "gpt_bench_bf16": {k: gb[k] for k in (
+            "bs", "P", "G", "wall_ms", "tok_s", "tok_s_best", "ms_per_step",
+            "peak_mem_gb", "launches_per_call", "host_syncs_in_op")
+            if k in gb},
+        "gpt_bench_bf16_profile": {k: gb[k] for k in (
+            "device_busy_share", "k1_device_ms", "k1_share_of_device",
+            "wall_ms_profiled", "profiled") if k in gb},
+        "gpt_beam_f32": [{k: r[k] for k in (
+            "eos", "card_vs_cpu", "best_lane_scores",
+            "best_lane_tower_logprob", "greedy_logprob",
+            "best_at_least_greedy")} for r in gen["beam"]],
+        "gpt_sampling": gen["sampling"],
+        "nmt": {k: nmt[k] for k in (
+            "bs", "src", "beam", "max_len", "card_vs_cpu",
+            "composable_vs_generate", "wall_ms", "composable_wall_ms",
+            "launches")},
+        "control_flow": gen["control_flow"]}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows, "step_loop": step_loop_rows,
-                      "options": options_rows}),
+                      "options": options_rows, "generate": generate_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -194,7 +194,10 @@ class Executor:
 
     def _walk(self, block, env, fetch_names, scope, ctx):
         """Run the live ops of `block` in order on `env`, reading from the
-        scope what no feed or earlier op gave."""
+        scope what no feed or earlier op gave.  A control-flow op runs its
+        nested blocks through ``ctx.lower_block``."""
+        ctx.lower_block = lambda idx, sub_env: self._lower_block(
+            ctx, idx, sub_env)
         live = live_ops(block, fetch_names)
         with torch.no_grad():
             for i, (op, keep) in enumerate(zip(block.ops, live)):
@@ -205,6 +208,22 @@ class Executor:
                     if n and n not in env:
                         env[n] = self._read_state(scope, block, n)
                 self._run_op(op, env, ctx)
+
+    def _lower_block(self, ctx, idx, env):
+        """Run EVERY op of ``ctx.program.blocks[idx]`` in order on `env`,
+        as the JAX package's ``_lower_ops`` traces a sub-block: no
+        pruning and no reads from the scope — a control-flow op hands in
+        its externals and carries, and a name missing from `env` raises
+        (``OpLoweringError`` naming the op)."""
+        for op in ctx.program.blocks[idx].ops:
+            missing = [n for n in op.input_names() if n and n not in env]
+            if missing:
+                raise OpLoweringError(
+                    f"op {op.type!r} of block {idx} reads {missing}, which "
+                    f"neither an earlier op of the block nor its "
+                    f"control-flow op's inputs give")
+            self._run_op(op, env, ctx)
+        return env
 
     def _check_finite(self, values):
         for n, v in values.items():

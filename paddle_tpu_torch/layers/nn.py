@@ -385,6 +385,58 @@ def topk(input, k):
     return values, indices
 
 
+def beam_search(pre_ids, pre_scores, cand_ids, cand_scores, beam_size,
+                end_id, is_accumulated=True, name=None):
+    """One composable beam step (beam_search_op.h:96), usable inside a
+    While body around any decoder; see ops/beam_ops.py.  Returns
+    (selected_ids [B,K], selected_scores [B,K], parent_idx [B,K])."""
+    helper = LayerHelper("beam_search", name=name)
+    B, K = pre_ids.shape[0], int(beam_size)
+    sel_ids = helper.create_tmp_variable(pre_ids.dtype, shape=(B, K),
+                                         stop_gradient=True)
+    sel_scores = helper.create_tmp_variable("float32", shape=(B, K),
+                                            stop_gradient=True)
+    parent = helper.create_tmp_variable("int32", shape=(B, K),
+                                        stop_gradient=True)
+    helper.append_op(
+        "beam_search",
+        inputs={"PreIds": [pre_ids.name], "PreScores": [pre_scores.name],
+                "Ids": [cand_ids.name], "Scores": [cand_scores.name]},
+        outputs={"SelectedIds": [sel_ids.name],
+                 "SelectedScores": [sel_scores.name],
+                 "ParentIdx": [parent.name]},
+        attrs={"beam_size": int(beam_size), "end_id": int(end_id),
+               "is_accumulated": bool(is_accumulated)})
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, parent_idx, scores, end_id, step_count=None,
+                       name=None):
+    """Backtrack the per-step beam selections, the [L, B, K] arrays a
+    generation loop fills by array_write, into sentences
+    (beam_search_decode_op.cc:41).  Returns (sentence_ids [B,K,L],
+    sentence_scores [B,K], sentence_length [B,K])."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    L, B, K = ids.shape
+    sent = helper.create_tmp_variable(ids.dtype, shape=(B, K, L),
+                                      stop_gradient=True)
+    sscores = helper.create_tmp_variable("float32", shape=(B, K),
+                                         stop_gradient=True)
+    slen = helper.create_tmp_variable("int32", shape=(B, K),
+                                      stop_gradient=True)
+    inputs = {"Ids": [ids.name], "ParentIdx": [parent_idx.name],
+              "Scores": [scores.name]}
+    if step_count is not None:
+        inputs["StepCount"] = [step_count.name]
+    helper.append_op(
+        "beam_search_decode", inputs=inputs,
+        outputs={"SentenceIds": [sent.name],
+                 "SentenceScores": [sscores.name],
+                 "SentenceLength": [slen.name]},
+        attrs={"end_id": int(end_id)})
+    return sent, sscores, slen
+
+
 def accuracy(input, label, k=1):
     helper = LayerHelper("accuracy")
     _, indices = topk(input, k)

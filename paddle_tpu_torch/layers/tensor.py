@@ -1,10 +1,32 @@
 """Tensor-building layer functions, the part of
-``paddle_tpu/layers/tensor.py`` that the ported models build: cast,
-concat, reshape, transpose, scale and the elementwise ops."""
+``paddle_tpu/layers/tensor.py`` that the ported models build:
+fill_constant, assign, cast, concat, reshape, transpose, scale,
+elementwise_add and elementwise_mul."""
 
 from __future__ import annotations
 
 from ..framework.layer_helper import LayerHelper
+
+
+def fill_constant(shape, dtype, value, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_tmp_variable(dtype, shape=tuple(shape),
+                                         stop_gradient=True)
+    helper.append_op(
+        "fill_constant", outputs={"Out": [out.name]},
+        attrs={"shape": list(shape), "dtype": dtype, "value": value},
+    )
+    return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("assign", inputs={"X": [input.name]},
+                     outputs={"Out": [output.name]})
+    return output
 
 
 def cast(x, dtype):
@@ -63,3 +85,7 @@ def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mul", x, y, axis, act, name)

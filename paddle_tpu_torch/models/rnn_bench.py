@@ -7,7 +7,8 @@
 - The attention-NMT training program (``Seq2SeqAttention.train_cost``) at
   the PaddlePaddle book's machine_translation widths: both dictionaries
   30000, embedding, hidden and attention 512, f32, Adam; batch 64, source
-  and target 64 long.
+  and target 64 long; and its generation programs (``generate``,
+  ``generate_composable``) for beam search over a source batch.
 
 ``chip_smoke.py``, ``tools/profile_torch_train.py`` and the tests build
 them here, so their numbers describe one workload.  These functions reset
@@ -85,6 +86,32 @@ def nmt_train_program(vocab=NMT_VOCAB, dim=NMT_DIM, seq_len=NMT_SEQ,
     loss = model.train_cost(src, tgt, nxt)
     fluid.optimizer.Adam(learning_rate=learning_rate).minimize(loss)
     return loss
+
+
+def nmt_generate_programs(vocab=NMT_VOCAB, dim=NMT_DIM, seq_len=NMT_SEQ,
+                          beam_size=4, max_len=16):
+    """``Seq2SeqAttention.generate`` into the default programs and
+    ``generate_composable`` into a program of its own (the parameters are
+    shared by name); returns (generate's (ids, scores, lengths), the
+    composable program, its (ids, scores, lengths)).  Feed ``src`` and
+    ``src@LENGTH`` as ``nmt_feed`` makes them."""
+    import paddle_tpu_torch as fluid
+
+    from .seq2seq import Seq2SeqAttention
+
+    def build(which):
+        model = Seq2SeqAttention(vocab, vocab, emb_dim=dim, hidden=dim,
+                                 attn=dim)
+        src = fluid.layers.sequence_data("src", shape=[1], dtype="int64",
+                                         max_len=seq_len)
+        return getattr(model, which)(src, beam_size=beam_size,
+                                     max_len=max_len)
+
+    gen = build("generate")
+    comp_prog = fluid.Program()
+    with fluid.program_guard(comp_prog):
+        comp = build("generate_composable")
+    return gen, comp_prog, comp
 
 
 def nmt_feed(bs=NMT_BS, seq_len=NMT_SEQ, vocab=NMT_VOCAB, seed=0):

@@ -1,12 +1,14 @@
-"""Attention NMT (seq2seq), the machine_translation book model — the
-training half of ``paddle_tpu/models/seq2seq.py``.
+"""Attention NMT (seq2seq), the machine_translation book model, ported
+from ``paddle_tpu/models/seq2seq.py``.
 
 Encoder: embedding → per-step fc → bidirectional GRU (``dynamic_gru``,
 plain and reversed); decoder: Bahdanau-attention GRU
-(``attention_gru_decoder``) trained teacher-forced.  ``encode``,
-``_decoder_h0`` and ``train_cost`` emit the JAX package's program op for
-op, so parameters carry across by name.  Beam-search generation
-(``generate``, ``generate_composable``) is not ported yet."""
+(``attention_gru_decoder``) trained teacher-forced; generation: beam
+search in one op (``generate``) or composed from ``While``, the decoder
+step and the beam ops (``generate_composable``).  Every method emits
+the JAX package's ops, so parameters carry across by name;
+``generate_composable`` shapes its decoder-step vars, where the JAX
+package's leaves them unshaped and fails to build."""
 
 from __future__ import annotations
 
@@ -145,11 +147,140 @@ class Seq2SeqAttention:
 
     # ------------------------------------------------------------------
     def generate(self, src_words, beam_size=4, max_len=16):
-        raise NotImplementedError(
-            "Seq2SeqAttention.generate (compiled beam search) is not ported "
-            "yet: ROADMAP.md Queue A item 5")
+        """Beam search in one op (``beam_search_generate``) → (ids
+        [B,K,L] int32, scores [B,K], lengths [B,K] int32).  The encoder's
+        two ``dynamic_gru`` ops launch K9 once each."""
+        hp = self._helper
+        enc = self.encode(src_words)
+        enc_len = layers.get_length_var(enc)
+        h0 = self._decoder_h0(enc)
+        ids = hp.create_tmp_variable("int32", stop_gradient=True)
+        scores = hp.create_tmp_variable(self.dtype, stop_gradient=True)
+        lengths = hp.create_tmp_variable("int32", stop_gradient=True)
+        hp.append_op(
+            "beam_search_generate",
+            inputs={"EncOut": [enc.name], "EncLength": [enc_len.name],
+                    "Embedding": [self.tgt_emb.name], "H0": [h0.name],
+                    "WIn": [self.w_in.name], "BIn": [self.b_in.name],
+                    "WH": [self.w_h.name], "WQuery": [self.w_q.name],
+                    "WMem": [self.w_m.name], "V": [self.v.name],
+                    "WOut": [self.w_out.name], "BOut": [self.b_out.name]},
+            outputs={"Ids": [ids.name], "Scores": [scores.name],
+                     "Lengths": [lengths.name]},
+            attrs={"beam_size": beam_size, "max_len": max_len,
+                   "bos_id": self.bos_id, "eos_id": self.eos_id},
+        )
+        return ids, scores, lengths
 
+    # ------------------------------------------------------------------
     def generate_composable(self, src_words, beam_size=4, max_len=16):
-        raise NotImplementedError(
-            "Seq2SeqAttention.generate_composable (While + beam_search ops) "
-            "is not ported yet: ROADMAP.md Queue A item 5")
+        """Generation from the composable ops, as fluid's
+        test_machine_translation composes them: a ``While`` block runs
+        the decoder step (``attention_gru_cell``, an ordinary op any user
+        decoder can replace), ``topk``, the generic ``beam_search`` and
+        ``beam_gather``, and ``array_write``s each step's selections;
+        ``beam_search_decode`` backtracks them.
+
+        Returns (ids [B,K,L] int64, scores [B,K], lengths [B,K] int32):
+        ``generate``'s ids and scores (a lane's top-K per step holds the
+        global top-K), and lengths that stop before the first eos, where
+        ``generate``'s count it."""
+        hp = self._helper
+        K, L = int(beam_size), int(max_len)
+        enc = self.encode(src_words)
+        enc_len = layers.get_length_var(enc)
+        h0 = self._decoder_h0(enc)  # [B,H]
+
+        def batch_like(shape, value, dtype, out_idx):
+            out = hp.create_tmp_variable(dtype, shape=tuple(shape),
+                                         stop_gradient=True)
+            hp.append_op(
+                "fill_constant_batch_size_like",
+                inputs={"Input": [h0.name]}, outputs={"Out": [out.name]},
+                attrs={"shape": list(shape), "value": value, "dtype": dtype,
+                       "input_dim_idx": 0, "output_dim_idx": out_idx})
+            return out
+
+        # beam state: h [B,K,H] broadcast from h0; tokens start at <bos>;
+        # lane 0 live, the others dead (identical lanes would waste the
+        # beam)
+        h3 = hp.create_tmp_variable(self.dtype, shape=(-1, K, self.hidden),
+                                    stop_gradient=True)
+        hp.append_op("unsqueeze", inputs={"X": [h0.name]},
+                     outputs={"Out": [h3.name]}, attrs={"axes": [1]})
+        zeros_k = batch_like([-1, K], 0.0, "float32", 0)
+        h = layers.elementwise_add(h3, layers.reshape(
+            layers.fill_constant([K, 1], self.dtype, 0.0), [1, K, 1]))
+        tokens = batch_like([-1, K], float(self.bos_id), "int64", 0)
+        lane_dead = hp.create_tmp_variable("float32", shape=(1, K),
+                                           stop_gradient=True)
+        hp.append_op("assign_value", inputs={},
+                     outputs={"Out": [lane_dead.name]},
+                     attrs={"shape": [1, K],
+                            "fp32_values": [0.0] + [-1e9] * (K - 1)})
+        scores = layers.elementwise_add(zeros_k, lane_dead)
+
+        ids_arr = batch_like([L, -1, K], 0.0, "int64", 1)
+        par_arr = batch_like([L, -1, K], 0.0, "int32", 1)
+
+        t = layers.fill_constant(shape=[1], dtype="float32", value=0.0)
+        n = layers.fill_constant(shape=[1], dtype="float32", value=float(L))
+        ti = layers.fill_constant(shape=[1], dtype="int32", value=0)
+        cond = layers.less_than(t, n)
+        w = layers.While(cond)
+        with w.block():
+            # shaped, unlike the JAX package's vars (shape None there,
+            # on which layers.topk fails): topk reads the lane dims
+            h_new = hp.create_tmp_variable(
+                self.dtype, shape=(-1, K, self.hidden), stop_gradient=True)
+            logp = hp.create_tmp_variable(
+                self.dtype, shape=(-1, K, self.tgt_vocab),
+                stop_gradient=True)
+            hp.append_op(
+                "attention_gru_cell",
+                inputs={"EncOut": [enc.name], "EncLength": [enc_len.name],
+                        "H": [h.name], "Tokens": [tokens.name],
+                        "Embedding": [self.tgt_emb.name],
+                        "WIn": [self.w_in.name], "BIn": [self.b_in.name],
+                        "WH": [self.w_h.name], "WQuery": [self.w_q.name],
+                        "WMem": [self.w_m.name], "V": [self.v.name],
+                        "WOut": [self.w_out.name],
+                        "BOut": [self.b_out.name]},
+                outputs={"HNew": [h_new.name], "Logp": [logp.name]})
+            # candidate pruning as the fluid loop: top-K of the step
+            # distribution, then the generic beam_search op
+            cand_scores, cand_ids = layers.topk(logp, K)
+            sel_ids, sel_scores, parent = layers.beam_search(
+                tokens, scores, cand_ids, cand_scores,
+                beam_size=K, end_id=self.eos_id, is_accumulated=False)
+            # reorder the decoder state by surviving parents
+            h_sel = hp.create_tmp_variable(self.dtype, shape=None,
+                                           stop_gradient=True)
+            hp.append_op("beam_gather",
+                         inputs={"X": [h_new.name], "Index": [parent.name]},
+                         outputs={"Out": [h_sel.name]})
+            # record the step
+            ids_w = hp.create_tmp_variable("int64", shape=None,
+                                           stop_gradient=True)
+            hp.append_op("array_write",
+                         inputs={"Array": [ids_arr.name],
+                                 "X": [sel_ids.name], "I": [ti.name]},
+                         outputs={"Out": [ids_w.name]})
+            par_w = hp.create_tmp_variable("int32", shape=None,
+                                           stop_gradient=True)
+            hp.append_op("array_write",
+                         inputs={"Array": [par_arr.name],
+                                 "X": [parent.name], "I": [ti.name]},
+                         outputs={"Out": [par_w.name]})
+            layers.assign(ids_w, ids_arr)
+            layers.assign(par_w, par_arr)
+            layers.assign(h_sel, h)
+            layers.assign(sel_ids, tokens)
+            layers.assign(sel_scores, scores)
+            layers.increment(t, 1.0)
+            layers.increment(ti, 1)
+            layers.less_than(t, n, cond=cond)
+
+        sent, sscores, slen = layers.beam_search_decode(
+            ids_arr, par_arr, scores, end_id=self.eos_id)
+        return sent, sscores, slen

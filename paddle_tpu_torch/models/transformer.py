@@ -1,7 +1,8 @@
 """Decoder-only transformer language model (GPT-style): the tower builder
 ``decoder_lm``, the loss ``lm_loss``, the training program
-``build_lm_train_program`` and ``DecoderLM``'s paged serving path, ported
-from ``paddle_tpu/models/transformer.py``.
+``build_lm_train_program``, and ``DecoderLM``'s generation (``generate``,
+``beam_generate``) and paged serving path, ported from
+``paddle_tpu/models/transformer.py``.
 
 Architecture: pre-LN residual blocks (LN → causal MHA → +x; LN → MLP
 gelu → +x), learned position embeddings, final LN, untied LM head.
@@ -82,12 +83,13 @@ def lm_loss(logits, targets, dtype="float32"):
 
 
 class DecoderLM:
-    """Decoder-only LM with the paged serving path.
+    """Decoder-only LM with generation and the paged serving path.
 
     `logits(tokens)` builds the tower via decoder_lm and RECORDS its
-    parameters in creation order; the serving ops (`prefill`,
-    `decode_step`) wire those same parameters into their slots, and the
-    values are shared through the scope by name."""
+    parameters in creation order; the generation ops (`generate`,
+    `beam_generate`) and the serving ops (`prefill`, `decode_step`) wire
+    those same parameters into their slots, and the values are shared
+    through the scope by name."""
 
     # creation order inside decoder_lm: emb W, pos table, then per layer
     # [ln1 s, ln1 b, wq, wk, wv, wo, ln2 s, ln2 b, w1, b1, w2, b2],
@@ -120,6 +122,71 @@ class DecoderLM:
                                f"expected {want}")
         self._params = new
         return out
+
+    def generate(self, prompt, max_gen, eos_id=-1, temperature=0.0,
+                 top_k=0):
+        """prompt [B, P, 1] int64 → Ids [B, max_gen] int64 (op
+        ``gpt_decode``: K1 prefills the prompt, then max_gen - 1 cached
+        steps).
+
+        temperature=0 is greedy (``stable_argmax``); > 0 samples
+        softmax(logits / temperature), optionally truncated to the top_k
+        most likely tokens, from the run's (seed, step) stream, so each
+        run draws afresh and the same (seed, step) replays.  Build it in
+        its own program (``with fluid.program_guard(p):``); the
+        parameters are shared with the tower through the scope by
+        name."""
+        if self._params is None:
+            raise RuntimeError("build the tower with .logits() first")
+        if top_k > self.vocab_size:
+            raise ValueError(
+                f"top_k={top_k} exceeds vocab_size={self.vocab_size}")
+        self._check_len(prompt, max_gen)
+        helper = LayerHelper("gpt_decode")
+        ids = helper.create_tmp_variable("int64", shape=(-1, max_gen),
+                                         stop_gradient=True)
+        helper.append_op(
+            "gpt_decode",
+            inputs=self._decode_inputs(prompt),
+            outputs={"Ids": [ids.name]},
+            attrs={"n_heads": self.n_heads, "max_gen": int(max_gen),
+                   "eos_id": int(eos_id), "eps": 1e-5,
+                   "temperature": float(temperature), "top_k": int(top_k)},
+        )
+        return ids
+
+    def beam_generate(self, prompt, max_gen, beam_size, eos_id=-1):
+        """prompt [B, P, 1] int64 → (Ids [B, K, max_gen] int64, lanes best
+        first; Scores [B, K] f32 accumulated log-probs) — op
+        ``gpt_beam_decode``.  Same own-program, shared-scope contract as
+        generate()."""
+        if self._params is None:
+            raise RuntimeError("build the tower with .logits() first")
+        if not 1 <= beam_size <= self.vocab_size:
+            raise ValueError(
+                f"beam_size={beam_size} must be in [1, vocab_size="
+                f"{self.vocab_size}] (top-k over the vocab seeds lanes)")
+        self._check_len(prompt, max_gen)
+        helper = LayerHelper("gpt_beam_decode")
+        ids = helper.create_tmp_variable(
+            "int64", shape=(-1, beam_size, max_gen), stop_gradient=True)
+        scores = helper.create_tmp_variable(
+            "float32", shape=(-1, beam_size), stop_gradient=True)
+        helper.append_op(
+            "gpt_beam_decode",
+            inputs=self._decode_inputs(prompt),
+            outputs={"Ids": [ids.name], "Scores": [scores.name]},
+            attrs={"n_heads": self.n_heads, "max_gen": int(max_gen),
+                   "beam_size": int(beam_size), "eos_id": int(eos_id),
+                   "eps": 1e-5},
+        )
+        return ids, scores
+
+    def _check_len(self, prompt, max_gen):
+        P = prompt.shape[1]
+        if P + max_gen > self.max_len:
+            raise ValueError(f"prompt {P} + max_gen {max_gen} exceeds "
+                             f"max_len={self.max_len}")
 
     def load_params(self, arrays, scope):
         """Write `arrays` — numpy parameter values in creation order (the

@@ -3,6 +3,7 @@
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
+    beam_ops,
     control_flow_ops,
     loss_ops,
     math_ops,
@@ -10,4 +11,5 @@ from . import (  # noqa: F401
     optimizer_ops,
     sequence_ops,
     tensor_ops,
+    transformer_ops,
 )

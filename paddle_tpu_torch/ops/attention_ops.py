@@ -24,7 +24,12 @@ decoder (Bahdanau additive attention, ``score = v·tanh(W_q h + W_m
 enc)``, feeding a GRU cell).  The JAX package computes it outside any
 Pallas kernel, as a ``lax.scan`` that XLA compiles; here it is a Python
 loop over the target steps of stock PyTorch ops, and its gradient comes
-through ``generic_grad``.
+through ``generic_grad``.  Generation runs the same cell over beam lanes:
+``attention_gru_cell`` is one step of it (the user decoder inside a
+``While`` block of the composable loop), ``beam_search_generate`` the
+whole beam search in one op, in plain PyTorch as in the JAX package; its
+top-k is ``stable_topk`` and its loop never reads the device on the
+host.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from .cuda_kernels.flash_attention import FlashAttentionTrain, flash_attention
 from .cuda_kernels.paged_attention import paged_attention, paged_attention_mq
 from .registry import register_op
+from .tensor_ops import stable_topk
 from .transformer_ops import _lm_fns, _prompt_2d, stable_argmax
 
 
@@ -348,13 +354,24 @@ def paged_page_copy(ctx, ins, attrs):
 
 
 def _attend(h, enc_proj, enc_out, enc_mask, w_q, v):
-    """h [B,H]; enc_proj [B,Ts,A]; enc_out [B,Ts,E]; enc_mask [B,Ts] →
-    (context [B,E], weights [B,Ts])."""
+    """h [B,H] or [B,K,H] (beam lanes); enc_proj [B,Ts,A]; enc_out
+    [B,Ts,E]; enc_mask [B,Ts] → (context [B,(K,)E], weights [B,(K,)Ts])."""
     q = h @ w_q
-    e = torch.tanh(enc_proj + q[:, None, :]) @ v
-    e = torch.where(enc_mask > 0, e, -1e9)
+    if h.ndim == 2:
+        e = torch.tanh(enc_proj + q[:, None, :]) @ v
+        e = torch.where(enc_mask > 0, e, -1e9)
+        a = torch.softmax(e, dim=-1)
+        return torch.einsum("bt,bte->be", a, enc_out), a
+    e = torch.tanh(enc_proj[:, None] + q[:, :, None, :]) @ v  # [B,K,Ts]
+    e = torch.where(enc_mask[:, None] > 0, e, -1e9)
     a = torch.softmax(e, dim=-1)
-    return torch.einsum("bt,bte->be", a, enc_out), a
+    return torch.einsum("bkt,bte->bke", a, enc_out), a
+
+
+def _mask(lengths, T):
+    """[B, T] f32: 1 where t < lengths[b]."""
+    return (torch.arange(T, device=lengths.device)[None, :]
+            < lengths[:, None]).float()
 
 
 def _gru_cell(xc, h, w_in, b_in, w_h):
@@ -385,9 +402,7 @@ def attention_gru_decoder(ctx, ins, attrs):
     w_h = ins["WH"][0]
     w_q, w_m, v = ins["WQuery"][0], ins["WMem"][0], ins["V"][0]
 
-    Ts = enc_out.shape[1]
-    enc_mask = (torch.arange(Ts, device=enc_out.device)[None, :]
-                < enc_len[:, None]).float()
+    enc_mask = _mask(enc_len, enc_out.shape[1])
     enc_proj = enc_out @ w_m  # [B,Ts,A], hoisted out of the loop
     hs, ctxs = [], []
     for t in range(tgt.shape[1]):
@@ -397,3 +412,78 @@ def attention_gru_decoder(ctx, ins, attrs):
         hs.append(h)
         ctxs.append(ctx_vec)
     return {"Hidden": [torch.stack(hs, 1)], "Context": [torch.stack(ctxs, 1)]}
+
+
+def _dec_weights(ins):
+    return (ins["WIn"][0], ins["BIn"][0], ins["WH"][0], ins["WQuery"][0],
+            ins["WMem"][0], ins["V"][0], ins["WOut"][0], ins["BOut"][0])
+
+
+@register_op("attention_gru_cell", grad=None,
+             non_diff_inputs=("EncLength", "Tokens"))
+def attention_gru_cell(ctx, ins, attrs):
+    """ONE decoder step over beam lanes, the user decoder of the
+    composable generation loop.  Inputs: EncOut [B,Ts,E], EncLength [B],
+    H [B,K,H], Tokens [B,K] int, Embedding [V,D], WIn/BIn/WH/WQuery/WMem/V
+    as attention_gru_decoder's, WOut [H,Vo], BOut [Vo].  Outputs: HNew
+    [B,K,H], Logp [B,K,Vo] (log-softmax)."""
+    enc_out, h = ins["EncOut"][0], ins["H"][0]
+    w_in, b_in, w_h, w_q, w_m, v, w_out, b_out = _dec_weights(ins)
+    enc_mask = _mask(ins["EncLength"][0], enc_out.shape[1])
+    x = ins["Embedding"][0][ins["Tokens"][0].long()]  # [B,K,D]
+    ctx_vec, _ = _attend(h, enc_out @ w_m, enc_out, enc_mask, w_q, v)
+    h_new = _gru_cell(torch.cat([x, ctx_vec], dim=-1), h, w_in, b_in, w_h)
+    logits = h_new @ w_out + b_out
+    return {"HNew": [h_new], "Logp": [torch.log_softmax(logits, dim=-1)]}
+
+
+@register_op("beam_search_generate", grad=None)
+def beam_search_generate(ctx, ins, attrs):
+    """Beam-search decoding in one op.
+
+    Inputs: EncOut [B,Ts,E], EncLength [B], Embedding [V,D], H0 [B,H], the
+    decoder cell's weights and WOut/BOut.  Attrs: beam_size, max_len,
+    bos_id, eos_id.  Outputs: Ids [B,K,max_len] int32, Scores [B,K]
+    (total log-prob), Lengths [B,K] int32.  Lane 0 starts live and the
+    others dead (identical lanes would divide the search); a finished
+    lane extends with eos at zero cost."""
+    enc_out, emb, h0 = ins["EncOut"][0], ins["Embedding"][0], ins["H0"][0]
+    w_in, b_in, w_h, w_q, w_m, v, w_out, b_out = _dec_weights(ins)
+    K = int(attrs.get("beam_size", 4))
+    L = int(attrs.get("max_len", 32))
+    bos = int(attrs.get("bos_id", 0))
+    eos = int(attrs.get("eos_id", 1))
+
+    B, Ts, _ = enc_out.shape
+    H = h0.shape[-1]
+    Vo = w_out.shape[-1]
+    dev = enc_out.device
+    enc_mask = _mask(ins["EncLength"][0], Ts)
+    enc_proj = enc_out @ w_m
+
+    h = h0[:, None].expand(B, K, H)
+    tokens = torch.full((B, K), bos, dtype=torch.int64, device=dev)
+    lane = torch.arange(K, device=dev)[None, :]
+    scores = torch.where(lane == 0, 0.0, -1e9).expand(B, K)
+    finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    ids = torch.zeros((B, K, L), dtype=torch.int32, device=dev)
+    lengths = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    eos_only = torch.full((Vo,), -1e9, device=dev)
+    eos_only[eos] = 0.0
+    for t in range(L):
+        ctx_vec, _ = _attend(h, enc_proj, enc_out, enc_mask, w_q, v)
+        h_new = _gru_cell(torch.cat([emb[tokens], ctx_vec], dim=-1), h,
+                          w_in, b_in, w_h)
+        logp = torch.log_softmax(h_new @ w_out + b_out, dim=-1)  # [B,K,Vo]
+        logp = torch.where(finished[..., None], eos_only, logp)
+        scores, top = stable_topk(
+            (scores[..., None] + logp).reshape(B, K * Vo), K)
+        beam = top // Vo
+        tokens = top % Vo
+        h = torch.gather(h_new, 1, beam[..., None].expand(B, K, H))
+        fin = torch.gather(finished, 1, beam)
+        ids = torch.gather(ids, 1, beam[..., None].expand(B, K, L))
+        ids[:, :, t] = torch.where(fin, eos, tokens).to(torch.int32)
+        lengths = torch.gather(lengths, 1, beam) + (~fin).to(torch.int32)
+        finished = fin | (tokens == eos)
+    return {"Ids": [ids], "Scores": [scores], "Lengths": [lengths]}

@@ -82,7 +82,9 @@ def registered_ops() -> List[str]:
 
 class EmitContext:
     """Per-run state handed to emitters: the device every tensor lives
-    on, train/test mode, and per-op random generators."""
+    on, train/test mode, per-op random generators, and ``lower_block``,
+    which the executor sets so that a control-flow op can run a nested
+    block."""
 
     def __init__(self, device: torch.device, is_test: bool, program=None,
                  step: int = 0):
@@ -90,15 +92,21 @@ class EmitContext:
         self.is_test = is_test
         self.program = program
         self.step = int(step)
+        # callable(block_idx, env) -> env, set by the executor's walk:
+        # runs every op of program.blocks[block_idx] in order on env
+        self.lower_block = None
 
-    def generator(self, attrs) -> torch.Generator:
+    def generator(self, attrs, *fold) -> torch.Generator:
         """A generator on the device, seeded from (program.random_seed,
-        run step, op __uid__): each stochastic op draws its own stream,
-        and the same (seed, step, uid) replays it."""
+        run step, op __uid__, *fold): each stochastic op draws its own
+        stream, `fold` splits it further (a decode loop folds in its
+        step, as ``jax.random.fold_in`` does), and the same seed words
+        replay it."""
         seed = self.program.random_seed if self.program is not None else 0
         uid = int(attrs.get("__uid__", 0))
         mixed = np.random.SeedSequence(
-            [int(seed), self.step, uid]).generate_state(2, np.uint32)
+            [int(seed), self.step, uid, *(int(f) for f in fold)]
+        ).generate_state(2, np.uint32)
         g = torch.Generator(device=self.device)
         g.manual_seed((int(mixed[0]) << 31) ^ int(mixed[1]))
         return g

@@ -1,8 +1,9 @@
 """Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
 that the startup program, the LM tower, the recurrent models and ResNet
 use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
-reshape, transpose, slice, lookup_table, top_k, and the training options'
-print, increment and pruning_mask.  Random ops draw from the context's
+reshape, transpose, slice, lookup_table, top_k, the training options'
+print, increment and pruning_mask, and generation's
+fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather.  Random ops draw from the context's
 per-op generator, on the context's device.  Shape ops may return views of
 their input; no emitter writes into an input.  ``print`` reads its tensor
 on the host, so a block holding it never rides a captured step loop
@@ -26,6 +27,29 @@ def fill_constant(ctx, ins, attrs):
     dt = torch_dtype(attrs.get("dtype", "float32"))
     return {"Out": [torch.full(_shape(attrs), attrs.get("value", 0.0),
                                dtype=dt, device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like", grad=None)
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """fill_constant whose dim `output_dim_idx` is Input's dim
+    `input_dim_idx`."""
+    shape = _shape(attrs)
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        ins["Input"][0].shape[int(attrs.get("input_dim_idx", 0))]
+    dt = torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0), dtype=dt,
+                               device=ctx.device)]}
+
+
+@register_op("assign_value", grad=None)
+def assign_value(ctx, ins, attrs):
+    """Constants carried in the attrs (assign_value_op.cc): fp32_values as
+    float32, else int32_values as int32."""
+    if attrs.get("fp32_values"):
+        vals = torch.tensor(attrs["fp32_values"], dtype=torch.float32)
+    else:
+        vals = torch.tensor(attrs["int32_values"], dtype=torch.int32)
+    return {"Out": [vals.reshape(_shape(attrs)).to(ctx.device)]}
 
 
 @register_op("uniform_random", grad=None, draws_rng=True)
@@ -78,6 +102,25 @@ def transpose(ctx, ins, attrs):
     return {"Out": [ins["X"][0].permute(*[int(a) for a in attrs["axis"]])]}
 
 
+@register_op("unsqueeze")
+def unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    for ax in sorted(int(a) for a in attrs["axes"]):
+        x = x.unsqueeze(ax)
+    return {"Out": [x]}
+
+
+@register_op("beam_gather", non_diff_inputs=("Index",))
+def beam_gather(ctx, ins, attrs):
+    """Reorder beam-lane state by parent pointers: X [B,K,...], Index
+    [B,K] -> Out[b,k] = X[b, Index[b,k]] (the state shuffle after a
+    beam_search step)."""
+    x, idx = ins["X"][0], ins["Index"][0].long()
+    full = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(
+        idx.shape + x.shape[2:])
+    return {"Out": [torch.gather(x, 1, full)]}
+
+
 @register_op("slice")
 def slice_op(ctx, ins, attrs):
     x = ins["Input"][0]
@@ -126,15 +169,21 @@ def lookup_table(ctx, ins, attrs):
     return {"Out": [emb.reshape(out_shape)]}
 
 
+def stable_topk(x, k):
+    """The k largest values along the last axis and their indices, equal
+    values keeping the lowest indices as ``jax.lax.top_k`` does: a stable
+    descending sort, then the first k (``torch.topk`` picks among ties in
+    no fixed order on the card)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 @register_op("top_k", grad=None)
 def top_k(ctx, ins, attrs):
-    """The k largest values along the last axis and their int64 indices.
-    Equal values keep the lowest indices, as ``jax.lax.top_k`` does: a
-    stable descending sort, then the first k (``torch.topk`` picks among
-    ties in no fixed order)."""
-    k = int(attrs["k"])
-    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
-    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}
+    """The k largest values along the last axis and their int64 indices
+    (``stable_topk``)."""
+    vals, idx = stable_topk(ins["X"][0], int(attrs["k"]))
+    return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
 
 
 @register_op("print")

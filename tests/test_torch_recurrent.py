@@ -677,17 +677,6 @@ def test_recurrent_steps_launch_no_kernel_on_cpu():
     assert [f.launches for f in fns] == before
 
 
-def test_nmt_generation_is_not_ported_yet():
-    from paddle_tpu_torch.models.seq2seq import Seq2SeqAttention
-
-    model = Seq2SeqAttention(NV, NV, emb_dim=ND, hidden=ND, attn=ND)
-    src = tfluid.layers.sequence_data("src", shape=[1], dtype="int64")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        model.generate(src)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        model.generate_composable(src)
-
-
 def test_get_length_var_needs_a_sequence_input():
     x = tfluid.layers.data("x", shape=[4, 8], dtype="float32")
     with pytest.raises(ValueError, match="no sequence-length companion"):
