@@ -260,12 +260,42 @@ non-zero and no result line is printed):
     steps of a ``StaticRNN`` and of a ragged ``DynamicRNN`` against the
     CPU (losses and state 1e-4), ``ifelse``'s gradients against the CPU's
     for each branch (1e-4; the untaken branch's zero);
-27. summary.
+27. dropout and remat, GPT at the bench width: (a) f32 at 2 x 256, two
+    steps with and without remat from one state (losses 1e-5 relative,
+    step-1 grads 1e-4 of max |g|); (b) bf16 at 8 x 1024: remat alone and
+    remat with dropout 0.1, 2 + 10 eager steps each (K4 16, K5 8, K6 8 a
+    step, by the wrappers' counts and once by the profiler's; the loss
+    falls; step ms and peak memory beside phase 12's plain row), the
+    step-1 loss with and without remat equal to the bit, a dropout step
+    from one state twice equal to the bit and the next step's different,
+    K = 4 on the dropout program warning and running eagerly, K = 4 on
+    the remat program captured as in 21 (12 eager against 12 replayed
+    steps);
+28. saving and loading what 27 trained: ``io.save_persistables`` then
+    ``io.load_persistables`` into a fresh scope (bf16 card tensors, the
+    saved bits), the next step equal to the uninterrupted one to the bit;
+    ``io.save_inference_model`` then ``load_inference_model``: ``__model__``
+    parses to its ``program.json``, and the loaded forward (K1 8
+    launches) equals the live program's test-mode forward to the bit;
+29. ResNet-50: (a) f32 at 128 x 128, batch 4, one fused step with and
+    without remat from one state (phase 19's tolerances: loss 1e-4, fc
+    grad 1e-3, statistics 1e-3); (b) fused bf16 with remat at the bench
+    shape, 2 + 5 steps, K11–K15 inside the recompute segments (the
+    launches the desc implies: a chain never crosses a segment's edge, so
+    16 1x1 and 16 3x3 pairs fuse), step ms and peak memory beside phase
+    20's; (c) its trained state in ``bench.py``'s inference program
+    (batch 16, 224 x 224 x 3 NHWC) in f32 and bf16, all 53 pairs folded
+    by ``fuse_batch_norm``: the f32 logits after the fold within 1e-4 of
+    their max |value| of before it, the bf16 folded logits no further
+    from the f32 unfolded ones than twice the bf16 unfolded ones (relative
+    norm), img/s folded and unfolded (3 warm-up calls, 5 rounds of 10, the
+    spread); cuDNN runs those convolutions, no port kernel;
+30. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
-{...}}`` summary (all 15 kernels) and the last line is ``{"ok": true,
-"device": {...}}``.  Without CUDA the script
+{...}, "remat_save_load": {...}}`` summary (all 15 kernels) and the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits 2 and prints no result.
 """
 
@@ -275,6 +305,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -284,6 +315,7 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.framework import executor as texecutor
+from paddle_tpu_torch.framework import step_loop
 from paddle_tpu_torch.models import gpt_bench, resnet_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
@@ -3872,7 +3904,523 @@ def generation_phase(dev, card_name, smi):
     return res
 
 
-# -- 27. summary --------------------------------------------------------------
+# -- 27. dropout and remat: GPT training at the bench shape -------------------
+
+GPT_DROPOUT = 0.1
+GPT_REMAT_STEPS = 10
+# the bf16 kernels of the flash path, by the names the profiler shows
+FLASH_BF16_BODIES = {"flash_attention_fwd": "flash_fwd_mma_kernel",
+                     "flash_attention_dq": "flash_dq_mma_kernel",
+                     "flash_attention_dkv": "flash_dkv_mma_kernel"}
+
+
+def lm_program(seq, dtype, remat=False, dropout_prob=0.0):
+    """The bench GPT (``build_lm_train_program``'s tower, loss and Adam
+    3e-4 at bench.py's width) with ``decoder_lm``'s `dropout_prob` and
+    `remat`, in fresh default programs and scope; returns (loss, logits,
+    main, startup).  The parameter names do not depend on either."""
+    fluid.reset()
+    tokens = fluid.layers.data("tokens", shape=[seq, 1], dtype="int64")
+    targets = fluid.layers.data("targets", shape=[seq, 1], dtype="int64")
+    logits = transformer.decoder_lm(tokens, VOCAB, DIM, LAYERS, HEADS,
+                                    max_len=seq, dtype=dtype,
+                                    dropout_prob=dropout_prob, remat=remat)
+    loss = transformer.lm_loss(logits, targets, dtype=dtype)
+    fluid.optimizer.Adam(learning_rate=3e-4).minimize(loss)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    main = fluid.default_main_program()
+    main.random_seed = SEED
+    return loss, logits, main, startup
+
+
+def profiled_flash_counts(exe, main, loss, feed):
+    """One step under torch.profiler: the bf16 flash kernels' device
+    launches by name (the wrappers' counts are the contract's; this is
+    what the device ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not device:
+        return {"profiled": "not measured: the profiler saw no device "
+                            "event"}
+    return {k: sum(body in n for n in device)
+            for k, body in FLASH_BF16_BODIES.items()}
+
+
+def timed_eager(tag, exe, main, loss, feed, n, want):
+    """2 warm-up steps, then `n` eager steps, each ending in the loss fetch
+    and each launching exactly `want`: losses, step ms, peak memory."""
+    warm = run_steps(exe, main, loss, feed, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    steps = run_steps(exe, main, loss, feed, n)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for _, _, per_step, _ in steps:
+        check_launches(tag, per_step, want)
+    losses = [r[0] for r in warm + steps]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} are not finite or "
+                             f"did not fall")
+    return {"losses": losses, "step_ms": wall / n * 1e3,
+            "step_ms_each": [r[3] * 1e3 for r in steps],
+            "tok_s": TRAIN_BS * TRAIN_SEQ / (wall / n),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": steps[-1][2]}
+
+
+def remat_f32_parity():
+    """f32 at the parity shape (2 x 256): from one state, two steps with
+    and without remat: losses within 1e-5 relative, the step-1 grads of
+    the embedding, the first WQ and the head within 1e-4 of their max |g|
+    (the same ops; autograd over a segment sums in another order than one
+    grad op at a time); K4 16, K5 8, K6 8 a step in both."""
+    feed = train_batch(PARITY_BS, PARITY_SEQ)
+    runs, state = {}, None
+    for remat in (False, True):
+        loss, _, main, startup = lm_program(PARITY_SEQ, "float32",
+                                            remat=remat)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        if state is None:
+            exe.run(startup)
+            state = {n: fluid.global_scope().find_np(n)
+                     for n in persistables(main)}
+        else:
+            fluid.load_persistables(main, state)
+        params = [p.name for p in main.global_block().all_parameters()]
+        grads = [n + "@GRAD" for n in (params[0], params[4], params[-1])]
+        runs[remat] = run_steps(exe, main, loss, feed, 2, grads)
+        for _, _, launches, _ in runs[remat]:
+            check_launches(f"remat_f32_parity remat={remat}", launches,
+                           per_step_want())
+    loss_rel = [abs(a[0] - b[0]) / abs(b[0])
+                for a, b in zip(runs[True], runs[False])]
+    grad_rel = {n: float(np.abs(runs[True][0][1][n] - g).max()
+                         / np.abs(g).max())
+                for n, g in runs[False][0][1].items()}
+    res = {"bs": PARITY_BS, "seq": PARITY_SEQ,
+           "losses_remat": [r[0] for r in runs[True]],
+           "losses_plain": [r[0] for r in runs[False]],
+           "loss_rel": loss_rel, "grad_rel_step1": grad_rel,
+           "tol": {"loss": 1e-5, "grad": 1e-4}}
+    if max(loss_rel) > 1e-5 or max(grad_rel.values()) > 1e-4:
+        raise AssertionError(f"remat_f32_parity: remat and no remat part: "
+                             f"{res}")
+    return res
+
+
+def remat_gpt_phase(card_name, smi, plain):
+    """27. (a) f32 remat against no remat (``remat_f32_parity``); (b) bf16
+    at the bench shape (8 x 1024): remat alone, then remat with dropout
+    0.1, each 2 + GPT_REMAT_STEPS eager steps (K4 16, K5 8, K6 8 a step
+    by the wrappers' counts, and once by the profiler's), the loss
+    falling; from one state the step-1 loss with and without remat equal
+    to the bit (the same forward); with dropout the same step from the
+    same state twice equal to the bit (loss and every persistable) and the
+    next step's mask another; K = 4 on the dropout program warns naming
+    dropout and runs eagerly; K = 4 on the remat program without dropout
+    captured as phase 21 (held to the spread of eager runs, launches at
+    capture 4 x a step's, none at a replay), 12 eager against 12 replayed
+    steps; `plain` is phase 12's row (no remat, no dropout) beside it.
+    Returns the row and the dropout program's state for phase 28."""
+    f32 = remat_f32_parity()
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    want = per_step_want()
+    k = STEP_LOOP_K["gpt"]
+
+    loss, _, main, startup = lm_program(TRAIN_SEQ, "bfloat16", remat=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    s0 = snap(persistables(main))
+    first_remat = run_steps(exe, main, loss, feed, 1)[0][0]
+    remat = timed_eager("gpt_remat_bf16", exe, main, loss, feed,
+                        GPT_REMAT_STEPS, want)
+    restore(s0)
+    safety = step_loop.safety_report(main)
+    if not safety["safe"]:
+        raise AssertionError(f"remat GPT: loop-unsafe {safety}")
+    stacked = gpt_stacked(TRAIN_BS, TRAIN_SEQ, k)
+    captured = loop_parity("gpt_remat_capture", exe, main, loss, stacked,
+                           k, want)
+    captured.update(loop_timing(exe, main, loss, stacked, k,
+                                TRAIN_BS * TRAIN_SEQ))
+    exe.close()
+    del exe
+    s0_np = {n: t.float().cpu().numpy() for n, t in s0.items()}
+
+    loss, _, main, _ = lm_program(TRAIN_SEQ, "bfloat16")
+    fluid.load_persistables(main, s0_np)
+    first_plain = run_steps(fluid.Executor(fluid.CUDAPlace(0)), main, loss,
+                            feed, 1)[0][0]
+    if first_plain != first_remat:
+        raise AssertionError(f"gpt remat: the step-1 loss {first_remat} "
+                             f"!= no remat's {first_plain} (one forward)")
+
+    loss, logits, main, _ = lm_program(TRAIN_SEQ, "bfloat16", remat=True,
+                                       dropout_prob=GPT_DROPOUT)
+    fluid.load_persistables(main, s0_np)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    drop = timed_eager("gpt_remat_dropout_bf16", exe, main, loss, feed,
+                       GPT_REMAT_STEPS, want)
+    names = persistables(main)
+    s1 = snap(names)
+    replays = []
+    for step in (100, 100, 101):
+        restore(s1)
+        lv = float(exe.run(main, feed=feed, fetch_list=[loss],
+                           rng_step=step)[0][0])
+        replays.append((lv, snap(names)))
+    same = distance([replays[0][0]], replays[0][1], [replays[1][0]],
+                    replays[1][1])
+    other = distance([replays[2][0]], replays[2][1], [replays[0][0]],
+                     replays[0][1])
+    if not same["bitwise"] or other["bitwise"]:
+        raise AssertionError(f"gpt dropout: the same (seed, step) "
+                             f"{brief(same)} or the next step "
+                             f"{brief(other)}")
+    restore(s1)
+    profiled = profiled_flash_counts(exe, main, loss, feed)
+    if "profiled" not in profiled and profiled != want:
+        raise AssertionError(f"gpt dropout: the profiler counted "
+                             f"{profiled} flash launches, want {want}")
+    restore(s1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.monotonic()
+        k_losses = dispatch(exe, main, loss, stacked, k)
+        torch.cuda.synchronize()
+        k_ms = (time.monotonic() - t0) / k * 1e3
+    said = [str(w.message) for w in caught if "loop-unsafe" in
+            str(w.message)]
+    if not said or "'dropout'" not in said[0] or not np.all(
+            np.isfinite(k_losses)) or exe._loops and any(
+            e.loop is not None for e in exe._loops.values()):
+        raise AssertionError(f"gpt dropout K={k}: no loud eager route "
+                             f"naming dropout: {said}")
+    restore(s1)
+    state = {n: t.detach().clone() for n, t in s1.items()}
+    res = {"card": card_name, "nvidia_smi": smi, "bs": TRAIN_BS,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16",
+           "dropout_prob": GPT_DROPOUT, "f32_parity": f32,
+           "step1_loss_remat_equals_plain": True,
+           "step1_loss": first_remat,
+           "plain_eager_step_ms": plain["step_ms"],
+           "plain_peak_mem_gb": plain["peak_mem_gb"],
+           "remat": remat, "remat_dropout": drop,
+           "dropout_replay_same_step_bitwise": True,
+           "dropout_next_step_differs": brief(other),
+           "profiled_flash_launches_per_step": profiled,
+           "dropout_k_dispatch": {"k": k, "warning": said[0],
+                                  "ms_a_step": k_ms, "losses": k_losses},
+           "remat_captured": {kk: captured[kk] for kk in (
+               "k", "replay_vs_eager", "eager_spread", "launches_at_capture",
+               "eager_step_ms", "replay_step_ms", "replay_speedup",
+               "peak_mem_gb_eager", "pool_gb")}}
+    log("gpt_remat_dropout", res)
+    return res, (exe, main, loss, logits, feed, state)
+
+
+# -- 28. save, load and serve what was trained --------------------------------
+
+def save_load_phase(ctx, tmp):
+    """28. On phase 27's dropout GPT (bf16, 8 x 1024) and its state:
+    ``save_persistables``, then ``load_persistables`` into a fresh scope
+    on the card: the next step (pinned rng step) equals the uninterrupted
+    one to the bit, loss and every persistable, each loaded value a card
+    tensor of its saved dtype equal to the bit to what was saved.  Then
+    ``save_inference_model`` of the logits and ``load_inference_model``:
+    ``__model__`` parses to the ``program.json`` it was saved beside (equal
+    JSON documents), the global block's dropout op is in test mode (those
+    inside the recompute segments run in test mode as the program has no
+    grad op, as in the JAX package), and the loaded forward
+    on the card (K1 8 launches, no other kernel) equals the live program's
+    test-mode forward (``io.get_inference_program`` on the live scope, K1
+    8 launches) to the bit."""
+    from paddle_tpu_torch import io
+
+    exe, main, loss, logits, feed, state = ctx
+    names = persistables(main)
+    restore(state)
+    d = os.path.join(tmp, "persist")
+    io.save_persistables(exe, d, main)
+    want = float(exe.run(main, feed=feed, fetch_list=[loss],
+                         rng_step=200)[0][0])
+    want_state = snap(names)
+    fresh = fluid.Scope()
+    io.load_persistables(exe, d, main, fresh)
+    for n in names:
+        t = fresh.find(n)
+        if t.device != exe.device or t.dtype != state[n].dtype or \
+                not torch.equal(t, state[n]):
+            raise AssertionError(f"save_load: {n} loaded as {t.dtype} on "
+                                 f"{t.device}, or not the saved bits")
+    got = float(exe.run(main, feed=feed, fetch_list=[loss], scope=fresh,
+                        rng_step=200)[0][0])
+    resumed = distance([got], {n: fresh.find(n) for n in names}, [want],
+                       want_state)
+    if not resumed["bitwise"]:
+        raise AssertionError(f"save_load: the resumed step is not the "
+                             f"uninterrupted one: {brief(resumed)}")
+
+    restore(state)
+    m = os.path.join(tmp, "model")
+    saved = io.save_inference_model(m, ["tokens"], [logits], exe, main)
+    parsed, feeds, fetches = io.load_program_desc(m)
+    # equal documents: the wire form orders each op's attrs by name
+    with open(os.path.join(m, "program.json")) as f:
+        if not json.loads(parsed.to_json()) == json.loads(f.read()) == \
+                json.loads(saved.to_json()):
+            raise AssertionError("save_load: __model__ does not parse to "
+                                 "program.json")
+    toks = {"tokens": feed["tokens"]}
+    live = io.get_inference_program([logits], main)
+    for op in live.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["is_test"] = True
+    (want_logits,), live_launches = counted(lambda: exe.run(
+        live, feed=toks, fetch_list=[logits], return_numpy=False))
+    scope = fluid.Scope()
+    prog, feeds, fetches = io.load_inference_model(m, exe, scope)
+    if not all(op.attrs.get("is_test") for op in prog.global_block().ops
+               if op.type == "dropout"):
+        raise AssertionError("save_load: a loaded dropout op trains")
+    (got_logits,), launches = counted(lambda: exe.run(
+        prog, feed=toks, fetch_list=fetches, scope=scope,
+        return_numpy=False))
+    for tag, l in (("loaded", launches), ("live", live_launches)):
+        check_launches(f"save_load {tag} forward", l,
+                       {"flash_attention": LAYERS})
+    if not torch.equal(got_logits, want_logits):
+        raise AssertionError("save_load: the loaded forward differs from "
+                             "the live program's")
+    files = sorted(os.listdir(m))
+    res = {"persistables": len(names), "resumed_step_bitwise": True,
+           "loss_after_resume": got, "inference_ops": len(
+               prog.global_block().ops),
+           "model_files": len(files),
+           "model_bytes": sum(os.path.getsize(os.path.join(m, f))
+                              for f in files),
+           "loaded_launches": launches,
+           "loaded_equals_live_bitwise": True,
+           "bf16_npy_files": sum(f.endswith(".npy") for f in files)}
+    log("save_load", res)
+    exe.close()
+    return res
+
+
+# -- 29. ResNet-50: remat training, then inference with the BN fold -----------
+
+INFER_WARMUP, INFER_REPEATS, INFER_ITERS = 3, 5, 10
+
+
+def fused_want(block):
+    """Launches a fused step implies: each fused op once forward and once
+    inside the grad's re-run of its forward (a recompute segment's
+    included), its backward once."""
+    ops = [op.type for b in block.program.blocks for op in b.ops]
+    n1, n3 = ops.count("bn_act_conv1x1"), ops.count("bn_act_conv3x3")
+    return {"bn_matmul_fwd": 2 * n1, "bn_matmul_bwd": n1,
+            "bn_conv3x3_fwd": 2 * n3, "bn_conv3x3_bwd": n3}
+
+
+def resnet_remat_parity():
+    """f32 ResNet-50 at 128 x 128, batch 4 (phase 19's shape and
+    tolerances): one step from one state with and without remat, each
+    fused (remat fuses fewer pairs: a chain never crosses a segment's
+    edge): the losses within 1e-4 relative, the fc weight's grad within
+    1e-3 of its max |g|, the running statistics after the step within
+    1e-3 of their max |value|."""
+    image, bs = RESNET_PARITY[50]
+    feed = resnet_bench.feed(bs, image)
+    rows, state = {}, None
+    for remat in (False, True):
+        fluid.reset()
+        loss, _ = resnet_bench.train_program(
+            depth=50, image=image, dtype="float32",
+            learning_rate=RESNET_PARITY_LR, remat=remat)
+        fluid.default_startup_program().random_seed = SEED
+        main = fluid.default_main_program()
+        block = main.global_block()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        if state is None:
+            exe.run(fluid.default_startup_program())
+            state = snapshot(block)
+        else:
+            fluid.load_persistables(main, state)
+        fc = next(p.name for p in block.all_parameters()
+                  if p.name.startswith("fc") and ".w_" in p.name) + "@GRAD"
+        (lv, grads, launches, _), = run_steps(exe, main, loss, feed, 1, [fc])
+        check_launches(f"resnet_remat_parity remat={remat}", launches,
+                       fused_want(block))
+        rows[remat] = (lv, grads[fc], {n: fluid.global_scope().find_np(n)
+                                       for n in state if ".global" in n},
+                       launches)
+    (l1, g1, s1, _), (l0, g0, s0, _) = rows[True], rows[False]
+    res = {"image": image, "bs": bs, "loss_remat": l1, "loss_plain": l0,
+           "loss_rel": abs(l1 - l0) / abs(l0),
+           "fc_grad_rel": float(np.abs(g1 - g0).max() / np.abs(g0).max()),
+           "stats_rel": max(float(np.abs(s1[n] - s0[n]).max()
+                                  / max(np.abs(s0[n]).max(), 1e-12))
+                            for n in s0),
+           "launches_remat": rows[True][3], "launches_plain": rows[False][3],
+           "tol": {"loss": 1e-4, "fc_grad": 1e-3, "stats": 1e-3}}
+    if res["loss_rel"] > 1e-4 or res["fc_grad_rel"] > 1e-3 or \
+            res["stats_rel"] > 1e-3:
+        raise AssertionError(f"resnet remat parity: {res}")
+    return res
+
+
+def infer_img_s(exe, prog, feed, fetch, bs):
+    """INFER_REPEATS rounds of INFER_ITERS runs after INFER_WARMUP, each
+    round ending in a synchronize: img/s per round."""
+    for _ in range(INFER_WARMUP):
+        exe.run(prog, feed=feed, fetch_list=fetch, return_numpy=False)
+    rates = []
+    for _ in range(INFER_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(INFER_ITERS):
+            exe.run(prog, feed=feed, fetch_list=fetch, return_numpy=False)
+        torch.cuda.synchronize()
+        rates.append(bs * INFER_ITERS / (time.monotonic() - t0))
+    return {"img_s_median": float(np.median(rates)),
+            "img_s_min": min(rates), "img_s_max": max(rates),
+            "img_s_each": rates}
+
+
+def rel_norm(a, b):
+    """||a - b|| / ||b||, in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def resnet_infer_fold(state, dtype):
+    """``bench_resnet_infer``'s program (``resnet_bench.infer_program``:
+    batch INFER_BS, 224 x 224 x 3 NHWC, softmax over f32 logits) in
+    `dtype` with the trained `state`'s weights and running statistics:
+    its logits and probabilities before and after ``fuse_batch_norm``,
+    img/s of each, and that no port kernel ran (cuDNN convolutions)."""
+    fluid.reset()
+    prob = resnet_bench.infer_program(dtype=dtype)
+    main = fluid.default_main_program()
+    block = main.global_block()
+    logits = [op for op in block.ops
+              if op.type == "softmax"][-1].inputs["X"][0]
+    fluid.load_persistables(main, {n: state[n] for n, v in block.vars.items()
+                                   if v.persistable})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.rand(resnet_bench.INFER_BS, resnet_bench.IMAGE,
+                              resnet_bench.IMAGE, 3).astype(np.float32)}
+    before, launches = counted(lambda: exe.run(main, feed=feed,
+                                               fetch_list=[logits, prob]))
+    if any(launches.values()):
+        raise AssertionError(f"resnet inference launched {launches}")
+    unfolded = infer_img_s(exe, main, feed, [prob], resnet_bench.INFER_BS)
+    n_bn = sum(op.type == "batch_norm" for op in block.ops)
+    folded_n = fluid.fuse_batch_norm(main, fluid.global_scope(),
+                                     fetch_names=[prob.name])
+    after = exe.run(main, feed=feed, fetch_list=[logits, prob])
+    folded = infer_img_s(exe, main, feed, [prob], resnet_bench.INFER_BS)
+    return {"dtype": dtype, "bs": resnet_bench.INFER_BS,
+            "batch_norm_ops": n_bn, "folded": folded_n,
+            "logits_before": before[0], "logits_after": after[0],
+            "logits_rel_max": float(np.abs(after[0] - before[0]).max()
+                                    / np.abs(before[0]).max()),
+            "logits_max_abs": float(np.abs(before[0]).max()),
+            "prob_max_abs_diff": float(np.abs(after[1] - before[1]).max()),
+            "prob_max": float(before[1].max()),
+            "top1_agree": float(np.mean(after[1].argmax(-1)
+                                        == before[1].argmax(-1))),
+            "unfolded": unfolded, "folded_rates": folded,
+            "fold_speedup": folded["img_s_median"]
+            / unfolded["img_s_median"]}
+
+
+def resnet_remat_phase(card_name, smi, fused_row):
+    """29. (a) ``resnet_remat_parity``; (b) fused ResNet-50 with remat at
+    the bench shape (bf16, batch 128, 224 x 224): 2 warm-up and 5
+    measured steps, the launches its desc implies every step (K11–K15
+    inside the recompute segments), the loss finite and falling, step ms
+    and peak memory beside phase 20's fused row (no remat); (c) its
+    trained state into ``bench_resnet_infer``'s program (batch 16) in f32
+    and bf16, every batch_norm folded by ``fuse_batch_norm``: the f32
+    logits after the fold within 1e-4 of their max |value| of before it,
+    the bf16 folded logits no further from the f32 unfolded ones than
+    twice the bf16 unfolded ones are (relative norm; the probabilities'
+    largest difference and top-1 agreement logged), img/s folded and
+    unfolded (INFER_REPEATS rounds, the spread)."""
+    parity = resnet_remat_parity()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    loss, _ = resnet_bench.train_program(remat=True)
+    fluid.default_startup_program().random_seed = SEED
+    main = fluid.default_main_program()
+    block = main.global_block()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(fluid.default_startup_program())
+    want = fused_want(block)
+    feed = resnet_bench.feed()
+    warm = run_steps(exe, main, loss, feed, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    steps = run_steps(exe, main, loss, feed, 5)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for _, _, per_step, _ in steps:
+        check_launches("resnet50_remat_bf16", per_step, want)
+    losses = [r[0] for r in warm + steps]
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        raise AssertionError(f"resnet50 remat: losses {losses}")
+    step_ms = wall / len(steps) * 1e3
+    train = {"bs": resnet_bench.BS, "image": resnet_bench.IMAGE,
+             "losses": losses, "step_ms": step_ms,
+             "img_s": resnet_bench.BS / (step_ms / 1e3),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches_per_step": steps[-1][2],
+             "segments": sum(op.type == "recompute" for op in block.ops),
+             "no_remat_step_ms": fused_row["step_ms"],
+             "no_remat_peak_mem_gb": fused_row["peak_mem_gb"],
+             "no_remat_launches_per_step": fused_row["launches_per_step"]}
+    state = {n: fluid.global_scope().find_np(n) for n in persistables(main)}
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    infer = {dt: resnet_infer_fold(state, dt)
+             for dt in ("float32", "bfloat16")}
+    ref = infer["float32"]["logits_before"]
+    f32, bf16 = infer["float32"], infer["bfloat16"]
+    for row in (f32, bf16):
+        row["logits_rel_norm_to_f32_unfolded"] = {
+            "unfolded": rel_norm(row.pop("logits_before"), ref),
+            "folded": rel_norm(row.pop("logits_after"), ref)}
+    f32["tol"] = {"logits_rel_max": TOL[torch.float32]}
+    bf16["tol"] = {"folded_vs_f32": "2 x the unfolded bf16 logits' "
+                                    "distance (relative norm)"}
+    d = bf16["logits_rel_norm_to_f32_unfolded"]
+    if any(r["folded"] != r["batch_norm_ops"] for r in (f32, bf16)) or \
+            f32["logits_rel_max"] > TOL[torch.float32] or \
+            d["folded"] > 2 * d["unfolded"]:
+        raise AssertionError(f"resnet fold: {infer}")
+    res = {"card": card_name, "nvidia_smi": smi, "f32_parity": parity,
+           "train_bf16": train, "infer": infer}
+    log("resnet50_remat_and_fold", res)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- 30. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -3938,6 +4486,15 @@ def main():
     coop = cooperative_capture_probe()
     opts = options_phase(name, smi, sl_gpt)
     gen = generation_phase(dev, name, smi)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    remat_gpt, gpt_ctx = remat_gpt_phase(name, smi, bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = save_load_phase(gpt_ctx, tmp)
+    del gpt_ctx
+    fluid.reset()
+    torch.cuda.empty_cache()
+    r50_remat = resnet_remat_phase(name, smi, r50_fused)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -3960,7 +4517,18 @@ def main():
                    gen["bench_bf16"]["launches_per_call"],
                "gpt_beam_and_greedy_f32": gen["beam"][0]["launches"],
                "nmt_generate": gen["nmt"]["launches"],
-               "nmt_generate_composable": gen["nmt"]["composable_launches"]}
+               "nmt_generate_composable": gen["nmt"]["composable_launches"],
+               "gpt_remat_bf16_per_step":
+                   remat_gpt["remat"]["launches_per_step"],
+               "gpt_remat_dropout_bf16_per_step":
+                   remat_gpt["remat_dropout"]["launches_per_step"],
+               "gpt_remat_captured_k4":
+                   remat_gpt["remat_captured"]["launches_at_capture"],
+               "gpt_loaded_inference_forward": saved["loaded_launches"],
+               "resnet50_remat_f32_per_step":
+                   r50_remat["f32_parity"]["launches_remat"],
+               "resnet50_remat_bf16_per_step":
+                   r50_remat["train_bf16"]["launches_per_step"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -4188,10 +4756,42 @@ def main():
             "composable_vs_generate", "wall_ms", "composable_wall_ms",
             "launches")},
         "control_flow": gen["control_flow"]}
+    rg, r5 = remat_gpt, r50_remat
+    remat_rows = {
+        "gpt_remat_f32_parity": {k: rg["f32_parity"][k] for k in (
+            "loss_rel", "grad_rel_step1")},
+        "gpt_bf16": {
+            "plain_eager_step_ms": rg["plain_eager_step_ms"],
+            "plain_peak_mem_gb": rg["plain_peak_mem_gb"],
+            **{f"{run}_{k}": rg[run][k] for run in ("remat", "remat_dropout")
+               for k in ("step_ms", "peak_mem_gb", "launches_per_step")},
+            "remat_replay_step_ms": rg["remat_captured"]["replay_step_ms"],
+            "remat_replay_vs_eager": rg["remat_captured"]["replay_vs_eager"],
+            "dropout_k_dispatch_ms_a_step":
+                rg["dropout_k_dispatch"]["ms_a_step"],
+            "profiled_flash_launches_per_step":
+                rg["profiled_flash_launches_per_step"]},
+        "save_load": {k: saved[k] for k in (
+            "resumed_step_bitwise", "loaded_equals_live_bitwise",
+            "loaded_launches", "model_bytes")},
+        "resnet50": {
+            "remat_f32_parity": {k: r5["f32_parity"][k] for k in (
+                "loss_rel", "fc_grad_rel", "stats_rel")},
+            "remat_bf16": {k: r5["train_bf16"][k] for k in (
+                "step_ms", "img_s", "peak_mem_gb", "launches_per_step",
+                "no_remat_step_ms", "no_remat_peak_mem_gb")},
+            "infer_fold": {dt: {k: row[k] for k in (
+                "bs", "folded", "logits_rel_max",
+                "logits_rel_norm_to_f32_unfolded", "prob_max_abs_diff",
+                "top1_agree", "fold_speedup")} | {
+                "img_s_folded": row["folded_rates"]["img_s_median"],
+                "img_s_unfolded": row["unfolded"]["img_s_median"]}
+                for dt, row in r5["infer"].items()}}}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows, "step_loop": step_loop_rows,
-                      "options": options_rows, "generate": generate_rows}),
+                      "options": options_rows, "generate": generate_rows,
+                      "remat_save_load": remat_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,7 +15,9 @@ schedule (``learning_rate_decay``); ``optimizer.ModelAverage`` keeps
 windowed parameter averages.  One ``exe.run`` is one step, and
 ``exe.run(steps_per_dispatch=K)`` is K, on the card one replay of a
 captured CUDA graph (``framework/step_loop.py``).  ``reader`` and
-``DataFeeder``/``DeviceFeeder`` feed it.
+``DataFeeder``/``DeviceFeeder`` feed it.  ``io`` saves and loads
+persistables and inference models in the JAX package's layout, and
+``fuse_batch_norm`` folds inference-mode BatchNorm into convolutions.
 
 The JAX package ``paddle_tpu`` is the reference this package is held
 against; nothing here imports it or JAX."""
@@ -25,6 +27,7 @@ from . import ops  # noqa: F401  (registers the op emitters)
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401
+from . import io  # noqa: F401
 from . import nets  # noqa: F401
 from . import learning_rate_decay  # noqa: F401
 from . import dataset  # noqa: F401
@@ -41,6 +44,7 @@ from .framework.core import (  # noqa: F401
     switch_startup_program,
 )
 from .framework.executor import Executor  # noqa: F401
+from .inference_transpiler import InferenceTranspiler, fuse_batch_norm  # noqa: F401
 from .framework.param_attr import ParamAttr  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework.scope import (  # noqa: F401

@@ -9,7 +9,8 @@ registry (``generic_grad``: autograd over a re-run of the forward
 emitter).  Where a variable's gradient materializes, a variable marked
 ``print_gradient`` gets a ``print`` of it and one with an ``error_clip``
 (``clip.ErrorClipByValue``) gets its clip, before any upstream grad op
-reads it.  ``calc_gradient`` is not ported (ROADMAP.md Queue A item 4).
+reads it.  ``calc_gradient`` backpropagates arbitrary targets to
+arbitrary inputs through a surrogate sum.
 """
 
 from __future__ import annotations
@@ -21,11 +22,15 @@ from . import unique_name
 from .core import GRAD_SUFFIX, Parameter, Variable, grad_var_name
 
 
-def _compute_requires_grad(block, no_grad_set: Set[str]) -> Set[str]:
+def _compute_requires_grad(block, no_grad_set: Set[str],
+                           extra_sources: Optional[Set[str]] = None
+                           ) -> Set[str]:
     """Forward taint pass: a var requires grad iff it is a trainable Parameter
     (or an un-stopped feed) or an output of an op with a requiring-grad
-    input, minus stop_gradient / no_grad vars."""
-    req: Set[str] = set()
+    input, minus stop_gradient / no_grad vars.  `extra_sources` adds taint
+    roots (calc_gradient's inputs that are neither Parameters nor
+    feeds)."""
+    req: Set[str] = set(extra_sources or ())
     for v in block.vars.values():
         if isinstance(v, Parameter) and v.trainable and v.name not in no_grad_set:
             req.add(v.name)
@@ -65,17 +70,22 @@ def append_backward(
     parameter_list: Optional[List[str]] = None,
     no_grad_set: Optional[Set[str]] = None,
     callbacks=None,
+    extra_sources: Optional[Set[str]] = None,
 ):
     """Append grad ops for `loss` to its block; returns [(param, grad_var)].
     Each of `callbacks` is called as ``cb(block, {"grad_names": [...]})``
-    once the gradients have materialized (``clip.error_clip_callback``)."""
+    once the gradients have materialized (``clip.error_clip_callback``).
+    `extra_sources`: more var names to take gradients to
+    (calc_gradient's inputs); their grads are materialized too."""
     block = loss.block
     no_grad = set(no_grad_set or ())
     for v in block.vars.values():
         if v.stop_gradient:
             no_grad.add(v.name)
+    no_grad -= set(extra_sources or ())
 
-    requires_grad = _compute_requires_grad(block, no_grad)
+    requires_grad = _compute_requires_grad(block, no_grad,
+                                           extra_sources=extra_sources)
     if loss.name not in requires_grad:
         raise ValueError(
             f"loss {loss.name!r} does not depend on any trainable parameter"
@@ -203,6 +213,9 @@ def append_backward(
         if v.is_data and not v.stop_gradient:
             if finalize(v.name) is not None:
                 feed_grads += 1
+    for name in (extra_sources or ()):
+        if finalize(name) is not None:
+            feed_grads += 1
     if not result and not feed_grads:
         raise ValueError("append_backward produced no parameter gradients")
     if callbacks:
@@ -216,7 +229,65 @@ def append_backward(
 
 
 def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
-    """Not ported: the JAX package's vector-Jacobian product of arbitrary
-    targets and inputs."""
-    raise NotImplementedError(
-        "calc_gradient is not ported yet (ROADMAP.md Queue A item 4)")
+    """Backpropagate targets' gradients to inputs (reference fluid
+    backward.py:463).
+
+    Built as the surrogate scalar sum_i <target_i, seed_i> (``elementwise_mul``,
+    ``reduce_sum``, ``sum``), whose backward seeds each target with seed_i
+    (ones when `target_gradients` is None): d(sum <t, s>)/dx = J^T s, the
+    requested vector-Jacobian product.  The inputs are un-stopped for the
+    pass and their ``stop_gradient`` restored after it.  Returns one grad
+    Variable per input, None where the input does not reach the
+    targets."""
+    targets = list(targets) if isinstance(targets, (list, tuple)) \
+        else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is None:
+        seeds = [None] * len(targets)
+    else:
+        seeds = (list(target_gradients)
+                 if isinstance(target_gradients, (list, tuple))
+                 else [target_gradients])
+    if len(seeds) != len(targets):
+        raise ValueError("Should have the same number of target_gradients "
+                         "as targets")
+    block = targets[0].block
+
+    def tmp(dtype):
+        return block.create_var(name=unique_name.generate("calc_grad"),
+                                shape=None, dtype=dtype,
+                                stop_gradient=False)
+
+    parts = []
+    for t, s in zip(targets, seeds):
+        v = t
+        if s is not None:
+            m = tmp(t.dtype)
+            block.append_op("elementwise_mul",
+                            inputs={"X": [t.name], "Y": [s.name]},
+                            outputs={"Out": [m.name]})
+            v = m
+        r = tmp(t.dtype)
+        block.append_op("reduce_sum", inputs={"X": [v.name]},
+                        outputs={"Out": [r.name]},
+                        attrs={"dim": None, "keep_dim": False})
+        parts.append(r)
+    if len(parts) == 1:
+        total = parts[0]
+    else:
+        total = tmp(targets[0].dtype)
+        block.append_op("sum", inputs={"X": [p.name for p in parts]},
+                        outputs={"Out": [total.name]})
+    total.shape = (1,)
+    # a later minimize() on this program must not inherit the inputs as
+    # gradient sources: restore their stop_gradient
+    prior = [(iv, iv.stop_gradient) for iv in inputs]
+    for iv in inputs:
+        iv.stop_gradient = False
+    try:
+        append_backward(total, no_grad_set=no_grad_set,
+                        extra_sources={iv.name for iv in inputs})
+    finally:
+        for iv, flag in prior:
+            iv.stop_gradient = flag
+    return [block.vars.get(grad_var_name(iv.name)) for iv in inputs]

@@ -3,17 +3,21 @@
 
 The IR is the same desc graph the JAX package builds: layer functions append
 ops and variables, the executor walks a block.  Only the dtype mapping
-differs — bfloat16 maps to ``torch.bfloat16`` — and only the part of the IR
-the serving and training paths use is carried (no JSON/proto
-serialization; ``clone`` copies in memory).  Every mutation through the
-IR's methods bumps ``Program._version``, and ``_cache_token`` is a
-never-reused id: together they key the executor's captured step loops (``framework/step_loop.py``).
+differs — bfloat16 maps to ``torch.bfloat16``.  A program serializes as
+the JAX package's JSON (``Program.to_json``/``from_json``: for one program
+the same string, letter for letter) and as its ProgramDef wire bytes
+(``to_proto``/``from_proto``, ``framework/proto_io.py``); ``clone`` copies
+in memory, so a variable keeps the attributes JSON does not carry
+(regularizer, clip).  Every mutation through the IR's methods bumps
+``Program._version``, and ``_cache_token`` is a never-reused id: together
+they key the executor's captured step loops (``framework/step_loop.py``).
 """
 
 from __future__ import annotations
 
 import copy
 import itertools
+import json
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -117,6 +121,50 @@ class Variable:
             f"persistable={self.persistable})"
         )
 
+    def to_dict(self):
+        d = {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype,
+            "type": self.type,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "lod_level": self.lod_level,
+            "is_data": self.is_data,
+        }
+        if getattr(self, "accumulator_for", None):
+            d["accumulator_for"] = self.accumulator_for
+        if isinstance(self, Parameter):
+            d["is_parameter"] = True
+            d["trainable"] = self.trainable
+        return d
+
+    @staticmethod
+    def from_dict(block, d):
+        if d.get("is_parameter"):
+            return Parameter(
+                block,
+                d["name"],
+                shape=d["shape"],
+                dtype=d["dtype"],
+                trainable=d.get("trainable", True),
+                stop_gradient=d["stop_gradient"],
+                lod_level=d.get("lod_level", 0),
+            )
+        v = Variable(
+            block,
+            d["name"],
+            shape=d["shape"],
+            dtype=d["dtype"],
+            type=d["type"],
+            persistable=d["persistable"],
+            stop_gradient=d["stop_gradient"],
+            lod_level=d.get("lod_level", 0),
+            is_data=d.get("is_data", False),
+        )
+        v.accumulator_for = d.get("accumulator_for")
+        return v
+
 
 class Parameter(Variable):
     """A persistable, trainable Variable."""
@@ -154,6 +202,18 @@ class Operator:
 
     def __repr__(self):
         return f"Operator({self.type}, in={self.inputs}, out={self.outputs})"
+
+    def to_dict(self):
+        return {
+            "type": self.type,
+            "inputs": self.inputs,
+            "outputs": self.outputs,
+            "attrs": self.attrs,
+        }
+
+    @staticmethod
+    def from_dict(block, d):
+        return Operator(block, d["type"], d["inputs"], d["outputs"], d["attrs"])
 
 
 class Block:
@@ -210,6 +270,24 @@ class Block:
         self.ops.append(op)
         self.program._bump()
         return op
+
+    def to_dict(self):
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [o.to_dict() for o in self.ops],
+        }
+
+    @staticmethod
+    def from_dict(program, d):
+        b = Block(program, d["idx"], d["parent_idx"])
+        for vd in d["vars"]:
+            v = Variable.from_dict(b, vd)
+            b.vars[v.name] = v
+        for od in d["ops"]:
+            b.ops.append(Operator.from_dict(b, od))
+        return b
 
 
 class Program:
@@ -280,12 +358,72 @@ class Program:
         return f"Program(blocks={len(self.blocks)}, " \
                f"ops={sum(len(b.ops) for b in self.blocks)})"
 
+    def to_proto(self) -> bytes:
+        """Serialized ProgramDef wire bytes (``framework/proto_io.py``)."""
+        from . import proto_io
+
+        return proto_io.serialize_program(self)
+
+    @staticmethod
+    def from_proto(data: bytes) -> "Program":
+        from . import proto_io
+
+        return proto_io.parse_program(data)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "version": 1,
+                "current_block_idx": self.current_block_idx,
+                "random_seed": self.random_seed,
+                "blocks": [b.to_dict() for b in self.blocks],
+            }
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "Program":
+        d = json.loads(s)
+        p = Program()
+        p.blocks = [Block.from_dict(p, bd) for bd in d["blocks"]]
+        p.current_block_idx = d.get("current_block_idx", 0)
+        p.random_seed = d.get("random_seed", 0)
+        p._version = 0
+        p._recompute_next_uid()
+        return p
+
+    def _recompute_next_uid(self):
+        """Restore the uid counter after deserialization, so that a new op
+        never takes a recorded ``__uid__`` (an RNG salt)."""
+        self._next_uid = 1 + max(
+            (int(op.attrs.get("__uid__", 0))
+             for b in self.blocks for op in b.ops),
+            default=-1,
+        )
+
 
 GRAD_SUFFIX = "@GRAD"
 
 
 def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
+
+
+def drop_orphaned_vars(block: Block, keep=()) -> int:
+    """Delete the declarations no op of `block` references (keeping
+    persistable and data vars, and the names in `keep`): the passes that
+    remove ops (``io.prune``, the BN fold) leave no var-table debris.
+    Returns how many were dropped."""
+    referenced = set(keep)
+    for op in block.ops:
+        referenced.update(n for n in op.input_names() if n)
+        referenced.update(n for n in op.output_names() if n)
+    dropped = 0
+    for name in list(block.vars):
+        v = block.vars[name]
+        if name not in referenced and not v.persistable and not v.is_data:
+            del block.vars[name]
+            dropped += 1
+    return dropped
 
 
 _main_program = Program()

@@ -6,7 +6,8 @@ Values are torch tensors.  ``set`` accepts numpy, as a CPU tensor; the
 Executor moves a tensor that lies on another device than its own to its
 device on the first run that reads it and writes it back, so the move
 happens once.  Transient op outputs never
-enter the scope.
+enter the scope.  A scope made with a `parent` reads through to it and
+writes only itself (the BN fold's overlay in ``io.save_inference_model``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ class Scope:
     # step loops are keyed by the scope they train, and id() can alias
     _token_counter = itertools.count()
 
-    def __init__(self):
+    def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, torch.Tensor] = {}
+        self.parent = parent
         self._cache_token = next(Scope._token_counter)
 
     def set(self, name: str, value):
@@ -46,7 +48,18 @@ class Scope:
         self._vars[name] = value
 
     def find(self, name: str) -> Optional[torch.Tensor]:
-        return self._vars.get(name)
+        s = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s.parent
+        return None
+
+    def has(self, name: str) -> bool:
+        return self.find(name) is not None
+
+    def local_names(self):
+        return list(self._vars)
 
     def find_np(self, name: str) -> Optional[np.ndarray]:
         v = self.find(name)

@@ -49,7 +49,8 @@ FETCH_MODES = ("all", "last")
 # op types a fused loop cannot contain: `save` writes host files after
 # every step (the write-back is once a dispatch), `load` reads its file
 # once where the sequential path reads it every run, and the sub-block
-# control-flow ops carry data-dependent trip counts and shapes
+# control-flow ops (but `recompute`) carry data-dependent trip counts and
+# shapes
 _HOST_IO_TYPES = ("save", "load")
 
 
@@ -73,30 +74,57 @@ def safety_report(program, block_id: int = 0) -> dict:
     generator is seeded on the host from (seed, step, uid), so a graph
     would replay one step's draws K times), and a ``print`` op, which
     reads its tensor on the host (``jax.debug.print`` runs inside the
-    JAX package's compiled loop; a graph would print nothing)."""
+    JAX package's compiled loop; a graph would print nothing).  One
+    nested block is safe: a ``recompute`` segment (and the re-run of it
+    in its ``generic_grad``) is straight-line, so it passes when its
+    sub-block's ops pass the same checks, recursively; its reasons name
+    the ops inside."""
+    reasons = _unsafe_ops(program, block_id)
+    return {"safe": not reasons, "reasons": reasons}
+
+
+def _recompute_block(op):
+    """The sub-block a ``recompute`` op, or the ``generic_grad`` that
+    re-runs one, runs; else None."""
+    if op.type == "recompute":
+        return int(op.attrs["sub_block"])
+    if op.attrs.get("__fwd_type__") == "recompute":
+        return int(op.attrs["__fwd_attrs__"]["sub_block"])
+    return None
+
+
+def _unsafe_ops(program, block_id, where="") -> List[str]:
     from ..analysis import dataflow
 
-    block = program.blocks[block_id]
     reasons: List[str] = []
-    for i, op in enumerate(block.ops):
-        if op.type in _HOST_IO_TYPES:
+    for i, op in enumerate(program.blocks[block_id].ops):
+        at = f"{where}op #{i}"
+        sub = _recompute_block(op)
+        if sub is not None:
+            what = "'recompute'" if op.type == "recompute" \
+                else f"{op.type!r} of 'recompute'"
+            reasons += _unsafe_ops(program, sub,
+                                   f"{at} {what} (block {sub}) > ")
+        elif op.type in _HOST_IO_TYPES:
             reasons.append(
-                f"op #{i} {op.type!r}: host file I/O cannot ride a "
+                f"{at} {op.type!r}: host file I/O cannot ride a "
                 f"device-resident loop")
         elif dataflow.sub_block_indices(op):
             reasons.append(
-                f"op #{i} {op.type!r}: nested control-flow block "
+                f"{at} {op.type!r}: nested control-flow block "
                 f"(data-dependent trip count/shape)")
         elif op.type == "print":
             reasons.append(
-                f"op #{i} 'print': reads its tensor on the host each step "
+                f"{at} 'print': reads its tensor on the host each step "
                 f"(a captured loop would print nothing)")
         elif _draws_rng(op):
+            what = repr(op.type) if op.type != "generic_grad" \
+                else f"'generic_grad' of {op.attrs['__fwd_type__']!r}"
             reasons.append(
-                f"op #{i} {op.type!r}: draws from a generator seeded on "
+                f"{at} {what}: draws from a generator seeded on "
                 f"the host each step (a captured loop would replay one "
                 f"step's draws)")
-    return {"safe": not reasons, "reasons": reasons}
+    return reasons
 
 
 def warn_unsafe(k: int, report: dict):

@@ -2,13 +2,13 @@
 ``paddle_tpu/layers/control_flow.py`` (reference fluid
 layers/control_flow.py: While :581, StaticRNN :357, DynamicRNN :1231,
 IfElse :1130): the comparisons, ``increment``, ``While``, ``StaticRNN``,
-``DynamicRNN`` and ``ifelse``.
+``DynamicRNN``, ``ifelse`` and ``recompute``.
 
 A layer appends its ops to a nested sub-block and declares every
 external the sub-block reads as an input of the control-flow op, so the
 backward pass and the dataflow analysis see the true dataflow.  The ops
 (``ops/control_flow_ops.py``) run the sub-block through the executor's
-``lower_block``.  ``recompute`` (remat) is not ported and raises."""
+``lower_block``."""
 
 from __future__ import annotations
 
@@ -306,9 +306,47 @@ def ifelse(cond_scalar: Variable, true_fn_block, false_fn_block,
     return out_vars if len(out_vars) > 1 else out_vars[0]
 
 
+@contextlib.contextmanager
 def recompute():
-    """Rematerialization scope (``jax.checkpoint`` in the JAX package):
-    not ported."""
-    raise NotImplementedError(
-        "layers.recompute (remat) is not ported yet: ROADMAP.md Queue A "
-        "item 4")
+    """Rematerialization scope: ops built inside run normally forward,
+    but the backward recomputes the segment from its inputs instead of
+    keeping its activations (``jax.checkpoint`` in the JAX package; here
+    the ``recompute`` op's ``generic_grad`` runs the segment again under
+    autograd).
+
+        with fluid.layers.recompute():
+            h = fluid.layers.fc(h, 1024, act="relu")
+            h = fluid.layers.fc(h, 1024, act="relu")
+    """
+    program = default_main_program()
+    sub = program.create_block()
+    try:
+        yield
+    finally:
+        program.rollback()
+    parent = program.blocks[sub.parent_idx]
+    # escaping values: everything the segment produces; later consumers
+    # read them from the recompute op's outputs
+    produced = []
+    for op in sub.ops:
+        for n in op.output_names():
+            if n and n not in produced:
+                produced.append(n)
+    ext = _externals(program, sub, exclude=())
+    # hoist the segment's vars into the parent and rebind their .block:
+    # callers hold Variables returned by layers built inside the scope,
+    # and what they do with them later (append_backward, minimize, fetch)
+    # targets the parent.  A name that shadows an outer var stays in the
+    # sub-block, so the sub-ops' lookups still find it.
+    for n, v in list(sub.vars.items()):
+        if n not in parent.vars:
+            v.block = parent
+            parent.vars[n] = v
+            del sub.vars[n]
+    parent.append_op(
+        "recompute",
+        inputs={"X": list(ext)},
+        outputs={"Out": list(produced)},
+        attrs={"sub_block": sub.idx, "x_names": list(ext),
+               "out_names": list(produced)},
+    )

@@ -365,6 +365,26 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Out = X with each element kept with probability 1 − dropout_prob
+    (op ``dropout``).  `seed` is accepted for the reference's signature
+    and unused, as in the JAX package: the mask's stream is the program's
+    seed, the run step and the op's uid."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    mask = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                      stop_gradient=True)
+    helper.append_op(
+        "dropout",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name], "Mask": [mask.name]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "dropout_implementation": dropout_implementation},
+    )
+    return out
+
+
 def softmax(input, name=None):
     helper = LayerHelper("softmax", name=name)
     out = helper.create_tmp_variable(input.dtype, shape=input.shape)

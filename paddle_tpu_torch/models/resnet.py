@@ -5,14 +5,15 @@ benchmark/paddle/image/resnet.py topology, depths 18/34/50/101/152).
 ``layout="NHWC"`` keeps activations channels-last end to end (filters
 stay OIHW); with ``fuse_bn`` the training program's BatchNorm(+residual)
 +ReLU -> conv chains become the fused ops of ``training_fusion.py``, which
-run on the hand-written kernels K11-K15.  ``remat=True`` (the JAX
-package's per-block ``layers.recompute``) is not ported yet."""
+run on the hand-written kernels K11-K15.  ``remat=True`` builds every
+residual block inside ``layers.recompute``, fused or not: the fusion pass
+walks the sub-blocks too."""
 
 from __future__ import annotations
 
-from .. import layers
+import contextlib
 
-_REMAT = "remat=True is not ported yet (ROADMAP.md Queue A item 4)"
+from .. import layers
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
@@ -54,12 +55,17 @@ def bottleneck(input, ch_in, ch_out, stride, layout="NCHW"):
 
 def layer_warp(block_func, input, ch_in, ch_out, count, stride,
                layout="NCHW", remat=False):
-    if remat:
-        raise NotImplementedError(_REMAT)
-    res = block_func(input, ch_in, ch_out, stride, layout=layout)
+    """`remat=True` wraps every residual block in ``layers.recompute()``:
+    its activations are recomputed in the backward instead of kept."""
+    def scope():
+        return layers.recompute() if remat else contextlib.nullcontext()
+
+    with scope():
+        res = block_func(input, ch_in, ch_out, stride, layout=layout)
     for _ in range(1, count):
         ch_in_cur = ch_out * (4 if block_func is bottleneck else 1)
-        res = block_func(res, ch_in_cur, ch_out, 1, layout=layout)
+        with scope():
+            res = block_func(res, ch_in_cur, ch_out, 1, layout=layout)
     return res
 
 
@@ -75,8 +81,6 @@ _DEPTH_CFG = {
 def resnet_imagenet(input, class_dim=1000, depth=50, layout="NCHW",
                     remat=False):
     """Reference resnet.py ImageNet topology (224x224)."""
-    if remat:
-        raise NotImplementedError(_REMAT)
     block, counts = _DEPTH_CFG[depth]
     expansion = 4 if block is bottleneck else 1
     conv1 = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
@@ -84,13 +88,14 @@ def resnet_imagenet(input, class_dim=1000, depth=50, layout="NCHW",
     pool1 = layers.pool2d(input=conv1, pool_size=3, pool_stride=2,
                           pool_padding=1, pool_type="max",
                           data_format=layout)
-    res1 = layer_warp(block, pool1, 64, 64, counts[0], 1, layout=layout)
+    res1 = layer_warp(block, pool1, 64, 64, counts[0], 1, layout=layout,
+                      remat=remat)
     res2 = layer_warp(block, res1, 64 * expansion, 128, counts[1], 2,
-                      layout=layout)
+                      layout=layout, remat=remat)
     res3 = layer_warp(block, res2, 128 * expansion, 256, counts[2], 2,
-                      layout=layout)
+                      layout=layout, remat=remat)
     res4 = layer_warp(block, res3, 256 * expansion, 512, counts[3], 2,
-                      layout=layout)
+                      layout=layout, remat=remat)
     pool2 = layers.pool2d(input=res4, pool_size=7, pool_type="avg",
                           global_pooling=True, data_format=layout)
     return layers.fc(input=pool2, size=class_dim)
@@ -119,11 +124,10 @@ def build_train_program(batch_size=64, depth=50, class_dim=1000,
     softmax/loss head in float32.  With layout='NHWC' the 'image' feed is
     channels-last ([H, W, C]).  ``fuse_bn=True`` runs the fusion pass,
     which is NHWC-only (the JAX function's ``fuse_bn=None``, which reads
-    PADDLE_TPU_FUSE_BN_MM, is not ported: pass the choice)."""
+    PADDLE_TPU_FUSE_BN_MM, is not ported: pass the choice).
+    ``remat=True`` checkpoints every residual block (see layer_warp)."""
     import paddle_tpu_torch as fluid
 
-    if remat:
-        raise NotImplementedError(_REMAT)
     # image_shape is always the reference's CHW spec; NHWC transposes the
     # feed contract to HWC
     shape = list(image_shape)
@@ -132,7 +136,7 @@ def build_train_program(batch_size=64, depth=50, class_dim=1000,
     img = layers.data(name="image", shape=shape, dtype=dtype)
     label = layers.data(name="label", shape=[1], dtype="int64")
     logits = resnet_imagenet(img, class_dim=class_dim, depth=depth,
-                             layout=layout)
+                             layout=layout, remat=remat)
     logits32 = layers.cast(logits, "float32") if dtype != "float32" else logits
     loss = layers.softmax_with_cross_entropy(logits32, label)
     avg_cost = layers.mean(loss)

@@ -10,6 +10,8 @@ gelu → +x), learned position embeddings, final LN, untied LM head.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -41,31 +43,35 @@ def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
                sp_schedule="zigzag"):
     """tokens [B, T, 1] int64 → logits [B, T, vocab_size].
 
-    The JAX signature.  `sp_mode`/`sp_schedule` are recorded on the
-    attention ops (no effect on one device); `dropout_prob > 0` and
-    `remat=True` are not ported yet (ROADMAP.md Queue A item 4) and
-    raise."""
-    if dropout_prob:
-        raise NotImplementedError(
-            "decoder_lm: dropout is not ported yet (ROADMAP.md Queue A "
-            "item 4)")
-    if remat:
-        raise NotImplementedError(
-            "decoder_lm: remat is not ported yet (ROADMAP.md Queue A "
-            "item 4)")
+    The JAX signature.  `dropout_prob` > 0 puts a dropout after the
+    embedding and after each attention and MLP branch; `remat=True` builds
+    each layer inside ``layers.recompute``.  `sp_mode`/`sp_schedule` are
+    recorded on the attention ops: one device, so the attention is the
+    single-card flash kernel, as the JAX package picks without a mesh."""
     emb = layers.embedding(tokens, size=[vocab_size, dim], dtype=dtype)
     pos = _positions(tokens, dim, max_len, dtype)
     x = layers.elementwise_add(emb, pos, axis=1)
+    if dropout_prob:
+        x = layers.dropout(x, dropout_prob, is_test=is_test)
+
+    blk = layers.recompute if remat else contextlib.nullcontext
     for _ in range(n_layers):
-        h = layers.layer_norm(x, begin_norm_axis=2)
-        a = layers.multi_head_attention(
-            h, h, h, num_heads=n_heads, causal=True,
-            sp_mode=sp_mode, sp_schedule=sp_schedule)
-        x = layers.elementwise_add(x, a)
-        h = layers.layer_norm(x, begin_norm_axis=2)
-        m = layers.fc(h, dim * mlp_ratio, num_flatten_dims=2, act="gelu")
-        m = layers.fc(m, dim, num_flatten_dims=2)
-        x = layers.elementwise_add(x, m)
+        with blk():
+            h = layers.layer_norm(x, begin_norm_axis=2)
+            a = layers.multi_head_attention(
+                h, h, h, num_heads=n_heads, causal=True,
+                sp_mode=sp_mode, sp_schedule=sp_schedule)
+            if dropout_prob:
+                a = layers.dropout(a, dropout_prob, is_test=is_test)
+            x = layers.elementwise_add(x, a)
+            h = layers.layer_norm(x, begin_norm_axis=2)
+            m = layers.fc(h, dim * mlp_ratio, num_flatten_dims=2,
+                          act="gelu")
+            m = layers.fc(m, dim, num_flatten_dims=2)
+            if dropout_prob:
+                m = layers.dropout(m, dropout_prob, is_test=is_test)
+            x = layers.elementwise_add(x, m)
+
     x = layers.layer_norm(x, begin_norm_axis=2)
     return layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False)
 

@@ -1,6 +1,6 @@
 """Network presets, the port of ``simple_img_conv_pool`` in
-``paddle_tpu/nets.py``.  ``img_conv_group`` waits for ``dropout``
-(ROADMAP.md Queue A item 4)."""
+``paddle_tpu/nets.py``.  ``img_conv_group`` and the rest are not ported
+yet (ROADMAP.md Queue A item 7)."""
 
 from __future__ import annotations
 

@@ -46,10 +46,19 @@ from .transformer_ops import _lm_fns, _prompt_2d, stable_argmax
 @register_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(ctx, ins, attrs):
     """Multi-head attention core: Q, K, V [B,H,T,D] → [B,H,T,D].  One
-    device, so ``sp_mode`` and ``sp_schedule`` have no effect, as in the
-    JAX package without an 'sp' mesh axis.  CPU tensors take the plain
-    versions; CUDA tensors launch the kernels or raise (no shape gate: the
-    kernels take any T and D ≤ 128)."""
+    device, so the sequence-parallel modes (``sp_mode`` 'ring' or
+    'alltoall', ``sp_schedule`` 'plain' or 'zigzag') take the single-card
+    kernels, as the JAX package does without an 'sp' mesh axis; a desc
+    carried in with another mode raises: sequence parallelism is not
+    ported.  CPU tensors take the plain versions; CUDA tensors launch the
+    kernels or raise (no shape gate: the kernels take any T and D ≤
+    128)."""
+    sp = (attrs.get("sp_mode", "ring"), attrs.get("sp_schedule", "plain"))
+    if sp[0] not in ("ring", "alltoall") or sp[1] not in ("plain", "zigzag"):
+        raise ValueError(
+            f"scaled_dot_product_attention: sp_mode={sp[0]!r}, "
+            f"sp_schedule={sp[1]!r} asks for sequence parallelism, which "
+            f"is not ported (ROADMAP.md Queue A item 11)")
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = bool(attrs.get("causal", False))
     if ctx.is_test:

@@ -2,7 +2,8 @@
 the comparisons, ``logical_*`` and ``select``; ``is_empty``; ``cond``,
 ``while`` and ``static_rnn``, which run a nested block through
 ``ctx.lower_block``; and the tensor arrays (``create_array``,
-``array_write``, ``array_read``) as dense fixed-capacity buffers.
+``array_write``, ``array_read``) as dense fixed-capacity buffers; and
+``recompute``, the rematerialization segment.
 
 The JAX package lowers a nested block into ``lax.cond`` /
 ``lax.while_loop`` / ``lax.scan``; here the loop and the branch run on
@@ -10,8 +11,9 @@ the host, op by op.  ``cond`` and ``static_rnn`` differentiate through
 ``generic_grad``, which re-runs them under autograd (the branch and the
 time loop trace naturally; gradients reach the taken branch's externals
 only, as with ``lax.cond``).  ``while`` takes no gradient, as in the JAX
-package.  ``recompute`` (remat) is not ported (ROADMAP.md Queue A item
-4)."""
+package.  ``recompute`` runs its straight-line segment once forward, and
+its ``generic_grad`` runs it again under autograd (the JAX package's
+``jax.checkpoint``)."""
 
 from __future__ import annotations
 
@@ -159,6 +161,22 @@ def static_rnn(ctx, ins, attrs):
         outs = [o * tmask.reshape(tmask.shape + (1,) * (o.ndim - 2)).to(
             o.dtype) for o in outs]
     return {"Out": outs, "MemFinal": mems}
+
+
+@register_op("recompute")
+def recompute_op(ctx, ins, attrs):
+    """Rematerialization segment (``layers.recompute``): the sub-block
+    runs once on its externals X, and every value it produces leaves as
+    Out.  The op's ``generic_grad`` re-runs it under autograd, so the
+    segment's activations are recomputed in the backward instead of kept:
+    the ops inside reach their own autograd paths there (flash attention's
+    K4 forward and K5/K6 backward, the fused BatchNorm-convolution
+    kernels).  No trip count, no data-dependent shape: a segment whose ops
+    are loop-safe rides a captured step loop
+    (``framework/step_loop.safety_report``)."""
+    env = dict(zip(attrs["x_names"], ins.get("X", [])))
+    ctx.lower_block(int(attrs["sub_block"]), env)
+    return {"Out": [env[n] for n in attrs["out_names"]]}
 
 
 # --- tensor arrays (dense [cap, ...] buffers) ------------------------------

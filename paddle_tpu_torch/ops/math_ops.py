@@ -3,7 +3,7 @@ the models, the regularizers, the gradient clips and the learning-rate
 schedules use: elementwise_add/sub/mul/div/pow/max/min with the
 reference's ``axis`` broadcast (y's shape aligns to x starting at `axis`,
 default -1 = trailing alignment), the flattening matmul ``mul``, ``sum``,
-``mean``, ``scale``, ``sign``, ``clip``, ``clip_by_norm`` and
+``mean``, ``reduce_sum``, ``scale``, ``sign``, ``clip``, ``clip_by_norm`` and
 ``squared_l2_norm``.  The GEMMs go to ``torch.matmul`` (cuBLAS on the
 card), as the JAX package leaves them to XLA.
 
@@ -81,6 +81,24 @@ def sum_op(ctx, ins, attrs):
 @register_op("mean")
 def mean(ctx, ins, attrs):
     return {"Out": [ins["X"][0].mean().reshape(1)]}
+
+
+@register_op("reduce_sum")
+def reduce_sum(ctx, ins, attrs):
+    """Sum over `dim` (an int or a list; None or ``reduce_all``: every
+    axis, to rank-1 [1] as reference reduce_op.cc makes it)."""
+    x = ins["X"][0]
+    dim = attrs.get("dim", None)
+    keep = bool(attrs.get("keep_dim", False))
+    if attrs.get("reduce_all", False) or dim is None:
+        out = torch.sum(x, dim=tuple(range(x.ndim)), keepdim=keep)
+        return {"Out": [out if keep else out.reshape(1)]}
+    dims = [int(d) for d in dim] if isinstance(dim, (list, tuple)) \
+        else [int(dim)]
+    # no axes reduces nothing, as jnp's axis=() (torch's dim=() would
+    # reduce them all)
+    return {"Out": [torch.sum(x, dim=tuple(dims), keepdim=keep)
+                    if dims else x]}
 
 
 @register_op("scale")

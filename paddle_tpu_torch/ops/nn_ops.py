@@ -1,6 +1,7 @@
 """NN layer ops, the port of the part of ``paddle_tpu/ops/nn_ops.py`` that
 the LM tower and ResNet use: ``layer_norm``, ``conv2d``, ``pool2d``,
-``batch_norm`` and the fused ``bn_act_conv1x1`` / ``bn_act_conv3x3``.
+``batch_norm``, ``dropout`` and the fused ``bn_act_conv1x1`` /
+``bn_act_conv3x3``.
 
 ``conv2d`` and ``pool2d`` are stock ATen (cuDNN on the card), as the JAX
 package leaves them to stock XLA; an NHWC tensor goes through them as a
@@ -138,6 +139,30 @@ def batch_norm(ctx, ins, attrs):
     y = (xhat * scale.reshape(shape) + bias.reshape(shape)).to(x.dtype)
     return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
             "SavedMean": [use_mean], "SavedVariance": [use_var]}
+
+
+@register_op("dropout", non_diff_outputs=("Mask",), draws_rng=True)
+def dropout(ctx, ins, attrs):
+    """Train mode: Mask = (u >= p) for u uniform in [0, 1) from the op's
+    generator (seeded by program seed, run step and ``__uid__``, so the
+    ``generic_grad`` re-run draws the same mask), Out = X·Mask
+    (``downgrade_in_infer``) or X·Mask/(1 − p) (``upscale_in_train``).
+    Test mode and p = 0 draw nothing and give a Mask of ones: Out = X·(1 −
+    p) for ``downgrade_in_infer``, X for ``upscale_in_train`` (reference
+    dropout_op.h:60)."""
+    x = ins["X"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if bool(attrs.get("is_test", False)) or ctx.is_test or p == 0.0:
+        out = x if (impl == "upscale_in_train" or p == 0.0) else x * (1.0 - p)
+        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+    u = torch.rand(x.shape, generator=ctx.generator(attrs), device=x.device)
+    mask = (u >= p).to(x.dtype)
+    if impl == "upscale_in_train":
+        out = x * mask / (1.0 - p)
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
 
 
 def _fused_ins(ins, attrs):

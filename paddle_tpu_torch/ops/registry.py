@@ -164,7 +164,13 @@ def _generic_grad_emit(ctx, ins, attrs):
     ``torch.autograd.grad``.  The forward attrs carry the op's ``__uid__``,
     so a stochastic op draws the same numbers again.  A missing or
     non-differentiable output takes a zero cotangent (it is left out of
-    the autograd call); an input the forward does not reach gets zeros."""
+    the autograd call); an input the forward does not reach gets zeros.
+
+    ``__remat__`` (the JAX package's mark for a grad op whose forward
+    ``jax.checkpoint`` must recompute instead of sharing it with the
+    forward op) is honoured at no extra cost: the port keeps no tape, so
+    every grad op already recomputes its forward here, and a marked op
+    runs exactly as an unmarked one."""
     fwd_type = attrs["__fwd_type__"]
     fwd_attrs = attrs["__fwd_attrs__"]
     in_slots = attrs["__fwd_input_slots__"]

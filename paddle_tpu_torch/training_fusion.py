@@ -98,10 +98,9 @@ def fuse_bn_matmul(program=None, block_id=None, limit=None) -> int:
     how many were fused.  Run BEFORE optimizer.minimize so the backward
     pass differentiates the fused graph.
 
-    Processes EVERY block by default (block_id=None): with remat on (in
-    the JAX package; the port's ResNet raises on it), the residual blocks
-    live inside recompute sub-blocks, and a block-0-only pass would
-    silently fuse nothing.  Chains never cross block
+    Processes EVERY block by default (block_id=None): with remat on, the
+    residual blocks live inside recompute sub-blocks, and a block-0-only
+    pass would silently fuse nothing.  Chains never cross block
     boundaries — a conv whose producer lives in another block simply
     doesn't match.  `limit` applies across all blocks."""
     from .framework import core

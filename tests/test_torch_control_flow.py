@@ -547,5 +547,14 @@ def test_while_block_takes_the_loud_eager_route():
 
 
 def test_recompute_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tfluid.layers.recompute()
+    """Ported since: ``layers.recompute`` builds the JAX package's
+    segment (``tests/test_torch_dropout_remat.py`` holds it to JAX), and
+    the op runs its sub-block."""
+    x = tfluid.layers.data("x", shape=[4])
+    with tfluid.layers.recompute():
+        y = tfluid.layers.scale(x, scale=2.0)
+    op = tfluid.default_main_program().global_block().ops[-1]
+    assert op.type == "recompute" and op.attrs["out_names"] == [y.name]
+    (got,) = tfluid.Executor(tfluid.CPUPlace()).run(
+        feed={"x": np.ones((2, 4), np.float32)}, fetch_list=[y])
+    np.testing.assert_array_equal(got, np.full((2, 4), 2.0, np.float32))

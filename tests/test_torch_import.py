@@ -62,9 +62,15 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.ops.control_flow_ops\n"
         "import paddle_tpu_torch.layers.ops\n"
         "import paddle_tpu_torch.layers.control_flow\n"
+        "import paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.framework.proto_io\n"
+        "import paddle_tpu_torch.inference_transpiler\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-        "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
+        "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
+        "             or m == 'google.protobuf'\n"
+        "             or m.startswith('google.protobuf.'))\n"
         "print(json.dumps(bad))\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -75,7 +81,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|paddle_tpu)\b", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|paddle_tpu|ml_dtypes|"
+    r"google\.protobuf)\b", re.M)
 
 
 def test_source_scan_has_no_jax_or_paddle_tpu_import():
@@ -104,7 +111,9 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("dataset", "uci_housing.py"),
             os.path.join("ops", "control_flow_ops.py"),
             os.path.join("layers", "ops.py"),
-            os.path.join("layers", "control_flow.py")} <= scanned
+            os.path.join("layers", "control_flow.py"),
+            "io.py", "inference_transpiler.py",
+            os.path.join("framework", "proto_io.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():
@@ -114,6 +123,8 @@ def test_source_scan_pattern_is_word_bounded():
     assert not _FORBIDDEN.search("import paddle_tpu_torch")
     assert not _FORBIDDEN.search("from paddle_tpu_torch.ops import x")
     assert not _FORBIDDEN.search("import jaxtyping")
+    assert _FORBIDDEN.search("from google.protobuf import text_format")
+    assert _FORBIDDEN.search("import ml_dtypes")
 
 
 def test_default_place_raises_without_cuda(monkeypatch):

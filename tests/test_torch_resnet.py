@@ -821,11 +821,16 @@ def test_fused_3x3_op_takes_each_variant(variant, monkeypatch):
 
 
 def test_unported_options_raise():
+    """``remat=True`` is ported now: it builds one ``recompute`` segment
+    per residual block (``tests/test_torch_dropout_remat.py`` holds the
+    program and a float64 step to JAX)."""
     img = tfluid.layers.data("image", shape=[32, 32, 3])
-    with pytest.raises(NotImplementedError, match="remat"):
-        tresnet.resnet_imagenet(img, depth=18, layout="NHWC", remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tresnet.build_train_program(depth=18, layout="NHWC", remat=True)
+    tresnet.resnet_imagenet(img, depth=18, layout="NHWC", remat=True)
+    assert [op.type for op in tfluid.default_main_program().global_block()
+            .ops].count("recompute") == 8
+    tfluid.reset()
+    tresnet.build_train_program(depth=18, layout="NHWC", remat=True)
+    assert len(tfluid.default_main_program().blocks) == 9
 
 
 def test_resnet_bench_feed_keeps_the_bench_draws():

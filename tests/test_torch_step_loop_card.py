@@ -219,3 +219,34 @@ def test_embedding_backward_is_the_same_bits_every_run(cuda_device):
     n = torch.bincount(flat_ids, minlength=512).double()[:, None]
     assert bool(((runs[0].double() - want).abs()
                  <= n * mag * 2.0 ** -9).all())
+
+
+def test_remat_gpt_replays_to_the_eager_steps_bits(cuda_device):
+    """A remat GPT (each layer a ``recompute`` segment, no dropout) rides
+    the captured loop: the first dispatch (eager), the second (capture and
+    replay) and a third (replay) each equal K eager steps from the same
+    state to the bit."""
+    from paddle_tpu_torch.models import transformer
+
+    loss = transformer.build_lm_train_program(
+        seq_len=64, vocab_size=128, dim=64, n_layers=2, n_heads=2,
+        dtype="float32", learning_rate=1e-3, remat=True)
+    main = fluid.default_main_program()
+    assert step_loop.safety_report(main)["safe"]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(fluid.default_startup_program())
+    for d in range(3):
+        rng = np.random.RandomState(d)
+        toks = rng.randint(0, 128, (K, 2, 64, 1)).astype(np.int64)
+        feeds = {"tokens": toks, "targets": np.roll(toks, -1, axis=2)}
+        start = _state(main)
+        want, scope = _eager(main, loss, feeds, start)
+        got = exe.run(main, feed=feeds, fetch_list=[loss],
+                      steps_per_dispatch=K)[0]
+        np.testing.assert_array_equal(got, want)
+        for n in start:
+            assert torch.equal(fluid.global_scope().find(n),
+                               scope.find(n)), (d, n)
+    (entry,) = exe._loops.values()
+    assert entry.loop is not None and entry.loop.graph is not None
+    exe.close()

@@ -400,13 +400,19 @@ def test_load_persistables_checks_names_shapes_dtypes():
 
 
 def test_unported_options_raise():
+    """dropout, remat and calc_gradient are ported now (held to JAX in
+    ``tests/test_torch_dropout_remat.py`` and
+    ``tests/test_torch_calc_gradient.py``); the dataset downloads still
+    raise."""
     toks = tfluid.layers.data("tokens", shape=[T, 1], dtype="int64")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ttransformer.decoder_lm(toks, V, D, L, NH, T, dropout_prob=0.1)
-    with pytest.raises(NotImplementedError, match="remat"):
-        ttransformer.decoder_lm(toks, V, D, L, NH, T, remat=True)
-    with pytest.raises(NotImplementedError, match="calc_gradient.*Queue A"):
-        tfluid.calc_gradient(toks, toks)
+    ttransformer.decoder_lm(toks, V, D, L, NH, T, dropout_prob=0.1)
+    ttransformer.decoder_lm(toks, V, D, L, NH, T, remat=True)
+    kinds = [op.type for b in tfluid.default_main_program().blocks
+             for op in b.ops]
+    assert kinds.count("dropout") == 1 + 2 * L
+    assert kinds.count("recompute") == L
+    h = tfluid.layers.fc(tfluid.layers.data("x", shape=[3]), 2)
+    assert tfluid.calc_gradient(h, toks) == [None]
     for fetch in (tfluid.dataset.common.download,
                   tfluid.dataset.common.fetch):
         with pytest.raises(NotImplementedError, match="Queue A"):
