@@ -290,12 +290,57 @@ non-zero and no result line is printed):
     from the f32 unfolded ones than twice the bf16 unfolded ones (relative
     norm), img/s folded and unfolded (3 warm-up calls, 5 rounds of 10, the
     spread); cuDNN runs those convolutions, no port kernel;
-30. summary.
+30. the CNN zoo at ``bench.py``'s ``bench_cnn_train`` shape
+    (``models/zoo_bench.py``: bf16 NHWC, batch 128, 224 x 224 x 3,
+    class_dim 1000, f32 logits, softmax with cross entropy → mean,
+    Momentum(0.01, 0.9), feeds from ``RandomState(0)``): AlexNet,
+    GoogLeNet and VGG-19, 2 warm-up and 5 measured steps each, eager
+    (dropout is not capturable yet); step ms with its spread, img/s,
+    peak memory, no port kernel launched; the loss finite and falling; a
+    batch that does not fit is halved and the cut named;
+31. fused VGG-19: (a) the same at the same batch through
+    ``fuse_bn_matmul`` (11 of its 16 convolutions), K13 and K15 launches
+    a step as its desc implies (22 and 11), step ms and peak memory beside
+    30's unfused row; K13 and K15 in bf16 at each of VGG-19's fused
+    shapes (224 x 224 with K = O = 64 to 14 x 14 with K = O = 512) against
+    their plain versions, timed beside them and the bound; (b) f32 at
+    batch 2, 32 x 32, fc_dim 64, dropout 0: one fused and one unfused
+    step from one state (phase 19's tolerances: loss 1e-4, the fc grad
+    1e-3, the statistics 1e-3);
+32. the DDPM U-Net at ``bench_unet_train``'s shape (f32, batch 64, 64 px,
+    base_ch 64, ch_mults (1, 2, 4), Adam(1e-3), ``ddpm_feed`` from
+    ``RandomState(0)``): 2 + 5 eager steps (the loss falls), then K = 4
+    steps a dispatch held to eager steps from its state as in 21 (no port
+    kernel), 12 eager against 12 replayed steps (img/s both ways); then
+    ``ddim_sample`` for 10 steps at batch 4 twice from one seed: finite
+    and equal to the bit;
+33. DeepFM: (a) the JAX package's CTR test shape (6 fields, vocab 256,
+    embedding 8, hidden (32, 16), Adam(0.02), 512 rows), 30 steps on the
+    card against 30 on an explicit-CPU executor and 30 in float64 from
+    the same state: each card step from the CPU's state before it within
+    1e-4 relative, step-1 gradients 1e-3 of max |g|, the free-running
+    card and CPU losses within 1e-4 of the first loss of each other and
+    of float64's; the loss falls by 20%; (b) the DeepFM paper's
+    Criteo widths (39 fields, embedding 10, hidden 400-400-400) over a
+    hashed vocabulary of 1,000,000 at batch 4096: step ms and rows/s;
+34. the small zoo in f32 (TF32 off), card against an explicit-CPU
+    executor from one state, dropout at 0 in the training descs:
+    ``smallnet_mnist_cifar`` 32 x 32 batch 4, AlexNet and GoogLeNet 64 x
+    64 batch 2 (class_dim 10; their test-mode forwards, at the models'
+    dropout rates, within 1e-4 of the CPU's first), the U-Net at 16 px
+    (base_ch 8) and a small program through ``glu``,
+    ``dot_product_attention`` and ``sequence_conv_pool``: 3 steps each,
+    losses 1e-4 relative, step-1 grads 1e-3 of max |g|; ``vgg_cifar``
+    (batch 4), whose BatchNorm chain makes f32 ill-conditioned, as 19
+    holds ResNet-50: each card step from the CPU's state, the fc grad
+    1e-3, all grads no further from a float64 step's than twice the
+    CPU's;
+35. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
-{...}, "remat_save_load": {...}}`` summary (all 15 kernels) and the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+{...}, "remat_save_load": {...}, "zoo": {...}}`` summary (all 15
+kernels) and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits 2 and prints no result.
 """
 
@@ -320,6 +365,7 @@ from paddle_tpu_torch.models import gpt_bench, resnet_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.models import zoo_bench as zb
 from paddle_tpu_torch.ops.cuda_kernels import _common
 from paddle_tpu_torch.ops.cuda_kernels import bn_conv as bnc
 from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as bnmm
@@ -729,6 +775,13 @@ def check_launches(path, launches, want):
     used = [k for k, v in want.items() if v]
     if not used:
         raise AssertionError(f"{path}: no kernel launched")
+
+
+def no_launches(path, launches):
+    """A path that reaches no port kernel launched none."""
+    if any(launches.values()):
+        raise AssertionError(f"{path}: a path that reaches no port kernel "
+                             f"launched {launches}")
 
 
 def serve_row(scheduler, prompts, tokens, reqs, eng, wall, launches):
@@ -1223,9 +1276,8 @@ def parity_run(tag, main, startup, loss, feed, grads, want, shape,
     for _, _, launches, _ in gpu:
         if want:
             check_launches(tag, launches, want)
-        elif any(launches.values()):
-            raise AssertionError(f"{tag}: a path that reaches no port "
-                                 f"kernel launched {launches}")
+        else:
+            no_launches(tag, launches)
     if fetched is not None:
         fetched.update(gpu[0][1])
     t0 = time.monotonic()
@@ -2484,8 +2536,11 @@ def loop_parity(tag, exe, main, loss, stacked, k, want):
                  distance(lc, snap(names), la, sa), spread)
     restore(s0)
     ld, launches = counted(lambda: dispatch(exe, main, loss, stacked, k))
-    check_launches(tag + " capture", launches,
-                   {n: k * v for n, v in want.items()})
+    if want:
+        check_launches(tag + " capture", launches,
+                       {n: k * v for n, v in want.items()})
+    else:
+        no_launches(tag + " capture", launches)
     replay = hold(tag, "the replay", distance(ld, snap(names), la, sa),
                   spread)
     restore(s0)
@@ -4420,7 +4475,604 @@ def resnet_remat_phase(card_name, smi, fused_row):
     return res
 
 
-# -- 30. summary --------------------------------------------------------------
+# -- 30-34. the model zoo -------------------------------------------------------
+
+# the zoo's launches a step by path: the fused ops of fused VGG-19 (K13 and
+# K15), none elsewhere (cuDNN and ATen run the zoo's other convolutions)
+ZOO_WARMUP, ZOO_TIMED = 2, 5
+ZOO_SMALL = {  # phase 34: (image, batch) of the f32 card-against-CPU runs
+    "smallnet": (32, 4), "alexnet": (64, 2), "googlenet": (64, 2),
+    "vgg_cifar": (32, 4)}
+VGG_SMALL = {"image": 32, "bs": 2, "fc_dim": 64}  # phase 31(b)
+UNET_K = 4
+UNET_SMALL = {"image": 16, "base_ch": 8, "bs": 4}
+DDIM_STEPS, DDIM_BS = 10, 4
+DEEPFM_STEPS, DEEPFM_FALL = 30, 0.8
+DEEPFM_TIMED = 10
+
+
+def zoo_program(build, seed=SEED):
+    """`build()` in fresh default programs and scope, the startup seeded;
+    returns (build's result, main, startup)."""
+    fluid.reset()
+    out = build()
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return out, fluid.default_main_program(), startup
+
+
+def zoo_train_run(tag, model, card_name, smi, fuse=False, bs=None):
+    """``bench_cnn_train``'s program for `model` (bf16, NHWC, 224 x 224,
+    class_dim 1000, Momentum(0.01, 0.9); `fuse`: VGG-19 through
+    ``fuse_bn_matmul``) at batch `bs`, halved while the card's memory
+    refuses it (the cut is named in the row): ZOO_WARMUP steps, then
+    ZOO_TIMED measured ones, eager (dropout draws on the host: Queue A 2).
+    Held: every loss finite, the lowest measured below the first; fused,
+    exactly ``fused_want`` launches every step, else none.  Step ms (mean,
+    each), img/s, peak memory."""
+    bs = bs or zb.CNN_BS
+    cut = None
+    while True:
+        try:
+            return _zoo_train(tag, model, card_name, smi, fuse, bs, cut)
+        except torch.cuda.OutOfMemoryError as e:
+            if bs == 1:
+                raise
+            cut = (f"batch {bs} did not fit in the card's memory "
+                   f"({str(e).splitlines()[0][:160]}); halved")
+        # outside the handler, so that the traceback's frames (and the
+        # tensors they hold) are gone before the cache is emptied
+        fluid.reset()
+        torch.cuda.empty_cache()
+        bs //= 2
+        log(tag + "_cut", {"cut": cut})
+
+
+def _zoo_train(tag, model, card_name, smi, fuse, bs, cut):
+    t0 = time.monotonic()
+    (loss, _), main, startup = zoo_program(
+        lambda: zb.cnn_train_program(model, fuse_bn=fuse))
+    block = main.global_block()
+    want = fused_want(block) if fuse else {}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = zb.cnn_feed(bs)
+    warm = run_steps(exe, main, loss, feed, ZOO_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed,
+                                                ZOO_TIMED))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for _, _, per_step, _ in warm + steps:
+        if fuse:
+            check_launches(tag, per_step, want)
+        else:
+            no_launches(tag, per_step)
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    each = [r[3] * 1e3 for r in steps]
+    res = {"card": card_name, "nvidia_smi": smi, "model": model,
+           "fused": fuse, "bs": bs, "bench_bs": zb.CNN_BS, "batch_cut": cut,
+           "image": zb.CNN_IMAGE, "layout": "NHWC", "dtype": zb.CNN_DTYPE,
+           "lr": zb.CNN_LR, "ops": len(block.ops),
+           "ops_run_per_step": sum(texecutor.live_ops(block, [loss.name])),
+           "params": sum(int(np.prod(p.shape))
+                         for p in block.all_parameters()),
+           "fused_ops": sum(op.type.startswith("bn_act_conv")
+                            for op in block.ops),
+           "startup_s": startup_s, "losses": losses, "step_ms": step_ms,
+           "step_ms_each": each, "step_ms_min": min(each),
+           "step_ms_max": max(each), "img_s": bs / (step_ms / 1e3),
+           "img_s_min": bs / (max(each) / 1e3),
+           "img_s_max": bs / (min(each) / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": steps[-1][2],
+           "want_per_step": want}
+    log(tag, res)
+    if not all(np.isfinite(losses)) or not min(losses[ZOO_WARMUP:]) \
+            < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} are not finite or did "
+                             f"not fall")
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+def cnn_zoo_phase(card_name, smi):
+    """30. AlexNet, GoogLeNet and VGG-19 at ``bench_cnn_train``'s
+    shape."""
+    return {m: zoo_train_run(f"zoo_{m}_bench", m, card_name, smi)
+            for m in zb.CNN_MODELS}
+
+
+def vgg19_fused_shapes(bs, image):
+    """{(N, H, W, K, O): fused ops} of fused VGG-19's bench program, read
+    from its desc: every fused op is a stride-1 3x3 without a residual."""
+    fluid.reset()
+    zb.cnn_train_program("vgg", image=image, fuse_bn=True)
+    block = fluid.default_main_program().global_block()
+    out = {}
+    for op in block.ops:
+        if op.type == "bn_act_conv3x3":
+            assert op.attrs["strides"][0] == 1
+            assert not op.inputs.get("Residual")
+            _, h, w, k = block.var(op.inputs["X"][0]).shape
+            key = (bs, h, w, k, block.var(op.inputs["Filter"][0]).shape[0])
+            out[key] = out.get(key, 0) + 1
+    fluid.reset()
+    return out
+
+
+def vgg19_kernel_rows(dev, bs):
+    """K13 and K15 in bf16 at every fused shape of VGG-19's bench program
+    (a 3x3 at 224 x 224 with K = O = 64 down to 14 x 14 with K = O = 512):
+    each against its plain version (TOL), timed beside it and the bound;
+    the float64 distance of kernel and plain logged (``f64_err``).  A
+    shape a kernel refuses raises, and the phase with it."""
+    rows = []
+    for (N, H, W, K, O), n_ops in sorted(vgg19_fused_shapes(
+            bs, zb.CNN_IMAGE).items()):
+        a = bn_case(dev, torch.bfloat16, "3x3", N, H, W, K, O, 1, False)
+        fwd, plain_fwd, bwd, plain_bwd = bn_calls("3x3", a, 1)
+        got = {False: [fwd()], True: list(bwd())}
+        want = {False: [plain_fwd()], True: list(plain_bwd())}
+        torch.cuda.synchronize()
+        for back, name in ((False, "bn_conv3x3_fwd"),
+                           (True, "bn_conv3x3_bwd")):
+            design = DESIGN[torch.bfloat16][name]
+            b_ms, b_by = bn_bound("3x3", a, O, back, torch.bfloat16, design)
+            row = {"kernel": name, "dtype": "bfloat16", "kind": "3x3",
+                   "N": N, "H": H,
+                   "W": W, "K": K, "O": O, "stride": 1, "residual": False,
+                   "fused_ops": n_ops, "design": design,
+                   "max_rel_err": max(rel_err(g, r) for g, r in
+                                      zip(got[back], want[back])),
+                   "max_abs_err": max(max_err(g, r) for g, r in
+                                      zip(got[back], want[back])),
+                   "kernel_ms": time_ms(bwd if back else fwd, iters=10),
+                   "plain_ms": time_ms(plain_bwd if back else plain_fwd,
+                                       iters=5),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            rows.append(row)
+            log("vgg19_" + name, row)
+            if row["max_rel_err"] > TOL[torch.bfloat16]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at VGG-19's shape: {row}")
+        del a, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vgg19_fused_parity():
+    """31(b). f32 VGG-19 at batch 2, 32 x 32, fc_dim 64, dropout 0: one
+    fused and one unfused step on the card from one state (phase 19's
+    tolerances: loss 1e-4, the class fc's gradient 1e-3 of its max |g|,
+    the running statistics after the step 1e-3 of their max |value|);
+    the fused step launches K13 and K15 as its desc implies, the unfused
+    none."""
+    im, bs, fc_dim = (VGG_SMALL[k] for k in ("image", "bs", "fc_dim"))
+    feed = zb.cnn_feed(bs, im, zb.CNN_CLASSES)
+    rows, state = {}, None
+    for fuse in (False, True):
+        (loss, _), main, startup = zoo_program(
+            lambda: zb.cnn_train_program("vgg", image=im, dtype="float32",
+                                         fuse_bn=fuse, dropout_prob=0.0,
+                                         fc_dim=fc_dim))
+        block = main.global_block()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        if state is None:
+            exe.run(startup)
+            state = snapshot(block)
+        else:
+            fluid.load_persistables(main, state)
+        fc = max(p.name for p in block.all_parameters()
+                 if p.name.startswith("fc") and ".w_" in p.name) + "@GRAD"
+        (lv, grads, launches, _), = run_steps(exe, main, loss, feed, 1, [fc])
+        if fuse:
+            check_launches("vgg19_fused_parity", launches, fused_want(block))
+        else:
+            no_launches("vgg19_unfused_parity", launches)
+        rows[fuse] = (lv, grads[fc], {n: fluid.global_scope().find_np(n)
+                                      for n in state if ".global" in n},
+                      launches)
+    (l1, g1, s1, _), (l0, g0, s0, _) = rows[True], rows[False]
+    res = {"image": im, "bs": bs, "fc_dim": fc_dim, "dtype": "float32",
+           "loss_fused": l1, "loss_unfused": l0,
+           "loss_rel": abs(l1 - l0) / abs(l0),
+           "fc_grad_rel": float(np.abs(g1 - g0).max() / np.abs(g0).max()),
+           "stats_rel": max(float(np.abs(s1[n] - s0[n]).max()
+                                  / max(np.abs(s0[n]).max(), 1e-12))
+                            for n in s0),
+           "launches_fused": rows[True][3],
+           "tol": {"loss": 1e-4, "fc_grad": 1e-3, "stats": 1e-3}}
+    log("vgg19_fused_parity", res)
+    if res["loss_rel"] > 1e-4 or res["fc_grad_rel"] > 1e-3 or \
+            res["stats_rel"] > 1e-3:
+        raise AssertionError(f"fused VGG-19 parity: {res}")
+    fluid.reset()
+    return res
+
+
+def vgg19_fused_phase(dev, card_name, smi, unfused):
+    """31. (a) fused VGG-19 at phase 30's shape beside its unfused row,
+    K13 and K15 at VGG-19's shapes; (b) ``vgg19_fused_parity``."""
+    fused = zoo_train_run("zoo_vgg19_fused_bench", "vgg", card_name, smi,
+                          fuse=True, bs=unfused["bs"])
+    fused["vs_unfused"] = {
+        "step_ms": [fused["step_ms"], unfused["step_ms"]],
+        "img_s": [fused["img_s"], unfused["img_s"]],
+        "peak_mem_gb": [fused["peak_mem_gb"], unfused["peak_mem_gb"]]}
+    log("zoo_vgg19_fused_vs_unfused", fused["vs_unfused"])
+    kernels = vgg19_kernel_rows(dev, unfused["bs"])
+    return fused, kernels, vgg19_fused_parity()
+
+
+def unet_phase(card_name, smi):
+    """32. The DDPM U-Net at ``bench_unet_train``'s shape (f32, batch 64,
+    64 px, base_ch 64, ch_mults (1, 2, 4), Adam(1e-3)): ZOO_WARMUP +
+    ZOO_TIMED eager steps (the lowest measured loss below the first), then
+    UNET_K steps a dispatch held to eager steps from its state
+    (``loop_parity``; no port kernel runs) and timed against them
+    (``loop_timing``, img/s both ways); then ``ddim_sample`` for
+    DDIM_STEPS steps at batch DDIM_BS twice from one seed: finite, equal
+    to the bit."""
+    (loss, eps_hat, infer), main, startup = zoo_program(
+        zb.unet_train_program)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    feed = zb.unet_feed()
+    warm = run_steps(exe, main, loss, feed, ZOO_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed,
+                                                ZOO_TIMED))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    no_launches("unet_eager", launches)
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    feeds = [zb.unet_feed(seed=i) for i in range(UNET_K)]
+    stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+    res = {"card": card_name, "nvidia_smi": smi, "bs": zb.UNET_BS,
+           "image": zb.UNET_IMAGE, "base_ch": zb.UNET_CH,
+           "ch_mults": list(zb.UNET_MULTS), "dtype": "float32",
+           "params": sum(int(np.prod(p.shape))
+                         for p in main.global_block().all_parameters()),
+           "ops": len(main.global_block().ops), "losses": losses,
+           "step_ms": step_ms, "step_ms_each": [r[3] * 1e3 for r in steps],
+           "img_s": zb.UNET_BS / (step_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **loop_parity("unet_step_loop", exe, main, loss, stacked, UNET_K,
+                         {}),
+           **loop_timing(exe, main, loss, stacked, UNET_K, zb.UNET_BS)}
+    res["img_s_eager"] = res.pop("eager_items_s")
+    res["img_s_replay"] = res.pop("replay_items_s")
+    if not all(np.isfinite(losses)) or not min(losses[ZOO_WARMUP:]) \
+            < losses[0]:
+        raise AssertionError(f"unet: losses {losses} are not finite or did "
+                             f"not fall")
+    from paddle_tpu_torch.models import unet
+
+    sched = unet.ddpm_schedule(T=zb.UNET_T)
+    shape = (DDIM_BS, 3, zb.UNET_IMAGE, zb.UNET_IMAGE)
+    t0 = time.monotonic()
+    samples = [unet.ddim_sample(exe, infer, eps_hat, sched, shape,
+                                np.random.RandomState(SEED),
+                                steps=DDIM_STEPS) for _ in range(2)]
+    res["ddim"] = {"steps": DDIM_STEPS, "bs": DDIM_BS,
+                   "wall_s_two_calls": time.monotonic() - t0,
+                   "finite": bool(np.isfinite(samples[0]).all()),
+                   "equal": bool(np.array_equal(samples[0], samples[1])),
+                   "shape": list(samples[0].shape),
+                   "abs_max": float(np.abs(samples[0]).max())}
+    log("unet_bench", res)
+    if not (res["ddim"]["finite"] and res["ddim"]["equal"]):
+        raise AssertionError(f"ddim_sample: {res['ddim']}")
+    exe.close()
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return res
+
+
+def as_float64(program):
+    """`program` with every float32 variable and ``dtype`` attribute made
+    float64 (DeepFM's layers declare float32 outright)."""
+    for block in program.blocks:
+        for v in block.vars.values():
+            if v.dtype == "float32":
+                v.dtype = "float64"
+        for op in block.ops:
+            if op.attrs.get("dtype") == "float32":
+                op.attrs["dtype"] = "float64"
+    return program
+
+
+def deepfm_phase(card_name, smi):
+    """33. DeepFM: (a) the CTR test's shape (``zb.DEEPFM_CTR``),
+    DEEPFM_STEPS steps on the card, as many on an explicit-CPU executor
+    and as many in float64 on the CPU, all from the card's startup
+    state.  Adam(0.02) drives the loss from ~0.7 to ~1e-5, where its
+    gradients are ~0 and Adam's normalized update turns 1e-7 differences
+    in them into O(lr) ones in the weights: as the loss nears 0, two
+    trajectories that differ only in summation order may part by more
+    than 1e-4 relative (each f32 trajectory's relative distance from the
+    float64 one is logged, with the first step past 1e-4).  So each card
+    step is also taken from the CPU's state before it, as phase 19 takes
+    ResNet-50's.  Held: each such step's loss within 1e-4 relative of the
+    CPU's, and the step-1 gradients of the first-order weights, the field
+    embeddings and the deep tower's last fc within 1e-3 of their max |g|
+    (Adam's update and the embeddings' scattered gradient are in the
+    later steps' losses); the free-running card losses within 1e-4 of the
+    first loss of the CPU's, and both f32 trajectories as near the
+    float64 one; the free-running card loss falls below DEEPFM_FALL x its
+    first.  (b) the Criteo widths (``zb.DEEPFM_CRITEO``): ZOO_WARMUP +
+    DEEPFM_TIMED steps, step ms and rows/s.  No port kernel runs."""
+    nf, vocab, emb, hidden, lr, rows = zb.DEEPFM_CTR
+    build = lambda: zb.deepfm_train_program(nf, vocab, emb, hidden, lr)
+    (loss, _), main, startup = zoo_program(build)
+    block = main.global_block()
+    params = [p.name for p in block.all_parameters()]
+    grads = [n + "@GRAD" for n in ("deepfm.w1", "deepfm.emb", [
+        p for p in params if p.startswith("fc") and ".w_" in p][-1])]
+    feed = zb.deepfm_feed(rows, nf, vocab)
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    states = [snapshot(block)]
+    free, launches = counted(lambda: run_steps(card, main, loss, feed,
+                                               DEEPFM_STEPS))
+    no_launches("deepfm_ctr", launches)
+    cpu_scope = fluid.Scope()
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = forced_steps(cpu_exe, main, loss, feed, states[:1], grads,
+                       cpu_scope)
+    for _ in range(DEEPFM_STEPS - 1):
+        states.append(snapshot(block, cpu_scope))
+        cpu += run_steps(cpu_exe, main, loss, feed, 1, scope=cpu_scope)
+    forced, launches = counted(lambda: forced_steps(
+        card, main, loss, feed, states, grads))
+    no_launches("deepfm_ctr_forced", launches)
+    (loss64, _), main64, _ = zoo_program(build)
+    as_float64(main64)
+    scope64 = fluid.Scope()
+    fluid.load_persistables(main64, {
+        n: a.astype(np.float64) if a.dtype == np.float32 else a
+        for n, a in states[0].items()}, scope64)
+    f64 = [r[0] for r in run_steps(
+        cpu_exe, main64, loss64, dict(feed, click=feed["click"].astype(
+            np.float64)), DEEPFM_STEPS, scope=scope64)]
+    g, c, f = ([r[0] for r in rows_] for rows_ in (forced, cpu, free))
+    rel = [abs(a - b) / abs(b) for a, b in zip(g, c)]
+    grad_rel = {n: float(np.abs(forced[0][1][n] - cpu[0][1][n]).max()
+                         / np.abs(cpu[0][1][n]).max()) for n in grads}
+
+    def apart(a, b):  # per step: |a - b| relative, and over b's first
+        return ([abs(x - y) / abs(y) for x, y in zip(a, b)],
+                max(abs(x - y) for x, y in zip(a, b)) / abs(b[0]))
+
+    free_rel, free_abs = apart(f, c)
+    (card64, card64_abs), (cpu64, cpu64_abs) = apart(f, f64), apart(c, f64)
+    first_past = lambda errs: next(
+        (i + 1 for i, e in enumerate(errs) if e > 1e-4), None)
+    ctr = {"fields": nf, "vocab": vocab, "embed": emb, "hidden": hidden,
+           "lr": lr, "rows": rows, "steps": DEEPFM_STEPS,
+           "forced_losses": g, "cpu_losses": c, "f64_losses": f64,
+           "forced_loss_rel_err_max": max(rel),
+           "grad_rel_err_step1": grad_rel,
+           "free_running_losses": f,
+           "free_vs_cpu": {"rel_max": max(free_rel),
+                           "first_past_1e-4": first_past(free_rel),
+                           "abs_max_over_first": free_abs},
+           "vs_f64": {"card_rel_max": max(card64),
+                      "card_first_past_1e-4": first_past(card64),
+                      "card_abs_max_over_first": card64_abs,
+                      "cpu_rel_max": max(cpu64),
+                      "cpu_first_past_1e-4": first_past(cpu64),
+                      "cpu_abs_max_over_first": cpu64_abs},
+           "fall": f[-1] / f[0]}
+    log("deepfm_ctr_parity", ctr)
+    if (max(rel) > 1e-4 or any(e > 1e-3 for e in grad_rel.values())
+            or max(free_abs, card64_abs, cpu64_abs) > 1e-4
+            or not f[-1] < DEEPFM_FALL * f[0]):
+        raise AssertionError(f"deepfm CTR: card and CPU disagree or the "
+                             f"loss did not fall by 20%: {ctr}")
+    del card
+    nf, vocab, emb, hidden, lr, rows = zb.DEEPFM_CRITEO
+    (loss, _), main, startup = zoo_program(
+        lambda: zb.deepfm_train_program(nf, vocab, emb, hidden, lr))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    feed = zb.deepfm_feed(rows, nf, vocab)
+    warm = run_steps(exe, main, loss, feed, ZOO_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    steps, launches = counted(lambda: run_steps(exe, main, loss, feed,
+                                                DEEPFM_TIMED))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    no_launches("deepfm_criteo", launches)
+    losses = [r[0] for r in warm + steps]
+    step_ms = wall / len(steps) * 1e3
+    crit = {"card": card_name, "nvidia_smi": smi, "fields": nf,
+            "vocab": vocab, "embed": emb, "hidden": hidden, "lr": lr,
+            "bs": rows, "params": sum(int(np.prod(p.shape)) for p in
+                                      main.global_block().all_parameters()),
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_each": [r[3] * 1e3 for r in steps],
+            "rows_s": rows / (step_ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("deepfm_criteo_bench", crit)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"deepfm Criteo widths: losses {losses}")
+    del exe
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return {"ctr_parity": ctr, "criteo_bench": crit}
+
+
+def zoo_watched(main):
+    """The first, a middle and the last parameter's gradient names."""
+    params = [p.name for p in main.global_block().all_parameters()]
+    return [n + "@GRAD" for n in (params[0], params[len(params) // 2],
+                                  params[-1])]
+
+
+def zoo_test_mode(tag, main, test, startup, feed):
+    """The test-mode clone (the model's dropout rates: Out = X·(1 − p);
+    BatchNorm on the running statistics) on the card and on an
+    explicit-CPU executor from the card's startup state: the logits
+    within 1e-4 of their max |value|."""
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    state = snapshot(main.global_block())
+    logits = [op.inputs["Logits"][0] for op in test.global_block().ops
+              if op.type == "softmax_with_cross_entropy"]
+    (gpu,) = card.run(test, feed=feed, fetch_list=logits)
+    cpu_scope = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_scope)
+    (cpu,) = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, fetch_list=logits, scope=cpu_scope)
+    err = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    if err > 1e-4:
+        raise AssertionError(f"{tag}: the test-mode logits on the card lie "
+                             f"{err} of max |value| from the CPU's")
+    return err
+
+
+def vgg_cifar_parity():
+    """``vgg_cifar`` (32 x 32, batch 4, f32, dropout 0) held as phase 19
+    holds ResNet-50, and for the same reason: its chain of BatchNorms
+    makes f32 ill-conditioned (tests/test_torch_zoo.py: either package's
+    f32 first-filter gradient lies 1e-4 to 2e-2 from float64).  The CPU
+    takes three steps from the card's startup state; the card takes each
+    step from the CPU's state before it; the CPU takes one float64 step
+    from the start.  Held: each loss within 1e-4 relative, the class fc's
+    step-1 gradient within 1e-3 of its max |g|, the running statistics
+    after step 1 within 1e-3, all gradients together (in norm) no further
+    from the float64 ones than twice the CPU's f32 ones."""
+    image, bs = ZOO_SMALL["vgg_cifar"]
+    build = (lambda dt: lambda: zb.cnn_train_program(
+        "vgg_cifar", image=image, class_dim=10, dtype=dt, layout="NCHW",
+        dropout_prob=0.0))
+    (loss, test), main, startup = zoo_program(build("float32"))
+    block = main.global_block()
+    names = sorted(p.name + "@GRAD" for p in block.all_parameters())
+    fc = max(n for n in names if n.startswith("fc") and ".w_" in n)
+    stats = [op.inputs[s][0] for op in block.ops if op.type == "batch_norm"
+             for s in ("Mean", "Variance")]
+    feed = zb.cnn_feed(bs, image, 10, "NCHW")
+    test_err = zoo_test_mode("vgg_cifar", main, test, startup, feed)
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    states = [snapshot(block)]
+    cpu_scope = fluid.Scope()
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = forced_steps(cpu_exe, main, loss, feed, states[:1], names,
+                       cpu_scope)
+    for _ in range(2):
+        states.append(snapshot(block, cpu_scope))
+        cpu += run_steps(cpu_exe, main, loss, feed, 1, scope=cpu_scope)
+    gpu, launches = counted(lambda: forced_steps(card, main, loss, feed,
+                                                 states[:1], names))
+    gpu_stats = {n: fluid.global_scope().find_np(n) for n in stats}
+    gpu += forced_steps(card, main, loss, feed, states[1:], ())
+    no_launches("vgg_cifar_parity", launches)
+    del card
+    (loss64, _), main64, _ = zoo_program(build("float64"))
+    block64 = main64.global_block()
+    scope64 = fluid.Scope()
+    fluid.load_persistables(main64, {
+        n: a.astype(block64.vars[n].dtype) for n, a in states[0].items()},
+        scope64)
+    feed64 = dict(feed, image=feed["image"].astype(np.float64))
+    f64 = run_steps(fluid.Executor(fluid.CPUPlace()), main64, loss64,
+                    feed64, 1, names, scope=scope64)
+    g32, gc, g64 = gpu[0][1], cpu[0][1], f64[0][1]
+
+    def norm_rel(a):
+        num = sum(float(((np.asarray(a[n], np.float64) - g64[n]) ** 2).sum())
+                  for n in names)
+        return (num / sum(float((g64[n] ** 2).sum()) for n in names)) ** 0.5
+
+    res = {"model": "vgg_cifar", "image": image, "bs": bs,
+           "dtype": "float32", "steps": "each from the CPU's state",
+           "gpu_losses": [r[0] for r in gpu],
+           "cpu_losses": [r[0] for r in cpu],
+           "loss_rel_err": [abs(a[0] - b[0]) / abs(b[0])
+                            for a, b in zip(gpu, cpu)],
+           "grad_rel_err_step1": {fc: float(
+               np.abs(g32[fc] - gc[fc]).max() / np.abs(gc[fc]).max())},
+           "grads_vs_f64_norm": {"card": norm_rel(g32), "cpu": norm_rel(gc)},
+           "state_rel_err_max": max(
+               float(np.abs(gpu_stats[n] - states[1][n]).max()
+                     / max(np.abs(states[1][n]).max(), 1e-12))
+               for n in stats),
+           "test_mode_logits_rel": test_err,
+           "launches_per_step": gpu[-1][2]}
+    log("zoo_parity_vgg_cifar", res)
+    w = res["grads_vs_f64_norm"]
+    if (max(res["loss_rel_err"]) > 1e-4
+            or res["grad_rel_err_step1"][fc] > 1e-3
+            or res["state_rel_err_max"] > 1e-3 or w["card"] > 2 * w["cpu"]):
+        raise AssertionError(f"vgg_cifar: card and CPU training disagree: "
+                             f"{res}")
+    fluid.reset()
+    return res
+
+
+def zoo_parity_phase():
+    """34. The small zoo in f32 (TF32 off, ``card``), card against an
+    explicit-CPU executor from the card's startup state, every dropout op
+    at probability 0 in the training desc: ``smallnet_mnist_cifar`` at
+    32 x 32 (batch 4), AlexNet and GoogLeNet at 64 x 64 (batch 2,
+    class_dim 10), the U-Net at 16 px (base_ch 8, batch 4) and the
+    ``nets`` program (``zb.nets_train_program``: ``glu``,
+    ``dot_product_attention``, ``sequence_conv_pool``, ragged) by
+    ``parity_run`` (3 steps, losses 1e-4 relative, the first, a middle and
+    the last parameter's step-1 gradient 1e-3 of max |g|, no port
+    kernel); the CNNs' test-mode clones (at the models' dropout rates)
+    first, ``zoo_test_mode``; ``vgg_cifar`` by ``vgg_cifar_parity``."""
+    out = {}
+    for model in ("smallnet", "alexnet", "googlenet"):
+        image, bs = ZOO_SMALL[model]
+        layout = "NCHW" if model == "smallnet" else "NHWC"
+        (loss, test), main, startup = zoo_program(
+            lambda: zb.cnn_train_program(model, image=image, class_dim=10,
+                                         dtype="float32", layout=layout,
+                                         dropout_prob=0.0))
+        feed = zb.cnn_feed(bs, image, 10, layout)
+        err = zoo_test_mode(model, main, test, startup, feed)
+        out[model] = parity_run(f"zoo_parity_{model}", main, startup, loss,
+                                feed, zoo_watched(main), {},
+                                {"bs": bs, "image": image})
+        out[model]["test_mode_logits_rel"] = err
+    out["vgg_cifar"] = vgg_cifar_parity()
+    u = UNET_SMALL
+    (loss, _, _), main, startup = zoo_program(
+        lambda: zb.unet_train_program(image=u["image"], base_ch=u["base_ch"],
+                                      ch_mults=(1, 2)))
+    out["unet"] = parity_run("zoo_parity_unet", main, startup, loss,
+                             zb.unet_feed(u["bs"], u["image"]),
+                             zoo_watched(main), {},
+                             {"bs": u["bs"], "image": u["image"]})
+    loss, main, startup = zoo_program(zb.nets_train_program)
+    out["nets"] = parity_run(
+        "zoo_parity_nets", main, startup, loss, zb.nets_feed(),
+        [n + "@GRAD" for n in ("embedding_0.w_0", "sequence_conv_0.w_0",
+                               "fc_0.w_0", "fc_3.w_0")], {}, {"bs": 4})
+    fluid.reset()
+    return out
+
+
+# -- 35. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -4495,6 +5147,14 @@ def main():
     fluid.reset()
     torch.cuda.empty_cache()
     r50_remat = resnet_remat_phase(name, smi, r50_fused)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    zoo_cnn = cnn_zoo_phase(name, smi)
+    vgg_fused, vgg_kernels, vgg_parity = vgg19_fused_phase(
+        dev, name, smi, zoo_cnn["vgg"])
+    unet_row = unet_phase(name, smi)
+    deepfm_rows = deepfm_phase(name, smi)
+    zoo_parity = zoo_parity_phase()
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -4528,7 +5188,9 @@ def main():
                "resnet50_remat_f32_per_step":
                    r50_remat["f32_parity"]["launches_remat"],
                "resnet50_remat_bf16_per_step":
-                   r50_remat["train_bf16"]["launches_per_step"]}
+                   r50_remat["train_bf16"]["launches_per_step"],
+               "vgg19_fused_bf16_per_step": vgg_fused["launches_per_step"],
+               "vgg19_fused_f32_parity_step": vgg_parity["launches_fused"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -4646,6 +5308,12 @@ def main():
             if k in other}
         if kname == "bn_conv3x3_fwd_v2":
             row["v1_vs_v2_by_shape"] = v1_v2
+        if kname in ("bn_conv3x3_fwd", "bn_conv3x3_bwd"):
+            row["vgg19_shapes"] = [
+                {k: r[k] for k in ("N", "H", "W", "K", "O", "fused_ops",
+                                   "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "bound_share", "max_rel_err")}
+                for r in vgg_kernels if r["kernel"] == kname]
         kernels.append(row)
     kernels[2]["verify_shape"] = {
         k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
@@ -4787,11 +5455,41 @@ def main():
                 "img_s_folded": row["folded_rates"]["img_s_median"],
                 "img_s_unfolded": row["unfolded"]["img_s_median"]}
                 for dt, row in r5["infer"].items()}}}
+    zoo_keys = ("model", "fused", "bs", "batch_cut", "image", "dtype",
+                "losses", "step_ms", "step_ms_min", "step_ms_max", "img_s",
+                "img_s_min", "img_s_max", "peak_mem_gb", "fused_ops",
+                "launches_per_step")
+    par_keys = ("bs", "image", "gpu_losses", "cpu_losses", "loss_rel_err",
+                "grad_rel_err_step1", "test_mode_logits_rel",
+                "grads_vs_f64_norm", "state_rel_err_max")
+    zoo_rows = {
+        "card": name, "nvidia_smi": smi,
+        "cnn_bench_bf16": {m: {k: r[k] for k in zoo_keys}
+                           for m, r in zoo_cnn.items()},
+        "vgg19_fused_bf16": {**{k: vgg_fused[k] for k in zoo_keys},
+                             "vs_unfused": vgg_fused["vs_unfused"]},
+        "vgg19_fused_f32_parity": {k: vgg_parity[k] for k in (
+            "loss_rel", "fc_grad_rel", "stats_rel", "launches_fused")},
+        "unet_bench_f32": {k: unet_row[k] for k in (
+            "bs", "image", "base_ch", "losses", "step_ms", "img_s",
+            "peak_mem_gb", "k", "replay_vs_eager", "eager_spread",
+            "eager_step_ms", "replay_step_ms", "img_s_eager",
+            "img_s_replay", "replay_speedup", "pool_gb", "ddim")},
+        "deepfm": {"ctr_parity": {k: deepfm_rows["ctr_parity"][k] for k in (
+                       "steps", "forced_loss_rel_err_max",
+                       "grad_rel_err_step1", "free_vs_cpu", "vs_f64",
+                       "fall")},
+                   "criteo_bench": {k: deepfm_rows["criteo_bench"][k]
+                                    for k in ("bs", "fields", "vocab",
+                                              "params", "step_ms", "rows_s",
+                                              "peak_mem_gb")}},
+        "parity_f32": {m: {k: r[k] for k in par_keys if k in r}
+                       for m, r in zoo_parity.items()}}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows, "step_loop": step_loop_rows,
                       "options": options_rows, "generate": generate_rows,
-                      "remat_save_load": remat_rows}),
+                      "remat_save_load": remat_rows, "zoo": zoo_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -115,6 +115,33 @@ class Variable:
         # the parameter an optimizer accumulator belongs to (moments)
         self.accumulator_for: Optional[str] = None
 
+    # -- Python operators: one elementwise op each (layers/math_helper.py)
+    def _binary(self, other, op_type, reverse=False):
+        from ..layers import math_helper
+
+        return math_helper.elementwise_binary(self, other, op_type, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    def __radd__(self, other):
+        return self._binary(other, "elementwise_add", reverse=True)
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __rmul__(self, other):
+        return self._binary(other, "elementwise_mul", reverse=True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
     def __repr__(self):
         return (
             f"Variable(name={self.name!r}, shape={self.shape}, dtype={self.dtype}, "

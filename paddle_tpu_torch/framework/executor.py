@@ -124,6 +124,8 @@ class Executor:
         self._graph_pool = None
         # (op index, op type) being walked, for capture errors
         self._walking = None
+        # EmitContext.constants: ops' constants uploaded once, until close()
+        self._constants = {}
 
     @property
     def global_step(self) -> int:
@@ -175,7 +177,7 @@ class Executor:
         is_test = not any(op.type.endswith("_grad") for op in block.ops)
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step if rng_step is None
-                          else int(rng_step))
+                          else int(rng_step), constants=self._constants)
         self._step += 1
         self._walk(block, env, fetch_names, scope, ctx)
         new_state = {n: env[n] for n in written(block, feed_names)
@@ -293,13 +295,14 @@ class Executor:
             self._loops.pop(key).close()
 
     def close(self):
-        """Release every captured step loop and the graphs' shared memory
-        pool.  The scope keeps its entries; the executor stays usable and
-        captures again on demand."""
+        """Release every captured step loop, the graphs' shared memory
+        pool and the uploaded constants.  The scope keeps its entries; the
+        executor stays usable and captures again on demand."""
         for entry in self._loops.values():
             entry.close()
         self._loops.clear()
         self._graph_pool = None
+        self._constants.clear()
 
     def _feed_tensor(self, block, name, value) -> Dict[str, torch.Tensor]:
         """One feed as name → tensor on the executor's device, in the

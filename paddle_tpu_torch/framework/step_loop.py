@@ -311,7 +311,8 @@ class CapturedLoop:
                 env = dict(carry)
                 env.update({n: buf[i] for n, buf in self.feeds.items()})
                 ctx = EmitContext(exe.device, is_test=self.is_test,
-                                  program=self.program, step=self.step0 + i)
+                                  program=self.program, step=self.step0 + i,
+                                  constants=exe._constants)
                 exe._walk(self.block, env, self.fetch_names, None, ctx)
                 missing = [n for n in self.fetch_names if n not in env]
                 if missing:

@@ -1,6 +1,6 @@
 """Layer functions building ops into the default main program — the part
-of ``paddle_tpu/layers/nn.py`` that ``decoder_lm``, ``lm_loss``, ResNet
-and the book's fit_a_line and recognize_digits build.
+of ``paddle_tpu/layers/nn.py`` that ``decoder_lm``, ``lm_loss``, ResNet,
+the model zoo and the book's fit_a_line and recognize_digits build.
 They only append descs; which ops have torch emitters is the registry's
 business."""
 
@@ -381,6 +381,21 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         outputs={"Out": [out.name], "Mask": [mask.name]},
         attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                "dropout_implementation": dropout_implementation},
+    )
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """A matmul op: batched ``x @ y`` after the optional swap of each
+    operand's last two axes, times `alpha`."""
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        "matmul",
+        inputs={"X": [x.name], "Y": [y.name]},
+        outputs={"Out": [out.name]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": alpha},
     )
     return out
 

@@ -1,6 +1,6 @@
 """Sequence layer functions over the padded+length representation — the
-part of ``paddle_tpu/layers/sequence.py`` that the stacked-LSTM classifier
-and the attention-NMT model build.
+part of ``paddle_tpu/layers/sequence.py`` that the stacked-LSTM classifier,
+the attention-NMT model and ``nets.sequence_conv_pool`` build.
 
 A ``sequence_data`` variable carries a companion ``<name>@LENGTH`` int32
 variable (fed automatically from LoDTensor feeds, see
@@ -74,6 +74,18 @@ def sequence_pool(input, pool_type="average"):
     return out
 
 
+def sequence_softmax(input):
+    helper = LayerHelper("sequence_softmax")
+    length = get_length_var(input)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op(
+        "sequence_softmax",
+        inputs={"X": [input.name], "Length": [length.name]},
+        outputs={"Out": [out.name]},
+    )
+    return propagate_length(input, out)
+
+
 def sequence_reverse(input):
     helper = LayerHelper("sequence_reverse")
     length = get_length_var(input)
@@ -83,6 +95,30 @@ def sequence_reverse(input):
         inputs={"X": [input.name], "Length": [length.name]},
         outputs={"Y": [out.name]},
     )
+    return propagate_length(input, out)
+
+
+def sequence_conv(input, num_filters, filter_size=3, param_attr=None,
+                  act=None):
+    """A sequence_conv op: a window of `filter_size` steps centred on each
+    step, projected to `num_filters`, then `act`."""
+    helper = LayerHelper("sequence_conv", act=act, param_attr=param_attr)
+    length = get_length_var(input)
+    D = input.shape[-1]
+    w = helper.create_parameter(
+        attr=param_attr if isinstance(param_attr, dict) else {},
+        shape=[filter_size * D, num_filters], dtype=input.dtype)
+    out = helper.create_tmp_variable(
+        input.dtype, shape=tuple(input.shape[:-1]) + (num_filters,))
+    helper.append_op(
+        "sequence_conv",
+        inputs={"X": [input.name], "Filter": [w.name],
+                "Length": [length.name]},
+        outputs={"Out": [out.name]},
+        attrs={"contextLength": filter_size,
+               "contextStart": -(filter_size // 2)},
+    )
+    out = helper.append_activation(out)
     return propagate_length(input, out)
 
 

@@ -1,7 +1,7 @@
-"""Tensor-building layer functions, the part of
-``paddle_tpu/layers/tensor.py`` that the ported models build:
-fill_constant, assign, cast, concat, reshape, transpose, scale,
-elementwise_add and elementwise_mul."""
+"""Tensor-building layer functions, the port of
+``paddle_tpu/layers/tensor.py``: fill_constant, assign, cast, concat,
+sums, reshape, transpose, scale, the elementwise add, sub, mul and div,
+and the reductions reduce_sum, reduce_mean, reduce_max and reduce_min."""
 
 from __future__ import annotations
 
@@ -49,6 +49,15 @@ def concat(input, axis=0):
     return out
 
 
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_tmp_variable(input[0].dtype, shape=input[0].shape)
+    helper.append_op("sum", inputs={"X": [i.name for i in input]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
 def reshape(x, shape, name=None):
     helper = LayerHelper("reshape", name=name)
     out = helper.create_tmp_variable(x.dtype, shape=tuple(shape))
@@ -89,3 +98,51 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def _reduce_layer(op_type, x, dim=None, keep_dim=False, name=None):
+    """One reduce op over `dim` (None: every axis, to [1], or all-ones
+    with `keep_dim`); the declared shape drops or keeps the reduced
+    axes."""
+    helper = LayerHelper(op_type, name=name)
+    if x.shape is None:
+        oshape = None
+    elif dim is None:
+        oshape = tuple(1 for _ in x.shape) if keep_dim else (1,)
+    else:
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        dims = [d % len(x.shape) for d in dims]
+        oshape = tuple(
+            (1 if keep_dim else None) if i in dims else s
+            for i, s in enumerate(x.shape))
+        oshape = tuple(s for s in oshape if s is not None) or (1,)
+    out = helper.create_tmp_variable(x.dtype, shape=oshape)
+    helper.append_op(op_type, inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"dim": dim, "keep_dim": keep_dim,
+                            "reduce_all": dim is None})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)

@@ -1,6 +1,7 @@
-"""``cross_entropy``, ``softmax_with_cross_entropy`` and ``accuracy``, the
-port of their emitters in ``paddle_tpu/ops/loss_ops.py``: hard labels
-(int64, gathered as indices) or soft ones;
+"""``cross_entropy``, ``softmax_with_cross_entropy``,
+``sigmoid_cross_entropy_with_logits`` and ``accuracy``, the port of their
+emitters in ``paddle_tpu/ops/loss_ops.py``: hard labels (int64, gathered
+as indices) or soft ones;
 ``Label`` takes no grad and ``Softmax`` no cotangent; ``accuracy`` is a
 metric, not differentiated."""
 
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .activation_ops import _Abs, _softplus
 from .registry import register_op
 
 
@@ -38,6 +40,18 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
         idx = label.reshape(logp.shape[:-1] + (1,)).long()
         loss = -logp.gather(-1, idx)
     return {"Loss": [loss], "Softmax": [torch.exp(logp)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", non_diff_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """Elementwise max(x, 0) − x·label + softplus(−|x|), written as the
+    JAX expression down to its gradient at x = 0 (``jnp.maximum`` splits
+    it, ``jnp.abs`` passes +1)."""
+    x = ins["X"][0]
+    label = ins["Label"][0].to(x.dtype)
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + _softplus(-_Abs.apply(x)))
+    return {"Out": [loss]}
 
 
 @register_op("accuracy", grad=None)

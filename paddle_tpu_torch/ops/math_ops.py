@@ -2,10 +2,12 @@
 the models, the regularizers, the gradient clips and the learning-rate
 schedules use: elementwise_add/sub/mul/div/pow/max/min with the
 reference's ``axis`` broadcast (y's shape aligns to x starting at `axis`,
-default -1 = trailing alignment), the flattening matmul ``mul``, ``sum``,
-``mean``, ``reduce_sum``, ``scale``, ``sign``, ``clip``, ``clip_by_norm`` and
-``squared_l2_norm``.  The GEMMs go to ``torch.matmul`` (cuBLAS on the
-card), as the JAX package leaves them to XLA.
+default -1 = trailing alignment), the flattening matmul ``mul``, the
+batched ``matmul``, ``sum``, ``mean``, the reduce family
+(``reduce_sum/mean/max/min/prod``, one emitter), ``scale``, ``sign``,
+``clip``, ``clip_by_norm`` and ``squared_l2_norm``.  The GEMMs go to
+``torch.matmul`` (cuBLAS on the card), as the JAX package leaves them to
+XLA.
 
 Dtypes follow the JAX ops: a bf16 gradient times an f32 ``[1]`` scale is
 f32, ``squared_l2_norm`` sums in its input's dtype, and ``maximum`` and
@@ -69,6 +71,22 @@ def mul(ctx, ins, attrs):
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:])]}
 
 
+@register_op("matmul")
+def matmul(ctx, ins, attrs):
+    """``jnp.matmul`` (batched, broadcast) after the optional swap of each
+    operand's last two axes, times ``alpha``."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X") and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y") and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
     xs = [x for x in ins["X"] if x is not None]
@@ -83,22 +101,46 @@ def mean(ctx, ins, attrs):
     return {"Out": [ins["X"][0].mean().reshape(1)]}
 
 
-@register_op("reduce_sum")
-def reduce_sum(ctx, ins, attrs):
-    """Sum over `dim` (an int or a list; None or ``reduce_all``: every
-    axis, to rank-1 [1] as reference reduce_op.cc makes it)."""
-    x = ins["X"][0]
-    dim = attrs.get("dim", None)
-    keep = bool(attrs.get("keep_dim", False))
-    if attrs.get("reduce_all", False) or dim is None:
-        out = torch.sum(x, dim=tuple(range(x.ndim)), keepdim=keep)
-        return {"Out": [out if keep else out.reshape(1)]}
-    dims = [int(d) for d in dim] if isinstance(dim, (list, tuple)) \
-        else [int(dim)]
-    # no axes reduces nothing, as jnp's axis=() (torch's dim=() would
-    # reduce them all)
-    return {"Out": [torch.sum(x, dim=tuple(dims), keepdim=keep)
-                    if dims else x]}
+def _prod_dims(x, dims, keep):
+    """``jnp.prod`` over several axes: ``torch.prod`` takes one at a time
+    (highest first, so the lower indices stay put)."""
+    for d in sorted((d % x.ndim for d in dims), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keep)
+    return x
+
+
+# the reduce family, each ``fn(x, dims, keep)`` over a non-empty tuple of
+# axes; ``amax``/``amin`` split the gradient among ties, as jnp.max does
+_REDUCES = {
+    "reduce_sum": lambda x, d, k: torch.sum(x, dim=d, keepdim=k),
+    "reduce_mean": lambda x, d, k: torch.mean(x, dim=d, keepdim=k),
+    "reduce_max": lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
+    "reduce_min": lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
+    "reduce_prod": _prod_dims,
+}
+
+
+def _reduce(fn):
+    def emit(ctx, ins, attrs):
+        """Reduce over `dim` (an int or a list; None or ``reduce_all``:
+        every axis, to rank-1 [1] as reference reduce_op.cc makes it)."""
+        x = ins["X"][0]
+        dim = attrs.get("dim", None)
+        keep = bool(attrs.get("keep_dim", False))
+        if attrs.get("reduce_all", False) or dim is None:
+            out = fn(x, tuple(range(x.ndim)), keep)
+            return {"Out": [out if keep else out.reshape(1)]}
+        dims = [int(d) for d in dim] if isinstance(dim, (list, tuple)) \
+            else [int(dim)]
+        # no axes reduces nothing, as jnp's axis=() (torch's dim=() would
+        # reduce them all)
+        return {"Out": [fn(x, tuple(dims), keep) if dims else x]}
+
+    return emit
+
+
+for _name, _fn in _REDUCES.items():
+    register_op(_name, _reduce(_fn))
 
 
 @register_op("scale")

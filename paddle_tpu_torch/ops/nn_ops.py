@@ -1,11 +1,12 @@
 """NN layer ops, the port of the part of ``paddle_tpu/ops/nn_ops.py`` that
-the LM tower and ResNet use: ``layer_norm``, ``conv2d``, ``pool2d``,
-``batch_norm``, ``dropout`` and the fused ``bn_act_conv1x1`` /
-``bn_act_conv3x3``.
+the LM tower, ResNet and the model zoo use: ``layer_norm``, ``conv2d``,
+``conv2d_transpose``, ``pool2d``, ``batch_norm``, ``dropout`` and the
+fused ``bn_act_conv1x1`` / ``bn_act_conv3x3``.
 
-``conv2d`` and ``pool2d`` are stock ATen (cuDNN on the card), as the JAX
-package leaves them to stock XLA; an NHWC tensor goes through them as a
-channels-last view, so nothing is copied around the call.  The fused ops
+``conv2d``, ``conv2d_transpose`` and ``pool2d`` are stock ATen (cuDNN on
+the card), as the JAX package leaves them to stock XLA; an NHWC tensor
+goes through them as a channels-last view, so nothing is copied around
+the call.  The fused ops
 run the hand-written kernels of ``cuda_kernels/bn_matmul.py`` (K11, K12)
 and ``cuda_kernels/bn_conv.py`` (K13-K15) through their autograd
 Functions, so each op's ``generic_grad`` runs the backward kernel.  The
@@ -69,6 +70,20 @@ def conv2d(ctx, ins, attrs):
                    dilation=_pair(attrs.get("dilations", [1, 1])),
                    groups=groups)
     return {"Output": [_back(out, nhwc)]}
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose(ctx, ins, attrs):
+    """The transposed convolution, NCHW, filter [C_in, C_out, kh, kw]:
+    out = (in − 1)·s − 2p + d·(k − 1) + 1 (conv_transpose_op.h).  The
+    JAX emitter pads its dilated input by d·(k − 1) − p a side, which is
+    the output ``F.conv_transpose2d`` gives for padding p."""
+    out = F.conv_transpose2d(
+        ins["Input"][0], ins["Filter"][0],
+        stride=_pair(attrs.get("strides", [1, 1])),
+        padding=_pair(attrs.get("paddings", [0, 0])),
+        dilation=_pair(attrs.get("dilations", [1, 1])))
+    return {"Output": [out]}
 
 
 @register_op("pool2d")

@@ -82,16 +82,19 @@ def registered_ops() -> List[str]:
 
 class EmitContext:
     """Per-run state handed to emitters: the device every tensor lives
-    on, train/test mode, per-op random generators, and ``lower_block``,
-    which the executor sets so that a control-flow op can run a nested
-    block."""
+    on, train/test mode, per-op random generators, ``constants`` (the
+    executor's device copies of ops' constant attributes, which live
+    until it closes), and ``lower_block``, which the executor sets so
+    that a control-flow op can run a nested block."""
 
     def __init__(self, device: torch.device, is_test: bool, program=None,
-                 step: int = 0):
+                 step: int = 0, constants=None):
         self.device = torch.device(device)
         self.is_test = is_test
         self.program = program
         self.step = int(step)
+        # id(op attrs) → (attrs, tensor); holding attrs keeps its id unique
+        self.constants = {} if constants is None else constants
         # callable(block_idx, env) -> env, set by the executor's walk:
         # runs every op of program.blocks[block_idx] in order on env
         self.lower_block = None

@@ -1,7 +1,8 @@
 """Sequence ops on (padded, lengths) pairs and the recurrences — the port
 of the part of ``paddle_tpu/ops/sequence_ops.py`` that the stacked-LSTM
-classifier and the attention-NMT program run: ``sequence_pool``,
-``sequence_reverse``, ``masked_seq_mean``, ``lstm`` and ``gru``.
+classifier, the attention-NMT program and ``nets.sequence_conv_pool``
+run: ``sequence_pool``, ``sequence_reverse``, ``masked_seq_mean``,
+``sequence_softmax``, ``sequence_conv``, ``lstm`` and ``gru``.
 
 Every op takes the padded tensor plus an int32 ``Length`` input and masks.
 ``lstm`` and ``gru`` go through the time-loop kernels' wrappers
@@ -69,6 +70,51 @@ def masked_seq_mean(ctx, ins, attrs):
     total = torch.sum(x * _mask_like(lengths, x))
     count = lengths.sum().to(x.dtype).clamp(min=1.0)
     return {"Out": [(total / count).reshape(1)]}
+
+
+@register_op("sequence_softmax", non_diff_inputs=("Length",))
+def sequence_softmax(ctx, ins, attrs):
+    """Softmax over each row's first `Length` steps of X [B, T], in at
+    least f32 (a float64 X stays float64), padding 0."""
+    x = ins["X"][0]
+    m = step_mask(ins["Length"][0], x.shape[1], torch.float32)
+    ft = torch.promote_types(x.dtype, torch.float32)
+    logits = torch.where(m > 0, x.to(ft), torch.full((), -1e9, dtype=ft,
+                                                      device=x.device))
+    return {"Out": [torch.softmax(logits, dim=-1).to(x.dtype)
+                    * m.to(x.dtype)]}
+
+
+def _shift_steps(x, shift):
+    """x [B, T, D] moved `shift` steps earlier along T (out[:, t] =
+    x[:, t + shift]), zeros where t + shift falls outside [0, T)."""
+    T = x.shape[1]
+    if abs(shift) >= T:
+        return torch.zeros_like(x)
+    pad = x.new_zeros((x.shape[0], abs(shift)) + tuple(x.shape[2:]))
+    if shift > 0:
+        return torch.cat([x[:, shift:], pad], dim=1)
+    if shift < 0:
+        return torch.cat([pad, x[:, :T + shift]], dim=1)
+    return x
+
+
+@register_op("sequence_conv", non_diff_inputs=("Length",))
+def sequence_conv(ctx, ins, attrs):
+    """Context-window projection over time: each step's window of
+    `contextLength` steps from `contextStart` (padding steps read as 0)
+    concatenated, times Filter [contextLength·D, M], padding steps 0."""
+    x = ins["X"][0]
+    w = ins["Filter"][0]
+    ctx_len = int(attrs.get("contextLength", 3))
+    ctx_start = int(attrs.get("contextStart", -(ctx_len // 2)))
+    B, T, _ = x.shape
+    m = _mask_like(ins["Length"][0], x)
+    xm = x * m
+    col = torch.cat([_shift_steps(xm, ctx_start + k)
+                     for k in range(ctx_len)], dim=-1)
+    out = torch.matmul(col.reshape(B * T, -1), w)
+    return {"Out": [out.reshape(B, T, -1) * m]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
 that the startup program, the LM tower, the recurrent models and ResNet
 use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
-reshape, transpose, slice, lookup_table, top_k, the training options'
-print, increment and pruning_mask, and generation's
-fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather.  Random ops draw from the context's
-per-op generator, on the context's device.  Shape ops may return views of
+split, reshape, transpose, slice, lookup_table, top_k, the training
+options' print, increment and pruning_mask, and generation's
+fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather.
+Random ops draw from the context's per-op generator, on the context's
+device.  Shape ops may return views of
 their input; no emitter writes into an input.  ``print`` reads its tensor
 on the host, so a block holding it never rides a captured step loop
 (``framework/step_loop.safety_report``)."""
@@ -44,12 +45,19 @@ def fill_constant_batch_size_like(ctx, ins, attrs):
 @register_op("assign_value", grad=None)
 def assign_value(ctx, ins, attrs):
     """Constants carried in the attrs (assign_value_op.cc): fp32_values as
-    float32, else int32_values as int32."""
-    if attrs.get("fp32_values"):
-        vals = torch.tensor(attrs["fp32_values"], dtype=torch.float32)
-    else:
-        vals = torch.tensor(attrs["int32_values"], dtype=torch.int32)
-    return {"Out": [vals.reshape(_shape(attrs)).to(ctx.device)]}
+    float32, else int32_values as int32.  The executor's first run of the
+    op uploads them (``ctx.constants``); every run returns a device copy
+    of that upload, which a captured step loop can replay, as it cannot
+    a copy from host memory."""
+    entry = ctx.constants.get(id(attrs))
+    if entry is None:
+        if attrs.get("fp32_values"):
+            vals = torch.tensor(attrs["fp32_values"], dtype=torch.float32)
+        else:
+            vals = torch.tensor(attrs["int32_values"], dtype=torch.int32)
+        entry = (attrs, vals.reshape(_shape(attrs)).to(ctx.device))
+        ctx.constants[id(attrs)] = entry
+    return {"Out": [entry[1].clone()]}
 
 
 @register_op("uniform_random", grad=None, draws_rng=True)
@@ -85,6 +93,26 @@ def cast(ctx, ins, attrs):
 @register_op("concat")
 def concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=int(attrs.get("axis", 0)))]}
+
+
+@register_op("split")
+def split(ctx, ins, attrs):
+    """``jnp.split`` along `axis`: into `num` equal parts (which must
+    divide the axis) or by the lengths in `sections`."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", 0))
+    if attrs.get("sections"):
+        sizes = [int(s) for s in attrs["sections"]]
+        if sum(sizes) != x.shape[axis]:
+            raise ValueError(f"split: sections {sizes} do not sum to axis "
+                             f"{axis}'s {x.shape[axis]}")
+    else:
+        num = int(attrs["num"])
+        if x.shape[axis] % num:
+            raise ValueError(f"split: {num} parts do not divide axis "
+                             f"{axis}'s {x.shape[axis]}")
+        sizes = [x.shape[axis] // num] * num
+    return {"Out": list(torch.split(x, sizes, dim=axis))}
 
 
 @register_op("reshape")

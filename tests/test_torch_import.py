@@ -65,6 +65,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.io\n"
         "import paddle_tpu_torch.framework.proto_io\n"
         "import paddle_tpu_torch.inference_transpiler\n"
+        "import paddle_tpu_torch.layers.math_helper\n"
+        "import paddle_tpu_torch.models\n"
+        "import paddle_tpu_torch.models.vgg\n"
+        "import paddle_tpu_torch.models.unet\n"
+        "import paddle_tpu_torch.models.deepfm\n"
+        "import paddle_tpu_torch.models.standing\n"
+        "import paddle_tpu_torch.models.zoo_bench\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -97,8 +104,8 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
                         hits.append(f"{os.path.relpath(path, _REPO)}: "
                                     f"{m.group(0).strip()}")
     assert not hits, hits
-    # the step loop, the data plane and the training options are among
-    # the scanned modules
+    # the step loop, the data plane, the training options and the model
+    # zoo are among the scanned modules
     assert {os.path.join("framework", "step_loop.py"),
             os.path.join("reader", "__init__.py"),
             os.path.join("reader", "decorator.py"),
@@ -113,7 +120,13 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("layers", "ops.py"),
             os.path.join("layers", "control_flow.py"),
             "io.py", "inference_transpiler.py",
-            os.path.join("framework", "proto_io.py")} <= scanned
+            os.path.join("framework", "proto_io.py"),
+            os.path.join("layers", "math_helper.py"),
+            os.path.join("models", "vgg.py"),
+            os.path.join("models", "unet.py"),
+            os.path.join("models", "deepfm.py"),
+            os.path.join("models", "standing.py"),
+            os.path.join("models", "zoo_bench.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():
