@@ -335,12 +335,38 @@ non-zero and no result line is printed):
     holds ResNet-50: each card step from the CPU's state, the fc grad
     1e-3, all grads no further from a float64 step's than twice the
     CPU's;
-35. summary.
+35. sequence labelling, the book's label_semantic_roles (``srl_net``:
+    six word lookups into one frozen ``emb`` table, predicate and mark
+    embeddings, stacked LSTMs of alternating direction over mixed fc
+    sums, a linear-chain CRF, Viterbi, ``chunk_eval`` into a
+    ``ChunkEvaluator``, SGD on an exponential decay; feeds from the
+    synthetic conll05 reader): (a) f32 with TF32 off, card against an
+    explicit-CPU executor, each of 3 card steps from the CPU's state
+    before it: the small SRL (hidden_dim 32, depth 2, a 200-word dict)
+    with the kernels' LSTM activations (K7 4, K8 2 a step) and with the
+    book's (relu candidate, sigmoid cell: the plain loop, no kernel), and
+    the JAX book test's GRU + CRF (K9 2, K10 1 a step): losses and the
+    step-1 gradients within 1e-5, paths and chunk counts equal; K7 and K8
+    at the full-width path's shapes (batch 10 and 128, the padded T, H
+    128, the reader's ragged lengths), K9 and K10 at the GRU + CRF's,
+    against their plain versions, timed beside them and the bound, with
+    the route and device launches the library counted; the ``lstm`` op in both directions (K7 and K8
+    through ``reverse_within_length``) against the plain loop on the
+    card, rows of length 1 and T included, 1e-4; (b) the full-width SRL
+    (44068 words, 59 labels, 3162 predicates, word_dim 32, hidden_dim
+    512, depth 8) with the kernels' activations at batch 10 and 128: 2 +
+    10 steps on fresh batches (K7 16, K8 8 a step), step ms (median, min,
+    max), sentences and tokens a second, peak memory, 3 profiled steps
+    (device busy share, device kernels a step, K7's and K8's device ms a
+    step), the ChunkEvaluator's F1 after the timed steps (not gated), and
+    the test-mode program (K7 8) in sentences a second;
+36. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
-{...}, "remat_save_load": {...}, "zoo": {...}}`` summary (all 15
-kernels) and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+{...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}}`` summary
+(all 15 kernels) and the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA the script
 exits 2 and prints no result.
 """
 
@@ -360,7 +386,9 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.framework import executor as texecutor
+from paddle_tpu_torch.dataset import conll05
 from paddle_tpu_torch.framework import step_loop
+from paddle_tpu_torch.lod import LoDTensor, bucket_len
 from paddle_tpu_torch.models import gpt_bench, resnet_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
@@ -3477,6 +3505,18 @@ def no_host_sync(lm, prompts, max_gen):
     return syncs, len(seen)
 
 
+def merged_us(spans):
+    """The time covered by (start, end) intervals, overlaps counted once:
+    the device's busy time from its kernels' intervals."""
+    busy, end = 0.0, None
+    for s, f in sorted(spans):
+        if end is None or s > end:
+            busy, end = busy + f - s, f
+        elif f > end:
+            busy, end = busy + f - end, f
+    return busy
+
+
 def profile_generate(exe, prog, feed, fetch):
     """One generate call under torch.profiler: device busy share of its
     wall (kernel intervals merged; the profiler inflates the wall), device
@@ -3498,15 +3538,10 @@ def profile_generate(exe, prog, feed, fetch):
         spans.append((e.time_range.start, e.time_range.end))
         if "flash_fwd" in e.name:
             k1_us += e.time_range.elapsed_us()
-    busy, end = 0.0, None
-    for s, f in sorted(spans):
-        if end is None or s > end:
-            busy, end = busy + f - s, f
-        elif f > end:
-            busy, end = busy + f - end, f
     if not spans:
         return {"profiled": "not measured: the profiler saw no device "
                             "event"}
+    busy = merged_us(spans)
     return {"wall_ms_profiled": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
@@ -3900,7 +3935,7 @@ def control_flow_phase():
         "y": labels})
     seqs = [rng.rand(k, 4).astype(np.float32) for k in (3, 6, 1, 4)]
     res["dynamic_rnn"] = cf_sgd_steps("cf_dynamic_rnn", dynamic_rnn, {
-        "x": fluid.lod.LoDTensor.from_sequences(seqs),
+        "x": LoDTensor.from_sequences(seqs),
         "y": rng.rand(4, 1).astype(np.float32)})
 
     fluid.reset()
@@ -5072,7 +5107,514 @@ def zoo_parity_phase():
     return out
 
 
-# -- 35. summary --------------------------------------------------------------
+# -- 35. sequence labelling: the book's label_semantic_roles ------------------
+
+SRL_SLOTS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
+             "target")
+# the book's widths (PaddlePaddle v0.11 fluid/tests/book/
+# test_label_semantic_roles.py): 44068 words, 59 labels, 3162 predicates,
+# mark dict 2, word_dim 32, mark_dim 5, hidden_dim 512 (H 128), depth 8
+SRL_BOOK = {"word_dict_len": conll05.WORD_DICT_LEN,
+            "label_dict_len": conll05.LABEL_DICT_LEN,
+            "pred_len": conll05.PRED_DICT_LEN, "hidden_dim": 512, "depth": 8}
+SRL_SMALL = {"word_dict_len": 200, "label_dict_len": conll05.LABEL_DICT_LEN,
+             "pred_len": conll05.PRED_DICT_LEN, "hidden_dim": 32, "depth": 2}
+# the kernels' activations; the book's (relu candidate, sigmoid cell) run
+# the plain loop and reach no kernel
+SRL_KERNEL_ACTS = {"candidate_activation": "tanh",
+                   "gate_activation": "sigmoid", "cell_activation": "tanh"}
+SRL_BOOK_ACTS = {"candidate_activation": "relu",
+                 "gate_activation": "sigmoid", "cell_activation": "sigmoid"}
+SRL_BS = (10, 128)  # the book's BATCH_SIZE, and a batch that fills the card
+SRL_WARM, SRL_TIMED, SRL_PROFILED = 2, 10, 3
+SRL_INFER_RUNS = 5
+SRL_PARITY_BS, SRL_PARITY_STEPS, SRL_TOL = 8, 3, 1e-5
+SRL_BOOK_GRU = {"vocab": 64, "ntag": 5, "hidden": 32}
+
+
+def srl_net(word_dict_len, label_dict_len, pred_len, hidden_dim, depth,
+            acts, word_dim=32, mark_dim=5):
+    """The book's db_lstm + linear-chain CRF + Viterbi + chunk_eval through
+    the port's layers: six word lookups share the frozen ``emb`` table,
+    predicate and mark embeddings, `depth` LSTMs (size hidden_dim, so H =
+    hidden_dim / 4) of alternating direction over mixed fc sums, the
+    feature of two fc sums, ``crfw`` at learning rate × 1e-3, a
+    ChunkEvaluator (IOB, 29 chunk types), and SGD on
+    exponential_decay(1e-4, 100000, 0.5, staircase).  The test-mode clone
+    (loss, path, chunk counts) is taken before minimize.  Returns (dict of
+    variables, main, startup)."""
+    fluid.reset()
+    L = fluid.layers
+    data = {n: L.sequence_data(name=n, shape=[1], dtype="int64")
+            for n in SRL_SLOTS}
+    embs = [L.sequence_embedding(
+        data[n], size=[word_dict_len, word_dim],
+        param_attr=fluid.ParamAttr(name="emb", trainable=False))
+        for n in SRL_SLOTS[:6]]
+    embs.append(L.sequence_embedding(
+        data["verb_data"], size=[pred_len, word_dim],
+        param_attr=fluid.ParamAttr(name="vemb")))
+    embs.append(L.sequence_embedding(data["mark_data"], size=[2, mark_dim]))
+
+    def mix(inputs, size):
+        fcs = [L.sequence_fc(x, size) for x in inputs]
+        return L.propagate_length(fcs[0], L.sums(fcs))
+
+    hidden_0 = mix(embs, hidden_dim)
+    lstm_0, _ = L.dynamic_lstm(hidden_0, size=hidden_dim, **acts)
+    input_tmp = [hidden_0, lstm_0]
+    for i in range(1, depth):
+        mix_hidden = mix(input_tmp, hidden_dim)
+        lstm, _ = L.dynamic_lstm(mix_hidden, size=hidden_dim,
+                                 is_reverse=(i % 2) == 1, **acts)
+        input_tmp = [mix_hidden, lstm]
+    feature_out = mix(input_tmp, label_dict_len)
+    crf_cost = L.linear_chain_crf(
+        feature_out, data["target"],
+        param_attr=fluid.ParamAttr(name="crfw", learning_rate=1e-3))
+    avg_cost = L.mean(crf_cost)
+    decode = L.crf_decoding(feature_out, crf_cost._crf_transition)
+    chunk = L.chunk_eval(decode, data["target"], chunk_scheme="IOB",
+                         num_chunk_types=-(-(label_dict_len - 1) // 2))
+    evaluator = fluid.evaluator.ChunkEvaluator(*chunk[3:])
+    test = fluid.default_main_program().clone(for_test=True)
+    fluid.optimizer.SGD(learning_rate=fluid.learning_rate_decay
+                        .exponential_decay(learning_rate=1e-4,
+                                           decay_steps=100000,
+                                           decay_rate=0.5,
+                                           staircase=True)).minimize(
+        avg_cost)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    net = {"cost": avg_cost, "decode": decode, "chunk": chunk,
+           "evaluator": evaluator, "test": test}
+    return net, fluid.default_main_program(), startup
+
+
+def srl_batches(bs, n, word_dict_len, pred_len, seed=0):
+    """`n` batches of `bs` samples from the synthetic conll05 reader
+    (``conll05.train`` for seed 0, ``test`` for 1), word and predicate ids
+    folded into the dicts, one LoDTensor a slot (labels [len, 1], as the
+    book feeds them); and each batch's valid tokens."""
+    reader = conll05.train if seed == 0 else conll05.test
+    samples = list(reader(n=bs * n)())
+    mods = [word_dict_len] * 6 + [pred_len, 2, conll05.LABEL_DICT_LEN]
+    out = []
+    for b in range(n):
+        rows = samples[b * bs:(b + 1) * bs]
+        out.append(({name: LoDTensor.from_sequences(
+            [(r[k] % m).reshape(-1, 1) for r in rows])
+            for k, (name, m) in enumerate(zip(SRL_SLOTS, mods))},
+            int(sum(len(r[0]) for r in rows))))
+    return out
+
+
+def srl_fetch(net, grads=()):
+    return [net["cost"], *grads, net["decode"], *net["chunk"][3:]]
+
+
+def srl_steps(exe, main, fetch, feed, n, scope=None):
+    """`n` steps fetching `fetch`; per step (fetched arrays, the kernels'
+    launches in it, host seconds to the fetch)."""
+    out = []
+    for _ in range(n):
+        before = {k: f.launches for k, f in KERNELS.items()}
+        t0 = time.monotonic()
+        vals = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        secs = time.monotonic() - t0
+        out.append((vals, {k: f.launches - before[k]
+                           for k, f in KERNELS.items()}, secs))
+    return out
+
+
+def srl_card_vs_cpu(tag, main, startup, fetch, n_grads, feed, bs, want,
+                    init=None):
+    """`SRL_PARITY_STEPS` steps on an explicit-CPU executor from the
+    card's startup state, and on the card each step from the CPU's state
+    before it (f32, TF32 off): each loss within SRL_TOL relative, the
+    step-1 gradients within SRL_TOL of their max |g|, the fetched paths and
+    chunk counts equal, and the launches `want` in every card step (none
+    where `want` is empty)."""
+    card = fluid.Executor(fluid.CUDAPlace(0))
+    card.run(startup)
+    if init is not None:
+        init(fluid.global_scope())
+    block = main.global_block()
+    states = [snapshot(block)]
+    cpu_scope = fluid.Scope()
+    fluid.load_persistables(main, states[0], cpu_scope)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = []
+    for k in range(SRL_PARITY_STEPS):
+        if k:
+            states.append(snapshot(block, cpu_scope))
+        cpu += srl_steps(cpu_exe, main, fetch, feed, 1, cpu_scope)
+    gpu = []
+    for state in states:
+        fluid.load_persistables(main, state)
+        gpu += srl_steps(card, main, fetch, feed, 1)
+    loss_rel = [abs(float(g[0][0][0]) - float(c[0][0][0]))
+                / abs(float(c[0][0][0])) for g, c in zip(gpu, cpu)]
+    grad_rel = [float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+                for g, c in zip(gpu[0][0][1:1 + n_grads],
+                                cpu[0][0][1:1 + n_grads])]
+    exact = all(np.array_equal(g, c) for gr, cr in zip(gpu, cpu)
+                for g, c in zip(gr[0][1 + n_grads:], cr[0][1 + n_grads:]))
+    counts = [[int(v[0]) for v in r[0][2 + n_grads:]] for r in gpu]
+    res = {"tag": tag, "bs": bs, "dtype": "float32",
+           "steps": "each from the CPU's state",
+           "gpu_losses": [float(r[0][0][0]) for r in gpu],
+           "cpu_losses": [float(r[0][0][0]) for r in cpu],
+           "loss_rel_err": loss_rel, "grads": n_grads,
+           "grad_rel_err_step1_max": max(grad_rel, default=0.0),
+           "paths_and_counts_equal": exact,
+           "chunk_counts_infer_label_correct": counts,
+           "launches_per_step": gpu[-1][1]}
+    log(f"srl_parity_{tag}", res)
+    for _, launches, _ in gpu:
+        if want:
+            check_launches(f"srl_parity_{tag}", launches, want)
+        else:
+            no_launches(f"srl_parity_{tag}", launches)
+    if (max(loss_rel) > SRL_TOL or res["grad_rel_err_step1_max"] > SRL_TOL
+            or not exact):
+        raise AssertionError(f"srl_parity_{tag}: card and CPU disagree: "
+                             f"{res}")
+    return res
+
+
+def srl_emb_init(n):
+    def init(scope):
+        scope.set("emb", conll05.get_embedding()[:n])
+    return init
+
+
+def srl_trainable_grads(main):
+    return sorted(p.name + "@GRAD" for p in
+                  main.global_block().all_parameters() if p.trainable)
+
+
+def srl_parity_phase():
+    """35(a) the small SRL (hidden_dim 32, depth 2, a 200-word dict) in
+    both activation sets and the JAX book test's GRU + CRF, card against
+    an explicit CPU; returns the rows and the GRU + CRF feed's
+    lengths."""
+    out = {}
+    feed = srl_batches(SRL_PARITY_BS, 1, SRL_SMALL["word_dict_len"],
+                       SRL_SMALL["pred_len"])[0][0]
+    for name, acts, want in (
+            ("small_kernel_acts", SRL_KERNEL_ACTS,
+             {"lstm_forward": 2 * SRL_SMALL["depth"],
+              "lstm_backward": SRL_SMALL["depth"]}),
+            ("small_book_acts", SRL_BOOK_ACTS, {})):
+        net, main, startup = srl_net(acts=acts, **SRL_SMALL)
+        grads = srl_trainable_grads(main)
+        out[name] = srl_card_vs_cpu(
+            name, main, startup, srl_fetch(net, grads), len(grads), feed,
+            SRL_PARITY_BS, want, srl_emb_init(SRL_SMALL["word_dict_len"]))
+    g = SRL_BOOK_GRU
+    fluid.reset()
+    L = fluid.layers
+    words = L.sequence_data(name="words", shape=[1], dtype="int64")
+    tags = L.sequence_data(name="tags", shape=[1], dtype="int64")
+    emb = L.sequence_embedding(words, size=[g["vocab"], 16])
+    gru = L.dynamic_gru(L.sequence_fc(emb, size=3 * g["hidden"]),
+                        size=g["hidden"])
+    emission = L.sequence_fc(gru, size=g["ntag"])
+    nll = L.linear_chain_crf(emission, tags)
+    cost = L.mean(nll)
+    decoded = L.crf_decoding(emission, nll._crf_transition)
+    fluid.optimizer.Adam(learning_rate=0.02).minimize(cost)
+    main, startup = fluid.default_main_program(), \
+        fluid.default_startup_program()
+    startup.random_seed = SEED
+    rng = np.random.RandomState(0)
+    toks = [rng.randint(0, g["vocab"], rng.randint(1, 9))
+            for _ in range(16)]
+    book_feed = {
+        "words": LoDTensor.from_sequences(
+            [t.reshape(-1, 1) for t in toks]),
+        "tags": LoDTensor.from_sequences(
+            [(t % g["ntag"]).reshape(-1, 1) for t in toks])}
+    grads = srl_trainable_grads(main)
+    out["book_gru_crf"] = srl_card_vs_cpu(
+        "book_gru_crf", main, startup, [cost, *grads, decoded], len(grads),
+        book_feed, len(toks), {"gru_forward": 2, "gru_backward": 1})
+    fluid.reset()
+    return out, [len(t) for t in toks]
+
+
+def srl_kernel_phase(dev, shapes):
+    """35(a) the recurrent kernels at the shapes of this phase's paths:
+    K7 and K8 at the full-width SRL's (B, the padded T, H 128, the
+    reader's ragged lengths), K9 and K10 at the GRU + CRF's, `shapes`
+    holding (kind, B, T, H, lengths); each against its plain version,
+    timed beside it and the bound, with the route and device launches the
+    library counted.  Then the ``lstm`` op in both directions on the card
+    (the kernels through ``reverse_within_length``) against the plain
+    loop ``_lstm_scan`` run on the card, from a non-zero initial state, a
+    row of length 1 and one of length T among the reader's lengths.
+    States 1e-4 absolute, gradients 1e-4 of their max |g| (phase 13's
+    tolerance)."""
+    from paddle_tpu_torch.ops.sequence_ops import _lstm_scan
+
+    rows = {f"{k}_{d}": [] for k in ("lstm", "gru")
+            for d in ("forward", "backward")}
+    dirs = []
+    for kind, B, T, H, lengths in shapes:
+        mod = lstm_k if kind == "lstm" else gru_k
+        gates = 4 if kind == "lstm" else 3
+        fwd, bwd = (getattr(mod, f"{kind}_{d}") for d in ("forward",
+                                                          "backward"))
+        fwd_ref, bwd_ref = (getattr(mod, f"{kind}_{d}_ref")
+                            for d in ("forward", "backward"))
+        a = rnn_case(dev, torch.float32, gates, B, T, H, lengths)
+        if kind == "lstm":
+            ins = (a["x"], a["h0"], a["c0"], a["w"], a["lengths"])
+            cts = (a["dhs"], a["dcs"])
+        else:
+            ins = (a["x"], a["h0"], a["w"], a["lengths"])
+            cts = (a["dhs"],)
+        got, k_f = kernels_launched(mod, dev, lambda: fwd(*ins))
+        ref = fwd_ref(*ins)
+        saved = ref[:len(cts)]
+        grads, k_b = kernels_launched(
+            mod, dev, lambda: bwd(*ins, *saved, *cts))
+        ref_g = bwd_ref(*ins, *saved, *cts)
+        shape = {"dtype": "float32", "B": B, "T": T, "H": H,
+                 "valid_steps": a["steps"], "lengths": "the path's"}
+        f_row = {**shape, "max_abs_err": max(max_err(x, y)
+                                             for x, y in zip(got, ref))}
+        b_row = {**shape, "max_rel_err": max(rel_err(x, y)
+                                             for x, y in zip(grads, ref_g))}
+        for row, back, counts, call, plain in (
+                (f_row, False, k_f, lambda: fwd(*ins),
+                 lambda: fwd_ref(*ins)),
+                (b_row, True, k_b, lambda: bwd(*ins, *saved, *cts),
+                 lambda: bwd_ref(*ins, *saved, *cts))):
+            body, n = rnn_body(kind, counts, back)
+            want = mod.route(a["x"], backward=back)
+            if (body, n) != (want, rnn_launches(kind, want, T)[back]):
+                raise AssertionError(f"srl {kind} at {shape}: ran {body} "
+                                     f"in {n} launches, {kind}.route chose "
+                                     f"{want}")
+            row.update({"route": body, "device_launches": n})
+            row["bound_ms"], row["bound_by"] = rnn_bound(
+                gates, a, B, T, H, back, torch.float32)
+            row["kernel_ms"] = time_ms(call, iters=max(2, 400 // n))
+            row["plain_ms"] = time_ms(plain, iters=3, ahead=False)
+            row["plain_ms_includes"] = "the host's launch rate"
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["bound_ignores"] = "the dependence between the T steps"
+            row["library_ms"] = None
+        rows[f"{kind}_forward"].append(f_row)
+        rows[f"{kind}_backward"].append(b_row)
+        log(f"srl_{kind}_forward", f_row)
+        log(f"srl_{kind}_backward", b_row)
+        if (f_row["max_abs_err"] > TOL[torch.float32]
+                or b_row["max_rel_err"] > TOL[torch.float32]):
+            raise AssertionError(f"srl: the {kind} kernels disagree with "
+                                 f"their plain versions at {shape}: "
+                                 f"{f_row}, {b_row}")
+        if kind == "lstm":
+            lens = a["lengths"].clone()
+            lens[0], lens[-1] = 1, T
+            for rev in (False, True):
+                dirs.append(srl_direction_row(dev, a, lens, rev, _lstm_scan))
+    return rows, dirs
+
+
+def srl_direction_row(dev, a, lengths, rev, lstm_scan):
+    """The ``lstm`` op (training mode: LSTMTrain, K7 and K8) against
+    ``_lstm_scan`` on the same card tensors, forward states and the
+    gradients of sum(hs·dhs + cs·dcs) in Input, Weight, H0 and C0."""
+    B, T = a["x"].shape[:2]
+    info = get_op_info("lstm")
+    ctx = EmitContext(dev, is_test=False)
+
+    def run(kernel):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (a["x"], a["w"], a["h0"], a["c0"])]
+        x, w, h0, c0 = leaves
+        if kernel:
+            out = info.emit(ctx, {"Input": [x], "Weight": [w], "H0": [h0],
+                                  "C0": [c0], "Length": [lengths]},
+                            {"is_reverse": rev})
+            hs, cs = out["Hidden"][0], out["Cell"][0]
+        else:
+            hs, cs, _, _ = lstm_scan(x, h0, c0, w, lengths, torch.sigmoid,
+                                     torch.tanh, torch.tanh, reverse=rev)
+        loss = (hs * a["dhs"]).sum() + (cs * a["dcs"]).sum()
+        return (hs, cs), torch.autograd.grad(loss, leaves)
+
+    (got, g_got), counts = kernels_launched(lstm_k, dev, lambda: run(True))
+    want, g_want = run(False)
+    row = {"B": B, "T": T, "is_reverse": rev,
+           "lengths_min_max": [int(lengths.min()), int(lengths.max())],
+           "max_abs_err": max(max_err(x, y) for x, y in zip(got, want)),
+           "max_rel_err": max(rel_err(x, y) for x, y in zip(g_got, g_want)),
+           "kernels": counts}
+    log("srl_lstm_direction", row)
+    if not any("lstm_fwd" in k for k in counts) or not any(
+            "lstm_bwd" in k for k in counts):
+        raise AssertionError(f"srl direction check ran no K7 or K8: {row}")
+    if row["max_abs_err"] > TOL[torch.float32] or \
+            row["max_rel_err"] > TOL[torch.float32]:
+        raise AssertionError(f"srl: the lstm op (is_reverse={rev}) and "
+                             f"the plain loop disagree: {row}")
+    return row
+
+
+SRL_K7_NAMES = ("lstm_fwd",)
+SRL_K8_NAMES = ("lstm_bwd", "lstm_dw", "rnn_dw")
+
+
+def srl_profile(exe, main, fetch, batches):
+    """A few steps under torch.profiler: the device busy share of their
+    wall (kernel intervals merged), device kernels a step, and K7's and
+    K8's device ms a step (by the bodies' names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for feed, _ in batches:
+            exe.run(main, feed=feed, fetch_list=fetch)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    spans, k7, k8 = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if any(k in e.name for k in SRL_K7_NAMES):
+            k7 += e.time_range.elapsed_us()
+        elif any(k in e.name for k in SRL_K8_NAMES):
+            k8 += e.time_range.elapsed_us()
+    if not spans:
+        return {"profiled": "not measured: the profiler saw no device "
+                            "event"}
+    busy = merged_us(spans)
+    n = len(batches)
+    return {"profiled_steps": n, "wall_ms_profiled_per_step":
+            wall_us / 1e3 / n, "device_busy_share": busy / wall_us,
+            "device_busy_ms_per_step": busy / 1e3 / n,
+            "device_kernels_per_step": len(spans) / n,
+            "k7_device_ms_per_step": k7 / 1e3 / n,
+            "k8_device_ms_per_step": k8 / 1e3 / n}
+
+
+def srl_bench_run(bs, card_name, smi):
+    """35(b) the full-width SRL with the kernels' activations at batch
+    `bs`: SRL_WARM + SRL_TIMED training steps, each on the next batch of
+    the synthetic conll05 reader and each launching K7 2 x depth and K8
+    depth times; step ms (median, min, max), sentences and tokens a
+    second, peak memory, the profiled steps, the ChunkEvaluator's P/R/F1
+    after them (not gated), then the test-mode program (loss, Viterbi,
+    chunk_eval; K7 depth times) in sentences a second."""
+    depth = SRL_BOOK["depth"]
+    want = {"lstm_forward": 2 * depth, "lstm_backward": depth}
+    t0 = time.monotonic()
+    net, main, startup = srl_net(acts=SRL_KERNEL_ACTS, **SRL_BOOK)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    fluid.global_scope().set("emb", conll05.get_embedding())
+    batches = srl_batches(bs, SRL_WARM + SRL_TIMED + SRL_PROFILED,
+                          SRL_BOOK["word_dict_len"], SRL_BOOK["pred_len"])
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    fetch = srl_fetch(net)
+    rows = []
+    for feed, _ in batches[:SRL_WARM]:
+        rows += srl_steps(exe, main, fetch, feed, 1)
+    net["evaluator"].reset(exe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches[SRL_WARM:SRL_WARM + SRL_TIMED]
+    for feed, _ in timed:
+        rows += srl_steps(exe, main, fetch, feed, 1)
+    for _, launches, _ in rows:
+        check_launches(f"srl_bench_{bs}", launches, want)
+    step_ms = [r[2] * 1e3 for r in rows[SRL_WARM:]]
+    med = float(np.median(step_ms))
+    tokens = [t for _, t in timed]
+    precision, recall, f1 = net["evaluator"].eval()
+    res = {"card": card_name, "nvidia_smi": smi, "bs": bs,
+           "dtype": "float32", **{k: SRL_BOOK[k] for k in SRL_BOOK},
+           "H": SRL_BOOK["hidden_dim"] // 4, "setup_s": setup_s,
+           "T_padded": sorted({bucket_len(int(
+               f["word_data"].sequence_lengths().max())) for f, _ in timed}),
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "ops": len(main.global_block().ops),
+           "losses": [float(r[0][0][0]) for r in rows],
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "step_ms_each": step_ms,
+           "sent_s": bs / (med / 1e3),
+           "tok_s": float(np.mean(tokens)) / (med / 1e3),
+           "tokens_per_step_mean": float(np.mean(tokens)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": rows[-1][1],
+           "chunk_eval_after_timed_steps": {
+               "precision": precision, "recall": recall, "f1": f1}}
+    res.update(srl_profile(exe, main, fetch,
+                           batches[SRL_WARM + SRL_TIMED:]))
+    if not all(np.isfinite(res["losses"])):
+        raise AssertionError(f"srl_bench_{bs}: losses {res['losses']}")
+    # the test-mode program on the trained state: K7 only
+    feed, tok = timed[0]
+    (val, *_), launches = counted(lambda: exe.run(
+        net["test"], feed=feed, fetch_list=srl_fetch(net)))
+    check_launches(f"srl_infer_{bs}", launches, {"lstm_forward": depth})
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(SRL_INFER_RUNS):
+        exe.run(net["test"], feed=feed, fetch_list=srl_fetch(net))
+    torch.cuda.synchronize()
+    infer_ms = (time.monotonic() - t0) / SRL_INFER_RUNS * 1e3
+    res["infer"] = {"bs": bs, "ms": infer_ms, "sent_s": bs / (infer_ms / 1e3),
+                    "tok_s": tok / (infer_ms / 1e3), "loss": float(val[0]),
+                    "launches": launches}
+    log(f"srl_bench_{bs}", res)
+    if not np.isfinite(res["infer"]["loss"]):
+        raise AssertionError(f"srl_infer_{bs}: loss {res['infer']['loss']}")
+    return res
+
+
+def srl_phase(dev, card_name, smi):
+    """35. Sequence labelling: (a) card against CPU and K7/K8 at the SRL
+    shapes, (b) the full-width SRL at batch 10 and 128."""
+    parity, gru_lengths = srl_parity_phase()
+    H = SRL_BOOK["hidden_dim"] // 4
+    shapes = [("gru", len(gru_lengths), bucket_len(max(gru_lengths)),
+               SRL_BOOK_GRU["hidden"], gru_lengths)]
+    for bs in SRL_BS:
+        feed, _ = srl_batches(bs, 1, SRL_BOOK["word_dict_len"],
+                              SRL_BOOK["pred_len"])[0]
+        lengths = feed["word_data"].sequence_lengths()
+        shapes.append(("lstm", bs, bucket_len(int(lengths.max())), H,
+                       [int(n) for n in lengths]))
+    kernel_rows, directions = srl_kernel_phase(dev, shapes)
+    bench = {}
+    for bs in SRL_BS:
+        fluid.reset()
+        torch.cuda.empty_cache()
+        bench[bs] = srl_bench_run(bs, card_name, smi)
+    fluid.reset()
+    # each kernel row's launches a step on the path it has the shape of
+    for kname, krows in kernel_rows.items():
+        for r in krows:
+            path = bench[r["B"]] if kname.startswith("lstm") \
+                else parity["book_gru_crf"]
+            r["launches_per_step"] = path["launches_per_step"][kname]
+    return {"parity": parity, "kernel_rows": kernel_rows,
+            "directions": directions, "bench": bench}
+
+
+# -- 36. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -5155,6 +5697,10 @@ def main():
     unet_row = unet_phase(name, smi)
     deepfm_rows = deepfm_phase(name, smi)
     zoo_parity = zoo_parity_phase()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    srl = srl_phase(dev, name, smi)
+    srl_big = srl["bench"][SRL_BS[-1]]
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -5190,7 +5736,9 @@ def main():
                "resnet50_remat_bf16_per_step":
                    r50_remat["train_bf16"]["launches_per_step"],
                "vgg19_fused_bf16_per_step": vgg_fused["launches_per_step"],
-               "vgg19_fused_f32_parity_step": vgg_parity["launches_fused"]}
+               "vgg19_fused_f32_parity_step": vgg_parity["launches_fused"],
+               "srl_f32_per_step": srl_big["launches_per_step"],
+               "srl_infer": srl_big["infer"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -5280,6 +5828,15 @@ def main():
         row["other_dtype_bench_shape"] = {
             k: other[k] for k in ("dtype", "kernel_ms", "plain_ms",
                                   "bound_ms", "bound_by", "max_abs_err")}
+        if srl["kernel_rows"][kname]:
+            row["srl_shapes"] = [
+                {**{k: r[k] for k in (
+                    "B", "T", "H", "valid_steps", "route", "device_launches",
+                    "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_share") if k in r},
+                 "max_err": r.get("max_abs_err", r.get("max_rel_err")),
+                 "launches_per_step": r["launches_per_step"]}
+                for r in srl["kernel_rows"][kname]]
         kernels.append(row)
     # K11-K15: the bf16 row (the bench's dtype) at the timed shape, the
     # f32 row beside it; K14's launches are the v2 bench run's
@@ -5485,11 +6042,27 @@ def main():
                                               "peak_mem_gb")}},
         "parity_f32": {m: {k: r[k] for k in par_keys if k in r}
                        for m, r in zoo_parity.items()}}
+    srl_keys = ("bs", "T_padded", "losses", "step_ms_median", "step_ms_min",
+                "step_ms_max", "sent_s", "tok_s", "peak_mem_gb",
+                "launches_per_step", "device_busy_share",
+                "device_kernels_per_step", "k7_device_ms_per_step",
+                "k8_device_ms_per_step", "chunk_eval_after_timed_steps",
+                "infer", "profiled")
+    srl_rows = {
+        "card": name, "nvidia_smi": smi,
+        "parity_f32": {k: {f: r[f] for f in (
+            "loss_rel_err", "grad_rel_err_step1_max",
+            "paths_and_counts_equal", "launches_per_step")}
+            for k, r in srl["parity"].items()},
+        "lstm_directions": srl["directions"],
+        "bench_f32": {bs: {k: r[k] for k in srl_keys if k in r}
+                      for bs, r in srl["bench"].items()}}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows, "step_loop": step_loop_rows,
                       "options": options_rows, "generate": generate_rows,
-                      "remat_save_load": remat_rows, "zoo": zoo_rows}),
+                      "remat_save_load": remat_rows, "zoo": zoo_rows,
+                      "srl": srl_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -31,6 +31,7 @@ from . import io  # noqa: F401
 from . import nets  # noqa: F401
 from . import learning_rate_decay  # noqa: F401
 from . import dataset  # noqa: F401
+from . import evaluator  # noqa: F401
 from . import reader  # noqa: F401
 from .data_feeder import DataFeeder, DeviceFeeder  # noqa: F401
 from .framework import unique_name

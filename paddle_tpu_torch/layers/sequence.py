@@ -1,6 +1,7 @@
 """Sequence layer functions over the padded+length representation — the
-part of ``paddle_tpu/layers/sequence.py`` that the stacked-LSTM classifier,
-the attention-NMT model and ``nets.sequence_conv_pool`` build.
+port of ``paddle_tpu/layers/sequence.py``: the layers of the stacked-LSTM
+classifier, the attention-NMT model and ``nets.sequence_conv_pool``, and
+the CRF pair ``linear_chain_crf`` / ``crf_decoding``.
 
 A ``sequence_data`` variable carries a companion ``<name>@LENGTH`` int32
 variable (fed automatically from LoDTensor feeds, see
@@ -212,3 +213,40 @@ def dynamic_gru(input, size, h0=None, param_attr=None, bias_attr=None,
     )
     propagate_length(input, hidden)
     return hidden
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF loss: emission [B,T,C] and label [B,T,1] → each row's
+    negative log-likelihood [B,1].  The transition parameter [(C+2), C]
+    rides on the result as ``_crf_transition``, for ``crf_decoding``."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    length = get_length_var(input)
+    C = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=param_attr if isinstance(param_attr, dict) else {},
+        shape=[C + 2, C], dtype="float32")
+    nll = helper.create_tmp_variable("float32")
+    alpha = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op(
+        "linear_chain_crf",
+        inputs={"Emission": [input.name], "Transition": [transition.name],
+                "Label": [label.name], "Length": [length.name]},
+        outputs={"LogLikelihood": [nll.name], "Alpha": [alpha.name]},
+    )
+    nll._crf_transition = transition
+    return nll
+
+
+def crf_decoding(input, transition):
+    """Viterbi decoding of emission [B,T,C] under the CRF's transition
+    variable → the int32 path [B,T]."""
+    helper = LayerHelper("crf_decoding")
+    length = get_length_var(input)
+    path = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op(
+        "crf_decoding",
+        inputs={"Emission": [input.name], "Transition": [transition.name],
+                "Length": [length.name]},
+        outputs={"ViterbiPath": [path.name]},
+    )
+    return propagate_length(input, path)

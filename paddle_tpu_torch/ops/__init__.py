@@ -5,6 +5,7 @@ from . import (  # noqa: F401
     attention_ops,
     beam_ops,
     control_flow_ops,
+    crf_ops,
     loss_ops,
     math_ops,
     nn_ops,

@@ -5,9 +5,9 @@ reference's ``axis`` broadcast (y's shape aligns to x starting at `axis`,
 default -1 = trailing alignment), the flattening matmul ``mul``, the
 batched ``matmul``, ``sum``, ``mean``, the reduce family
 (``reduce_sum/mean/max/min/prod``, one emitter), ``scale``, ``sign``,
-``clip``, ``clip_by_norm`` and ``squared_l2_norm``.  The GEMMs go to
-``torch.matmul`` (cuBLAS on the card), as the JAX package leaves them to
-XLA.
+``clip``, ``cos_sim``, ``clip_by_norm`` and ``squared_l2_norm``.  The
+GEMMs go to ``torch.matmul`` (cuBLAS on the card), as the JAX package
+leaves them to XLA.
 
 Dtypes follow the JAX ops: a bf16 gradient times an f32 ``[1]`` scale is
 f32, ``squared_l2_norm`` sums in its input's dtype, and ``maximum`` and
@@ -160,6 +160,17 @@ def sign(ctx, ins, attrs):
 @register_op("clip")
 def clip(ctx, ins, attrs):
     return {"Out": [jclip(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("cos_sim")
+def cos_sim(ctx, ins, attrs):
+    """Row-wise cosine similarity of X and Y [N, D] (Y may be one row,
+    broadcast) → Out [N, 1], with the norms XNorm and YNorm."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=1, keepdim=True))
+    out = torch.sum(x * y, dim=1, keepdim=True) / (xn * yn + 1e-12)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
 
 
 @register_op("clip_by_norm")

@@ -1,8 +1,11 @@
 """Sequence ops on (padded, lengths) pairs and the recurrences — the port
-of the part of ``paddle_tpu/ops/sequence_ops.py`` that the stacked-LSTM
-classifier, the attention-NMT program and ``nets.sequence_conv_pool``
-run: ``sequence_pool``, ``sequence_reverse``, ``masked_seq_mean``,
-``sequence_softmax``, ``sequence_conv``, ``lstm`` and ``gru``.
+of ``paddle_tpu/ops/sequence_ops.py``: ``sequence_pool``,
+``sequence_reverse``, ``masked_seq_mean``, ``sequence_softmax``,
+``sequence_conv``, ``lstm`` and ``gru``, then the single steps
+``lstm_unit`` and ``gru_unit`` and the sequence API's
+``sequence_expand``, ``sequence_concat``, ``sequence_erase``,
+``sequence_slice``, ``sequence_reshape``, ``kmax_seq_score``,
+``sequence_concat_time``, ``sub_nested_seq`` and ``lod_reset``.
 
 Every op takes the padded tensor plus an int32 ``Length`` input and masks.
 ``lstm`` and ``gru`` go through the time-loop kernels' wrappers
@@ -259,3 +262,176 @@ def gru(ctx, ins, attrs):
     hs, _ = _gru_scan(x, h0, w, lengths, _ACTS[gate], _ACTS[cand],
                       reverse=rev)
     return {"Hidden": [hs]}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the sequence op types: expansion, concatenation, erasure,
+# single recurrent steps, slicing and re-segmentation
+
+
+@register_op("sequence_expand", non_diff_inputs=("Length", "Ref"))
+def sequence_expand(ctx, ins, attrs):
+    """One row per sequence broadcast across its steps: X [B, D...] +
+    Length → [B, T, D...], padding steps 0.  T is the `max_len` attr, or
+    Ref's dim 1 where that is -1."""
+    x = ins["X"][0]
+    T = int(attrs.get("max_len", -1))
+    if T < 0:
+        T = ins["Ref"][0].shape[1]
+    out = x[:, None].expand((x.shape[0], T) + tuple(x.shape[1:]))
+    return {"Out": [out * _mask_like(ins["Length"][0], out)]}
+
+
+@register_op("sequence_concat")
+def sequence_concat(ctx, ins, attrs):
+    """Feature-wise concatenation of sequences of one segmentation."""
+    return {"Out": [torch.cat(list(ins["X"]), dim=-1)]}
+
+
+@register_op("sequence_erase", grad=None, non_diff_inputs=("Length",))
+def sequence_erase(ctx, ins, attrs):
+    """Tokens in the `tokens` attr become pad 0 in place (static shapes do
+    not compact), and LengthOut counts each row's kept tokens."""
+    x = ins["X"][0]
+    tokens = torch.tensor(attrs.get("tokens", []), dtype=x.dtype,
+                          device=x.device)
+    keep = (x[..., None] != tokens).all(dim=-1)
+    keep = keep & (step_mask(ins["Length"][0], x.shape[1], torch.int8) > 0)
+    return {"Out": [torch.where(keep, x, torch.zeros_like(x))],
+            "LengthOut": [keep.sum(dim=1).to(torch.int32)]}
+
+
+@register_op("lstm_unit")
+def lstm_unit(ctx, ins, attrs):
+    """One LSTM step: X [B, 4H] (the input and recurrent products already
+    summed; gates i, f, c̃, o), C_prev [B, H] → C, H; `forget_bias` is
+    added to f's pre-activation."""
+    x, c_prev = ins["X"][0], ins["C_prev"][0]
+    H = c_prev.shape[-1]
+    fb = float(attrs.get("forget_bias", 0.0))
+    i = torch.sigmoid(x[:, :H])
+    f = torch.sigmoid(x[:, H:2 * H] + fb)
+    ct = torch.tanh(x[:, 2 * H:3 * H])
+    o = torch.sigmoid(x[:, 3 * H:])
+    c = f * c_prev + i * ct
+    return {"C": [c], "H": [o * torch.tanh(c)]}
+
+
+@register_op("gru_unit")
+def gru_unit(ctx, ins, attrs):
+    """One GRU step: Input [B, 3H] (+ Bias [3H]), HiddenPrev [B, H],
+    Weight [H, 3H] (gates u, r, then the candidate) → Hidden, the gates'
+    pre-activation Gate [B, 2H] and ResetHiddenPrev r·h."""
+    x, h_prev, w = ins["Input"][0], ins["HiddenPrev"][0], ins["Weight"][0]
+    H = h_prev.shape[-1]
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        x = x + ins["Bias"][0][None, :]
+    g = x[:, :2 * H] + h_prev @ w[:, :2 * H]
+    u = torch.sigmoid(g[:, :H])
+    r = torch.sigmoid(g[:, H:])
+    c = torch.tanh(x[:, 2 * H:] + (r * h_prev) @ w[:, 2 * H:])
+    return {"Hidden": [u * h_prev + (1 - u) * c], "Gate": [g],
+            "ResetHiddenPrev": [r * h_prev]}
+
+
+def _take_steps(x, idx):
+    """x [B, T, ...] gathered along T by idx [B, T'] (in range)."""
+    idx = idx.long().reshape(idx.shape + (1,) * (x.ndim - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+@register_op("sequence_slice", non_diff_inputs=("Offset", "SliceLength",
+                                                "Length"))
+def sequence_slice(ctx, ins, attrs):
+    """Row b's SliceLength[b] steps from Offset[b], at the front of the
+    same static T, the tail 0; LengthOut = SliceLength."""
+    x = ins["X"][0]
+    off = ins["Offset"][0].reshape(-1).to(torch.int32)
+    slen = ins["SliceLength"][0].reshape(-1).to(torch.int32)
+    T = x.shape[1]
+    steps = torch.arange(T, device=x.device, dtype=torch.int32)
+    out = _take_steps(x, (off[:, None] + steps[None, :]).clamp(0, T - 1))
+    return {"Out": [out * _mask_like(slen, out)], "LengthOut": [slen]}
+
+
+@register_op("sequence_reshape", non_diff_inputs=("Length",))
+def sequence_reshape(ctx, ins, attrs):
+    """Each row's payload re-chunked to `new_dim` features: [B, T, D] →
+    [B, T·D/new_dim, new_dim], LengthOut = ceil(len·D/new_dim) (a row whose
+    payload is no multiple of new_dim keeps its tail in a padded step)."""
+    x = ins["X"][0]
+    new_dim = int(attrs["new_dim"])
+    B, T, D = x.shape
+    if (T * D) % new_dim:
+        raise ValueError(f"sequence_reshape: new_dim {new_dim} does not "
+                         f"divide T*D = {T * D}")
+    new_len = -(-(ins["Length"][0].long() * D) // new_dim)
+    return {"Out": [x.reshape(B, (T * D) // new_dim, new_dim)],
+            "LengthOut": [new_len.to(torch.int32)]}
+
+
+@register_op("kmax_seq_score", grad=None, non_diff_inputs=("Length",))
+def kmax_seq_score(ctx, ins, attrs):
+    """Positions of each row's `beam_size` highest scores among its first
+    Length steps (X [B, T] or [B, T, 1]) → int64 [B, min(k, T)]; ties
+    and the steps past the end (scored -inf) go to the lowest index, as
+    ``lax.top_k`` does."""
+    x = ins["X"][0]
+    if x.ndim == 3:
+        x = x[..., 0]
+    T = x.shape[1]
+    k = min(int(attrs.get("beam_size", 1)), T)
+    valid = step_mask(ins["Length"][0].reshape(-1), T, torch.int8) > 0
+    masked = torch.where(valid, x.float(),
+                         torch.full((), -float("inf"), device=x.device))
+    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
+    return {"Out": [order[:, :k].to(torch.int64)]}
+
+
+@register_op("sequence_concat_time", non_diff_inputs=("Length",))
+def sequence_concat_time(ctx, ins, attrs):
+    """Two sequences joined along time per row: a[b, :la[b]] ++
+    b[b, :lb[b]], padded to Ta + Tb with 0; LengthOut = la + lb."""
+    a, b = ins["X"][0], ins["X"][1]
+    la = ins["Length"][0].reshape(-1).to(torch.int32)
+    lb = ins["Length"][1].reshape(-1).to(torch.int32)
+    Ta, Tb = a.shape[1], b.shape[1]
+    t = torch.arange(Ta + Tb, device=a.device, dtype=torch.int32)[None, :]
+    tail = (1,) * (a.ndim - 2)
+    in_a = t < la[:, None]
+    ga = _take_steps(a, t.clamp(0, Ta - 1).expand(a.shape[0], -1))
+    gb = _take_steps(b, (t - la[:, None]).clamp(0, Tb - 1))
+    out = torch.where(in_a.reshape(in_a.shape + tail), ga, gb)
+    new_len = la + lb
+    inside = (t < new_len[:, None]).reshape(in_a.shape + tail)
+    return {"Out": [torch.where(inside, out, torch.zeros_like(out))],
+            "LengthOut": [new_len]}
+
+
+@register_op("sub_nested_seq", grad=None,
+             non_diff_inputs=("SelectedIndices", "Length"))
+def sub_nested_seq(ctx, ins, attrs):
+    """Sub-sequences of a nested sequence picked per row: X [B, S, T, D],
+    Length [B, S], SelectedIndices [B, K] → Out [B, K, T, D] and their
+    lengths (0 for a negative index, an unused beam slot)."""
+    x = ins["X"][0]
+    sub_len = ins["Length"][0].to(torch.int32)
+    sel = ins["SelectedIndices"][0].to(torch.int32)
+    sel_c = sel.clamp(0, x.shape[1] - 1)
+    new_len = torch.gather(sub_len, 1, sel_c.long())
+    return {"Out": [_take_steps(x, sel_c)],
+            "LengthOut": [torch.where(sel >= 0, new_len,
+                                      torch.zeros_like(new_len))]}
+
+
+@register_op("lod_reset", grad=None, non_diff_inputs=("Y", "Length"))
+def lod_reset(ctx, ins, attrs):
+    """A new segmentation for the same payload: LengthOut from Y's
+    lengths, or from the `target_lengths` attr."""
+    x = ins["X"][0]
+    if ins.get("Y") and ins["Y"][0] is not None:
+        new_len = ins["Y"][0].reshape(-1).to(torch.int32)
+    else:
+        new_len = torch.tensor(attrs["target_lengths"], dtype=torch.int32,
+                               device=x.device)
+    return {"Out": [x], "LengthOut": [new_len]}

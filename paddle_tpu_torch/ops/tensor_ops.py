@@ -2,8 +2,9 @@
 that the startup program, the LM tower, the recurrent models and ResNet
 use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
 split, reshape, transpose, slice, lookup_table, top_k, the training
-options' print, increment and pruning_mask, and generation's
-fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather.
+options' print, increment and pruning_mask, generation's
+fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather,
+and the sequence API's shape, gather and arg_sort.
 Random ops draw from the context's per-op generator, on the context's
 device.  Shape ops may return views of
 their input; no emitter writes into an input.  ``print`` reads its tensor
@@ -177,6 +178,31 @@ class _Gather(torch.autograd.Function):
         (flat,) = ctx.saved_tensors
         dw = g.new_zeros(ctx.w_shape).index_put_((flat,), g, accumulate=True)
         return dw, None
+
+
+@register_op("shape", grad=None)
+def shape_op(ctx, ins, attrs):
+    """Input's shape as an int64 vector."""
+    return {"Out": [torch.tensor(tuple(ins["Input"][0].shape),
+                                 dtype=torch.int64, device=ctx.device)]}
+
+
+@register_op("gather", non_diff_inputs=("Index",))
+def gather(ctx, ins, attrs):
+    """Rows of X picked along dim 0 by Index (any shape: the output is
+    Index's shape + X's row shape)."""
+    return {"Out": [ins["X"][0][ins["Index"][0].long()]]}
+
+
+@register_op("arg_sort", grad=None)
+def arg_sort(ctx, ins, attrs):
+    """Ascending int64 order along `axis`, equal values in index order as
+    ``jnp.argsort`` keeps them (a [B, 1] column sorts as [B])."""
+    x = ins["X"][0]
+    if x.ndim == 2 and x.shape[1] == 1:
+        x = x[:, 0]
+    return {"Out": [torch.argsort(x, dim=int(attrs.get("axis", 0)),
+                                  stable=True).to(torch.int64)]}
 
 
 @register_op("lookup_table", non_diff_inputs=("Ids",))

@@ -72,6 +72,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.deepfm\n"
         "import paddle_tpu_torch.models.standing\n"
         "import paddle_tpu_torch.models.zoo_bench\n"
+        "import paddle_tpu_torch.ops.crf_ops\n"
+        "import paddle_tpu_torch.evaluator\n"
+        "import paddle_tpu_torch.dataset.conll05\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -126,7 +129,9 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("models", "unet.py"),
             os.path.join("models", "deepfm.py"),
             os.path.join("models", "standing.py"),
-            os.path.join("models", "zoo_bench.py")} <= scanned
+            os.path.join("models", "zoo_bench.py"),
+            os.path.join("ops", "crf_ops.py"), "evaluator.py",
+            os.path.join("dataset", "conll05.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():
@@ -148,6 +153,14 @@ def test_default_place_raises_without_cuda(monkeypatch):
         paddle_tpu_torch.Executor()
 
 
+def test_get_places_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        paddle_tpu_torch.layers.get_places()
+    assert paddle_tpu_torch.layers.get_places(1, "cpu") == \
+        [paddle_tpu_torch.CPUPlace()]
+
+
 def test_places_carry_torch_devices():
     assert paddle_tpu_torch.CPUPlace().device == torch.device("cpu")
     assert paddle_tpu_torch.CUDAPlace(1).device == torch.device("cuda", 1)
@@ -160,4 +173,4 @@ def test_unregistered_op_raises_key_error():
     from paddle_tpu_torch.ops.registry import get_op_info
 
     with pytest.raises(KeyError, match="no torch emitter"):
-        get_op_info("lstm_unit")
+        get_op_info("warpctc")
