@@ -360,20 +360,59 @@ non-zero and no result line is printed):
     (device busy share, device kernels a step, K7's and K8's device ms a
     step), the ChunkEvaluator's F1 after the timed steps (not gated), and
     the test-mode program (K7 8) in sentences a second;
-36. summary.
+36. the legacy config path: the v1 form of the reference's RNN benchmark
+    config (benchmark/paddle/rnn/rnn.py: ``data_layer`` → 512-wide
+    ``embedding_layer`` → 2 × ``simple_lstm(512)`` → ``last_seq`` →
+    ``fc_layer(2, Softmax)`` → ``classification_cost``, Adam 2e-3; the
+    config and its ``@provider`` of seeded token sequences written into a
+    temporary directory by ``write_v1_rnn_config``): (a) at vocab 300,
+    widths 32, batch 8 of ragged lengths up to 12, f32 with TF32 off,
+    ``V1Trainer`` on the card against an explicit-CPU executor from one
+    state for 3 steps (losses 1e-4 relative, step-1 gradients 1e-3 of max
+    |g|, K7 4 and K8 2 a step), then a ``train`` pass and ``test`` on the
+    card; (b) at full width (vocab 30000, batch 64, length 100, padded to
+    128; f32), three subprocess runs of ``python -m paddle_tpu_torch
+    train --config ... --job time --time-batches 20`` (ms a batch: median,
+    min, max; tokens a second), then in this process the same 20 batches
+    (K7 4, K8 2 a step), peak memory, 3 profiled steps (device busy
+    share, kernels a step, K7's and K8's device ms a step) and ``test``
+    (K7 2 a batch);
+37. CTC and detection: (a) every op type this slice adds (``warpctc``,
+    ``ctc_align``, ``edit_distance``, ``nce``, ``im2sequence``, ``lrn``,
+    ``row_conv``, ``auc``, ``precision_recall``,
+    ``positive_negative_pair``, ``iou_similarity``, ``box_coder``,
+    ``prior_box``, ``roi_pool``, ``multibox_loss``,
+    ``detection_output``) on the card against the CPU at small shapes,
+    f32: outputs and gradients 1e-5 of their max |value|, integers equal,
+    ``nce`` by its properties; (b) path (b), a bidirectional GRU CTC
+    model in Fluid layers (per direction ``sequence_fc(3H)`` +
+    ``dynamic_gru(H)``, the two directions' logits summed, ``warpctc``,
+    Momentum), small, card against CPU by ``parity_run`` (K9 4, K10 2 a
+    step); (c) path (b) at 40-wide frames, 100-384 frames, labels of
+    10-60 tokens, C 28, H 256, batch 32: 2 + 5 steps (ms a step, frames
+    a second, K9 4 and K10 2 a step), 3 profiled (device busy share,
+    kernels a step, K9's and K10's device ms a step), the test-mode
+    logits (K9 2)
+    greedy-decoded by ``top_k`` → ``ctc_align`` and scored by
+    ``edit_distance``, card and CPU equal; (d) ``DetectionMAP`` over
+    card- and CPU-made ``detection_output`` slates, equal; then K7-K10 at
+    the shapes of these paths, against their plain versions and timed as
+    in 35;
+38. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
-{...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}}`` summary
-(all 15 kernels) and the last line is ``{"ok": true, "device":
-{...}}``.  Without CUDA the script
-exits 2 and prints no result.
+{...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
+{...}}`` summary (all 15 kernels) and the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA the script exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -388,6 +427,7 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.framework import executor as texecutor
 from paddle_tpu_torch.dataset import conll05
 from paddle_tpu_torch.framework import step_loop
+from paddle_tpu_torch import lod as lod_mod
 from paddle_tpu_torch.lod import LoDTensor, bucket_len
 from paddle_tpu_torch.models import gpt_bench, resnet_bench, rnn_bench
 from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
@@ -404,6 +444,10 @@ from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 from paddle_tpu_torch.ops.registry import EmitContext, get_op_info
 from paddle_tpu_torch.ops.transformer_ops import _lm_fns
 from paddle_tpu_torch.serving import ServingEngine, pages_needed
+from paddle_tpu_torch.trainer.config_parser import set_config_args
+from paddle_tpu_torch.v1 import V1Trainer
+from paddle_tpu_torch.v1.data_provider import get_data_source
+from paddle_tpu_torch.v1.layers import declared_outputs
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -5470,10 +5514,12 @@ SRL_K7_NAMES = ("lstm_fwd",)
 SRL_K8_NAMES = ("lstm_bwd", "lstm_dw", "rnn_dw")
 
 
-def srl_profile(exe, main, fetch, batches):
+def srl_profile(exe, main, fetch, batches,
+                kernels=(("k7", SRL_K7_NAMES), ("k8", SRL_K8_NAMES))):
     """A few steps under torch.profiler: the device busy share of their
-    wall (kernel intervals merged), device kernels a step, and K7's and
-    K8's device ms a step (by the bodies' names)."""
+    wall (kernel intervals merged), device kernels a step, and the device
+    ms a step of each of `kernels` (label, the bodies' names; K7's and
+    K8's by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5485,15 +5531,15 @@ def srl_profile(exe, main, fetch, batches):
             exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    spans, k7, k8 = [], 0.0, 0.0
+    spans, us = [], {label: 0.0 for label, _ in kernels}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if any(k in e.name for k in SRL_K7_NAMES):
-            k7 += e.time_range.elapsed_us()
-        elif any(k in e.name for k in SRL_K8_NAMES):
-            k8 += e.time_range.elapsed_us()
+        for label, names in kernels:
+            if any(k in e.name for k in names):
+                us[label] += e.time_range.elapsed_us()
+                break
     if not spans:
         return {"profiled": "not measured: the profiler saw no device "
                             "event"}
@@ -5503,8 +5549,8 @@ def srl_profile(exe, main, fetch, batches):
             wall_us / 1e3 / n, "device_busy_share": busy / wall_us,
             "device_busy_ms_per_step": busy / 1e3 / n,
             "device_kernels_per_step": len(spans) / n,
-            "k7_device_ms_per_step": k7 / 1e3 / n,
-            "k8_device_ms_per_step": k8 / 1e3 / n}
+            **{f"{label}_device_ms_per_step": v / 1e3 / n
+               for label, v in us.items()}}
 
 
 def srl_bench_run(bs, card_name, smi):
@@ -5614,7 +5660,744 @@ def srl_phase(dev, card_name, smi):
             "directions": directions, "bench": bench}
 
 
-# -- 36. summary --------------------------------------------------------------
+# -- 36. the legacy config path: the reference's RNN benchmark as a v1 config
+
+# bench.py's copy of the reference RNN baseline (bench.py:591-605,
+# models/image_models.py:101-113): vocab 30000, embedding and hidden 512,
+# two LSTMs, batch 64, Adam 2e-3; the sequence length 100 is the README
+# row bench.py:578 quotes ("bs64 h512 seqlen100 -> 184 ms/batch on K40m")
+V1_RNN = {"vocab": 30000, "emb": 512, "hidden": 512, "lstm_num": 2,
+          "batch_size": 64, "seq_len": 100, "ragged": 0,
+          "samples": 64 * 24, "test_samples": 128}
+V1_RNN_SMALL = {"vocab": 300, "emb": 32, "hidden": 32, "lstm_num": 2,
+                "batch_size": 8, "seq_len": 12, "ragged": 1, "samples": 24,
+                "test_samples": 16}
+V1_RNN_TIME_BATCHES, V1_RNN_RUNS, V1_RNN_PROFILED = 20, 3, 3
+V1_RNN_WANT = {"lstm_forward": 4, "lstm_backward": 2}
+
+# the @provider module: seeded synthetic token sequences (labels {0, 1}:
+# whether the last token lies in the lower half of the vocabulary), as
+# bench.py feeds random ids; "{pkg}" is the package the config runs on
+V1_RNN_PROVIDER = '''\
+import numpy as np
+from {pkg}.trainer.PyDataProvider2 import (integer_value,
+                                          integer_value_sequence, provider)
+
+
+def hook(settings, file_list=None, vocab=30000, seq_len=100, ragged=False,
+         samples=64, test_samples=64, seed=0, **kwargs):
+    settings.input_types = {{"word": integer_value_sequence(vocab),
+                            "label": integer_value(2)}}
+    settings.vocab, settings.seq_len, settings.ragged = vocab, seq_len, ragged
+    settings.samples, settings.test_samples = samples, test_samples
+    settings.seed = seed
+
+
+@provider(input_types={{"word": integer_value_sequence(1),
+                       "label": integer_value(2)}}, init_hook=hook)
+def process(settings, file_name):
+    test = file_name.endswith("test")
+    rng = np.random.RandomState(settings.seed + int(test))
+    for _ in range(settings.test_samples if test else settings.samples):
+        n = (int(rng.randint(1, settings.seq_len + 1)) if settings.ragged
+             else settings.seq_len)
+        ids = rng.randint(0, settings.vocab, n)
+        yield {{"word": ids.tolist(),
+               "label": int(ids[-1] < settings.vocab // 2)}}
+'''
+
+# the v1 form of benchmark/paddle/rnn/rnn.py, which rnn/run.sh times with
+# `paddle train --job=time`
+V1_RNN_CONFIG = '''\
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from {pkg}.v1 import *  # noqa: F401,F403
+
+vocab = get_config_arg("vocab", int, 30000)
+emb = get_config_arg("emb", int, 512)
+hidden = get_config_arg("hidden", int, 512)
+lstm_num = get_config_arg("lstm_num", int, 2)
+batch_size = get_config_arg("batch_size", int, 64)
+seq_len = get_config_arg("seq_len", int, 100)
+define_py_data_sources2(
+    "synthetic", "synthetic_test", module="v1_rnn_provider_{tag}",
+    obj="process",
+    args={{"vocab": vocab, "seq_len": seq_len,
+          "ragged": get_config_arg("ragged", bool, False),
+          "samples": get_config_arg("samples", int, 64 * 24),
+          "test_samples": get_config_arg("test_samples", int, 128),
+          "seed": get_config_arg("seed", int, 0)}})
+settings(batch_size=batch_size, learning_rate=2e-3,
+         learning_method=AdamOptimizer())
+net = data_layer("word", size=vocab, dtype="int64", seq=True)
+net = embedding_layer(input=net, size=emb)
+for _ in range(lstm_num):
+    net = simple_lstm(input=net, size=hidden)
+net = last_seq(input=net)
+net = fc_layer(input=net, size=2, act=SoftmaxActivation())
+label = data_layer("label", size=2, dtype="int64")
+outputs(classification_cost(input=net, label=label))
+'''
+
+
+def v1_rnn_args(sizes):
+    """`sizes` as the --config_args string the config reads."""
+    return ",".join(f"{k}={v}" for k, v in sizes.items())
+
+
+def write_v1_rnn_config(dirname, pkg="paddle_tpu_torch", tag="port"):
+    """The RNN config and its provider module into `dirname`, on the
+    package `pkg` (the provider module is named after `tag`, so configs on
+    two packages can share a process); returns the config's path."""
+    with open(os.path.join(dirname, f"v1_rnn_provider_{tag}.py"), "w") as f:
+        f.write(V1_RNN_PROVIDER.format(pkg=pkg))
+    conf = os.path.join(dirname, f"v1_rnn_conf_{tag}.py")
+    with open(conf, "w") as f:
+        f.write(V1_RNN_CONFIG.format(pkg=pkg, tag=tag))
+    return conf
+
+
+def v1_rnn_trainer(conf, sizes, place):
+    """The config at `sizes` read as `train --config` reads it, in fresh
+    default programs, and its V1Trainer on `place` (startup run)."""
+    fluid.reset()
+    set_config_args(v1_rnn_args(sizes))
+    runpy.run_path(conf, run_name="__config__")
+    return V1Trainer(declared_outputs()[0], place=place)
+
+
+def v1_rnn_parity_phase(conf):
+    """36(a) the small RNN config (vocab 300, embedding and hidden 32, two
+    LSTMs, batch 8 of ragged lengths up to 12), f32 with TF32 off: 3 steps
+    on the card (``V1Trainer(place=CUDAPlace(0))``) and 3 on an
+    explicit-CPU executor from the card's startup state, on the
+    provider's first three batches: losses within 1e-4 relative, the
+    step-1 gradients within 1e-3 of their max |g|, K7 4 and K8 2 a step;
+    then a pass of ``train`` (K7 4, K8 2 a batch) and ``test`` (K7 2 a
+    batch) on the card."""
+    trainer = v1_rnn_trainer(conf, V1_RNN_SMALL, fluid.CUDAPlace(0))
+    main = fluid.default_main_program()
+    block = main.global_block()
+    state = snapshot(block)
+    grads = sorted(p.name + "@GRAD" for p in block.all_parameters())
+    prov, files = get_data_source("train")
+    feeds = list(prov.batches(files, trainer.batch_size, seed=0))[:3]
+    fetch = [trainer.cost_var] + grads
+    cpu_scope = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_scope)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    gpu, cpu = [], []
+    for feed in feeds:
+        vals, launches = counted(lambda: trainer.exe.run(
+            main, feed=feed, fetch_list=fetch))
+        check_launches("v1_rnn_parity", launches, V1_RNN_WANT)
+        gpu.append(vals)
+        cpu.append(cpu_exe.run(main, feed=feed, fetch_list=fetch,
+                               scope=cpu_scope))
+    loss_rel = [abs(float(g[0][0]) - float(c[0][0])) / abs(float(c[0][0]))
+                for g, c in zip(gpu, cpu)]
+    grad_rel = {n: float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+                for n, g, c in zip(grads, gpu[0][1:], cpu[0][1:])}
+    n_train = V1_RNN_SMALL["samples"] // V1_RNN_SMALL["batch_size"]
+    n_test = V1_RNN_SMALL["test_samples"] // V1_RNN_SMALL["batch_size"]
+    pass_losses, train_launches = counted(lambda: trainer.train(1))
+    check_launches("v1_rnn_train_pass", train_launches,
+                   {k: n_train * v for k, v in V1_RNN_WANT.items()})
+    test_loss, test_launches = counted(trainer.test)
+    check_launches("v1_rnn_test", test_launches,
+                   {"lstm_forward": 2 * n_test})
+    res = {**V1_RNN_SMALL, "dtype": "float32",
+           "steps": "free-running from one state",
+           "gpu_losses": [float(g[0][0]) for g in gpu],
+           "cpu_losses": [float(c[0][0]) for c in cpu],
+           "loss_rel_err": loss_rel, "grad_rel_err_step1": grad_rel,
+           "launches_per_step": launches,
+           "train_pass_losses": pass_losses,
+           "train_pass_launches": train_launches, "test_loss": test_loss,
+           "test_launches": test_launches}
+    log("v1_rnn_parity", res)
+    if (max(loss_rel) > 1e-4 or max(grad_rel.values()) > 1e-3
+            or not np.isfinite(pass_losses + [test_loss]).all()):
+        raise AssertionError(f"v1_rnn_parity: card and CPU disagree: {res}")
+    fluid.reset()
+    return res
+
+
+def v1_rnn_time_run(conf):
+    """One `python -m paddle_tpu_torch train --config ... --job time` at
+    full width in a subprocess; returns its JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "train", "--config", conf,
+         "--job", "time", "--time-batches", str(V1_RNN_TIME_BATCHES),
+         "--config_args", v1_rnn_args(V1_RNN)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train --job time exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def v1_rnn_bench_phase(conf, card_name, smi):
+    """36(b) the full-width config (``V1_RNN``: about 19.6 M parameters,
+    f32) through the CLI, three runs of `train --config ... --job time
+    --time-batches 20` in subprocesses (ms a batch: median, min, max;
+    tokens a second); then in this process: a warm-up step, the same 20
+    batches with every count at 0 before them (K7 4, K8 2 a step), peak
+    memory, 3 profiled steps (device busy share, device kernels a step,
+    K7's and K8's device ms a step), and ``test`` (K7 2 a batch)."""
+    runs = [v1_rnn_time_run(conf) for _ in range(V1_RNN_RUNS)]
+    ms = [r["ms_per_batch"] for r in runs]
+    for r in runs:
+        if r["batch_size"] != V1_RNN["batch_size"] or r["last_loss"] is None:
+            raise AssertionError(f"v1_rnn_time: {r}")
+    t0 = time.monotonic()
+    trainer = v1_rnn_trainer(conf, V1_RNN, fluid.CUDAPlace(0))
+    main = fluid.default_main_program()
+    prov, files = get_data_source("train")
+    it = prov.batches(files, trainer.batch_size, seed=0)
+    feeds = [f for _, f in zip(range(1 + V1_RNN_TIME_BATCHES
+                                     + V1_RNN_PROFILED), it)]
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    fetch = [trainer.cost_var]
+    trainer.exe.run(main, feed=feeds[0], fetch_list=fetch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = feeds[1:1 + V1_RNN_TIME_BATCHES]
+    t0 = time.monotonic()
+    losses, launches = counted(lambda: [
+        float(trainer.exe.run(main, feed=f, fetch_list=fetch)[0][0])
+        for f in timed])
+    in_ms = (time.monotonic() - t0) / len(timed) * 1e3
+    check_launches("v1_rnn_bench", launches,
+                   {k: len(timed) * v for k, v in V1_RNN_WANT.items()})
+    n_test = V1_RNN["test_samples"] // V1_RNN["batch_size"]
+    test_loss, test_launches = counted(trainer.test)
+    check_launches("v1_rnn_bench_test", test_launches,
+                   {"lstm_forward": 2 * n_test})
+    tokens = V1_RNN["batch_size"] * V1_RNN["seq_len"]
+    med = float(np.median(ms))
+    res = {"card": card_name, "nvidia_smi": smi, **V1_RNN,
+           "dtype": "float32", "T_padded": bucket_len(V1_RNN["seq_len"]),
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "ops": len(main.global_block().ops),
+           "cli_runs": runs, "cli_ms_per_batch_median": med,
+           "cli_ms_per_batch_min": min(ms), "cli_ms_per_batch_max": max(ms),
+           "cli_tok_s": tokens / (med / 1e3),
+           "setup_s": setup_s, "in_process_ms_per_batch": in_ms,
+           "losses": losses,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / len(timed)
+                                 for k, v in launches.items()},
+           "test_loss": test_loss, "test_launches": test_launches}
+    res.update(srl_profile(trainer.exe, main, fetch,
+                           [(f, None) for f in feeds[1 + len(timed):]]))
+    log("v1_rnn_bench", res)
+    if not np.isfinite(losses + [test_loss]).all():
+        raise AssertionError(f"v1_rnn_bench: losses {losses}")
+    fluid.reset()
+    return res
+
+
+def v1_rnn_phase(card_name, smi):
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = write_v1_rnn_config(tmp)
+        parity = v1_rnn_parity_phase(conf)
+        bench = v1_rnn_bench_phase(conf, card_name, smi)
+    return parity, bench
+
+
+# -- 37. CTC and detection ----------------------------------------------------
+
+# path (b): per direction sequence_fc(3H) + dynamic_gru(H), the logits of
+# C classes and a blank from the sum of two sequence_fc, warpctc, mean,
+# Momentum; feeds of 40-wide frames and C 28 labels
+CTC_BIG = {"frames": 40, "hidden": 256, "classes": 28, "bs": 32,
+           "t_min": 100, "t_max": 384, "l_min": 10, "l_max": 60}
+CTC_SMALL = {"frames": 6, "hidden": 8, "classes": 5, "bs": 4,
+             "t_min": 3, "t_max": 12, "l_min": 0, "l_max": 4}
+CTC_LR, CTC_MOMENTUM = 1e-4, 0.9
+CTC_WANT = {"gru_forward": 4, "gru_backward": 2}
+CTC_WARM, CTC_TIMED, CTC_PROFILED = 2, 5, 3
+
+
+def ctc_train_program(fluid, frames, hidden, classes, before_minimize=None,
+                      **_):
+    """Path (b) in `fluid` (either package), in its fresh default
+    programs: returns (loss, logits, test program, main, startup).
+    `before_minimize(main)` may edit the program first."""
+    fluid.reset()
+    L = fluid.layers
+    x = L.sequence_data(name="frames", shape=[frames], dtype="float32")
+    label = L.sequence_data(name="labels", shape=[1], dtype="int64")
+    fc_f = L.sequence_fc(x, size=3 * hidden)
+    fc_b = L.sequence_fc(x, size=3 * hidden)
+    fwd = L.dynamic_gru(fc_f, size=hidden)
+    bwd = L.dynamic_gru(fc_b, size=hidden, is_reverse=True)
+    logits = L.propagate_length(fc_f, L.sums(
+        [L.sequence_fc(fwd, size=classes + 1),
+         L.sequence_fc(bwd, size=classes + 1)]))
+    loss = L.mean(L.warpctc(logits, label, blank=classes))
+    test = fluid.default_main_program().clone(for_test=True)
+    if before_minimize is not None:
+        before_minimize(fluid.default_main_program())
+    fluid.optimizer.Momentum(learning_rate=CTC_LR,
+                             momentum=CTC_MOMENTUM).minimize(loss)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, logits, test, fluid.default_main_program(), startup
+
+
+def ctc_feed(lod, frames, classes, bs, t_min, t_max, l_min, l_max, seed=0,
+             **_):
+    """A batch of `bs` ragged frame sequences and label sequences (at most
+    a quarter as long as their frames, so every alignment is feasible)
+    from RandomState(seed), as `lod` LoDTensors; and the lengths."""
+    rng = np.random.RandomState(seed)
+    ts = rng.randint(t_min, t_max + 1, bs)
+    ls = [int(rng.randint(l_min, min(l_max, t // 4) + 1)) for t in ts]
+    xs = [rng.randn(t, frames).astype(np.float32) for t in ts]
+    ys = [rng.randint(0, classes, (n, 1)).astype(np.int64) for n in ls]
+    return ({"frames": lod.LoDTensor.from_sequences(xs),
+             "labels": lod.LoDTensor.from_sequences(ys)},
+            [int(t) for t in ts], ls)
+
+
+def ctc_decode_program(fluid, classes):
+    """Greedy CTC decoding and its edit distance as a test-mode program in
+    `fluid`: logits [B, T, C + 1] and their lengths → ``top_k`` 1 →
+    ``ctc_align`` (blank C) → ``edit_distance`` (normalized) against the
+    labels [B, L] and theirs.  Returns the fetch list (ids, their
+    lengths, distances, sequence count)."""
+    from_helper = fluid.framework.layer_helper.LayerHelper
+    fluid.reset()
+    L = fluid.layers
+    logits = L.data("logits", shape=[-1, classes + 1], dtype="float32")
+    lens = L.data("logits_len", shape=[-1], dtype="int32",
+                  append_batch_size=False)
+    ref = L.data("ref", shape=[-1], dtype="int64")
+    ref_len = L.data("ref_len", shape=[-1], dtype="int32",
+                     append_batch_size=False)
+    _, idx = L.topk(logits, 1)
+    ids = L.reshape(idx, [0, -1])
+    helper = from_helper("ctc_align")
+    out = helper.create_tmp_variable("int32", shape=None)
+    out_len = helper.create_tmp_variable("int32", shape=None)
+    helper.append_op("ctc_align", inputs={"Input": [ids.name],
+                                          "Length": [lens.name]},
+                     outputs={"Output": [out.name],
+                              "OutputLength": [out_len.name]},
+                     attrs={"blank": classes})
+    helper = from_helper("edit_distance")
+    dist = helper.create_tmp_variable("float32", shape=None)
+    seqn = helper.create_tmp_variable("int64", shape=None)
+    helper.append_op("edit_distance",
+                     inputs={"Hyps": [out.name], "Refs": [ref.name],
+                             "HypsLength": [out_len.name],
+                             "RefsLength": [ref_len.name]},
+                     outputs={"Out": [dist.name], "SequenceNum": [seqn.name]},
+                     attrs={"normalized": True})
+    return [out, out_len, dist, seqn]
+
+
+def ctc_decode_feed(logits, lengths, labels, label_lengths):
+    return {"logits": logits, "logits_len": np.asarray(lengths, np.int32),
+            "ref": labels, "ref_len": np.asarray(label_lengths, np.int32)}
+
+
+def ctc_decode(exe, fetch, feed):
+    prog = fluid.default_main_program()
+    return [np.asarray(v) for v in exe.run(prog, feed=feed,
+                                           fetch_list=fetch)]
+
+
+def padded_labels(labels):
+    """A labels LoDTensor as a padded [B, L] int64 array."""
+    padded, _ = labels.to_padded(bucket=False)
+    return padded.reshape(padded.shape[0], -1)
+
+
+def _boxes(rng, n, lo=0.0, hi=1.0, min_side=0.05):
+    """`n` corner boxes (x1, y1, x2, y2) inside [lo, hi]."""
+    a = rng.uniform(lo, hi - min_side, (n, 2))
+    side = rng.uniform(min_side, (hi - lo) / 2, (n, 2))
+    return np.concatenate([a, np.minimum(a + side, hi)], 1).astype(
+        np.float32)
+
+
+def _detection_inputs(rng, n=2, p=12, k=3, g=3):
+    prior = _boxes(rng, p)
+    pvar = np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (p, 1))
+    # ground truths are priors shifted a little: each valid one has its own
+    # best prior, so no two claim one (an order XLA leaves undefined)
+    pick = np.stack([rng.choice(p, g, replace=False) for _ in range(n)])
+    gt = (prior[pick] + rng.uniform(-0.02, 0.02, (n, g, 4))).astype(
+        np.float32)
+    return {"Loc": rng.randn(n, p, 4).astype(np.float32) * 0.5,
+            "Conf": rng.randn(n, p, k).astype(np.float32),
+            "PriorBox": prior, "PriorBoxVar": pvar, "GtBox": gt,
+            "GtLabel": rng.randint(1, k, (n, g)).astype(np.int64),
+            "GtCount": np.asarray([g, g - 1], np.int32)[:n]}
+
+
+def new_op_cases():
+    """Every op type this slice adds, at small shapes from fixed seeds:
+    name → (op type, inputs as numpy, attrs, differentiable input slots,
+    output slots)."""
+    r = np.random.RandomState
+    i32 = np.int32
+    ctc = {"Logits": r(1).randn(3, 7, 5).astype(np.float32),
+           "Label": np.asarray([[1, 2, 2], [3, 4, 0], [4, 0, 0]], np.int64),
+           "LogitsLength": np.asarray([7, 5, 6], i32),
+           "LabelLength": np.asarray([3, 2, 1], i32)}
+    det = _detection_inputs(r(2))
+    roi_x = r(3).randn(2, 3, 8, 8).astype(np.float32)
+    roi_x[1, :, 2:4, 2:4] = 1.5  # a tied maximum inside one bin
+    scores = np.round(r(4).rand(16), 1).astype(np.float32)  # ties
+    qid = np.repeat(np.arange(3), 4).reshape(-1, 1).astype(np.int64)
+    return {
+        "warpctc": ("warpctc", ctc, {"blank": 0}, ("Logits",), ("Loss",)),
+        "warpctc_edges": (
+            "warpctc",
+            {"Logits": r(5).randn(4, 6, 4).astype(np.float32),
+             # infeasible (3 repeats in 4 frames), a label of length 0, a
+             # logit length of 0, a logit length below T
+             "Label": np.asarray([[1, 1, 1], [2, 0, 0], [3, 0, 0],
+                                  [1, 2, 0]], np.int64)[..., None],
+             "LogitsLength": np.asarray([4, 6, 0, 3], i32),
+             "LabelLength": np.asarray([3, 0, 1, 2], i32)},
+            {"blank": 0}, ("Logits",), ("Loss",)),
+        "warpctc_last_blank": (
+            "warpctc", {**ctc, "Label": ctc["Label"] % 4}, {"blank": 4},
+            ("Logits",), ("Loss",)),
+        "ctc_align": (
+            "ctc_align",
+            {"Input": np.asarray([[0, 1, 1, 0, 2, 2, 3, 3],
+                                  [1, 0, 1, 1, 0, 0, 0, 2],
+                                  [2, 2, 2, 2, 2, 2, 2, 2],
+                                  [3, 3, 0, 3, 1, 2, 1, 0]], np.int64),
+             "Length": np.asarray([8, 5, 0, 8], i32)},
+            {"blank": 0}, (), ("Output", "OutputLength")),
+        "edit_distance": (
+            "edit_distance",
+            {"Hyps": r(6).randint(0, 4, (4, 6)).astype(np.int64),
+             "Refs": r(7).randint(0, 4, (4, 7)).astype(np.int64),
+             "HypsLength": np.asarray([6, 3, 0, 5], i32),
+             "RefsLength": np.asarray([7, 0, 4, 5], i32)},
+            {"normalized": True}, (), ("Out", "SequenceNum")),
+        "edit_distance_raw": (
+            "edit_distance",
+            {"Hyps": r(8).randint(0, 3, (3, 5)).astype(np.int64),
+             "Refs": r(9).randint(0, 3, (3, 4)).astype(np.int64),
+             "HypsLength": np.asarray([5, 2, 4], i32),
+             "RefsLength": np.asarray([4, 4, 1], i32)},
+            {"normalized": False}, (), ("Out", "SequenceNum")),
+        "nce": ("nce", {"Input": r(10).randn(4, 8).astype(np.float32) * 0.3,
+                        "Weight": r(11).randn(16, 8).astype(np.float32)
+                        * 0.3,
+                        "Bias": r(12).randn(16).astype(np.float32) * 0.1,
+                        "Label": r(13).randint(0, 16, (4, 1))},
+                {"num_neg_samples": 5}, ("Input", "Weight", "Bias"),
+                ("Cost", "SampleLogits", "SampleLabels")),
+        "im2sequence": (
+            "im2sequence", {"X": r(14).randn(2, 3, 7, 6).astype(np.float32)},
+            {"kernels": [3, 2], "strides": [2, 1],
+             "paddings": [1, 0, 2, 1]}, ("X",), ("Out",)),
+        "im2sequence_two_pads": (
+            "im2sequence", {"X": r(15).randn(1, 2, 5, 5).astype(np.float32)},
+            {"kernels": [2, 2], "strides": [1, 2], "paddings": [1, 1]},
+            ("X",), ("Out",)),
+        "lrn": ("lrn", {"X": r(16).randn(2, 6, 4, 5).astype(np.float32)},
+                {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75}, ("X",),
+                ("Out", "MidOut")),
+        "row_conv": ("row_conv",
+                     {"X": r(17).randn(3, 6, 4).astype(np.float32),
+                      "Filter": r(18).randn(3, 4).astype(np.float32)},
+                     {}, ("X", "Filter"), ("Out",)),
+        "auc": ("auc", {"Predict": np.stack([1 - scores, scores], 1),
+                        "Label": (r(19).rand(16, 1) > 0.5).astype(np.int64)},
+                {}, (), ("AUC",)),
+        "precision_recall": (
+            "precision_recall",
+            {"Indices": r(20).randint(0, 4, (16, 1)).astype(np.int64),
+             "Label": r(21).randint(0, 4, (16, 1)).astype(np.int64)},
+            {"class_number": 4}, (), ("BatchMetrics", "AccumMetrics")),
+        "positive_negative_pair": (
+            "positive_negative_pair",
+            {"Score": np.round(r(22).rand(12, 1), 1).astype(np.float32),
+             "Label": r(23).randint(0, 3, (12, 1)).astype(np.float32),
+             "QueryID": qid,
+             "AccumulatePositivePair": np.float32([2.0]),
+             "AccumulateNegativePair": np.float32([1.0]),
+             "AccumulateNeutralPair": np.float32([0.0])},
+            {}, (), ("PositivePair", "NegativePair", "NeutralPair")),
+        "iou_similarity": ("iou_similarity",
+                           {"X": _boxes(r(24), 5), "Y": _boxes(r(25), 3)},
+                           {}, (), ("Out",)),
+        "box_coder_encode": (
+            "box_coder", {"PriorBox": det["PriorBox"],
+                          "PriorBoxVar": det["PriorBoxVar"],
+                          "TargetBox": _boxes(r(26), 3)},
+            {"code_type": "encode_center_size"}, (), ("OutputBox",)),
+        "box_coder_decode": (
+            "box_coder", {"PriorBox": det["PriorBox"],
+                          "PriorBoxVar": det["PriorBoxVar"],
+                          "TargetBox": det["Loc"]},
+            {"code_type": "decode_center_size"}, (), ("OutputBox",)),
+        "prior_box": (
+            "prior_box", {"Input": np.zeros((1, 4, 3, 4), np.float32),
+                          "Image": np.zeros((1, 3, 12, 16), np.float32)},
+            {"min_sizes": [2.0, 5.0], "max_sizes": [4.0, 9.0],
+             "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True,
+             "variances": [0.1, 0.1, 0.2, 0.2]}, (),
+            ("Boxes", "Variances")),
+        "roi_pool": (
+            "roi_pool",
+            {"X": roi_x,
+             "ROIs": np.asarray([[0, 0, 0, 7, 7], [1, 1, 1, 5, 4],
+                                 [1, 4, 2, 4, 2], [0, 6, 6, 2, 2]],
+                                np.float32)},
+            {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 1.0},
+            ("X",), ("Out",)),
+        "multibox_loss": (
+            "multibox_loss", det,
+            {"overlap_threshold": 0.3, "neg_pos_ratio": 2.0,
+             "background_label": 0}, ("Loc", "Conf"), ("Loss",)),
+        "detection_output": (
+            "detection_output",
+            {k: det[k] for k in ("Loc", "Conf", "PriorBox", "PriorBoxVar")},
+            {"score_threshold": 0.05, "nms_threshold": 0.3, "nms_top_k": 6,
+             "keep_top_k": 7, "background_label": 0}, (), ("Out",)),
+    }
+
+
+def emit_op(dev, op, ins, attrs, diff=(), outs=(), cts=None):
+    """The port's emitter of `op` on `dev` from numpy inputs; with `diff`,
+    also the gradients of sum_k sum(out_k * ct_k) over the float `outs`
+    in those slots (``torch.autograd``, as ``generic_grad`` takes them).
+    Returns ({slot: [numpy]}, {slot: numpy gradient})."""
+    info = get_op_info(op)
+    ctx = EmitContext(dev, is_test=False)
+    t = {s: [torch.as_tensor(a).to(dev)] for s, a in ins.items()}
+    leaves = {}
+    for s in diff:
+        leaves[s] = t[s][0].detach().clone().requires_grad_(True)
+        t[s] = [leaves[s]]
+    with torch.enable_grad():
+        out = info.emit(ctx, t, dict(attrs))
+        grads = {}
+        if diff:
+            total = sum((out[s][0] * torch.as_tensor(cts[s]).to(dev)).sum()
+                        for s in outs if out[s][0].is_floating_point()
+                        and s in cts)
+            gs = torch.autograd.grad(total, [leaves[s] for s in diff],
+                                     allow_unused=True)
+            grads = {s: (np.zeros(ins[s].shape) if g is None
+                         else g.detach().cpu().numpy())
+                     for s, g in zip(diff, gs)}
+    return ({s: [v.detach().cpu().numpy() for v in vs]
+             for s, vs in out.items()}, grads)
+
+
+def op_cotangents(outs):
+    """Fixed cotangents in [0.5, 1.5) for every float output."""
+    return {s: np.random.RandomState(90 + k).uniform(
+        0.5, 1.5, v[0].shape).astype(v[0].dtype)
+        for k, (s, v) in enumerate(sorted(outs.items()))
+        if np.issubdtype(v[0].dtype, np.floating)}
+
+
+def nce_formula(ins, got):
+    """nce's Cost from its inputs and its fetched SampleLabels (numpy,
+    float64)."""
+    x = ins["Input"].astype(np.float64)
+    w = ins["Weight"].astype(np.float64)
+    b = ins["Bias"].astype(np.float64)
+    lab = ins["Label"].reshape(-1)
+    neg = got["SampleLabels"][0].astype(np.int64)
+    log_q = -np.log(w.shape[0])
+
+    def log_sig(v):
+        return -np.logaddexp(0.0, -v)
+
+    pos = (w[lab] * x).sum(-1) + b[lab]
+    negl = (w[neg] * x[:, None]).sum(-1) + b[neg]
+    return -(log_sig(pos - log_q) + log_sig(-(negl - log_q)).sum(1))
+
+
+def ops_card_phase(dev):
+    """37(a) every op type this slice adds on the card against the CPU,
+    f32, at ``new_op_cases``' shapes: each output within 1e-5 of its max
+    |value| (integers equal), each gradient of a differentiable slot
+    within 1e-5 of its max |g|; ``nce`` by its properties (negatives in
+    [0, C), Cost equal to the numpy formula from the fetched negatives)."""
+    rows = {}
+    for name, (op, ins, attrs, diff, outs) in new_op_cases().items():
+        cpu_out, _ = emit_op(torch.device("cpu"), op, ins, attrs)
+        cts = op_cotangents({s: cpu_out[s] for s in outs})
+        cpu, cpu_g = emit_op(torch.device("cpu"), op, ins, attrs, diff,
+                             outs, cts)
+        gpu, gpu_g = emit_op(dev, op, ins, attrs, diff, outs, cts)
+        if op == "nce":
+            c = ins["Weight"].shape[0]
+            negs = gpu["SampleLabels"][0]
+            err = float(np.abs(gpu["Cost"][0][:, 0]
+                               - nce_formula(ins, gpu)).max())
+            ok = bool((negs >= 0).all() and (negs < c).all()) and err < 1e-4
+            rows[name] = {"cost_vs_formula": err, "negatives_in_range": ok}
+        else:
+            out_err = max(_rel(g, c) for s in outs
+                          for g, c in zip(gpu[s], cpu[s]))
+            grad_err = max((_rel(gpu_g[s], cpu_g[s]) for s in diff),
+                           default=0.0)
+            ok = out_err <= 1e-5 and grad_err <= 1e-5
+            rows[name] = {"op": op, "out_rel_err": out_err,
+                          "grad_rel_err": grad_err}
+        rows[name]["ok"] = ok
+        if not ok:
+            raise AssertionError(f"op {name} on the card disagrees with the "
+                                 f"CPU: {rows[name]}")
+    log("ctc_detection_ops", rows)
+    return rows
+
+
+def _rel(got, want):
+    """Integers: 0 if equal, else inf; floats: max |got - want| over max
+    |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return float("inf")
+    if not np.issubdtype(want.dtype, np.floating):
+        return 0.0 if np.array_equal(got, want) else float("inf")
+    if not want.size:
+        return 0.0
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+def ctc_parity_phase():
+    """37(b) path (b) at ``CTC_SMALL``, f32 with TF32 off, by
+    ``parity_run``: 3 Momentum steps on the card and on an explicit CPU
+    from one state, losses 1e-4 relative, step-1 gradients 1e-3 of max
+    |g|, K9 4 and K10 2 a step."""
+    loss, _, _, main, startup = ctc_train_program(fluid, **CTC_SMALL)
+    feed, _, _ = ctc_feed(lod_mod, **CTC_SMALL)
+    grads = sorted(p.name + "@GRAD" for p in
+                   main.global_block().all_parameters())
+    res = parity_run("ctc_parity", main, startup, loss, feed, grads,
+                     CTC_WANT, {"bs": CTC_SMALL["bs"]})
+    fluid.reset()
+    return res
+
+
+def ctc_bench_phase(card_name, smi):
+    """37(c) path (b) at ``CTC_BIG`` (40-wide frames, 100-384 of them,
+    labels of 10-60 tokens, C 28, H 256, batch 32), f32: CTC_WARM +
+    CTC_TIMED Momentum steps on fresh batches (K9 4, K10 2 a step), ms a
+    step and frames a second; the last CTC_PROFILED batches again under
+    the profiler (device busy share, kernels a step, K9's and K10's device
+    ms a step); then the test-mode clone's logits of the
+    last batch, greedy-decoded (``top_k`` → ``ctc_align``) and scored
+    (``edit_distance``) by ``ctc_decode_program`` on the card and on the
+    CPU from those logits: equal ids, lengths and distances."""
+    t0 = time.monotonic()
+    loss, logits, test, main, startup = ctc_train_program(fluid, **CTC_BIG)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    batches = [ctc_feed(lod_mod, seed=s, **CTC_BIG)
+               for s in range(CTC_WARM + CTC_TIMED)]
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    rows = []
+    for i, (feed, ts, _) in enumerate(batches):
+        t0 = time.monotonic()
+        (val,), launches = counted(lambda: exe.run(main, feed=feed,
+                                                   fetch_list=[loss]))
+        rows.append((float(val[0]), launches, time.monotonic() - t0,
+                     sum(ts)))
+        check_launches(f"ctc_bench_step{i}", launches, CTC_WANT)
+    step_ms = [r[2] * 1e3 for r in rows[CTC_WARM:]]
+    med = float(np.median(step_ms))
+    prof = srl_profile(exe, main, [loss],
+                       [(f, None) for f, _, _ in batches[-CTC_PROFILED:]],
+                       (("k9", ("gru_fwd",)), ("k10", ("gru_bwd", "rnn_dw"))))
+    feed, ts, ls = batches[-1]
+    (lg,), infer_launches = counted(lambda: exe.run(
+        test, feed=feed, fetch_list=[logits]))
+    check_launches("ctc_infer", infer_launches, {"gru_forward": 2})
+    labels = padded_labels(feed["labels"])
+    dfeed = ctc_decode_feed(np.asarray(lg), ts, labels, ls)
+    fetch = ctc_decode_program(fluid, CTC_BIG["classes"])
+    gpu = ctc_decode(fluid.Executor(fluid.CUDAPlace(0)), fetch, dfeed)
+    cpu = ctc_decode(fluid.Executor(fluid.CPUPlace()), fetch, dfeed)
+    same = all(np.array_equal(a, b) for a, b in zip(gpu, cpu))
+    res = {"card": card_name, "nvidia_smi": smi, **CTC_BIG,
+           "dtype": "float32", "lr": CTC_LR, "setup_s": setup_s,
+           "T_padded": bucket_len(max(max(b[1]) for b in batches)),
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "losses": [r[0] for r in rows], "step_ms_median": med,
+           "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+           "frames_s": float(np.mean([r[3] for r in rows[CTC_WARM:]]))
+           / (med / 1e3),
+           "launches_per_step": rows[-1][1],
+           "infer_launches": infer_launches,
+           "last_lengths": ts, "T_padded_last": bucket_len(max(ts)),
+           "decode_card_equals_cpu": same,
+           "greedy_edit_distance_mean": float(np.mean(gpu[2])),
+           "decoded_len_mean": float(np.mean(gpu[1])), **prof}
+    log("ctc_bench", res)
+    if not np.isfinite(res["losses"]).all() or not same:
+        raise AssertionError(f"ctc_bench: {res}")
+    fluid.reset()
+    return res
+
+
+def detection_map_phase(dev):
+    """37(d) ``detection_output`` on the card and on the CPU from one set
+    of inputs, each slate into a ``DetectionMAP`` with the same ground
+    truth: the slates within 1e-5 and the two mAPs equal, in both AP
+    versions."""
+    _, ins, attrs, _, _ = new_op_cases()["detection_output"]
+    det = _detection_inputs(np.random.RandomState(2))
+    maps = {}
+    for ap in ("integral", "11point"):
+        got = []
+        for d in (dev, torch.device("cpu")):
+            out, _ = emit_op(d, "detection_output", ins, attrs)
+            m = fluid.evaluator.DetectionMAP(overlap_threshold=0.3,
+                                             ap_version=ap)
+            m.add_batch(out["Out"][0], det["GtBox"], det["GtLabel"],
+                        det["GtCount"])
+            got.append((out["Out"][0], m.eval()))
+        (card_slate, card_map), (cpu_slate, cpu_map) = got
+        maps[ap] = {"card": card_map, "cpu": cpu_map,
+                    "slate_rel_err": _rel(card_slate, cpu_slate)}
+    log("detection_map", maps)
+    for ap, m in maps.items():
+        if m["card"] != m["cpu"] or m["slate_rel_err"] > 1e-5:
+            raise AssertionError(f"DetectionMAP ({ap}): card and CPU "
+                                 f"slates disagree: {maps}")
+    return maps
+
+
+def ctc_detection_phase(dev, card_name, smi):
+    ops = ops_card_phase(dev)
+    parity = ctc_parity_phase()
+    bench = ctc_bench_phase(card_name, smi)
+    maps = detection_map_phase(dev)
+    return {"ops": ops, "parity": parity, "bench": bench, "map": maps}
+
+
+# -- 38. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -5701,6 +6484,15 @@ def main():
     torch.cuda.empty_cache()
     srl = srl_phase(dev, name, smi)
     srl_big = srl["bench"][SRL_BS[-1]]
+    fluid.reset()
+    torch.cuda.empty_cache()
+    v1_parity, v1_bench = v1_rnn_phase(name, smi)
+    ctc = ctc_detection_phase(dev, name, smi)
+    new_rows, _ = srl_kernel_phase(dev, [
+        ("lstm", V1_RNN["batch_size"], bucket_len(V1_RNN["seq_len"]),
+         V1_RNN["hidden"], [V1_RNN["seq_len"]] * V1_RNN["batch_size"]),
+        ("gru", CTC_BIG["bs"], ctc["bench"]["T_padded_last"],
+         CTC_BIG["hidden"], ctc["bench"]["last_lengths"])])
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -5738,7 +6530,15 @@ def main():
                "vgg19_fused_bf16_per_step": vgg_fused["launches_per_step"],
                "vgg19_fused_f32_parity_step": vgg_parity["launches_fused"],
                "srl_f32_per_step": srl_big["launches_per_step"],
-               "srl_infer": srl_big["infer"]["launches"]}
+               "srl_infer": srl_big["infer"]["launches"],
+               "v1_rnn_small_f32_per_step": v1_parity["launches_per_step"],
+               "v1_rnn_small_train_pass": v1_parity["train_pass_launches"],
+               "v1_rnn_small_test": v1_parity["test_launches"],
+               "v1_rnn_f32_20_steps": v1_bench["launches"],
+               "v1_rnn_test": v1_bench["test_launches"],
+               "ctc_small_f32_per_step": ctc["parity"]["launches_per_step"],
+               "ctc_f32_per_step": ctc["bench"]["launches_per_step"],
+               "ctc_infer": ctc["bench"]["infer_launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -5837,6 +6637,18 @@ def main():
                  "max_err": r.get("max_abs_err", r.get("max_rel_err")),
                  "launches_per_step": r["launches_per_step"]}
                 for r in srl["kernel_rows"][kname]]
+        # the same at the shapes of the v1 RNN config (K7, K8) and of the
+        # CTC program (K9, K10), with their paths' launches a step
+        step = (v1_bench["launches_per_step"] if cell == "lstm"
+                else ctc["bench"]["launches_per_step"])
+        row["v1_ctc_shapes"] = [
+            {**{k: r[k] for k in (
+                "B", "T", "H", "valid_steps", "route", "device_launches",
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share") if k in r},
+             "max_err": r.get("max_abs_err", r.get("max_rel_err")),
+             "launches_per_step": step[kname]}
+            for r in new_rows[kname]]
         kernels.append(row)
     # K11-K15: the bf16 row (the bench's dtype) at the timed shape, the
     # f32 row beside it; K14's launches are the v2 bench run's
@@ -6057,12 +6869,35 @@ def main():
         "lstm_directions": srl["directions"],
         "bench_f32": {bs: {k: r[k] for k in srl_keys if k in r}
                       for bs, r in srl["bench"].items()}}
+    v1_keys = ("cli_ms_per_batch_median", "cli_ms_per_batch_min",
+               "cli_ms_per_batch_max", "cli_tok_s", "in_process_ms_per_batch",
+               "T_padded", "params", "peak_mem_gb", "launches_per_step",
+               "device_busy_share", "device_kernels_per_step",
+               "k7_device_ms_per_step", "k8_device_ms_per_step", "profiled",
+               "test_launches")
+    legacy_rows = {
+        "card": name, "nvidia_smi": smi,
+        "v1_rnn_small_f32": {k: v1_parity[k] for k in (
+            "loss_rel_err", "grad_rel_err_step1", "launches_per_step",
+            "train_pass_launches", "test_launches")},
+        "v1_rnn_full_f32": {k: v1_bench[k] for k in v1_keys
+                            if k in v1_bench},
+        "ctc_small_f32": {k: ctc["parity"][k] for k in (
+            "loss_rel_err", "grad_rel_err_step1", "launches_per_step")},
+        "ctc_f32": {k: ctc["bench"][k] for k in (
+            "bs", "T_padded", "params", "losses", "step_ms_median",
+            "step_ms_min", "step_ms_max", "frames_s", "launches_per_step",
+            "infer_launches", "decode_card_equals_cpu",
+            "greedy_edit_distance_mean", "device_busy_share",
+            "device_kernels_per_step", "k9_device_ms_per_step",
+            "k10_device_ms_per_step", "profiled") if k in ctc["bench"]},
+        "ops_card_vs_cpu": ctc["ops"], "detection_map": ctc["map"]}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "serve": serve_rows,
                       "train": train_rows, "step_loop": step_loop_rows,
                       "options": options_rows, "generate": generate_rows,
                       "remat_save_load": remat_rows, "zoo": zoo_rows,
-                      "srl": srl_rows}),
+                      "srl": srl_rows, "legacy": legacy_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,9 +18,13 @@ captured CUDA graph (``framework/step_loop.py``).  ``reader`` and
 ``DataFeeder``/``DeviceFeeder`` feed it.  ``io`` saves and loads
 persistables and inference models in the JAX package's layout, and
 ``fuse_batch_norm`` folds inference-mode BatchNorm into convolutions.
+``v1`` and ``trainer`` hold the legacy config API, and ``python -m
+paddle_tpu_torch train --config conf.py`` trains a v1 config (``cli``).
 
 The JAX package ``paddle_tpu`` is the reference this package is held
 against; nothing here imports it or JAX."""
+
+__version__ = "0.1.0"
 
 from . import layers  # noqa: F401
 from . import ops  # noqa: F401  (registers the op emitters)
@@ -63,3 +67,8 @@ def reset():
     switch_startup_program(Program())
     reset_global_scope()
     unique_name.reset()
+    # v1 config state tied to the discarded Program (declared outputs and
+    # registered data sources: a stale provider must not feed a new config)
+    from .v1 import reset_v1_config
+
+    reset_v1_config()

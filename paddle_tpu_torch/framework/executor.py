@@ -15,8 +15,10 @@ from the JAX package's compiled step, and the fusion pass relies on it
 for the batch-norm / ReLU chains whose only reader it replaced.  The
 walk runs under
 ``torch.no_grad()``; only a ``generic_grad`` op turns autograd on, for its
-own re-run of the forward op.  A block that holds grad ops runs with
-``is_test`` false.
+own re-run of the forward op.  An output slot that an op's registry entry
+lists as ``unwritten_outputs`` is bound to nothing, and a grad op of it
+gets None there; any other name that nothing gives still raises.  A block
+that holds grad ops runs with ``is_test`` false.
 
 ``run(steps_per_dispatch=K)`` runs K steps a dispatch
 (``framework/step_loop.py``): on the card, one replay of a captured CUDA
@@ -38,7 +40,7 @@ import torch
 from ..analysis.dataflow import state_classes
 from ..autotune import knobs
 from ..lod import LENGTH_SUFFIX, as_lod_tensor, is_lod_feed
-from ..ops.registry import EmitContext, get_op_info
+from ..ops.registry import EmitContext, get_op_info, unbound_slots
 from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
 from .place import Place, default_place
 from .scope import Scope, global_scope, to_numpy
@@ -206,9 +208,11 @@ class Executor:
                 if not keep:
                     continue
                 self._walking = (i, op.type)
-                for n in op.input_names():
-                    if n and n not in env:
-                        env[n] = self._read_state(scope, block, n)
+                skip = unbound_slots(op)
+                for slot, names in op.inputs.items():
+                    for n in names:
+                        if n and n not in env and slot not in skip:
+                            env[n] = self._read_state(scope, block, n)
                 self._run_op(op, env, ctx)
 
     def _lower_block(self, ctx, idx, env):
@@ -218,7 +222,10 @@ class Executor:
         its externals and carries, and a name missing from `env` raises
         (``OpLoweringError`` naming the op)."""
         for op in ctx.program.blocks[idx].ops:
-            missing = [n for n in op.input_names() if n and n not in env]
+            skip = unbound_slots(op)
+            missing = [n for slot, names in op.inputs.items()
+                       if slot not in skip for n in names
+                       if n and n not in env]
             if missing:
                 raise OpLoweringError(
                     f"op {op.type!r} of block {idx} reads {missing}, which "
@@ -343,7 +350,9 @@ class Executor:
     @staticmethod
     def _run_op(op, env, ctx):
         info = get_op_info(op.type)
-        ins = {slot: [env[n] if n else None for n in names]
+        skip = unbound_slots(op)
+        ins = {slot: [env[n] if n and slot not in skip else None
+                      for n in names]
                for slot, names in op.inputs.items()}
         attrs = op.attrs
         if op.type == "generic_grad":

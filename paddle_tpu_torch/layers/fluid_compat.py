@@ -10,8 +10,8 @@ descending (lod_rank_table, max_sequence_len,
 reorder_lod_tensor_by_rank), a tensor array of a sequence its time-major
 transpose (lod_tensor_to_array, array_to_lod_tensor), shrink_memory the
 identity (the masks keep the batch whole), and split_lod_tensor /
-merge_lod_tensor ``select`` by a row mask.  ``warpctc`` waits for the
-CTC ops."""
+merge_lod_tensor ``select`` by a row mask, and ``warpctc`` (CTC over
+padded logits and labels with their lengths)."""
 
 from __future__ import annotations
 
@@ -427,3 +427,22 @@ def get_places(device_count=None, device_type=None):
     default_place()  # raises without a card
     n = device_count or torch.cuda.device_count()
     return [CUDAPlace(i) for i in range(n)]
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, **kwargs):
+    """fluid nn.py warpctc -> warpctc op over padded logits/labels with
+    companion lengths.  The op declares the reference's ``WarpCTCGrad``
+    output, which its emitter does not write (``unwritten_outputs``)."""
+    helper = LayerHelper("warpctc")
+    ilen, llen = get_length_var(input), get_length_var(label)
+    if ilen is None or llen is None:
+        raise ValueError("warpctc: input and label must be sequences")
+    loss = helper.create_tmp_variable(input.dtype, shape=None)
+    grad = helper.create_tmp_variable(input.dtype, shape=None)
+    helper.append_op(
+        "warpctc",
+        inputs={"Logits": [input.name], "Label": [label.name],
+                "LogitsLength": [ilen.name], "LabelLength": [llen.name]},
+        outputs={"Loss": [loss.name], "WarpCTCGrad": [grad.name]},
+        attrs={"blank": int(blank), "norm_by_times": bool(norm_by_times)})
+    return loss

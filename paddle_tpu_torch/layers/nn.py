@@ -488,3 +488,14 @@ def accuracy(input, label, k=1):
                  "Total": [total.name]},
     )
     return acc
+
+
+def auc(input, label):
+    """The batch AUC of `input`'s positive-class probability (the ``auc``
+    op's rank statistic)."""
+    helper = LayerHelper("auc")
+    out = helper.create_tmp_variable("float32", shape=(1,), stop_gradient=True)
+    helper.append_op("auc",
+                     inputs={"Predict": [input.name], "Label": [label.name]},
+                     outputs={"AUC": [out.name]})
+    return out

@@ -6,6 +6,8 @@ from . import (  # noqa: F401
     beam_ops,
     control_flow_ops,
     crf_ops,
+    ctc_ops,
+    detection_ops,
     loss_ops,
     math_ops,
     nn_ops,

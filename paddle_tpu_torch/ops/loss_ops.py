@@ -1,9 +1,9 @@
 """``cross_entropy``, ``softmax_with_cross_entropy``,
-``sigmoid_cross_entropy_with_logits``, ``accuracy`` and ``chunk_eval``,
-the port of their emitters in ``paddle_tpu/ops/loss_ops.py``: hard
-labels (int64, gathered as indices) or soft ones; ``Label`` takes no grad
-and ``Softmax`` no cotangent; ``accuracy`` and ``chunk_eval`` are
-metrics, not differentiated."""
+``sigmoid_cross_entropy_with_logits``, ``accuracy``, ``chunk_eval``,
+``auc``, ``precision_recall`` and ``positive_negative_pair``, the port of
+their emitters in ``paddle_tpu/ops/loss_ops.py``: hard labels (int64,
+gathered as indices) or soft ones; ``Label`` takes no grad and
+``Softmax`` no cotangent; the metrics are not differentiated."""
 
 from __future__ import annotations
 
@@ -149,3 +149,74 @@ def chunk_eval(ctx, ins, attrs):
     return {"Precision": [prec.float()], "Recall": [rec.float()],
             "F1-Score": [f1.float()], "NumInferChunks": [n_inf],
             "NumLabelChunks": [n_lab], "NumCorrectChunks": [n_correct]}
+
+
+
+@register_op("auc", grad=None)
+def auc(ctx, ins, attrs):
+    """Batch AUC by the rank statistic: ranks 1..n in a stable ascending
+    order of the positive-class probability (ties take the lower index
+    first, as XLA's sort does)."""
+    pred = ins["Predict"][0]
+    probs = pred[:, 1] if pred.ndim == 2 else pred
+    label = ins["Label"][0].reshape(-1).to(torch.float32)
+    order = torch.argsort(probs, stable=True)
+    n = probs.shape[0]
+    ranks = torch.empty(n, dtype=torch.int64, device=probs.device)
+    ranks[order] = torch.arange(1, n + 1, device=probs.device)
+    npos = label.sum()
+    nneg = label.shape[0] - npos
+    auc_v = ((ranks * label).sum() - npos * (npos + 1) / 2) \
+        / torch.clamp(npos * nneg, min=1.0)
+    return {"AUC": [auc_v.reshape(1)]}
+
+
+@register_op("precision_recall", grad=None)
+def precision_recall(ctx, ins, attrs):
+    """Macro precision, recall and F1 over `class_number` classes from
+    predicted indices and labels."""
+    idx = ins["Indices"][0].reshape(-1)
+    label = ins["Label"][0].reshape(-1)
+    ncls = int(attrs["class_number"])
+    classes = torch.arange(ncls, device=idx.device)
+    pred_1h = idx[:, None] == classes[None, :]
+    lab_1h = label[:, None] == classes[None, :]
+    tp = (pred_1h & lab_1h).sum(0).to(torch.float32)
+    fp = (pred_1h & ~lab_1h).sum(0).to(torch.float32)
+    fn = (~pred_1h & lab_1h).sum(0).to(torch.float32)
+    prec = tp / torch.clamp(tp + fp, min=1.0)
+    rec = tp / torch.clamp(tp + fn, min=1.0)
+    f1 = 2 * prec * rec / torch.clamp(prec + rec, min=1e-6)
+    macro = torch.stack([prec.mean(), rec.mean(), f1.mean()])
+    return {"BatchMetrics": [macro], "AccumMetrics": [macro]}
+
+
+@register_op("positive_negative_pair", grad=None)
+def positive_negative_pair(ctx, ins, attrs):
+    """Among same-query pairs with different labels, the concordant,
+    discordant and tied-score pair counts, each added to its
+    ``Accumulate*`` input when given."""
+    score = ins["Score"][0].reshape(-1)
+    label = ins["Label"][0].reshape(-1).to(torch.float32)
+    qid = ins["QueryID"][0].reshape(-1)
+    n = score.shape[0]
+    same_q = qid[:, None] == qid[None, :]
+    upper = torch.ones((n, n), dtype=torch.bool,
+                       device=score.device).triu(1)
+    informative = same_q & upper & (label[:, None] != label[None, :])
+    ds = score[:, None] - score[None, :]
+    dl = label[:, None] - label[None, :]
+
+    def count(mask):
+        return (informative & mask).sum().to(torch.float32)
+
+    def acc(slot, v):
+        if ins.get(slot) and ins[slot][0] is not None:
+            v = v + ins[slot][0].reshape(-1)[0]
+        return v.reshape(1)
+
+    return {"PositivePair": [acc("AccumulatePositivePair",
+                                 count(ds * dl > 0))],
+            "NegativePair": [acc("AccumulateNegativePair",
+                                 count(ds * dl < 0))],
+            "NeutralPair": [acc("AccumulateNeutralPair", count(ds == 0))]}

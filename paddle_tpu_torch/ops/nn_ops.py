@@ -1,7 +1,8 @@
 """NN layer ops, the port of the part of ``paddle_tpu/ops/nn_ops.py`` that
-the LM tower, ResNet and the model zoo use: ``layer_norm``, ``conv2d``,
-``conv2d_transpose``, ``pool2d``, ``batch_norm``, ``dropout`` and the
-fused ``bn_act_conv1x1`` / ``bn_act_conv3x3``.
+the LM tower, ResNet, the model zoo and the v1 layers use: ``layer_norm``,
+``conv2d``, ``conv2d_transpose``, ``pool2d``, ``batch_norm``, ``dropout``,
+``lrn``, ``im2sequence``, ``row_conv`` and the fused ``bn_act_conv1x1`` /
+``bn_act_conv3x3``.
 
 ``conv2d``, ``conv2d_transpose`` and ``pool2d`` are stock ATen (cuDNN on
 the card), as the JAX package leaves them to stock XLA; an NHWC tensor
@@ -230,3 +231,56 @@ def bn_act_conv3x3(ctx, ins, attrs):
                                            res, act, eps, strides[0],
                                            variant)
     return {"Output": [out]}
+
+
+@register_op("lrn")
+def lrn(ctx, ins, attrs):
+    """Cross-channel local response normalization over NCHW: X / MidOut **
+    beta, MidOut = k + alpha * the sum of squares over the n channels
+    centred on each one (zeros past the edges)."""
+    x = ins["X"][0]
+    n = int(attrs.get("n", 5))
+    k = float(attrs.get("k", 2.0))
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    half = n // 2
+    pad = F.pad(x * x, (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sum(pad[:, i:i + c] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": [x / mid ** beta], "MidOut": [mid]}
+
+
+@register_op("im2sequence")
+def im2sequence(ctx, ins, attrs):
+    """Every kernel-sized patch of an NCHW image as one row, [N·oh·ow,
+    C·kh·kw] in (C, kh, kw) order (``F.unfold``'s, as the JAX emitter's
+    ``conv_general_dilated_patches``).  ``paddings`` is [up, left, down,
+    right] (two values: up = down, left = right), applied with ``F.pad``
+    first because ``F.unfold`` pads symmetrically only."""
+    x = ins["X"][0]
+    kernels = _pair(attrs["kernels"])
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = list(attrs.get("paddings", [0, 0, 0, 0]))
+    up, left = int(pads[0]), int(pads[1])
+    down = int(pads[2]) if len(pads) > 2 else up
+    right = int(pads[3]) if len(pads) > 3 else left
+    xp = F.pad(x, (left, right, up, down))
+    cols = F.unfold(xp, kernel_size=kernels, stride=strides)  # [N, ck, L]
+    n, ck, _ = cols.shape
+    return {"Out": [cols.transpose(1, 2).reshape(-1, ck)]}
+
+
+@register_op("row_conv")
+def row_conv(ctx, ins, attrs):
+    """Lookahead row convolution over [batch, time, dim]: out[t] = sum_i
+    x[t + i] * Filter[i], steps past T read as zeros.  Like the JAX
+    emitter it reads a sequence's padded steps past its length (ROADMAP
+    Queue C)."""
+    x = ins["X"][0]
+    w = ins["Filter"][0]
+    ctx_len = w.shape[0]
+    t = x.shape[1]
+    pad = F.pad(x, (0, 0, 0, ctx_len - 1))
+    out = sum(pad[:, i:i + t] * w[i] for i in range(ctx_len))
+    return {"Out": [out]}

@@ -44,6 +44,10 @@ class OpInfo:
     # run: a captured step loop would replay one step's draws K times, so
     # framework/step_loop.safety_report keeps such a block eager
     draws_rng: bool = False
+    # output slots the desc declares and the emitter never writes (the
+    # reference's warpctc WarpCTCGrad): the executor binds nothing to
+    # them and hands a generic_grad of the op None in their place
+    unwritten_outputs: tuple = ()
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -70,6 +74,16 @@ def get_op_info(type: str) -> OpInfo:
             f"(registered: {sorted(_REGISTRY)})"
         )
     return _REGISTRY[type]
+
+
+def unbound_slots(op) -> tuple:
+    """The input slots of `op` that name an output no emitter writes: a
+    ``generic_grad``'s copies of its forward op's ``unwritten_outputs``
+    and their cotangents."""
+    if op.type != "generic_grad":
+        return ()
+    slots = get_op_info(op.attrs["__fwd_type__"]).unwritten_outputs
+    return tuple(slots) + tuple(s + GRAD_SUFFIX for s in slots)
 
 
 def has_op(type: str) -> bool:

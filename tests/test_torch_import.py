@@ -75,6 +75,15 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.ops.crf_ops\n"
         "import paddle_tpu_torch.evaluator\n"
         "import paddle_tpu_torch.dataset.conll05\n"
+        "import paddle_tpu_torch.v1\n"
+        "import paddle_tpu_torch.v1.trainer\n"
+        "import paddle_tpu_torch.v1.evaluators\n"
+        "import paddle_tpu_torch.trainer\n"
+        "import paddle_tpu_torch.trainer.PyDataProvider2\n"
+        "import paddle_tpu_torch.trainer.config_parser\n"
+        "import paddle_tpu_torch.cli\n"
+        "import paddle_tpu_torch.ops.ctc_ops\n"
+        "import paddle_tpu_torch.ops.detection_ops\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -131,7 +140,23 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("models", "standing.py"),
             os.path.join("models", "zoo_bench.py"),
             os.path.join("ops", "crf_ops.py"), "evaluator.py",
-            os.path.join("dataset", "conll05.py")} <= scanned
+            os.path.join("dataset", "conll05.py"),
+            os.path.join("v1", "__init__.py"),
+            os.path.join("v1", "activations.py"),
+            os.path.join("v1", "attrs.py"),
+            os.path.join("v1", "data_provider.py"),
+            os.path.join("v1", "evaluators.py"),
+            os.path.join("v1", "layers.py"),
+            os.path.join("v1", "networks.py"),
+            os.path.join("v1", "optimizers.py"),
+            os.path.join("v1", "poolings.py"),
+            os.path.join("v1", "trainer.py"),
+            os.path.join("trainer", "__init__.py"),
+            os.path.join("trainer", "PyDataProvider2.py"),
+            os.path.join("trainer", "config_parser.py"),
+            "cli.py", "__main__.py",
+            os.path.join("ops", "ctc_ops.py"),
+            os.path.join("ops", "detection_ops.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():
@@ -173,4 +198,4 @@ def test_unregistered_op_raises_key_error():
     from paddle_tpu_torch.ops.registry import get_op_info
 
     with pytest.raises(KeyError, match="no torch emitter"):
-        get_op_info("warpctc")
+        get_op_info("hsigmoid")
