@@ -398,14 +398,41 @@ non-zero and no result line is printed):
     card- and CPU-made ``detection_output`` slates, equal; then K7-K10 at
     the shapes of these paths, against their plain versions and timed as
     in 35;
-38. summary.
+38. the replica router and the analysis tier: (a) the dispatch overhead
+    the cost model prices for the card (``analysis/cost.py``
+    DEFAULT_DISPATCH_OVERHEAD_S), measured as the mean host time of 200
+    replays of a one-op program at K = 2, each ending in its fetch; (b)
+    the full-width GPT (as 4) serves the 16 requests of 4 through one
+    wide v2 engine (8 slots, as 7) and through a ``ReplicaRouter`` over
+    two v2 replicas of 4 and 2 slots, each with a pool for every slot at
+    max_len: every request finishes, the router's tokens equal the wide
+    engine's but for one near tie (5's rule), no page leaks in either
+    replica, the router's pending tokens return to 0, request 0 lands on
+    the argmin of (prompt + max_new) x the analyzer's token cost, and
+    K2 = 8 x (mixed + decode steps), K3 = 8 x mixed steps summed over the
+    replicas, K1 = 0; wall, TTFT p50 and output tok/s both ways; then
+    each replica built alone and run alone on the requests the router
+    placed on it: its ``hbm_report()["total_peak_bytes"]`` (weights
+    included) beside the growth of ``torch.cuda.max_memory_allocated``
+    plus the weights, which are resident before the replica is built,
+    and ``program_cost``'s predicted decode step beside the device time
+    of one decode step (its last decode feed replayed by ``time_ms``);
+    no bound is set on these; (c)
+    ``verify_program`` and ``Executor.run(verify=True)`` on the
+    full-width GPT training program (f32, 2 x 256): no error, then one
+    step (K4 16, K5 8, K6 8), and ``python -m paddle_tpu_torch lint`` on
+    its forward saved as an inference model exits 0; (d)
+    ``loop_parity_report`` on the card (K = 1, 2, 4; three dispatches a
+    case): every K > 1 case replays a captured graph, and its losses and
+    written state equal the sequential steps' to the bit;
+39. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
-{...}}`` summary (all 15 kernels) and the last line is ``{"ok": true,
-"device": {...}}``.  Without CUDA the script exits 2 and prints no
-result.
+{...}, "router": {...}}`` summary (all 15 kernels) and the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -6397,7 +6424,297 @@ def ctc_detection_phase(dev, card_name, smi):
     return {"ops": ops, "parity": parity, "bench": bench, "map": maps}
 
 
-# -- 38. summary --------------------------------------------------------------
+# -- 38. the replica router and the analysis tier ----------------------------
+
+# the router's replicas: (slots) each, with a pool for every slot at max_len
+ROUTER_SLOTS = (4, 2)
+DISPATCH_TIMED = 200  # replays timed for the dispatch overhead
+
+
+def dispatch_overhead_s():
+    """Host seconds one Executor.run dispatch costs beyond its device
+    work: a one-op program (a [1] feed scaled) at K = 2, whose dispatches
+    after the capture replay one CUDA graph, each ending in its fetch's
+    host copy; the mean over DISPATCH_TIMED replays."""
+    card = fluid.CUDAPlace(0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("dispatch.x", shape=[1], dtype="float32",
+                              append_batch_size=False)
+        y = fluid.layers.scale(x, scale=2.0)
+    exe = fluid.Executor(card)
+    feed = {"dispatch.x": np.ones((2, 1), np.float32)}
+    for _ in range(3):  # eager, capture, first replay
+        exe.run(main, feed=feed, fetch_list=[y], steps_per_dispatch=2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(DISPATCH_TIMED):
+        out = exe.run(main, feed=feed, fetch_list=[y], steps_per_dispatch=2)
+    secs = (time.monotonic() - t0) / DISPATCH_TIMED
+    exe.close()
+    if not np.allclose(out[0], 2.0):
+        raise AssertionError(f"dispatch probe computed {out[0]}")
+    return secs
+
+
+def router_engine(lm, card, i):
+    """Replica `i` of the router: a v2 engine of ROUTER_SLOTS[i] slots
+    over the global scope's weights, with a right-sized pool."""
+    n = ROUTER_SLOTS[i]
+    return ServingEngine(lm, max_batch_size=n, page_size=PAGE, place=card,
+                         num_pages=n * pages_needed(MAX_LEN, PAGE) + 1,
+                         name=f"replica{i}_{n}slots", **V2)
+
+
+def drop_pools(eng):
+    """Free `eng`'s K/V pools, which the engine keeps in the global
+    scope (they outlive the engine object)."""
+    scope = fluid.global_scope()
+    for s in ("k", "v"):
+        scope._vars.pop(f"{eng._cache_name}.{s}", None)
+
+
+def leak_free(eng):
+    eng.cache.prefix.clear()
+    if eng.cache.allocator.available() != eng.num_pages - 1:
+        raise AssertionError(f"{eng.name}: page leak: "
+                             f"{eng.stats()['page_stats']}")
+
+
+def decode_device_ms(eng, prompts):
+    """Device ms of one decode step of `eng`'s program: the feed of its
+    last decode step, recorded while it serves `prompts`, moved to the
+    card once and replayed by ``time_ms`` without a host sync."""
+    seen = {}
+    run = eng._run
+
+    def record(prog, feed, fetch, counter, mark):
+        if mark == "serve.decode":
+            seen.update(prog=prog, feed=feed, fetch=fetch)
+        return run(prog, feed, fetch, counter, mark)
+
+    eng._run = record
+    for p in prompts:
+        eng.submit(p, MAX_NEW)
+    eng.run()
+    del eng._run
+    leak_free(eng)
+    if not seen:
+        raise AssertionError(f"{eng.name} ran no decode step")
+    feed = {k: torch.as_tensor(np.asarray(v)).to(eng._exe.device)
+            for k, v in seen["feed"].items()}
+    return time_ms(lambda: eng._exe.run(
+        seen["prog"], feed=feed, fetch_list=seen["fetch"],
+        scope=eng._scope, return_numpy=False))
+
+
+def router_serve_phase(card_name, smi):
+    """The prompts through one wide v2 engine and through a ReplicaRouter
+    over two narrower ones (serve_bench's router mode)."""
+    from paddle_tpu_torch.analysis import cost as acost
+    from paddle_tpu_torch.serving import ReplicaRouter
+
+    card = fluid.CUDAPlace(0)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    lm = gpt_bench.build(card, seed=SEED)
+    scope = fluid.global_scope()
+    prompts = gpt_bench.prompts(N_REQ, seed=SEED)
+    serve(lm, prompts, card, **V2)  # warm-up
+    (wide_tok, wide_reqs, wide, wide_wall), wide_launch = counted(
+        lambda: serve(lm, prompts, card, **V2))
+    check_launches("v2_wide", wide_launch, v2_want(wide.stats()))
+    wide_row = serve_row("v2", prompts, wide_tok, wide_reqs, wide,
+                         wide_wall, wide_launch)
+
+    engines = [router_engine(lm, card, i) for i in range(len(ROUTER_SLOTS))]
+    router = ReplicaRouter(engines)
+    want_first = min(range(len(engines)), key=lambda i: (
+        (len(prompts[0]) + MAX_NEW) * router.token_cost_s[i], i))
+
+    def route():
+        t0 = time.monotonic()
+        rids = [router.submit(p, MAX_NEW, arrival=t0) for p in prompts]
+        fin = router.run()
+        return rids, fin, time.monotonic() - t0
+
+    (rids, fin, wall), launches = counted(route)
+    if sorted(fin) != sorted(rids):
+        raise AssertionError("router: not every request finished")
+    if any(len(fin[r].generated) != MAX_NEW for r in rids):
+        raise AssertionError("router: a request finished short of max_new")
+    first = router.replica_of(rids[0])
+    if first != want_first:
+        raise AssertionError(f"router placed request 0 on replica {first}, "
+                             f"the analyzer's argmin is {want_first}")
+    st = router.stats()
+    if any(st["pending_tokens"]):
+        raise AssertionError(f"router pending tokens {st['pending_tokens']}")
+    for e in engines:
+        leak_free(e)
+    want = {k: sum(v2_want(e.stats())[k] for e in engines)
+            for k in ("flash_attention", "paged_attention",
+                      "paged_attention_mq")}
+    check_launches("router", launches, want)
+    tokens = [fin[r].generated for r in rids]
+    reqs = [fin[r] for r in rids]
+    ttft = sorted(r.first_token_t - r.arrival for r in reqs)
+    gap_scope = cpu_scope(lm, [scope.find_np(p.name) for p in lm._params])
+    agreement = agree("router_vs_wide", lm, gap_scope, prompts, wide_tok,
+                      tokens)
+
+    # static memory report of each replica beside its measured growth,
+    # each replica built alone and run alone on the requests the router
+    # placed on it; then the device time of one decode step beside the
+    # cost model's
+    placed = [[p for r, p in zip(rids, prompts)
+               if router.replica_of(r) == i] for i in range(len(engines))]
+    router_stats = [e.stats() for e in engines]
+    step_cost_s = list(router.step_cost_s)
+    for e in engines:
+        drop_pools(e)
+    del router, engines[:]
+    # the weights are resident before a replica is built, so they are in
+    # hbm_report's static peak and not in the measured growth
+    weights = sum(scope.find(p.name).numel()
+                  * scope.find(p.name).element_size() for p in lm._params)
+    replicas = []
+    for i, n in enumerate(ROUTER_SLOTS):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = router_engine(lm, card, i)
+        for p in placed[i]:
+            eng.submit(p, MAX_NEW)
+        eng.run()
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        leak_free(eng)
+        hbm = eng.hbm_report()
+        static = hbm["total_peak_bytes"]
+        cost = acost.program_cost(eng.programs()["decode"],
+                                  batch_size=eng.num_slots)
+        replicas.append({
+            "name": eng.name, "slots": n, "num_pages": eng.num_pages,
+            "placements": st["placements"][i],
+            "step_cost_s": step_cost_s[i],
+            "hbm_report_total_peak_bytes": static,
+            "hbm_report_kv_pool_bytes": hbm["kv_pool_bytes"],
+            "weights_bytes": weights,
+            "measured_peak_growth_bytes": grown,
+            "static_over_measured_plus_weights": static / (grown + weights),
+            "predicted_decode_step_ms": cost["predicted_step_time_s"] * 1e3,
+            "predicted_bound": cost["predicted_bound"],
+            "measured_decode_step_device_ms": decode_device_ms(
+                eng, placed[i] or prompts[:1]),
+            **{k: router_stats[i][k] for k in (
+                "mixed_steps", "decode_steps", "prefill_computed",
+                "prefill_cached", "preemptions")}})
+        drop_pools(eng)
+        del eng
+    row = {"requests": len(prompts), "max_new": MAX_NEW,
+           "replica_slots": list(ROUTER_SLOTS), "wall_s": wall,
+           "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+           "output_tok_s": sum(len(t) for t in tokens) / wall,
+           "placements": st["placements"], "first_placement": first,
+           "launches": launches, "agreement": {
+               k: agreement[k] for k in ("identical", "of", "parted")},
+           "replicas": replicas}
+    wide_keys = ("wall_s", "ttft_p50_ms", "output_tok_s", "mixed_steps",
+                 "decode_steps", "launches")
+    wide_out = {k: wide_row[k] for k in wide_keys}
+    wide_out.update(slots=SLOTS, hbm_report_total_peak_bytes=wide.hbm_report()[
+        "total_peak_bytes"])
+    log("router_serve", {"card": card_name, "nvidia_smi": smi, "wide": wide_out,
+                         "router": row})
+    return {"wide": wide_out, "router": row}
+
+
+def verify_lint_phase():
+    """``Executor.run(verify=True)`` on the full-width GPT training program
+    (f32, batch 2 x 256), then one training step; the forward saved as an
+    inference model and linted by ``python -m paddle_tpu_torch lint``."""
+    from paddle_tpu_torch.analysis import verify_program
+
+    card = fluid.CUDAPlace(0)
+    loss, main, startup = train_program(PARITY_SEQ, "float32")
+    t0 = time.monotonic()
+    report = verify_program(main, feed_names=["targets", "tokens"],
+                            fetch_names=[loss.name])
+    verify_s = time.monotonic() - t0
+    if report.errors:
+        raise AssertionError(f"verifier: {report.render()}")
+    exe = fluid.Executor(card)
+    exe.run(startup)
+    (lval,), launches = counted(lambda: exe.run(
+        main, feed=train_batch(PARITY_BS, PARITY_SEQ), fetch_list=[loss],
+        verify=True))
+    check_launches("verify_train_step", launches, per_step_want())
+    if not np.isfinite(lval).all():
+        raise AssertionError(f"verified step's loss {lval}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fluid.io.save_inference_model(tmp, ["tokens", "targets"], [loss], exe,
+                                      main_program=main)
+        t0 = time.monotonic()
+        lint = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "lint", tmp],
+            capture_output=True, text=True, timeout=300)
+        lint_s = time.monotonic() - t0
+    if lint.returncode != 0:
+        raise AssertionError(f"lint exited {lint.returncode}: "
+                             f"{lint.stdout}{lint.stderr}")
+    res = {"ops": report.stats["ops"], "errors": len(report.errors),
+           "warnings": len(report.warnings), "findings": len(report),
+           "verify_s": verify_s, "loss": float(lval[0]),
+           "launches": launches, "lint_rc": lint.returncode,
+           "lint_last_line": lint.stdout.strip().splitlines()[-1],
+           "lint_s": lint_s}
+    log("verify_lint", res)
+    fluid.reset()
+    return res
+
+
+def loop_parity_phase():
+    """``analysis.equivalence.loop_parity_report`` on the card: each K > 1
+    case's fused side replays a captured graph, bitwise equal to the
+    sequential steps."""
+    from paddle_tpu_torch.analysis import equivalence
+
+    fluid.reset()
+    t0 = time.monotonic()
+    rep = equivalence.loop_parity_report(ks=(1, 2, 4), batch_size=4)
+    secs = time.monotonic() - t0
+    if rep["verdict"] != "PROVEN":
+        raise AssertionError(f"loop parity: {rep['findings'][:3]}")
+    if any(c["replayed"] != (c["k"] > 1) for c in rep["cases"]):
+        raise AssertionError(f"loop parity replayed {rep['cases']}")
+    res = {"verdict": rep["verdict"], "device": rep["device"],
+           "cases": [{k: c[k] for k in ("model", "k", "dispatches",
+                                        "replayed", "bitwise")}
+                     for c in rep["cases"]], "seconds": secs}
+    log("loop_parity", res)
+    fluid.reset()
+    return res
+
+
+def router_phase(card_name, smi):
+    from paddle_tpu_torch.analysis import cost as acost
+
+    overhead = dispatch_overhead_s()
+    log("dispatch_overhead", {
+        "card": card_name, "nvidia_smi": smi, "measured_s": overhead,
+        "cost_model_s": acost.DEFAULT_DISPATCH_OVERHEAD_S["h100-sxm"]})
+    serve_rows = router_serve_phase(card_name, smi)
+    checks = verify_lint_phase()
+    parity = loop_parity_phase()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    return {"card": card_name, "nvidia_smi": smi,
+            "dispatch_overhead_s": overhead, **serve_rows,
+            "verify_lint": checks, "loop_parity": parity}
+
+
+# -- 39. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -6493,6 +6810,9 @@ def main():
          V1_RNN["hidden"], [V1_RNN["seq_len"]] * V1_RNN["batch_size"]),
         ("gru", CTC_BIG["bs"], ctc["bench"]["T_padded_last"],
          CTC_BIG["hidden"], ctc["bench"]["last_lengths"])])
+    fluid.reset()
+    torch.cuda.empty_cache()
+    router = router_phase(name, smi)
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -6538,7 +6858,11 @@ def main():
                "v1_rnn_test": v1_bench["test_launches"],
                "ctc_small_f32_per_step": ctc["parity"]["launches_per_step"],
                "ctc_f32_per_step": ctc["bench"]["launches_per_step"],
-               "ctc_infer": ctc["bench"]["infer_launches"]}
+               "ctc_infer": ctc["bench"]["infer_launches"],
+               "v2_wide_router_phase": router["wide"]["launches"],
+               "router_two_replicas": router["router"]["launches"],
+               "gpt_verified_train_step_f32":
+                   router["verify_lint"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -6897,7 +7221,8 @@ def main():
                       "train": train_rows, "step_loop": step_loop_rows,
                       "options": options_rows, "generate": generate_rows,
                       "remat_save_load": remat_rows, "zoo": zoo_rows,
-                      "srl": srl_rows, "legacy": legacy_rows}),
+                      "srl": srl_rows, "legacy": legacy_rows,
+                      "router": router}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

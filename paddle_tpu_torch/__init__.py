@@ -72,3 +72,7 @@ def reset():
     from .v1 import reset_v1_config
 
     reset_v1_config()
+    # a fresh trace ring, so a run never reads a previous run's spans
+    from .observability import TRACER
+
+    TRACER.reset()

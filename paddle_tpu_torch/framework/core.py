@@ -221,6 +221,12 @@ class Operator:
         }
         self.attrs: Dict[str, Any] = dict(attrs or {})
 
+    def input(self, slot: str) -> List[str]:
+        return self.inputs.get(slot, [])
+
+    def output(self, slot: str) -> List[str]:
+        return self.outputs.get(slot, [])
+
     def input_names(self) -> List[str]:
         return [n for vs in self.inputs.values() for n in vs]
 

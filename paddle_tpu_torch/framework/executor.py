@@ -25,13 +25,16 @@ that holds grad ops runs with ``is_test`` false.
 graph after a first, eager dispatch; on the CPU, K steps in sequence.
 ``block_id`` picks the block, ``rng_step`` pins the step the random ops'
 generators are seeded with, ``check_nan_inf`` scans every fetch and
-written value for non-finite numbers, and ``verify`` raises: the static
-verifier is not ported (ROADMAP.md Queue A item 8).
+written value for non-finite numbers, and ``verify=True`` (or
+PADDLE_TPU_VERIFY=1 when `verify` is None) runs the static program
+verifier (``analysis/verifier.py``) first: errors raise
+``VerificationError``, warnings are logged, once a program version and
+feed/fetch set.
 """
 
 from __future__ import annotations
 
-import os
+import logging
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -45,6 +48,8 @@ from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
 from .place import Place, default_place
 from .scope import Scope, global_scope, to_numpy
 from . import step_loop
+
+logger = logging.getLogger(__name__)
 
 
 class OpLoweringError(RuntimeError):
@@ -82,20 +87,6 @@ def written(block, feed_names=()) -> list:
     return state_classes(block, feed_names)[2]
 
 
-def _check_verify(verify):
-    """``verify=True``, or PADDLE_TPU_VERIFY=1 when `verify` is None,
-    asks for the static program verifier, which the port lacks: raise
-    rather than run unverified."""
-    if verify is None:
-        verify = os.environ.get("PADDLE_TPU_VERIFY", "") not in ("", "0")
-    if verify:
-        raise NotImplementedError(
-            "Executor.run(verify=...): the static program verifier "
-            "(analysis/verifier.py) is not ported (ROADMAP.md Queue A "
-            "item 8); pass verify=False or unset PADDLE_TPU_VERIFY to run "
-            "unverified")
-
-
 def _stack(per_step, fetch_every, return_numpy):
     """K steps' fetch lists as the fused dispatch returns them."""
     if fetch_every == "last":
@@ -128,6 +119,8 @@ class Executor:
         self._walking = None
         # EmitContext.constants: ops' constants uploaded once, until close()
         self._constants = {}
+        # (program token, version, block, feeds, fetches) verified clean
+        self._verified = set()
 
     @property
     def global_step(self) -> int:
@@ -154,14 +147,23 @@ class Executor:
         fetches come back stacked (K, ...) (``fetch_every="all"``) or the
         last step's only (``"last"``), the written state is the value
         after K steps, and `rng_step`, which otherwise pins this step's
-        generator seed, pins the first step's."""
+        generator seed, pins the first step's.  `verify`: run the static
+        program verifier first (None reads PADDLE_TPU_VERIFY)."""
         if steps_per_dispatch is None:
             steps_per_dispatch = knobs.steps_per_dispatch(default=1,
                                                           store=False)
         k = int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch={k} must be >= 1")
-        _check_verify(verify)
+        if verify is None:
+            from ..analysis.verifier import env_verify_enabled
+
+            verify = env_verify_enabled()
+        if verify:
+            self._verify_program(
+                program if program is not None else default_main_program(),
+                block_id, sorted(feed or {}),
+                [_fetch_name(f) for f in (fetch_list or [])])
         if k > 1:
             return self._run_loop(program, feed, fetch_list, scope,
                                   return_numpy, block_id, rng_step, k,
@@ -195,6 +197,30 @@ class Executor:
         if return_numpy:
             return [to_numpy(fetches[n]) for n in fetch_names]
         return [fetches[n] for n in fetch_names]
+
+    def _verify_program(self, program, block_id, feed_names, fetch_names):
+        """Static pre-execution check: errors raise, warnings are logged.
+        One verification per (program version, feed/fetch set)."""
+        key = (program._cache_token, program._version, block_id,
+               tuple(feed_names), tuple(fetch_names))
+        if key in self._verified:
+            return
+        from ..analysis.verifier import verify_program
+
+        # no fetches this call -> no fetch CONTEXT: [] would make the
+        # dead-op rule treat every unfetched terminal op as dead weight
+        report = verify_program(program, feed_names=feed_names,
+                                fetch_names=fetch_names or None,
+                                block_id=block_id)
+        for f in report.warnings:
+            logger.warning("program verifier: %s", f.format())
+        report.raise_if_errors("Executor.run")
+        # a version bump obsoletes older entries for the same program
+        for old in [k for k in self._verified
+                    if k[0] == program._cache_token
+                    and k[1] != program._version]:
+            self._verified.discard(old)
+        self._verified.add(key)
 
     def _walk(self, block, env, fetch_names, scope, ctx):
         """Run the live ops of `block` in order on `env`, reading from the

@@ -168,11 +168,17 @@ def fuse_batch_norm(program, scope, block_id: int = 0,
                     fetch_names=()) -> int:
     """``InferenceTranspiler().transpile(...)``.  Pass the vars you will
     fetch as `fetch_names`: folds that would change a fetched conv
-    output's value are skipped.  PADDLE_TPU_VERIFY=1, under which the JAX
-    package checks the fold with its program verifier, raises: the
-    verifier is not ported (ROADMAP.md Queue A item 8)."""
-    from .framework.executor import _check_verify
+    output's value are skipped.  Under PADDLE_TPU_VERIFY=1 the fold runs
+    inside its verified-in/verified-out contract
+    (``analysis/contracts.checked_fuse_batch_norm``), which PROVES it
+    preserved semantics: the folded program over the folded scope must
+    reproduce the original program's fetches over a pre-fold scope
+    snapshot on deterministic feeds (the differential oracle; divergence
+    beyond the fold's float tolerance is PTV024)."""
+    from .analysis import contracts
 
-    _check_verify(None)
+    if contracts.should_wrap():
+        return contracts.checked_fuse_batch_norm(program, scope, block_id,
+                                                 fetch_names=fetch_names)
     return InferenceTranspiler().transpile(program, scope, block_id,
                                            fetch_names=fetch_names)

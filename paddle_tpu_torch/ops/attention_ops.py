@@ -496,3 +496,135 @@ def beam_search_generate(ctx, ins, attrs):
         lengths = torch.gather(lengths, 1, beam) + (~fin).to(torch.int32)
         finished = fin | (tokens == eos)
     return {"Ids": [ids], "Scores": [scores], "Lengths": [lengths]}
+
+# ---------------------------------------------------------------------------
+# analytic cost formulas (analysis/cost.py; mechanism in registry.py), the
+# JAX package's own (paddle_tpu/ops/attention_ops.py)
+
+from .registry import register_cost  # noqa: E402
+
+
+def _sdpa_cost(ins, outs, attrs):
+    """4*B*H*T*S*D: the QK^T and PV matmuls (2*B*H*T*S*D each); softmax
+    and masking ride inside the same fused kernel.  Bytes override: the
+    flash path never materializes the [T,S] score matrix, so HBM traffic
+    is the Q/K/V reads plus the output write only."""
+    q = ins.get("Q", [None])[0]
+    k = ins.get("K", [None])[0]
+    if q is None or k is None or len(q.shape) != 4:
+        return {}
+    b, h, t, d = q.shape
+    s = k.shape[2]
+    flops = 4 * b * h * t * s * d
+    if bool(attrs.get("causal", False)):
+        flops //= 2  # masked half of the score matrix is never computed
+    return {"flops": flops}
+
+
+register_cost("scaled_dot_product_attention", _sdpa_cost)
+
+
+def _paged_decode_cost(ins, outs, attrs):
+    """One continuous-batching decode step: per-layer QKV/out projections
+    (8*N*D^2) + MLP (16*N*D^2) + paged attention over the page-table
+    worst case (4*N*H*dh*max_ctx) + the head logits matmul."""
+    emb = ins.get("Emb", [None])[0]
+    kpool = ins.get("KPool", [None])[0]
+    pt = ins.get("PageTable", [None])[0]
+    if emb is None or kpool is None or len(kpool.shape) != 5:
+        return {}
+    vocab, d = emb.shape
+    n_layers, _, n_heads, page, dh = kpool.shape
+    n = pt.shape[0] if pt is not None and len(pt.shape) == 2 else 1
+    max_ctx = (pt.shape[1] * page if pt is not None
+               and len(pt.shape) == 2 else page)
+    per_layer = 24 * n * d * d + 4 * n * n_heads * dh * max_ctx
+    return {"flops": n_layers * per_layer + 2 * n * d * vocab}
+
+
+register_cost("paged_decode_step", _paged_decode_cost)
+
+
+def _paged_prefill_cost(ins, outs, attrs):
+    """Bucket-padded prompt forward: tower matmuls (24*N*T*D^2 per layer)
+    + causal attention (2*N*H*T^2*dh per layer) + head logits."""
+    tokens = ins.get("Tokens", [None])[0]  # [N, P, 1] bucket-padded
+    emb = ins.get("Emb", [None])[0]
+    kpool = ins.get("KPool", [None])[0]
+    if tokens is None or emb is None or kpool is None \
+            or len(kpool.shape) != 5:
+        return {}
+    n = tokens.shape[0] if len(tokens.shape) >= 1 else 1
+    t = tokens.shape[1] if len(tokens.shape) >= 2 else 1
+    vocab, d = emb.shape
+    n_layers, _, n_heads, _, dh = kpool.shape
+    per_layer = 24 * n * t * d * d + 2 * n * n_heads * t * t * dh
+    return {"flops": n_layers * per_layer + 2 * n * d * vocab}
+
+
+register_cost("paged_prefill", _paged_prefill_cost)
+
+
+def _paged_prefill_chunk_cost(ins, outs, attrs):
+    """Chunk forward: tower matmuls (24*K*C*D^2 per layer) + attention of
+    C queries against the page-table window (4*K*H*C*max_ctx*dh per
+    layer) + head logits on the last position."""
+    tokens = ins.get("Tokens", [None])[0]  # [K, C, 1]
+    emb = ins.get("Emb", [None])[0]
+    kpool = ins.get("KPool", [None])[0]
+    pt = ins.get("PageTable", [None])[0]
+    if tokens is None or emb is None or kpool is None \
+            or len(kpool.shape) != 5:
+        return {}
+    k = tokens.shape[0] if len(tokens.shape) >= 1 else 1
+    c = tokens.shape[1] if len(tokens.shape) >= 2 else 1
+    vocab, d = emb.shape
+    n_layers, _, n_heads, page, dh = kpool.shape
+    max_ctx = (pt.shape[1] * page if pt is not None
+               and len(pt.shape) == 2 else page)
+    per_layer = 24 * k * c * d * d + 4 * k * n_heads * c * max_ctx * dh
+    return {"flops": n_layers * per_layer + 2 * k * d * vocab}
+
+
+register_cost("paged_prefill_chunk", _paged_prefill_chunk_cost)
+
+
+def _paged_spec_draft_cost(ins, outs, attrs):
+    """k_steps chained decode steps over the DRAFT depth: the layer
+    count is len(WQ) (the truncated tower), NOT KPool's layer dim (the
+    target's pools are fed in but only the draft prefix is touched)."""
+    emb = ins.get("Emb", [None])[0]
+    kpool = ins.get("KPool", [None])[0]
+    pt = ins.get("PageTable", [None])[0]
+    wq = ins.get("WQ", [])
+    if emb is None or kpool is None or len(kpool.shape) != 5 or not wq:
+        return {}
+    vocab, d = emb.shape
+    _, _, n_heads, page, dh = kpool.shape
+    n_layers = len(wq)
+    n = pt.shape[0] if pt is not None and len(pt.shape) == 2 else 1
+    max_ctx = (pt.shape[1] * page if pt is not None
+               and len(pt.shape) == 2 else page)
+    k_steps = int(attrs.get("k_steps", 1))
+    per_layer = 24 * n * d * d + 4 * n * n_heads * dh * max_ctx
+    return {"flops": k_steps * (n_layers * per_layer + 2 * n * d * vocab)}
+
+
+register_cost("paged_spec_draft", _paged_spec_draft_cost)
+
+
+def _paged_page_copy_cost(ins, outs, attrs):
+    """Pure data movement: M pages × both pools × every layer, read +
+    write.  FLOPs ~0; the bytes override keeps the roofline honest."""
+    kpool = ins.get("KPool", [None])[0]
+    src = ins.get("Src", [None])[0]
+    if kpool is None or len(kpool.shape) != 5 or src is None:
+        return {}
+    m = src.shape[0] if len(src.shape) >= 1 else 1
+    n_layers, _, n_heads, page, dh = kpool.shape
+    from ..analysis.memory import dtype_bytes
+    page_bytes = n_layers * n_heads * page * dh * dtype_bytes(kpool.dtype)
+    return {"flops": 0, "bytes": 2 * 2 * m * page_bytes}
+
+
+register_cost("paged_page_copy", _paged_page_copy_cost)

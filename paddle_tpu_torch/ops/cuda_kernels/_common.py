@@ -61,6 +61,11 @@ _SIGNATURES = {
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# devices whose tensors take a kernel's plain version: the CPU, and the
+# meta device of the analysis tier's shape oracle (shapes only: nothing
+# is computed there); a CUDA tensor launches the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
 _lib = None
 _lock = threading.Lock()
 

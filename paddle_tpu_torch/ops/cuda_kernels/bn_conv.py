@@ -110,7 +110,7 @@ def bn_conv3x3_fwd(x, gamma, beta, mean, var, w_hwio, r=None, act="relu",
                    eps=1e-5, stride=1):
     """K13: x [N,H,W,K] → [N,Ho,Wo,O]."""
     N, H, W, K, O, Ho, Wo = _geometry("bn_conv3x3_fwd", x, w_hwio, stride)
-    if x.device.type == "cpu":
+    if x.device.type in _common.PLAIN_DEVICES:
         return bn_conv3x3_fwd_ref(x, gamma, beta, mean, var, w_hwio, r, act,
                                   eps, stride)
     _check("bn_conv3x3_fwd", x, w_hwio, r, (gamma, beta, mean, var), N, H,
@@ -137,7 +137,7 @@ def bn_conv3x3_fwd_v2(x, gamma, beta, mean, var, w_hwio, r=None, act="relu",
     output channels (walked 128 at a time; 64 when O is 64)."""
     N, H, W, K, O, Ho, Wo = _geometry("bn_conv3x3_fwd_v2", x, w_hwio,
                                       stride)
-    if x.device.type == "cpu":
+    if x.device.type in _common.PLAIN_DEVICES:
         return bn_conv3x3_fwd_ref(x, gamma, beta, mean, var, w_hwio, r, act,
                                   eps, stride)
     _check("bn_conv3x3_fwd_v2", x, w_hwio, r, (gamma, beta, mean, var), N,
@@ -165,7 +165,7 @@ def bn_conv3x3_bwd(x, gamma, beta, mean, var, w_hwio, do, r=None,
     if tuple(do.shape) != (N, Ho, Wo, O):
         raise ValueError(f"bn_conv3x3_bwd: dO {tuple(do.shape)} is not "
                          f"[{N}, {Ho}, {Wo}, {O}]")
-    if x.device.type == "cpu":
+    if x.device.type in _common.PLAIN_DEVICES:
         return bn_conv3x3_bwd_ref(x, gamma, beta, mean, var, w_hwio, do, r,
                                   act, eps, stride)
     _check("bn_conv3x3_bwd", x, w_hwio, r, (gamma, beta, mean, var), N, H,

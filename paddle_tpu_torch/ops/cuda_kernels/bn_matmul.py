@@ -167,7 +167,7 @@ def bn_matmul_fwd(x, gamma, beta, mean, var, w, r=None, act="relu",
     N = w.shape[1]
     if tuple(w.shape) != (K, N):
         raise ValueError(f"bn_matmul_fwd: w {tuple(w.shape)} is not [{K}, N]")
-    if x.device.type == "cpu":
+    if x.device.type in _common.PLAIN_DEVICES:
         return bn_matmul_fwd_ref(x, gamma, beta, mean, var, w, r, act, eps)
     if x.device.type != "cuda":
         raise ValueError(f"bn_matmul_fwd: no kernel for {x.device}")
@@ -192,7 +192,7 @@ def bn_matmul_bwd(x, gamma, beta, mean, var, w, do, r=None, act="relu",
     if tuple(w.shape) != (K, N) or tuple(do.shape) != (M, N):
         raise ValueError(f"bn_matmul_bwd: w {tuple(w.shape)}, dO "
                          f"{tuple(do.shape)} do not fit x [{M}, {K}]")
-    if x.device.type == "cpu":
+    if x.device.type in _common.PLAIN_DEVICES:
         return bn_matmul_bwd_ref(x, gamma, beta, mean, var, w, do, r, act,
                                  eps)
     if x.device.type != "cuda":

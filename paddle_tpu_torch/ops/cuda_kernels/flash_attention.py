@@ -162,7 +162,7 @@ def _fwd_launch(name, q, k, v, causal, scale, with_lse):
 
 def flash_attention(q, k, v, causal: bool = True, scale=None):
     """K1: q, k, v [B, H, T, D] → [B, H, T, D]."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return flash_attention_ref(q, k, v, causal, scale)
     out, _ = _fwd_launch("flash_attention", q, k, v, causal, scale, False)
     flash_attention.launches += 1
@@ -171,7 +171,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
 
 def flash_attention_fwd(q, k, v, causal: bool = True, scale=None):
     """K4: (out [B,H,T,D], lse [B·H, T] f32), the training forward."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return flash_attention_fwd_ref(q, k, v, causal, scale)
     out, lse = _fwd_launch("flash_attention_fwd", q, k, v, causal, scale,
                            True)
@@ -181,7 +181,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale=None):
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal=True, scale=None):
     """K5: dQ [B,H,T,D] in q's dtype from the saved lse and δ."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return flash_attention_dq_ref(q, k, v, do, lse, delta, causal, scale)
     q, k, v, do = _check("flash_attention_dq", q, k, v, do)
     B, H, T, D = q.shape
@@ -197,7 +197,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=True, scale=None):
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
     """K6: (dK, dV) [B,H,T,D] from the saved lse and δ."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, causal,
                                        scale)
     q, k, v, do = _check("flash_attention_dkv", q, k, v, do)
@@ -217,7 +217,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale=None):
     """(dq, dk, dv): δ = rowsum(O∘dO) in f32 (a torch op, as the JAX
     package computes it outside its kernels), then K5 and K6."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, scale)
     do = do.to(q.dtype)
     delta = _delta(o, do)

@@ -162,7 +162,7 @@ def gru_forward(x_proj, h0, w, lengths):
     B, T, H = check_inputs("gru_forward", 3, x_proj, w, lengths, h0)
     if B == 0 or T == 0:
         return x_proj.new_empty(B, T, H), h0.clone()
-    if x_proj.device.type == "cpu":
+    if x_proj.device.type in _common.PLAIN_DEVICES:
         return gru_forward_ref(x_proj, h0, w, lengths)
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru_forward: no kernel for {x_proj.device}")
@@ -197,7 +197,7 @@ def gru_backward(x_proj, h0, w, lengths, hs, dhs):
     if B == 0 or T == 0:
         return (torch.zeros_like(x_proj), torch.zeros_like(h0),
                 torch.zeros_like(w))
-    if x_proj.device.type == "cpu":
+    if x_proj.device.type in _common.PLAIN_DEVICES:
         return gru_backward_ref(x_proj, h0, w, lengths, hs, dhs)
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru_backward: no kernel for {x_proj.device}")

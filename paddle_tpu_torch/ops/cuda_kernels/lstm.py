@@ -151,7 +151,7 @@ def lstm_forward(x_proj, h0, c0, w, lengths):
     B, T, H = check_inputs("lstm_forward", 4, x_proj, w, lengths, h0, c0)
     if B == 0 or T == 0:
         return _empty_forward(x_proj, h0, c0, B, T, H)
-    if x_proj.device.type == "cpu":
+    if x_proj.device.type in _common.PLAIN_DEVICES:
         return lstm_forward_ref(x_proj, h0, c0, w, lengths)
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_forward: no kernel for {x_proj.device}")
@@ -186,7 +186,7 @@ def lstm_backward(x_proj, h0, c0, w, lengths, hs, cs, dhs, dcs):
     if B == 0 or T == 0:
         return (torch.zeros_like(x_proj), torch.zeros_like(h0),
                 torch.zeros_like(c0), torch.zeros_like(w))
-    if x_proj.device.type == "cpu":
+    if x_proj.device.type in _common.PLAIN_DEVICES:
         return lstm_backward_ref(x_proj, h0, c0, w, lengths, hs, cs, dhs,
                                  dcs)
     if x_proj.device.type != "cuda":

@@ -151,7 +151,7 @@ def _i32(t, device):
 def paged_attention(q, k_pages, v_pages, page_table, ctx_lens, scale=None):
     """See the module docstring.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return paged_attention_ref(q, k_pages, v_pages, page_table, ctx_lens,
                                    scale)
     if q.device.type != "cuda":
@@ -181,7 +181,7 @@ def paged_attention_mq(q, k_pages, v_pages, page_table, ctx_lens, q_starts,
                        scale=None):
     """See the module docstring.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
-    if q.device.type == "cpu":
+    if q.device.type in _common.PLAIN_DEVICES:
         return paged_attention_mq_ref(q, k_pages, v_pages, page_table,
                                       ctx_lens, q_starts, scale)
     if q.device.type != "cuda":

@@ -185,3 +185,45 @@ def clip_by_norm(ctx, ins, attrs):
 def squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.sum(x * x).reshape(1)]}
+
+# analytic cost formulas (analysis/cost.py; mechanism in registry.py)
+
+from .registry import register_cost  # noqa: E402
+
+
+def _mul_cost(ins, outs, attrs):
+    """2*M*K*N for the flattening matmul: X 2-D at x_num_col_dims, Y at
+    y_num_col_dims — the MXU op every fc/attention projection lowers to."""
+    x = ins.get("X", [None])[0]
+    y = ins.get("Y", [None])[0]
+    if x is None or y is None:
+        return {}
+    xnc = int(attrs.get("x_num_col_dims", 1))
+    ync = int(attrs.get("y_num_col_dims", 1))
+    m = k = n = 1
+    for s in x.shape[:xnc]:
+        m *= s
+    for s in x.shape[xnc:]:
+        k *= s
+    for s in y.shape[ync:]:
+        n *= s
+    return {"flops": 2 * m * k * n}
+
+
+register_cost("mul", _mul_cost)
+
+
+def _matmul_cost(ins, outs, attrs):
+    """2 * out_elements * K; K is x's contraction dim after transpose."""
+    x = ins.get("X", [None])[0]
+    out = outs.get("Out", [None])[0]
+    if x is None or out is None or len(x.shape) < 1:
+        return {}
+    if len(x.shape) == 1:
+        k = x.shape[0]
+    else:
+        k = x.shape[-2] if attrs.get("transpose_X") else x.shape[-1]
+    return {"flops": 2 * out.size * k}
+
+
+register_cost("matmul", _matmul_cost)

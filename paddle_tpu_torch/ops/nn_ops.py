@@ -284,3 +284,28 @@ def row_conv(ctx, ins, attrs):
     pad = F.pad(x, (0, 0, 0, ctx_len - 1))
     out = sum(pad[:, i:i + t] * w[i] for i in range(ctx_len))
     return {"Out": [out]}
+
+# analytic cost formulas (analysis/cost.py; mechanism in registry.py)
+
+from .registry import register_cost  # noqa: E402
+
+
+def _conv_cost(ins, outs, attrs):
+    """2 * out_elements * (kernel_spatial * C_in / groups) MACs-as-flops —
+    the standard conv roofline numerator, any spatial rank.  Filter layout
+    is OIHW(D) (transpose convs keep I first; the product is the same)."""
+    w = ins.get("Filter", [None])[0]
+    out = outs.get("Output", outs.get("Out", [None]))[0]
+    if w is None or out is None or len(w.shape) < 3:
+        return {}
+    k_spatial = 1
+    for s in w.shape[2:]:
+        k_spatial *= s
+    cin_per_group = w.shape[1]  # OIHW: dim 1 is already C_in/groups
+    return {"flops": 2 * out.size * k_spatial * cin_per_group}
+
+
+# depthwise_conv2d, conv3d and conv3d_transpose take the same formula
+# when their ops are ported (ROADMAP.md Queue A item 7)
+for _t in ("conv2d", "conv2d_transpose"):
+    register_cost(_t, _conv_cost)

@@ -48,6 +48,12 @@ class OpInfo:
     # reference's warpctc WarpCTCGrad): the executor binds nothing to
     # them and hands a generic_grad of the op None in their place
     unwritten_outputs: tuple = ()
+    # analytic cost formula (analysis/cost.py): fn(ins, outs, attrs) ->
+    # {"flops": int, "bytes": int}, either key optional, where ins/outs
+    # map slot -> [ShapeDtype | None].  None: the analyzer's shape-driven
+    # defaults (one flop per output element, inputs read + outputs
+    # written)
+    cost: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -64,6 +70,45 @@ def register_op(type: str, emit: Callable = None, **kw):
 
     if emit is not None:
         return _do(emit)
+    return _do
+
+
+class ShapeDtype:
+    """Static (shape, dtype) of one op operand, as the cost model sees it:
+    batch dims already bound, dtype a canonical string."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype="float32"):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def __repr__(self):
+        return f"ShapeDtype({self.shape}, {self.dtype})"
+
+
+def register_cost(type: str, fn: Callable = None):
+    """Attach an analytic cost formula to an already-registered op
+    (decorator or direct call); the formula lives beside the emitter in
+    the op's module.  fn(ins, outs, attrs) -> {"flops": int, "bytes":
+    int}, either key optional."""
+
+    def _do(f):
+        info = get_op_info(type)
+        if info.cost is not None:
+            raise ValueError(f"op {type!r} already has a cost formula")
+        info.cost = f
+        return f
+
+    if fn is not None:
+        return _do(fn)
     return _do
 
 
@@ -124,7 +169,10 @@ class EmitContext:
         mixed = np.random.SeedSequence(
             [int(seed), self.step, uid, *(int(f) for f in fold)]
         ).generate_state(2, np.uint32)
-        g = torch.Generator(device=self.device)
+        # a meta-device walk (the analysis tier's shape oracle) draws
+        # nothing: its tensors carry shapes only, so a host generator does
+        g = torch.Generator(device=self.device
+                            if self.device.type != "meta" else "cpu")
         g.manual_seed((int(mixed[0]) << 31) ^ int(mixed[1]))
         return g
 
@@ -234,3 +282,29 @@ def _generic_grad_emit(ctx, ins, attrs):
 
 
 register_op("generic_grad", _generic_grad_emit, grad=None)
+
+
+def _generic_grad_cost(ins, outs, attrs):
+    """Backward ≈ 2x the forward's FLOPs (the dL/dX and dL/dW products of
+    every matmul/conv); a remat-marked grad op re-runs its forward first,
+    so __remat__ adds one more forward."""
+    info = _REGISTRY.get(attrs.get("__fwd_type__", ""))
+    fwd_ins = {s: ins.get(s, [])
+               for s in attrs.get("__fwd_input_slots__", ())}
+    fwd_outs = {s: ins.get(s, [])
+                for s in attrs.get("__fwd_output_slots__", ())}
+    fwd_flops = None
+    if info is not None and info.cost is not None:
+        try:
+            fwd_flops = info.cost(fwd_ins, fwd_outs,
+                                  attrs.get("__fwd_attrs__", {})).get("flops")
+        except (TypeError, ValueError, IndexError, AttributeError):
+            fwd_flops = None
+    if fwd_flops is None:
+        fwd_flops = sum(v.size for vs in fwd_outs.values()
+                        for v in vs if v is not None)
+    mult = 3 if attrs.get("__remat__") else 2
+    return {"flops": mult * int(fwd_flops)}
+
+
+register_cost("generic_grad", _generic_grad_cost)

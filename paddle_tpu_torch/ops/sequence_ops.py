@@ -435,3 +435,36 @@ def lod_reset(ctx, ins, attrs):
         new_len = torch.tensor(attrs["target_lengths"], dtype=torch.int32,
                                device=x.device)
     return {"Out": [x], "LengthOut": [new_len]}
+
+# analytic cost formulas (analysis/cost.py; mechanism in registry.py)
+
+from .registry import register_cost  # noqa: E402
+
+
+def _lstm_cost(ins, outs, attrs):
+    """Recurrent gate matmuls: T steps of [B,H]x[H,4H] = 8*B*T*H^2 (the
+    input projection happened in the preceding fc/mul op)."""
+    x = ins.get("Input", [None])[0]
+    w = ins.get("Weight", [None])[0]
+    if x is None or w is None or len(x.shape) != 3:
+        return {}
+    b, t, _ = x.shape
+    h = w.shape[0]
+    return {"flops": 8 * b * t * h * h}
+
+
+register_cost("lstm", _lstm_cost)
+
+
+def _gru_cost(ins, outs, attrs):
+    """T steps of [B,H]x[H,3H] = 6*B*T*H^2."""
+    x = ins.get("Input", [None])[0]
+    w = ins.get("Weight", [None])[0]
+    if x is None or w is None or len(x.shape) != 3:
+        return {}
+    b, t, _ = x.shape
+    h = w.shape[0]
+    return {"flops": 6 * b * t * h * h}
+
+
+register_cost("gru", _gru_cost)

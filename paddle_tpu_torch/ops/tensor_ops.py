@@ -270,3 +270,24 @@ def pruning_mask(ctx, ins, attrs):
     mask = torch.zeros(n, dtype=torch.float32, device=x.device)
     mask[order[k:]] = 1.0
     return {"Out": [mask.reshape(x.shape)]}
+
+# analytic cost formula (analysis/cost.py; mechanism in registry.py)
+
+from .registry import register_cost  # noqa: E402
+
+
+def _lookup_table_cost(ins, outs, attrs):
+    """Bytes override: an embedding gather reads only the B*D selected
+    rows, not the whole table — the generic input-bytes default would
+    charge the full vocab to every lookup and wreck the roofline's
+    arithmetic-intensity denominator.  FLOPs stay ~0 (copy)."""
+    out = outs.get("Out", [None])[0]
+    ids = ins.get("Ids", [None])[0]
+    if out is None:
+        return {}
+    item = 2 if str(out.dtype) == "bfloat16" else 4
+    read = out.size * item + (ids.size * 8 if ids is not None else 0)
+    return {"flops": 0, "bytes": read + out.size * item}
+
+
+register_cost("lookup_table", _lookup_table_cost)

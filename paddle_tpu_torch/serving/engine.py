@@ -565,7 +565,8 @@ class ServingEngine:
         programs = {}
         worst = 0
         for name, prog in self.programs().items():
-            est = amem.peak_estimate(prog, batch_size=self.num_slots)
+            est = amem.peak_estimate(prog, batch_size=self.num_slots,
+                                     infer_shapes=False)
             # pools are persistable vars of every program — already in
             # kv_pool_bytes, so report the non-pool share per program
             share = max(est["total_peak_bytes"] - kv_pool_bytes, 0)

@@ -84,6 +84,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.cli\n"
         "import paddle_tpu_torch.ops.ctc_ops\n"
         "import paddle_tpu_torch.ops.detection_ops\n"
+        "import paddle_tpu_torch.analysis\n"
+        "import paddle_tpu_torch.analysis.equivalence\n"
+        "import paddle_tpu_torch.observability.tracing\n"
+        "import paddle_tpu_torch.serving.router\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"

@@ -643,17 +643,29 @@ def test_check_nan_inf():
                 fetch_list=["y"], steps_per_dispatch=2)
 
 
-def test_verify_raises_naming_the_queue_item(monkeypatch):
+def test_verify_runs_the_verifier_and_raises_on_a_broken_program(
+        monkeypatch):
+    from paddle_tpu_torch.analysis import VerificationError
+
     loss, main, exe = _port(lambda: _mlp(tfluid))
     feed = {n: v[0] for n, v in _mlp_feeds().items()}
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    stacked = _mlp_feeds(k=2)
+    exe.run(main, feed=feed, fetch_list=[loss], verify=True)
+    exe.run(main, feed=stacked, fetch_list=[loss], verify=True,
+            steps_per_dispatch=2)
+    main.global_block().append_op("bogus_xyz", outputs={"Out": ["zz"]})
+    with pytest.raises(VerificationError, match="PTV002"):
         exe.run(main, feed=feed, fetch_list=[loss], verify=True)
+    with pytest.raises(VerificationError, match="PTV002"):
+        exe.run(main, feed=stacked, fetch_list=[loss], verify=True,
+                steps_per_dispatch=2)
     monkeypatch.setenv("PADDLE_TPU_VERIFY", "1")
-    with pytest.raises(NotImplementedError, match="verifier"):
+    with pytest.raises(VerificationError, match="Executor.run"):
         exe.run(main, feed=feed, fetch_list=[loss])
-    exe.run(main, feed=feed, fetch_list=[loss], verify=False)
     monkeypatch.setenv("PADDLE_TPU_VERIFY", "0")
-    exe.run(main, feed=feed, fetch_list=[loss])
+    # unverified, the walk skips the dead unregistered op and runs
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss])
+    assert np.isfinite(got).all()
 
 
 def test_sub_block_indices_matches_jax():

@@ -295,7 +295,7 @@ def test_unported_subcommands_exit_naming_the_roadmap(sub, capsys):
     assert tcli.main([sub, "x"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md Queue A item" in err and sub in err
-    assert tcli.UNPORTED[sub] in (8, 9, 10, 11, 12)
+    assert tcli.UNPORTED[sub] in (9, 10, 11, 12)
 
 
 def test_cli_version_and_script(tmp_path, capsys):
