@@ -425,12 +425,44 @@ non-zero and no result line is printed):
     ``loop_parity_report`` on the card (K = 1, 2, 4; three dispatches a
     case): every K > 1 case replays a captured graph, and its losses and
     written state equal the sequential steps' to the bit;
-39. summary.
+39. the measurement tier: (a) the full-width GPT training step (as 10,
+    bf16, batch 8 x 1024, one step a dispatch) captured 3 steps under
+    ``torch.profiler`` with the op ranges on
+    (``observability.attribution.capture_profile``): every op of the
+    block has a row, the scaled_dot_product_attention rows and their
+    generic_grad rows hold all the K4, K5 and K6 kernel time of the
+    trace, the op rows hold at least 95% of its device time (the rest is
+    the unattributed row), and the segment walk on the card (CUDA events)
+    gives the same set of rows; the top op types' measured ms beside the
+    cost model's and their ratio; (b) the table fed into a throwaway
+    ``CalibrationStore``: ``program_cost``'s calibrated step beside the
+    measured eager step and the captured step (K = 4), no bound; (c)
+    ``accounting.track`` on that program and 5 steps (median, read after
+    a device synchronize) and the measured peak: both ratios published;
+    the 16 requests through a full-width f32 v2 engine (as 7) with the
+    registry and the tracer on: the registry's mirrored counters equal
+    ``stats()``, ``validate_snapshot`` finds nothing, the serve.decode
+    and serve.mixed_step spans are as many as the engine's steps, K2 and
+    K3 as 7 implies; ``memory.total`` is the card's; (d) ``tune
+    paged_decode`` at the serving widths (8 slots, 8 heads, dh 64, ctx
+    1024, f32) over the page sizes K2's limits admit, a second tune a
+    cache hit with no trial, a fresh v2 engine without a page size takes
+    the winner and serves the requests with the page-16 engine's tokens
+    (5's near-tie rule) and no page leak; ``tune bn_conv`` at stage 2's
+    3x3 shape of 18 (128 x 28 x 28, 128 -> 128, bf16) over v1, v2 with
+    its O blocks and reference, each trial launching only its kernel (K13
+    under v1, K14 under v2, none under reference), then the knob resolves
+    the winner and the next fused forward launches its kernel; (e)
+    ``python -m paddle_tpu_torch metrics``, ``trace`` and ``attribute
+    --profile`` on the serving GPT's forward saved as an inference
+    model, and ``tune paged_decode --smoke``, in parallel: each exits 0;
+40. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
-{...}, "router": {...}}`` summary (all 15 kernels) and the last line is
+{...}, "router": {...}, "measurement": {...}}`` summary (all 15 kernels)
+and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
 prints no result.
 """
@@ -6714,7 +6746,387 @@ def router_phase(card_name, smi):
             "verify_lint": checks, "loop_parity": parity}
 
 
-# -- 39. summary --------------------------------------------------------------
+# -- 39. the measurement tier -------------------------------------------------
+
+MEASURE_STEPS = 3  # profiled GPT steps
+FLASH_FAMILIES = {"flash_fwd": "K4", "flash_dq": "K5", "flash_dkv": "K6"}
+
+
+def _flash_family(kernel_name):
+    return next((k for f, k in FLASH_FAMILIES.items() if f in kernel_name),
+                None)
+
+
+def attribution_step_phase(card_name, smi, captured_step_ms=None):
+    """(a)-(c) of 39 on the full-width bf16 GPT training step."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.analysis import cost as acost
+
+    card = fluid.CUDAPlace(0)
+    loss, main, startup = train_program(TRAIN_SEQ, "bfloat16")
+    exe = fluid.Executor(card)
+    exe.run(startup)
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    run_steps(exe, main, loss, feed, 2)
+    block = main.global_block()
+
+    # (a) the profile capture, 3 eager steps
+    with tempfile.TemporaryDirectory() as tmp:
+        (cap, launches) = counted(lambda: obs.attribution.capture_profile(
+            lambda i: exe.run(main, feed=feed, fetch_list=[loss]), tmp,
+            steps=MEASURE_STEPS, place=card))
+    want = {k: MEASURE_STEPS * v for k, v in per_step_want().items()}
+    check_launches("attribution_capture", launches, want)
+    table = obs.attribution.table_from_scopes(
+        block, cap["by_scope"], batch_size=TRAIN_BS, chip="h100-sxm",
+        unattributed_s=cap["unattributed_s"], mode=cap["mode"])
+    obs.attribution.publish(table, "gpt_bench_bf16")
+    live = texecutor.live_ops(block, [loss.name])
+    rows = {r["index"] for r in table["rows"] if r["index"] >= 0}
+    missing = [i for i in range(len(block.ops)) if live[i] and i not in rows]
+    if missing:
+        raise AssertionError(f"attribution: ops without a row: "
+                             f"{[(i, block.ops[i].type) for i in missing]}")
+    flash_total = {}
+    for secs in (cap["unattributed_kernels"],
+                 *cap["kernels_by_scope"].values()):
+        for kname, t in secs.items():
+            fam = _flash_family(kname)
+            if fam:
+                flash_total[fam] = flash_total.get(fam, 0.0) + t
+    flash_in_attn = {}
+    for (typ, uid), secs in cap["kernels_by_scope"].items():
+        op = next(o for o in block.ops if o.type == typ
+                  and int(o.attrs.get("__uid__", -1)) == uid)
+        attn = (typ == "scaled_dot_product_attention"
+                or op.attrs.get("__fwd_type__")
+                == "scaled_dot_product_attention")
+        for kname, t in secs.items():
+            fam = _flash_family(kname)
+            if fam and attn:
+                flash_in_attn[fam] = flash_in_attn.get(fam, 0.0) + t
+    if sorted(flash_total) != ["K4", "K5", "K6"] or any(
+            abs(flash_in_attn.get(k, 0.0) - v) > 1e-9
+            for k, v in flash_total.items()):
+        raise AssertionError(f"attribution: flash kernel time outside the "
+                             f"attention rows: {flash_total} vs "
+                             f"{flash_in_attn}")
+    if table["coverage"] < 0.95:
+        raise AssertionError(f"attribution: op rows hold "
+                             f"{table['coverage']:.4f} of the device time "
+                             f"(unattributed: "
+                             f"{cap['unattributed_kernels']})")
+    walk = obs.attribution.attribute_cpu(
+        main, feed, batch_size=TRAIN_BS, chip="h100-sxm", repeats=1,
+        place=card)
+    walk_rows = {r["index"] for r in walk["rows"]}
+    if walk["mode"] != "cuda-events" or not rows <= walk_rows or \
+            {i for i in walk_rows if live[i]} != rows:
+        raise AssertionError(f"the segment walk's rows differ from the "
+                             f"profile's: {sorted(walk_rows ^ rows)}")
+    steps = MEASURE_STEPS
+    top = [{"op_type": t, "count": e["count"],
+            "measured_ms": e["measured_s"] / steps * 1e3,
+            "predicted_ms": e["pred_time_s"] / steps * 1e3,
+            "pred_over_measured": e["pred_vs_measured"],
+            "share": e["measured_share"]}
+           for t, e in list(table["by_type"].items())[:8]]
+    attribution = {
+        "card": card_name, "nvidia_smi": smi, "bs": TRAIN_BS,
+        "seq": TRAIN_SEQ, "dtype": "bfloat16", "steps": steps,
+        "ops": len(block.ops), "rows": table["n_ops"],
+        "device_ms_per_step": cap["device_total_s"] / steps * 1e3,
+        "attributed_ms_per_step": table["attributed_s"] / steps * 1e3,
+        "coverage": table["coverage"],
+        "unattributed_kernels": cap["unattributed_kernels"],
+        "flash_ms_per_step": {k: v / steps * 1e3
+                              for k, v in flash_total.items()},
+        "predicted_ms_per_step": table["pred_total_s"] / steps * 1e3,
+        "top_op_types": top,
+        "walk_ms": walk["total_s"] * 1e3, "walk_coverage": walk["coverage"],
+        "launches": launches}
+    log("attribution_gpt_bf16", attribution)
+
+    # (b) calibration from the table
+    with tempfile.TemporaryDirectory() as tmp:
+        store = obs.calibration.CalibrationStore(tmp)
+        store.record_attribution({**table, "rows": [
+            {**r, "measured_s": r["measured_s"] / steps}
+            for r in table["rows"]]})
+        rep = acost.program_cost(main, TRAIN_BS, chip="h100-sxm",
+                                 calibration=store)
+    # (c) accounting: 5 tracked steps, then the measured peak
+    obs.accounting.track(main, "gpt_bench_bf16", batch_size=TRAIN_BS,
+                         chip="h100-sxm")
+    run_steps(exe, main, loss, feed, 5)
+    peak = obs.accounting.record_measured_peak(main, exe, feed=feed,
+                                               fetch_list=[loss])
+    (acct,) = [r for r in obs.accounting.report()
+               if r["program"] == "gpt_bench_bf16"]
+    gauges = obs.REGISTRY.snapshot()["families"]
+    for fam in ("pred_vs_measured_step_time_ratio",
+                "pred_vs_measured_peak_ratio"):
+        if fam not in gauges:
+            raise AssertionError(f"accounting: {fam} not published")
+    if captured_step_ms is None:
+        k = 4
+        stacked = {n: np.stack([v] * k) for n, v in feed.items()}
+        for _ in range(2):  # eager, then the capture
+            exe.run(main, feed=stacked, fetch_list=[loss],
+                    steps_per_dispatch=k)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(3):
+            exe.run(main, feed=stacked, fetch_list=[loss],
+                    steps_per_dispatch=k)
+        torch.cuda.synchronize()
+        captured_step_ms = (time.monotonic() - t0) / (3 * k) * 1e3
+    calib = {
+        "raw_predicted_ms": rep["predicted_step_time_s"] * 1e3,
+        "calibrated_ms": rep["calibrated_step_time_s"] * 1e3,
+        "factors_applied": rep["calibration"]["factors_applied"],
+        "measured_eager_ms": acct["measured_step_time_s"] * 1e3,
+        "captured_k4_ms": captured_step_ms,
+        "calibrated_over_eager": rep["calibrated_step_time_s"]
+        / acct["measured_step_time_s"]}
+    log("calibration_gpt_bf16", calib)
+    accounting = {k: acct[k] for k in (
+        "predicted_step_time_s", "measured_step_time_s", "steady_runs",
+        "compile_runs", "step_time_ratio", "predicted_peak_bytes",
+        "measured_peak_bytes", "peak_ratio")}
+    log("accounting_gpt_bf16", accounting)
+    exe.close()
+    return {"attribution": attribution, "calibration": calib,
+            "accounting": accounting}
+
+
+def metrics_serve_phase(card_name, smi, lm, prompts):
+    """(c) of 39: the 16 requests through a full-width f32 v2 engine with
+    the registry and the tracer on."""
+    from paddle_tpu_torch import memory as pmemory
+    from paddle_tpu_torch import observability as obs
+
+    card = fluid.CUDAPlace(0)
+    obs.REGISTRY.reset()
+    obs.TRACER.reset()
+    obs.enable_tracing()
+    try:
+        (tokens, reqs, eng, wall), launches = counted(
+            lambda: serve(lm, prompts, card, name="metrics_v2", **V2))
+    finally:
+        obs.disable_tracing()
+    st = eng.stats()
+    check_launches("metrics_v2", launches, v2_want(st))
+    gauge = obs.REGISTRY.gauge("serve_counters")
+    off = {k: (st[k], gauge.value(counter=k, engine="metrics_v2",
+                                  scheduler="v2"))
+           for k in eng.counters
+           if gauge.value(counter=k, engine="metrics_v2", scheduler="v2")
+           != float(st[k])}
+    problems = obs.validate_snapshot(obs.REGISTRY.snapshot())
+    names = [e["name"] for e in obs.TRACER.events()]
+    spans = {m: names.count(m) for m in ("serve.decode", "serve.mixed_step",
+                                         "serve.admit")}
+    total = pmemory.total(card)
+    row = {"card": card_name, "nvidia_smi": smi, "requests": len(prompts),
+           "mirrored_off": off, "snapshot_problems": problems,
+           "spans": spans, "decode_steps": st["decode_steps"],
+           "mixed_steps": st["mixed_steps"], "launches": launches,
+           "wall_s": wall, "memory_total": total,
+           "mem_get_info_total": torch.cuda.mem_get_info()[1]}
+    log("metrics_serve_v2", row)
+    if off or problems:
+        raise AssertionError(f"metrics: mirrored counters {off}, snapshot "
+                             f"{problems}")
+    if spans["serve.decode"] != st["decode_steps"] or \
+            spans["serve.mixed_step"] != st["mixed_steps"]:
+        raise AssertionError(f"metrics: spans {spans} != steps "
+                             f"{st['decode_steps']}, {st['mixed_steps']}")
+    if total != torch.cuda.mem_get_info()[1]:
+        raise AssertionError(f"memory.total {total} is not the card's")
+    return row, tokens
+
+
+def tune_phase(card_name, smi, lm, prompts, page16_tokens, scope_cpu):
+    """(d) of 39: tune paged_decode and bn_conv in a throwaway store."""
+    from paddle_tpu_torch.autotune import integration as at_int
+    from paddle_tpu_torch.autotune import knobs as at_knobs
+    from paddle_tpu_torch.autotune import measure as at_measure
+    from paddle_tpu_torch.autotune import tuner as at_tuner
+    from paddle_tpu_torch.autotune import workloads as at_wl
+
+    card = fluid.CUDAPlace(0)
+    prev = os.environ.get("PADDLE_TPU_AUTOTUNE_CACHE")
+    tmp = tempfile.mkdtemp(prefix="smoke_tune_")
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = tmp
+    at_int.reset()
+    try:
+        measurer = at_measure.TimedMeasurer(warmup=2, iters=10, repeats=3)
+        paged = at_wl.PagedDecodeWorkload(N=SLOTS, nh=HEADS, dh=DIM // HEADS,
+                                          max_ctx=MAX_LEN, place=card)
+        rep = at_tuner.tune(paged, measurer=measurer, top_k=3)
+        n = 2 + 10 * 3
+        for t in rep["trials"]:
+            if t["launches"] != {"paged_attention": n}:
+                raise AssertionError(f"tune paged_decode: trial "
+                                     f"{t['params']} launched "
+                                     f"{t['launches']}")
+        mock = at_measure.MockMeasurer()
+        hit = at_tuner.tune(at_wl.PagedDecodeWorkload(
+            N=SLOTS, nh=HEADS, dh=DIM // HEADS, max_ctx=MAX_LEN,
+            place=card), measurer=mock)
+        if not hit["cache_hit"] or mock.measured:
+            raise AssertionError("tune paged_decode: no cache hit")
+        ps = rep["winner"]["paged_attention.page_size"]
+        if at_knobs.paged_page_size() != ps:
+            raise AssertionError("the page-size knob misses the winner")
+        eng = ServingEngine(lm, max_batch_size=SLOTS, place=card, **V2)
+        if eng.page_size != ps:
+            raise AssertionError(f"engine page size {eng.page_size} != "
+                                 f"winner {ps}")
+        rids = [eng.submit(p, MAX_NEW) for p in prompts]
+        fin = eng.run()
+        tuned_tokens = [fin[r].generated for r in rids]
+        leak_free(eng)
+        agreed = agree("tuned_page_vs_page16", lm, scope_cpu, prompts,
+                       page16_tokens, tuned_tokens, page_size=ps)
+        paged_row = {
+            "shape": {"N": SLOTS, "nh": HEADS, "dh": DIM // HEADS,
+                      "max_ctx": MAX_LEN, "dtype": "float32"},
+            "winner_page_size": ps, "cache_hit": True,
+            "trials": [{"page_size": t["params"][
+                "paged_attention.page_size"], "best_ms": t["best_s"] * 1e3,
+                "median_ms": t["median_s"] * 1e3,
+                "predicted_ms": t["predicted_step_s"] * 1e3}
+                for t in rep["trials"]],
+            "rejected": [r["reject_reason"] for r in rep["rejected"]],
+            "engine_identical": agreed["identical"], "of": agreed["of"]}
+        log("tune_paged_decode", paged_row)
+
+        bn = at_wl.BnConvWorkload(N=128, H=28, W=28, K=128, O=128,
+                                  dtype="bfloat16", place=card)
+        rep = at_tuner.tune(bn, measurer=measurer, measure_all=True)
+        kern = {"v1": "bn_conv3x3_fwd", "v2": "bn_conv3x3_fwd_v2",
+                "reference": None}
+        for t in rep["trials"]:
+            k = kern[t["params"]["bn_conv.variant"]]
+            want = {kk: (n if kk == k else 0) for kk in t["launches"]}
+            if t["launches"] != want:
+                raise AssertionError(f"tune bn_conv: trial {t['params']} "
+                                     f"launched {t['launches']}")
+        mock = at_measure.MockMeasurer()
+        if not at_tuner.tune(at_wl.BnConvWorkload(
+                N=128, H=28, W=28, K=128, O=128, dtype="bfloat16",
+                place=card), measurer=mock)["cache_hit"] or mock.measured:
+            raise AssertionError("tune bn_conv: no cache hit")
+        variant = rep["winner"]["bn_conv.variant"]
+        if at_knobs.bnconv_variant() != variant:
+            raise AssertionError("the bn-conv knob misses the winner")
+        runner = bn.build_runner(bn.space().default())  # no trial: knobs
+        _, after = counted(runner.step)
+        k = kern[variant]
+        if any(v != (1 if n_ == k else 0) for n_, v in after.items()
+               if n_.startswith("bn_conv3x3_fwd")):
+            raise AssertionError(f"the tuned forward launched {after}")
+        bn_row = {
+            "shape": {"N": 128, "H": 28, "W": 28, "K": 128, "O": 128,
+                      "dtype": "bfloat16"},
+            "winner": rep["winner"], "cache_hit": True,
+            "trials": [{"variant": t["params"]["bn_conv.variant"],
+                        "block_o": t["params"]["bn_conv.block_o"],
+                        "best_ms": t["best_s"] * 1e3,
+                        "median_ms": t["median_s"] * 1e3,
+                        "predicted_ms": t["predicted_step_s"] * 1e3,
+                        "launches": t["launches"]} for t in rep["trials"]]}
+        log("tune_bn_conv", bn_row)
+    finally:
+        if prev is None:
+            os.environ.pop("PADDLE_TPU_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = prev
+        at_int.reset()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"card": card_name, "nvidia_smi": smi, "paged_decode": paged_row,
+            "bn_conv": bn_row}
+
+
+def cli_phase(tmpdir):
+    """(e) of 39: the four subcommands in parallel processes."""
+    model = os.path.join(tmpdir, "gpt_forward")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main = fluid.default_main_program()
+    block = main.global_block()
+    # the tower's last op, the head's product, writes the logits
+    (logits,) = block.ops[-1].output_names()
+    fluid.io.save_inference_model(model, ["tokens"], [block.var(logits)],
+                                  exe, main)
+    py = [sys.executable, "-m", "paddle_tpu_torch"]
+    cmds = {
+        "metrics": py + ["metrics", model, "--steps", "3", "--json"],
+        "trace": py + ["trace", model, "--steps", "3", "--out",
+                       os.path.join(tmpdir, "t.json")],
+        "attribute": py + ["attribute", model, "--repeats", "1", "--json",
+                           "--profile", os.path.join(tmpdir, "prof"),
+                           "--steps", "2"],
+        "tune_smoke": py + ["tune", "paged_decode", "--smoke"]}
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+             for k, c in cmds.items()}
+    out = {}
+    try:
+        for k, pr in procs.items():
+            so, se = pr.communicate(timeout=300)
+            lines = so.strip().splitlines()
+            out[k] = {"rc": pr.returncode,
+                      "last": lines[-1] if lines else ""}
+            if pr.returncode:
+                raise AssertionError(f"paddle_tpu_torch {k}: exit "
+                                     f"{pr.returncode}\n{se[-2000:]}")
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    attr = json.loads(out["attribute"]["last"])
+    res = {k: v["rc"] for k, v in out.items()}
+    res["trace"] = out["trace"]["last"]
+    res["attribute_mode"] = attr["mode"]
+    res["attribute_coverage"] = attr["value"]
+    res["attribute_profile_coverage"] = attr["profile_coverage"]
+    res["attribute_top_op"] = attr["top_op"]
+    log("measurement_cli", res)
+    return res
+
+
+def measurement_phase(card_name, smi, captured_step_ms=None):
+    t0 = time.monotonic()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    step = attribution_step_phase(card_name, smi, captured_step_ms)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    card = fluid.CUDAPlace(0)
+    lm = gpt_bench.build(card, seed=SEED)
+    scope = fluid.global_scope()
+    scope_cpu = cpu_scope(lm, [scope.find_np(p.name) for p in lm._params])
+    prompts = gpt_bench.prompts(N_REQ, seed=SEED)
+    serve(lm, prompts, card, **V2)  # warm-up
+    serve_row_, page16 = metrics_serve_phase(card_name, smi, lm, prompts)
+    tuned = tune_phase(card_name, smi, lm, prompts, page16, scope_cpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(tmp)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    res = {**step, "serve_v2": serve_row_, "tune": tuned, "cli": cli,
+           "phase_s": time.monotonic() - t0}
+    log("measurement_phase", {"phase_s": res["phase_s"]})
+    return res
+
+
+# -- 40. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -6813,6 +7225,7 @@ def main():
     fluid.reset()
     torch.cuda.empty_cache()
     router = router_phase(name, smi)
+    measurement = measurement_phase(name, smi, sl_gpt["replay_step_ms"])
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -6862,7 +7275,10 @@ def main():
                "v2_wide_router_phase": router["wide"]["launches"],
                "router_two_replicas": router["router"]["launches"],
                "gpt_verified_train_step_f32":
-                   router["verify_lint"]["launches"]}
+                   router["verify_lint"]["launches"],
+               "gpt_bf16_attributed_3_steps":
+                   measurement["attribution"]["launches"],
+               "v2_metrics_serve": measurement["serve_v2"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -7008,6 +7424,12 @@ def main():
                                    "bound_by", "bound_share", "max_rel_err")}
                 for r in vgg_kernels if r["kernel"] == kname]
         kernels.append(row)
+    # the tuned axes of phase 39: K2's page sizes, K14's O blocks
+    kernels[1]["tuned_page_sizes"] = measurement["tune"]["paged_decode"]
+    next(k for k in kernels if k["name"] == "bn_conv3x3_fwd_v2")[
+        "tuned_block_o"] = [
+        t for t in measurement["tune"]["bn_conv"]["trials"]
+        if t["variant"] == "v2"]
     kernels[2]["verify_shape"] = {
         k: mq_sum["verify"][k] for k in ("kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -7222,7 +7644,7 @@ def main():
                       "options": options_rows, "generate": generate_rows,
                       "remat_save_load": remat_rows, "zoo": zoo_rows,
                       "srl": srl_rows, "legacy": legacy_rows,
-                      "router": router}),
+                      "router": router, "measurement": measurement}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,6 +20,9 @@ persistables and inference models in the JAX package's layout, and
 ``fuse_batch_norm`` folds inference-mode BatchNorm into convolutions.
 ``v1`` and ``trainer`` hold the legacy config API, and ``python -m
 paddle_tpu_torch train --config conf.py`` trains a v1 config (``cli``).
+``observability`` (metrics, spans, accounting, attribution,
+calibration), ``profiler``, ``memory``, ``memory_optimize`` and
+``autotune`` are the measurement tier.
 
 The JAX package ``paddle_tpu`` is the reference this package is held
 against; nothing here imports it or JAX."""
@@ -37,6 +40,10 @@ from . import learning_rate_decay  # noqa: F401
 from . import dataset  # noqa: F401
 from . import evaluator  # noqa: F401
 from . import reader  # noqa: F401
+from . import profiler  # noqa: F401
+from . import memory  # noqa: F401
+from . import observability  # noqa: F401  (metrics, spans, attribution)
+from . import autotune  # noqa: F401  (import-light)
 from .data_feeder import DataFeeder, DeviceFeeder  # noqa: F401
 from .framework import unique_name
 from .framework.backward import append_backward, calc_gradient  # noqa: F401
@@ -50,6 +57,7 @@ from .framework.core import (  # noqa: F401
 )
 from .framework.executor import Executor  # noqa: F401
 from .inference_transpiler import InferenceTranspiler, fuse_batch_norm  # noqa: F401
+from .memory_optimization_transpiler import memory_optimize, release_memory  # noqa: F401
 from .framework.param_attr import ParamAttr  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework.scope import (  # noqa: F401
@@ -72,7 +80,8 @@ def reset():
     from .v1 import reset_v1_config
 
     reset_v1_config()
-    # a fresh trace ring, so a run never reads a previous run's spans
-    from .observability import TRACER
+    # fresh registry series, trace ring, accounting and attribution
+    # state, so a run never reads a previous run's telemetry
+    from . import observability
 
-    TRACER.reset()
+    observability.reset()

@@ -8,6 +8,10 @@ translation-validation proof obligation (analysis/equivalence.
 prove_equivalent): invariants bound the damage, equivalence establishes
 the rewrite MEANS the same thing.
 
+  checked_memory_optimize — liveness may only shrink (PTV012), a
+                            selective marking must reduce the projected
+                            peak (PTV017), and the marking must leave the
+                            program structurally equivalent (PTV022)
   checked_fuse_batch_norm — still-inference program, folds conserved, and
                             the fold PROVEN by the differential oracle:
                             the before-program over the pre-fold scope
@@ -15,14 +19,12 @@ the rewrite MEANS the same thing.
                             folded scope, on the fetches
 
 The wrappers of the passes the port lacks raise, naming their ROADMAP.md
-Queue A item: `checked_memory_optimize`
-(``memory_optimization_transpiler.py``, item 7),
-`checked_distribute_transpile` and `checked_sharding_plan` (the
-distribute and sharding transpilers, item 11).
+Queue A item: `checked_distribute_transpile` and `checked_sharding_plan`
+(the distribute and sharding transpilers, item 11).
 
 A refuted obligation raises VerificationError with PTV022/PTV024
-findings.  The fold's wrapper is also installed *inside*
-``inference_transpiler.fuse_batch_norm`` behind the PADDLE_TPU_VERIFY=1
+findings.  Both wrappers are also installed *inside* their passes
+(``memory_optimize``, ``inference_transpiler.fuse_batch_norm``) behind the PADDLE_TPU_VERIFY=1
 env gate (see `should_wrap`), so a flag flip turns the pass into a
 checked pass without touching call sites.
 """
@@ -30,6 +32,8 @@ checked pass without touching call sites.
 from __future__ import annotations
 
 import threading
+from typing import List, Optional
+
 from .verifier import (Finding, Report, VerificationError,
                        env_verify_enabled, verify_program)
 
@@ -62,18 +66,130 @@ def _verify(program, stage, **kw) -> Report:
 
 
 # ---------------------------------------------------------------------------
+# memory_optimize: liveness must only shrink
+
+
+def liveness_snapshot(program, batch_size: int = 64, block_id: int = 0) -> dict:
+    """Effective (first_def, last_use) intervals + projected peak under the
+    program's CURRENT remat marking — the memory_optimize postcondition
+    baseline."""
+    from ..memory_optimization_transpiler import _lifetimes, analyze_liveness
+
+    block = program.blocks[block_id]
+    marked = [op for op in block.ops if op.attrs.get("__remat__")]
+    lt = _lifetimes(block, batch_size, marked)
+    _, peak, _ = analyze_liveness(block, batch_size, marked, lifetimes=lt)
+    first_def, last_use, sizes = lt
+    return {"first_def": dict(first_def), "last_use": dict(last_use),
+            "peak": int(peak), "n_ops": len(block.ops)}
+
+
+def liveness_diff(before: dict, program, batch_size: int = 64,
+                  block_id: int = 0) -> List[Finding]:
+    """PTV012 findings for every var whose effective live interval grew —
+    or a projected-peak regression — relative to `before`."""
+    after = liveness_snapshot(program, batch_size, block_id)
+    findings: List[Finding] = []
+    for name, lu in after["last_use"].items():
+        b_lu = before["last_use"].get(name)
+        if b_lu is not None and lu > b_lu:
+            findings.append(Finding(
+                "PTV012", f"last use moved from op {b_lu} to op {lu}",
+                block=block_id, var=name))
+    for name, fd in after["first_def"].items():
+        b_fd = before["first_def"].get(name)
+        if b_fd is not None and fd < b_fd:
+            findings.append(Finding(
+                "PTV012", f"first def moved from op {b_fd} to op {fd}",
+                block=block_id, var=name))
+    if after["peak"] > before["peak"]:
+        findings.append(Finding(
+            "PTV012", f"projected activation peak rose "
+            f"{before['peak']} -> {after['peak']} bytes", block=block_id))
+    return findings
+
+
+def planner_peak_bytes(program, batch_size: int = 64,
+                       block_id: int = 0) -> int:
+    """Projected peak (persistent + activation peak) in the
+    memory_optimize PLANNER's own model, under the program's CURRENT
+    remat marking — the currency the pass promises to reduce."""
+    from ..memory_optimization_transpiler import projected_peak_bytes
+
+    return int(projected_peak_bytes(program, batch_size, block_id,
+                                    honor_remat=True)["total_bytes"])
+
+
+def quantified_peak_reduction(before_peak: int, program,
+                              batch_size: int = 64, block_id: int = 0,
+                              marked: int = 0) -> tuple:
+    """(after_peak, findings): PTV017 when the pass marked ops yet its
+    projected peak did not drop — remat FLOPs paid for no memory win."""
+    after_peak = planner_peak_bytes(program, batch_size, block_id)
+    findings: List[Finding] = []
+    if marked > 0 and after_peak >= before_peak:
+        findings.append(Finding(
+            "PTV017", f"marked {marked} grad op(s) for remat but the "
+            f"projected peak went {before_peak} -> {after_peak} bytes "
+            f"(reduction {before_peak - after_peak})", block=block_id))
+    return after_peak, findings
+
+
+def checked_memory_optimize(program, level: int = 0, batch_size: int = 64,
+                            hbm_bytes: Optional[int] = None,
+                            block_id: int = 0,
+                            report: Optional[dict] = None) -> int:
+    """memory_optimize under contract; returns #ops marked (same as the
+    raw pass).  Raises VerificationError on bad input, bad output, any
+    extended live range / peak regression (PTV012), a marking that did
+    not reduce the projected peak (PTV017), or a marking that changed
+    program STRUCTURE at all (PTV022 — the remat attr is the only thing
+    this pass may touch; the equivalence proof runs at the structural
+    tier).  Pass `report={}` to receive {"peak_before", "peak_after",
+    "reduction_bytes", "marked"}."""
+    from ..framework.core import Program
+    from ..memory_optimization_transpiler import memory_optimize
+    from .equivalence import prove_equivalent
+
+    _verify(program, "memory_optimize:in", block_id=block_id,
+            check_shapes=False)
+    before = liveness_snapshot(program, batch_size, block_id)
+    peak_before = planner_peak_bytes(program, batch_size, block_id)
+    before_prog = Program.from_json(program.to_json())
+    with _inside():
+        n = memory_optimize(program, level=level, batch_size=batch_size,
+                            hbm_bytes=hbm_bytes, block_id=block_id)
+    _verify(program, "memory_optimize:out", block_id=block_id,
+            check_shapes=False)
+    bad = liveness_diff(before, program, batch_size, block_id)
+    if bad:
+        raise VerificationError("memory_optimize:liveness", bad)
+    prove_equivalent(before_prog, program, block_id=block_id,
+                     execute="never").raise_if_failed(
+        "memory_optimize:equivalence")
+    # level>=1 is the blanket trade: its contract is PTV012 only (marking
+    # everything may leave the peak where it was on an activation-light
+    # program)
+    peak_after, findings = quantified_peak_reduction(
+        peak_before, program, batch_size, block_id,
+        marked=n if level < 1 else 0)
+    if report is not None:
+        report.update(peak_before=int(peak_before),
+                      peak_after=int(peak_after),
+                      reduction_bytes=int(peak_before - peak_after),
+                      marked=int(n))
+    if findings:
+        raise VerificationError("memory_optimize:peak", findings)
+    return n
+
+
+# ---------------------------------------------------------------------------
 # passes the port lacks
 
 
 def _unported(what, item, module):
     return NotImplementedError(
         f"{what}: {module} is not ported (ROADMAP.md Queue A item {item})")
-
-
-def checked_memory_optimize(program, level: int = 0, batch_size: int = 64,
-                            hbm_bytes=None, block_id: int = 0, report=None):
-    raise _unported("checked_memory_optimize", 7,
-                    "memory_optimization_transpiler.py")
 
 
 def checked_distribute_transpile(transpiler, trainer_id, program=None,

@@ -23,9 +23,10 @@ time.
 
 The chip table is the port's own: ``h100-sxm`` (the card the port runs
 on) and ``cpu-host`` (a placeholder the CPU tests share with the JAX
-package, so both packages predict alike under one spec).  There is no
-calibration store until ROADMAP.md Queue A item 9: `calibration=None`
-and `False` give the raw roofline, `True` raises.
+package, so both packages predict alike under one spec).  With
+measured correction factors in the calibration store
+(``observability/calibration.py``) for the chip, `program_cost` adds
+``calibrated_step_time_s`` beside the raw roofline.
 """
 
 from __future__ import annotations
@@ -187,37 +188,46 @@ def op_cost(block, op, batch_size: int = 64) -> dict:
 # program roll-up
 
 
-def _check_calibration(calibration: Optional[bool]):
-    """None and False give the raw model: the port has no calibration
-    store until ROADMAP.md Queue A item 9.  True raises rather than
-    pretend to calibrate."""
-    if calibration:
-        raise NotImplementedError(
-            "calibration=True: the calibration store "
-            "(observability/calibration.py) is not ported (ROADMAP.md "
-            "Queue A item 9); pass calibration=None or False for the raw "
-            "roofline")
+def _calibration_factors(chip: str, calibration) -> dict:
+    """The chip's stored correction factors, or {} when the calibrated
+    layer is off (False, or None with $PADDLE_TPU_CALIBRATION=0) or
+    nothing has been learned yet.  `calibration` may also be a
+    ``CalibrationStore``, read instead of the default one."""
+    if calibration is False:
+        return {}
+    from ..observability import calibration as _calib
+
+    if calibration is None or calibration is True:
+        if calibration is None and not _calib.calibration_enabled():
+            return {}
+        return _calib.default_store().factors(chip)
+    return calibration.factors(chip)
 
 
 def program_cost(program, batch_size: int = 64, block_id: int = 0,
-                 chip: Optional[str] = None,
-                 calibration: Optional[bool] = None) -> dict:
+                 chip: Optional[str] = None, calibration=None) -> dict:
     """Roofline report for one block: totals, a per-op-type table (by
     FLOPs, descending), arithmetic intensity, and the predicted step
     time/MFU ceiling for `chip` (see module docstring for the model).
 
-    `calibration`: None and False give the raw model, the report's only
-    one (the JAX package's calibrated keys need its calibration store);
-    True raises, naming ROADMAP.md Queue A item 9."""
-    _check_calibration(calibration)
+    `calibration`: None defers to $PADDLE_TPU_CALIBRATION (default on),
+    True reads the default store regardless, False is the raw model
+    alone, and a ``CalibrationStore`` is read in place of the default.
+    When factors exist for this chip the report ADDS
+    ``calibrated_step_time_s`` (per-op roofline times priced through the
+    measured per-(op type, dtype) affine corrections — ``factor * t_op +
+    overhead_s`` — summed) beside the raw model; the raw keys never
+    change."""
     block = program.blocks[block_id]
     spec = chip_spec(chip)
     peak = spec["flops_bf16"]
     bw = spec["hbm_gbps"] * 1e9
+    factors = _calibration_factors(spec["chip"], calibration)
     by_type: Dict[str, dict] = {}
     flops_by_dtype: Dict[str, int] = {}
     tot_flops = tot_bytes = tot_coll = 0
-    per_op_time = 0.0
+    per_op_time = cal_time = overhead_total = 0.0
+    applied = 0
     unmodeled = 0
     for op in block.ops:
         c = op_cost(block, op, batch_size)
@@ -234,17 +244,32 @@ def program_cost(program, batch_size: int = 64, block_id: int = 0,
         dt = c["dtype"] or "float32"
         flops_by_dtype[dt] = flops_by_dtype.get(dt, 0) + c["flops"]
         # per-op roofline time (max of the op's own compute/memory
-        # legs): Σ over ops is the no-overlap-across-ops variant; the
-        # headline below keeps the perfect-overlap max-of-sums model
+        # legs): Σ over ops is the no-overlap-across-ops variant the
+        # calibration factors scale; the headline below keeps the
+        # perfect-overlap max-of-sums model
         rate = peak * dtype_rate(spec, dt)
-        per_op_time += max(c["flops"] / rate if rate else 0.0,
-                           c["bytes"] / bw if bw else 0.0)
+        t_op = max(c["flops"] / rate if rate else 0.0,
+                   c["bytes"] / bw if bw else 0.0)
+        per_op_time += t_op
+        if factors:
+            from ..observability import calibration as _calib
+
+            ent = factors.get(_calib.factor_key(op.type, dt))
+            if ent:
+                # affine: the fitted overhead_s charges the per-op
+                # dispatch floor a ratio cannot see (calibration.py)
+                overhead_total += float(ent.get("overhead_s") or 0.0)
+                cal_time += (float(ent["factor"]) * t_op
+                             + float(ent.get("overhead_s") or 0.0))
+                applied += 1
+            else:
+                cal_time += t_op
 
     t_compute = sum(f / (peak * dtype_rate(spec, dt))
                     for dt, f in flops_by_dtype.items() if f)
     t_memory = tot_bytes / bw if bw else 0.0
     step = max(t_compute, t_memory)
-    return {
+    report = {
         "batch_size": int(batch_size),
         "block_id": int(block_id),
         "chip": spec["chip"],
@@ -263,12 +288,20 @@ def program_cost(program, batch_size: int = 64, block_id: int = 0,
         # compute-bound): measured_mfu / this ratio = tuner headroom
         "mfu_ceiling": (t_compute / step) if step else 0.0,
         "unmodeled_ops": int(unmodeled),
-        # read by nothing in the port (the JAX package's calibration
-        # reads it); kept so the report's keys are the JAX package's
         "per_op_time_s": per_op_time,
         "by_type": dict(sorted(by_type.items(),
                                key=lambda kv: -kv[1]["flops"])),
     }
+    if factors and applied:
+        report["calibrated_step_time_s"] = cal_time
+        report["calibration"] = {"chip": spec["chip"],
+                                 "factors_applied": int(applied),
+                                 "factors_known": len(factors),
+                                 # the per-dispatch share of the affine
+                                 # fits: what one fused K-step loop pays
+                                 # ONCE instead of K times (step_loop_cost)
+                                 "overhead_s_total": overhead_total}
+    return report
 
 
 def roofline_with_comm(report: dict, comm: dict,
@@ -308,7 +341,7 @@ def roofline_with_comm(report: dict, comm: dict,
 
 def step_loop_cost(program, k: int, batch_size: int = 64,
                    block_id: int = 0, chip: Optional[str] = None,
-                   calibration: Optional[bool] = None,
+                   calibration=None,
                    overhead_s: Optional[float] = None) -> dict:
     """Price a fused K-step dispatch (framework/step_loop.py) against K
     sequential dispatches of the same program:
@@ -316,20 +349,31 @@ def step_loop_cost(program, k: int, batch_size: int = 64,
         fused      = K * step + 1 * overhead_s
         sequential = K * (step + overhead_s)
 
-    `step` is the roofline's device step (`program_cost`; `calibration`
-    as there); `overhead_s` is the per-dispatch host floor (explicit arg
-    > DEFAULT_DISPATCH_OVERHEAD_S for the chip).  The predicted speedup
+    `step` is the pure device step (`program_cost`, `calibration` as
+    there: calibrated when the store has factors for this chip, with the
+    affine intercepts REMOVED, since they are the per-dispatch share
+    being amortized); `overhead_s` is the per-dispatch host floor
+    (explicit arg > calibration intercept sum >
+    DEFAULT_DISPATCH_OVERHEAD_S for the chip).  The predicted speedup
     `sequential / fused` is the rankable quantity a K sweep is held
     against."""
     if int(k) < 1:
         raise ValueError(f"steps_per_dispatch k={k} must be >= 1")
     k = int(k)
     rep = program_cost(program, batch_size, block_id, chip, calibration)
+    cal = rep.get("calibration") or {}
+    if overhead_s is None:
+        overhead_s = cal.get("overhead_s_total")
     if not overhead_s:
         overhead_s = DEFAULT_DISPATCH_OVERHEAD_S[rep["chip"]]
     overhead_s = float(overhead_s)
-    step = rep["predicted_step_time_s"]
-    step_source = "roofline"
+    if "calibrated_step_time_s" in rep:
+        step = max(rep["calibrated_step_time_s"]
+                   - float(cal.get("overhead_s_total") or 0.0), 0.0)
+        step_source = "calibrated"
+    else:
+        step = rep["predicted_step_time_s"]
+        step_source = "roofline"
     fused = k * step + overhead_s
     sequential = k * (step + overhead_s)
     return {

@@ -1,7 +1,7 @@
 """The `paddle` command-line tool of the port: ``version``, ``train``,
-``lint``, ``analyze`` and ``diff``, the port of those subcommands of
-``paddle_tpu/cli.py`` (reference paddle/scripts/submit_local.sh.in:
-`paddle train|version`).
+``lint``, ``analyze``, ``diff``, ``metrics``, ``trace``, ``attribute``
+and ``tune``, the port of those subcommands of ``paddle_tpu/cli.py``
+(reference paddle/scripts/submit_local.sh.in: `paddle train|version`).
 
 Usage: python -m paddle_tpu_torch <subcommand> [args]
 
@@ -30,14 +30,31 @@ Usage: python -m paddle_tpu_torch <subcommand> [args]
                           its own canonical form, and canonicalization
                           must be idempotent through a serialize round
                           trip
+  metrics MODEL         — run a saved model N steps under the telemetry
+                          layer (predicted-vs-measured accounting, the
+                          tracer) and print the registry: Prometheus text,
+                          or --json for the snapshot
+  trace MODEL           — the same run; write its Chrome/Perfetto trace
+  attribute MODEL       — per-op time attribution table (a standing
+                          program or a saved model): the segment walk,
+                          --profile a torch.profiler capture,
+                          --update-calibration feeds the calibration store
+  tune WORKLOAD|DIR     — the autotuner: price the space, measure the
+                          predicted top-k, persist the winner (a second
+                          run is a cache hit); --mock measures nothing,
+                          --smoke runs the loop end to end in a throwaway
+                          store
+
+The subcommands that run programs take ``--place cuda|cpu`` (default: the
+card).
 
 DIR|FILE is a saved model directory (``__model__`` or ``program.json``)
 or a program file (JSON or ProgramDesc bytes) that either package wrote.
 
 The JAX package's other subcommands (dump_config, stats, validate,
-show_pb, merge_model, metrics, trace, attribute, tune, pserver, master,
-cluster_train) are not ported: each exits non-zero and names the
-ROADMAP.md queue item that holds it (Queue A items 9-12).
+show_pb, merge_model, pserver, master, cluster_train) are not ported:
+each exits non-zero and names the ROADMAP.md queue item that holds it
+(Queue A items 11 and 12).
 """
 
 from __future__ import annotations
@@ -52,9 +69,7 @@ import sys
 # Queue A item that holds each
 UNPORTED = {
     "dump_config": 12, "stats": 12, "validate": 12, "show_pb": 12,
-    "merge_model": 12, "metrics": 9,
-    "trace": 9, "attribute": 9, "tune": 10, "pserver": 11, "master": 11,
-    "cluster_train": 11,
+    "merge_model": 12, "pserver": 11, "master": 11, "cluster_train": 11,
 }
 
 
@@ -294,12 +309,360 @@ def cmd_diff(args) -> int:
     return 0 if proof.equivalent else 1
 
 
+def seed_missing_state(program, feeds, scope, block_id: int = 0):
+    """Seed every name the block reads from the scope that `scope` does
+    not hold, deterministically by name (the differential oracle's
+    idiom): a saved dir carries its persistables, anything else gets
+    synthetic values."""
+    from .analysis import equivalence as eqv
+    from .analysis.dataflow import state_classes
+
+    block = program.blocks[block_id]
+    ext, rw, _ = state_classes(block, list(feeds))
+    for name in list(ext) + list(rw):
+        if scope.find(name) is not None:
+            continue
+        dv = block._find_var_recursive(name)
+        if dv is not None and dv.shape is not None:
+            scope.set(name, eqv._seed_array(
+                name, eqv._bind(dv.shape, 1), dv.dtype or "float32", 0))
+
+
+def _telemetry_run(args):
+    """Shared runner for the `metrics` and `trace` subcommands: load a
+    saved model, attach predicted-vs-measured accounting, drive N
+    executor steps on deterministic synthetic feeds with the tracer
+    enabled, and record the measured peak (on the card).  Returns the
+    observability module, whose registry/tracer/accounting now hold the
+    run."""
+    from . import observability as obs
+    from .analysis import cost as acost
+    from .analysis import equivalence as eqv
+    from .framework.executor import Executor
+    from .framework.scope import Scope
+
+    program, feed, fetch = _load_program_any(args.model)
+    block = program.global_block()
+    if fetch is None:
+        fetch = eqv.sink_outputs(block)
+    if feed is None:
+        feed = [v.name for v in block.vars.values() if v.is_data]
+    place = _place(args.place)
+    obs.enable_tracing()
+    label = os.path.basename(os.path.normpath(args.model)) or "model"
+    obs.accounting.track(
+        program, label, batch_size=args.batch_size,
+        chip="cpu-host" if args.place == "cpu" else acost.detect_chip())
+    feeds = eqv.build_feeds(program, feed, batch_size=args.batch_size)
+    scope = _load_scope_for(args.model) or Scope()
+    seed_missing_state(program, feeds, scope)
+    exe = Executor(place)
+    for i in range(max(1, args.steps)):
+        with obs.span("telemetry.step", step=i):
+            exe.run(program, feed=dict(feeds), fetch_list=list(fetch),
+                    scope=scope, rng_step=i)
+    obs.accounting.record_measured_peak(program, exe, feed=dict(feeds),
+                                        fetch_list=list(fetch),
+                                        scope=scope)
+    return obs
+
+
+def cmd_metrics(args) -> int:
+    """Run a saved model under the telemetry layer and print the
+    registry state: Prometheus text by default, --json for the snapshot
+    (with the predicted-vs-measured report attached)."""
+    obs = _telemetry_run(args)
+    if args.trace_out:
+        obs.TRACER.export(args.trace_out)
+        print(f"# trace written to {args.trace_out}", file=sys.stderr)
+    if args.json:
+        body = obs.REGISTRY.snapshot()
+        body["pred_vs_measured"] = obs.accounting.report()
+        print(json.dumps(body))
+    else:
+        print(obs.REGISTRY.render_prometheus(), end="")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Run a saved model under the tracer and write the Chrome/Perfetto
+    trace-event JSON (open it at https://ui.perfetto.dev)."""
+    obs = _telemetry_run(args)
+    out = args.out or (os.path.basename(os.path.normpath(args.model))
+                       + ".trace.json")
+    obs.TRACER.export(out)
+    problems = obs.validate_chrome_trace(obs.TRACER.to_chrome())
+    n = len(obs.TRACER.events())
+    print(f"{out}: {n} events"
+          + (f"; SCHEMA PROBLEMS: {problems}" if problems else ""))
+    return 1 if problems else 0
+
+
+def cmd_attribute(args) -> int:
+    """`attribute MODEL` — the per-op time attribution table.  MODEL is a
+    standing program (fit_a_line|recognize_digits|small_lm|lstm,
+    models/standing.py) or a saved-model dir/file.
+
+    Runs the segment walk on --place (CUDA events on the card, the host
+    clock on the CPU; observability/attribution.py), joins measured
+    per-op time against the static cost model, publishes the
+    op_pred_vs_measured gauges, and emits ONE bench-schema artifact
+    line.  --profile also captures a torch.profiler trace of executor
+    steps with the op ranges on and attributes its device time (on the
+    card a trace without op-named device time fails the command);
+    --update-calibration feeds the table into the calibration store the
+    autotune prior consumes."""
+    import paddle_tpu_torch as fluid
+
+    from . import observability as obs
+    from .analysis import cost as acost
+    from .analysis import equivalence as eqv
+    from .framework.executor import Executor
+    from .framework.scope import Scope
+    from .models.standing import get_builder
+
+    if args.calibration_root:
+        os.environ["PADDLE_TPU_CALIBRATION_CACHE"] = os.path.abspath(
+            args.calibration_root)
+    place = _place(args.place)
+    chip = args.chip or ("cpu-host" if args.place == "cpu"
+                         else acost.detect_chip())
+    builder = get_builder(args.model)
+    if builder is not None:
+        label = args.model
+        fluid.reset()
+        feed, fetch, bs = builder()
+        program = fluid.default_main_program()
+        scope = Scope()
+        Executor(place).run(fluid.default_startup_program(), scope=scope)
+    else:
+        program, feed_names, fetch = _load_program_any(args.model)
+        block = program.global_block()
+        if fetch is None:
+            fetch = eqv.sink_outputs(block)
+        if feed_names is None:
+            feed_names = [v.name for v in block.vars.values()
+                          if v.is_data]
+        label = (os.path.basename(os.path.normpath(args.model))
+                 or "model").replace("-", "_").replace(".", "_")
+        bs = args.batch_size
+        feed = eqv.build_feeds(program, feed_names, batch_size=bs)
+        scope = _load_scope_for(args.model) or Scope()
+        seed_missing_state(program, feed, scope)
+
+    table = obs.attribution.attribute_cpu(
+        program, feed, scope=scope, batch_size=bs,
+        repeats=args.repeats, chip=chip, place=place)
+    obs.attribution.publish(table, label)
+    row = obs.attribution.artifact_row(table, label)
+
+    if args.profile:
+        pexe = Executor(place)
+
+        def step(i):
+            pexe.run(program, feed=dict(feed), fetch_list=list(fetch),
+                     scope=scope, rng_step=i)
+
+        # one step outside the capture: a saved model's weights move to
+        # the card on the first run, outside every op's range
+        step(0)
+        cap = obs.attribution.capture_profile(step, args.profile,
+                                              steps=args.steps,
+                                              place=place)
+        row["profile_trace"] = cap["trace_file"]
+        ptab = obs.attribution.table_from_scopes(
+            program.global_block(), cap["by_scope"], batch_size=bs,
+            chip=chip, unattributed_s=cap["unattributed_s"],
+            mode=cap["mode"])
+        row["profile_coverage"] = round(ptab["coverage"], 4)
+        row["profile_table"] = obs.attribution.artifact_row(
+            ptab, label)["by_type"]
+
+    if args.update_calibration:
+        entry = obs.calibration.default_store().record_attribution(table)
+        row["calibration_updated"] = bool(entry)
+
+    if args.smoke:
+        # the attribution gate: >=80% of measured step time attributed
+        # to named desc ops, every row carries a uid, the families exist
+        assert table["coverage"] >= 0.8, \
+            f"attribution coverage {table['coverage']:.3f} < 0.8"
+        assert table["n_ops"] > 0 and table["by_type"], table["n_ops"]
+        assert all(r["uid"] >= 0 for r in table["rows"]), \
+            "desc op without a __uid__ in the attribution table"
+        snapshot = obs.REGISTRY.snapshot()
+        sp = obs.validate_snapshot(snapshot)
+        assert not sp, f"snapshot schema: {sp}"
+        for fam in ("op_pred_vs_measured", "op_measured_time_share",
+                    "op_attribution_coverage"):
+            assert fam in snapshot["families"], f"missing family {fam}"
+        print(f"# attribution smoke OK ({label}: {table['n_ops']} ops, "
+              f"coverage {table['coverage']:.3f}, top "
+              f"{table['top_op']})", file=sys.stderr)
+
+    line = json.dumps(row)
+    if not args.json:
+        print(f"attribution {label} ({table['mode']}, chip "
+              f"{table['chip']}): {table['n_ops']} ops, "
+              f"{table['total_s'] * 1e3:.3f} ms/walk, coverage "
+              f"{table['coverage']:.3f}", file=sys.stderr)
+        for t, e in list(table["by_type"].items())[:args.top]:
+            print(f"  {t:<28} x{e['count']:<4} "
+                  f"{e['measured_share'] * 100:6.2f}% measured  "
+                  f"{e['pred_share'] * 100:6.2f}% predicted  "
+                  f"pred/meas {e['pred_vs_measured']:.2e}",
+                  file=sys.stderr)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """`tune WORKLOAD` — the autotuner's search loop.  WORKLOAD is a
+    registered name (gpt_small, bn_conv, paged_decode, spec_decode,
+    lstm, mlp_depth, step_loop) or a saved-model dir.  Winners persist in
+    the autotune store; a second run is a cache hit (no re-measurement)
+    unless --force."""
+    if args.store:
+        # the store location binds for the WHOLE process (knob
+        # resolution during trials reads default_store)
+        os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.abspath(
+            args.store)
+    elif args.mock and not args.smoke \
+            and "PADDLE_TPU_AUTOTUNE_CACHE" not in os.environ:
+        # mock winners are digest-hash noise: persisting them into the
+        # real default store would configure later runs with them
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="paddle_tune_mock_")
+        os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = tmp
+        print(f"# --mock: winners land in throwaway store {tmp} "
+              f"(pass --store to keep them)", file=sys.stderr)
+    from . import autotune
+    from .autotune import measure as at_measure
+    from .autotune import workloads as at_workloads
+
+    if args.smoke:
+        return _tune_smoke(args)
+
+    wl = at_workloads.get_workload(args.workload, place=_place(args.place))
+    measurer = (at_measure.MockMeasurer() if args.mock
+                else at_measure.TimedMeasurer(warmup=args.warmup,
+                                              iters=args.iters,
+                                              repeats=args.repeats))
+    rep = autotune.tune(wl, measurer=measurer, top_k=args.top_k,
+                        chip=args.chip, force=args.force,
+                        measure_all=args.measure_all)
+    if args.json:
+        print(json.dumps(rep))
+        return 0
+    return _render_tune(rep)
+
+
+def _render_tune(rep) -> int:
+    from .autotune import store as at_store
+
+    if rep.get("cache_hit"):
+        e = rep["entry"]
+        print(f"tune {rep['workload']}: winner loaded from store "
+              f"(cache hit, no re-measurement)")
+        print(f"  params   {rep['winner']}")
+        print(f"  measured {e.get('measured_s', 0) * 1e3:.3f} ms/step "
+              f"(tuned {e.get('created_utc', '?')}; --force re-measures)")
+        return 0
+    print(f"tune {rep['workload']}: space {rep['space_size']}, "
+          f"{rep['n_feasible']} feasible, {rep['n_rejected']} rejected "
+          f"by the analyzers before any trial")
+    for t in rep["trials"]:
+        mark = "*" if t["digest"] == rep["winner_row"]["digest"] else " "
+        print(f" {mark} {t['digest']}  pred "
+              f"{t['predicted_step_s'] * 1e3:9.4f} ms  measured "
+              f"{t['best_s'] * 1e3:9.4f}/{t['median_s'] * 1e3:.4f} ms "
+              f"(best/median)  {t['params']}")
+    base = rep.get("default_row")
+    win = rep["winner_row"]
+    if base:
+        speedup = base["best_s"] / win["best_s"] if win["best_s"] else 0
+        print(f"  winner vs default: {speedup:.3f}x "
+              f"({base['best_s'] * 1e3:.4f} -> "
+              f"{win['best_s'] * 1e3:.4f} ms)")
+    print(f"  prior rank of measured winner: {rep['rank_of_winner']} "
+          f"(in top-k: {rep['in_top_k']})")
+    print(f"  persisted -> {at_store.default_store().root}")
+    return 0
+
+
+def _tune_smoke(args) -> int:
+    """Fast gate: the workload's space with the mock measurer in a
+    private store — asserts the prior/measure/store/cache-hit loop end
+    to end without running a trial."""
+    import tempfile
+
+    from . import autotune
+    from .autotune import integration as at_int
+    from .autotune import workloads as at_workloads
+    from .autotune.measure import MockMeasurer
+
+    place = _place(args.place)
+    prev = os.environ.get("PADDLE_TPU_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = tmp
+        try:
+            at_int.reset()
+            wl = at_workloads.get_workload(args.workload, place=place)
+            m = MockMeasurer()
+            rep = autotune.tune(wl, measurer=m, top_k=3)
+            assert not rep["cache_hit"] and rep["winner"], rep
+            assert m.measured, "mock measurer never ran"
+            assert rep["default_row"] is not None, \
+                "baseline candidate was not measured"
+            # the winner is measured-best by construction: >= default
+            assert rep["winner_row"]["best_s"] <= \
+                rep["default_row"]["best_s"] + 1e-12
+            # second run: the persisted winner comes back with NO
+            # measurement
+            m2 = MockMeasurer()
+            rep2 = autotune.tune(
+                at_workloads.get_workload(args.workload, place=place),
+                measurer=m2)
+            assert rep2["cache_hit"] and not m2.measured, rep2
+            assert rep2["winner"] == rep["winner"]
+            # memory-infeasible candidates are rejected BEFORE any
+            # trial: under a 1 MiB budget everything is infeasible
+            if getattr(wl, "kind", "") == "program":
+                m3 = MockMeasurer()
+                try:
+                    autotune.tune(
+                        at_workloads.get_workload(args.workload,
+                                                  place=place),
+                        measurer=m3, force=True, hbm_bytes=1 << 20)
+                    raise AssertionError("1MiB-budget tune did not "
+                                         "reject")
+                except RuntimeError:
+                    pass
+                assert not m3.measured, \
+                    "infeasible candidates were measured"
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_TPU_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = prev
+            at_int.reset()
+        print(f"# autotune smoke OK ({args.workload}: "
+              f"{len(m.measured)} mock trials, winner "
+              f"{rep['winner']}, cache-hit verified)", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     real_argv = sys.argv[1:] if argv is None else list(argv)
     if real_argv and real_argv[0] in UNPORTED:
         print(f"paddle_tpu_torch: subcommand {real_argv[0]!r} is not ported "
               f"(ROADMAP.md Queue A item {UNPORTED[real_argv[0]]}; the port "
-              f"has 'train', 'version', 'lint', 'analyze' and 'diff')",
+              f"has 'train', 'version', 'lint', 'analyze', 'diff', "
+              f"'metrics', 'trace', 'attribute' and 'tune')",
               file=sys.stderr)
         return 2
 
@@ -382,6 +745,103 @@ def main(argv=None) -> int:
                    help="where the differential tier runs (default: the "
                         "card)")
     p.set_defaults(fn=cmd_diff)
+
+    place_kw = dict(choices=["cuda", "cpu"], default="cuda",
+                    help="where the program runs (default: the card)")
+    p = sub.add_parser("metrics")
+    p.add_argument("model", help="saved model dir, __model__ file, or "
+                                 "program.json")
+    p.add_argument("--steps", type=int, default=5,
+                   help="executor steps to drive (the first builds)")
+    p.add_argument("--batch-size", type=int, default=2,
+                   help="binds -1 feed dims of the synthetic feeds")
+    p.add_argument("--json", action="store_true",
+                   help="registry snapshot JSON (+ pred_vs_measured "
+                        "report) instead of Prometheus text")
+    p.add_argument("--trace-out", default=None,
+                   help="also write the step trace JSON here")
+    p.add_argument("--place", **place_kw)
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("trace")
+    p.add_argument("model", help="saved model dir, __model__ file, or "
+                                 "program.json")
+    p.add_argument("--steps", type=int, default=5,
+                   help="executor steps to drive (the first builds)")
+    p.add_argument("--batch-size", type=int, default=2,
+                   help="binds -1 feed dims of the synthetic feeds")
+    p.add_argument("--out", default=None,
+                   help="trace path (default MODEL.trace.json)")
+    p.add_argument("--place", **place_kw)
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("attribute")
+    p.add_argument("model",
+                   help="standing program (fit_a_line|recognize_digits|"
+                        "small_lm|lstm) or a saved-model dir/file")
+    p.add_argument("--repeats", type=int, default=3,
+                   help="segment walks per op (median is reported)")
+    p.add_argument("--steps", type=int, default=3,
+                   help="executor steps under --profile")
+    p.add_argument("--batch-size", type=int, default=2,
+                   help="binds -1 feed dims of saved models")
+    p.add_argument("--chip", default=None,
+                   help="chip spec for the predicted column (default: "
+                        "h100-sxm on the card, cpu-host on the CPU)")
+    p.add_argument("--top", type=int, default=8,
+                   help="op types shown in the human table")
+    p.add_argument("--profile", default=None,
+                   help="also capture a torch.profiler trace of executor "
+                        "steps into this dir and attribute its device "
+                        "time by op")
+    p.add_argument("--update-calibration", action="store_true",
+                   help="feed the table into the calibration store "
+                        "(observability/calibration.py)")
+    p.add_argument("--calibration-root", default=None,
+                   help="calibration store dir (default "
+                        "$PADDLE_TPU_CALIBRATION_CACHE or the package's "
+                        "_cache/calibration)")
+    p.add_argument("--json", action="store_true",
+                   help="suppress the human table (artifact line only)")
+    p.add_argument("--out", default=None,
+                   help="also write the artifact line to FILE")
+    p.add_argument("--smoke", action="store_true",
+                   help="gate: coverage/schema asserts")
+    p.add_argument("--place", **place_kw)
+    p.set_defaults(fn=cmd_attribute)
+
+    p = sub.add_parser("tune")
+    p.add_argument("workload",
+                   help="registered workload (gpt_small|bn_conv|"
+                        "paged_decode|spec_decode|lstm|mlp_depth|"
+                        "step_loop) or a saved-model dir")
+    p.add_argument("--top-k", type=int, default=5,
+                   help="how many predicted-best candidates to measure "
+                        "(the prior gate)")
+    p.add_argument("--chip", default=None,
+                   help="chip spec for the prior (default: "
+                        "$PADDLE_TPU_CHIP, else the detected card)")
+    p.add_argument("--store", default=None,
+                   help="winner-store dir (default "
+                        "$PADDLE_TPU_AUTOTUNE_CACHE or the package's "
+                        "_cache/autotune)")
+    p.add_argument("--force", action="store_true",
+                   help="re-measure even when the store has a winner")
+    p.add_argument("--measure-all", action="store_true",
+                   help="measure every feasible candidate, not just "
+                        "top-k")
+    p.add_argument("--mock", action="store_true",
+                   help="deterministic mock measurer (runs nothing)")
+    p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--iters", type=int, default=8)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--smoke", action="store_true",
+                   help="gate: the mock tune in a throwaway store, "
+                        "asserting the rank/measure/persist/cache-hit "
+                        "loop")
+    p.add_argument("--place", **place_kw)
+    p.set_defaults(fn=cmd_tune)
 
     args = parser.parse_args(real_argv)
     return args.fn(args)

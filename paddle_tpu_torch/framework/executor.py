@@ -30,6 +30,17 @@ PADDLE_TPU_VERIFY=1 when `verify` is None) runs the static program
 verifier (``analysis/verifier.py``) first: errors raise
 ``VerificationError``, warnings are logged, once a program version and
 feed/fetch set.
+
+Telemetry (``observability``): each run counts into
+``executor_steps_total`` and opens the JAX executor's spans where the
+port has the phase — ``executor.execute`` (the op walk, or a graph
+replay), ``executor.writeback`` (state back to the scope) and, for a
+K-step dispatch, ``executor.compile`` (the CUDA-graph capture).  A
+tracked program (``observability.accounting.track``) reports each run's
+time to ``accounting.on_step``, read after a device synchronize on the
+card.  With op attribution on, each op runs inside its
+``observability.attribution.op_scope`` profiler range.  Block 0 picks up
+a stored autotune winner for the program (``autotune.integration``).
 """
 
 from __future__ import annotations
@@ -42,6 +53,11 @@ import torch
 
 from ..analysis.dataflow import state_classes
 from ..autotune import knobs
+from ..autotune.integration import maybe_apply_program_winner
+from ..observability import accounting as _acct
+from ..observability import span as _span
+from ..observability.attribution import op_scope
+from ..observability.metrics import REGISTRY as _MET, monotime as _monotime
 from ..lod import LENGTH_SUFFIX, as_lod_tensor, is_lod_feed
 from ..ops.registry import EmitContext, get_op_info, unbound_slots
 from .core import GRAD_SUFFIX, Program, default_main_program, torch_dtype
@@ -50,6 +66,11 @@ from .scope import Scope, global_scope, to_numpy
 from . import step_loop
 
 logger = logging.getLogger(__name__)
+
+# counter handle resolved once (families survive REGISTRY.reset()): it
+# sits on the per-run hot path
+_MET_STEPS = _MET.counter("executor_steps_total",
+                          "completed Executor.run invocations")
 
 
 class OpLoweringError(RuntimeError):
@@ -121,6 +142,10 @@ class Executor:
         self._constants = {}
         # (program token, version, block, feeds, fetches) verified clean
         self._verified = set()
+        # (program token, version, block, feed names) run once already:
+        # a first run pays kernel builds and uploads (accounting's
+        # "compiled" runs)
+        self._warm = set()
 
     @property
     def global_step(self) -> int:
@@ -173,30 +198,55 @@ class Executor:
         fetch_names = [_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
         block = program.blocks[block_id]
+        if block_id == 0:
+            # a stored `tune` winner for this exact program + feeds
+            # re-applies its desc-level decisions (one memoized lookup
+            # per program version)
+            maybe_apply_program_winner(program, feed)
+        timed = _acct.needs_sync(program)
+        if timed:
+            self._sync()
+        t_run0 = _monotime()
 
         env = {}
         for name, value in feed.items():
             env.update(self._feed_tensor(block, name, value))
         feed_names = list(env)
+        warm_key = (program._cache_token, program._version, block_id,
+                    tuple(sorted(feed_names)))
+        first = warm_key not in self._warm
+        self._warm.add(warm_key)
         is_test = not any(op.type.endswith("_grad") for op in block.ops)
         ctx = EmitContext(self.device, is_test=is_test, program=program,
                           step=self._step if rng_step is None
                           else int(rng_step), constants=self._constants)
         self._step += 1
-        self._walk(block, env, fetch_names, scope, ctx)
+        with _span("executor.execute", cache_hit=not first,
+                   ops=len(block.ops)):
+            self._walk(block, env, fetch_names, scope, ctx)
         new_state = {n: env[n] for n in written(block, feed_names)
                      if n in env}
-        for n, v in new_state.items():
-            scope.set(n, v)
+        with _span("executor.writeback", written=len(new_state)):
+            for n, v in new_state.items():
+                scope.set(n, v)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not computed")
         fetches = {n: env[n] for n in fetch_names}
         if self.check_nan_inf:
             self._check_finite({**fetches, **new_state})
+        _MET_STEPS.inc()
+        if timed:
+            self._sync()
+            _acct.on_step(program, _monotime() - t_run0, first)
         if return_numpy:
             return [to_numpy(fetches[n]) for n in fetch_names]
         return [fetches[n] for n in fetch_names]
+
+    def _sync(self):
+        """Wait for the card's work (the accounting clock's edges)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _verify_program(self, program, block_id, feed_names, fetch_names):
         """Static pre-execution check: errors raise, warnings are logged.
@@ -305,14 +355,29 @@ class Executor:
             return sequential()
         if first or not self._captures:
             return sequential()
-        if entry.loop is None:
-            entry.loop = step_loop.CapturedLoop.capture(
-                self, program, program.blocks[block_id], feed, fetch_names,
-                scope, k, fetch_every,
-                self._step if rng_step is None else int(rng_step))
+        if block_id == 0:
+            maybe_apply_program_winner(program, feed)
+        timed = _acct.needs_sync(program)
+        if timed:
+            self._sync()
+        t_run0 = _monotime()
+        captured_now = entry.loop is None
+        if captured_now:
+            with _span("executor.compile",
+                       ops=len(program.blocks[block_id].ops), loop_k=k):
+                entry.loop = step_loop.CapturedLoop.capture(
+                    self, program, program.blocks[block_id], feed,
+                    fetch_names, scope, k, fetch_every,
+                    self._step if rng_step is None else int(rng_step))
         loop = entry.loop
-        fetches = loop.replay(feed, scope)
+        with _span("executor.execute", cache_hit=not captured_now,
+                   loop_k=k):
+            fetches = loop.replay(feed, scope)
         self._step += k
+        _MET_STEPS.inc()
+        if timed:
+            self._sync()
+            _acct.on_step(program, _monotime() - t_run0, captured_now)
         if self.check_nan_inf:
             self._check_finite({**fetches, **loop.written_state()})
         if return_numpy:
@@ -389,7 +454,8 @@ class Executor:
                 for slot, names in op.outputs.items()
                 for i, n in enumerate(names) if n}
         try:
-            outs = info.emit(ctx, ins, attrs)
+            with op_scope(op):
+                outs = info.emit(ctx, ins, attrs)
         except Exception as e:
             in_names = {s: list(ns) for s, ns in op.inputs.items() if ns}
             out_names = {s: list(ns) for s, ns in op.outputs.items() if ns}

@@ -117,14 +117,14 @@ def resnet_cifar10(input, class_dim=10, depth=32, layout="NCHW"):
 def build_train_program(batch_size=64, depth=50, class_dim=1000,
                         image_shape=(3, 224, 224), dtype="float32",
                         learning_rate=0.1, momentum=0.9, layout="NCHW",
-                        remat=False, fuse_bn=False):
+                        remat=False, fuse_bn=None):
     """Full training program: returns (avg_cost, accuracy).
 
     With dtype='bfloat16' the convolutions and the fc run in bf16 and the
     softmax/loss head in float32.  With layout='NHWC' the 'image' feed is
     channels-last ([H, W, C]).  ``fuse_bn=True`` runs the fusion pass,
-    which is NHWC-only (the JAX function's ``fuse_bn=None``, which reads
-    PADDLE_TPU_FUSE_BN_MM, is not ported: pass the choice).
+    which is NHWC-only; ``fuse_bn=None`` reads PADDLE_TPU_FUSE_BN_MM
+    ("1" fuses), as the JAX function does.
     ``remat=True`` checkpoints every residual block (see layer_warp)."""
     import paddle_tpu_torch as fluid
 
@@ -142,6 +142,10 @@ def build_train_program(batch_size=64, depth=50, class_dim=1000,
     avg_cost = layers.mean(loss)
     prob = layers.softmax(logits32)
     acc = layers.accuracy(input=prob, label=label)
+    if fuse_bn is None:
+        import os
+
+        fuse_bn = os.environ.get("PADDLE_TPU_FUSE_BN_MM") == "1"
     if fuse_bn and layout != "NHWC":
         import warnings
 

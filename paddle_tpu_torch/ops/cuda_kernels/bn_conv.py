@@ -37,9 +37,15 @@ def w_hwio(w):
 
 
 def _v2_block_o(O: int) -> int:
-    """K14's O block: O when O is not a multiple of 128, else 256 when
-    O ≥ 512 splits into such blocks, else 128 — the JAX package's rule
-    without its override."""
+    """K14's O block: the autotune knob layer's ``bnconv_block_o`` (trial
+    override > PADDLE_TPU_BNCONV_BO > stored winner) when it divides O;
+    else O when O is not a multiple of 128, else 256 when O ≥ 512 splits
+    into such blocks, else 128 — the JAX package's rule."""
+    from ...autotune import knobs
+
+    explicit = knobs.bnconv_block_o()
+    if explicit and O % explicit == 0:
+        return explicit
     if O % 128:
         return O
     if O >= 512 and O % 256 == 0:

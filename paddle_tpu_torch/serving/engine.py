@@ -39,9 +39,13 @@ emits only TARGET tokens, so ``spec`` is token-identical to ``v2``.
 
 Everything is deterministic greedy argmax, so the engine reproduces the
 JAX package's engine token for token on the same weights.  Each program
-run sits in a torch.profiler range (``serve.prefill``, ``serve.decode``,
-``serve.mixed``, ``serve.cow_copy``, ``serve.draft``, ``serve.verify``)
-so a profile can attribute device time to its phase.
+run sits in an observability span (``serve.prefill``, ``serve.decode``,
+``serve.mixed_step``, ``serve.cow_copy``, ``serve.draft``,
+``serve.verify``; admission in ``serve.admit``), which is also a
+torch.profiler range of the same name, so a profile can attribute device
+time to its phase.  The counters are ``MirroredCounters``: every write
+also lands in the registry's ``serve_counters{engine, scheduler,
+counter}`` gauges.
 """
 
 from __future__ import annotations
@@ -51,16 +55,16 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import layers
+from .. import observability as obs
 from ..analysis import memory as amem
 from ..framework import unique_name
 from ..framework.core import Program, program_guard, torch_dtype
 from ..framework.executor import Executor
 from ..framework.place import default_place
 from ..framework.scope import global_scope
-from .kv_cache import DEFAULT_PAGE_SIZE, PagedKVCache, pages_needed
+from .kv_cache import PagedKVCache, page_size_from_env, pages_needed
 from .scheduler import (RUNNING, ContinuousBatchingScheduler,
                         PreemptiveScheduler, Request)
 
@@ -116,7 +120,7 @@ class ServingEngine:
         self.eos_id = int(eos_id)
         self.num_slots = int(max_batch_size)
         self.page_size = int(page_size if page_size is not None
-                             else DEFAULT_PAGE_SIZE)
+                             else page_size_from_env())
         self.max_pages = pages_needed(lm.max_len, self.page_size)
         self.num_pages = int(num_pages if num_pages is not None
                              else self.num_slots * self.max_pages + 1)
@@ -182,16 +186,21 @@ class ServingEngine:
         # gauge, step kinds and the speculative tallies.  Beside them, the
         # port's run counts and the time.monotonic seconds spent in each
         # kind of program run.  The fifo path counts its decode steps too,
-        # where the JAX engine leaves decode_steps at 0.
-        self.counters = {
-            "prefill_computed": 0, "prefill_cached": 0,
-            "cow_copies": 0, "peak_stranded": 0,
-            "mixed_steps": 0, "decode_steps": 0,
-            "spec_rounds": 0, "spec_drafted": 0,
-            "spec_accepted": 0, "spec_emitted": 0,
-            "prefill_runs": 0, "draft_runs": 0,
-            "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
-            "draft_s": 0.0, "verify_s": 0.0}
+        # where the JAX engine leaves decode_steps at 0.  Writes are
+        # mirrored into serve_counters{engine=name, scheduler=mode}: the
+        # label is the name (default the scheduler mode), never a
+        # per-instance prefix that would grow the family per engine.
+        self.counters = obs.MirroredCounters(
+            {"prefill_computed": 0, "prefill_cached": 0,
+             "cow_copies": 0, "peak_stranded": 0,
+             "mixed_steps": 0, "decode_steps": 0,
+             "spec_rounds": 0, "spec_drafted": 0,
+             "spec_accepted": 0, "spec_emitted": 0,
+             "prefill_runs": 0, "draft_runs": 0,
+             "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
+             "draft_s": 0.0, "verify_s": 0.0},
+            family="serve_counters", engine=self.name,
+            scheduler=self.mode)
         if self.mode == "spec":
             from .speculative import SpeculativeDecoder
 
@@ -273,11 +282,11 @@ class ServingEngine:
         return self.scheduler.outstanding()
 
     def _run(self, prog, feed, fetch, counter, mark):
-        """One program run inside the profiler range `mark`; its wall
-        seconds go to counters[counter].  Returns the fetches and the
-        engine clock after the run."""
+        """One program run inside the span `mark` (a profiler range of
+        the same name); its wall seconds go to counters[counter].
+        Returns the fetches and the engine clock after the run."""
         t0 = time.monotonic()
-        with record_function(mark):
+        with obs.span(mark, active=len(self.scheduler.active)):
             out = self._exe.run(prog, feed=feed, fetch_list=fetch,
                                 scope=self._scope)
         self.counters[counter] += time.monotonic() - t0
@@ -400,7 +409,8 @@ class ServingEngine:
 
     def _step_v2(self) -> bool:
         now = self._clock()
-        self.scheduler.admit(now=now)
+        with obs.span("serve.admit", scheduler=self.mode) as sp:
+            sp.note(admitted=len(self.scheduler.admit(now=now)))
         self._run_copies()
 
         # on-demand decode growth BEFORE feeds are built: a slot about to
@@ -466,7 +476,7 @@ class ServingEngine:
              f"{self._pfx}.m.ctok": ctok, f"{self._pfx}.m.cctx": cctx,
              f"{self._pfx}.m.cclen": cclen, f"{self._pfx}.m.cpt": cpt},
             [self._mixed_decode_fetch, self._mixed_chunk_fetch],
-            "mixed_s", "serve.mixed")
+            "mixed_s", "serve.mixed_step")
         self.counters["mixed_steps"] += 1
         for j, (r, cl) in enumerate(chunk_of):
             r.ctx_len += cl
@@ -498,7 +508,9 @@ class ServingEngine:
         if self._v2like:
             alive = self._step_v2()
         else:
-            admitted = self.scheduler.admit(now=self._clock())
+            with obs.span("serve.admit", scheduler="fifo") as sp:
+                admitted = self.scheduler.admit(now=self._clock())
+                sp.note(admitted=len(admitted))
             if admitted:
                 self._prefill(admitted)
             self._decode()

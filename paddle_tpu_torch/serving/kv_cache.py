@@ -32,8 +32,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 # Tokens per KV page: the allocator's granularity and the paged kernels'
-# unit of work.  ServingEngine(page_size=...) overrides it.
+# unit of work, when neither the caller (ServingEngine(page_size=...))
+# nor the autotune knob layer names one.
 DEFAULT_PAGE_SIZE = 16
+
+
+def page_size_from_env(default: int = DEFAULT_PAGE_SIZE) -> int:
+    """Tokens per KV page, resolved through the autotune knob layer: an
+    active trial override, then PADDLE_TPU_PAGE_SIZE (validated), then
+    the stored ``tune paged_decode`` winner for this device, then
+    `default`."""
+    from ..autotune import knobs
+
+    return knobs.paged_page_size(default)
 
 
 def pages_needed(tokens: int, page_size: int) -> int:

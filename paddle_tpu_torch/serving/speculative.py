@@ -45,9 +45,12 @@ DEFAULT_SPEC_K = 4
 
 def build_draft_lm(lm, n_layers: Optional[int] = None):
     """The one draft mint: the truncated parameter-sharing view of `lm`,
-    `n_layers` deep (default half of `lm`'s layers, at least 1)."""
+    `n_layers` deep (default: the knob layer's ``spec_draft_layers``,
+    whose own default is half of `lm`'s layers, at least 1)."""
     if n_layers is None:
-        n_layers = max(1, lm.n_layers // 2)
+        from ..autotune import knobs
+
+        n_layers = knobs.spec_draft_layers(max(1, lm.n_layers // 2))
     n_layers = max(1, min(int(n_layers), lm.n_layers))
     return lm.truncated(n_layers)
 
@@ -64,7 +67,11 @@ class SpeculativeDecoder:
 
     def __init__(self, engine, k: Optional[int] = None,
                  draft_layers: Optional[int] = None):
-        self.k = max(1, int(k if k is not None else DEFAULT_SPEC_K))
+        if k is None:
+            from ..autotune import knobs
+
+            k = knobs.speculation_k(DEFAULT_SPEC_K)
+        self.k = max(1, int(k))
         self.engine = engine
         self.draft = build_draft_lm(engine.lm, draft_layers)
 

@@ -281,16 +281,6 @@ def test_chip_table_is_the_ports_own(monkeypatch):
     assert tcost.detect_chip() == "cpu-host"  # no card here
 
 
-def test_calibration_true_raises_naming_the_queue_item():
-    (_, tp) = _pair("mlp_train")[1]
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcost.program_cost(tp, 8, calibration=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcost.step_loop_cost(tp, 2, 8, calibration=True)
-    assert tcost.program_cost(tp, 8, calibration=None) == \
-        tcost.program_cost(tp, 8, calibration=False)
-
-
 # -- the verifier -------------------------------------------------------------
 
 
@@ -734,8 +724,7 @@ def test_a_corrupted_fold_is_refuted(monkeypatch):
 
 
 @pytest.mark.parametrize("fn,item", [
-    ("checked_memory_optimize", 7), ("checked_distribute_transpile", 11),
-    ("checked_sharding_plan", 11)])
+    ("checked_distribute_transpile", 11), ("checked_sharding_plan", 11)])
 def test_unported_contracts_raise_naming_the_queue_item(fn, item):
     (_, tp) = _pair("mlp_train")[1]
     args = {"checked_distribute_transpile": (None, 0),

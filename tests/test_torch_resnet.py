@@ -782,15 +782,21 @@ def test_skipping_dead_ops_changes_no_result(which, monkeypatch):
         np.testing.assert_array_equal(state[n], state_all[n], err_msg=n)
 
 
-def test_bnconv_variant_knob(monkeypatch):
-    """PADDLE_TPU_BNCONV_VARIANT picks the fused 3x3 forward, v1 when unset;
-    the JAX package's other knobs (its legacy PADDLE_TPU_BNCONV_V2 and the
-    O-block override PADDLE_TPU_BNCONV_BO) do not move the port."""
+def test_bnconv_variant_knob(monkeypatch, tmp_path):
+    """PADDLE_TPU_BNCONV_VARIANT picks the fused 3x3 forward, v1 when unset
+    (and no stored winner); the legacy PADDLE_TPU_BNCONV_V2=1 picks v2, and
+    the O-block override PADDLE_TPU_BNCONV_BO sets K14's block where it
+    divides O, as in the JAX package."""
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE", str(tmp_path))
     monkeypatch.delenv("PADDLE_TPU_BNCONV_VARIANT", raising=False)
-    monkeypatch.setenv("PADDLE_TPU_BNCONV_V2", "1")
-    monkeypatch.setenv("PADDLE_TPU_BNCONV_BO", "64")
+    monkeypatch.delenv("PADDLE_TPU_BNCONV_V2", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_BNCONV_BO", raising=False)
     assert knobs.bnconv_variant() == "v1"
     assert [tbc._v2_block_o(o) for o in (96, 192, 256)] == [96, 192, 128]
+    monkeypatch.setenv("PADDLE_TPU_BNCONV_V2", "1")
+    monkeypatch.setenv("PADDLE_TPU_BNCONV_BO", "64")
+    assert knobs.bnconv_variant() == "v2"
+    assert [tbc._v2_block_o(o) for o in (96, 192, 256)] == [96, 64, 64]
     for v in ("v1", "v2", "reference"):
         monkeypatch.setenv("PADDLE_TPU_BNCONV_VARIANT", v)
         assert knobs.bnconv_variant() == v

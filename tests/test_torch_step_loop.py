@@ -343,10 +343,6 @@ class TestKnob:
         assert tknobs.steps_per_dispatch(default=1, store=False) == 1
         assert tknobs.steps_per_dispatch(default=3) == 3
 
-    def test_stored_winner_not_ported(self):
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            tknobs.steps_per_dispatch(default=1, store=True)
-
     def test_executor_run_respects_env(self, monkeypatch):
         loss, main, exe = _port(lambda: _mlp(tfluid))
         monkeypatch.setenv("PADDLE_TPU_STEPS_PER_DISPATCH", "2")

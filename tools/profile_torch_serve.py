@@ -16,7 +16,7 @@ port's three kernels, GEMMs, everything else, host-device copies) per
 phase, and the device busy share of the profiled window (kernel
 intervals merged, over the window's host wall time, which the profiler
 itself inflates).  The phases are the engine's own profiler ranges
-(``serve.prefill``, ``serve.decode``, ``serve.mixed``,
+(``serve.prefill``, ``serve.decode``, ``serve.mixed_step``,
 ``serve.cow_copy``, ``serve.draft``, ``serve.verify``).  The chrome
 trace goes to ``--trace`` when given.
 """
@@ -42,7 +42,7 @@ from paddle_tpu_torch.ops.cuda_kernels import _common  # noqa: E402
 from paddle_tpu_torch.serving import ServingEngine  # noqa: E402
 
 SLOTS, PAGE, N_REQ, MAX_NEW, SEED = 8, 16, 16, 32, 0
-MARKS = ("serve.prefill", "serve.decode", "serve.mixed", "serve.cow_copy",
+MARKS = ("serve.prefill", "serve.decode", "serve.mixed_step", "serve.cow_copy",
          "serve.draft", "serve.verify")
 ENGINE_KW = {"fifo": {},
              "v2": {"scheduler": "v2", "chunk_size": 32, "chunk_lanes": 4},

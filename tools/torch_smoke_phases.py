@@ -2,6 +2,7 @@
 against change.
 
     python3 tools/torch_smoke_phases.py router
+    python3 tools/torch_smoke_phases.py measurement
     python3 tools/torch_smoke_phases.py v1_rnn generation --parent DIR
 
 Without ``--parent`` the phases run once in this process after the kernel
@@ -28,6 +29,7 @@ PHASES = {
     "router": "cs.router_phase(name, smi)",
     "v1_rnn": "cs.v1_rnn_phase(name, smi)",
     "generation": "cs.generation_phase(torch.device('cuda', 0), name, smi)",
+    "measurement": "cs.measurement_phase(name, smi)",
 }
 
 _RUN = r'''
