@@ -456,12 +456,36 @@ non-zero and no result line is printed):
     ``python -m paddle_tpu_torch metrics``, ``trace`` and ``attribute
     --profile`` on the serving GPT's forward saved as an inference
     model, and ``tune paged_decode --smoke``, in parallel: each exits 0;
-40. summary.
+40. SPMD over a device mesh (``paddle_tpu_torch/parallel/``): (a) the
+    flash ring, the zigzag ring and Ulysses at the GPT bench's attention
+    shape ([8, 8, 1024, 64] global, causal), bf16 and f32, over S = 2, 4
+    and 8 positions of the card, one training call each (forward and
+    backward): held to the same schedule on the plain versions (out
+    absolute, gradients relative to their max |g|, at the kernels'
+    tolerance), K4/K5/K6 launches as the library counted them held to the
+    schedule's (S blocks a position, 2S + 1 for zigzag, one for Ulysses),
+    timed beside the plain call; (b) ``lm_dp_sp`` at the bench widths:
+    ``build_lm_train_program`` (dim 512, 8 layers, 8 heads, vocab 32000,
+    bf16) at global batch 8 x 1024 over {"dp": 4, "sp": 2} on eight
+    positions of cuda:0 (zigzag), 2 + 10 steps, each held to the
+    single-card Executor's step from the same state against a float32
+    witness step (``mesh_gpt_phase``), with ms a step, device ms, busy
+    share, peak memory, K4/K5/K6 launches a step (640, 320, 320), the
+    reshards and collectives a step, and the single card's figures
+    beside them; (c) f32 ``dp``, ``sp_ring`` and ``ep_dp`` on eight
+    positions of the card against an explicit-CPU ``ParallelExecutor``,
+    three steps (losses 1e-4, state 1e-3 of max |value|); (d) f32
+    ``sp_ring`` at ``steps_per_dispatch=2`` on the card (eager, capture
+    and replay, replay), each dispatch bitwise against two run() calls.
+    One card shows no link time: a hop or a psum between its positions
+    is a re-index or an add in its memory;
+41. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
-{...}, "router": {...}, "measurement": {...}}`` summary (all 15 kernels)
+{...}, "router": {...}, "measurement": {...}, "parallel": {...}}``
+summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
 prints no result.
@@ -500,6 +524,10 @@ from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
 from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k
 from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
+from paddle_tpu_torch.parallel import mesh as pmesh
+from paddle_tpu_torch.parallel import modes as pmodes
+from paddle_tpu_torch.parallel import parallel_executor as pmesh_exe
+from paddle_tpu_torch.parallel import ring_attention as tra
 from paddle_tpu_torch.ops.registry import EmitContext, get_op_info
 from paddle_tpu_torch.ops.transformer_ops import _lm_fns
 from paddle_tpu_torch.serving import ServingEngine, pages_needed
@@ -7126,7 +7154,507 @@ def measurement_phase(card_name, smi, captured_step_ms=None):
     return res
 
 
-# -- 40. summary --------------------------------------------------------------
+# -- 40. SPMD over a device mesh ----------------------------------------------
+
+# (a) the ring kernels at the GPT bench's attention shape, global
+RING_SHAPE = (TRAIN_BS, HEADS, TRAIN_SEQ, DIM // HEADS)  # [8, 8, 1024, 64]
+RING_S = (2, 4, 8)
+RING_SCHEDULES = ("flash", "zigzag", "ulysses")
+# (b) the flagship dp x sp step: GPT bench widths, eight positions of
+# cuda:0, 2 warm-up + MESH_TIMED held steps
+MESH_AXES = {"dp": 4, "sp": 2}
+MESH_TIMED = 10
+# (c) f32 modes on the card against an explicit-CPU ParallelExecutor
+MESH_PARITY_MODES = ("dp", "sp_ring", "ep_dp")
+
+
+class _PlainFlash:
+    """The kernels' plain versions in their places, for the ring held to
+    itself on them (``plain_ring``)."""
+
+    flash_attention_fwd = staticmethod(fa.flash_attention_fwd_ref)
+    flash_attention_bwd = staticmethod(fa.flash_attention_bwd_ref)
+
+    class FlashAttentionTrain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale):
+            out, lse = fa.flash_attention_fwd_ref(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.scale = causal, scale
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                ctx.causal, ctx.scale),
+                    None, None)
+
+
+class plain_ring:
+    """Within: the ring module calls the plain versions on CUDA tensors
+    (the port's wrappers launch the kernels there)."""
+
+    def __enter__(self):
+        self.saved, tra.fa = tra.fa, _PlainFlash
+
+    def __exit__(self, *exc):
+        tra.fa = self.saved
+
+
+def ring_want(schedule, S):
+    """K4, K5, K6 launches of one training call of a schedule over S
+    positions: a block a hop (flash: S; zigzag: 2S + 1) or one full
+    attention (Ulysses) a position, forward and backward."""
+    per = {"flash": S, "zigzag": 2 * S + 1, "ulysses": 1}[schedule] * S
+    return {"flash_attention_fwd": per, "flash_attention_dq": per,
+            "flash_attention_dkv": per}
+
+
+def ring_call(schedule, mesh, q, k, v, do):
+    """One training call: (out, dq, dk, dv) at the global shape."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if schedule == "ulysses":
+        out = tra.ulysses_attention(*leaves, mesh, causal=True,
+                                    use_flash=True, is_train=True)
+    else:
+        out = tra.ring_attention(*leaves, mesh, causal=True, use_flash=True,
+                                 is_train=True, schedule=schedule
+                                 if schedule == "zigzag" else "plain")
+    return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+
+def ring_kernel_phase(dev):
+    """(a) Each schedule at S = 2, 4, 8, bf16 and f32, on the card: held
+    to the same schedule on the plain versions (out absolute, gradients
+    relative to their max |g|, at TOL), the launches the library counted
+    held to the schedule's, and the call timed beside the plain one."""
+    B, H, T, D = RING_SHAPE
+    rows = []
+    for dtype in DTYPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 40)
+        q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        for S in RING_S:
+            mesh = pmesh.make_mesh({"sp": S}, devices=[dev] * S)
+            for sched in RING_SCHEDULES:
+                got, launches = counted(
+                    lambda: ring_call(sched, mesh, q, k, v, do))
+                torch.cuda.synchronize()
+                tag = f"ring_{sched}_S{S}_{str(dtype).split('.')[1]}"
+                check_launches(tag, launches, ring_want(sched, S))
+                with plain_ring():
+                    ref = ring_call(sched, mesh, q, k, v, do)
+                    torch.cuda.synchronize()
+                    plain_ms = time_ms(
+                        lambda: ring_call(sched, mesh, q, k, v, do),
+                        iters=2, ahead=False)
+                kernel_ms = time_ms(
+                    lambda: ring_call(sched, mesh, q, k, v, do), iters=3,
+                    ahead=False)
+                pairs = B * H * T * (T + 1) // 2
+                nbytes = (8 * B * H * T * D * q.element_size()
+                          + 2 * B * H * T * 4)
+                b_ms, b_by, extra = flash_bound(
+                    "flash_attention_fwd", nbytes, 18 * D * pairs, dtype)
+                row = {"schedule": sched, "S": S,
+                       "dtype": str(dtype).split(".")[1],
+                       "shape": list(RING_SHAPE), "causal": True,
+                       "max_abs_err": max_err(got[0], ref[0]),
+                       "grad_max_rel_err": max(
+                           rel_err(a, b) for a, b in zip(got[1:], ref[1:])),
+                       "launches": {k: launches[k] for k in (
+                           "flash_attention_fwd", "flash_attention_dq",
+                           "flash_attention_dkv")},
+                       "kernel_ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, **extra,
+                       "timed_is": "forward + backward, host-issued"}
+                log("ring_kernel", row)
+                if (row["max_abs_err"] > TOL[dtype]
+                        or row["grad_max_rel_err"] > TOL[dtype]):
+                    raise AssertionError(
+                        f"{tag}: the ring on the kernels disagrees with the "
+                        f"ring on the plain versions: {row}")
+                rows.append(row)
+    return rows
+
+
+def mesh_lm_program(dtype):
+    """The bench GPT (``build_lm_train_program`` at bench.py's width,
+    ring attention, zigzag) in fresh default programs."""
+    fluid.reset()
+    loss = transformer.build_lm_train_program(
+        seq_len=TRAIN_SEQ, vocab_size=VOCAB, dim=DIM, n_layers=LAYERS,
+        n_heads=HEADS, dtype=dtype, learning_rate=3e-4)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, fluid.default_main_program(), startup
+
+
+def global_state(scope, names):
+    """The scope's values of `names` as whole tensors on the card (a
+    sharded value gathered), cloned."""
+    out = {}
+    for n in names:
+        v = scope.find(n)
+        out[n] = (v.gather() if getattr(v, "__sharded__", False)
+                  else v).detach().clone()
+    return out
+
+
+def into_scope(scope, state, dtypes=None):
+    for n, t in state.items():
+        scope.set(n, t.to(dtypes[n]) if dtypes else t.clone())
+
+
+def all_rel(state, witness):
+    """The distance of a state from its witness as one vector: the norm
+    of the difference of all its tensors over the witness's norm, in
+    float64."""
+    num = den = 0.0
+    for n, w in witness.items():
+        w = w.double()
+        num += (state[n].double() - w).pow(2).sum().item()
+        den += w.pow(2).sum().item()
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def mesh_launch_want(S):
+    """K4, K5, K6 a step of the dp x sp GPT: each layer's attention is a
+    zigzag ring of 2S + 1 blocks a position, run by the forward op and
+    again by its gradient op (which then runs the blocks' K5 and K6)."""
+    P = MESH_AXES["dp"] * S
+    per = (2 * S + 1) * P * LAYERS
+    return {"flash_attention_fwd": 2 * per, "flash_attention_dq": per,
+            "flash_attention_dkv": per}
+
+
+def profile_steps(run, n, bodies):
+    """`n` calls of `run` under torch.profiler: the device busy share of
+    their wall, device ms a step, and the device ms a step of each body
+    (a name substring)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    spans, us = [], dict.fromkeys(bodies, 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        for key, body in bodies.items():
+            if body in e.name:
+                us[key] += e.time_range.elapsed_us()
+    if not spans:
+        return {"profiled": "not measured: the profiler saw no device "
+                            "event"}
+    busy = merged_us(spans)
+    return {"profiled_steps": n, "device_ms_per_step": busy / 1e3 / n,
+            "device_busy_share": busy / wall_us,
+            "wall_ms_profiled_per_step": wall_us / 1e3 / n,
+            "device_kernels_per_step": len(spans) / n,
+            **{f"{k}_device_ms_per_step": v / 1e3 / n
+               for k, v in us.items()}}
+
+
+def mesh_gpt_phase(dev, card_name, smi):
+    """(b) lm_dp_sp at the GPT bench widths: ``build_lm_train_program``
+    (dim 512, 8 layers, 8 heads, vocab 32000, bf16) at global batch 8 x
+    1024 over {"dp": 4, "sp": 2} on eight positions of cuda:0, zigzag.
+    2 warm-up + 10 steps, each held to the single-card Executor's step
+    from the same state against a float32 witness step from that state
+    (the same program built in f32, its state cast back to the bf16
+    program's dtypes): per step, the mesh step's loss within
+    SPREAD_FACTOR x the single-card bf16 losses' largest distance from
+    their witnesses over the held steps, and its whole state (every
+    persistable as one vector) within SPREAD_FACTOR x the single-card
+    step's distance from the witness — the mesh step as close to the
+    exact step as the single card's.  The single-card runs are bitwise
+    from one state (a sorted embedding backward), so their eager spread
+    is zero; the witness is the spread of the one thing both steps
+    share, bf16 rounding.  Per-tensor distances are logged beside
+    (``spread_of`` the two single-card runs): Adam's first steps turn a
+    near-zero gradient's rounding into a full step of its sign, so one
+    tensor's distance is a count of such flips, not a bound.  Timed: ms a step (synchronized), peak memory, launches a
+    step (K4, K5, K6 at ``mesh_launch_want``, counted over the mesh steps
+    only), reshards and collectives a step; profiled: device ms a step and
+    busy share; the single card's figures beside them."""
+    t0 = time.monotonic()
+    loss_f, main_f, _ = mesh_lm_program("float32")
+    loss, main, startup = mesh_lm_program("bfloat16")
+    names = persistables(main)
+    single = fluid.Executor(fluid.CUDAPlace(0))
+    s_single = fluid.Scope()
+    single.run(startup, scope=s_single)
+    dtypes = {n: s_single.find(n).dtype for n in names}
+    mesh = pmesh.make_mesh(MESH_AXES, devices=[dev] * 8)
+    pe = pmesh_exe.ParallelExecutor(mesh=mesh)
+    s_mesh = fluid.Scope()
+    into_scope(s_mesh, global_state(s_single, names))
+    witness = fluid.Executor(fluid.CUDAPlace(0))
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    warm = [float(pe.run(main, feed=feed, fetch_list=[loss],
+                         scope=s_mesh)[0][0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held, per_step, step_ms, spreads = [], [], [], []
+    launches = {k: 0 for k in KERNELS}
+    for i in range(MESH_TIMED):
+        start = global_state(s_mesh, names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: f.launches for k, f in KERNELS.items()}
+        t1 = time.monotonic()
+        lm = float(pe.run(main, feed=feed, fetch_list=[loss],
+                          scope=s_mesh)[0][0])
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        check_launches("mesh_gpt_step", got, mesh_launch_want(
+            MESH_AXES["sp"]))
+        for k in launches:
+            launches[k] += got[k]
+        per_step.append({"reshards": pe.last_step["reshards"],
+                         "collectives": pe.comm_summary(),
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9})
+        m_state = global_state(s_mesh, names)
+        sa = fluid.Scope()
+        into_scope(sa, start)
+        la = float(single.run(main, feed=feed, fetch_list=[loss],
+                              scope=sa)[0][0])
+        a_state = global_state(sa, names)
+        sr = fluid.Scope()
+        into_scope(sr, start, {n: torch.float32 if dtypes[n] ==
+                               torch.bfloat16 else dtypes[n]
+                               for n in names})
+        lr_ = float(witness.run(main_f, feed=feed, fetch_list=[loss_f],
+                                scope=sr)[0][0])
+        r_state = {n: t.to(dtypes[n]) for n, t in
+                   global_state(sr, names).items()}
+        del sa, sr
+        spreads.append({**spread_of([([la], a_state), ([lr_], r_state)]),
+                        "state_all_rel": all_rel(a_state, r_state)})
+        held.append((i, lm, la, lr_, distance([lm], m_state, [lr_],
+                                              r_state),
+                     all_rel(m_state, r_state)))
+        del start, m_state, a_state, r_state
+    loss_spread = max(s["loss_rel"] for s in spreads)
+    holds = []
+    for (i, lm, la, lr_, got, g_all), spread in zip(held, spreads):
+        bound = {"loss": SPREAD_FACTOR * loss_spread,
+                 "state": SPREAD_FACTOR * spread["state_all_rel"]}
+        row = {"step": i, "loss_rel": got["loss_rel"],
+               "state_all_rel": g_all, "bound": bound,
+               "single_loss_rel": spread["loss_rel"],
+               "single_state_all_rel": spread["state_all_rel"],
+               "worst_tensor": got["worst"], "worst_tensor_rel":
+               got["state_rel"], "single_worst_tensor_rel":
+               spread["state_rel"],
+               "share_of_bound": {"loss": got["loss_rel"] / bound["loss"],
+                                  "state": g_all / bound["state"]}}
+        holds.append(row)
+        if got["loss_rel"] > bound["loss"] or g_all > bound["state"]:
+            raise AssertionError(
+                f"mesh_gpt: mesh step {i} is farther from its float32 "
+                f"witness than {SPREAD_FACTOR} x the single card's bf16 "
+                f"step: {row}")
+    prof = profile_steps(lambda: pe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=s_mesh), 2, FLASH_BF16_BODIES)
+    # the single card's own figures, from the mesh's final state
+    s1 = fluid.Scope()
+    into_scope(s1, global_state(s_mesh, names))
+    run_steps(single, main, loss, feed, 2, scope=s1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.monotonic()
+    single_steps = run_steps(single, main, loss, feed, MESH_TIMED, scope=s1)
+    torch.cuda.synchronize()
+    single_ms = (time.monotonic() - t1) / MESH_TIMED * 1e3
+    single_row = {"step_ms": single_ms,
+                  "tok_s": TRAIN_BS * TRAIN_SEQ / (single_ms / 1e3),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches_per_step": single_steps[-1][2],
+                  **profile_steps(lambda: single.run(
+                      main, feed=feed, fetch_list=[loss], scope=s1), 2,
+                      FLASH_BF16_BODIES)}
+    losses = warm + [h[1] for h in held]
+    res = {"card": card_name, "nvidia_smi": smi, "mesh": MESH_AXES,
+           "positions": "8 on cuda:0", "bs": TRAIN_BS, "seq": TRAIN_SEQ,
+           "dtype": "bfloat16", "lr": 3e-4, "schedule": "zigzag",
+           "losses": losses,
+           "single_losses": [h[2] for h in held],
+           "witness_f32_losses": [h[3] for h in held],
+           "held": holds, "loss_spread": loss_spread,
+           "step_ms": float(np.median(step_ms)), "step_ms_each": step_ms,
+           "tok_s": TRAIN_BS * TRAIN_SEQ / (float(np.median(step_ms))
+                                             / 1e3),
+           "peak_mem_gb": max(s["peak_mem_gb"] for s in per_step),
+           "peak_mem_is": "the mesh step's, the step's start state "
+                          "snapshot (one copy of the persistables) "
+                          "included",
+           "launches": launches,
+           "launches_per_step": {k: v / MESH_TIMED
+                                 for k, v in launches.items()},
+           "reshards_per_step": per_step[-1]["reshards"],
+           "collectives_per_step": per_step[-1]["collectives"],
+           **prof, "single_card": single_row,
+           "link_time": "none: the eight positions share one card, so a "
+                        "hop or a psum is a re-index or an add in its "
+                        "memory",
+           "phase_s": time.monotonic() - t0}
+    log("mesh_gpt", res)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh_gpt: losses {losses} are not finite or "
+                             f"did not fall")
+    return res
+
+
+def mesh_parity_phase(dev):
+    """(c) f32 dp, sp_ring and ep_dp: three steps of the mode on eight
+    positions of the card against an explicit-CPU ParallelExecutor from
+    the same state and feeds: losses within 1e-4 relative, the written
+    state within 1e-3 of each tensor's max |value| (parity_run's bars);
+    sp_ring launches K4-K6 at its ring's count, dp and ep_dp none."""
+    out = {}
+    for name in MESH_PARITY_MODES:
+        mode, main, lossname = pmodes.build_mode(name)
+        startup = fluid.default_startup_program()
+        startup.random_seed = SEED
+        s_cpu, s_card = fluid.Scope(), fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=s_cpu)
+        names = persistables(main)
+        for n in names:
+            s_card.set(n, s_cpu.find(n).clone())
+        cpu_pe = pmesh_exe.ParallelExecutor(mesh=pmesh.make_mesh(
+            mode.mesh_axes, devices=[torch.device("cpu")] * 8),
+            **mode.executor_kwargs)
+        card_pe = pmesh_exe.ParallelExecutor(mesh=pmesh.make_mesh(
+            mode.mesh_axes, devices=[dev] * 8), **mode.executor_kwargs)
+        rng = np.random.RandomState(SEED)
+        feeds = [mode.feed_fn(rng, 8) for _ in range(3)]
+        lc, lg, per = [], [], []
+        for f in feeds:
+            lc.append(float(np.asarray(cpu_pe.run(
+                main, feed=f, fetch_list=[lossname], scope=s_cpu)[0])[0]))
+            before = {k: fn.launches for k, fn in KERNELS.items()}
+            lg.append(float(np.asarray(card_pe.run(
+                main, feed=f, fetch_list=[lossname], scope=s_card)[0])[0]))
+            per.append({k: fn.launches - before[k]
+                        for k, fn in KERNELS.items()})
+        for launches in per:
+            if name == "sp_ring":
+                S = mode.mesh_axes["sp"]
+                P = 8
+                want = {"flash_attention_fwd": 2 * S * P,
+                        "flash_attention_dq": S * P,
+                        "flash_attention_dkv": S * P}
+                check_launches(f"mesh_parity_{name}", launches, want)
+            else:
+                no_launches(f"mesh_parity_{name}", launches)
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(lg, lc)]
+        state_rel = {}
+        for n in names:
+            a = s_card.find_np(n).astype(np.float64)
+            b = s_cpu.find_np(n).astype(np.float64)
+            state_rel[n] = float(np.abs(a - b).max()
+                                 / max(np.abs(b).max(), 1e-12))
+        row = {"mode": name, "mesh": dict(mode.mesh_axes),
+               "card_losses": lg, "cpu_losses": lc, "loss_rel_err": loss_rel,
+               "state_rel_err_max": max(state_rel.values()),
+               "launches_per_step": per[-1],
+               "collectives_per_step": card_pe.comm_summary()}
+        log("mesh_parity", row)
+        if max(loss_rel) > 1e-4 or row["state_rel_err_max"] > 1e-3:
+            worst = sorted(state_rel.items(), key=lambda kv: -kv[1])[:3]
+            raise AssertionError(f"mesh_parity {name}: card and CPU "
+                                 f"disagree: {row}, worst state {worst}")
+        out[name] = row
+    return out
+
+
+def mesh_loop_phase(dev):
+    """(d) ``run(steps_per_dispatch=2)`` of f32 ``sp_ring`` on eight
+    positions of the card: the first dispatch eager, the second captures
+    its two steps as one CUDA graph and replays it, the third replays; each
+    dispatch's losses and the written state held to the bit to two run()
+    calls of another executor from the same state (the same kernels in the
+    same order), the graph launching nothing at its replays."""
+    mode, main, lossname = pmodes.build_mode("sp_ring")
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    names = persistables(main)
+    sa, sb = fluid.Scope(), fluid.Scope()
+
+    def exe():
+        return pmesh_exe.ParallelExecutor(mesh=pmesh.make_mesh(
+            mode.mesh_axes, devices=[dev] * 8))
+
+    seq, fused = exe(), exe()
+    seq.run(startup, scope=sa)
+    for n in names:
+        sb.set(n, sa.find(n).clone())
+    rng = np.random.RandomState(SEED)
+    rows = []
+    for d in range(3):
+        feeds = [mode.feed_fn(rng, 8) for _ in range(2)]
+        want = [float(np.asarray(seq.run(main, feed=f, fetch_list=[lossname],
+                                         scope=sa)[0])[0]) for f in feeds]
+        stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+        got, launches = counted(lambda: [float(v) for v in np.asarray(
+            fused.run(main, feed=stacked, fetch_list=[lossname], scope=sb,
+                      steps_per_dispatch=2)[0]).reshape(-1)])
+        torch.cuda.synchronize()
+        differ = [n for n in names
+                  if not np.array_equal(sa.find_np(n), sb.find_np(n))]
+        captured = any(e.loop is not None for e in fused._loops.values())
+        rows.append({"dispatch": d, "losses": got, "sequential": want,
+                     "bitwise": got == want and not differ,
+                     "state_differs": differ[:5], "captured": captured,
+                     "launches": {k: v for k, v in launches.items() if v}})
+        if got != want or differ:
+            raise AssertionError(f"mesh_loop: dispatch {d} parts from two "
+                                 f"run() calls: {rows[-1]}")
+        if d == 2 and any(launches.values()):
+            raise AssertionError(f"mesh_loop: a replay launched "
+                                 f"{launches}")
+    if dev.type == "cuda" and not rows[-1]["captured"]:
+        raise AssertionError("mesh_loop: no dispatch was captured")
+    log("mesh_loop", {"rows": rows})
+    return rows
+
+
+def parallel_phase(dev, card_name, smi):
+    """Phase 40: (a) ``ring_kernel_phase``, (b) ``mesh_gpt_phase``, (c)
+    ``mesh_parity_phase``, (d) ``mesh_loop_phase``."""
+    t0 = time.monotonic()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    ring = ring_kernel_phase(dev)
+    torch.cuda.empty_cache()
+    gpt = mesh_gpt_phase(dev, card_name, smi)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    parity = mesh_parity_phase(dev)
+    fluid.reset()
+    loop = mesh_loop_phase(dev)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    res = {"ring": ring, "lm_dp_sp": gpt, "parity_f32": parity,
+           "loop_k2": loop, "phase_s": time.monotonic() - t0}
+    log("parallel_phase", {"phase_s": res["phase_s"]})
+    return res
+
+
+# -- 41. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -7141,6 +7669,31 @@ def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
                       if k in ("shape", "dtype", "B", "H", "T", "D", "N",
                                "nh", "C", "dh", "ps", "maxp",
                                "pool_pages", "causal", "lengths")}}
+
+
+def parallel_summary(par, name, smi):
+    """Phase 40's numbers for the summary line."""
+    g = par["lm_dp_sp"]
+    return {
+        "card": name, "nvidia_smi": smi,
+        "ring": [{k: r[k] for k in (
+            "schedule", "S", "dtype", "max_abs_err", "grad_max_rel_err",
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "launches")}
+            for r in par["ring"]],
+        "lm_dp_sp_bf16": {k: g[k] for k in (
+            "mesh", "positions", "bs", "seq", "schedule", "losses",
+            "single_losses", "witness_f32_losses", "step_ms", "tok_s",
+            "peak_mem_gb", "launches_per_step", "reshards_per_step",
+            "collectives_per_step", "device_ms_per_step",
+            "device_busy_share", "single_card", "link_time") if k in g},
+        "lm_dp_sp_held": [{k: h[k] for k in (
+            "loss_rel", "state_all_rel", "bound", "share_of_bound",
+            "worst_tensor_rel", "single_worst_tensor_rel")}
+            for h in g["held"]],
+        "parity_f32": {m: {k: r[k] for k in (
+            "loss_rel_err", "state_rel_err_max", "launches_per_step")}
+            for m, r in par["parity_f32"].items()},
+        "sp_ring_k2_dispatches": par["loop_k2"]}
 
 
 def errs_by_dtype(rows, key="max_abs_err"):
@@ -7226,6 +7779,9 @@ def main():
     torch.cuda.empty_cache()
     router = router_phase(name, smi)
     measurement = measurement_phase(name, smi, sl_gpt["replay_step_ms"])
+    par = parallel_phase(dev, name, smi)
+    ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
+                     for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
                "v2_prefix": v2p_row["launches"], "spec": spec_launch,
                "train_f32_per_step": parity["launches_per_step"],
@@ -7278,7 +7834,11 @@ def main():
                    router["verify_lint"]["launches"],
                "gpt_bf16_attributed_3_steps":
                    measurement["attribution"]["launches"],
-               "v2_metrics_serve": measurement["serve_v2"]["launches"]}
+               "v2_metrics_serve": measurement["serve_v2"]["launches"],
+               "lm_dp_sp_bf16_10_steps": par["lm_dp_sp"]["launches"],
+               "ring_schedules_18_calls": ring_launches,
+               "mesh_sp_ring_f32_per_step":
+                   par["parity_f32"]["sp_ring"]["launches_per_step"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -7644,7 +8204,8 @@ def main():
                       "options": options_rows, "generate": generate_rows,
                       "remat_save_load": remat_rows, "zoo": zoo_rows,
                       "srl": srl_rows, "legacy": legacy_rows,
-                      "router": router, "measurement": measurement}),
+                      "router": router, "measurement": measurement,
+                      "parallel": parallel_summary(par, name, smi)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

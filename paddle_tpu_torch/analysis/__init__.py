@@ -16,10 +16,10 @@ Layers:
   cost.py        — FLOPs/roofline model + predicted step time per chip
   memory.py      — static peak-memory estimator (remat/donation-aware)
   equivalence.py — translation validation: canonicalizer, structural/
-                   abstract/differential equivalence proofs (PTV022-024)
-
-``sharding.py`` (sharding propagation, PTV018-021) is not ported
-(ROADMAP.md Queue A item 11).
+                   abstract/differential equivalence proofs (PTV022-024),
+                   the parallelism modes' plan equivalence
+  sharding.py    — logical-axis rules, sharding propagation, the implied
+                   collectives and their price (PTV018-021)
 """
 
 from .dataflow import (  # noqa: F401
@@ -42,6 +42,7 @@ from . import contracts  # noqa: F401
 from . import cost  # noqa: F401
 from . import memory  # noqa: F401
 from . import equivalence  # noqa: F401
+from . import sharding  # noqa: F401
 from .equivalence import (  # noqa: F401
     EquivalenceProof,
     canonicalize,

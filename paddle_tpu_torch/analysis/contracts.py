@@ -17,10 +17,14 @@ the rewrite MEANS the same thing.
                             the before-program over the pre-fold scope
                             snapshot against the after-program over the
                             folded scope, on the fetches
+  checked_sharding_plan   — parallel.DistributeTranspiler.transpile: the
+                            program verifies, stays unmutated (version
+                            and canonical form) and every plan key names
+                            a declared variable (PTV013)
 
-The wrappers of the passes the port lacks raise, naming their ROADMAP.md
-Queue A item: `checked_distribute_transpile` and `checked_sharding_plan`
-(the distribute and sharding transpilers, item 11).
+`checked_distribute_transpile` (the pserver distribute transpiler) raises:
+it wraps ``distributed/distribute_transpiler.py``, which comes with the
+next slice (ROADMAP.md Queue A item 11).
 
 A refuted obligation raises VerificationError with PTV022/PTV024
 findings.  Both wrappers are also installed *inside* their passes
@@ -32,7 +36,7 @@ checked pass without touching call sites.
 from __future__ import annotations
 
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from .verifier import (Finding, Report, VerificationError,
                        env_verify_enabled, verify_program)
@@ -187,20 +191,51 @@ def checked_memory_optimize(program, level: int = 0, batch_size: int = 64,
 # passes the port lacks
 
 
-def _unported(what, item, module):
-    return NotImplementedError(
-        f"{what}: {module} is not ported (ROADMAP.md Queue A item {item})")
-
-
 def checked_distribute_transpile(transpiler, trainer_id, program=None,
                                  pservers: str = "", trainers: int = 1,
                                  split_method=None, startup_program=None):
-    raise _unported("checked_distribute_transpile", 11,
-                    "distributed/distribute_transpiler.py")
+    raise NotImplementedError(
+        "checked_distribute_transpile: distributed/distribute_transpiler.py "
+        "(the pserver split) comes with the next slice of the port, the "
+        "host services of distributed/ (ROADMAP.md Queue A item 11)")
 
 
-def checked_sharding_plan(transpiler, program, mesh):
-    raise _unported("checked_sharding_plan", 11, "parallel/transpiler.py")
+# ---------------------------------------------------------------------------
+# the sharding transpiler
+
+
+def checked_sharding_plan(transpiler, program, mesh) -> Dict[str, object]:
+    """parallel.DistributeTranspiler.transpile under contract: the program
+    must verify before AND be unmutated after (this transpiler assigns
+    shardings, it must not rewrite), and every plan key must name a
+    declared variable (PTV013).  The version check catches honest
+    mutation; the equivalence proof (structural tier, execute="never")
+    additionally catches a pass that edits descs while restoring the
+    version counter — the program must CANONICALIZE identically."""
+    from ..framework.core import Program
+    from .equivalence import prove_equivalent
+
+    _verify(program, "sharding_transpile:in", check_shapes=False)
+    version = program._version
+    before_prog = Program.from_json(program.to_json())
+    with _inside():
+        plan = transpiler.transpile(program, mesh)
+    if program._version != version:
+        raise VerificationError("sharding_transpile:out", [Finding(
+            "PTV014", "sharding transpiler mutated the program (version "
+            f"{version} -> {program._version}); it must only assign specs")])
+    prove_equivalent(before_prog, program,
+                     execute="never").raise_if_failed(
+        "sharding_transpile:equivalence")
+    declared = set()
+    for b in program.blocks:
+        declared.update(b.vars)
+    bad = [Finding("PTV013", "plan assigns a sharding to an undeclared "
+                   "variable", var=n)
+           for n in plan if n not in declared]
+    if bad:
+        raise VerificationError("sharding_transpile:out", bad)
+    return plan
 
 
 # ---------------------------------------------------------------------------

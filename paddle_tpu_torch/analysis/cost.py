@@ -41,11 +41,16 @@ from . import memory as _mem
 # h100-sxm: NVIDIA's H100 SXM5 data sheet, dense (no sparsity), for the
 # NVIDIA H100 80GB HBM3 at its 700 W limit: 989 TFLOP/s bf16/fp16,
 # 495 TFLOP/s TF32, 67 TFLOP/s fp32 and fp64 (tensor cores), 3.35 TB/s
-# of HBM3, 80 GB.  cpu-host: the JAX package's placeholder for CPU runs
-# of the same programs (plumbing tests, not evidence).
+# of HBM3, 80 GB; links for the sharding analyzer's comm pricing
+# (analysis/sharding.py): NVLink 4 at 900 GB/s both directions, so 450
+# GB/s one way, as the one-way ICI rate; one ConnectX-7 NDR port (400
+# Gb/s, 50 GB/s) a GPU across nodes as the DCN rate.  cpu-host: the JAX
+# package's placeholder for CPU runs of the same programs (plumbing
+# tests, not evidence), links included.
 CHIP_SPECS: Dict[str, dict] = {
     "h100-sxm": {"flops_bf16": 989e12, "hbm_gbps": 3350.0,
                  "hbm_gib": 80e9 / 2**30,
+                 "ici_gbps": 450.0, "dcn_gbps": 50.0,
                  # relative to bf16.  The port's f32 bodies (flash, paged
                  # multi-query, fused BatchNorm) run 3xTF32: three TF32
                  # products per f32 product, so f32 is priced at a third
@@ -54,6 +59,7 @@ CHIP_SPECS: Dict[str, dict] = {
                                 "float32": 495e12 / 3 / 989e12,
                                 "float64": 67e12 / 989e12}},
     "cpu-host": {"flops_bf16": 0.2e12, "hbm_gbps": 40.0, "hbm_gib": 16,
+                 "ici_gbps": 10.0, "dcn_gbps": 1.0,
                  # the JAX package's rates relative to bf16
                  "dtype_rate": {"bfloat16": 1.0, "float16": 1.0,
                                 "float32": 0.5, "float64": 0.0625}},
@@ -316,8 +322,8 @@ def roofline_with_comm(report: dict, comm: dict,
     while the comm report's times are per-device — pass `devices` (the
     mesh size) to put compute/memory on the same per-device footing
     (perfect-split assumption, i.e. the roofline stays a lower bound).
-    Nothing in the port produces a comm report until ROADMAP.md Queue A
-    item 11; the router folds one in when given it."""
+    ``analysis.sharding.comm_report`` produces one; the router folds
+    one in when given it."""
     devices = max(int(devices), 1)
     out = dict(report)
     t_compute = report["compute_time_s"] / devices

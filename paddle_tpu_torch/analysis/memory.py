@@ -20,9 +20,11 @@ package's, so both price one desc to the byte; the card's measured peak
 PyTorch frees at each tensor's last Python reference, and its caching
 allocator rounds), and `chip_smoke.py` prints the two side by side.
 
-The JAX package's per-shard accounting (a `plan` of shardings) needs
-``analysis/sharding.py``: a plan raises, naming ROADMAP.md Queue A item
-11.
+A sharding plan (`{name: NamedSharding}` as built by
+``parallel.DistributeTranspiler`` / ``ParallelExecutor.static_plan``)
+switches to per-shard accounting, as the JAX package's does: planned vars
+divide by their shard counts, batch-led transients by the feeds' batch
+split.
 """
 
 from __future__ import annotations
@@ -50,29 +52,86 @@ def dtype_bytes(dtype) -> int:
         return 4
 
 
-def var_bytes(var, batch_size: int) -> int:
-    """Desc-level byte size of one variable's buffer (0 if shapeless)."""
+def var_bytes(var, batch_size: int, divisor: int = 1) -> int:
+    """Desc-level byte size of one variable's buffer (0 if shapeless),
+    divided by `divisor` (its shard count under a plan)."""
     if var is None or var.shape is None:
         return 0
     n = 1
     for s in bind_shape(var.shape, batch_size):
         n *= max(int(s), 1)
-    return n * dtype_bytes(var.dtype)
+    return (n * dtype_bytes(var.dtype)) // max(int(divisor), 1)
 
 
-def _plan_unported(what):
-    return NotImplementedError(
-        f"{what}: per-shard accounting needs analysis/sharding.py and the "
-        f"parallel executor, which are not ported (ROADMAP.md Queue A "
-        f"item 11)")
+# ---------------------------------------------------------------------------
+# sharding plans -> per-var byte divisors
+
+
+def _spec_entries(sharding):
+    """Flat mesh-axis names a plan entry shards over ('' entries and
+    None skipped).  Accepts NamedSharding, PartitionSpec, or any
+    iterable of axis names / tuples / None."""
+    spec = getattr(sharding, "spec", sharding)
+    axes = []
+    try:
+        entries = tuple(spec)
+    except TypeError:
+        return axes
+    for e in entries:
+        if e is None:
+            continue
+        if isinstance(e, (tuple, list)):
+            axes.extend(a for a in e if a)
+        elif e:
+            axes.append(e)
+    return axes
+
+
+def _mesh_axis_sizes(sharding) -> Dict[str, int]:
+    mesh = getattr(sharding, "mesh", None)
+    if mesh is None:
+        return {}
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
 def shard_divisor(sharding) -> int:
-    """The JAX package's per-shard divisor of a plan entry: None (no
-    sharding) divides by 1; any entry raises (Queue A item 11)."""
+    """How many devices one shard of this var is split across: the
+    product of the sizes of the mesh axes its spec names."""
     if sharding is None:
         return 1
-    raise _plan_unported("shard_divisor")
+    sizes = _mesh_axis_sizes(sharding)
+    d = 1
+    for a in _spec_entries(sharding):
+        d *= int(sizes.get(a, 1))
+    return max(d, 1)
+
+
+def _batch_divisor(plan, feed_names) -> int:
+    """The per-shard divisor for batch-led transients: the largest
+    leading-axis divisor any FEED entry in the plan carries
+    (activations inherit the batch sharding of the data they are
+    computed from).  Only feed entries count — a row-sharded WEIGHT
+    also has a named dim-0 axis, but it says nothing about how the
+    batch is split."""
+    best = 1
+    for name in feed_names:
+        sh = (plan or {}).get(name)
+        if sh is None:
+            continue
+        spec = getattr(sh, "spec", sh)
+        try:
+            first = tuple(spec)[0] if tuple(spec) else None
+        except TypeError:
+            first = None
+        if first:
+            sizes = _mesh_axis_sizes(sh)
+            names = ([first] if not isinstance(first, (tuple, list))
+                     else list(first))
+            d = 1
+            for a in names:
+                d *= int(sizes.get(a, 1))
+            best = max(best, d)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -377,26 +436,50 @@ def peak_estimate(program, batch_size: int = 64, block_id: int = 0,
     prices the no-donation world (read-then-written state counted twice
     at the update).  `infer_shapes=False` skips the abstract-eval shape
     oracle and prices declared shapes only (desc-only speed; -1 markers
-    bind to batch_size, which misprices flattened intermediates).  A
-    `plan` raises (per-shard accounting, Queue A item 11)."""
-    if plan:
-        raise _plan_unported("peak_estimate(plan=...)")
+    bind to batch_size, which misprices flattened intermediates).  `plan`
+    ({var: NamedSharding}, e.g. ``ParallelExecutor.static_plan``)
+    switches to per-shard accounting: a planned var divides by its shard
+    count, a batch-led transient by the feeds' batch split."""
     block = program.blocks[block_id]
+    plan = plan or {}
     inferred = {}
     if infer_shapes:
         inferred = abstract_sizes(program, block_id, batch_size)
+
+    def div_of(name):
+        return shard_divisor(plan.get(name)) if plan else 1
 
     persistent = 0
     feed_bytes = 0
     for name, v in block.vars.items():
         if v.persistable:
-            persistent += var_bytes(v, batch_size)
+            persistent += var_bytes(v, batch_size, div_of(name))
         elif v.is_data:
-            feed_bytes += var_bytes(v, batch_size)
+            feed_bytes += var_bytes(v, batch_size, div_of(name))
 
     first_def, last_use, sizes, spike_names, spike_bytes = \
         _transient_lifetimes(block, batch_size, inferred)
     feed_names = [n for n, v in block.vars.items() if v.is_data]
+    bdiv = _batch_divisor(plan, feed_names) if plan else 1
+    if plan:
+
+        def shard_scale(name, b):
+            if name in plan:
+                return b // max(div_of(name), 1)
+            if bdiv > 1:
+                v = block._find_var_recursive(name)
+                if v is not None and v.shape and int(v.shape[0]) < 0:
+                    return b // bdiv  # batch-led: rides the dp split
+                if (v is not None and v.shape is None
+                        and name in inferred):
+                    # helper tmp with no declared shape: batch-led when
+                    # its inferred leading dim divides by the feed split
+                    shp = inferred[name][0]
+                    if shp and shp[0] >= bdiv and shp[0] % bdiv == 0:
+                        return b // bdiv
+            return b
+
+        sizes = {n: shard_scale(n, b) for n, b in sizes.items()}
 
     n_ops = len(block.ops)
     deltas = [0] * (n_ops + 1)
@@ -407,7 +490,7 @@ def peak_estimate(program, batch_size: int = 64, block_id: int = 0,
     for i in range(n_ops):
         cur += deltas[i]
         spike = sum(sizes.get(n, 0) for n in spike_names.get(i, ()))
-        spike += spike_bytes.get(i, 0)
+        spike += spike_bytes.get(i, 0) // (bdiv if plan else 1)
         live.append(cur + spike)
 
     peak_i = int(np.argmax(live)) if live else 0
@@ -417,7 +500,7 @@ def peak_estimate(program, batch_size: int = 64, block_id: int = 0,
     # and new copies live across the update
     _, rw_state, _ = dataflow.state_classes(block, feed_names)
     donated = sum(
-        var_bytes(block._find_var_recursive(n), batch_size)
+        var_bytes(block._find_var_recursive(n), batch_size, div_of(n))
         for n in rw_state
         if block._find_var_recursive(n) is not None
         and block._find_var_recursive(n).persistable)
@@ -437,7 +520,7 @@ def peak_estimate(program, batch_size: int = 64, block_id: int = 0,
         "donation_savings_bytes": int(donated if donate else 0),
         "remat_marked_ops": sum(1 for op in block.ops
                                 if op.attrs.get("__remat__")),
-        "per_shard": False,
+        "per_shard": bool(plan),
     }
 
 

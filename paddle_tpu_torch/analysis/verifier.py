@@ -23,9 +23,8 @@ guesses past it.  Declared dtypes are kept as declared (the JAX package
 narrows int64/float64 as JAX's 32-bit mode does; under its 64-bit mode
 the two agree).
 
-The rules that need a sharding plan (PTV016, PTV018-PTV021) raise when
-given one: ``analysis/sharding.py`` is not ported (ROADMAP.md Queue A
-item 11).
+The rules that need a sharding plan (PTV016, PTV018-PTV021) run when
+``verify_program`` is given one (``analysis/sharding.py``).
 """
 
 from __future__ import annotations
@@ -429,11 +428,42 @@ def _check_donation_races(program, donated):
                     break
 
 
-def _plan_unported(rules) -> NotImplementedError:
-    return NotImplementedError(
-        f"{rules} with a sharding plan: analysis/sharding.py and the "
-        f"parallel executor are not ported (ROADMAP.md Queue A item 11); "
-        f"verify without `plan`")
+def _check_sharded_donation(program, donated, plan, provenance=None):
+    """PTV016: donated rw-state sharded over >=1 mesh axis under `plan`.
+    Sharded-ness is judged by NAMED AXES in the spec, not the byte
+    divisor: a bare PartitionSpec carries no mesh (divisor would be 1)
+    yet still declares the var sharded — the rule must not go silently
+    inert on that documented input.  A NamedSharding whose named axes
+    all have size 1 is effectively replicated and exempt.  `provenance`
+    ({var: "which rule produced this spec"}, from
+    `ParallelExecutor.static_plan(provenance=...)`) pins each finding to
+    the AXIS RULE that made the state sharded."""
+    from .memory import shard_divisor, _spec_entries
+
+    if not plan:
+        return
+    provenance = provenance or {}
+    for b in program.blocks:
+        if b.parent_idx >= 0:
+            continue
+        for name in donated.get(b.idx, ()):
+            sh = plan.get(name)
+            if sh is None:
+                continue
+            axes = tuple(_spec_entries(sh))
+            if not axes:
+                continue
+            if getattr(sh, "mesh", None) is not None \
+                    and shard_divisor(sh) <= 1:
+                continue  # size-1 axes: replicated in practice
+            src = provenance.get(name)
+            yield Finding(
+                "PTV016",
+                f"donated state sharded over axes {axes} — host "
+                f"materialization of a stale handle after the step can "
+                f"abort natively"
+                + (f" (sharded by rule: {src})" if src else ""),
+                block=b.idx, var=name)
 
 
 def _grad_name(name: str) -> str:
@@ -699,20 +729,17 @@ def verify_program(program, feed_names: Optional[Iterable[str]] = None,
     guessed).  `rules` restricts to a subset of RULE ids; `suppress`
     removes ids globally; per-op suppression rides the
     ``__verify_suppress__`` attr.  `check_shapes=False` skips the abstract
-    eval (PTV006) for desc-only speed.  `plan` (a sharding plan) would
-    arm the sharded-donation rule (PTV016) and the sharding-propagation
-    family (PTV018-PTV021); the port raises on one whenever those rules
-    are enabled, naming ROADMAP.md Queue A item 11, rather than pass them
-    silently (`plan_provenance` goes with it)."""
+    eval (PTV006) for desc-only speed.  `plan` ({var: NamedSharding /
+    PartitionSpec}, e.g. `ParallelExecutor.static_plan(program)`) arms the
+    sharded-donation rule (PTV016) AND the sharding-propagation family
+    (PTV018-PTV021, analysis/sharding.py) for SPMD programs;
+    `plan_provenance` ({var: rule description}, from
+    `static_plan(provenance=...)`) names the axis rule inside PTV016
+    findings."""
     feed_names = list(feed_names) if feed_names is not None else None
     fetch_names = list(fetch_names) if fetch_names is not None else None
     enabled = set(rules) if rules is not None else set(RULES)
     enabled -= set(suppress)
-    if plan:
-        wanted = sorted(enabled & {"PTV016", "PTV018", "PTV019",
-                                   "PTV020", "PTV021"})
-        if wanted:
-            raise _plan_unported(", ".join(wanted))
 
     findings: List[Finding] = []
 
@@ -738,13 +765,26 @@ def verify_program(program, feed_names: Optional[Iterable[str]] = None,
         findings.extend(_check_dead_ops(program, block_id, fetch_names))
     if want("PTV011"):
         findings.extend(_check_unused_vars(program))
-    if want("PTV015"):
+    if want("PTV015") or (want("PTV016") and plan):
         donated = _donated_by_block(program, feed_names)
-        findings.extend(_check_donation_races(program, donated))
+        if want("PTV015"):
+            findings.extend(_check_donation_races(program, donated))
+        if want("PTV016"):
+            findings.extend(_check_sharded_donation(program, donated,
+                                                    plan,
+                                                    plan_provenance))
     if want("PTV023"):
         from .equivalence import duplicate_findings
 
         findings.extend(duplicate_findings(program, block_id))
+    if plan and any(want(r) for r in ("PTV018", "PTV019", "PTV020",
+                                      "PTV021")):
+        from .sharding import sharding_findings
+
+        got, _ = sharding_findings(program, plan, batch_size=batch_size,
+                                   block_id=block_id,
+                                   provenance=plan_provenance)
+        findings.extend(f for f in got if want(f.rule))
     if want("PTV006") and check_shapes \
             and not any(f.rule in ("PTV001", "PTV002") for f in findings):
         # abstract eval assumes a lowerable block; structural errors first

@@ -18,9 +18,13 @@ hand-written kernels.
   * serve and loop workloads — ``spec_decode`` (the speculative serve
     loop over K and draft depth) and ``step_loop`` (steps per dispatch).
 
+  * ``mesh_layout`` — multi-slice layouts of the Momentum-MLP step over
+    eight mesh positions, ranked by their priced communication
+    (``analysis/sharding.comm_report``) and timed on the layout's
+    ``ParallelExecutor``.
+
 Every workload runs on its `place`: the card by default
-(``default_place()``), the CPU when the caller asks.  ``mesh_layout``
-needs a mesh and raises, naming ROADMAP.md Queue A item 11.
+(``default_place()``), the CPU when the caller asks.
 """
 
 from __future__ import annotations
@@ -841,11 +845,149 @@ def saved_model_workload(path: str, batch_size: int = 2,
     return SavedModelWorkload(path, batch_size, place=place)
 
 
-def _mesh_layout(place=None):
-    raise NotImplementedError(
-        "workload 'mesh_layout' ranks multi-slice mesh layouts and needs "
-        "the parallelism modes, which are not ported (ROADMAP.md Queue A "
-        "item 11)")
+class _MeshRunner:
+    """One training step of the layout's ParallelExecutor on its
+    positions — the measured half when a real (non-mock) measurer drives
+    the mesh_layout axis; ``barrier`` waits for the card."""
+
+    def __init__(self, exe, program, startup, feeds, loss_name):
+        from ..framework.scope import Scope
+
+        self._exe = exe
+        self._program = program
+        self._feeds = feeds
+        self._loss = loss_name
+        self._last = None
+        self._scope = Scope()
+        exe.run(startup, scope=self._scope)
+
+    def step(self):
+        self._last = self._exe.run(
+            self._program, feed=dict(self._feeds),
+            fetch_list=[self._loss], scope=self._scope, rng_step=0,
+            return_numpy=False)
+
+    def barrier(self):
+        _sync(self._exe.device)
+
+    def close(self):
+        pass
+
+
+class MeshLayoutWorkload:
+    """Multi-slice mesh layouts (slice count x per-slice ICI topology,
+    fixed 8-device fleet) for the Momentum-MLP step with weight-update
+    sharding active.  Every layout runs the same math — compute and
+    HBM traffic tie by construction — so the DIFFERENTIATOR is pure
+    communication: ``comm_cost`` prices each layout's collectives per
+    link class (a hybrid all-reduce decomposes into per-slice ICI
+    reduce-scatter -> DCN all-reduce -> ICI all-gather) and the prior
+    folds the wire time through `cost.roofline_with_comm`, ranking
+    ICI-heavy layouts (1x8) above DCN-heavy ones (4x2) exactly when
+    the analyzer says the DCN link dominates the step."""
+
+    kind = "mesh"
+    name = "mesh_layout"
+    LAYOUTS = ("1x8", "2x4", "4x2")
+
+    def __init__(self, batch_size: int = 64, place=None):
+        from ..parallel import modes as pmodes
+
+        self.batch_size = int(batch_size)
+        self.place = place
+        self._built = None
+        # eight positions: the card's (repeated) unless `place` is the CPU
+        self.devices = pmodes.ensure_virtual_devices(8, place)
+
+    def site(self) -> dict:
+        return {"workload": self.name, "devices": 8,
+                "model": "mlp_momentum_zero",
+                "batch_size": self.batch_size}
+
+    def space(self) -> _space.SearchSpace:
+        return _space.SearchSpace([
+            _space.Choice("mesh_layout.layout", list(self.LAYOUTS))])
+
+    def kernel_sites(self) -> Tuple:
+        return ()
+
+    def program_for(self, candidate):
+        return None  # priced analytically; comm_cost differentiates
+
+    def _program(self):
+        if self._built is None:
+            from ..parallel import modes as pmodes
+
+            from ..framework.core import default_startup_program
+
+            mode, program, loss_name = pmodes.build_mode("dp")
+            self._built = (program, loss_name, default_startup_program())
+        return self._built
+
+    @staticmethod
+    def _parse(layout: str) -> Tuple[int, int]:
+        slices, per_slice = (int(p) for p in str(layout).split("x"))
+        return slices, per_slice
+
+    def _mesh_for(self, layout):
+        from ..parallel.mesh import make_hybrid_mesh, make_mesh
+
+        slices, per_slice = self._parse(layout)
+        if slices == 1:
+            return make_mesh({"dp": per_slice}, devices=self.devices)
+        return make_hybrid_mesh({"dp": per_slice}, {"dcn_dp": slices},
+                                devices=self.devices)
+
+    def analytic_cost(self, candidate, spec) -> dict:
+        from ..analysis import cost as _c
+
+        program = self._program()[0]
+        report = _c.program_cost(program, batch_size=self.batch_size,
+                                 chip=spec["chip"])
+        return {"flops": report["total_flops"],
+                "bytes": report["hbm_bytes"],
+                "devices": 8}
+
+    def comm_cost(self, candidate, spec) -> dict:
+        """The layout's priced collective footprint: plan the program
+        on the candidate mesh (weight-update sharding on), propagate,
+        and price per link class."""
+        from ..analysis.sharding import comm_report, propagate
+        from ..parallel.parallel_executor import ParallelExecutor
+
+        layout = candidate.get("mesh_layout.layout", self.LAYOUTS[0])
+        mesh = self._mesh_for(layout)
+        program = self._program()[0]
+        exe = ParallelExecutor(mesh=mesh, zero_dp_states=True)
+        plan = exe.static_plan(program)
+        ana = propagate(program, mesh=mesh, plan=plan,
+                        batch_size=self.batch_size)
+        return comm_report(ana, chip=spec["chip"])
+
+    def feasible(self, candidate, spec):
+        slices, per_slice = self._parse(
+            candidate.get("mesh_layout.layout", self.LAYOUTS[0]))
+        if slices * per_slice != 8:
+            return False, (f"layout {slices}x{per_slice} does not use "
+                           f"the fixed 8-device fleet")
+        if self.batch_size % (slices * per_slice):
+            return False, (f"batch {self.batch_size} not divisible by "
+                           f"{slices * per_slice} devices")
+        return True, ""
+
+    def build_runner(self, candidate) -> _MeshRunner:
+        from ..analysis.equivalence import build_feeds
+        from ..parallel.parallel_executor import ParallelExecutor
+
+        layout = candidate.get("mesh_layout.layout", self.LAYOUTS[0])
+        mesh = self._mesh_for(layout)
+        program, loss_name, startup = self._program()
+        exe = ParallelExecutor(mesh=mesh, zero_dp_states=True)
+        block = program.global_block()
+        feed_names = sorted(n for n, v in block.vars.items()
+                            if v.is_data)
+        feeds = build_feeds(program, feed_names, self.batch_size)
+        return _MeshRunner(exe, program, startup, feeds, loss_name)
 
 
 # ---------------------------------------------------------------------------
@@ -860,7 +1002,7 @@ WORKLOADS: Dict[str, Callable[..., object]] = {
     "lstm": lambda place=None: ProgramWorkload(
         "lstm", _build_lstm, _space.remat_space, place=place),
     "mlp_depth": lambda place=None: MlpDepthWorkload(place=place),
-    "mesh_layout": _mesh_layout,
+    "mesh_layout": lambda place=None: MeshLayoutWorkload(place=place),
     "step_loop": lambda place=None: StepLoopWorkload(place=place),
 }
 

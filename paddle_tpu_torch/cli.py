@@ -19,8 +19,11 @@ Usage: python -m paddle_tpu_torch <subcommand> [args]
   analyze DIR|FILE      — static cost & memory analyzer (analysis/cost.py,
                           analysis/memory.py): FLOPs, memory traffic and
                           peak, arithmetic intensity, predicted step time
-                          for a chip spec; --json for one machine line
-                          (--sharding exits 2: Queue A item 11)
+                          for a chip spec; --json for one machine line.
+                          --sharding adds the sharding/communication
+                          analysis (analysis/sharding.py) over --axes;
+                          with no MODEL it analyzes the 11 parallelism
+                          modes and exits 1 on any PTV018/PTV019 finding
   diff A [B]            — translation validation (analysis/
                           equivalence.py): canonicalize both programs and
                           prove/refute semantic equivalence (structural →
@@ -51,10 +54,11 @@ card).
 DIR|FILE is a saved model directory (``__model__`` or ``program.json``)
 or a program file (JSON or ProgramDesc bytes) that either package wrote.
 
-The JAX package's other subcommands (dump_config, stats, validate,
-show_pb, merge_model, pserver, master, cluster_train) are not ported:
-each exits non-zero and names the ROADMAP.md queue item that holds it
-(Queue A items 11 and 12).
+The JAX package's other subcommands are not ported: each exits non-zero
+and names the ROADMAP.md queue item that holds it — dump_config, stats,
+validate, show_pb and merge_model (Queue A item 12); pserver, master and
+cluster_train, the host services of ``distributed/``, which come with
+the next slice of item 11.
 """
 
 from __future__ import annotations
@@ -183,29 +187,140 @@ def cmd_lint(args) -> int:
     return 0
 
 
+def _parse_axes(spec: str):
+    """"dp=4,mp=2" -> {"dp": 4, "mp": 2}; raises ValueError with a
+    usage-worthy message on malformed input (caller turns it into
+    exit code 2, not a traceback)."""
+    out = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, size = part.partition("=")
+        if not eq or not name.strip() or not size.strip().isdigit():
+            raise ValueError(
+                f"--axes entry {part!r} is not NAME=SIZE (e.g. "
+                f"dp=4,mp=2)")
+        out[name.strip()] = int(size)
+    return out
+
+
+def _sharding_reports(args):
+    """`analyze --sharding` without a model: run the sharding analyzer
+    over the built-in parallelism-mode catalog (exit 1 on any
+    PTV018/PTV019 finding).  Desc-only: the mesh's positions are CPU
+    placeholders and nothing runs."""
+    from .analysis import cost as acost
+    from .analysis import sharding as ash
+    from .parallel import modes as pmodes
+
+    names = [args.mode] if args.mode else list(pmodes.MODE_NAMES)
+    rc = 0
+    for name in names:
+        mode, program, loss_name = pmodes.build_mode(name)
+        mesh, plan, provenance = pmodes.mode_plan(mode, program)
+        findings, ana = ash.sharding_findings(
+            program, plan, batch_size=args.batch_size,
+            provenance=provenance, mesh=mesh)
+        comm = ash.comm_report(ana, chip=args.chip)
+        gate = [f for f in findings if f.rule in ("PTV018", "PTV019")]
+        if gate:
+            rc = 1
+        # per-mode scaling-efficiency projection over the mode's
+        # primary (largest) mesh axis
+        cost_rep = acost.program_cost(program,
+                                      batch_size=args.batch_size,
+                                      chip=args.chip)
+        axis = max(mode.mesh_axes, key=mode.mesh_axes.get)
+        curve = ash.scaling_curve(ana, cost_rep, axis=axis,
+                                  sizes=(1, 2, 4, 8, 16, 64),
+                                  chip=args.chip)
+        if args.json:
+            print(json.dumps({
+                "mode": name, "mesh": dict(mode.mesh_axes),
+                "findings": [f.format() for f in findings],
+                "gate_failed": bool(gate),
+                "per_kind": comm["per_kind"],
+                "comm_time_s": comm["comm_time_s"],
+                "scaling_axis": axis,
+                "scaling_curve": [
+                    {"n": p["n"],
+                     "efficiency": round(p["efficiency"], 4)}
+                    for p in curve]}))
+            continue
+        print(f"== mode {name} (mesh {dict(mode.mesh_axes)})")
+        for f in findings:
+            print("  " + f.format())
+        if not findings:
+            print(f"  OK: no findings "
+                  f"({len(ana.collectives)} collectives classified)")
+        print("  " + ash.render_comm(comm).replace("\n", "\n  "))
+        eff = "  ".join(f"{p['n']}x{p['efficiency'] * 100:.0f}%"
+                        for p in curve)
+        print(f"  scaling over {axis!r} (strong, n x eff): {eff}")
+    return rc
+
+
 def cmd_analyze(args) -> int:
     from .analysis import cost as acost
     from .analysis import memory as amem
 
-    if args.sharding:
-        print("analyze --sharding: analysis/sharding.py and the "
-              "parallelism modes are not ported (ROADMAP.md Queue A item "
-              "11)", file=sys.stderr)
-        return 2
     if args.model is None:
-        print("analyze: MODEL required", file=sys.stderr)
-        return 2
-    program, _, _ = _load_program_any(args.model)
+        if not args.sharding:
+            print("analyze: MODEL required unless --sharding runs the "
+                  "built-in parallelism-mode catalog", file=sys.stderr)
+            return 2
+        return _sharding_reports(args)
+
+    program, feed, fetch = _load_program_any(args.model)
     cost_rep = acost.program_cost(program, batch_size=args.batch_size,
                                   chip=args.chip)
     mem_rep = amem.peak_estimate(program, batch_size=args.batch_size,
                                  infer_shapes=not args.no_shapes)
+    shard_rep = comm = None
+    if args.sharding:
+        from .analysis import sharding as ash
+        from .framework.place import CPUPlace
+        from .parallel import modes as pmodes
+        from .parallel.parallel_executor import ParallelExecutor
+
+        try:
+            axes = _parse_axes(args.axes) or {"dp": 8}
+        except ValueError as e:
+            print(f"analyze: {e}", file=sys.stderr)
+            return 2
+        n_devices = 1
+        for s in axes.values():
+            n_devices *= s
+        pe = ParallelExecutor(axes=axes, devices=pmodes.
+                              ensure_virtual_devices(max(1, n_devices),
+                                                     CPUPlace()))
+        provenance = {}
+        plan = pe.static_plan(program, provenance=provenance)
+        findings, ana = ash.sharding_findings(
+            program, plan, batch_size=args.batch_size,
+            provenance=provenance, mesh=pe.mesh)
+        comm = ash.comm_report(ana, chip=args.chip)
+        cost_rep = acost.roofline_with_comm(cost_rep, comm,
+                                            devices=n_devices)
+        shard_rep = {"axes": axes,
+                     "findings": [f.format() for f in findings],
+                     "per_kind": comm["per_kind"],
+                     "comm_time_s": comm["comm_time_s"]}
     if args.json:
-        print(json.dumps({"model": args.model, "cost": cost_rep,
-                          "memory": mem_rep}))
+        rec = {"model": args.model, "cost": cost_rep, "memory": mem_rep}
+        if shard_rep is not None:
+            rec["sharding"] = shard_rep
+        print(json.dumps(rec))
     else:
         print(acost.render(cost_rep))
         print(amem.render(mem_rep))
+        if shard_rep is not None:
+            from .analysis import sharding as ash
+
+            print(ash.render_comm(comm))
+            for f in shard_rep["findings"]:
+                print(f)
     return 0
 
 
@@ -659,8 +774,11 @@ def _tune_smoke(args) -> int:
 def main(argv=None) -> int:
     real_argv = sys.argv[1:] if argv is None else list(argv)
     if real_argv and real_argv[0] in UNPORTED:
+        item = UNPORTED[real_argv[0]]
+        what = (" — the host services of distributed/, the next slice of "
+                "the port" if item == 11 else "")
         print(f"paddle_tpu_torch: subcommand {real_argv[0]!r} is not ported "
-              f"(ROADMAP.md Queue A item {UNPORTED[real_argv[0]]}; the port "
+              f"(ROADMAP.md Queue A item {item}{what}; the port "
               f"has 'train', 'version', 'lint', 'analyze', 'diff', "
               f"'metrics', 'trace', 'attribute' and 'tune')",
               file=sys.stderr)
@@ -708,7 +826,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("analyze")
     p.add_argument("model", nargs="?", default=None,
                    help="saved model dir, __model__ file, or "
-                        "program.json")
+                        "program.json; omit with --sharding to run the "
+                        "built-in parallelism-mode catalog")
     p.add_argument("--batch-size", type=int, default=64,
                    help="value binding -1 feed dims in the cost/peak model")
     p.add_argument("--chip", default=None,
@@ -720,7 +839,16 @@ def main(argv=None) -> int:
                    help="skip the abstract-eval shape oracle (desc-only "
                         "speed; -1 dims bind to --batch-size)")
     p.add_argument("--sharding", action="store_true",
-                   help="not ported (ROADMAP.md Queue A item 11): exits 2")
+                   help="sharding-propagation & communication analysis "
+                        "(analysis/sharding.py): with MODEL, shard it "
+                        "over --axes and add the comm-aware roofline; "
+                        "without MODEL, analyze the 11 parallelism "
+                        "modes and exit 1 on any PTV018/PTV019 finding")
+    p.add_argument("--mode", default=None,
+                   help="restrict the catalog run to one mode name")
+    p.add_argument("--axes", default="",
+                   help="mesh axes for --sharding on a saved model, "
+                        "e.g. dp=4,mp=2 (default dp=8)")
     p.set_defaults(fn=cmd_analyze)
 
     p = sub.add_parser("diff")

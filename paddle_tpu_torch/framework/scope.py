@@ -22,7 +22,10 @@ import torch
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array (bfloat16 widens to float32: numpy
-    has no bfloat16)."""
+    has no bfloat16).  A value sharded over a mesh
+    (``parallel.sharded.ShardedTensor``) is gathered first."""
+    if getattr(t, "__sharded__", False):
+        t = t.gather()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -40,10 +43,12 @@ class Scope:
         self._cache_token = next(Scope._token_counter)
 
     def set(self, name: str, value):
-        """Store a tensor by reference.  numpy (or anything ``np.asarray``
-        takes) is copied into a new CPU tensor, so an op that updates the
-        value in place never writes into the caller's array."""
-        if not isinstance(value, torch.Tensor):
+        """Store a tensor (or a value sharded over a mesh) by reference.
+        numpy (or anything ``np.asarray`` takes) is copied into a new CPU
+        tensor, so an op that updates the value in place never writes
+        into the caller's array."""
+        if not (isinstance(value, torch.Tensor)
+                or getattr(value, "__sharded__", False)):
             value = torch.tensor(np.asarray(value))
         self._vars[name] = value
 

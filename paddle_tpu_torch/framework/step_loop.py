@@ -336,17 +336,19 @@ class CapturedLoop:
         self.at_step = None
         # a final value that lies in any static buffer is copied out first:
         # the copies below would otherwise overwrite it before it is read
-        owned = {t.untyped_storage().data_ptr() for t in self.state.values()}
+        owned = set()
+        for t in self.state.values():
+            owned |= _storages(t)
         final = {}
         for n in self.writes:
             v, buf = carry[n], self.state[n]
             if v is buf:
                 continue
-            if v.shape != buf.shape or v.dtype != buf.dtype:
+            if tuple(v.shape) != tuple(buf.shape) or v.dtype != buf.dtype:
                 raise StepLoopError(
                     f"written state {n!r} changes from {tuple(buf.shape)} "
                     f"{buf.dtype} to {tuple(v.shape)} {v.dtype} in a step")
-            if v.untyped_storage().data_ptr() in owned:
+            if _storages(v) & owned:
                 v = v.clone()
             final[n] = v
         for n, v in final.items():
@@ -426,6 +428,14 @@ class CapturedLoop:
         self.fetches.clear()
         self.state.clear()
         self.staged = None
+
+
+def _storages(t) -> set:
+    """The storage addresses a value lives in: one tensor's, or each shard's
+    of a value sharded over a mesh (``parallel.sharded.ShardedTensor``)."""
+    if getattr(t, "__sharded__", False):
+        return {s.untyped_storage().data_ptr() for s in t.shards}
+    return {t.untyped_storage().data_ptr()}
 
 
 def _feed_dtype(var, value) -> torch.dtype:

@@ -499,3 +499,40 @@ def auc(input, label):
                      inputs={"Predict": [input.name], "Label": [label.name]},
                      outputs={"AUC": [out.name]})
     return out
+
+
+def moe(input, num_experts, d_hidden, capacity_factor=1.0, act="relu",
+        param_attr=None, name=None):
+    """Mixture-of-experts FFN layer: `input` [N, D] tokens -> [N, D].
+    Expert weights are stacked [E, D, H]/[E, H, D]; under a
+    ``ParallelExecutor`` whose mesh has an 'ep' axis they are sharded one
+    expert a member and tokens ride ``all_to_all`` (``ops/moe_ops.py``)."""
+    helper = LayerHelper("moe", param_attr=param_attr, name=name)
+    d_model = input.shape[-1]
+    gate = helper.create_parameter(
+        attr=param_attr if isinstance(param_attr, dict) else {},
+        shape=[d_model, num_experts], dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, d_model ** -0.5))
+    wi = helper.create_parameter(
+        attr={}, shape=[num_experts, d_model, d_hidden], dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, d_model ** -0.5))
+    wo = helper.create_parameter(
+        attr={}, shape=[num_experts, d_hidden, d_model], dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, d_hidden ** -0.5))
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op(
+        "moe",
+        inputs={"X": [input.name], "Gate": [gate.name], "WI": [wi.name],
+                "WO": [wo.name]},
+        outputs={"Out": [out.name]},
+        attrs={"capacity_factor": capacity_factor, "act": act},
+    )
+    return out
+
+
+def pipeline_stage(name=None):
+    """Mark a pipeline-stage boundary in the program (read by the pipeline
+    executors; a no-op under ``Executor`` and ``ParallelExecutor``)."""
+    helper = LayerHelper("pipeline_stage", name=name)
+    helper.append_op("pipeline_stage", inputs={}, outputs={}, attrs={})
+

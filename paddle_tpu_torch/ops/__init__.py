@@ -10,6 +10,7 @@ from . import (  # noqa: F401
     detection_ops,
     loss_ops,
     math_ops,
+    moe_ops,
     nn_ops,
     optimizer_ops,
     sequence_ops,

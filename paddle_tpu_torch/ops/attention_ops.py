@@ -38,27 +38,28 @@ import torch
 
 from .cuda_kernels.flash_attention import FlashAttentionTrain, flash_attention
 from .cuda_kernels.paged_attention import paged_attention, paged_attention_mq
-from .registry import register_op
+from .registry import register_mesh_emit, register_op
 from .tensor_ops import stable_topk
 from .transformer_ops import _lm_fns, _prompt_2d, stable_argmax
 
 
 @register_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(ctx, ins, attrs):
-    """Multi-head attention core: Q, K, V [B,H,T,D] → [B,H,T,D].  One
-    device, so the sequence-parallel modes (``sp_mode`` 'ring' or
-    'alltoall', ``sp_schedule`` 'plain' or 'zigzag') take the single-card
-    kernels, as the JAX package does without an 'sp' mesh axis; a desc
-    carried in with another mode raises: sequence parallelism is not
-    ported.  CPU tensors take the plain versions; CUDA tensors launch the
-    kernels or raise (no shape gate: the kernels take any T and D ≤
-    128)."""
+    """Multi-head attention core: Q, K, V [B,H,T,D] → [B,H,T,D], on one
+    device: K1 in eval mode, ``FlashAttentionTrain`` (K4, then K5/K6 in
+    the backward) in a training program.  Under a ``ParallelExecutor``
+    whose mesh has an 'sp' axis > 1 the mesh emitter ``_sdpa_mesh``
+    dispatches by ``sp_mode``: 'ring' (K/V chunks rotate, K4–K6 a hop,
+    ``sp_schedule`` 'zigzag' for the balanced causal schedule) or
+    'alltoall' (Ulysses).  CPU tensors take the plain versions; CUDA
+    tensors launch the kernels or raise (no shape gate: the kernels take
+    any T and D ≤ 128)."""
     sp = (attrs.get("sp_mode", "ring"), attrs.get("sp_schedule", "plain"))
-    if sp[0] not in ("ring", "alltoall") or sp[1] not in ("plain", "zigzag"):
+    if sp[0] not in ("ring", "alltoall"):
+        raise ValueError(f"sp_mode {sp[0]!r}: use 'ring' or 'alltoall'")
+    if sp[1] not in ("plain", "zigzag"):
         raise ValueError(
-            f"scaled_dot_product_attention: sp_mode={sp[0]!r}, "
-            f"sp_schedule={sp[1]!r} asks for sequence parallelism, which "
-            f"is not ported (ROADMAP.md Queue A item 11)")
+            f"sp_schedule {sp[1]!r}: use 'plain' or 'zigzag'")
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = bool(attrs.get("causal", False))
     if ctx.is_test:
@@ -66,6 +67,68 @@ def scaled_dot_product_attention(ctx, ins, attrs):
     else:
         out = FlashAttentionTrain.apply(q, k, v, causal, None)
     return {"Out": [out]}
+
+
+def _sdpa_mesh(ctx, ins, attrs):
+    """The mesh emitter (``ops/attention_ops.py:96-140`` of the JAX
+    package).  With an 'sp' axis > 1: Q, K, V laid out with the sequence
+    split over 'sp' (their batch/head sharding kept), then
+    ``sp_mode='alltoall'`` runs Ulysses and 'ring' the flash ring — zigzag
+    when ``sp_schedule='zigzag'``, causal, and T divides by 2S (JAX's
+    128-tile gate is Mosaic's and is not ported).  Without one, a batch-
+    or head-sharded attention runs at each position; else None."""
+    from ..parallel import ring_attention as ra
+    from ..parallel.mesh import axis_size
+    from ..parallel.parallel_executor import (MeshPlan, local_plan,
+                                              spec_of_value)
+    from ..parallel.sharded import ShardedTensor
+
+    mesh = ctx.mesh
+    q = ins["Q"][0]
+    spec = spec_of_value(q)
+    S = axis_size(mesh, "sp")
+    if S <= 1:
+        if not any(isinstance(x, ShardedTensor)
+                   for s in ("Q", "K", "V") for x in ins[s]):
+            return None
+        lead = (spec[0], spec[1], None, None)
+        return local_plan(mesh, scaled_dot_product_attention, attrs,
+                          {s: [lead] for s in ("Q", "K", "V")},
+                          {"Out": [lead]})
+
+    def off_sp(e):
+        e = tuple(a for a in (e or ()) if a != "sp")
+        return e or None
+
+    target = (off_sp(spec[0]), off_sp(spec[1]), ("sp",), None)
+    causal = bool(attrs.get("causal", False))
+    mode = str(attrs.get("sp_mode", "ring"))
+    sched = str(attrs.get("sp_schedule", "plain"))
+    is_train = not ctx.is_test
+    T = q.shape[2]
+    if mode not in ("ring", "alltoall"):
+        raise ValueError(f"sp_mode {mode!r}: use 'ring' or 'alltoall'")
+    if mode == "ring" and not (sched == "zigzag" and causal
+                               and T % (2 * S) == 0):
+        sched = "plain"
+
+    def run(view, ctxs):
+        qs, ks, vs = ([view(s, 0, p) for p in range(mesh.size)]
+                      for s in ("Q", "K", "V"))
+        if mode == "alltoall":
+            outs = ra.ulysses_shards(qs, ks, vs, mesh, "sp", causal=causal,
+                                     use_flash=True, is_train=is_train)
+        else:
+            outs = ra.ring_attention_shards(
+                qs, ks, vs, mesh, "sp", causal=causal, use_flash=True,
+                is_train=is_train, schedule=sched)
+        return {"Out": [ShardedTensor(mesh, target, outs)]}
+
+    return MeshPlan({s: [target] for s in ("Q", "K", "V")},
+                    mesh.axis_names, run, mesh_aware=True)
+
+
+register_mesh_emit("scaled_dot_product_attention", _sdpa_mesh)
 
 
 def _squeeze_feed(x, dtype):
@@ -628,3 +691,46 @@ def _paged_page_copy_cost(ins, outs, attrs):
 
 
 register_cost("paged_page_copy", _paged_page_copy_cost)
+
+# ---------------------------------------------------------------------------
+# sharding-propagation rule (analysis/sharding.py; mechanism in registry),
+# as the JAX package's
+
+from .registry import register_sharding  # noqa: E402
+
+
+def _sdpa_sharding(ctx, ins, outs, attrs):
+    """Sequence-parallel attention comm: 'ring' rotates K/V chunks over
+    (sp-1) collective-permute hops; 'alltoall' (Ulysses) reshards
+    seq→heads and back with one all-to-all pair around the dense local
+    attention.  Both live inside shard_map custom_vjps, so the backward
+    re-pays them (bwd_retrace) — the dK/dV return rotation makes ring's
+    backward ~2x the forward, priced as a second chunk set."""
+    q = ins.get("Q", [None])[0]
+    k = ins.get("K", [None])[0]
+    v = ins.get("V", [None])[0]
+    out = outs.get("Out", [None])[0]
+    if q is None or out is None:
+        return {}
+    spec = tuple(q.spec)
+    sp = ctx.axis_size("sp")
+    if sp > 1 and k is not None and v is not None:
+        kv_chunk = (k.device_bytes(ctx.analysis.axis_sizes)
+                    + v.device_bytes(ctx.analysis.axis_sizes)) // sp
+        if str(attrs.get("sp_mode", "ring")) == "alltoall":
+            per = sum(t.device_bytes(ctx.analysis.axis_sizes) // sp
+                      for t in (q, k, v))
+            ctx.collective("all-to-all", ("sp",), per + kv_chunk,
+                           var=out.name,
+                           why="Ulysses seq→heads scatter + heads→seq "
+                               "gather", scales_with_axes=True)
+        else:
+            ctx.collective("collective-permute", ("sp",),
+                           (sp - 1) * kv_chunk, var=out.name,
+                           why=f"ring K/V rotation ({sp - 1} hops)",
+                           scales_with_axes=True)
+    return {"Out": [spec]}
+
+
+_sdpa_sharding.bwd_retrace = True
+register_sharding("scaled_dot_product_attention", _sdpa_sharding)

@@ -220,3 +220,38 @@ def positive_negative_pair(ctx, ins, attrs):
             "NegativePair": [acc("AccumulateNegativePair",
                                  count(ds * dl < 0))],
             "NeutralPair": [acc("AccumulateNeutralPair", count(ds == 0))]}
+
+# ---------------------------------------------------------------------------
+# sharding-propagation rule (analysis/sharding.py; mechanism in registry),
+# as the JAX package's
+
+from .registry import register_sharding  # noqa: E402
+
+
+def _swce_sharding(ctx, ins, outs, attrs):
+    """Softmax-with-cross-entropy over a vocab-sharded logits tensor
+    pays the log-softmax max+sum reductions over the sharded dim (two
+    row-shaped all-reduces); row-sharded (batch) logits are free."""
+    from ..analysis.sharding import entry_axes
+
+    logits = ins.get("Logits", [None])[0]
+    loss = outs.get("Loss", [None])[0]
+    soft = outs.get("Softmax", [None])[0]
+    if logits is None or not logits.spec:
+        return {}
+    loss_spec = tuple(logits.spec[:-1]) + (None,)
+    vocab_axes = tuple(a for a in entry_axes(logits.spec[-1])
+                       if ctx.axis_size(a) > 1)
+    if vocab_axes and loss is not None:
+        ctx.collective("all-reduce", vocab_axes,
+                       2 * ctx.device_bytes(loss.name, loss_spec),
+                       var=loss.name,
+                       why="log-softmax max+sum over the sharded vocab "
+                           "dim", scales_with_axes=True)
+    out = {"Loss": [loss_spec]}
+    if soft is not None:
+        out["Softmax"] = [tuple(logits.spec)]
+    return out
+
+
+register_sharding("softmax_with_cross_entropy", _swce_sharding)

@@ -227,3 +227,56 @@ def _matmul_cost(ins, outs, attrs):
 
 
 register_cost("matmul", _matmul_cost)
+
+# ---------------------------------------------------------------------------
+# sharding-propagation rule (analysis/sharding.py; mechanism in registry),
+# as the JAX package's
+
+from .registry import register_sharding  # noqa: E402
+
+
+def _mul_sharding(ctx, ins, outs, attrs):
+    """The flattening matmul's propagation: out rows inherit X's batch
+    lead, out cols inherit Y's output-dim entry; the shared
+    `ctx.matmul` helper prices the contraction (partial-sum all-reduce
+    on a free sharded axis, param all-gather on the FSDP collision)."""
+    x = ins.get("X", [None])[0]
+    y = ins.get("Y", [None])[0]
+    out = outs.get("Out", [None])[0]
+    if x is None or y is None or out is None:
+        return {}
+    lead, n = ctx.matmul(x, y, out.name)
+    ndim = len(out.shape)
+    if ndim >= 2:
+        spec = (lead,) + (None,) * (ndim - 2) + (n,)
+    else:
+        spec = (lead,) if ndim else ()
+    return {"Out": [spec]}
+
+
+register_sharding("mul", _mul_sharding)
+
+
+def _matmul_sharding(ctx, ins, outs, attrs):
+    x = ins.get("X", [None])[0]
+    y = ins.get("Y", [None])[0]
+    out = outs.get("Out", [None])[0]
+    if x is None or y is None or out is None:
+        return {}
+    if len(y.shape) == 2:
+        lead, n = ctx.matmul(x, y, out.name,
+                             w_contract_dim=1 if attrs.get("transpose_Y")
+                             else 0)
+        ndim = len(out.shape)
+        spec = ((lead,) + (None,) * (ndim - 2) + (n,)) if ndim >= 2 \
+            else ((lead,) if ndim else ())
+        return {"Out": [spec]}
+    # batched matmul: rows follow X, cols follow Y's last entry
+    ndim = len(out.shape)
+    spec = list(x.spec[:ndim]) + [None] * max(0, ndim - len(x.spec))
+    if ndim >= 1 and y.spec:
+        spec[-1] = y.spec[-1]
+    return {"Out": [tuple(spec)]}
+
+
+register_sharding("matmul", _matmul_sharding)

@@ -309,3 +309,36 @@ def _conv_cost(ins, outs, attrs):
 # when their ops are ported (ROADMAP.md Queue A item 7)
 for _t in ("conv2d", "conv2d_transpose"):
     register_cost(_t, _conv_cost)
+
+# ---------------------------------------------------------------------------
+# sharding-propagation rule (analysis/sharding.py; mechanism in registry),
+# as the JAX package's
+
+from .registry import register_sharding  # noqa: E402
+
+
+def _batch_norm_sharding(ctx, ins, outs, attrs):
+    """Training-mode batch statistics are means over the (sharded)
+    batch: GSPMD all-reduces the per-channel mean and variance over the
+    batch axes.  Channel-shaped buffers stay replicated."""
+    from ..analysis.sharding import entry_axes
+
+    x = ins.get("X", [None])[0]
+    y = outs.get("Y", [None])[0]
+    if x is None or not x.spec:
+        return {}
+    batch_axes = tuple(a for a in entry_axes(x.spec[0])
+                       if ctx.axis_size(a) > 1)
+    mean = outs.get("SavedMean", [None])[0]
+    if batch_axes and mean is not None and not attrs.get("is_test"):
+        ctx.collective(
+            "all-reduce", batch_axes, 2 * mean.global_bytes,
+            var=mean.name,
+            why="batch mean+variance over the sharded batch")
+    out = {}
+    if y is not None:
+        out["Y"] = [tuple(x.spec)]
+    return out
+
+
+register_sharding("batch_norm", _batch_norm_sharding)

@@ -54,6 +54,18 @@ class OpInfo:
     # defaults (one flop per output element, inputs read + outputs
     # written)
     cost: Optional[Callable] = None
+    # sharding-propagation rule: fn(ctx, ins, outs, attrs) -> {slot:
+    # [spec-tuple|None]} where ins/outs map slot -> [ShardedOperand|None]
+    # (analysis/sharding.py) and ctx is its PropagationContext (mesh axis
+    # sizes + ctx.collective(...) to declare implied communication).
+    # None → the analyzer's structural defaults (elementwise join /
+    # batch-led propagation).
+    sharding: Optional[Callable] = None
+    # the op's own execution over a mesh (parallel/parallel_executor.py):
+    # fn(ctx, ins, attrs) -> outs with every position's shards at once,
+    # ins/outs mapping slot -> [ShardedTensor | tensor]; None → the
+    # executor's local rules or its gather-and-run-whole fallback
+    mesh_emit: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -105,6 +117,46 @@ def register_cost(type: str, fn: Callable = None):
         if info.cost is not None:
             raise ValueError(f"op {type!r} already has a cost formula")
         info.cost = f
+        return f
+
+    if fn is not None:
+        return _do(fn)
+    return _do
+
+
+def register_sharding(type: str, fn: Callable = None):
+    """Attach a sharding-propagation rule to an already-registered op.
+    Usable as decorator or direct call; like `register_cost`, the rule
+    lives beside the emitter in the op's module (matmul contraction
+    resolution, the vocab-sharded lookup, sp ring/all-to-all attention,
+    moe dispatch) — this is only the mechanism.  fn(ctx, ins, outs,
+    attrs) -> {slot: [spec|None]} with specs as tuples of mesh-axis
+    names/None; the rule declares implied collectives through
+    ctx.collective(...)."""
+
+    def _do(f):
+        info = get_op_info(type)
+        if info.sharding is not None:
+            raise ValueError(f"op {type!r} already has a sharding rule")
+        info.sharding = f
+        return f
+
+    if fn is not None:
+        return _do(fn)
+    return _do
+
+
+def register_mesh_emit(type: str, fn: Callable = None):
+    """Attach a mesh-aware emitter (``OpInfo.mesh_emit``) to an
+    already-registered op: the ``ParallelExecutor`` hands it every
+    position's shards at once (sequence-parallel attention, the
+    expert-parallel ``moe``)."""
+
+    def _do(f):
+        info = get_op_info(type)
+        if info.mesh_emit is not None:
+            raise ValueError(f"op {type!r} already has a mesh emitter")
+        info.mesh_emit = f
         return f
 
     if fn is not None:

@@ -240,6 +240,13 @@ def top_k(ctx, ins, attrs):
     return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
 
 
+@register_op("pipeline_stage", grad=None)
+def pipeline_stage(ctx, ins, attrs):
+    """Stage-boundary marker for the pipeline executors; a no-op under
+    ``Executor`` and ``ParallelExecutor``."""
+    return {}
+
+
 @register_op("print")
 def print_op(ctx, ins, attrs):
     """Debug print: passes its input through and prints it, after
@@ -291,3 +298,50 @@ def _lookup_table_cost(ins, outs, attrs):
 
 
 register_cost("lookup_table", _lookup_table_cost)
+
+# ---------------------------------------------------------------------------
+# sharding-propagation rule (analysis/sharding.py; mechanism in registry),
+# as the JAX package's
+
+from .registry import register_sharding  # noqa: E402
+
+
+def _lookup_table_sharding(ctx, ins, outs, attrs):
+    """Vocab-sharded embedding: a table sharded over a FREE mesh axis
+    is looked up masked-locally and the output all-reduced over that
+    axis (the mp vocab path); a table sharded over the ids' own batch
+    axis (FSDP) is all-gathered instead — the calibrated GSPMD pair."""
+    from ..analysis.sharding import entry_axes
+
+    w = ins.get("W", [None])[0]
+    ids = ins.get("Ids", [None])[0]
+    out = outs.get("Out", [None])[0]
+    if w is None or out is None:
+        return {}
+    batch = set(entry_axes(ids.spec[0])) if ids is not None and ids.spec \
+        else set()
+    vocab = w.spec[0] if w.spec else None
+    lead = ids.spec[0] if ids is not None and ids.spec else None
+    ndim = len(out.shape)
+    spec = ((lead,) + (None,) * max(0, ndim - 2)
+            + ((w.spec[-1],) if ndim >= 2 and len(w.spec) >= 2 else ()))
+    spec = tuple(spec[:ndim])
+    for a in entry_axes(vocab):
+        if ctx.axis_size(a) <= 1:
+            continue
+        if a in batch:
+            ctx.collective("all-gather", (a,), w.global_bytes,
+                           var=w.name,
+                           why="table sharded over the batch axis is "
+                               "gathered for the lookup")
+        else:
+            ctx.collective("all-reduce", (a,),
+                           ctx.device_bytes(out.name, spec),
+                           var=out.name,
+                           why="masked lookup over the sharded vocab "
+                               "dim leaves partial rows",
+                           scales_with_axes=True)
+    return {"Out": [spec]}
+
+
+register_sharding("lookup_table", _lookup_table_sharding)

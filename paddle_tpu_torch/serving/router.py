@@ -44,10 +44,9 @@ class ReplicaRouter:
     `hbm_budget_bytes`: per-replica HBM capacity; replicas whose static
     report exceeds it are rejected with ValueError at construction
     (default: no budget — every replica admissible).
-    `comm_reports`: optional per-replica comm dicts (the JAX package's
-    ``analysis.sharding.comm_report``; nothing in the port makes one
-    until ROADMAP.md Queue A item 11) folded into the placement cost for
-    replicas whose decode step implies collectives.  `chip` names the
+    `comm_reports`: optional per-replica comm dicts
+    (``analysis.sharding.comm_report``) folded into the placement cost
+    for replicas whose decode step implies collectives.  `chip` names the
     cost model's chip spec (default: $PADDLE_TPU_CHIP, then
     ``h100-sxm``)."""
 

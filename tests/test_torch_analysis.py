@@ -198,12 +198,26 @@ def test_memory_fits_and_render_equal_jax():
 
 
 def test_memory_plan_raises_naming_the_queue_item():
-    (_, tp) = _pair("mlp_train")[1]
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tmemory.peak_estimate(tp, 8, plan={"x": ("dp",)})
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tmemory.shard_divisor(("dp",))
+    """Per-shard accounting (once refused, ported with the sharding tier):
+    a plan of bare specs and one of the dp mode's NamedShardings price as
+    the JAX package's do."""
+    (_, jp), (_, tp) = _pair("mlp_train")
+    bare = {"x": ("dp",), "fc_0.w_0": ("dp", None)}
+    assert tmemory.peak_estimate(tp, 8, plan=bare) == \
+        jmemory.peak_estimate(jp, 8, plan=bare)
+    assert tmemory.shard_divisor(("dp",)) == jmemory.shard_divisor(("dp",))
     assert tmemory.shard_divisor(None) == 1
+    from paddle_tpu.parallel import ParallelExecutor as JPE
+    from paddle_tpu_torch.parallel import ParallelExecutor as TPE
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    jplan = JPE(axes={"dp": 8}, fsdp_params=True).static_plan(jp)
+    tplan = TPE(mesh=make_mesh({"dp": 8}, devices=[torch.device("cpu")] * 8),
+                fsdp_params=True).static_plan(tp)
+    got = tmemory.peak_estimate(tp, 8, plan=tplan)
+    assert got == jmemory.peak_estimate(jp, 8, plan=jplan)
+    assert got["per_shard"] and tmemory.shard_divisor(
+        tplan["fc_0.w_0"]) == jmemory.shard_divisor(jplan["fc_0.w_0"])
 
 
 # -- the cost model -----------------------------------------------------------
@@ -484,10 +498,18 @@ def test_an_emitter_that_reads_the_host_poisons_its_outputs(monkeypatch):
 
 
 def test_plan_raises_naming_the_queue_item():
-    (_, tp) = _pair("mlp_train")[1]
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tverifier.verify_program(tp, plan={"fc_0.w_0": ("dp",)})
-    # with the plan rules off, a plan is harmless
+    """A plan (once refused) arms PTV016 and PTV018-PTV021: the findings
+    equal the JAX package's; with those rules off a plan is harmless."""
+    (_, jp), (_, tp) = _pair("mlp_train")
+
+    def rules(rep):
+        return sorted((f.rule, f.var, f.message) for f in rep.findings)
+
+    for plan in ({"fc_0.w_0": ("dp",)}, {"fc_0.w_0": ("dp", "dp")}):
+        assert rules(tverifier.verify_program(tp, plan=plan)) == \
+            rules(jverifier.verify_program(jp, plan=plan))
+    assert any(f.rule == "PTV018" for f in tverifier.verify_program(
+        tp, plan={"fc_0.w_0": ("dp", "dp")}).findings)
     rep = tverifier.verify_program(
         tp, plan={"fc_0.w_0": ("dp",)},
         suppress={"PTV016", "PTV018", "PTV019", "PTV020", "PTV021"})
@@ -726,13 +748,27 @@ def test_a_corrupted_fold_is_refuted(monkeypatch):
 @pytest.mark.parametrize("fn,item", [
     ("checked_distribute_transpile", 11), ("checked_sharding_plan", 11)])
 def test_unported_contracts_raise_naming_the_queue_item(fn, item):
-    (_, tp) = _pair("mlp_train")[1]
-    args = {"checked_distribute_transpile": (None, 0),
-            "checked_sharding_plan": (None, tp, None)}.get(fn, (tp,))
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue A item {item}\\b"):
-        getattr(tcontracts, fn)(*args)
+    """`checked_distribute_transpile` still raises, naming the next
+    slice (it wraps distributed/); `checked_sharding_plan` is ported: it
+    returns the transpiler's plan, as the JAX package's, spec for spec."""
+    (jp, tp) = (p for _, p in _pair("mlp_train"))
     assert hasattr(jcontracts, fn)
+    if fn == "checked_distribute_transpile":
+        with pytest.raises(NotImplementedError,
+                           match=f"Queue A item {item}\\b"):
+            getattr(tcontracts, fn)(None, 0)
+        return
+    from paddle_tpu.parallel import DistributeTranspiler as JDT
+    from paddle_tpu.parallel import make_mesh as jmake
+    from paddle_tpu_torch.analysis.sharding import spec_of
+    from paddle_tpu_torch.parallel import DistributeTranspiler as TDT
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    tmesh = make_mesh({"dp": 8}, devices=[torch.device("cpu")] * 8)
+    tplan = getattr(tcontracts, fn)(TDT(), tp, tmesh)
+    jplan = getattr(jcontracts, fn)(JDT(), jp, jmake({"dp": 8}))
+    assert {n: spec_of(v) for n, v in tplan.items()} == \
+        {n: spec_of(v) for n, v in jplan.items()}
 
 
 # -- tracing ------------------------------------------------------------------
@@ -850,8 +886,14 @@ def test_cli_diff_of_two_models_with_other_weights(tmp_path, capsys):
 
 
 def test_cli_analyze_sharding_exits_naming_the_queue_item(tmp_path, capsys):
+    """`analyze --sharding` (once refused): on a JAX-saved model over
+    --axes, and on one mode of the catalog, the port prints what the JAX
+    package prints; a malformed --axes exits 2."""
     d = str(tmp_path / "model")
     _jax_saved_model(d)
-    assert tcli.main(["analyze", d, "--sharding"]) == 2
-    assert "Queue A item 11" in capsys.readouterr().err
-    assert tcli.main(["analyze", "--sharding"]) == 2
+    for argv in (["analyze", d, "--sharding", "--axes", "dp=8", "--chip",
+                  "cpu-host", "--batch-size", "8"],
+                 ["analyze", "--sharding", "--mode", "dp", "--chip",
+                  "cpu-host"]):
+        assert _out(tcli, argv, capsys) == _out(jcli, argv, capsys)
+    assert tcli.main(["analyze", d, "--sharding", "--axes", "dp"]) == 2

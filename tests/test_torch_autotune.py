@@ -352,8 +352,28 @@ def test_mock_measurer_times_as_jax():
 
 
 def test_mesh_layout_raises_naming_the_queue_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tworkloads.get_workload("mesh_layout", place=CPU)
+    """The mesh_layout axis (once refused): each layout's feasibility and
+    priced communication equal the JAX package's (with its v5e link
+    rates), and a layout's runner takes a step on eight CPU positions;
+    an unknown name still raises."""
+    wl = tworkloads.get_workload("mesh_layout", place=CPU)
+    jwl = jworkloads.get_workload("mesh_layout")
+    assert wl.LAYOUTS == jwl.LAYOUTS and wl.site() == jwl.site()
+    for layout in wl.LAYOUTS:
+        cand = tspace.Candidate({"mesh_layout.layout": layout})
+        jcand = jspace.Candidate({"mesh_layout.layout": layout})
+        got = wl.comm_cost(cand, {"chip": "tpu-v5e"})
+        want = jwl.comm_cost(jcand, {"chip": "v5e"})
+        assert got["link_bytes"] == want["link_bytes"]
+        assert got["per_kind"] == want["per_kind"]
+        np.testing.assert_allclose(got["comm_time_s"], want["comm_time_s"],
+                                   rtol=1e-12)
+        assert wl.feasible(cand, {}) == jwl.feasible(jcand, {})
+    run = wl.build_runner(tspace.Candidate(
+        {"mesh_layout.layout": "2x4"}))
+    run.step()
+    run.barrier()
+    run.close()
     with pytest.raises(KeyError, match="unknown workload"):
         tworkloads.get_workload("nope", place=CPU)
 

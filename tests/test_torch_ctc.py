@@ -243,7 +243,8 @@ def test_registry_holds_the_new_ops_as_jax_does():
     assert [op for op in treg.registered_ops()
             if treg.get_op_info(op).unwritten_outputs] == ["roi_pool",
                                                            "warpctc"]
-    assert len(treg.registered_ops()) == 173
+    # 173 after the CTC slice; the mesh slice added moe and pipeline_stage
+    assert len(treg.registered_ops()) == 175
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
 
 

@@ -88,6 +88,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.analysis.equivalence\n"
         "import paddle_tpu_torch.observability.tracing\n"
         "import paddle_tpu_torch.serving.router\n"
+        "import paddle_tpu_torch.parallel\n"
+        "import paddle_tpu_torch.parallel.modes\n"
+        "import paddle_tpu_torch.parallel.ring_attention\n"
+        "import paddle_tpu_torch.analysis.sharding\n"
+        "import paddle_tpu_torch.ops.moe_ops\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -120,8 +125,8 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
                         hits.append(f"{os.path.relpath(path, _REPO)}: "
                                     f"{m.group(0).strip()}")
     assert not hits, hits
-    # the step loop, the data plane, the training options and the model
-    # zoo are among the scanned modules
+    # the step loop, the data plane, the training options, the model
+    # zoo and the mesh tier (parallel/) are among the scanned modules
     assert {os.path.join("framework", "step_loop.py"),
             os.path.join("reader", "__init__.py"),
             os.path.join("reader", "decorator.py"),
@@ -160,7 +165,17 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("trainer", "config_parser.py"),
             "cli.py", "__main__.py",
             os.path.join("ops", "ctc_ops.py"),
-            os.path.join("ops", "detection_ops.py")} <= scanned
+            os.path.join("ops", "detection_ops.py"),
+            os.path.join("ops", "moe_ops.py"),
+            os.path.join("analysis", "sharding.py"),
+            os.path.join("parallel", "__init__.py"),
+            os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "collectives.py"),
+            os.path.join("parallel", "sharded.py"),
+            os.path.join("parallel", "transpiler.py"),
+            os.path.join("parallel", "parallel_executor.py"),
+            os.path.join("parallel", "ring_attention.py"),
+            os.path.join("parallel", "modes.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():

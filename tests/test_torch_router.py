@@ -140,6 +140,34 @@ def test_comm_reports_fold_into_the_step_cost_as_in_jax():
     assert tr.step_cost_s[0] == pytest.approx(jr.step_cost_s[0], rel=1e-12)
 
 
+def test_comm_reports_from_comm_report_fold_as_in_jax():
+    """`comm_reports` made by each package's `analysis.sharding.
+    comm_report` (the lm_dp_sp mode's plan, priced on cpu-host): the
+    routers' step costs agree."""
+    import paddle_tpu as jfluid
+    from paddle_tpu.analysis import sharding as jsh
+    from paddle_tpu.parallel import modes as jmodes
+    from paddle_tpu_torch.analysis import sharding as tsh
+    from paddle_tpu_torch.parallel import modes as tmodes
+
+    reports = []
+    for modes, sh in ((jmodes, jsh), (tmodes, tsh)):
+        mode, prog, _ = modes.build_mode("lm_dp_sp")
+        mesh, plan, prov = modes.mode_plan(mode, prog)
+        reports.append(sh.comm_report(sh.propagate(
+            prog, mesh=mesh, plan=plan, batch_size=8, provenance=prov),
+            chip="cpu-host"))
+    jlm, tlm = _build_pair()
+    jr = JRouter(_replicas(jlm, JEngine, (1, 2), jfluid.CPUPlace()),
+                 comm_reports=[None, reports[0]], chip="cpu-host")
+    tr = TRouter(_replicas(tlm, TEngine, (1, 2), tfluid.CPUPlace()),
+                 comm_reports=[None, reports[1]], chip="cpu-host")
+    assert reports[1]["comm_time_s"] > 0
+    for i in (0, 1):
+        assert tr.step_cost_s[i] == pytest.approx(jr.step_cost_s[i],
+                                                  rel=1e-12)
+
+
 def test_the_router_default_chip_is_the_card(monkeypatch):
     from paddle_tpu_torch.analysis import cost
 

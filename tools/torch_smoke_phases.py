@@ -3,6 +3,7 @@ against change.
 
     python3 tools/torch_smoke_phases.py router
     python3 tools/torch_smoke_phases.py measurement
+    python3 tools/torch_smoke_phases.py parallel
     python3 tools/torch_smoke_phases.py v1_rnn generation --parent DIR
 
 Without ``--parent`` the phases run once in this process after the kernel
@@ -30,6 +31,7 @@ PHASES = {
     "v1_rnn": "cs.v1_rnn_phase(name, smi)",
     "generation": "cs.generation_phase(torch.device('cuda', 0), name, smi)",
     "measurement": "cs.measurement_phase(name, smi)",
+    "parallel": "cs.parallel_phase(torch.device('cuda', 0), name, smi)",
 }
 
 _RUN = r'''
