@@ -309,9 +309,11 @@ non-zero and no result line is printed):
     1e-3, the statistics 1e-3);
 32. the DDPM U-Net at ``bench_unet_train``'s shape (f32, batch 64, 64 px,
     base_ch 64, ch_mults (1, 2, 4), Adam(1e-3), ``ddpm_feed`` from
-    ``RandomState(0)``): 2 + 5 eager steps (the loss falls), then K = 4
-    steps a dispatch held to eager steps from its state as in 21 (no port
-    kernel), 12 eager against 12 replayed steps (img/s both ways); then
+    ``RandomState(0)``): 2 + 5 eager steps (the loss falls), then, on
+    cuDNN's deterministic algorithms, K = 4 steps a dispatch held to the
+    bit to eager steps from its state as in 21 (no port kernel; the eager
+    runs must agree to the bit), 12 eager against 12 replayed steps (img/s
+    both ways); then
     ``ddim_sample`` for 10 steps at batch 4 twice from one seed: finite
     and equal to the bit;
 33. DeepFM: (a) the JAX package's CTR test shape (6 fields, vocab 256,
@@ -479,12 +481,37 @@ non-zero and no result line is printed):
     and replay, replay), each dispatch bitwise against two run() calls.
     One card shows no link time: a hop or a psum between its positions
     is a re-index or an add in its memory;
-41. summary.
+41. the pipeline executors and the host services
+    (``parallel/program_pipeline.py``, ``distributed/``): (a) the bench
+    GPT (``decoder_lm`` at dim 512, 8 layers, 8 heads, vocab 32000, bf16,
+    batch 8 x 1024) with a ``pipeline_stage`` marker after every two
+    blocks (4 stages: embedding and positions in the first, final
+    LayerNorm, head and loss in the last) through ``ProgramPipeline``
+    over {"pp": 4} at n_micro 4 and {"pp": 2, "dp": 2} at n_micro 2 on
+    positions of cuda:0 with SGD, 2 + 10 steps, each held to the
+    single-card Executor's SGD step from the same state against a
+    float32 witness step (loss, and the parameter update), with ms a
+    step, device ms, busy share, peak memory, hops and psums a step, and
+    K4/K5/K6 launches a step held to the schedule's (LAYERS x n_micro x
+    dp each), the single card's figures beside them; (b) the same GPT in
+    f32 with Adam through ``DistributeTranspiler`` and two loopback
+    PServers (HostAdam), 3 steps, held to the bit to the same program
+    with the same host rule applied in-process (the single-card Adam op
+    beside it, its distance reported: epsilon sits on the other side of
+    the bias correction), each step split into device, wire and host
+    optimizer; (c) the host services on the card: chaos
+    ``worker_kill`` with a differential (bitwise) recovery proof, the
+    16k-context ``admission_demo``, the CTR with a host table (card
+    against CPU, losses 1e-4), and ``pp``, ``pp_dp`` and the functional
+    MoE step on eight positions of the card against the CPU (losses
+    1e-4);
+42. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
-{...}, "router": {...}, "measurement": {...}, "parallel": {...}}``
+{...}, "router": {...}, "measurement": {...}, "parallel": {...},
+"distributed": {...}}``
 summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
@@ -524,6 +551,7 @@ from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
 from paddle_tpu_torch.ops.cuda_kernels import gru as gru_k
 from paddle_tpu_torch.ops.cuda_kernels import lstm as lstm_k
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
+from paddle_tpu_torch.parallel import collectives as pcol
 from paddle_tpu_torch.parallel import mesh as pmesh
 from paddle_tpu_torch.parallel import modes as pmodes
 from paddle_tpu_torch.parallel import parallel_executor as pmesh_exe
@@ -4882,12 +4910,12 @@ def vgg19_fused_phase(dev, card_name, smi, unfused):
 def unet_phase(card_name, smi):
     """32. The DDPM U-Net at ``bench_unet_train``'s shape (f32, batch 64,
     64 px, base_ch 64, ch_mults (1, 2, 4), Adam(1e-3)): ZOO_WARMUP +
-    ZOO_TIMED eager steps (the lowest measured loss below the first), then
-    UNET_K steps a dispatch held to eager steps from its state
-    (``loop_parity``; no port kernel runs) and timed against them
-    (``loop_timing``, img/s both ways); then ``ddim_sample`` for
-    DDIM_STEPS steps at batch DDIM_BS twice from one seed: finite, equal
-    to the bit."""
+    ZOO_TIMED eager steps (the lowest measured loss below the first), then,
+    on cuDNN's deterministic algorithms, UNET_K steps a dispatch held to
+    the bit to eager steps from its state (``loop_parity``; no port kernel
+    runs) and timed against them (``loop_timing``, img/s both ways); then
+    ``ddim_sample`` for DDIM_STEPS steps at batch DDIM_BS twice from one
+    seed: finite, equal to the bit."""
     (loss, eps_hat, infer), main, startup = zoo_program(
         zb.unet_train_program)
     exe = fluid.Executor(fluid.CUDAPlace(0))
@@ -4904,8 +4932,27 @@ def unet_phase(card_name, smi):
     no_launches("unet_eager", launches)
     losses = [r[0] for r in warm + steps]
     step_ms = wall / len(steps) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     feeds = [zb.unet_feed(seed=i) for i in range(UNET_K)]
     stacked = {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+    # cuDNN's default convolution backwards sum in varying order, so two
+    # eager runs part after one step and a replay is held only to their
+    # spread, which a 3-element bias samples too thinly to hold steadily;
+    # on cuDNN's deterministic algorithms eager runs agree to the bit and
+    # every dispatch is held to the bit.  Eager and replay are timed on
+    # the same algorithms, the eager steps above on the default ones.
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loop = {**loop_parity("unet_step_loop", exe, main, loss, stacked,
+                              UNET_K, {}),
+                **loop_timing(exe, main, loss, stacked, UNET_K, zb.UNET_BS)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    if not loop["eager_spread"]["bitwise"]:
+        raise AssertionError(f"unet_step_loop: eager runs on cuDNN's "
+                             f"deterministic algorithms part: "
+                             f"{loop['eager_spread']}")
     res = {"card": card_name, "nvidia_smi": smi, "bs": zb.UNET_BS,
            "image": zb.UNET_IMAGE, "base_ch": zb.UNET_CH,
            "ch_mults": list(zb.UNET_MULTS), "dtype": "float32",
@@ -4914,10 +4961,8 @@ def unet_phase(card_name, smi):
            "ops": len(main.global_block().ops), "losses": losses,
            "step_ms": step_ms, "step_ms_each": [r[3] * 1e3 for r in steps],
            "img_s": zb.UNET_BS / (step_ms / 1e3),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           **loop_parity("unet_step_loop", exe, main, loss, stacked, UNET_K,
-                         {}),
-           **loop_timing(exe, main, loss, stacked, UNET_K, zb.UNET_BS)}
+           "peak_mem_gb": peak_gb, "step_loop_cudnn_deterministic": True,
+           **loop}
     res["img_s_eager"] = res.pop("eager_items_s")
     res["img_s_replay"] = res.pop("replay_items_s")
     if not all(np.isfinite(losses)) or not min(losses[ZOO_WARMUP:]) \
@@ -7654,7 +7699,547 @@ def parallel_phase(dev, card_name, smi):
     return res
 
 
-# -- 41. summary --------------------------------------------------------------
+# -- 41. the pipeline executors and the host services --------------------------
+
+# (a) the bench GPT staged every two blocks (4 stages), pipelined on
+# positions of cuda:0 with SGD, 2 warm-up + PIPE_TIMED held steps a layout
+PIPE_LAYOUTS = (({"pp": 4}, 4), ({"pp": 2, "dp": 2}, 2))
+PIPE_LR = 0.05
+PIPE_TIMED = 10
+# (b) the bench GPT in f32 through two loopback pservers with HostAdam
+PS_STEPS = 3
+# (c) the host services on the card
+HOST_EMB = {"vocab": 1000, "dim": 8, "bs": 32, "steps": 60}
+MOE_SMALL = {"ep": 4, "dp": 2, "d": 8, "h": 16, "capacity": 16}
+
+
+def pipe_lm_program(dtype, sgd, stages=4):
+    """The bench GPT (``decoder_lm`` at bench.py's widths cut into
+    `stages` stages by ``pipeline_stage`` markers — after every two blocks
+    for 4 — and ``lm_loss``) in fresh default programs; with `sgd` the SGD
+    step the single card runs (the markers are no-ops there).  The
+    markers make no variables: every stage count names the same
+    parameters."""
+    fluid.reset()
+    tok = fluid.layers.data("tokens", shape=[TRAIN_SEQ, 1], dtype="int64")
+    tgt = fluid.layers.data("targets", shape=[TRAIN_SEQ, 1], dtype="int64")
+    logits = transformer.decoder_lm(tok, VOCAB, DIM, LAYERS, HEADS,
+                                    max_len=TRAIN_SEQ, dtype=dtype,
+                                    stage_every=LAYERS // stages)
+    loss = transformer.lm_loss(logits, tgt, dtype=dtype)
+    if sgd:
+        fluid.optimizer.SGD(learning_rate=PIPE_LR).minimize(loss)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    return loss, fluid.default_main_program(), startup
+
+
+def pipe_launch_want(axes, n_micro):
+    """K4, K5, K6 a pipelined step: each (stage, dp) position runs its
+    LAYERS / pp layers on each of its n_micro microbatches, one K4 a
+    layer forward and one K5 and one K6 in its backward."""
+    per = LAYERS * n_micro * axes.get("dp", 1)
+    return {"flash_attention_fwd": per, "flash_attention_dq": per,
+            "flash_attention_dkv": per}
+
+
+def update_rel(after, start, witness):
+    """The distance of a step's parameter update from the witness step's:
+    the norm of the difference of the two updates (after - start, all
+    tensors as one vector) over the norm of the witness's, in float64."""
+    num = den = 0.0
+    for n, s0 in start.items():
+        s0 = s0.double()
+        w = witness[n].double() - s0
+        num += (after[n].double() - s0 - w).pow(2).sum().item()
+        den += w.pow(2).sum().item()
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def pipe_layout_run(dev, axes, n_micro, progs, names, start, extras):
+    """One layout: 2 warm-up steps from `start`, then PIPE_TIMED steps,
+    each from the bf16 state the last one ended in (the pipeline
+    re-packed from it, as the single card holds its parameters), held to
+    the single-card SGD step and an f32 witness step from that state
+    (`extras`: the SGD programs' own persistables, the learning rate):
+    the pipelined loss within SPREAD_FACTOR x the largest single-card
+    loss distance from its witness over the held steps, and its update
+    (the float32 rows after the step less the start) within
+    SPREAD_FACTOR x the single card's update distance from the
+    witness's.  Both updates are float32 (the rows are; the SGD op
+    promotes a bf16 parameter to float32), so the distance is the bf16
+    forward and backward's."""
+    from paddle_tpu_torch.parallel.program_pipeline import ProgramPipeline
+
+    (loss_s, main_s), (loss_f, main_f) = progs
+    loss_p, main_p, _ = pipe_lm_program("bfloat16", False, axes["pp"])
+    mesh = pmesh.make_mesh(axes, devices=[dev] * int(np.prod(list(
+        axes.values()))))
+    s_pipe = fluid.Scope()
+    into_scope(s_pipe, start)
+    pipe = ProgramPipeline(main_p, loss_p, mesh, n_micro=n_micro,
+                           optimizer=("sgd", PIPE_LR), scope=s_pipe)
+    pipe.initialize()
+    single = fluid.Executor(fluid.CUDAPlace(0))
+    witness = fluid.Executor(fluid.CUDAPlace(0))
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    warm = [pipe.run(feed) for _ in range(2)]
+    pipe.sync_scope()
+    held, step_ms, single_ms, peaks, single_peaks = [], [], [], [], []
+    launches = {k: 0 for k in KERNELS}
+    comm = None
+    for i in range(PIPE_TIMED):
+        state = {n: s_pipe.find(n).detach().clone() for n in names}
+        pipe.initialize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: f.launches for k, f in KERNELS.items()}
+        with pcol.record() as log_:
+            t1 = time.monotonic()
+            lp = pipe.run(feed)
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t1) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        got = {k: f.launches - before[k] for k, f in KERNELS.items()}
+        check_launches("pipe_gpt_step", got, pipe_launch_want(axes, n_micro))
+        for k in launches:
+            launches[k] += got[k]
+        comm = {"hops": sum(1 for e in log_ if e[0] == "collective-permute"),
+                "psums": sum(1 for e in log_ if e[0] == "all-reduce"),
+                "hop_bytes": sum(e[2] for e in log_
+                                 if e[0] == "collective-permute"),
+                "kinds": sorted({(e[0], e[1]) for e in log_})}
+        p_rows = pipe.params(cast=False)
+        pipe.sync_scope()
+        sa = fluid.Scope()
+        into_scope(sa, {**state, **extras[0]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.monotonic()
+        la = float(single.run(main_s, feed=feed, fetch_list=[loss_s],
+                              scope=sa)[0][0])
+        torch.cuda.synchronize()
+        single_ms.append((time.monotonic() - t1) * 1e3)
+        single_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        a_state = {n: sa.find(n).detach().clone() for n in names}
+        sr = fluid.Scope()
+        into_scope(sr, state, {n: torch.float32 for n in names})
+        into_scope(sr, extras[1])
+        lr_ = float(witness.run(main_f, feed=feed, fetch_list=[loss_f],
+                                scope=sr)[0][0])
+        r_state = {n: sr.find(n).detach().clone() for n in names}
+        del sa, sr
+        held.append((i, lp, la, lr_, update_rel(p_rows, state, r_state),
+                     update_rel(a_state, state, r_state)))
+        del state, p_rows, a_state, r_state
+    loss_spread = max(abs(la - lr_) / abs(lr_)
+                      for _, _, la, lr_, _, _ in held)
+    holds = []
+    for (i, lp, la, lr_, g_upd, a_upd) in held:
+        loss_rel = abs(lp - lr_) / abs(lr_)
+        bound_ = {"loss": SPREAD_FACTOR * loss_spread,
+                  "update": SPREAD_FACTOR * a_upd}
+        row = {"step": i, "loss_rel": loss_rel, "update_rel": g_upd,
+               "bound": bound_,
+               "single_loss_rel": abs(la - lr_) / abs(lr_),
+               "single_update_rel": a_upd,
+               "share_of_bound": {"loss": loss_rel / bound_["loss"],
+                                  "update": g_upd / bound_["update"]}}
+        holds.append(row)
+        if loss_rel > bound_["loss"] or g_upd > bound_["update"]:
+            raise AssertionError(
+                f"pipe_gpt {axes}: pipelined step {i} is farther from its "
+                f"float32 witness than {SPREAD_FACTOR} x the single card's "
+                f"bf16 step: {row}")
+    pipe.initialize()
+    prof = profile_steps(lambda: pipe.run(feed), 2, FLASH_BF16_BODIES)
+    # the single card's SGD op writes a bf16 parameter back as float32
+    # (ROADMAP.md Queue C), so each profiled step starts from the bf16
+    # state again, as each held step does
+    s1 = fluid.Scope()
+    bf16_state = {**{n: s_pipe.find(n) for n in names}, **extras[0]}
+
+    def single_step():
+        into_scope(s1, bf16_state)
+        single.run(main_s, feed=feed, fetch_list=[loss_s], scope=s1)
+
+    single_prof = profile_steps(single_step, 2, FLASH_BF16_BODIES)
+    losses = warm + [h[1] for h in held]
+    med = float(np.median(step_ms))
+    res = {"mesh": axes, "n_micro": n_micro,
+           "positions": f"{mesh.size} on cuda:0", "bs": TRAIN_BS,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16", "lr": PIPE_LR,
+           "stage_ops": [len(s.ops) for s in pipe.stages],
+           "losses": losses, "single_losses": [h[2] for h in held],
+           "witness_f32_losses": [h[3] for h in held], "held": holds,
+           "loss_spread": loss_spread, "step_ms": med,
+           "step_ms_each": step_ms,
+           "tok_s": TRAIN_BS * TRAIN_SEQ / (med / 1e3),
+           "peak_mem_gb": max(peaks),
+           "launches": launches,
+           "launches_per_step": {k: v / PIPE_TIMED
+                                 for k, v in launches.items() if v},
+           "launches_want": pipe_launch_want(axes, n_micro),
+           "ticks": n_micro + axes["pp"] - 1,
+           "hops_per_step": comm["hops"], "psums_per_step": comm["psums"],
+           "hop_bytes_per_step": comm["hop_bytes"],
+           "collective_kinds": comm["kinds"], **prof,
+           "single_card": {"step_ms": float(np.median(single_ms)),
+                           "tok_s": TRAIN_BS * TRAIN_SEQ
+                           / (float(np.median(single_ms)) / 1e3),
+                           "peak_mem_gb": max(single_peaks),
+                           "launches_per_step": per_step_want(),
+                           **single_prof},
+           "link_time": "none: the positions share one card, so a hop is "
+                        "a re-index of its memory"}
+    log("pipe_gpt", res)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"pipe_gpt {axes}: losses {losses} are not "
+                             f"finite or did not fall")
+    return res
+
+
+def pipe_gpt_phase(dev):
+    """(a) the bench GPT through ProgramPipeline over {"pp": 4} (a marker
+    after every two blocks, n_micro 4) and {"pp": 2, "dp": 2} (after
+    every four, n_micro 2)."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    extras = []
+    for dtype in ("bfloat16", "float32"):
+        loss_, main_, startup_ = pipe_lm_program(dtype, True)
+        s0 = fluid.Scope()
+        exe.run(startup_, scope=s0)
+        extras.append((loss_, main_, s0))
+    loss_p, main_p, startup = pipe_lm_program("bfloat16", False)
+    names = persistables(main_p)
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    start = {n: s0.find(n).detach().clone() for n in names}
+    (loss_s, main_s, s_s), (loss_f, main_f, s_f) = extras
+    extras = [{n: sc.find(n).detach().clone()
+               for n in persistables(m) if n not in start}
+              for _, m, sc in extras]
+    del s0, s_s, s_f
+    progs = ((loss_s, main_s), (loss_f, main_f))
+    out = {}
+    for axes, n_micro in PIPE_LAYOUTS:
+        tag = "_".join(f"{a}{s}" for a, s in axes.items())
+        out[tag] = pipe_layout_run(dev, axes, n_micro, progs, names, start,
+                                   extras)
+        torch.cuda.empty_cache()
+    return out
+
+
+def pserver_gpt_phase(dev):
+    """(b) ``build_lm_train_program`` at the bench widths in f32 (Adam
+    3e-4), transpiled over two loopback PServers (HostAdam), batch 8 x
+    1024, PS_STEPS steps.  Held to the bit to the same transpiled program
+    on one card with each step's gradients applied by the same host rule
+    in this process (``pserver.make_optimizer`` on the transpiler's
+    rules, no wire): the wire and the server threads change nothing.  The
+    single-card Executor's Adam op from the same state is run beside it
+    and its distance reported, unbounded: HostAdam (the JAX package's,
+    paddle/optimizer's) adds epsilon after the bias correction, the op
+    before it, so rarely-hit rows move by different steps (ROADMAP.md
+    Queue C).  Each pserver step's ms is split into the device step
+    (forward and backward, gradients fetched), the wire (push and pull,
+    the host optimizer excluded) and the host optimizer."""
+    from paddle_tpu_torch.distributed.pserver import PServer, make_optimizer
+
+    loss, main, startup = mesh_lm_program("float32")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    s_ref = fluid.Scope()
+    exe.run(startup, scope=s_ref)
+    names = persistables(main)
+    start = {n: s_ref.find(n).detach().clone() for n in names}
+    feed = train_batch(TRAIN_BS, TRAIN_SEQ)
+    op_adam = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=s_ref)[0][0]) for _ in range(PS_STEPS)]
+    del s_ref
+
+    def transpiled(eps):
+        loss_, main_, startup_ = mesh_lm_program("float32")
+        t = fluid.DistributeTranspiler().transpile(
+            0, program=main_, startup_program=startup_, pservers=eps,
+            trainers=1)
+        scope = fluid.Scope()
+        exe_ = fluid.Executor(fluid.CUDAPlace(0))
+        exe_.run(startup_, scope=scope)
+        into_scope(scope, start)
+        return t, loss_, main_, scope, exe_
+
+    # the same host rule in this process, no wire
+    t, loss_l, main_l, scope, exe_l = transpiled("127.0.0.1:1")
+    rules = {p: make_optimizer({k: v for k, v in c.items()
+                                if k != "_lr_var"})
+             for p, c in t.param_cfg.items()}
+    gvars = t.grad_fetch_list()
+    local = []
+    for _ in range(PS_STEPS):
+        outs = exe_l.run(main_l, feed=feed, fetch_list=[loss_l] + gvars,
+                         scope=scope)
+        local.append(float(np.asarray(outs[0]).reshape(-1)[0]))
+        for (pname, _), g in zip(t.param_grad.items(), outs[1:]):
+            scope.set(pname, rules[pname].update(scope.find_np(pname), g))
+    local_state = {n: scope.find_np(n) for n in t.param_cfg}
+    del scope, rules
+    servers = [PServer(num_trainers=1).start() for _ in range(2)]
+    opt_s = [0.0]
+
+    def timed(fn):
+        def run(*a, **k):
+            t1 = time.monotonic()
+            try:
+                return fn(*a, **k)
+            finally:
+                opt_s[0] += time.monotonic() - t1
+        return run
+
+    try:
+        t, loss, main, scope, exe2 = transpiled(
+            ",".join(s.endpoint for s in servers))
+        upd = t.make_updater(scope)
+        upd.init_params()
+        for s in servers:
+            for o in s.service._opts.values():
+                o.update = timed(o.update)
+        gvars = t.grad_fetch_list()
+        gnames = [g.name for g in gvars]
+        got, rows = [], []
+        total = {k: 0 for k in KERNELS}
+        for _ in range(PS_STEPS):
+            before = {k: f.launches for k, f in KERNELS.items()}
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            outs = exe2.run(main, feed=feed, fetch_list=[loss] + gvars,
+                            scope=scope)
+            torch.cuda.synchronize()
+            t2 = time.monotonic()
+            opt_s[0] = 0.0
+            upd.step(dict(zip(gnames, outs[1:])))
+            t3 = time.monotonic()
+            launches = {k: f.launches - before[k] for k, f in KERNELS.items()}
+            check_launches("pserver_gpt_step", launches, per_step_want())
+            for k in total:
+                total[k] += launches[k]
+            got.append(float(np.asarray(outs[0]).reshape(-1)[0]))
+            rows.append({"step_ms": (t3 - t1) * 1e3,
+                         "device_ms": (t2 - t1) * 1e3,
+                         "wire_ms": (t3 - t2 - opt_s[0]) * 1e3,
+                         "host_optimizer_ms": opt_s[0] * 1e3,
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}})
+        differ = [n for n in t.param_cfg if not np.array_equal(
+            scope.find_np(n), local_state[n])]
+        upd.close()
+    finally:
+        for s in servers:
+            s.stop()
+    nbytes = sum(int(np.prod(v.shape)) * 4 for v in start.values()
+                 if v.is_floating_point())
+    res = {"pservers": 2, "optimizer": "adam (HostAdam)", "dtype": "float32",
+           "bs": TRAIN_BS, "seq": TRAIN_SEQ, "losses": got,
+           "local_host_rule_losses": local,
+           "bitwise_vs_local_host_rule": got == local and not differ,
+           "params_differ": differ[:5],
+           "single_card_adam_op_losses": op_adam,
+           "loss_rel_vs_adam_op": [abs(a - b) / abs(b)
+                                   for a, b in zip(got, op_adam)],
+           "param_bytes_each_way": nbytes, "launches": total,
+           "steps": rows, "step_ms": float(np.median(
+               [r["step_ms"] for r in rows[1:]])),
+           "device_ms": float(np.median([r["device_ms"] for r in rows[1:]])),
+           "wire_ms": float(np.median([r["wire_ms"] for r in rows[1:]])),
+           "host_optimizer_ms": float(np.median(
+               [r["host_optimizer_ms"] for r in rows[1:]])),
+           "median_of": "steps 2-3"}
+    log("pserver_gpt", res)
+    if not res["bitwise_vs_local_host_rule"]:
+        raise AssertionError(f"pserver_gpt: the pserver path parts from the "
+                             f"same host rule applied in-process: {got} "
+                             f"vs {local}, params {differ[:5]}")
+    return res
+
+
+def host_services_phase(dev):
+    """(c) the chaos worker_kill scenario with a differential proof, the
+    16k-context admission demo, the CTR with a host table (card against
+    an explicit-CPU run, losses 1e-4), and ``pp``, ``pp_dp`` and the
+    functional MoE step on eight positions of the card against the CPU
+    (losses 1e-4); none of these reaches a port kernel."""
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.distributed.host_embedding import HostEmbedding
+    from paddle_tpu_torch.distributed.pserver import ParameterServerService
+    from paddle_tpu_torch.parallel.moe import (build_moe_train_step,
+                                               init_moe_params)
+
+    out = {}
+    t0 = time.monotonic()
+    rec, launches = counted(lambda: chaos.run_scenario(
+        "worker_kill", seed=0, place=fluid.CUDAPlace(0)))
+    no_launches("chaos_worker_kill", launches)
+    out["chaos_worker_kill"] = {
+        "all_faults_fired": rec["all_faults_fired"],
+        "recoveries": len(rec["recoveries"]),
+        "resumed_from": [r.get("resumed_from_step")
+                         for r in rec["recoveries"]],
+        "final_step": rec["final_step"], "proof": rec["proof"],
+        "wall_s": time.monotonic() - t0}
+    if not (rec["all_faults_fired"] and rec["recoveries"]
+            and rec["proof"]["equivalent"]
+            and rec["proof"]["tier"] == "differential"):
+        raise AssertionError(f"chaos worker_kill on the card: "
+                             f"{out['chaos_worker_kill']}")
+    t0 = time.monotonic()
+    demo, launches = counted(lambda: chaos.admission_demo(
+        seed=0, place=fluid.CUDAPlace(0)))
+    no_launches("admission_demo", launches)
+    out["admission_demo"] = {
+        "ok": demo["ok"], "budget_bytes": demo["budget_bytes"],
+        "estimator_peak_dense": demo["estimator_peak_dense"],
+        "estimator_peak_full_remat": demo["estimator_peak_full_remat"],
+        "admitted_peak_bytes": demo["cert_admitted_remat"]["peak_bytes"],
+        "remat": demo["cert_admitted_remat"].get("remat"),
+        "rejected_reason": demo["cert_rejected_no_remat"]["reason"],
+        "final_steps": demo.get("final_steps"),
+        "wall_s": time.monotonic() - t0}
+    if not demo["ok"]:
+        raise AssertionError(f"admission_demo on the card: {demo}")
+
+    def ctr(place, state=None):
+        svc = ParameterServerService(num_trainers=1)
+        table = HostEmbedding(svc, "emb_table", HOST_EMB["vocab"],
+                              HOST_EMB["dim"],
+                              optimizer={"type": "adagrad", "lr": 0.5})
+        svc.finish_init_params()
+        fluid.reset()
+        emb = fluid.layers.data(name="emb", shape=[HOST_EMB["dim"]],
+                                dtype="float32")
+        emb.stop_gradient = False
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        cost = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(emb, size=1, act="sigmoid"), y))
+        fluid.optimizer.SGD(learning_rate=0.2).minimize(cost)
+        exe = fluid.Executor(place)
+        exe.run(fluid.default_startup_program())
+        for n, v in (state or {}).items():
+            fluid.global_scope().set(n, v)
+        init = {n: fluid.global_scope().find_np(n)
+                for n in fluid.global_scope().local_names()}
+        rng = np.random.RandomState(0)
+        B, losses = HOST_EMB["bs"], []
+        for _ in range(HOST_EMB["steps"]):
+            ids = rng.randint(0, HOST_EMB["vocab"], size=B)
+            labels = (ids % 2 == 0).astype(np.float32).reshape(B, 1)
+            c, g = exe.run(feed={"emb": table.fetch(ids), "y": labels},
+                           fetch_list=[cost, "emb@GRAD"])
+            table.push_grad(ids, g)
+            losses.append(float(np.asarray(c).ravel()[0]))
+        return losses, init
+
+    lc, init = ctr(fluid.CPUPlace())
+    lg, launches = counted(lambda: ctr(fluid.CUDAPlace(0), init)[0])
+    no_launches("host_table_ctr", launches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    out["host_table_ctr"] = {"card_losses": [lg[0], lg[-1]],
+                             "cpu_losses": [lc[0], lc[-1]],
+                             "loss_rel_err_max": rel}
+    if rel > 1e-4 or not lg[-1] < lg[0] * 0.6:
+        raise AssertionError(f"host_table_ctr: {out['host_table_ctr']}")
+
+    for name in ("pp", "pp_dp"):
+        runs = []
+        for devices in ([torch.device("cpu")] * 8, [dev] * 8):
+            mode, pipe, prog, lossname = pmodes.run_mode(name,
+                                                         devices=devices)
+            fluid.Executor(fluid.CPUPlace()).run(
+                fluid.default_startup_program())
+            rng = np.random.RandomState(SEED)
+            feeds = [mode.feed_fn(rng, 16) for _ in range(3)]
+            runs.append(counted(lambda: [pipe.run(f) for f in feeds]))
+        no_launches(f"mode_{name}", runs[1][1])
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs[1][0], runs[0][0])]
+        out[f"mode_{name}"] = {"card_losses": runs[1][0],
+                               "cpu_losses": runs[0][0],
+                               "loss_rel_err": rel}
+        if max(rel) > 1e-4:
+            raise AssertionError(f"mode {name}: {out[f'mode_{name}']}")
+    m = MOE_SMALL
+    runs = []
+    for devices in ([torch.device("cpu")] * 8, [dev] * 8):
+        params = init_moe_params(torch.Generator().manual_seed(SEED),
+                                 m["ep"], m["d"], m["h"])
+        step = build_moe_train_step(pmesh.make_mesh(
+            {"ep": m["ep"], "dp": m["dp"]}, devices=devices), m["d"],
+            m["h"], m["capacity"])
+        rng = np.random.RandomState(1)
+        x = rng.randn(32, m["d"]).astype(np.float32)
+        y = (x * 2.0 + 0.5).astype(np.float32)
+
+        def steps():
+            nonlocal params
+            ls = []
+            for _ in range(3):
+                loss_, params = step(params, x, y)
+                ls.append(float(loss_))
+            return ls
+
+        runs.append(counted(steps))
+    no_launches("moe_step", runs[1][1])
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[1][0], runs[0][0])]
+    out["moe_step"] = {"card_losses": runs[1][0], "cpu_losses": runs[0][0],
+                       "loss_rel_err": rel}
+    if max(rel) > 1e-4:
+        raise AssertionError(f"moe step: {out['moe_step']}")
+    log("host_services", out)
+    return out
+
+
+def distributed_phase(dev, card_name, smi):
+    """Phase 41: (a) ``pipe_gpt_phase``, (b) ``pserver_gpt_phase``, (c)
+    ``host_services_phase``."""
+    t0 = time.monotonic()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    pipe = pipe_gpt_phase(dev)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    ps = pserver_gpt_phase(dev)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    host = host_services_phase(dev)
+    fluid.reset()
+    torch.cuda.empty_cache()
+    res = {"card": card_name, "nvidia_smi": smi, "pipeline": pipe,
+           "pserver_gpt_f32": ps, "host_services": host,
+           "phase_s": time.monotonic() - t0}
+    log("distributed_phase", {"phase_s": res["phase_s"]})
+    return res
+
+
+def distributed_summary(dist):
+    """Phase 41's numbers for the summary line."""
+    keys = ("mesh", "n_micro", "positions", "losses", "single_losses",
+            "witness_f32_losses", "step_ms", "tok_s", "peak_mem_gb",
+            "launches_per_step", "launches_want", "ticks", "hops_per_step",
+            "psums_per_step", "hop_bytes_per_step", "device_ms_per_step",
+            "device_busy_share", "single_card", "link_time")
+    return {
+        "card": dist["card"], "nvidia_smi": dist["nvidia_smi"],
+        "pipeline_bf16": {tag: {k: r[k] for k in keys if k in r}
+                          for tag, r in dist["pipeline"].items()},
+        "pipeline_held": {tag: [{k: h[k] for k in (
+            "loss_rel", "update_rel", "bound", "share_of_bound")}
+            for h in r["held"]] for tag, r in dist["pipeline"].items()},
+        "pserver_gpt_f32": {k: dist["pserver_gpt_f32"][k] for k in (
+            "pservers", "optimizer", "losses", "local_host_rule_losses",
+            "bitwise_vs_local_host_rule", "single_card_adam_op_losses",
+            "loss_rel_vs_adam_op", "param_bytes_each_way", "step_ms",
+            "device_ms", "wire_ms", "host_optimizer_ms")},
+        "host_services": dist["host_services"]}
+
+
+# -- 42. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -7780,6 +8365,7 @@ def main():
     router = router_phase(name, smi)
     measurement = measurement_phase(name, smi, sl_gpt["replay_step_ms"])
     par = parallel_phase(dev, name, smi)
+    dist = distributed_phase(dev, name, smi)
     ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
                      for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
@@ -7838,7 +8424,12 @@ def main():
                "lm_dp_sp_bf16_10_steps": par["lm_dp_sp"]["launches"],
                "ring_schedules_18_calls": ring_launches,
                "mesh_sp_ring_f32_per_step":
-                   par["parity_f32"]["sp_ring"]["launches_per_step"]}
+                   par["parity_f32"]["sp_ring"]["launches_per_step"],
+               "gpt_pp4_bf16_10_steps": dist["pipeline"]["pp4"]["launches"],
+               "gpt_pp2_dp2_bf16_10_steps":
+                   dist["pipeline"]["pp2_dp2"]["launches"],
+               "gpt_pserver_f32_3_steps":
+                   dist["pserver_gpt_f32"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -8205,7 +8796,8 @@ def main():
                       "remat_save_load": remat_rows, "zoo": zoo_rows,
                       "srl": srl_rows, "legacy": legacy_rows,
                       "router": router, "measurement": measurement,
-                      "parallel": parallel_summary(par, name, smi)}),
+                      "parallel": parallel_summary(par, name, smi),
+                      "distributed": distributed_summary(dist)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

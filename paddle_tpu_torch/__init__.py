@@ -58,6 +58,10 @@ from .framework.core import (  # noqa: F401
 from .framework.executor import Executor  # noqa: F401
 from .inference_transpiler import InferenceTranspiler, fuse_batch_norm  # noqa: F401
 from .memory_optimization_transpiler import memory_optimize, release_memory  # noqa: F401
+from .distributed.distribute_transpiler import (  # noqa: F401
+    DistributeTranspiler,
+    SimpleDistributeTranspiler,
+)
 from .framework.param_attr import ParamAttr  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace, default_place  # noqa: F401
 from .framework.scope import (  # noqa: F401

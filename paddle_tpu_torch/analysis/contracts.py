@@ -21,14 +21,18 @@ the rewrite MEANS the same thing.
                             program verifies, stays unmutated (version
                             and canonical form) and every plan key names
                             a declared variable (PTV013)
-
-`checked_distribute_transpile` (the pserver distribute transpiler) raises:
-it wraps ``distributed/distribute_transpiler.py``, which comes with the
-next slice (ROADMAP.md Queue A item 11).
+  checked_distribute_transpile — the pserver split
+                            (distributed/distribute_transpiler.py): the
+                            trainer program still materializes every
+                            gradient the pserver round expects, no
+                            optimizer op survives (PTV014), and pruned to
+                            the gradients trainer and original
+                            canonicalize identically (PTV022)
 
 A refuted obligation raises VerificationError with PTV022/PTV024
-findings.  Both wrappers are also installed *inside* their passes
-(``memory_optimize``, ``inference_transpiler.fuse_batch_norm``) behind the PADDLE_TPU_VERIFY=1
+findings.  The wrappers are also installed *inside* their passes
+(``memory_optimize``, ``inference_transpiler.fuse_batch_norm``, the
+distribute transpiler's ``transpile``) behind the PADDLE_TPU_VERIFY=1
 env gate (see `should_wrap`), so a flag flip turns the pass into a
 checked pass without touching call sites.
 """
@@ -188,16 +192,59 @@ def checked_memory_optimize(program, level: int = 0, batch_size: int = 64,
 
 
 # ---------------------------------------------------------------------------
-# passes the port lacks
+# the pserver distribute transpiler
 
 
 def checked_distribute_transpile(transpiler, trainer_id, program=None,
                                  pservers: str = "", trainers: int = 1,
                                  split_method=None, startup_program=None):
-    raise NotImplementedError(
-        "checked_distribute_transpile: distributed/distribute_transpiler.py "
-        "(the pserver split) comes with the next slice of the port, the "
-        "host services of distributed/ (ROADMAP.md Queue A item 11)")
+    """DistributeTranspiler.transpile under contract.  The out-check runs
+    with fetch_names = the grad fetch list: the trainer program must still
+    materialize every gradient the pserver round expects — deleting a
+    grad-producing op (the reference's lost send op) is PTV004.  The
+    equivalence obligation is stated over the SAME fetch set with
+    preserve_state=False: pruned to the gradients, trainer and original
+    must canonicalize identically — the split may move the optimizer
+    update to the pserver, it may not change what a gradient means."""
+    from ..framework.core import Program, default_main_program
+    from .equivalence import prove_equivalent
+
+    program = program if program is not None else default_main_program()
+    _verify(program, "distribute_transpile:in", check_shapes=False)
+    before_prog = Program.from_json(program.to_json())
+    with _inside():
+        result = transpiler.transpile(
+            trainer_id, program=program, pservers=pservers,
+            trainers=trainers, split_method=split_method,
+            startup_program=startup_program)
+    verify_distribute_result(transpiler)
+    grad_names = sorted(transpiler.param_grad.values())
+    if grad_names:
+        prove_equivalent(before_prog, transpiler.program,
+                         fetch_names=grad_names,
+                         preserve_state=False).raise_if_failed(
+            "distribute_transpile:equivalence")
+    return result
+
+
+def verify_distribute_result(transpiler):
+    """Out-half of the distribute contract, callable on its own against a
+    (possibly further-mutated) transpiled trainer program."""
+    grad_names = list(transpiler.param_grad.values())
+    _verify(transpiler.program, "distribute_transpile:out",
+            fetch_names=grad_names, check_shapes=False)
+    remaining = [op.type for b in transpiler.program.blocks for op in b.ops
+                 if op.type in _optimize_op_types()]
+    if remaining:
+        raise VerificationError("distribute_transpile:out", [Finding(
+            "PTV014", f"optimizer ops {remaining} survived the split — "
+            f"the pserver would double-apply updates")])
+
+
+def _optimize_op_types():
+    from ..distributed.distribute_transpiler import OPTIMIZE_OP_TYPES
+
+    return OPTIMIZE_OP_TYPES
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The `paddle` command-line tool of the port: ``version``, ``train``,
-``lint``, ``analyze``, ``diff``, ``metrics``, ``trace``, ``attribute``
-and ``tune``, the port of those subcommands of ``paddle_tpu/cli.py``
+``lint``, ``analyze``, ``diff``, ``metrics``, ``trace``, ``attribute``,
+``tune``, ``pserver``, ``master`` and ``cluster_train``, the port of
+those subcommands of ``paddle_tpu/cli.py``
 (reference paddle/scripts/submit_local.sh.in: `paddle train|version`).
 
 Usage: python -m paddle_tpu_torch <subcommand> [args]
@@ -47,6 +48,18 @@ Usage: python -m paddle_tpu_torch <subcommand> [args]
                           run is a cache hit); --mock measures nothing,
                           --smoke runs the loop end to end in a throwaway
                           store
+  pserver               — a parameter server (distributed/pserver.py) on
+                          --host/--port for --num-trainers, checkpointing
+                          to --checkpoint-dir every --checkpoint-period s
+  master                — the task-dispatch master (distributed/
+                          master.py): leases with --task-timeout,
+                          --failure-max, a --snapshot file for restart
+                          recovery, opt-in --telemetry-port
+  cluster_train ...     — one-command multi-host launch (distributed/
+                          cluster_launch.py): trainers with the
+                          PADDLE_TRAINER_ID/PADDLE_TRAINERS/
+                          PADDLE_COORDINATOR env contract, optional
+                          pservers, ssh for remote hosts
 
 The subcommands that run programs take ``--place cuda|cpu`` (default: the
 card).
@@ -56,9 +69,7 @@ or a program file (JSON or ProgramDesc bytes) that either package wrote.
 
 The JAX package's other subcommands are not ported: each exits non-zero
 and names the ROADMAP.md queue item that holds it — dump_config, stats,
-validate, show_pb and merge_model (Queue A item 12); pserver, master and
-cluster_train, the host services of ``distributed/``, which come with
-the next slice of item 11.
+validate, show_pb and merge_model (Queue A item 12).
 """
 
 from __future__ import annotations
@@ -73,7 +84,7 @@ import sys
 # Queue A item that holds each
 UNPORTED = {
     "dump_config": 12, "stats": 12, "validate": 12, "show_pb": 12,
-    "merge_model": 12, "pserver": 11, "master": 11, "cluster_train": 11,
+    "merge_model": 12,
 }
 
 
@@ -771,18 +782,54 @@ def _tune_smoke(args) -> int:
     return 0
 
 
+def cmd_pserver(args) -> int:
+    from .distributed import pserver
+
+    pserver.serve_forever(host=args.host, port=args.port,
+                          num_trainers=args.num_trainers,
+                          checkpoint_dir=args.checkpoint_dir,
+                          checkpoint_period_s=args.checkpoint_period)
+    return 0
+
+
+def cmd_master(args) -> int:
+    from .distributed.master import MasterServer, MasterService
+
+    svc = MasterService(timeout_s=args.task_timeout,
+                        failure_max=args.failure_max,
+                        snapshot_path=args.snapshot)
+    srv = MasterServer(svc, host=args.host, port=args.port).start()
+    if args.telemetry_port is not None:
+        from .observability.httpd import serve_http
+
+        tele = serve_http(args.telemetry_port)
+        print(f"telemetry on http://127.0.0.1:{tele.port}/metrics "
+              f"(+ /metrics.json, /trace)", flush=True)
+    print(f"master serving on {srv.addr[0]}:{srv.addr[1]}", flush=True)
+    try:
+        srv._thread.join()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     real_argv = sys.argv[1:] if argv is None else list(argv)
     if real_argv and real_argv[0] in UNPORTED:
         item = UNPORTED[real_argv[0]]
-        what = (" — the host services of distributed/, the next slice of "
-                "the port" if item == 11 else "")
         print(f"paddle_tpu_torch: subcommand {real_argv[0]!r} is not ported "
-              f"(ROADMAP.md Queue A item {item}{what}; the port "
-              f"has 'train', 'version', 'lint', 'analyze', 'diff', "
-              f"'metrics', 'trace', 'attribute' and 'tune')",
-              file=sys.stderr)
+              f"(ROADMAP.md Queue A item {item}; the port has 'train', "
+              f"'version', 'lint', 'analyze', 'diff', 'metrics', 'trace', "
+              f"'attribute', 'tune', 'pserver', 'master' and "
+              f"'cluster_train')", file=sys.stderr)
         return 2
+    # `cluster_train ...` — one-command multi-host launch (reference
+    # paddle/scripts/cluster_train/paddle.py).  Dispatched BEFORE
+    # argparse: the launcher owns its whole argv
+    if real_argv[:1] == ["cluster_train"]:
+        from .distributed.cluster_launch import main as launch_main
+
+        return launch_main(real_argv[1:])
 
     parser = argparse.ArgumentParser(prog="paddle", description=__doc__,
                                      formatter_class=argparse.
@@ -970,6 +1017,30 @@ def main(argv=None) -> int:
                         "loop")
     p.add_argument("--place", **place_kw)
     p.set_defaults(fn=cmd_tune)
+
+    p = sub.add_parser("pserver")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7164)
+    p.add_argument("--num-trainers", type=int, default=1)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-period", type=float, default=600.0)
+    p.set_defaults(fn=cmd_pserver)
+
+    p = sub.add_parser("master")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--task-timeout", type=float, default=60.0)
+    p.add_argument("--failure-max", type=int, default=3)
+    p.add_argument("--snapshot", default=None,
+                   help="task-queue snapshot file (restart recovery)")
+    p.add_argument("--telemetry-port", type=int, default=None,
+                   help="opt-in localhost /metrics + /trace endpoint "
+                        "(0 = any free port)")
+    p.set_defaults(fn=cmd_master)
+
+    sub.add_parser(
+        "cluster_train",
+        help="launch a multi-host job (see distributed/cluster_launch.py)")
 
     args = parser.parse_args(real_argv)
     return args.fn(args)

@@ -153,6 +153,14 @@ class Executor:
         generators are seeded with."""
         return self._step
 
+    def snapshot_state(self) -> dict:
+        """JSON-serializable executor state for trainer checkpoints."""
+        return {"step": int(self._step)}
+
+    def restore_state(self, state: dict):
+        """Inverse of snapshot_state — the checkpoint/resume hook."""
+        self._step = int(state.get("step", 0))
+
     def run(
         self,
         program: Optional[Program] = None,

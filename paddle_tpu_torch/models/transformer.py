@@ -40,10 +40,15 @@ def _positions(tokens, dim, max_len, dtype):
 def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
                mlp_ratio=4, dtype="float32", dropout_prob=0.0,
                is_test=False, remat=False, sp_mode="ring",
-               sp_schedule="zigzag"):
+               sp_schedule="zigzag", stage_every=0):
     """tokens [B, T, 1] int64 → logits [B, T, vocab_size].
 
-    The JAX signature.  `dropout_prob` > 0 puts a dropout after the
+    The JAX signature, and `stage_every` > 0, which puts a
+    ``layers.pipeline_stage()`` marker after every `stage_every` blocks
+    but the last (the staged GPT ``parallel.program_pipeline`` runs; on
+    an Executor a marker is a no-op): each stage boundary carries the
+    residual `x` alone, the embedding and position table sit in stage 0
+    and the final LayerNorm and head in the last stage.  `dropout_prob` > 0 puts a dropout after the
     embedding and after each attention and MLP branch; `remat=True` builds
     each layer inside ``layers.recompute``.  `sp_mode`/`sp_schedule` are
     recorded on the attention ops: one device, so the attention is the
@@ -55,7 +60,9 @@ def decoder_lm(tokens, vocab_size, dim, n_layers, n_heads, max_len,
         x = layers.dropout(x, dropout_prob, is_test=is_test)
 
     blk = layers.recompute if remat else contextlib.nullcontext
-    for _ in range(n_layers):
+    for i in range(n_layers):
+        if stage_every and i and i % stage_every == 0:
+            layers.pipeline_stage()
         with blk():
             h = layers.layer_norm(x, begin_norm_axis=2)
             a = layers.multi_head_attention(

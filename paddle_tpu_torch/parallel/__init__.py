@@ -5,11 +5,15 @@
 positions' shards), ``sharded`` (``ShardedTensor``, ``reshard``),
 ``transpiler`` (``ShardingRules``, ``DistributeTranspiler``),
 ``parallel_executor`` (``ParallelExecutor``), ``ring_attention`` (ring,
-zigzag and Ulysses attention on K4–K6) and ``modes`` (the eleven-mode
-catalog).  The pipeline executors (``pipeline.py``,
-``program_pipeline.py``) and ``moe.py`` come with the next slice
-(ROADMAP.md Queue A item 11)."""
+zigzag and Ulysses attention on K4–K6), ``pipeline`` (the functional
+GPipe step over ``ppermute``), ``program_pipeline``
+(``ProgramPipeline``: any Program split by ``pipeline_stage`` markers),
+``moe`` (the functional expert-parallel step over ``all_to_all``) and
+``modes`` (the eleven-mode catalog).  The mesh is single-controller: a
+mesh over several processes is ROADMAP.md Queue A item 11's one item
+left."""
 
 from .mesh import make_hybrid_mesh, make_mesh  # noqa: F401
 from .parallel_executor import ParallelExecutor  # noqa: F401
+from .program_pipeline import ProgramPipeline  # noqa: F401
 from .transpiler import DistributeTranspiler, ShardingRules  # noqa: F401

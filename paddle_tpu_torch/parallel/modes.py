@@ -11,10 +11,9 @@ flags).
 Programs are tiny (the dryrun shapes): the point is the sharding
 structure, not the math.  `build()` constructs into the CURRENT default
 program (callers `fluid.reset()` via build_mode) and returns the loss
-var name; nothing runs here.  The port's ``ParallelExecutor`` runs nine
-of the modes; the two ``pipeline=True`` modes (``pp``, ``pp_dp``) plan
-like the others and raise when run (``run_mode``): their executors come
-with the next slice (ROADMAP.md Queue A item 11).
+var name; nothing runs here.  ``run_mode`` gives nine of the modes a
+``ParallelExecutor`` and the two ``pipeline=True`` modes (``pp``,
+``pp_dp``) a ``ProgramPipeline`` (``parallel/program_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -36,10 +35,9 @@ class ParallelMode:
     # feed builder for harnesses that RUN the mode (tools/hlo_analysis
     # comm): fn(rng, bs) -> feed dict; bs is already dp-divisible
     feed_fn: Optional[Callable] = None
-    # modes driven by a pipeline executor rather than ParallelExecutor
-    # (ProgramPipeline in the JAX package; the port's comes with the next
-    # slice): static analysis prices the stage-boundary point-to-point
-    # traffic
+    # modes driven by a pipeline executor (ProgramPipeline) rather than
+    # ParallelExecutor: static analysis prices the stage-boundary
+    # point-to-point traffic
     pipeline: bool = False
 
 
@@ -348,23 +346,23 @@ def mode_plan(mode: ParallelMode, program, devices=None):
 
 
 def run_mode(name: str, devices=None, **executor_kwargs):
-    """(mode, ParallelExecutor, program, loss_name) for running mode
-    `name` over `devices` (default: the visible CUDA devices, as
-    ``make_mesh`` takes them): the executor the mode declares.  A
-    pipeline mode raises — its executor comes with the next slice
-    (ROADMAP.md Queue A item 11)."""
+    """(mode, executor, program, loss_name) for running mode `name` over
+    `devices` (default: the visible CUDA devices, as ``make_mesh`` takes
+    them): the executor the mode declares.  A pipeline mode's executor is
+    a ``ProgramPipeline`` over the mode's mesh and its forward program,
+    ``n_micro`` (default: the mode's pp) microbatches a step and
+    ``optimizer`` (default ``("sgd", 0.1)``, JAX's default); run the
+    startup program before its first ``run``."""
     from .mesh import make_mesh
     from .parallel_executor import ParallelExecutor
 
-    mode = get_mode(name)
-    if mode.pipeline:
-        raise NotImplementedError(
-            f"mode {name!r} runs under the pipeline executors "
-            f"(parallel/pipeline.py, program_pipeline.py), which come with "
-            f"the next slice of the port (ROADMAP.md Queue A item 11); it "
-            f"plans (mode_plan) but does not run")
     mode, program, loss_name = build_mode(name)
     mesh = make_mesh(dict(mode.mesh_axes), devices=devices)
     kw = {**dict(mode.executor_kwargs), **executor_kwargs}
-    return mode, ParallelExecutor(mesh=mesh, **kw), program, loss_name
+    if mode.pipeline:
+        from .program_pipeline import ProgramPipeline
 
+        kw.setdefault("n_micro", mode.mesh_axes["pp"])
+        return mode, ProgramPipeline(program, loss_name, mesh, **kw), \
+            program, loss_name
+    return mode, ParallelExecutor(mesh=mesh, **kw), program, loss_name

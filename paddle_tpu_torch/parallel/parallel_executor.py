@@ -779,8 +779,8 @@ class ParallelExecutor(Executor):
         if any(op.type == "save" for op in program.blocks[block_id].ops):
             raise NotImplementedError(
                 "save ops are not supported under ParallelExecutor; "
-                "checkpoint sharded state via distributed.checkpoint (the "
-                "next slice of the port: ROADMAP.md Queue A item 11)")
+                "checkpoint sharded state via distributed.checkpoint "
+                "(save_checkpoint gathers each sharded value whole)")
         self._stats = {"reshards": 0}
         with collectives.record() as log:
             out = super().run(program, feed, fetch_list, scope,

@@ -748,15 +748,35 @@ def test_a_corrupted_fold_is_refuted(monkeypatch):
 @pytest.mark.parametrize("fn,item", [
     ("checked_distribute_transpile", 11), ("checked_sharding_plan", 11)])
 def test_unported_contracts_raise_naming_the_queue_item(fn, item):
-    """`checked_distribute_transpile` still raises, naming the next
-    slice (it wraps distributed/); `checked_sharding_plan` is ported: it
-    returns the transpiler's plan, as the JAX package's, spec for spec."""
+    """Both contracts of Queue A item {item} are ported now.
+    `checked_distribute_transpile` splits the program as the JAX
+    package's does (the same trainer ops, rules and endpoints) and
+    refuses an optimizer op that survives the split (PTV014);
+    `checked_sharding_plan` returns the transpiler's plan, as the JAX
+    package's, spec for spec."""
     (jp, tp) = (p for _, p in _pair("mlp_train"))
     assert hasattr(jcontracts, fn)
     if fn == "checked_distribute_transpile":
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue A item {item}\\b"):
-            getattr(tcontracts, fn)(None, 0)
+        from paddle_tpu.distributed.distribute_transpiler import \
+            DistributeTranspiler as JDT
+        from paddle_tpu_torch.distributed.distribute_transpiler import \
+            DistributeTranspiler as TDT
+
+        eps = "127.0.0.1:1,127.0.0.1:2"
+        tt = getattr(tcontracts, fn)(TDT(), 0, program=tp, pservers=eps)
+        jt = getattr(jcontracts, fn)(JDT(), 0, program=jp, pservers=eps)
+        assert [op.type for op in tp.global_block().ops] == \
+            [op.type for op in jp.global_block().ops]
+        assert tt.param_endpoint == jt.param_endpoint
+        assert {p: {k: v for k, v in c.items() if k != "_lr_var"}
+                for p, c in tt.param_cfg.items()} == \
+            {p: {k: v for k, v in c.items() if k != "_lr_var"}
+             for p, c in jt.param_cfg.items()}
+        tt.program.global_block().append_op(
+            type="sgd", inputs={"Param": [next(iter(tt.param_cfg))]},
+            outputs={}, attrs={})
+        with pytest.raises(tverifier.VerificationError, match="PTV014"):
+            tcontracts.verify_distribute_result(tt)
         return
     from paddle_tpu.parallel import DistributeTranspiler as JDT
     from paddle_tpu.parallel import make_mesh as jmake

@@ -93,6 +93,19 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.parallel.ring_attention\n"
         "import paddle_tpu_torch.analysis.sharding\n"
         "import paddle_tpu_torch.ops.moe_ops\n"
+        "import paddle_tpu_torch.parallel.pipeline\n"
+        "import paddle_tpu_torch.parallel.program_pipeline\n"
+        "import paddle_tpu_torch.parallel.moe\n"
+        "import paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.distributed.pserver\n"
+        "import paddle_tpu_torch.distributed.distribute_transpiler\n"
+        "import paddle_tpu_torch.distributed.host_embedding\n"
+        "import paddle_tpu_torch.distributed.master\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.service\n"
+        "import paddle_tpu_torch.distributed.chaos\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        "import paddle_tpu_torch.distributed.cluster_launch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -126,7 +139,8 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
                                     f"{m.group(0).strip()}")
     assert not hits, hits
     # the step loop, the data plane, the training options, the model
-    # zoo and the mesh tier (parallel/) are among the scanned modules
+    # zoo, the mesh tier (parallel/) and the host services
+    # (distributed/) are among the scanned modules
     assert {os.path.join("framework", "step_loop.py"),
             os.path.join("reader", "__init__.py"),
             os.path.join("reader", "decorator.py"),
@@ -175,7 +189,20 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("parallel", "transpiler.py"),
             os.path.join("parallel", "parallel_executor.py"),
             os.path.join("parallel", "ring_attention.py"),
-            os.path.join("parallel", "modes.py")} <= scanned
+            os.path.join("parallel", "modes.py"),
+            os.path.join("parallel", "pipeline.py"),
+            os.path.join("parallel", "program_pipeline.py"),
+            os.path.join("parallel", "moe.py"),
+            os.path.join("distributed", "__init__.py"),
+            os.path.join("distributed", "pserver.py"),
+            os.path.join("distributed", "distribute_transpiler.py"),
+            os.path.join("distributed", "host_embedding.py"),
+            os.path.join("distributed", "master.py"),
+            os.path.join("distributed", "checkpoint.py"),
+            os.path.join("distributed", "service.py"),
+            os.path.join("distributed", "chaos.py"),
+            os.path.join("distributed", "launch.py"),
+            os.path.join("distributed", "cluster_launch.py")} <= scanned
 
 
 def test_source_scan_pattern_is_word_bounded():

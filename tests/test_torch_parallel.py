@@ -391,12 +391,22 @@ def test_written_state_keeps_its_planned_layout(name, flag):
 
 
 def test_pipeline_modes_plan_but_do_not_run():
+    """The pipeline modes plan like the others, and now also run:
+    ``run_mode`` gives them a ProgramPipeline over the mode's mesh (held
+    to JAX's in tests/test_torch_pipeline.py)."""
+    from paddle_tpu_torch.parallel.program_pipeline import ProgramPipeline
+
     for name in ("pp", "pp_dp"):
         mode, prog, _ = tmodes.build_mode(name)
         mesh, plan, _ = tmodes.mode_plan(mode, prog)
         assert plan and dict(mode.mesh_axes) == tmesh.mesh_axis_sizes(mesh)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tmodes.run_mode(name, devices=CPU)
+        mode, pipe, prog, loss = tmodes.run_mode(name, devices=CPU)
+        assert isinstance(pipe, ProgramPipeline)
+        assert tmesh.mesh_axis_sizes(pipe.mesh) == dict(mode.mesh_axes)
+        tfluid.Executor(tfluid.CPUPlace()).run(
+            tfluid.default_startup_program())
+        feed = mode.feed_fn(np.random.RandomState(0), 8)
+        assert np.isfinite(pipe.run(feed))
 
 
 def test_catalog_matches_jax():

@@ -290,8 +290,20 @@ def test_parse_config_serializes_as_jax():
     assert tcp.parse_config_and_serialize(config, "hidden=5") != b""
 
 
-@pytest.mark.parametrize("sub", sorted(tcli.UNPORTED))
+# the host services of Queue A item 11 are ported: they left UNPORTED and
+# their cases now check that the subcommand parses
+_PORTED_11 = ("cluster_train", "master", "pserver")
+
+
+@pytest.mark.parametrize("sub", sorted(set(tcli.UNPORTED) | set(_PORTED_11)))
 def test_unported_subcommands_exit_naming_the_roadmap(sub, capsys):
+    if sub in _PORTED_11:
+        assert sub not in tcli.UNPORTED
+        with pytest.raises(SystemExit) as e:
+            tcli.main([sub, "--help"])
+        assert e.value.code == 0
+        assert "--" in capsys.readouterr().out
+        return
     assert tcli.main([sub, "x"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md Queue A item" in err and sub in err
