@@ -505,13 +505,33 @@ non-zero and no result line is printed):
     against CPU, losses 1e-4), and ``pp``, ``pp_dp`` and the functional
     MoE step on eight positions of the card against the CPU (losses
     1e-4);
-42. summary.
+42. the rest of the op library and the book chapters
+    (``models/book_chapters.py``): (a) each of the last 48 op types on
+    cuda:0 against the CPU from the same numpy inputs, the forward and
+    its ``generic_grad`` (f32 within 1e-5 of the largest value, integer
+    outputs equal), ``truncated_gaussian_random`` and ``sampling_id`` by
+    their bounds, moments and frequencies, ``save`` then ``load`` through
+    a temporary directory; (b) understand_sentiment on ``dataset.imdb``
+    (path A's stacked LSTM, hidden 512, batch 64), machine_translation on
+    ``dataset.wmt14`` (path B's attention NMT, dictionaries 30000, widths
+    512, batch 64), recommender_system on ``dataset.movielens`` (batch
+    256), word2vec on ``dataset.imikolov`` (N 5, batch 100), and RankNet
+    and LambdaRank on ``dataset.mq2007``, each read by
+    ``dataset.<m>.train()`` → ``reader.batch`` → ``DataFeeder`` →
+    ``Executor.run`` on ``CUDAPlace(0)``: the first card step held to the
+    CPU executor's step from the same startup state (loss 1e-4, step-1
+    gradients 1e-3 of max |g|), then 2 warm-up and 10 timed steps, each
+    ending in its loss fetch, every step's K7/K8 and K9/K10 launches held
+    to the program's LSTM and GRU op counts, with ms a step (median, min,
+    max), samples a second, peak memory and the device busy share of a
+    profiled step;
+43. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
 {...}, "router": {...}, "measurement": {...}, "parallel": {...},
-"distributed": {...}}``
+"distributed": {...}, "book": {...}}``
 summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
@@ -535,6 +555,7 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.framework import executor as texecutor
+from paddle_tpu_torch.dataset import common as dataset_common
 from paddle_tpu_torch.dataset import conll05
 from paddle_tpu_torch.framework import step_loop
 from paddle_tpu_torch import lod as lod_mod
@@ -544,6 +565,8 @@ from paddle_tpu_torch.models.gpt_bench import (DIM, HEADS, LAYERS, MAX_LEN,
                                                VOCAB)
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import zoo_bench as zb
+from paddle_tpu_torch.models.book_chapters import CHAPTERS
+from paddle_tpu_torch.models.book_chapters import batches as book_batches
 from paddle_tpu_torch.ops.cuda_kernels import _common
 from paddle_tpu_torch.ops.cuda_kernels import bn_conv as bnc
 from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as bnmm
@@ -8217,6 +8240,418 @@ def distributed_phase(dev, card_name, smi):
     return res
 
 
+# -- 42. the rest of the op library and the book chapters -----------------------
+
+def _u(seed, *shape, lo=-2.0, hi=2.0):
+    return np.random.RandomState(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+def _ids(*v, dt=np.int64):
+    return np.array(v, dt)
+
+
+def rest_op_cases():
+    """One case of each op type of the last 48 but the two that draw and
+    the two host I/O ops, at small shapes from fixed seeds, with a tie or
+    a kink where the op has one: name → (op type, inputs {slot: [numpy]},
+    attrs, differentiable input slots)."""
+    ties = _u(4, 3, 5)
+    ties[0, 1] = ties[0, 3] = 3.0
+    pool = _u(5, 2, 2, 5, 5)
+    pool[0, 0, 0:2, 0:2] = 2.5
+    l1 = _u(6, 3, 4)
+    l1[0, :2] = 0.0
+    rng = np.random.RandomState(26)
+    dy, dx = rng.randint(0, 2, (2, 2, 2, 2)), rng.randint(0, 2, (2, 2, 2, 2))
+    unpool_idx = ((np.arange(2)[:, None] * 2 + dy) * 4
+                  + np.arange(2)[None, :] * 2 + dx).astype(np.int32)
+    rel = np.random.RandomState(22).randint(0, 3, (3, 6, 1)).astype(
+        np.float32)
+    y01 = (np.random.RandomState(38).rand(6, 1) > 0.5).astype(np.float32)
+    f = np.array([[-2.0], [-0.5], [0.3], [1.5], [0.9], [-1.2]], np.float32)
+    return {
+        "pad": ("pad", {"X": [_u(1, 2, 3, 4)]},
+                {"paddings": [0, 1, 2, 0, 1, 1], "pad_value": 0.5}, ("X",)),
+        "crop": ("crop", {"X": [_u(2, 3, 5, 6)]},
+                 {"offsets": [0, 1, 2], "shape": [-1, 3, 3]}, ("X",)),
+        "reverse": ("reverse", {"X": [_u(3, 2, 3, 4)]}, {"axis": [0, 2]},
+                    ("X",)),
+        "expand": ("expand", {"X": [_u(4, 2, 3)]}, {"expand_times": [2, 3]},
+                   ("X",)),
+        "squeeze": ("squeeze", {"X": [_u(5, 2, 1, 3, 1)]}, {"axes": [1]},
+                    ("X",)),
+        "prelu": ("prelu", {"X": [_u(8, 2, 3, 4, 4)],
+                            "Alpha": [_u(9, 3, lo=0.1, hi=0.5)]}, {},
+                  ("X", "Alpha")),
+        "maxout": ("maxout", {"X": [_u(12, 2, 6, 3, 3)]}, {"groups": 3},
+                   ("X",)),
+        "norm": ("norm", {"X": [_u(14, 2, 3, 4)], "Scale": [_u(15, 3)]},
+                 {"axis": 1}, ("X", "Scale")),
+        "squared_l2_distance": ("squared_l2_distance",
+                                {"X": [_u(16, 4, 3)], "Y": [_u(17, 4, 3)]},
+                                {}, ("X", "Y")),
+        "smooth_l1_loss": ("smooth_l1_loss",
+                           {"X": [_u(32, 4, 3)], "Y": [_u(33, 4, 3)],
+                            "InsideWeight": [_u(34, 4, 3, lo=0, hi=1)],
+                            "OutsideWeight": [_u(35, 4, 3, lo=0, hi=1)]},
+                           {"sigma": 1.5}, ("X", "Y")),
+        "huber_loss": ("huber_loss", {"X": [_u(36, 6, 1)],
+                                      "Y": [_u(37, 6, 1)]},
+                       {"delta": 0.8}, ("X", "Y")),
+        "rank_loss": ("rank_loss", {"Label": [y01[:4]],
+                                    "Left": [_u(39, 4, 1)],
+                                    "Right": [_u(40, 4, 1)]}, {},
+                      ("Left", "Right")),
+        "arg_max": ("arg_max", {"X": [ties]}, {"axis": -1}, ()),
+        "multiplex": ("multiplex", {"Ids": [_ids([2], [0], [1], [2])],
+                                    "X": [_u(41, 4, 5), _u(42, 4, 5),
+                                          _u(43, 4, 5)]}, {}, ("X",)),
+        "hsigmoid": ("hsigmoid", {"X": [_u(23, 4, 5)], "W": [_u(24, 5, 5)],
+                                  "Label": [_ids([0], [5], [2], [3])],
+                                  "Bias": [_u(25, 1, 5)]},
+                     {"num_classes": 6}, ("X", "W", "Bias")),
+        "selective_fc": ("selective_fc",
+                         {"X": [_u(44, 3, 4)], "W": [_u(45, 4, 6)],
+                          "Bias": [_u(46, 6)],
+                          "Mask": [(np.random.RandomState(47).rand(3, 6)
+                                    > 0.5).astype(np.float32)]},
+                         {}, ("X", "W", "Bias")),
+        "factorization_machine": ("factorization_machine",
+                                  {"Input": [_u(48, 3, 5)],
+                                   "Factors": [_u(49, 5, 4)]}, {},
+                                  ("Input", "Factors")),
+        "bilinear_interp": ("bilinear_interp", {"X": [_u(50, 2, 2, 3, 4)]},
+                            {"out_h": 5, "out_w": 7}, ("X",)),
+        "bilinear_tensor_product": ("bilinear_tensor_product",
+                                    {"X": [_u(52, 3, 4)],
+                                     "Y": [_u(53, 3, 5)],
+                                     "Weight": [_u(54, 2, 4, 5)],
+                                     "Bias": [_u(55, 1, 2)]}, {},
+                                    ("X", "Y", "Weight", "Bias")),
+        "conv3d": ("conv3d", {"Input": [_u(56, 2, 2, 4, 5, 5)],
+                              "Filter": [_u(57, 3, 2, 3, 3, 3)]},
+                   {"strides": [1, 2, 1], "paddings": [1, 0, 1],
+                    "dilations": [1, 1, 2]}, ("Input", "Filter")),
+        "conv3d_transpose": ("conv3d_transpose",
+                             {"Input": [_u(60, 2, 3, 3, 3, 3)],
+                              "Filter": [_u(61, 3, 2, 2, 3, 2)]},
+                             {"strides": [2, 2, 2], "paddings": [0, 1, 0],
+                              "dilations": [1, 1, 2]}, ("Input", "Filter")),
+        "pool3d": ("pool3d", {"X": [_u(65, 1, 2, 4, 5, 4)]},
+                   {"pooling_type": "avg", "ksize": [3, 3, 3],
+                    "strides": [2, 2, 2], "paddings": [1, 1, 1]}, ("X",)),
+        "spp": ("spp", {"X": [_u(67, 2, 2, 5, 6)]},
+                {"pyramid_height": 3, "pooling_type": "max"}, ("X",)),
+        "conv_shift": ("conv_shift", {"X": [_u(69, 3, 7)],
+                                      "Y": [_u(70, 3, 3)]}, {}, ("X", "Y")),
+        "cross_entropy_over_beam": (
+            "cross_entropy_over_beam",
+            {"X": [_u(20, 3, 6)], "Ids": [_ids([0, 2, 4], [1, 3, 5],
+                                               [2, 0, 5])],
+             "Label": [_ids([2], [4], [5])], "Length": [_ids(6, 6, 3)]},
+            {}, ("X",)),
+        "cross_entropy_selfnorm": ("cross_entropy_selfnorm",
+                                   {"X": [_u(71, 4, 5, lo=0.1, hi=1.0)],
+                                    "Label": [_ids([0], [4], [2], [1])]},
+                                   {"softmax_selfnorm_alpha": 0.2}, ("X",)),
+        "huber_classification": ("huber_classification",
+                                 {"X": [f], "Label": [y01.astype(np.int64)]},
+                                 {}, ("X",)),
+        "lambda_rank": ("lambda_rank", {"X": [_u(21, 3, 6, 1)],
+                                        "Score": [rel],
+                                        "Length": [_ids(6, 4, 2)]},
+                        {"NDCG_num": 3}, ("X",)),
+        "scale_sub_region": ("scale_sub_region",
+                             {"X": [_u(72, 2, 3, 4, 5)],
+                              "Indices": [_ids([1, 2, 2, 3, 1, 5],
+                                               [3, 3, 1, 4, 2, 2])]},
+                             {"value": 2.5}, ("X",)),
+        "depthwise_conv2d": ("depthwise_conv2d",
+                             {"Input": [_u(73, 2, 3, 5, 5)],
+                              "Filter": [_u(74, 3, 1, 3, 3)]},
+                             {"paddings": [1, 1], "strides": [2, 1]},
+                             ("Input", "Filter")),
+        "fill_zeros_like": ("fill_zeros_like", {"X": [_u(75, 3, 2)]}, {},
+                            ()),
+        "hinge_loss": ("hinge_loss", {"Logits": [f], "Labels": [y01]}, {},
+                       ("Logits",)),
+        "l1_norm": ("l1_norm", {"X": [l1]}, {}, ("X",)),
+        "log_loss": ("log_loss",
+                     {"Predicted": [_u(76, 6, 1, lo=0.05, hi=0.95)],
+                      "Labels": [y01]}, {"epsilon": 1e-6}, ("Predicted",)),
+        "log_softmax": ("log_softmax", {"X": [_u(78, 3, 5)]}, {}, ("X",)),
+        "margin_rank_loss": ("margin_rank_loss",
+                             {"Label": [y01 * 2 - 1], "X1": [_u(79, 6, 1)],
+                              "X2": [_u(80, 6, 1)]}, {"margin": 0.1},
+                             ("X1", "X2")),
+        "max_pool2d_with_index": ("max_pool2d_with_index", {"X": [pool]},
+                                  {"ksize": [2, 2], "strides": [2, 2],
+                                   "paddings": [1, 1]}, ("X",)),
+        "max_pool3d_with_index": ("max_pool3d_with_index",
+                                  {"X": [_u(82, 1, 2, 4, 4, 5)]},
+                                  {"ksize": [2, 2, 2], "strides": [2, 2, 2],
+                                   "paddings": [0, 1, 1]}, ("X",)),
+        "minus": ("minus", {"X": [_u(83, 3, 4)], "Y": [_u(84, 3, 4)]}, {},
+                  ("X", "Y")),
+        "modified_huber_loss": ("modified_huber_loss",
+                                {"X": [f], "Y": [y01]}, {}, ("X",)),
+        "one_hot": ("one_hot", {"X": [_ids([0], [3], [7], [4])]},
+                    {"depth": 5}, ()),
+        "scatter": ("scatter", {"X": [_u(85, 5, 3)], "Ids": [_ids(3, 0)],
+                                "Updates": [_u(86, 2, 3)]}, {},
+                    ("X", "Updates")),
+        "sequence_mask": ("sequence_mask", {"X": [_ids(3, 0, 5, 1)]},
+                          {"maxlen": 5}, ()),
+        "unpool": ("unpool", {"X": [_u(27, 2, 2, 2, 2)],
+                              "Indices": [unpool_idx]},
+                   {"ksize": [2, 2], "strides": [2, 2]}, ("X",)),
+    }
+
+
+def emit_with_grad(dev, op, ins, attrs, diff):
+    """The port's emitter of `op` on `dev` from numpy inputs, then, with
+    `diff`, its ``generic_grad`` op on the same device: the cotangents
+    fixed values in [0.5, 1.5) for every float output that takes one.
+    Returns ({slot: [numpy]}, {"<slot>@GRAD": [numpy]})."""
+    from paddle_tpu_torch.framework.core import GRAD_SUFFIX
+
+    info = get_op_info(op)
+    ctx = EmitContext(dev, is_test=False)
+    t = {s: [torch.as_tensor(a).to(dev) for a in v] for s, v in ins.items()}
+    out = info.emit(ctx, t, dict(attrs))
+    host = {s: [v.detach().cpu().numpy() for v in vs]
+            for s, vs in out.items()}
+    if not diff:
+        return host, {}
+    g_ins = {**t, **out}
+    for k, (s, vs) in enumerate(sorted(out.items())):
+        if s in info.non_diff_outputs or not vs[0].is_floating_point():
+            continue
+        g_ins[s + GRAD_SUFFIX] = [torch.as_tensor(np.random.RandomState(
+            90 + k).uniform(0.5, 1.5, v.shape).astype(np.float32)).to(dev)
+            for v in vs]
+    g_attrs = {"__fwd_type__": op, "__fwd_attrs__": dict(attrs),
+               "__fwd_input_slots__": sorted(ins),
+               "__fwd_output_slots__": sorted(out),
+               "__wanted__": {(s, i) for s in diff
+                              for i in range(len(ins[s]))}}
+    grads = get_op_info("generic_grad").emit(ctx, g_ins, g_attrs)
+    return host, {s: [g.detach().cpu().numpy() for g in gs]
+                  for s, gs in grads.items()}
+
+
+def rest_ops_phase(dev):
+    """42(a) the last 48 op types on the card against the CPU, f32: each
+    forward output within 1e-5 of its max |value| (integers equal) and
+    each ``generic_grad`` gradient within 1e-5 of its max |g|, from the
+    same numpy inputs; ``truncated_gaussian_random`` and ``sampling_id``
+    by their properties (bounds, moments, frequencies); ``save`` then
+    ``load`` on the card through a temporary directory, bitwise."""
+    rows = {}
+    for name, (op, ins, attrs, diff) in rest_op_cases().items():
+        cpu, cpu_g = emit_with_grad(torch.device("cpu"), op, ins, attrs,
+                                    diff)
+        gpu, gpu_g = emit_with_grad(dev, op, ins, attrs, diff)
+        out_err = max(_rel(g, c) for s in cpu for g, c in zip(gpu[s],
+                                                               cpu[s]))
+        grad_err = max((_rel(g, c) for s in cpu_g
+                        for g, c in zip(gpu_g[s], cpu_g[s])), default=0.0)
+        ok = (sorted(gpu) == sorted(cpu) and sorted(gpu_g) == sorted(cpu_g)
+              and out_err <= 1e-5 and grad_err <= 1e-5)
+        rows[name] = {"op": op, "out_rel_err": out_err,
+                      "grad_rel_err": grad_err,
+                      "grads": sorted(cpu_g), "ok": ok}
+        if not ok:
+            raise AssertionError(f"op {name} on the card disagrees with the "
+                                 f"CPU: {rows[name]}")
+    prog = fluid.Program()
+    ctx = EmitContext(dev, is_test=False, program=prog)
+    tg = get_op_info("truncated_gaussian_random").emit(
+        ctx, {}, {"shape": [200000], "mean": 1.0, "std": 2.0,
+                  "__uid__": 3})["Out"][0].cpu().numpy()
+    p = np.array([0.1, 0.0, 0.6, 0.3], np.float32)
+    sid = get_op_info("sampling_id").emit(
+        ctx, {"X": [torch.as_tensor(np.tile(p, (100000, 1))).to(dev)]},
+        {"__uid__": 4})["Out"][0].cpu().numpy()
+    freq = np.bincount(sid, minlength=4) / sid.size
+    rows["truncated_gaussian_random"] = {
+        "n": tg.size, "min": float(tg.min()), "max": float(tg.max()),
+        "mean": float(tg.mean()), "std": float(tg.std()),
+        "std_want": 2.0 * 0.8796,
+        "ok": bool(tg.min() >= -3.0 and tg.max() <= 5.0
+                   and abs(tg.mean() - 1.0) < 0.02
+                   and abs(tg.std() - 2.0 * 0.8796) < 0.02)}
+    rows["sampling_id"] = {"n": sid.size, "freq": freq.tolist(),
+                           "p": p.tolist(), "dtype": str(sid.dtype),
+                           "ok": bool(np.abs(freq - p).max() < 0.01
+                                      and sid.dtype == np.int64)}
+    x = torch.as_tensor(_u(88, 3, 4)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tensor")
+        get_op_info("save").emit(ctx, {"X": [x]}, {"file_path": path})
+        back = get_op_info("load").emit(ctx, {}, {"file_path": path})
+        back = back["Out"][0]
+        rows["save_load"] = {"device": str(back.device),
+                             "ok": bool(back.device == x.device
+                                        and torch.equal(back, x))}
+    for name in ("truncated_gaussian_random", "sampling_id", "save_load"):
+        if not rows[name]["ok"]:
+            raise AssertionError(f"{name} on the card: {rows[name]}")
+    log("rest_ops", rows)
+    return rows
+
+
+BOOK_WARM, BOOK_TIMED = 2, 10
+BOOK_KERNELS = {"lstm": (("k7", SRL_K7_NAMES), ("k8", SRL_K8_NAMES)),
+                "gru": (("k9", ("gru_fwd",)), ("k10", ("gru_bwd", "rnn_dw")))}
+
+
+def book_launch_want(main):
+    """K7/K8 and K9/K10 launches a training step from the program's LSTM
+    and GRU op counts: each op launches its forward once and its
+    ``generic_grad`` the forward again and the backward once."""
+    ops = [op.type for op in main.global_block().ops]
+    want = {"lstm_forward": 2 * ops.count("lstm"),
+            "lstm_backward": ops.count("lstm"),
+            "gru_forward": 2 * ops.count("gru"),
+            "gru_backward": ops.count("gru")}
+    return {k: v for k, v in want.items() if v}
+
+
+def book_chapter_run(name, card_name, smi):
+    """42(b) one book chapter (``models/book_chapters.py``) at its full
+    widths on the card, fed by its dataset module's synthetic reader
+    through ``reader.batch`` and ``DataFeeder``: the first step held to
+    the CPU executor's step from the same startup state (loss 1e-4
+    relative, three weights' gradients 1e-3 of their max |g|, as paths A
+    and B hold theirs), then BOOK_WARM warm-up and BOOK_TIMED timed steps
+    each ending in its loss fetch, every step's K7-K10 launches equal to
+    what the program's LSTM and GRU ops imply, and one profiled step."""
+    ch = CHAPTERS[name]
+    w = ch.full
+    fluid.reset()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    loss, feed_vars = ch.build(fluid, **w)
+    main, startup = fluid.default_main_program(), \
+        fluid.default_startup_program()
+    startup.random_seed = SEED
+    feeds = book_batches(fluid, ch, feed_vars, 1 + BOOK_WARM + BOOK_TIMED,
+                         **w)
+    mode = dataset_common.data_mode(ch.dataset)
+    want = book_launch_want(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup)
+    scope = fluid.global_scope()
+    state = {n: scope.find_np(n) for n, v in main.global_block().vars.items()
+             if v.persistable}
+    weights = [p.name for p in main.global_block().all_parameters()
+               if len(p.shape) >= 2]
+    grads = [n + "@GRAD" for n in (weights[0], weights[len(weights) // 2],
+                                   weights[-1])]
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    first = run_steps(exe, main, loss, feeds[0], 1, grads)
+    t0 = time.monotonic()
+    cpu_scope = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_scope)
+    cpu = run_steps(fluid.Executor(fluid.CPUPlace()), main, loss, feeds[0],
+                    1, grads, scope=cpu_scope)
+    cpu_s = time.monotonic() - t0
+    loss_rel = abs(first[0][0] - cpu[0][0]) / abs(cpu[0][0])
+    grad_rel = {n: float(np.abs(first[0][1][n] - cpu[0][1][n]).max()
+                         / max(np.abs(cpu[0][1][n]).max(), 1e-30))
+                for n in grads}
+    rows = list(first)
+    for feed in feeds[1:1 + BOOK_WARM]:
+        rows += run_steps(exe, main, loss, feed, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for feed in feeds[1 + BOOK_WARM:]:
+        rows += run_steps(exe, main, loss, feed, 1)
+    for _, _, launches, _ in rows:
+        if want:
+            check_launches(f"book_{name}", launches, want)
+        else:
+            no_launches(f"book_{name}", launches)
+    step_ms = [r[3] * 1e3 for r in rows[1 + BOOK_WARM:]]
+    med = float(np.median(step_ms))
+    bs = w["bs"]
+    losses = [r[0] for r in rows]
+    res = {"card": card_name, "nvidia_smi": smi, "chapter": name,
+           "dataset": ch.dataset, "data_mode": mode, "widths": w,
+           "dtype": "float32", "optimizer": "adam" if ch.adam else "sgd",
+           "setup_s": setup_s, "cpu_step_s": cpu_s,
+           "params": sum(int(np.prod(p.shape)) for p in
+                         main.global_block().all_parameters()),
+           "ops": len(main.global_block().ops),
+           "lstm_ops": [op.type for op in main.global_block().ops].count(
+               "lstm"),
+           "gru_ops": [op.type for op in main.global_block().ops].count(
+               "gru"),
+           "feed_shapes": {k: list(np.shape(v)) for k, v in
+                           feeds[0].items()},
+           "gpu_loss_step1": first[0][0], "cpu_loss_step1": cpu[0][0],
+           "loss_rel_err": loss_rel, "grad_rel_err_step1": grad_rel,
+           "losses": losses, "step_ms_median": med,
+           "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+           "step_ms_each": step_ms, "samples_s": bs / (med / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": rows[-1][2], "launches_want": want}
+    kinds = [k for k in ("lstm", "gru") if res[f"{k}_ops"]]
+    res.update(srl_profile(exe, main, [loss], [(feeds[-1], None)],
+                           kernels=sum((BOOK_KERNELS[k] for k in kinds),
+                                       ())))
+    log(f"book_{name}", res)
+    if (loss_rel > 1e-4 or any(v > 1e-3 for v in grad_rel.values())
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"book_{name}: card and CPU disagree, or the "
+                             f"losses are not finite: {res}")
+    return res
+
+
+def book_phase(dev, card_name, smi):
+    """Phase 42: (a) ``rest_ops_phase``, (b) ``book_chapter_run`` for each
+    chapter."""
+    t0 = time.monotonic()
+    ops = rest_ops_phase(dev)
+    chapters = {name: book_chapter_run(name, card_name, smi)
+                for name in CHAPTERS}
+    fluid.reset()
+    torch.cuda.empty_cache()
+    res = {"card": card_name, "nvidia_smi": smi, "ops": ops,
+           "chapters": chapters, "phase_s": time.monotonic() - t0}
+    log("book_phase", {"phase_s": res["phase_s"]})
+    return res
+
+
+def book_summary(book):
+    """Phase 42's numbers for the summary line."""
+    keys = ("dataset", "data_mode", "widths", "params", "ops",
+            "loss_rel_err", "grad_rel_err_step1", "losses",
+            "step_ms_median", "step_ms_min", "step_ms_max", "samples_s",
+            "peak_mem_gb", "launches_per_step", "launches_want",
+            "device_busy_share", "device_busy_ms_per_step",
+            "device_kernels_per_step", "k7_device_ms_per_step",
+            "k8_device_ms_per_step", "k9_device_ms_per_step",
+            "k10_device_ms_per_step", "profiled")
+    return {"card": book["card"], "nvidia_smi": book["nvidia_smi"],
+            "ops_card_vs_cpu": {
+                "op_types": len({r.get("op", k)
+                                 for k, r in book["ops"].items()}) + 1,
+                "out_rel_err_max": max(r.get("out_rel_err", 0.0)
+                                       for r in book["ops"].values()),
+                "grad_rel_err_max": max(r.get("grad_rel_err", 0.0)
+                                        for r in book["ops"].values()),
+                "rng_and_io": {k: book["ops"][k] for k in (
+                    "truncated_gaussian_random", "sampling_id",
+                    "save_load")}},
+            "chapters": {n: {k: r[k] for k in keys if k in r}
+                         for n, r in book["chapters"].items()},
+            "phase_s": book["phase_s"]}
+
+
 def distributed_summary(dist):
     """Phase 41's numbers for the summary line."""
     keys = ("mesh", "n_micro", "positions", "losses", "single_losses",
@@ -8366,6 +8801,7 @@ def main():
     measurement = measurement_phase(name, smi, sl_gpt["replay_step_ms"])
     par = parallel_phase(dev, name, smi)
     dist = distributed_phase(dev, name, smi)
+    book = book_phase(dev, name, smi)
     ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
                      for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
@@ -8429,7 +8865,9 @@ def main():
                "gpt_pp2_dp2_bf16_10_steps":
                    dist["pipeline"]["pp2_dp2"]["launches"],
                "gpt_pserver_f32_3_steps":
-                   dist["pserver_gpt_f32"]["launches"]}
+                   dist["pserver_gpt_f32"]["launches"],
+               **{f"book_{n}_f32_per_step": r["launches_per_step"]
+                  for n, r in book["chapters"].items()}}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -8797,7 +9235,8 @@ def main():
                       "srl": srl_rows, "legacy": legacy_rows,
                       "router": router, "measurement": measurement,
                       "parallel": parallel_summary(par, name, smi),
-                      "distributed": distributed_summary(dist)}),
+                      "distributed": distributed_summary(dist),
+                      "book": book_summary(book)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

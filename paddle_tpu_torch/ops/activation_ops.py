@@ -1,6 +1,6 @@
 """Activation ops, the port of ``paddle_tpu/ops/activation_ops.py``: the
-whole unary table (``ACTIVATIONS``, one layer each in ``layers/ops.py``)
-and ``softmax``.
+whole unary table (``ACTIVATIONS``, one layer each in ``layers/ops.py``),
+``softmax``, ``log_softmax``, ``maxout`` and ``prelu``.
 
 Each entry is the JAX expression written in torch, down to its gradient
 at a kink, since ``generic_grad`` differentiates the emitter: ``jnp.clip``
@@ -121,3 +121,34 @@ ACTIVATIONS = tuple(_TABLE)
 @register_op("softmax")
 def softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=-1)]}
+
+
+@register_op("log_softmax")
+def log_softmax(ctx, ins, attrs):
+    return {"Out": [torch.log_softmax(ins["X"][0], dim=-1)]}
+
+
+@register_op("maxout")
+def maxout(ctx, ins, attrs):
+    """The max over each run of `groups` consecutive channels of an NCHW
+    map; ``amax`` splits the gradient among ties, as ``jnp.max`` does."""
+    x = ins["X"][0]
+    g = int(attrs["groups"])
+    n, c, h, w = x.shape
+    return {"Out": [torch.amax(x.reshape(n, c // g, g, h, w), dim=2)]}
+
+
+@register_op("prelu")
+def prelu(ctx, ins, attrs):
+    """Parametric ReLU: an Alpha of size 1 is shared by all, of size C by
+    each channel of [N, C, ...]; any other size is one value a position,
+    broadcast over the batch."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    n = alpha.numel()
+    if n == 1:
+        a = alpha.reshape(-1)[0]
+    elif x.ndim >= 2 and n == x.shape[1]:
+        a = alpha.reshape((1, n) + (1,) * (x.ndim - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": [torch.where(x > 0, x, a * x)]}

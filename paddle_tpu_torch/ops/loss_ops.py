@@ -1,13 +1,22 @@
-"""``cross_entropy``, ``softmax_with_cross_entropy``,
-``sigmoid_cross_entropy_with_logits``, ``accuracy``, ``chunk_eval``,
-``auc``, ``precision_recall`` and ``positive_negative_pair``, the port of
-their emitters in ``paddle_tpu/ops/loss_ops.py``: hard labels (int64,
-gathered as indices) or soft ones; ``Label`` takes no grad and
-``Softmax`` no cotangent; the metrics are not differentiated."""
+"""The loss and metric ops, the port of ``paddle_tpu/ops/loss_ops.py``:
+``cross_entropy``, ``softmax_with_cross_entropy``,
+``sigmoid_cross_entropy_with_logits``, the regression and ranking losses
+(``log_loss``, ``hinge_loss``, ``huber_loss``, ``smooth_l1_loss``,
+``rank_loss``, ``margin_rank_loss``, ``modified_huber_loss``), the v1
+costs (``hsigmoid``, ``huber_classification``, ``cross_entropy_selfnorm``,
+``lambda_rank``, ``cross_entropy_over_beam``), and the metrics
+``accuracy``, ``chunk_eval``, ``auc``, ``precision_recall`` and
+``positive_negative_pair``: hard labels (int64, gathered as indices) or
+soft ones; ``Label`` takes no grad and ``Softmax`` no cotangent; the
+metrics are not differentiated.  Each loss is the JAX expression in
+torch down to its gradient at a kink: ``jnp.maximum`` splits it at a tie
+(``torch.maximum`` does too), ``jnp.abs`` passes +1 at 0 (``_Abs``)."""
 
 from __future__ import annotations
 
 import torch
+
+import math
 
 from .activation_ops import _Abs, _softplus
 from .cuda_kernels._recurrent import step_mask
@@ -53,6 +62,219 @@ def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
     loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
             + _softplus(-_Abs.apply(x)))
     return {"Out": [loss]}
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+@register_op("log_loss", non_diff_inputs=("Labels",))
+def log_loss(ctx, ins, attrs):
+    p = ins["Predicted"][0]
+    y = ins["Labels"][0]
+    eps = float(attrs.get("epsilon", 1e-7))
+    return {"Loss": [-(y * torch.log(p + eps)
+                       + (1 - y) * torch.log(1 - p + eps))]}
+
+
+@register_op("hinge_loss", non_diff_inputs=("Labels",))
+def hinge_loss(ctx, ins, attrs):
+    logits = ins["Logits"][0]
+    y = ins["Labels"][0]
+    return {"Loss": [torch.maximum(_zero(logits),
+                                   1.0 - (2 * y - 1) * logits)]}
+
+
+@register_op("huber_loss")
+def huber_loss(ctx, ins, attrs):
+    """0.5·r² where |r| ≤ delta, else delta·(|r| − delta/2); r = Y − X is
+    the Residual output."""
+    x, y = ins["X"][0], ins["Y"][0]
+    d = float(attrs.get("delta", 1.0))
+    r = y - x
+    a = _Abs.apply(r)
+    return {"Out": [torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d))],
+            "Residual": [r]}
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss(ctx, ins, attrs):
+    """Per row the sum of 0.5·(σd)² where |d| < 1/σ², else |d| − 0.5/σ²,
+    d = (X − Y)·InsideWeight, each term times OutsideWeight; Diff is d."""
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma = float(attrs.get("sigma", 1.0))
+    s2 = sigma * sigma
+    d = x - y
+    if ins.get("InsideWeight") and ins["InsideWeight"][0] is not None:
+        d = d * ins["InsideWeight"][0]
+    a = _Abs.apply(d)
+    per = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    if ins.get("OutsideWeight") and ins["OutsideWeight"][0] is not None:
+        per = per * ins["OutsideWeight"][0]
+    out = torch.sum(per.reshape(per.shape[0], -1), dim=1, keepdim=True)
+    return {"Out": [out], "Diff": [d]}
+
+
+@register_op("rank_loss", non_diff_inputs=("Label",))
+def rank_loss(ctx, ins, attrs):
+    """RankNet's pairwise cost softplus(L − R) − Label·(L − R)."""
+    d = ins["Left"][0] - ins["Right"][0]
+    return {"Out": [_softplus(d) - ins["Label"][0] * d]}
+
+
+@register_op("margin_rank_loss", non_diff_inputs=("Label",))
+def margin_rank_loss(ctx, ins, attrs):
+    label = ins["Label"][0]
+    x1, x2 = ins["X1"][0], ins["X2"][0]
+    margin = float(attrs.get("margin", 0.0))
+    out = torch.maximum(_zero(x1), -label * (x1 - x2) + margin)
+    return {"Out": [out], "Activated": [(out > 0).to(x1.dtype)]}
+
+
+@register_op("modified_huber_loss", non_diff_inputs=("Y",))
+def modified_huber_loss(ctx, ins, attrs):
+    x = ins["X"][0]
+    z = (2 * ins["Y"][0].to(x.dtype) - 1) * x
+    loss = torch.where(z < -1, -4 * z, torch.maximum(_zero(z), 1 - z) ** 2)
+    return {"Out": [loss], "IntermediateVal": [z]}
+
+
+@register_op("hsigmoid", non_diff_inputs=("Label",))
+def hsigmoid(ctx, ins, attrs):
+    """Hierarchical sigmoid over a complete binary tree of `num_classes`
+    leaves: the label's leaf is heap position label + num_classes, each
+    of its ancestors (node >> k, 1-based) an internal node with a row of
+    W [C−1, D] (and of Bias); the cost is the sum over the path of
+    softplus(−t·z), t = +1 for a right child (bit 1), −1 for a left one,
+    z = X·W[node] (+ Bias[node]), over the static depth ceil(log2 C) with
+    the ancestors past the root masked."""
+    x = ins["X"][0]
+    w = ins["W"][0]
+    label = ins["Label"][0].reshape(-1).long()
+    bias = ins["Bias"][0] if ins.get("Bias") and ins["Bias"][0] is not None \
+        else None
+    num_classes = int(attrs["num_classes"])
+    depth = max(int(math.ceil(math.log2(num_classes))), 1)
+    code = label + num_classes
+    losses = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for k in range(1, depth + 1):
+        node = code >> k
+        valid = node >= 1
+        idx = torch.clamp(node - 1, 0, num_classes - 2)
+        bit = (code >> (k - 1)) & 1
+        z = torch.sum(x * w[idx], dim=1)
+        if bias is not None:
+            z = z + bias.reshape(-1)[idx]
+        t = 2.0 * bit.to(x.dtype) - 1.0
+        losses = losses + torch.where(valid, _softplus(-t * z), _zero(z))
+    return {"Out": [losses[:, None]]}
+
+
+@register_op("huber_classification", non_diff_inputs=("Label",))
+def huber_classification(ctx, ins, attrs):
+    """The two-class Huber cost of labels {0, 1} as y = ±1 and m = y·f:
+    −4m below −1, (1 − m)² up to 1, 0 above."""
+    f = ins["X"][0].reshape(-1)
+    y = ins["Label"][0].reshape(-1).to(torch.float32) * 2.0 - 1.0
+    m = y * f
+    loss = torch.where(m < -1.0, -4.0 * m,
+                       torch.where(m < 1.0, (1.0 - m) ** 2, _zero(m)))
+    return {"Out": [loss.reshape(-1, 1)]}
+
+
+@register_op("cross_entropy_selfnorm", non_diff_inputs=("Label",))
+def cross_entropy_selfnorm(ctx, ins, attrs):
+    """−log(X[label] / Z) + alpha·log(Z)² over positive unnormalized rows,
+    Z the row sum."""
+    x = ins["X"][0]
+    label = ins["Label"][0].reshape(-1).long()
+    alpha = float(attrs.get("softmax_selfnorm_alpha", 0.1))
+    eps = 1e-8
+    z = torch.sum(x, dim=-1)
+    picked = x.gather(1, label[:, None])[:, 0]
+    ce = -torch.log(picked / (z + eps) + eps)
+    return {"Out": [(ce + alpha * torch.log(z + eps) ** 2).reshape(-1, 1)]}
+
+
+@register_op("lambda_rank", non_diff_inputs=("Score", "Length"))
+def lambda_rank(ctx, ins, attrs):
+    """LambdaRank over padded queries: X scores and Score relevances [B,
+    T] (or [B, T, 1]), Length valid counts.  Each pair of valid documents
+    with rel_i > rel_j costs log(1 + exp(−(s_i − s_j))) times |ΔNDCG| of
+    swapping them: gains 2^rel − 1, discounts 1/log2(rank + 2) by the
+    rank in a stable descending sort of the scores, over the ideal DCG of
+    the top min(NDCG_num, T) relevances (at least 1e-6)."""
+    s = ins["X"][0]
+    rel = ins["Score"][0]
+    if s.ndim == 3:
+        s = s[..., 0]
+    if rel.ndim == 3:
+        rel = rel[..., 0]
+    lengths = ins["Length"][0].reshape(-1).long()
+    ndcg_num = int(attrs.get("NDCG_num", 5))
+    B, T = s.shape
+    k = min(ndcg_num, T)
+    dev = s.device
+    valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    relf = rel.to(torch.float32)
+    gain = 2.0 ** relf - 1.0
+    inf = torch.tensor(math.inf, device=dev)
+    topk = torch.sort(torch.where(valid, relf, -inf), dim=1,
+                      descending=True).values[:, :k]
+    disc = 1.0 / torch.log2(torch.arange(k, device=dev,
+                                         dtype=torch.float32) + 2.0)
+    idcg = torch.sum(torch.where(torch.isfinite(topk),
+                                 (2.0 ** topk - 1.0) * disc[None, :],
+                                 torch.zeros((), device=dev)), dim=1)
+    idcg = torch.clamp(idcg, min=1e-6)
+    sf = s.to(torch.float32)
+    order = torch.argsort(torch.argsort(
+        torch.where(valid, -sf.detach(), inf), dim=1, stable=True),
+        dim=1, stable=True)
+    dr = 1.0 / torch.log2(order.to(torch.float32) + 2.0)
+    pair_valid = (valid[:, :, None] & valid[:, None, :]
+                  & (relf[:, :, None] > relf[:, None, :]))
+    delta_ndcg = torch.abs((gain[:, :, None] - gain[:, None, :])
+                           * (dr[:, :, None] - dr[:, None, :])) \
+        / idcg[:, None, None]
+    sdiff = sf[:, :, None] - sf[:, None, :]
+    pair_loss = torch.logaddexp(torch.zeros_like(sdiff), -sdiff)
+    loss = torch.sum(torch.where(pair_valid, delta_ndcg * pair_loss,
+                                 torch.zeros((), device=dev)), dim=(1, 2))
+    return {"Out": [loss.reshape(-1, 1)]}
+
+
+@register_op("cross_entropy_over_beam",
+             non_diff_inputs=("Ids", "Label", "Length"))
+def cross_entropy_over_beam(ctx, ins, attrs):
+    """The negative log-likelihood of the gold candidate under a softmax
+    over the beam's candidates: X [B, T] (or [B, T, 1]) raw scores, Ids
+    [B, K] the selected positions, Label [B, 1] the gold position, an
+    optional Length [B] of valid candidates (a padded slot, id ≥ length,
+    leaves the softmax).  A gold outside the beam costs −log(1e-10) with
+    no gradient."""
+    x = ins["X"][0]
+    if x.ndim == 3:
+        x = x[..., 0]
+    ids = ins["Ids"][0].long()
+    gold = ins["Label"][0].reshape(-1).long()
+    fdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    sel = x.to(fdt).gather(1, ids)
+    valid = torch.ones(ids.shape, dtype=torch.bool, device=x.device)
+    if ins.get("Length") and ins["Length"][0] is not None:
+        valid = ids < ins["Length"][0].reshape(-1).long()[:, None]
+    ninf = torch.tensor(-math.inf, dtype=fdt, device=x.device)
+    sel = torch.where(valid, sel, ninf)
+    logp = sel - torch.amax(sel, dim=1, keepdim=True)
+    logp = logp - torch.log(torch.sum(
+        torch.where(valid, torch.exp(logp), _zero(logp)), dim=1,
+        keepdim=True))
+    hit = (ids == gold[:, None]) & valid
+    in_beam = hit.any(dim=1)
+    gold_logp = torch.sum(torch.where(hit, logp, _zero(logp)), dim=1)
+    floor = torch.log(torch.tensor(1e-10, dtype=fdt, device=x.device))
+    loss = torch.where(in_beam, -gold_logp, -floor)
+    return {"Out": [loss.reshape(-1, 1)]}
 
 
 @register_op("accuracy", grad=None)

@@ -5,7 +5,8 @@ reference's ``axis`` broadcast (y's shape aligns to x starting at `axis`,
 default -1 = trailing alignment), the flattening matmul ``mul``, the
 batched ``matmul``, ``sum``, ``mean``, the reduce family
 (``reduce_sum/mean/max/min/prod``, one emitter), ``scale``, ``sign``,
-``clip``, ``cos_sim``, ``clip_by_norm`` and ``squared_l2_norm``.  The
+``clip``, ``cos_sim``, ``clip_by_norm``, ``squared_l2_norm``, and the
+v1 layers' ``minus``, ``norm``, ``l1_norm`` and ``squared_l2_distance``.  The
 GEMMs go to ``torch.matmul`` (cuBLAS on the card), as the JAX package
 leaves them to XLA.
 
@@ -20,7 +21,7 @@ import math
 
 import torch
 
-from .activation_ops import jclip
+from .activation_ops import _Abs, jclip
 from .registry import register_op
 
 
@@ -185,6 +186,41 @@ def clip_by_norm(ctx, ins, attrs):
 def squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.sum(x * x).reshape(1)]}
+
+@register_op("minus")
+def minus(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] - ins["Y"][0]]}
+
+
+@register_op("norm")
+def norm(ctx, ins, attrs):
+    """L2-normalize along `axis`: Out = X / Norm, Norm = sqrt(sum X² +
+    epsilon) kept on that axis; an optional Scale multiplies each slice
+    along it (the SSD normalize layer)."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", 1)) % x.ndim
+    eps = float(attrs.get("epsilon", 1e-10))
+    n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True) + eps)
+    out = x / n
+    if ins.get("Scale") and ins["Scale"][0] is not None:
+        out = out * ins["Scale"][0].reshape(
+            [-1 if i == axis else 1 for i in range(x.ndim)])
+    return {"Out": [out], "Norm": [n]}
+
+
+@register_op("l1_norm")
+def l1_norm(ctx, ins, attrs):
+    """sum |X| as [1]; the gradient is +1 at 0, as ``jnp.abs``'s."""
+    return {"Out": [torch.sum(_Abs.apply(ins["X"][0])).reshape(1)]}
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance(ctx, ins, attrs):
+    """Row-wise sum of (X − Y)² as [N, 1], and X − Y as sub_result."""
+    d = ins["X"][0] - ins["Y"][0]
+    sub = d.reshape(d.shape[0], -1)
+    return {"Out": [torch.sum(sub * sub, dim=1, keepdim=True)],
+            "sub_result": [d]}
 
 # analytic cost formulas (analysis/cost.py; mechanism in registry.py)
 

@@ -1,11 +1,14 @@
-"""NN layer ops, the port of the part of ``paddle_tpu/ops/nn_ops.py`` that
-the LM tower, ResNet, the model zoo and the v1 layers use: ``layer_norm``,
-``conv2d``, ``conv2d_transpose``, ``pool2d``, ``batch_norm``, ``dropout``,
-``lrn``, ``im2sequence``, ``row_conv`` and the fused ``bn_act_conv1x1`` /
-``bn_act_conv3x3``.
+"""NN layer ops, the port of ``paddle_tpu/ops/nn_ops.py``: ``layer_norm``,
+``conv2d``, ``depthwise_conv2d``, ``conv2d_transpose``, ``conv3d``,
+``conv3d_transpose``, ``pool2d``, ``pool3d``, ``max_pool2d_with_index``,
+``max_pool3d_with_index``, ``unpool``, ``spp``, ``batch_norm``,
+``dropout``, ``lrn``, ``im2sequence``, ``row_conv``, the v1 layers'
+``bilinear_interp``, ``scale_sub_region``, ``conv_shift``,
+``bilinear_tensor_product``, ``factorization_machine`` and
+``selective_fc``, and the fused ``bn_act_conv1x1`` / ``bn_act_conv3x3``.
 
-``conv2d``, ``conv2d_transpose`` and ``pool2d`` are stock ATen (cuDNN on
-the card), as the JAX package leaves them to stock XLA; an NHWC tensor
+The convolutions and poolings are stock ATen (cuDNN on the card), as the
+JAX package leaves them to stock XLA; an NHWC tensor
 goes through them as a channels-last view, so nothing is copied around
 the call.  The fused ops
 run the hand-written kernels of ``cuda_kernels/bn_matmul.py`` (K11, K12)
@@ -29,6 +32,12 @@ def _pair(v):
     if isinstance(v, (list, tuple)):
         return [int(x) for x in v]
     return [int(v), int(v)]
+
+
+def _triple(v):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v)] * 3
 
 
 @register_op("layer_norm")
@@ -73,6 +82,39 @@ def conv2d(ctx, ins, attrs):
     return {"Output": [_back(out, nhwc)]}
 
 
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(ctx, ins, attrs):
+    """``conv2d`` with one group a channel."""
+    attrs = dict(attrs)
+    nhwc = str(attrs.get("data_format", "NCHW")) == "NHWC"
+    attrs["groups"] = ins["Input"][0].shape[3 if nhwc else 1]
+    return conv2d(ctx, ins, attrs)
+
+
+@register_op("conv3d")
+def conv3d(ctx, ins, attrs):
+    """Volumetric convolution, NCDHW, filter OIDHW."""
+    out = F.conv3d(ins["Input"][0], ins["Filter"][0],
+                   stride=_triple(attrs.get("strides", [1, 1, 1])),
+                   padding=_triple(attrs.get("paddings", [0, 0, 0])),
+                   dilation=_triple(attrs.get("dilations", [1, 1, 1])),
+                   groups=int(attrs.get("groups", 1)))
+    return {"Output": [out]}
+
+
+@register_op("conv3d_transpose")
+def conv3d_transpose(ctx, ins, attrs):
+    """The transposed volumetric convolution, NCDHW, filter [C_in, C_out,
+    kd, kh, kw]: out = (in − 1)·s − 2p + d·(k − 1) + 1 on each axis, as
+    ``conv2d_transpose``."""
+    out = F.conv_transpose3d(
+        ins["Input"][0], ins["Filter"][0],
+        stride=_triple(attrs.get("strides", [1, 1, 1])),
+        padding=_triple(attrs.get("paddings", [0, 0, 0])),
+        dilation=_triple(attrs.get("dilations", [1, 1, 1])))
+    return {"Output": [out]}
+
+
 @register_op("conv2d_transpose")
 def conv2d_transpose(ctx, ins, attrs):
     """The transposed convolution, NCHW, filter [C_in, C_out, kh, kw]:
@@ -87,37 +129,53 @@ def conv2d_transpose(ctx, ins, attrs):
     return {"Output": [out]}
 
 
-@register_op("pool2d")
-def pool2d(ctx, ins, attrs):
-    """Max or average pooling (``_pool_nd`` of the JAX package): windows
-    padded with -inf for max; average over the window, or over its
-    unpadded part when ``exclusive`` (the default) and there is padding;
-    ``global_pooling`` takes the whole map.  The padding is explicit and
-    the pooling unpadded, since torch's pooling refuses a pad over half
-    the window, which ``reduce_window`` takes: a window wholly in the
-    padding gives -inf (max) or 0/0 (exclusive average), as there."""
-    x = ins["X"][0]
-    nhwc = str(attrs.get("data_format", "NCHW")) == "NHWC"
-    ksize = _pair(attrs.get("ksize", [2, 2]))
-    strides = _pair(attrs.get("strides", ksize))
-    pads = _pair(attrs.get("paddings", [0, 0]))
+def _pool_nd(x, attrs, nd):
+    """Max or average pooling over the `nd` trailing spatial axes
+    (channels second, or last for NHWC / NDHWC), ``_pool_nd`` of the JAX
+    package: windows padded with -inf for max; average over the window,
+    or over its unpadded part when ``exclusive`` (the default) and there
+    is padding; ``global_pooling`` takes the whole map.  The padding is
+    explicit and the pooling unpadded, since torch's pooling refuses a
+    pad over half the window, which ``reduce_window`` takes: a window
+    wholly in the padding gives -inf (max) or 0/0 (exclusive average), as
+    there."""
+    tup = _pair if nd == 2 else _triple
+    last = str(attrs.get("data_format", "NCHW")) in ("NHWC", "NDHWC")
+    ksize = tup(attrs.get("ksize", [2] * nd))
+    strides = tup(attrs.get("strides", ksize))
+    pads = tup(attrs.get("paddings", [0] * nd))
     if attrs.get("global_pooling", False):
-        ksize = list(x.shape[1:3] if nhwc else x.shape[2:])
-        strides, pads = ksize, [0, 0]
-    xc = _nchw(x, nhwc)
-    width = (pads[1], pads[1], pads[0], pads[0])  # F.pad: W first, then H
+        ksize = list(x.shape[1:-1] if last else x.shape[2:])
+        strides, pads = ksize, [0] * nd
+    xc = x.movedim(-1, 1) if last else x
+    width = []  # F.pad: the last axis first
+    for p in reversed(pads):
+        width += [p, p]
+    max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
     if attrs.get("pooling_type", "max") == "max":
-        out = F.max_pool2d(F.pad(xc, width, value=-math.inf), ksize,
-                           strides)
+        out = max_pool(F.pad(xc, width, value=-math.inf), ksize, strides)
     elif attrs.get("exclusive", True) and any(pads):
         # each window's sum over its count of unpadded elements
         ones = F.pad(torch.ones_like(xc[:1, :1]), width)
-        out = (F.avg_pool2d(F.pad(xc, width), ksize, strides,
-                            divisor_override=1)
-               / F.avg_pool2d(ones, ksize, strides, divisor_override=1))
+        out = (avg_pool(F.pad(xc, width), ksize, strides,
+                        divisor_override=1)
+               / avg_pool(ones, ksize, strides, divisor_override=1))
     else:
-        out = F.avg_pool2d(F.pad(xc, width), ksize, strides)
-    return {"Out": [_back(out, nhwc)]}
+        out = avg_pool(F.pad(xc, width), ksize, strides)
+    return out.movedim(1, -1) if last else out
+
+
+@register_op("pool2d")
+def pool2d(ctx, ins, attrs):
+    """``_pool_nd`` over H and W."""
+    return {"Out": [_pool_nd(ins["X"][0], attrs, 2)]}
+
+
+@register_op("pool3d")
+def pool3d(ctx, ins, attrs):
+    """``_pool_nd`` over D, H and W."""
+    return {"Out": [_pool_nd(ins["X"][0], attrs, 3)]}
 
 
 @register_op("batch_norm", non_diff_outputs=("MeanOut", "VarianceOut"))
@@ -285,6 +343,191 @@ def row_conv(ctx, ins, attrs):
     out = sum(pad[:, i:i + t] * w[i] for i in range(ctx_len))
     return {"Out": [out]}
 
+def _windows(a, ksize, strides):
+    """[N, C, *spatial] → [N, C, *out, prod(ksize)]: every window, its
+    elements in row-major order (``conv_general_dilated_patches``')."""
+    nd = len(ksize)
+    for i, (k, st) in enumerate(zip(ksize, strides)):
+        a = a.unfold(2 + i, k, st)
+    return a.reshape(a.shape[:2 + nd] + (-1,))
+
+
+def _max_pool_with_index(x, attrs, nd):
+    """Max pool over the `nd` spatial axes of [N, C, *spatial] and the
+    flat index (over the unpadded spatial axes) of each window's maximum:
+    padding holds the dtype's lowest finite value and index −1, and among
+    equal maxima the first in the window wins, as ``jnp.argmax`` takes
+    it.  The output's gradient splits among equal maxima (``amax``)."""
+    tup = _pair if nd == 2 else _triple
+    ksize = tup(attrs.get("ksize", [2] * nd))
+    strides = tup(attrs.get("strides", ksize))
+    pads = tup(attrs.get("paddings", [0] * nd))
+    spatial = tuple(x.shape[2:])
+    width = []
+    for p in reversed(pads):
+        width += [p, p]
+    neg = torch.finfo(x.dtype).min
+    xp = _windows(F.pad(x, width, value=neg), ksize, strides)
+    flat = torch.arange(math.prod(spatial), device=x.device).reshape(
+        (1, 1) + spatial)
+    ip = _windows(F.pad(flat, width, value=-1), ksize, strides)
+    arg = torch.argmax(xp, dim=-1, keepdim=True)
+    idx = torch.gather(ip.expand(xp.shape[:2] + ip.shape[2:]), -1, arg)
+    return {"Out": [torch.amax(xp, dim=-1)],
+            "Mask": [idx[..., 0].to(torch.int32)]}
+
+
+@register_op("max_pool2d_with_index", non_diff_outputs=("Mask",))
+def max_pool2d_with_index(ctx, ins, attrs):
+    """NCHW max pool with the flat h·W + w position of each maximum (the
+    Indices input of ``unpool``)."""
+    return _max_pool_with_index(ins["X"][0], attrs, 2)
+
+
+@register_op("max_pool3d_with_index", non_diff_outputs=("Mask",))
+def max_pool3d_with_index(ctx, ins, attrs):
+    """NCDHW max pool with the flat d·H·W + h·W + w position of each
+    maximum."""
+    return _max_pool_with_index(ins["X"][0], attrs, 3)
+
+
+@register_op("unpool", non_diff_inputs=("Indices",))
+def unpool(ctx, ins, attrs):
+    """Max unpooling: each pooled value of X [N, C, h, w] goes to the flat
+    position its Indices name in a zero [N, C, OH, OW] (`output_size`,
+    else (h − 1)·s + k); a position outside it (the −1 of a window wholly
+    in padding) is dropped."""
+    x = ins["X"][0]
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", ksize))
+    n, c, h, w = x.shape
+    if attrs.get("output_size"):
+        oh, ow = _pair(attrs["output_size"])
+    else:
+        oh = (h - 1) * strides[0] + ksize[0]
+        ow = (w - 1) * strides[1] + ksize[1]
+    vals = x.reshape(n * c, h * w)
+    idx = ins["Indices"][0].reshape(n * c, h * w).long()
+    # an extra last column takes the dropped positions
+    idx = torch.where((idx < 0) | (idx >= oh * ow), oh * ow, idx)
+    out = torch.zeros(n * c, oh * ow + 1, dtype=x.dtype,
+                      device=x.device).scatter(1, idx, vals)
+    return {"Out": [out[:, :-1].reshape(n, c, oh, ow)]}
+
+
+@register_op("spp")
+def spp(ctx, ins, attrs):
+    """Spatial pyramid pooling: for each level l < pyramid_height a 2^l ×
+    2^l grid of max or average pools over NCHW, flattened and joined."""
+    x = ins["X"][0]
+    levels = int(attrs.get("pyramid_height", 2))
+    ptype = attrs.get("pooling_type", "max").lower()
+    n, c, hh, ww = x.shape
+    outs = []
+    for lvl in range(levels):
+        bins = 2 ** lvl
+        rows = []
+        for bi in range(bins):
+            h0 = (bi * hh) // bins
+            h1 = max(((bi + 1) * hh + bins - 1) // bins, h0 + 1)
+            cols = []
+            for bj in range(bins):
+                w0 = (bj * ww) // bins
+                w1 = max(((bj + 1) * ww + bins - 1) // bins, w0 + 1)
+                cell = x[:, :, h0:h1, w0:w1]
+                cols.append(torch.amax(cell, dim=(2, 3)) if ptype == "max"
+                            else torch.mean(cell, dim=(2, 3)))
+            rows.append(torch.stack(cols, dim=-1))
+        outs.append(torch.stack(rows, dim=-2).reshape(n, c * bins * bins))
+    return {"Out": [torch.cat(outs, dim=1)]}
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(ctx, ins, attrs):
+    """Bilinear resampling of NCHW maps to out_h × out_w with
+    align-corners ratios (in − 1)/(out − 1), computed in f32."""
+    x = ins["X"][0]
+    out_h, out_w = int(attrs["out_h"]), int(attrs["out_w"])
+    _, _, hh, ww = x.shape
+
+    def axis_coords(out_n, in_n):
+        r = (in_n - 1) / (out_n - 1) if out_n > 1 else 0.0
+        pos = torch.arange(out_n, dtype=torch.float32, device=x.device) * r
+        lo = torch.floor(pos).long()
+        hi = torch.clamp(lo + 1, max=in_n - 1)
+        return lo, hi, pos - lo.to(torch.float32)
+
+    h0, h1, fh = axis_coords(out_h, hh)
+    w0, w1, fw = axis_coords(out_w, ww)
+    f32 = x.to(torch.float32)
+    row = (f32[:, :, h0, :] * (1 - fh)[None, None, :, None]
+           + f32[:, :, h1, :] * fh[None, None, :, None])
+    out = (row[:, :, :, w0] * (1 - fw)[None, None, None, :]
+           + row[:, :, :, w1] * fw[None, None, None, :])
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("scale_sub_region", non_diff_inputs=("Indices",))
+def scale_sub_region(ctx, ins, attrs):
+    """X [N, C, H, W] with a box of each sample times `value`: Indices [N,
+    6] holds its 1-based inclusive [c0, c1, h0, h1, w0, w1]."""
+    x = ins["X"][0]
+    idx = ins["Indices"][0].long()
+    value = float(attrs.get("value", 1.0))
+    _, c, hh, ww = x.shape
+
+    def in_range(n, lo, hi):
+        pos = torch.arange(n, device=x.device)[None, :]
+        return (pos >= (lo - 1)[:, None]) & (pos <= (hi - 1)[:, None])
+
+    m = (in_range(c, idx[:, 0], idx[:, 1])[:, :, None, None]
+         & in_range(hh, idx[:, 2], idx[:, 3])[:, None, :, None]
+         & in_range(ww, idx[:, 4], idx[:, 5])[:, None, None, :])
+    return {"Out": [torch.where(m, x * value, x)]}
+
+
+@register_op("conv_shift")
+def conv_shift(ctx, ins, attrs):
+    """Circular convolution: Out[b, i] = sum_j X[b, (i + j − N//2) mod M]
+    · Y[b, j] for X [B, M], Y [B, N]."""
+    x, y = ins["X"][0], ins["Y"][0]
+    n = y.shape[1]
+    half = n // 2
+    return {"Out": [sum(torch.roll(x, half - j, dims=1) * y[:, j:j + 1]
+                        for j in range(n))]}
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product(ctx, ins, attrs):
+    """Out[b, o] = X[b] · Weight[o] · Y[b] (+ Bias[o])."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        out = out + ins["Bias"][0]
+    return {"Out": [out]}
+
+
+@register_op("factorization_machine")
+def factorization_machine(ctx, ins, attrs):
+    """The second-order interaction term 0.5·sum_k [(X·V_k)² − X²·V_k²] of
+    Input [B, D] and Factors [D, K], as [B, 1]."""
+    x, v = ins["Input"][0], ins["Factors"][0]
+    xv = x @ v
+    x2v2 = (x * x) @ (v * v)
+    return {"Out": [0.5 * torch.sum(xv * xv - x2v2, dim=1, keepdim=True)]}
+
+
+@register_op("selective_fc", non_diff_inputs=("Mask",))
+def selective_fc(ctx, ins, attrs):
+    """X·W (+ Bias) with the columns a nonzero Mask does not select set to
+    0 (the full product, then the mask, as the JAX emitter)."""
+    out = ins["X"][0] @ ins["W"][0]
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        out = out + ins["Bias"][0].reshape(1, -1)
+    if ins.get("Mask") and ins["Mask"][0] is not None:
+        out = out * (ins["Mask"][0] != 0)
+    return {"Out": [out]}
+
 # analytic cost formulas (analysis/cost.py; mechanism in registry.py)
 
 from .registry import register_cost  # noqa: E402
@@ -305,9 +548,8 @@ def _conv_cost(ins, outs, attrs):
     return {"flops": 2 * out.size * k_spatial * cin_per_group}
 
 
-# depthwise_conv2d, conv3d and conv3d_transpose take the same formula
-# when their ops are ported (ROADMAP.md Queue A item 7)
-for _t in ("conv2d", "conv2d_transpose"):
+for _t in ("conv2d", "depthwise_conv2d", "conv2d_transpose", "conv3d",
+           "conv3d_transpose"):
     register_cost(_t, _conv_cost)
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Tensor ops, the port of the part of ``paddle_tpu/ops/tensor_ops.py``
-that the startup program, the LM tower, the recurrent models and ResNet
-use: fill_constant, uniform_random, gaussian_random, assign, cast, concat,
-split, reshape, transpose, slice, lookup_table, top_k, the training
-options' print, increment and pruning_mask, generation's
-fill_constant_batch_size_like, assign_value, unsqueeze and beam_gather,
-and the sequence API's shape, gather and arg_sort.
+"""Tensor ops, the port of ``paddle_tpu/ops/tensor_ops.py``:
+fill_constant, fill_zeros_like, uniform_random, gaussian_random,
+truncated_gaussian_random, assign, cast, concat, split, reshape,
+transpose, squeeze, unsqueeze, expand, pad, crop, reverse, slice,
+lookup_table, top_k, arg_max, one_hot, multiplex, scatter, sequence_mask,
+sampling_id, the training options' print, increment and pruning_mask,
+generation's fill_constant_batch_size_like, assign_value and beam_gather,
+the sequence API's shape, gather and arg_sort, and the host I/O ops save
+and load.
 Random ops draw from the context's per-op generator, on the context's
 device.  Shape ops may return views of
 their input; no emitter writes into an input.  ``print`` reads its tensor
@@ -13,9 +15,13 @@ on the host, so a block holding it never rides a captured step loop
 
 from __future__ import annotations
 
+import math
+import os
+
+import numpy as np
 import torch
 
-from ..framework.core import torch_dtype
+from ..framework.core import np_dtype, torch_dtype
 from ..framework.scope import to_numpy
 from .registry import register_op
 
@@ -277,6 +283,173 @@ def pruning_mask(ctx, ins, attrs):
     mask = torch.zeros(n, dtype=torch.float32, device=x.device)
     mask[order[k:]] = 1.0
     return {"Out": [mask.reshape(x.shape)]}
+
+@register_op("fill_zeros_like", grad=None)
+def fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+_SQRT2 = math.sqrt(2.0)
+
+
+@register_op("truncated_gaussian_random", grad=None, draws_rng=True)
+def truncated_gaussian_random(ctx, ins, attrs):
+    """mean + std·x, x standard normal truncated to [−2, 2] (the
+    reference op's bounds), drawn by inverting the normal CDF of a
+    uniform over [Φ(−2), Φ(2)] from the op's generator."""
+    dt = torch_dtype(attrs.get("dtype", "float32"))
+    mean = float(attrs.get("mean", 0.0))
+    std = float(attrs.get("std", 1.0))
+    edge = math.erf(2.0 / _SQRT2)
+    u = torch.empty(_shape(attrs), dtype=torch.float32, device=ctx.device)
+    u.uniform_(-edge, edge, generator=ctx.generator(attrs))
+    x = torch.clamp(torch.erfinv(u) * _SQRT2, -2.0, 2.0)
+    return {"Out": [(mean + std * x).to(dt)]}
+
+
+@register_op("squeeze")
+def squeeze(ctx, ins, attrs):
+    """Drop the size-1 `axes` (all size-1 axes when none are given); an
+    axis of another size raises, as ``jnp.squeeze`` does."""
+    x = ins["X"][0]
+    axes = tuple(int(a) % x.ndim for a in attrs.get("axes", ()))
+    if not axes:
+        return {"Out": [x.squeeze()]}
+    bad = [a for a in axes if x.shape[a] != 1]
+    if bad:
+        raise ValueError(f"squeeze: axes {bad} of shape {tuple(x.shape)} "
+                         "are not of size 1")
+    return {"Out": [x.squeeze(axes)]}
+
+
+@register_op("expand")
+def expand(ctx, ins, attrs):
+    """``jnp.tile`` by `expand_times`."""
+    return {"Out": [torch.tile(ins["X"][0],
+                               [int(t) for t in attrs["expand_times"]])]}
+
+
+@register_op("pad")
+def pad(ctx, ins, attrs):
+    """Constant padding by the flat [lo0, hi0, lo1, hi1, ...] `paddings`
+    (``F.pad`` takes the last axis first)."""
+    x = ins["X"][0]
+    p = [int(v) for v in attrs["paddings"]]
+    width = []
+    for i in reversed(range(x.ndim)):
+        width += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(
+        x, width, value=float(attrs.get("pad_value", 0.0)))]}
+
+
+@register_op("crop")
+def crop(ctx, ins, attrs):
+    """X[offsets : offsets + shape] on every axis; an extent of −1 keeps
+    the rest of the axis."""
+    x = ins["X"][0]
+    idx = tuple(slice(int(o), None if int(n) == -1 else int(o) + int(n))
+                for o, n in zip(attrs["offsets"], attrs["shape"]))
+    return {"Out": [x[idx]]}
+
+
+@register_op("reverse")
+def reverse(ctx, ins, attrs):
+    """Flip along `axis` (an int or a list)."""
+    axes = attrs.get("axis", [0])
+    axes = axes if isinstance(axes, (list, tuple)) else [axes]
+    return {"Out": [torch.flip(ins["X"][0], [int(a) for a in axes])]}
+
+
+@register_op("sampling_id", grad=None, draws_rng=True)
+def sampling_id(ctx, ins, attrs):
+    """One int64 id a row of the probabilities X [B, C], drawn as
+    ``jax.random.categorical`` draws it: the argmax of log(max(X, 1e-30))
+    plus Gumbel noise from the op's generator."""
+    x = ins["X"][0]
+    logp = torch.log(torch.clamp(x.to(torch.float32), min=1e-30))
+    u = torch.rand(logp.shape, generator=ctx.generator(attrs),
+                   device=logp.device)
+    gumbel = -torch.log(-torch.log(u))
+    return {"Out": [torch.argmax(logp + gumbel, dim=-1).to(torch.int64)]}
+
+
+@register_op("scatter", non_diff_inputs=("Ids",))
+def scatter(ctx, ins, attrs):
+    """X with its rows Ids replaced by Updates (a new tensor)."""
+    x, ids, updates = ins["X"][0], ins["Ids"][0], ins["Updates"][0]
+    return {"Out": [x.index_put((ids.long(),), updates.to(x.dtype))]}
+
+
+@register_op("sequence_mask", grad=None)
+def sequence_mask(ctx, ins, attrs):
+    """Lengths [N] → mask [N, maxlen] in `out_dtype` (f32 by default)."""
+    lengths = ins["X"][0]
+    maxlen = int(attrs["maxlen"])
+    dt = torch_dtype(attrs.get("out_dtype", "float32"))
+    steps = torch.arange(maxlen, device=lengths.device)
+    return {"Y": [(steps[None, :] < lengths[:, None]).to(dt)]}
+
+
+@register_op("multiplex", non_diff_inputs=("Ids",))
+def multiplex(ctx, ins, attrs):
+    """Row b of the output is row b of candidate X[Ids[b]]."""
+    ids = ins["Ids"][0].reshape(-1).long()
+    stacked = torch.stack(ins["X"], dim=0)
+    return {"Out": [stacked[ids, torch.arange(ids.shape[0],
+                                              device=ids.device)]]}
+
+
+@register_op("one_hot", grad=None)
+def one_hot(ctx, ins, attrs):
+    """f32 [N, depth] rows of X's ids (an id outside [0, depth) gives a
+    row of zeros, as ``jax.nn.one_hot``)."""
+    x = ins["X"][0].reshape(-1).long()
+    depth = int(attrs["depth"])
+    cls = torch.arange(depth, device=x.device)
+    return {"Out": [(x[:, None] == cls[None, :]).to(torch.float32)]}
+
+
+@register_op("arg_max", grad=None)
+def arg_max(ctx, ins, attrs):
+    """int64 index of the maximum along `axis`; among equal maxima the
+    lowest index, as XLA's argmax (``torch.argmax`` returns the first)."""
+    return {"Out": [torch.argmax(ins["X"][0], dim=int(attrs.get("axis", -1)))
+                    .to(torch.int64)]}
+
+
+@register_op("save", grad=None)
+def save_op(ctx, ins, attrs):
+    """Write X to `file_path` in numpy's ``.npy`` layout, through a file
+    object so that no ``.npy`` is appended to the path (the JAX
+    package's executor writes its save ops so, after the step; the port
+    runs eagerly and writes here).  An existing file with ``overwrite``
+    false raises.  A shape-only (meta) walk writes nothing."""
+    x = ins["X"][0]
+    if x.device.type == "meta":
+        return {}
+    path = str(attrs["file_path"])
+    if os.path.exists(path) and not bool(attrs.get("overwrite", True)):
+        raise IOError(f"save op: {path!r} exists and overwrite=False "
+                      "(save_op.cc semantics)")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        np.save(f, to_numpy(x), allow_pickle=False)
+    return {}
+
+
+@register_op("load", grad=None)
+def load_op(ctx, ins, attrs):
+    """The array of `file_path` (a ``.npy`` layout, as ``save`` writes
+    it), cast to `dtype` when given, on the context's device."""
+    with open(str(attrs["file_path"]), "rb") as f:
+        arr = np.load(f, allow_pickle=False)
+    if attrs.get("dtype"):
+        arr = arr.astype(np_dtype(attrs["dtype"]), copy=False)
+        out = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            torch_dtype(attrs["dtype"]))
+    else:
+        out = torch.from_numpy(np.ascontiguousarray(arr))
+    return {"Out": [out.to(ctx.device)]}
 
 # analytic cost formula (analysis/cost.py; mechanism in registry.py)
 

@@ -21,6 +21,8 @@
   relative and step-1 gradients within 1e-5 of max |g|; its greedy decode
   (``top_k`` → ``ctc_align`` → ``edit_distance``) equal to JAX's."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -232,20 +234,24 @@ def test_nce_gradient_matches_jax_grad_in_float64(monkeypatch):
 
 
 def test_registry_holds_the_new_ops_as_jax_does():
-    for op in NEW_OPS:
+    assert set(NEW_OPS) <= set(treg.registered_ops())
+    for op in jreg.registered_ops():
         ti, ji = treg.get_op_info(op), jreg.get_op_info(op)
         assert (ti.grad is None) == (ji.grad is None), op
         assert ti.non_diff_inputs == ji.non_diff_inputs, op
         assert ti.non_diff_outputs == ji.non_diff_outputs, op
+        # an op draws from the generator where JAX's draws from ctx.rng
+        assert ti.draws_rng == ("ctx.rng(" in inspect.getsource(ji.emit)), op
     assert treg.get_op_info("nce").draws_rng
     assert treg.get_op_info("warpctc").unwritten_outputs == ("WarpCTCGrad",)
     assert treg.get_op_info("roi_pool").unwritten_outputs == ("Argmax",)
     assert [op for op in treg.registered_ops()
             if treg.get_op_info(op).unwritten_outputs] == ["roi_pool",
                                                            "warpctc"]
-    # 173 after the CTC slice; the mesh slice added moe and pipeline_stage
-    assert len(treg.registered_ops()) == 175
-    assert set(treg.registered_ops()) <= set(jreg.registered_ops())
+    # 173 after the CTC slice, 175 with moe and pipeline_stage; every op
+    # type of the JAX package since the last 48
+    assert len(treg.registered_ops()) == 223
+    assert treg.registered_ops() == jreg.registered_ops()
 
 
 # -- WarpCTCGrad and path (b) -------------------------------------------------

@@ -244,4 +244,4 @@ def test_unregistered_op_raises_key_error():
     from paddle_tpu_torch.ops.registry import get_op_info
 
     with pytest.raises(KeyError, match="no torch emitter"):
-        get_op_info("hsigmoid")
+        get_op_info("no_such_op")

@@ -7,10 +7,11 @@ CPU.
   every block and the same parameter shapes), has its expected op types,
   and survives the port's ProgramDef round trip (``framework/proto_io``)
   with its op types unchanged.
-- The v1 layers of ``tests/test_v1_layers_full.py`` whose op types the
-  port has, built by the same code in both packages: the JAX startup's
-  values carried into the port by name, the same numpy feeds, every fetch
-  within 1e-5 (relative to its max |value|; integer outputs exact)."""
+- The v1 layers of ``tests/test_v1_layers_full.py`` and
+  ``tests/test_v1_api.py`` (all but ``sampling_id_layer``, which draws),
+  built by the same code in both packages: the JAX startup's values
+  carried into the port by name, the same numpy feeds, every fetch within
+  1e-5 (relative to its max |value|; integer outputs exact)."""
 
 from types import SimpleNamespace
 
@@ -786,6 +787,141 @@ def lay_lstmemory_group_adam_steps(p):
     feeds = _seqs(p, "lgx", seqs)
     feeds["lgy"] = np.array([[s.sum() > 0] for s in seqs], np.float32)
     return [cost, pooled], feeds
+
+
+def lay_image_reshaping_and_norms(p):
+    """pad, crop, reverse (rotate), bilinear_interp, maxout, prelu and the
+    SSD norm with its scale."""
+    v1, act = p.v1, p.act
+    img = v1.data_layer("irimg", size=2 * 4 * 4, height=4, width=4)
+    padded = v1.pad_layer(img, pad_c=[1, 0], pad_h=[1, 1], pad_w=[0, 2])
+    conv = v1.img_conv_layer(img, filter_size=3, num_filters=4, padding=1,
+                             act=act.ReluActivation())
+    outs = [padded,
+            v1.crop_layer(padded, offset=[1, 1], shape=[4, 4], axis=2),
+            v1.rotate_layer(img, height=4, width=4),
+            v1.bilinear_interp_layer(conv, out_size_x=7, out_size_y=5),
+            v1.maxout_layer(conv, groups=2), v1.prelu_layer(img),
+            v1.cross_channel_norm_layer(img)]
+    x = _rand(40, 3, 2, 4, 4) - 0.5
+    x[0, 0, 0, :2] = 0.0
+    return outs, {"irimg": x}
+
+
+def lay_pyramid_and_volumes(p):
+    """spp, conv3d, conv3d_transpose and pool3d."""
+    v1 = p.v1
+    img = v1.data_layer("pvimg", size=2 * 5 * 6, height=5, width=6)
+    vol = p.fluid.layers.data("pvvol", shape=[2, 4, 4, 4], dtype="float32")
+    lo = v1.LayerOutput(vol, "data", size=128)
+    c3 = v1.img_conv3d_layer(lo, filter_size=3, num_filters=3, padding=1)
+    outs = [v1.spp_layer(img, pyramid_height=3), c3,
+            v1.img_conv3d_layer(c3, filter_size=2, num_filters=2, stride=2,
+                                num_channels=3, trans=True),
+            v1.img_pool3d_layer(c3, pool_size=2, stride=2)]
+    return outs, {"pvimg": _rand(41, 2, 2, 5, 6),
+                  "pvvol": _rand(42, 2, 2, 4, 4, 4)}
+
+
+def lay_selection_and_distances(p):
+    """scale_sub_region, multiplex, row_l2_norm (norm), l2_distance
+    (squared_l2_distance), repeat (expand), conv_shift and tensor_layer
+    (bilinear_tensor_product)."""
+    v1 = p.v1
+    img = v1.data_layer("sdimg", size=2 * 3 * 3, height=3, width=3)
+    idx = v1.data_layer("sdidx", size=6)
+    ids = v1.data_layer("sdid", size=1, dtype="int64")
+    a = v1.data_layer("sda", size=5)
+    b = v1.data_layer("sdb", size=5)
+    c = v1.data_layer("sdc", size=3)
+    outs = [v1.scale_sub_region_layer(img, idx, value=3.0),
+            v1.multiplex_layer([ids, a, b]), v1.row_l2_norm_layer(a),
+            v1.l2_distance_layer(a, b),
+            v1.repeat_layer(a, 2, as_row_vector=True),
+            v1.repeat_layer(a, 3, as_row_vector=False),
+            v1.conv_shift_layer(a, c), v1.tensor_layer(a, b, size=3)]
+    return outs, {"sdimg": _rand(43, 2, 2, 3, 3),
+                  "sdidx": np.array([[1, 2, 1, 2, 2, 3], [2, 2, 3, 3, 1, 1]],
+                                    np.float32),
+                  "sdid": np.array([[1], [0]], np.int64),
+                  "sda": _rand(44, 2, 5), "sdb": _rand(45, 2, 5),
+                  "sdc": _rand(46, 2, 3)}
+
+
+def lay_costs(p):
+    """The v1 costs of the new op types: huber regression and
+    classification, rank, self-normalized cross entropy, smooth L1 and
+    LambdaRank."""
+    v1, act = p.v1, p.act
+    score = v1.data_layer("vc_sc", size=1)
+    lab01 = v1.data_layer("vc_lab", size=1)
+    left = v1.data_layer("vc_l", size=1)
+    right = v1.data_layer("vc_r", size=1)
+    probs = v1.fc_layer(v1.data_layer("vc_x", size=6), size=4,
+                        act=act.SoftmaxActivation())
+    ilab = v1.data_layer("vc_il", size=1, dtype="int64")
+    s = v1.data_layer("vc_s", size=1, seq=True)
+    rel = v1.data_layer("vc_rel", size=1, seq=True)
+    outs = [v1.huber_regression_cost(score, lab01, delta=0.5),
+            v1.huber_classification_cost(score, lab01),
+            v1.rank_cost(left, right, lab01),
+            v1.cross_entropy_with_selfnorm(probs, ilab),
+            v1.smooth_l1_cost(score, lab01),
+            v1.lambda_cost(s, rel, NDCG_num=3)]
+    feeds = {"vc_sc": np.array([[-1.5], [0.2], [0.9], [2.0]], np.float32),
+             "vc_lab": np.array([[1], [0], [1], [0]], np.float32),
+             "vc_l": _rand(47, 4, 1), "vc_r": _rand(48, 4, 1),
+             "vc_x": _rand(49, 4, 6),
+             "vc_il": np.array([[0], [3], [1], [2]], np.int64)}
+    rng = np.random.RandomState(50)
+    feeds.update(_seqs(p, "vc_s", [_rand(51, 5, 1), _rand(52, 3, 1),
+                                   _rand(53, 4, 1), _rand(54, 2, 1)]))
+    feeds.update(_seqs(p, "vc_rel", [
+        rng.randint(0, 3, (n, 1)).astype(np.float32) for n in (5, 3, 4, 2)]))
+    return outs, feeds
+
+
+def lay_cross_entropy_over_beam(p):
+    """The beam cost over kmax candidates, with a row shorter than the
+    beam (padded candidates leave the softmax) and a gold outside it."""
+    v1 = p.v1
+    scores = v1.data_layer("cb_sc", size=1, seq=True)
+    topk = v1.kmax_seq_score_layer(scores, beam_size=3)
+    gold = v1.data_layer("cb_gold", size=1, dtype="int64")
+    cost = v1.cross_entropy_over_beam(
+        v1.BeamInput(candidate_scores=scores, selected_candidates=topk,
+                     gold=gold))
+    feeds = _seqs(p, "cb_sc", [np.array([[0.5], [0.1], [3.0], [0.2]],
+                                        np.float32),
+                               np.array([[2.0], [1.0]], np.float32),
+                               np.array([[0.3], [0.9], [0.4], [0.8]],
+                                        np.float32)])
+    feeds["cb_gold"] = np.array([[2], [0], [2]], np.int64)
+    return [cost, topk], feeds
+
+
+def lay_hsigmoid_fm_selective_fc_adam_steps(p):
+    """hsigmoid, factorization_machine and selective_fc trained jointly:
+    three Adam steps, the fetched loss of each and the step-1 outputs."""
+    v1 = p.v1
+    p.v1_pkg.settings(learning_rate=5e-2,
+                      learning_method=p.v1_pkg.AdamOptimizer())
+    x = v1.data_layer("hfx", size=8)
+    label = v1.data_layer("hfl", size=1, dtype="int64")
+    sel = v1.data_layer("hfsel", size=5)
+    hcost = v1.hsigmoid(x, label, num_classes=6)
+    fm = v1.factorization_machine(x, factor_size=3)
+    sfc = v1.selective_fc_layer(x, size=5, select=sel)
+    fit = v1.mse_cost(v1.fc_layer(v1.concat_layer([fm, sfc]), size=1),
+                      v1.data_layer("hft", size=1))
+    joint = p.fluid.layers.elementwise_add(hcost.var, fit.var)
+    p.v1_pkg.optimizer_from_settings().minimize(joint)
+    rng = np.random.RandomState(5)
+    xs = rng.randn(6, 8).astype(np.float32)
+    mask = (rng.rand(6, 5) > 0.4).astype(np.float32)
+    return [joint, fm, sfc], {
+        "hfx": xs, "hfl": rng.randint(0, 6, (6, 1)).astype(np.int64),
+        "hfsel": mask, "hft": (xs[:, :1] * xs[:, 1:2]).astype(np.float32)}
 
 
 LAYERS = [v for k, v in sorted(globals().items()) if k.startswith("lay_")]
