@@ -525,13 +525,44 @@ non-zero and no result line is printed):
     to the program's LSTM and GRU op counts, with ms a step (median, min,
     max), samples a second, peak memory and the device busy share of a
     profiled step;
-43. summary.
+43. the v2 API and the RecordIO data plane (``paddle_tpu_torch/v2/``,
+    ``native/recordio``): (a) ``dataset.imdb.convert`` writes the imdb
+    splits as RecordIO shards through the native library (built with g++
+    into ``paddle_tpu_torch/_build/``); the train shards read back by the
+    library equal the Python codec's records, byte for byte, the Python
+    codec writes the same file bytes, and the records unpickle to
+    ``imdb.train()``'s samples in order; (b) the v2 book's
+    understand_sentiment ``stacked_lstm_net`` in the v2 idiom
+    (``models/book_chapters.py`` ``v2_sentiment_build``: ``layer.data``
+    of ``integer_value_sequence``, ``embedding``, ``fc``, ``lstmemory``
+    with every other one reversed, ``pooling`` with ``pooling.Max()``,
+    ``classification_cost``) at the book's widths (dictionary 5147, emb
+    128, hid 512, 3 LSTMs, batch 100), Adam 2e-3 with L2 decay 8e-4,
+    f32, through ``trainer.SGD``; (c) three iterations on the card
+    against three on an explicit-CPU ``SGD(place=CPUPlace())`` from one
+    state carried as a ``Parameters`` tar, fed by
+    ``reader.creator.recordio`` over the shards through ``paddle.batch``:
+    losses within 1e-4 relative, step-1 gradients within 1e-3 of max
+    |g|, 2 K7 and 1 K8 launches a step for each ``lstmemory``; (d) 2
+    warm-up and 10 timed iterations from the shards: ms a step, samples a
+    second, peak memory, launches a step, and a profiled step's busy
+    share and K7/K8 device ms (upper bounds, as in 42); (e) after (c),
+    the card's parameters through ``to_tar`` into the CPU program to the
+    bit, and ``paddle.infer`` on the card against the CPU's
+    probabilities (1e-4 of max; K7 once for each ``lstmemory``); (f)
+    one pass of
+    ``v2.master.client`` over the shards through a loopback
+    ``MasterServer``: every record once; (g) ``SequenceGenerator`` over
+    26(d)'s NMT ``generate`` graph on the card against an explicit-CPU
+    one by ``first_parting`` (scores 1e-4, ids equal up to the first f32
+    tie), K9 twice a call;
+44. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
 {...}, "router": {...}, "measurement": {...}, "parallel": {...},
-"distributed": {...}, "book": {...}}``
+"distributed": {...}, "book": {...}, "v2": {...}}``
 summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
@@ -540,23 +571,29 @@ prints no result.
 
 from __future__ import annotations
 
+import glob
+import io
 import json
 import os
+import pickle
 import runpy
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
+import paddle_tpu_torch.v2 as paddle_v2
 from paddle_tpu_torch.framework import executor as texecutor
 from paddle_tpu_torch.dataset import common as dataset_common
-from paddle_tpu_torch.dataset import conll05
+from paddle_tpu_torch.dataset import conll05, imdb
+from paddle_tpu_torch.distributed.master import MasterServer, MasterService
 from paddle_tpu_torch.framework import step_loop
 from paddle_tpu_torch import lod as lod_mod
 from paddle_tpu_torch.lod import LoDTensor, bucket_len
@@ -567,6 +604,9 @@ from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.models import zoo_bench as zb
 from paddle_tpu_torch.models.book_chapters import CHAPTERS
 from paddle_tpu_torch.models.book_chapters import batches as book_batches
+from paddle_tpu_torch.models.book_chapters import (V2_SENTIMENT,
+                                                   v2_sentiment_build)
+from paddle_tpu_torch.native import recordio
 from paddle_tpu_torch.ops.cuda_kernels import _common
 from paddle_tpu_torch.ops.cuda_kernels import bn_conv as bnc
 from paddle_tpu_torch.ops.cuda_kernels import bn_matmul as bnmm
@@ -8652,6 +8692,372 @@ def book_summary(book):
             "phase_s": book["phase_s"]}
 
 
+# -- 43. the v2 API and the RecordIO data plane ---------------------------------
+
+V2_FEEDING = {"word": 0, "label": 1}
+V2_PARITY, V2_WARM, V2_TIMED = 3, 2, 10
+V2_INFER_N = 16
+V2_PROFILED_IS = ("upper bounds: the profiler inflates the step it watches "
+                  "(PERF.md section 7)")
+
+
+def v2_shards_phase(tmp):
+    """43(a) ``imdb.convert`` writes the imdb splits as RecordIO shards
+    through the native library; the train shards read back by the library
+    equal the Python codec's records, the Python codec writes the same
+    bytes, and the records unpickle to the reader's samples in order."""
+    t0 = time.monotonic()
+    imdb.convert(tmp)
+    convert_s = time.monotonic() - t0
+    shards = sorted(glob.glob(os.path.join(tmp, "imdb_train-*")))
+    t0 = time.monotonic()
+    native = [list(recordio.read_records(p, use_native=True)) for p in shards]
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    python = [list(recordio.read_records(p, use_native=False))
+              for p in shards]
+    python_s = time.monotonic() - t0
+    if native != python:
+        raise AssertionError("RecordIO: the library's records differ from "
+                             "the Python codec's")
+    for p, recs in zip(shards, native):
+        with tempfile.NamedTemporaryFile(dir=tmp) as f:
+            with recordio.Writer(f.name, use_native=False) as w:
+                for r in recs:
+                    w.write(r)
+            with open(p, "rb") as a, open(f.name, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"RecordIO: {p} is not the bytes "
+                                         f"the Python codec writes")
+    samples = list(imdb.train(imdb.word_dict())())
+    got = [pickle.loads(r) for recs in native for r in recs]
+    if len(got) != len(samples) or any(
+            g[1] != s[1] or g[0].dtype != s[0].dtype
+            or not np.array_equal(g[0], s[0]) for g, s in zip(got, samples)):
+        raise AssertionError("RecordIO: the shards are not imdb.train()'s "
+                             "samples in order")
+    nbytes = sum(os.path.getsize(p) for p in shards)
+    res = {"shards": [os.path.basename(p) for p in shards],
+           "records": len(got), "bytes": nbytes,
+           "data_mode": dataset_common.data_mode("imdb"),
+           "library": os.path.basename(recordio.library_path()),
+           "convert_s": convert_s, "read_native_s": native_s,
+           "read_python_s": python_s,
+           "native_equals_python": True, "records_equal_samples": True}
+    log("v2_shards", res)
+    return shards, [r for recs in native for r in recs], res
+
+
+def v2_tar(params):
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    return buf.getvalue()
+
+
+def v2_trainer(place, scope, widths):
+    """The v2 book's stacked-LSTM net (``v2_sentiment_build``) in fresh
+    default programs, its ``trainer.SGD`` at `place` (None: the card) and
+    its startup run, all in `scope`."""
+    fluid.reset()
+    with fluid.scope_guard(scope):
+        cost, output, opt = v2_sentiment_build(paddle_v2, **widths)
+        fluid.default_startup_program().random_seed = SEED
+        tr = paddle_v2.trainer.SGD(cost=cost, update_equation=opt,
+                                   place=place)
+        tr._ensure_startup()
+    return tr, cost, output
+
+
+def v2_shard_batches(shards, bs, n):
+    """The first `n` batches of `bs` from ``reader.creator.recordio`` over
+    the shards, unpickled, through ``paddle.batch``."""
+    samples = fluid.reader.map_readers(
+        pickle.loads, fluid.reader.creator.recordio(shards))
+    return fluid.reader.firstn(paddle_v2.batch(samples, bs), n)
+
+
+def v2_train(tr, scope, batches):
+    """``tr.train`` over `batches` in `scope`, every kernel's launch count
+    set to 0 just before; per iteration (cost, metrics, launches, seconds
+    from BeginIteration to EndIteration, seconds since the previous
+    EndIteration or the call), and the counts just after."""
+    rows, mark = [], {}
+
+    def handler(e):
+        if isinstance(e, paddle_v2.event.BeginIteration):
+            mark["before"] = {k: f.launches for k, f in KERNELS.items()}
+            mark["begin"] = time.monotonic()
+        elif isinstance(e, paddle_v2.event.EndIteration):
+            now = time.monotonic()
+            rows.append((e.cost, e.metrics,
+                         {k: f.launches - mark["before"][k]
+                          for k, f in KERNELS.items()},
+                         now - mark["begin"], now - mark["end"]))
+            mark["end"] = now
+            if len(rows) == V2_WARM:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+
+    for k in KERNELS.values():
+        k.launches = 0
+    mark["end"] = time.monotonic()
+    with fluid.scope_guard(scope):
+        tr.train(batches, event_handler=handler, feeding=V2_FEEDING)
+    return rows, {name: k.launches for name, k in KERNELS.items()}
+
+
+def v2_sentiment_phase(shards, records, card_name, smi):
+    """43(b)-(e): the v2 book's stacked-LSTM net at the book's widths
+    (``V2_SENTIMENT["full"]``), f32, fed from the RecordIO shards; (e)
+    runs between (c) and (d), while the probabilities are not yet 0 or
+    1."""
+    w = V2_SENTIMENT["full"]
+    t0 = time.monotonic()
+    card_scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    card, cost, output = v2_trainer(None, card_scope, w)
+    want = book_launch_want(card.program)
+    if want != {"lstm_forward": 2 * w["stacked_num"],
+                "lstm_backward": w["stacked_num"]}:
+        raise AssertionError(f"v2 sentiment: {want} is not 2 K7 and 1 K8 "
+                             f"for each of the {w['stacked_num']} lstmemory")
+    start = v2_tar(card.parameters)
+    cpu, cpu_cost, cpu_output = v2_trainer(fluid.CPUPlace(), cpu_scope, w)
+    cpu.parameters.from_tar(io.BytesIO(start))
+    if v2_tar(cpu.parameters) != start:
+        raise AssertionError("v2 sentiment: the card's tar did not load "
+                             "into the CPU trainer to the bit")
+    setup_s = time.monotonic() - t0
+    names = card.parameters.names()
+    # (c) three iterations, card against CPU, from the tar's state
+    for tr in (card, cpu):
+        tr.extra_layers = [tr.program.global_block().var(n + "@GRAD")
+                           for n in names]
+    parity = v2_shard_batches(shards, w["bs"], V2_PARITY)
+    g_rows, g_total = v2_train(card, card_scope, parity)
+    t0 = time.monotonic()
+    c_rows, _ = v2_train(cpu, cpu_scope, parity)
+    cpu_s = time.monotonic() - t0
+    for tr in (card, cpu):
+        tr.extra_layers = []
+    loss_rel = max(abs(g[0] - c[0]) / abs(c[0])
+                   for g, c in zip(g_rows, c_rows))
+    grad_rel = {n: float(np.abs(g_rows[0][1][n + "@GRAD"]
+                                - c_rows[0][1][n + "@GRAD"]).max()
+                         / max(np.abs(c_rows[0][1][n + "@GRAD"]).max(),
+                               1e-30))
+                for n in names}
+    for r in g_rows:
+        check_launches("v2_sentiment_parity", r[2], want)
+    # (e) the card's parameters as a tar into the CPU program, and infer
+    # from them (after (c)'s three steps, before the losses saturate)
+    blob = v2_tar(card.parameters)
+    cpu.parameters.from_tar(io.BytesIO(blob))
+    bitwise = all(
+        np.array_equal(card.parameters.get(n).view(np.uint32),
+                       cpu.parameters.get(n).view(np.uint32))
+        and cpu_scope.find(n).device.type == "cpu" for n in names)
+    samples = [(pickle.loads(r)[0],) for r in records[:V2_INFER_N]]
+    with fluid.scope_guard(card_scope):
+        probs, infer_launches = counted(lambda: paddle_v2.infer(
+            output_layer=output, parameters=card.parameters, input=samples,
+            feeding={"word": 0}))
+    check_launches("v2_infer", infer_launches,
+                   {"lstm_forward": w["stacked_num"]})
+    with fluid.scope_guard(cpu_scope):
+        cpu_probs = paddle_v2.infer(
+            output_layer=cpu_output, parameters=cpu.parameters,
+            input=samples, feeding={"word": 0}, place=fluid.CPUPlace())
+    infer_err = float(np.abs(probs - cpu_probs).max()
+                      / np.abs(cpu_probs).max())
+    # (d) the timed run from the shards
+    timed = v2_shard_batches(shards, w["bs"], V2_WARM + V2_TIMED)
+    t_rows, t_total = v2_train(card, card_scope, timed)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(t_rows) != V2_WARM + V2_TIMED:
+        raise AssertionError(f"v2 sentiment: {len(t_rows)} iterations")
+    for r in t_rows:
+        check_launches("v2_sentiment", r[2], want)
+    check_launches("v2_sentiment_run", t_total,
+                   {k: (V2_WARM + V2_TIMED) * v for k, v in want.items()})
+    step_ms = [r[4] * 1e3 for r in t_rows[V2_WARM:]]
+    run_ms = [r[3] * 1e3 for r in t_rows[V2_WARM:]]
+    med = float(np.median(step_ms))
+    feeder = paddle_v2.DataFeeder(paddle_v2.Topology(cost).data_type(),
+                                  V2_FEEDING, program=card.program)
+    feed = feeder(next(iter(timed()))[:w["bs"]])
+    with fluid.scope_guard(card_scope):
+        prof = srl_profile(card.exe, card.program, [card.cost],
+                           [(feed, None)], kernels=BOOK_KERNELS["lstm"])
+    main = card.program.global_block()
+    res = {"card": card_name, "nvidia_smi": smi, "widths": w,
+           "dtype": "float32", "optimizer": "adam 2e-3, L2 decay 8e-4",
+           "params": sum(int(np.prod(p.shape))
+                         for p in main.all_parameters()),
+           "ops": len(main.ops), "lstm_ops": want["lstm_backward"],
+           "setup_s": setup_s, "cpu_3_steps_s": cpu_s,
+           "gpu_losses": [r[0] for r in g_rows],
+           "cpu_losses": [r[0] for r in c_rows],
+           "loss_rel_err": loss_rel, "grad_rel_err_step1": grad_rel,
+           "grad_rel_err_step1_max": max(grad_rel.values()),
+           "launches_per_step": t_rows[-1][2], "launches_want": want,
+           "launches_parity_run": g_total, "launches_timed_run": t_total,
+           "losses": [r[0] for r in t_rows], "step_ms_median": med,
+           "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+           "step_ms_each": step_ms,
+           "run_ms_median": float(np.median(run_ms)),
+           "samples_s": w["bs"] / (med / 1e3), "peak_mem_gb": peak,
+           **prof, "profiled_is": V2_PROFILED_IS,
+           "tar_bytes": len(blob), "tar_card_to_cpu_bitwise": bitwise,
+           "infer_n": V2_INFER_N, "infer_rel_err": infer_err,
+           "infer_prob_min": float(cpu_probs.min()),
+           "infer_launches": infer_launches}
+    log("v2_sentiment", res)
+    if (loss_rel > 1e-4 or max(grad_rel.values()) > 1e-3 or not bitwise
+            or infer_err > 1e-4 or not np.isfinite(res["losses"]).all()):
+        raise AssertionError(f"v2 sentiment: card and CPU disagree: {res}")
+    return res
+
+
+def v2_master_phase(shards, records):
+    """43(f) one pass of ``v2.master.client`` over the shards through a
+    loopback MasterServer: every record comes back once."""
+    srv = MasterServer(MasterService(timeout_s=30.0)).start()
+    try:
+        host, port = srv.addr
+        c = paddle_v2.master.client(f"{host}:{port}", 30)
+        c.set_dataset(shards)
+        c.paddle_start_get_records(0)
+        got = []
+        t0 = time.monotonic()
+        while True:
+            r, _ = c.next_record()
+            if r is None:
+                break
+            got.append(r)
+        wall = time.monotonic() - t0
+        c.release()
+    finally:
+        srv.stop()
+    res = {"tasks": len(shards), "records": len(got),
+           "each_once": Counter(got) == Counter(records), "wall_s": wall}
+    log("v2_master", res)
+    if not res["each_once"]:
+        raise AssertionError(f"v2 master: not every record once: {res}")
+    return res
+
+
+def v2_beam_phase():
+    """43(g) ``SequenceGenerator`` over phase 26(d)'s NMT ``generate``
+    graph (dictionaries 30000, widths 512, batch 8, ragged source up to
+    64, beam 4, 16 steps) on the card against an explicit-CPU one, held
+    by ``first_parting`` (scores within 1e-4; ids, and so lengths, equal
+    up to the first f32 tie); K9 twice a call."""
+    fluid.reset()
+    progs = {}
+
+    def programs(n):
+        if n not in progs:
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                gen, _, _ = rnn_bench.nmt_generate_programs(
+                    seq_len=NMT_GEN_SRC, beam_size=NMT_GEN_BEAM, max_len=n)
+            progs[n] = (main, startup, gen)
+        return progs[n]
+
+    main, startup, gen = programs(NMT_GEN_LEN)
+    startup.random_seed = SEED
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    state = {n: fluid.global_scope().find_np(n)
+             for n, v in main.global_block().vars.items() if v.persistable}
+    cpu_sc = fluid.Scope()
+    fluid.load_persistables(main, state, cpu_sc)
+    nf = rnn_bench.nmt_feed(NMT_GEN_BS, NMT_GEN_SRC)
+    feed = {"src": nf["src"], "src@LENGTH": nf["src@LENGTH"]}
+
+    def generator(n, place):
+        m, _, (ids, scores, lengths) = programs(n)
+        return paddle_v2.SequenceGenerator(ids, scores, lengths, program=m,
+                                           place=place)
+
+    card_gen = generator(NMT_GEN_LEN, None)
+    card_gen(feed)
+    t0 = time.monotonic()
+    hyps, launches = counted(lambda: card_gen(feed))
+    wall = time.monotonic() - t0
+    check_launches("v2_sequence_generator", launches, {"gru_forward": 2})
+
+    def arrays(rows, n):
+        ids = np.full((len(rows), NMT_GEN_BEAM, n), -1, np.int64)
+        scores = np.zeros((len(rows), NMT_GEN_BEAM), np.float64)
+        for b, row in enumerate(rows):
+            for j, (s, toks) in enumerate(row):
+                ids[b, j, :len(toks)] = toks
+                scores[b, j] = s
+        return ids, scores
+
+    def run(place):
+        def go(n):
+            if place is None:
+                return arrays(hyps if n == NMT_GEN_LEN
+                              else generator(n, None)(feed), n)
+            with fluid.scope_guard(cpu_sc):
+                return arrays(generator(n, place)(feed), n)
+        return go
+
+    vs_cpu = first_parting("v2 SequenceGenerator, card against CPU",
+                           run(None), run(fluid.CPUPlace()), NMT_GEN_LEN,
+                           1e-4)
+    res = {"bs": NMT_GEN_BS, "src": NMT_GEN_SRC, "beam": NMT_GEN_BEAM,
+           "max_len": NMT_GEN_LEN, "card_vs_cpu": vs_cpu,
+           "hypotheses_per_row": [len(r) for r in hyps],
+           "best_scores": [r[0][0] for r in hyps], "wall_ms": wall * 1e3,
+           "launches": launches}
+    log("v2_sequence_generator", res)
+    return res
+
+
+def v2_api_phase(dev, card_name, smi):
+    """Phase 43: (a) ``v2_shards_phase``, (b)-(e) ``v2_sentiment_phase``,
+    (f) ``v2_master_phase``, (g) ``v2_beam_phase``."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        shards, records, sh = v2_shards_phase(tmp)
+        sent = v2_sentiment_phase(shards, records, card_name, smi)
+        master = v2_master_phase(shards, records)
+    beam = v2_beam_phase()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    res = {"card": card_name, "nvidia_smi": smi, "shards": sh,
+           "sentiment": sent, "master": master, "beam": beam,
+           "phase_s": time.monotonic() - t0}
+    log("v2_api_phase", {"phase_s": res["phase_s"]})
+    return res
+
+
+def v2_api_summary(v2):
+    """Phase 43's numbers for the summary line."""
+    keys = ("widths", "params", "ops", "lstm_ops", "gpu_losses",
+            "cpu_losses", "loss_rel_err", "grad_rel_err_step1_max",
+            "losses", "step_ms_median", "step_ms_min", "step_ms_max",
+            "run_ms_median", "samples_s", "peak_mem_gb",
+            "launches_per_step", "launches_want", "device_busy_share",
+            "device_busy_ms_per_step", "device_kernels_per_step",
+            "k7_device_ms_per_step", "k8_device_ms_per_step", "profiled",
+            "profiled_is", "tar_card_to_cpu_bitwise", "infer_rel_err",
+            "infer_prob_min", "infer_launches")
+    s = v2["sentiment"]
+    return {"card": v2["card"], "nvidia_smi": v2["nvidia_smi"],
+            "shards": {k: v2["shards"][k] for k in (
+                "records", "bytes", "data_mode", "convert_s",
+                "read_native_s", "read_python_s", "native_equals_python",
+                "records_equal_samples")},
+            "sentiment_f32": {k: s[k] for k in keys if k in s},
+            "master": v2["master"],
+            "sequence_generator": {k: v2["beam"][k] for k in (
+                "card_vs_cpu", "wall_ms", "launches")},
+            "phase_s": v2["phase_s"]}
+
+
 def distributed_summary(dist):
     """Phase 41's numbers for the summary line."""
     keys = ("mesh", "n_micro", "positions", "losses", "single_losses",
@@ -8674,7 +9080,7 @@ def distributed_summary(dist):
         "host_services": dist["host_services"]}
 
 
-# -- 42. summary --------------------------------------------------------------
+# -- 44. summary --------------------------------------------------------------
 
 def summary_row(name, source, replaces, row, by_dtype, launches, by_path):
     return {"name": name, "route": "cuda", "source": source,
@@ -8802,6 +9208,7 @@ def main():
     par = parallel_phase(dev, name, smi)
     dist = distributed_phase(dev, name, smi)
     book = book_phase(dev, name, smi)
+    v2 = v2_api_phase(dev, name, smi)
     ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
                      for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
@@ -8867,7 +9274,11 @@ def main():
                "gpt_pserver_f32_3_steps":
                    dist["pserver_gpt_f32"]["launches"],
                **{f"book_{n}_f32_per_step": r["launches_per_step"]
-                  for n, r in book["chapters"].items()}}
+                  for n, r in book["chapters"].items()},
+               "v2_sentiment_f32_per_step":
+                   v2["sentiment"]["launches_per_step"],
+               "v2_sentiment_infer": v2["sentiment"]["infer_launches"],
+               "v2_sequence_generator": v2["beam"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -9236,7 +9647,8 @@ def main():
                       "router": router, "measurement": measurement,
                       "parallel": parallel_summary(par, name, smi),
                       "distributed": distributed_summary(dist),
-                      "book": book_summary(book)}),
+                      "book": book_summary(book),
+                      "v2": v2_api_summary(v2)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

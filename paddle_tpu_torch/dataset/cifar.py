@@ -88,3 +88,14 @@ def train100(n=4096):
 def test100(n=512):
     return _reader(n, 100, 1, "test100.pkl", CIFAR100_URL, CIFAR100_MD5,
                    "test", "fine_labels")
+
+
+def convert(path):
+    """Write all four splits as RecordIO shards (reference
+    v2/dataset/cifar.py:132)."""
+    from . import common
+
+    common.convert(path, train100(), 1000, "cifar_train100")
+    common.convert(path, test100(), 1000, "cifar_test100")
+    common.convert(path, train10(), 1000, "cifar_train10")
+    common.convert(path, test10(), 1000, "cifar_test10")

@@ -3,7 +3,9 @@ offline part: ``DATA_HOME``, the per-dataset mode and provenance records,
 the pickle cache readers, ``md5file``, ``synthetic_rng``, and ``local``,
 which finds a dataset file already in the cache: the md5-verified
 original, or a sliver of real data whose ``<file>.provenance`` sidecar
-pins its checksum (``sliver-md5: <hex>``).  ``download`` and ``fetch``
+pins its checksum (``sliver-md5: <hex>``), and ``convert`` and
+``recordio_task_loader``, which write a reader's samples as RecordIO
+shards and read a master task's shards back.  ``download`` and ``fetch``
 need a network and raise: they are not ported (ROADMAP.md Queue A item
 3)."""
 
@@ -115,3 +117,50 @@ def synthetic_rng(name: str, seed_base: int = 0):
 
     return np.random.RandomState(
         (zlib.crc32(name.encode()) % (2**31)) + seed_base)
+
+
+def convert(output_path, reader, line_count, name_prefix):
+    """Convert a reader's samples to RecordIO shard files
+    `<name_prefix>-00000`, `-00001`, ... under `output_path` — the bridge
+    from any python reader to the master's chunk-task dispatch
+    (reference v2/dataset/common.py:193: every dataset module exports a
+    convert() built on this).  Records are pickled samples written
+    through the native RecordIO writer (``native/recordio.py``), at most
+    `line_count` to a shard.
+
+    Returns the list of shard paths — pass it straight to
+    MasterClient.set_dataset for chunk dispatch, and read tasks back
+    with `recordio_task_loader` via distributed.master_reader."""
+    from ..native import recordio as rio
+
+    assert line_count >= 1
+    os.makedirs(output_path, exist_ok=True)
+    paths = []
+    lines = []
+
+    def flush():
+        p = os.path.join(output_path, f"{name_prefix}-{len(paths):05d}")
+        with rio.Writer(p) as w:
+            for l in lines:
+                w.write(pickle.dumps(l, protocol=pickle.HIGHEST_PROTOCOL))
+        paths.append(p)
+        lines.clear()
+
+    for sample in reader():
+        lines.append(sample)
+        if len(lines) >= line_count:
+            flush()
+    if lines or not paths:
+        flush()
+    return paths
+
+
+def recordio_task_loader(payload):
+    """Master-task loader over convert()'s shards: payload is a shard
+    path (or list of paths); yields the unpickled samples.  Plug into
+    distributed.master_reader(client, recordio_task_loader)."""
+    from ..native.recordio import read_records
+
+    for path in ([payload] if isinstance(payload, str) else payload):
+        for rec in read_records(path):
+            yield pickle.loads(rec)

@@ -211,3 +211,12 @@ def test(n=512):
 
 def train(n=2048):
     return _reader(n, 0, "train.pkl")
+
+
+def convert(path):
+    """Write the test split as RecordIO shards (reference
+    v2/dataset/conll05.py:198 — like the reference, conll05 ships only
+    its test split publicly)."""
+    from . import common
+
+    common.convert(path, test(), 1000, "conll05_test")

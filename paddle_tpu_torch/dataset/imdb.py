@@ -117,3 +117,13 @@ def train(word_idx=None, n=2048):
 
 def test(word_idx=None, n=512):
     return _reader(n, 1, "test.pkl", "test", word_idx)
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference
+    v2/dataset/imdb.py:163)."""
+    from . import common
+
+    w = word_dict()
+    common.convert(path, train(w), 1000, "imdb_train")
+    common.convert(path, test(w), 1000, "imdb_test")

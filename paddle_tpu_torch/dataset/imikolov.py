@@ -99,3 +99,13 @@ def train(word_idx=None, n=4096, gram=5):
 def test(word_idx=None, n=512, gram=5):
     return _reader(n, gram, 1, "test.pkl",
                    "./simple-examples/data/ptb.valid.txt", word_idx)
+
+
+def convert(path):
+    """Write train/test 5-gram streams as RecordIO shards (reference
+    v2/dataset/imikolov.py:143)."""
+    from . import common
+
+    word_idx = build_dict()
+    common.convert(path, train(word_idx, gram=5), 1000, "imikolov_train")
+    common.convert(path, test(word_idx, gram=5), 1000, "imikolov_test")

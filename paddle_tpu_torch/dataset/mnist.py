@@ -90,3 +90,12 @@ def train(n=8192):
 
 def test(n=1024):
     return _reader(n, 1, TEST_IMAGE, TEST_LABEL, "test.pkl")
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference v2/dataset/mnist.py:118
+    — its "minist_*" prefix typo corrected here)."""
+    from . import common
+
+    common.convert(path, train(), 1000, "mnist_train")
+    common.convert(path, test(), 1000, "mnist_test")

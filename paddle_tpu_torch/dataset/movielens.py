@@ -151,3 +151,12 @@ def train(n=4096):
 
 def test(n=512):
     return _reader(n, 1, "test.pkl", "test")
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference
+    v2/dataset/movielens.py:237)."""
+    from . import common
+
+    common.convert(path, train(), 1000, "movielens_train")
+    common.convert(path, test(), 1000, "movielens_test")

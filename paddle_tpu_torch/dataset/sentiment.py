@@ -121,3 +121,12 @@ def train(n=1600):
 def test(n=400):
     return _reader(n, 1, "test.pkl", NUM_TRAINING_INSTANCES,
                    NUM_TOTAL_INSTANCES)
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference
+    v2/dataset/sentiment.py:128)."""
+    from . import common
+
+    common.convert(path, train(), 1000, "sentiment_train")
+    common.convert(path, test(), 1000, "sentiment_test")

@@ -61,3 +61,13 @@ def train(n=404):
 
 def test(n=102):
     return _reader(n, 1, "test")
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference
+    v2/dataset/uci_housing.py:129 — its "uci_houseing_test" prefix typo
+    corrected here)."""
+    from . import common
+
+    common.convert(path, train(), 1000, "uci_housing_train")
+    common.convert(path, test(), 1000, "uci_housing_test")

@@ -107,3 +107,13 @@ def train(dict_size=DICT_SIZE, n=2048):
 
 def test(dict_size=DICT_SIZE, n=256):
     return _reader(n, dict_size, 1, "test.pkl", "test/test")
+
+
+def convert(path):
+    """Write train/test as RecordIO shards (reference
+    v2/dataset/wmt14.py:152)."""
+    from . import common
+
+    dict_size = 30000
+    common.convert(path, train(dict_size), 1000, "wmt14_train")
+    common.convert(path, test(dict_size), 1000, "wmt14_test")

@@ -43,26 +43,39 @@ def _npy_path(dirname, name):
 
 
 def _save_value(path, value):
-    """One value as a ``.npy`` file; bfloat16 as its bits with the JAX
-    package's ``'<V2'`` header (the bytes ``np.save`` writes for an
-    ``ml_dtypes`` bfloat16 array)."""
+    """One value as a ``.npy`` file (``write_value``)."""
+    with open(path, "wb") as f:
+        write_value(f, value)
+
+
+def write_value(f, value):
+    """One value in ``.npy`` format to the binary file `f`; bfloat16 as its
+    bits with the JAX package's ``'<V2'`` header (the bytes ``np.save``
+    writes for an ``ml_dtypes`` bfloat16 array)."""
     if isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
         bits = value.detach().cpu().contiguous().view(torch.int16).numpy()
-        with open(path, "wb") as f:
-            np.lib.format.write_array_header_1_0(
-                f, {"descr": "<V2", "fortran_order": False,
-                    "shape": tuple(bits.shape)})
-            f.write(bits.tobytes())
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(bits.shape)})
+        f.write(bits.tobytes())
         return
     arr = to_numpy(value) if isinstance(value, torch.Tensor) \
         else np.asarray(value)
-    np.save(path, arr, allow_pickle=False)
+    np.save(f, arr, allow_pickle=False)
 
 
 def _load_value(path, declared: Optional[str], device) -> torch.Tensor:
-    """A ``.npy`` file as a tensor on `device` in the `declared` dtype
-    (the file's own when None)."""
-    arr = np.load(path, allow_pickle=False)
+    """A ``.npy`` file (a path or a binary file) as a tensor on `device`
+    in the `declared` dtype (the file's own when None)."""
+    return array_to_tensor(np.load(path, allow_pickle=False), declared,
+                           device)
+
+
+def array_to_tensor(arr, declared: Optional[str], device) -> torch.Tensor:
+    """A numpy array as a tensor on `device` in the `declared` dtype (the
+    array's own when None); two-byte voids (``|V2``), and ``<u2`` where
+    bfloat16 is declared, are bfloat16 bits."""
+    arr = np.asarray(arr)
     if (arr.dtype.kind == "V" and arr.dtype.itemsize == 2) or (
             declared == "bfloat16" and arr.dtype == np.dtype("<u2")):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)

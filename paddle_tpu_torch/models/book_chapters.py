@@ -34,6 +34,22 @@ the same desc from this code.
   ``rank_cost`` (``rank_loss``) over pairwise samples, every other pair
   swapped so both labels occur, and under the v1 ``lambda_cost``
   (``lambda_rank``, NDCG@5) over listwise ones; SGD 0.05.
+
+``v2_sentiment_build(paddle, ...)`` is the v2 book's understand_sentiment
+``stacked_lstm_net`` in the v2 idiom, built through the package's ``v2``
+API (`paddle` is ``paddle_tpu_torch.v2``, or in the parity tests the JAX
+package's): ``layer.data`` of ``integer_value_sequence(dict_size)``,
+``layer.embedding``, then `stacked_num` times an fc of `hid` (linear; from
+the second on over the ``layer.concat`` of the previous fc and LSTM) and
+an ``lstmemory`` of ``hid / 4`` (every other one reversed),
+``layer.pooling`` with ``pooling.Max()`` of the last fc and LSTM, an fc
+of 2 softmax and
+``layer.classification_cost``; Adam with L2 decay through the package's
+own ``regularizer``, trained by ``trainer.SGD``.  ``V2_SENTIMENT`` holds
+the book's widths (``full``) and narrow ones for the CPU (``small``).
+The book's dropout (``drop_rate`` 0.5), per-parameter learning rates and
+initial std are left out: the v1 ``lstmemory`` takes no ``layer_attr``,
+and the parity steps carry no dropout.
 """
 
 from __future__ import annotations
@@ -203,6 +219,48 @@ def lambda_rank_reader(fluid, n_queries=120, **_):
                    np.asarray(labels, np.float32).reshape(-1, 1))
 
     return reader
+
+
+# -- understand_sentiment, v2 API ---------------------------------------------
+
+V2_SENTIMENT = {
+    "full": {"dict_size": 5147, "emb": 128, "hid": 512, "stacked_num": 3,
+             "bs": 100},
+    "small": {"dict_size": 64, "emb": 16, "hid": 32, "stacked_num": 3,
+              "bs": 8},
+}
+
+
+def v2_sentiment_build(paddle, dict_size, emb, hid, stacked_num=3,
+                       lr=2e-3, l2=8e-4, **_):
+    """The v2 book's ``stacked_lstm_net`` (see the module docstring) in
+    the default programs; returns (cost, output, the optimizer), the
+    optimizer for ``paddle.trainer.SGD(update_equation=...)``."""
+    assert stacked_num % 2 == 1
+    root = import_module(paddle.__name__.rsplit(".", 1)[0])
+    linear = paddle.activation.Linear()
+    data = paddle.layer.data(
+        "word", paddle.data_type.integer_value_sequence(dict_size))
+    embedding = paddle.layer.embedding(input=data, size=emb)
+    fc = paddle.layer.fc(input=embedding, size=hid, act=linear)
+    lstm = paddle.layer.lstmemory(input=fc)
+    for i in range(2, stacked_num + 1):
+        # the book's fc over [fc, lstm], as one fc over their concat: the
+        # v1 fc of several sequences drops their lengths (ROADMAP Queue C)
+        fc = paddle.layer.fc(input=paddle.layer.concat(input=[fc, lstm]),
+                             size=hid, act=linear)
+        lstm = paddle.layer.lstmemory(input=fc, reverse=(i % 2) == 0)
+    fc_last = paddle.layer.pooling(input=fc,
+                                   pooling_type=paddle.pooling.Max())
+    lstm_last = paddle.layer.pooling(input=lstm,
+                                     pooling_type=paddle.pooling.Max())
+    output = paddle.layer.fc(input=[fc_last, lstm_last], size=2,
+                             act=paddle.activation.Softmax())
+    label = paddle.layer.data("label", paddle.data_type.integer_value(2))
+    cost = paddle.layer.classification_cost(input=output, label=label)
+    opt = paddle.optimizer.Adam(
+        learning_rate=lr, regularization=root.regularizer.L2Decay(l2))
+    return cost, output, opt
 
 
 # -- the table -------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Reader creators, the port's copy of ``paddle_tpu/reader/creator.py``
-(reference python/paddle/v2/reader/creator.py): np_array and text_file.
-``recordio`` needs the native RecordIO reader, which is not ported."""
+(reference python/paddle/v2/reader/creator.py): np_array, text_file and
+recordio (over ``native/recordio.py``)."""
 
 from __future__ import annotations
 
@@ -27,9 +27,19 @@ def text_file(path):
 
 
 def recordio(paths, buf_size=100):
-    """Creator over RecordIO file(s) (reference creator.py:57): it reads
-    through the JAX package's ``native/`` RecordIO reader, which the port
-    does not have."""
-    raise NotImplementedError(
-        "reader.creator.recordio: the native RecordIO reader (native/) is "
-        "not ported (ROADMAP.md Queue A item 12)")
+    """Creator over RecordIO file(s) (reference creator.py:57) — the native
+    chunked CRC format via paddle_tpu_torch.native.recordio.  Accepts a
+    list, a comma-separated string, and glob patterns (shard sets); records
+    stream through a background read-ahead buffer of `buf_size`."""
+    import glob as _glob
+
+    from ..native.recordio import recordio_reader
+    from .decorator import buffered
+
+    if isinstance(paths, str):
+        paths = paths.split(",")
+    expanded = []
+    for p in paths:
+        hits = sorted(_glob.glob(p))
+        expanded.extend(hits if hits else [p])
+    return buffered(recordio_reader(expanded), buf_size)

@@ -78,27 +78,13 @@ def compose(*readers, check_alignment=True):
 
 
 def buffered(reader, size):
-    """Producer-thread read-ahead (decorator.py:169)."""
-
-    end = object()
+    """Producer-thread read-ahead (decorator.py:169).  An exception in the
+    producer re-raises in the consumer (``produce``): a corrupt RecordIO
+    shard behind ``creator.recordio`` fails the read instead of ending the
+    stream early, as the JAX package's ``buffered`` does."""
 
     def reader_():
-        q = queue.Queue(maxsize=size)
-
-        def producer():
-            try:
-                for s in reader():
-                    q.put(s)
-            finally:
-                q.put(end)
-
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
-        while True:
-            s = q.get()
-            if s is end:
-                return
-            yield s
+        return produce(reader, size, "buffered")
 
     return reader_
 

@@ -106,6 +106,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.chaos\n"
         "import paddle_tpu_torch.distributed.launch\n"
         "import paddle_tpu_torch.distributed.cluster_launch\n"
+        "import paddle_tpu_torch.native.recordio\n"
+        "import paddle_tpu_torch.v2\n"
+        "import paddle_tpu_torch.v2.fluid\n"
+        "import paddle_tpu_torch.v2.image\n"
+        "import paddle_tpu_torch.v2.plot\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -202,7 +207,56 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("distributed", "service.py"),
             os.path.join("distributed", "chaos.py"),
             os.path.join("distributed", "launch.py"),
-            os.path.join("distributed", "cluster_launch.py")} <= scanned
+            os.path.join("distributed", "cluster_launch.py"),
+            os.path.join("native", "__init__.py"),
+            os.path.join("native", "recordio.py"),
+            *(os.path.join("v2", f"{m}.py") for m in V2_MODULES)} <= scanned
+
+
+V2_MODULES = ("__init__", "activation", "attr", "data_feeder", "data_type",
+              "evaluator", "event", "fluid", "image", "inference", "layer",
+              "master", "minibatch", "op", "parameters", "plot", "pooling",
+              "topology", "trainer")
+
+
+def test_v2_has_every_module_of_the_jax_v2():
+    jax_v2 = os.path.join(_REPO, "paddle_tpu", "v2")
+    assert sorted(f[:-3] for f in os.listdir(jax_v2) if f.endswith(".py")) \
+        == sorted(V2_MODULES)
+    assert all(os.path.exists(os.path.join(_PKG, "v2", f"{m}.py"))
+               for m in V2_MODULES)
+
+
+def test_v2_imports_without_pil_and_matplotlib():
+    """``image`` needs PIL and ``plot`` matplotlib only inside their
+    functions: with both blocked, ``paddle_tpu_torch.v2`` and its
+    ``fluid`` alias import, load neither, and a Ploter collects."""
+    code = (
+        "import sys, json\n"
+        "for m in ('PIL', 'PIL.Image', 'matplotlib', 'matplotlib.figure',\n"
+        "          'matplotlib.backends.backend_agg'):\n"
+        "    sys.modules[m] = None\n"
+        "import paddle_tpu_torch.v2 as paddle\n"
+        "import paddle_tpu_torch.v2.fluid\n"
+        "p = paddle.plot.Ploter('train')\n"
+        "p.append('train', 0, 1.0)\n"
+        "assert p.plot() is None\n"
+        "try:\n"
+        "    paddle.image.resize_short(__import__('numpy').zeros((4, 4, 3),"
+        " 'uint8'), 2)\n"
+        "    raise SystemExit('image ran without PIL')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def test_source_scan_pattern_is_word_bounded():

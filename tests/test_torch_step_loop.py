@@ -802,11 +802,17 @@ class TestReaders:
                     [list(map(int, x)) for x in got]
 
     def test_text_file_and_recordio(self, tmp_path):
+        from paddle_tpu_torch.native import recordio as trecordio
+
         p = tmp_path / "lines.txt"
         p.write_text("a\nb b\n\nc\n")
         assert list(tcreator.text_file(str(p))()) == ["a", "b b", "", "c"]
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            tcreator.recordio([str(p)])
+        shard = str(tmp_path / "lines.rio")
+        with trecordio.Writer(shard) as w:
+            for line in tcreator.text_file(str(p))():
+                w.write(line.encode())
+        assert list(tcreator.recordio([shard])()) == [b"a", b"b b", b"",
+                                                      b"c"]
 
 
 class TestDataFeeder:

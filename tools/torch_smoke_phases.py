@@ -5,6 +5,7 @@ against change.
     python3 tools/torch_smoke_phases.py measurement
     python3 tools/torch_smoke_phases.py parallel
     python3 tools/torch_smoke_phases.py book
+    python3 tools/torch_smoke_phases.py v2
     python3 tools/torch_smoke_phases.py v1_rnn generation --parent DIR
 
 Without ``--parent`` the phases run once in this process after the kernel
@@ -34,6 +35,7 @@ PHASES = {
     "measurement": "cs.measurement_phase(name, smi)",
     "parallel": "cs.parallel_phase(torch.device('cuda', 0), name, smi)",
     "book": "cs.book_phase(torch.device('cuda', 0), name, smi)",
+    "v2": "cs.v2_api_phase(torch.device('cuda', 0), name, smi)",
 }
 
 _RUN = r'''
