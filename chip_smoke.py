@@ -556,13 +556,46 @@ non-zero and no result line is printed):
     26(d)'s NMT ``generate`` graph on the card against an explicit-CPU
     one by ``first_parting`` (scores 1e-4, ids equal up to the first f32
     tie), K9 twice a call;
-44. summary.
+44. the deploy tier (``native/program_desc``, ``native/capi``,
+    ``capi_runtime``, ``compiler``, ``utils/``, ``net_drawer``, the CLI's
+    deploy subcommands): (a) the desc library, the C-API library and the
+    C demo (``native/capi_demo.c``) built with g++ into
+    ``paddle_tpu_torch/_build/``, each timed; (b) on the full-width GPT
+    training program (vocab 32000, dim 512, 8 layers, 8 heads, f32, seq
+    512) and its saved inference program: ``validate`` passes, ``stats``
+    equals the counts taken from the Program, ``prune(train, [logits])``
+    parses to ``io.prune``'s op list, ``text_dump`` is non-empty and the
+    same twice, and an undeclared input, the bytes cut in half and a
+    ``parent_idx`` cycle are refused with their diagnostics; (c)
+    ``save_inference_model`` of that GPT from one seeded state (feed
+    ``tokens``, fetch ``logits``; the save validates); (d) the C program,
+    a process of its own with no Python of its own, loads the model
+    through ``libpaddle_capi`` and runs tokens [4, 512] from
+    ``RandomState(0)`` on the card: its logits equal
+    ``load_inference_model`` + ``Executor.run``'s in this process to the
+    bit, and ``paddle_capi_shutdown`` returns 0; the in-process
+    ``InferenceEngine`` gives the same bits with K1 = 8 a run and no other
+    kernel, timed beside ``Executor.run`` (host ms, median (min–max) of
+    10 after 2 warm-up); (e) ``build_callable`` on the loaded program
+    equals ``Executor.run`` to the bit with K1 = 8, one call captured by
+    ``torch.cuda.graph`` and replayed equals the eager call to the bit
+    (eager and replayed ms), and ResNet-50 inference (``resnet_imagenet``
+    depth 50, class_dim 1000, f32, batch 8 x 3 x 224 x 224,
+    startup-initialised, TF32 off) through ``build_callable`` is within
+    1e-5 of max |logit| of ``Executor.run``'s, no port kernel launched;
+    (f) ``cli.main`` runs ``validate`` (OK), ``stats``, ``dump_config``,
+    ``show_pb`` and ``merge_model`` on the saved model, the merged bundle
+    loads and its forward equals (d)'s logits to the bit,
+    ``net_drawer.draw_graph`` gives a digraph; a bf16 fetch raises
+    TypeError through ``capi_runtime.output_dtype`` (the C ABI has no
+    bf16 code);
+45. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
 {...}, "router": {...}, "measurement": {...}, "parallel": {...},
-"distributed": {...}, "book": {...}, "v2": {...}}``
+"distributed": {...}, "book": {...}, "v2": {...}, "deploy": {...}}``
 summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
@@ -9034,6 +9067,378 @@ def v2_api_phase(dev, card_name, smi):
     return res
 
 
+# -- 44. the deploy tier: the desc library, the C API, build_callable ---------
+
+DEPLOY_BS, DEPLOY_SEQ = 4, 512  # the C program's tokens, [4, 512]
+DEPLOY_TIMED, DEPLOY_WARM = 10, 2
+RESNET_DEPLOY_BS = 8  # __graft_entry__.entry()'s example batch
+
+
+def equal_bits(a, b):
+    """Equal shapes and equal bytes (so -0.0 and NaN payloads count)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def host_ms(call, warm=DEPLOY_WARM, n=DEPLOY_TIMED):
+    """Host ms of `call` between device synchronizes: median, min, max of
+    `n` after `warm` warm-up calls."""
+    for _ in range(warm):
+        call()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(ts)), "min": min(ts), "max": max(ts)}
+
+
+def deploy_builds():
+    """(a) The desc library, the C-API library and the C demo, each timed."""
+    from paddle_tpu_torch.native import capi, program_desc
+
+    secs = {}
+    for name, fn in (("program_desc", program_desc.build_lib),
+                     ("capi", capi.build_lib), ("capi_demo", capi.build_demo)):
+        t0 = time.monotonic()
+        path = fn()
+        secs[name] = time.monotonic() - t0
+        if not os.path.exists(path):
+            raise AssertionError(f"deploy: {name} built no {path}")
+    log("deploy_build", secs)
+    return secs
+
+
+def desc_checks(main, logits, model_bytes):
+    """(b) The desc library on the full-width GPT training program and its
+    saved inference program: validate, stats against the Program's own
+    counts, prune against ``io.prune``, a stable text dump, and three
+    corruptions refused with their diagnostics."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.framework import proto_io
+    from paddle_tpu_torch.framework.core import Parameter
+    from paddle_tpu_torch.native import program_desc
+
+    train = proto_io.serialize_program(main)
+    res = {"train_bytes": len(train), "inference_bytes": len(model_bytes)}
+    for tag, data in (("train", train), ("inference", model_bytes)):
+        ok, diag = program_desc.validate(data)
+        if not ok:
+            raise AssertionError(f"deploy: the {tag} program is refused: "
+                                 f"{diag}")
+        prog = proto_io.parse_program(data)
+        blocks = prog.blocks
+        want = {"blocks": len(blocks),
+                "ops": sum(len(b.ops) for b in blocks),
+                "vars": sum(len(b.vars) for b in blocks),
+                "params": sum(isinstance(v, Parameter) for b in blocks
+                              for v in b.vars.values()),
+                "op_types": len({op.type for b in blocks for op in b.ops})}
+        stats = json.loads(program_desc.stats(data))
+        if stats != want:
+            raise AssertionError(f"deploy: {tag} stats {stats} != the "
+                                 f"program's {want}")
+        text = program_desc.text_dump(data)
+        if not text or program_desc.text_dump(data) != text:
+            raise AssertionError(f"deploy: the {tag} text dump is empty or "
+                                 f"unstable")
+        res[tag] = {**stats, "text_bytes": len(text)}
+    pruned = proto_io.parse_program(program_desc.prune(train, [logits.name]))
+    want_ops = [op.type for op in io.prune(main, [logits.name])
+                .global_block().ops]
+    if [op.type for op in pruned.global_block().ops] != want_ops:
+        raise AssertionError("deploy: the library's prune is not io.prune's")
+    res["pruned_ops"] = len(want_ops)
+    pdef = proto_io.program_to_proto(main)
+    pdef["blocks"][0]["ops"][0]["inputs"][0]["arguments"].append("ghost")
+    cyclic = proto_io.program_to_proto(main)
+    cyclic["blocks"] += [
+        {"idx": 1, "parent_idx": 2, "ops": [{"type": "mean", "inputs": [
+            {"name": "X", "arguments": ["undeclared_var"]}]}]},
+        {"idx": 2, "parent_idx": 1}]
+    for tag, data, want in (
+            ("undeclared", proto_io.encode("ProgramDef", pdef),
+             "input 'ghost' is undeclared"),
+            ("half", train[:len(train) // 2],
+             "parse error: bad ProgramDef bytes"),
+            ("cyclic_parent", proto_io.encode("ProgramDef", cyclic),
+             "input 'undeclared_var' is undeclared")):
+        ok, diag = program_desc.validate(data)
+        if ok or want not in diag:
+            raise AssertionError(f"deploy: corruption {tag} not refused "
+                                 f"as expected: {diag!r}")
+    res["corruptions_refused"] = 3
+    return res
+
+
+def cli_tools(m, merged):
+    """(f) ``cli.main`` on the saved model: validate, stats, dump_config,
+    show_pb, merge_model; their output sizes and the merge's seconds."""
+    import contextlib
+
+    from paddle_tpu_torch import cli
+
+    res = {}
+    for sub in ("validate", "stats", "dump_config", "show_pb",
+                "merge_model"):
+        argv = [sub, m] + ([merged] if sub == "merge_model" else [])
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        secs = time.monotonic() - t0
+        out = buf.getvalue()
+        if rc != 0 or not out:
+            raise AssertionError(f"deploy: cli {sub} exited {rc}")
+        res[sub] = {"rc": rc, "stdout_bytes": len(out), "s": secs}
+    if buf.getvalue() != merged + "\n":
+        raise AssertionError("deploy: merge_model printed another path")
+    res["validate"]["stdout"] = "OK"
+    res["merged_bytes"] = os.path.getsize(merged)
+    return res
+
+
+def capture_callable(fn, state, feeds, name):
+    """One call of `fn` captured by ``torch.cuda.graph`` after a warm-up
+    on a side stream; returns (graph, its static output, launches at
+    capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(state, feeds)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            return fn(state, feeds)[name]
+
+    out, launches = counted(capture)
+    return graph, out, launches
+
+
+def resnet_callable(dev):
+    """(e) ``__graft_entry__.entry()``'s counterpart: ResNet-50 inference
+    (depth 50, class_dim 1000, f32, startup-initialised, batch 8 of 3 x
+    224 x 224) through ``build_callable`` against ``Executor.run``'s
+    test-mode forward, TF32 off; cuDNN runs it, no port kernel."""
+    from paddle_tpu_torch import compiler
+    from paddle_tpu_torch.models import resnet
+
+    fluid.reset()
+    img = fluid.layers.data(name="image", shape=[3, 224, 224],
+                            dtype="float32")
+    logits = resnet.resnet_imagenet(img, class_dim=1000, depth=50)
+    infer = fluid.default_main_program().clone(for_test=True)
+    startup = fluid.default_startup_program()
+    startup.random_seed = SEED
+    exe = fluid.Executor()
+    exe.run(startup)
+    fn, state = compiler.build_callable(infer, [logits],
+                                        feed_names=["image"])
+    x = np.random.RandomState(0).randn(
+        RESNET_DEPLOY_BS, 3, 224, 224).astype(np.float32)
+    (want,), exe_launches = counted(lambda: exe.run(
+        infer, feed={"image": x}, fetch_list=[logits]))
+    xt = torch.from_numpy(x).to(dev)
+    got, fn_launches = counted(lambda: fn(state, {"image": xt})[logits.name])
+    no_launches("deploy resnet50 Executor.run", exe_launches)
+    no_launches("deploy resnet50 build_callable", fn_launches)
+    got = got.cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"deploy: ResNet-50 through build_callable is "
+                             f"{err} of max |logit| from Executor.run")
+    ms = host_ms(lambda: fn(state, {"image": xt}))
+    res = {"bs": RESNET_DEPLOY_BS, "state_tensors": len(state),
+           "rel_err_vs_executor": err, "launches": fn_launches,
+           "port_kernels": "none: cuDNN runs the convolutions",
+           "eager_ms": ms}
+    exe.close()
+    fluid.reset()
+    return res
+
+
+def bf16_fetch_refused(tmp):
+    """(c) The C ABI has no bfloat16 code: a bf16 fetch raises TypeError
+    through ``output_dtype`` (checked once, on a small model)."""
+    from paddle_tpu_torch import capi_runtime, io
+
+    fluid.reset()
+    x = fluid.layers.data("x", shape=[4], dtype="float32")
+    out = fluid.layers.cast(fluid.layers.fc(x, size=2), "bfloat16")
+    exe = fluid.Executor()
+    exe.run(fluid.default_startup_program())
+    d = os.path.join(tmp, "bf16")
+    io.save_inference_model(d, ["x"], [out], exe)
+    h = capi_runtime.create(d)
+    xb = np.ones((2, 4), np.float32)
+    capi_runtime.set_input(h, "x", xb.tobytes(), xb.shape, 0)
+    capi_runtime.run(h)
+    try:
+        capi_runtime.output_dtype(h, 0)
+    except TypeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("deploy: a bf16 fetch got a C ABI dtype code")
+    capi_runtime.release(h)
+    exe.close()
+    fluid.reset()
+    return msg
+
+
+def deploy_phase(dev, card_name, smi):
+    """Phase 44: (a) builds, (b) ``desc_checks``, (c) the save, (d) the C
+    program and the in-process engine, (e) ``build_callable`` (GPT, a
+    captured replay, ResNet-50), (f) ``cli_tools`` and the merged bundle,
+    ``net_drawer``."""
+    from paddle_tpu_torch import capi_runtime, compiler, net_drawer
+    from paddle_tpu_torch import io as fio
+    from paddle_tpu_torch.native import capi
+
+    t0 = time.monotonic()
+    builds = deploy_builds()
+    res = {"card": card_name, "nvidia_smi": smi, "builds_s": builds,
+           "widths": {"vocab": VOCAB, "dim": DIM, "layers": LAYERS,
+                      "heads": HEADS, "bs": DEPLOY_BS, "seq": DEPLOY_SEQ,
+                      "dtype": "float32"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the f32 GPT at the bench width from one seeded state
+        loss, logits, main, startup = lm_program(DEPLOY_SEQ, "float32")
+        exe = fluid.Executor()
+        exe.run(startup)
+        m = os.path.join(tmp, "gpt")
+        t1 = time.monotonic()
+        fio.save_inference_model(m, ["tokens"], [logits], exe, main)
+        res["save_s"] = time.monotonic() - t1
+        with open(os.path.join(m, "__model__"), "rb") as f:
+            model_bytes = f.read()
+        toks = np.random.RandomState(0).randint(
+            0, VOCAB, (DEPLOY_BS, DEPLOY_SEQ, 1)).astype(np.int64)
+        tok_file, out_file = (os.path.join(tmp, "tokens.bin"),
+                              os.path.join(tmp, "logits.bin"))
+        toks.tofile(tok_file)
+        # (d) the C program, a process of its own, on the card
+        env = capi.embed_env()
+        env.pop(capi_runtime.PLACE_ENV, None)
+        t_demo = time.monotonic()
+        demo = subprocess.Popen(
+            [capi.build_demo(), m, os.path.dirname(os.path.abspath(
+                __file__)), "tokens", "1", f"{DEPLOY_BS},{DEPLOY_SEQ},1",
+             tok_file, out_file], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)
+        # (b) and (f) on the host while it runs
+        res["desc"] = desc_checks(main, logits, model_bytes)
+        merged = os.path.join(tmp, "gpt.merged")
+        res["tools"] = cli_tools(m, merged)
+        dot = net_drawer.draw_graph(fio.load_program_desc(m)[0])
+        if not dot.startswith("digraph"):
+            raise AssertionError("deploy: draw_graph gave no digraph")
+        res["tools"]["draw_graph_lines"] = dot.count("\n") + 1
+        out, err = demo.communicate(timeout=600)
+        if demo.returncode != 0:
+            raise AssertionError(f"deploy: the C program exited "
+                                 f"{demo.returncode}:\n{out}\n{err[-4000:]}")
+        demo_wall = time.monotonic() - t_demo
+        last = out.strip().splitlines()[-1].split()
+        if last[0] != "CAPI_OK" or last[1:3] != ["0", "3"]:
+            raise AssertionError(f"deploy: the C program said {last}")
+        exe.close()
+        del exe
+        fluid.reset()
+        torch.cuda.empty_cache()
+
+        # the reference: load_inference_model + Executor.run in this process
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        prog, feeds, fetches = fio.load_inference_model(m, exe, scope)
+        (want,), exe_launches = counted(lambda: exe.run(
+            prog, feed={"tokens": toks}, fetch_list=fetches, scope=scope))
+        check_launches("deploy Executor.run", exe_launches,
+                       {"flash_attention": LAYERS})
+        c_logits = np.fromfile(out_file, np.float32).reshape(want.shape)
+        if not equal_bits(c_logits, want):
+            raise AssertionError("deploy: the C program's logits are not "
+                                 "Executor.run's")
+        res["c_program"] = {
+            "logits_shape": list(want.shape), "bitwise_vs_executor": True,
+            "create_ms": float(last[-2]), "first_run_ms": float(last[-1]),
+            "wall_s": demo_wall, "shutdown_rc": 0}
+
+        # the in-process engine through the C ABI
+        eng = capi.InferenceEngine(m)
+        (got,), eng_launches = counted(lambda: eng.run({"tokens": toks}))
+        check_launches("deploy capi engine", eng_launches,
+                       {"flash_attention": LAYERS})
+        if not equal_bits(got, want):
+            raise AssertionError("deploy: the in-process engine's logits are "
+                                 "not Executor.run's")
+        res["engine"] = {
+            "bitwise_vs_executor": True, "launches": eng_launches,
+            "engine_ms": host_ms(lambda: eng.run({"tokens": toks})),
+            "executor_ms": host_ms(lambda: exe.run(
+                prog, feed={"tokens": toks}, fetch_list=fetches,
+                scope=scope)),
+            "shutdown_rc": capi.load().paddle_capi_shutdown()}
+        eng.close()
+        if res["engine"]["shutdown_rc"] != 0:
+            raise AssertionError("deploy: paddle_capi_shutdown failed")
+
+        # (e) build_callable on the loaded program
+        fn, state = compiler.build_callable(prog, fetches, scope=scope)
+        feeds_t = {"tokens": torch.from_numpy(toks).to(dev)}
+        name = fetches[0]
+        eager, fn_launches = counted(lambda: fn(state, feeds_t)[name])
+        check_launches("deploy build_callable", fn_launches,
+                       {"flash_attention": LAYERS})
+        eager = eager.clone()
+        if not equal_bits(eager.cpu().numpy(), want):
+            raise AssertionError("deploy: build_callable's logits are not "
+                                 "Executor.run's")
+        graph, static_out, capture_launches = capture_callable(
+            fn, state, feeds_t, name)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(static_out, eager):
+            raise AssertionError("deploy: the captured build_callable "
+                                 "replay differs from the eager call")
+        res["build_callable"] = {
+            "state_tensors": len(state), "bitwise_vs_executor": True,
+            "launches": fn_launches, "launches_at_capture": capture_launches,
+            "replay_bitwise_vs_eager": True,
+            "eager_ms": host_ms(lambda: fn(state, feeds_t)),
+            "replay_ms": host_ms(graph.replay)}
+        del graph, static_out, eager
+        torch.cuda.empty_cache()
+
+        # (f) the merged bundle loads and gives (d)'s logits
+        mscope = fluid.Scope()
+        t1 = time.monotonic()
+        mprog, _, mfetches = fio.load_merged_model(merged, exe, mscope)
+        res["tools"]["load_merged_s"] = time.monotonic() - t1
+        (mlogits,) = exe.run(mprog, feed={"tokens": toks},
+                             fetch_list=mfetches, scope=mscope)
+        if not equal_bits(mlogits, c_logits):
+            raise AssertionError("deploy: the merged bundle's logits are not "
+                                 "the C program's")
+        res["tools"]["merged_bitwise_vs_c_program"] = True
+        exe.close()
+        del exe, scope, mscope, state, fn
+        fluid.reset()
+        torch.cuda.empty_cache()
+        res["resnet50"] = resnet_callable(dev)
+        res["bf16_fetch_type_error"] = bf16_fetch_refused(tmp)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.monotonic() - t0
+    log("deploy_phase", {k: res[k] for k in (
+        "builds_s", "save_s", "desc", "tools", "c_program", "engine",
+        "build_callable", "resnet50", "phase_s")})
+    return res
+
+
 def v2_api_summary(v2):
     """Phase 43's numbers for the summary line."""
     keys = ("widths", "params", "ops", "lstm_ops", "gpu_losses",
@@ -9209,6 +9614,7 @@ def main():
     dist = distributed_phase(dev, name, smi)
     book = book_phase(dev, name, smi)
     v2 = v2_api_phase(dev, name, smi)
+    deploy = deploy_phase(dev, name, smi)
     ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
                      for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
@@ -9278,7 +9684,10 @@ def main():
                "v2_sentiment_f32_per_step":
                    v2["sentiment"]["launches_per_step"],
                "v2_sentiment_infer": v2["sentiment"]["infer_launches"],
-               "v2_sequence_generator": v2["beam"]["launches"]}
+               "v2_sequence_generator": v2["beam"]["launches"],
+               "capi_engine_gpt_forward": deploy["engine"]["launches"],
+               "build_callable_gpt_forward":
+                   deploy["build_callable"]["launches"]}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -9648,7 +10057,8 @@ def main():
                       "parallel": parallel_summary(par, name, smi),
                       "distributed": distributed_summary(dist),
                       "book": book_summary(book),
-                      "v2": v2_api_summary(v2)}),
+                      "v2": v2_api_summary(v2),
+                      "deploy": deploy}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

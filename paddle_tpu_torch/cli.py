@@ -1,12 +1,18 @@
-"""The `paddle` command-line tool of the port: ``version``, ``train``,
-``lint``, ``analyze``, ``diff``, ``metrics``, ``trace``, ``attribute``,
-``tune``, ``pserver``, ``master`` and ``cluster_train``, the port of
-those subcommands of ``paddle_tpu/cli.py``
-(reference paddle/scripts/submit_local.sh.in: `paddle train|version`).
+"""The `paddle` command-line tool of the port, the port of every
+subcommand of ``paddle_tpu/cli.py`` (reference
+paddle/scripts/submit_local.sh.in: `paddle train|pserver|version|
+merge_model|dump_config`).
 
 Usage: python -m paddle_tpu_torch <subcommand> [args]
 
   version               — package, torch and CUDA report, and the cards
+  dump_config DIR|FILE  — text dump of a saved model / __model__ file
+                          (the desc library's, protobuf's DebugString)
+  stats DIR|FILE        — one JSON line of program stats (desc library)
+  merge_model DIR OUT   — bundle a saved inference model into one file
+  validate DIR|FILE     — structural check via the desc library; exit 1
+                          with its diagnostics on stderr when refused
+  show_pb DIR|FILE      — human-readable dump of blocks/ops/vars
   train --script S      — run a training script with the package on path
   train --config C      — the reference trainer flow (`paddle train
                           --config=conf.py [--job=time]`): run a v1 config
@@ -65,11 +71,9 @@ The subcommands that run programs take ``--place cuda|cpu`` (default: the
 card).
 
 DIR|FILE is a saved model directory (``__model__`` or ``program.json``)
-or a program file (JSON or ProgramDesc bytes) that either package wrote.
-
-The JAX package's other subcommands are not ported: each exits non-zero
-and names the ROADMAP.md queue item that holds it — dump_config, stats,
-validate, show_pb and merge_model (Queue A item 12).
+or a program file (JSON or ProgramDesc bytes) that either package wrote;
+``dump_config``, ``stats``, ``validate`` and ``show_pb`` read a
+directory's ``__model__`` or a ProgramDesc file.
 """
 
 from __future__ import annotations
@@ -81,11 +85,8 @@ import os
 import sys
 
 # the JAX package's subcommands this port lacks, with the ROADMAP.md
-# Queue A item that holds each
-UNPORTED = {
-    "dump_config": 12, "stats": 12, "validate": 12, "show_pb": 12,
-    "merge_model": 12,
-}
+# Queue A item that holds each: none since Queue A item 12
+UNPORTED: dict = {}
 
 
 def cmd_version(args) -> int:
@@ -156,6 +157,54 @@ def cmd_train(args) -> int:
         losses = trainer.train(num_passes=args.num_passes)
     for i, l in enumerate(losses):
         print(f"Pass {i}: cost={l:.6f}")
+    return 0
+
+
+def _model_bytes(path: str) -> bytes:
+    """A model dir's ``__model__`` or a raw ProgramDesc file's bytes."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "__model__")
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cmd_dump_config(args) -> int:
+    # one implementation for the CLI and paddle.utils.dump_config
+    from .utils.dump_config import dump_config
+
+    dump_config(args.model)
+    return 0
+
+
+def cmd_stats(args) -> int:
+    from .native import program_desc
+
+    print(program_desc.stats(_model_bytes(args.model)))
+    return 0
+
+
+def cmd_validate(args) -> int:
+    from .native import program_desc
+
+    ok, diag = program_desc.validate(_model_bytes(args.model))
+    if ok:
+        print("OK")
+        return 0
+    print(diag, file=sys.stderr)
+    return 1
+
+
+def cmd_show_pb(args) -> int:
+    from .utils import show_pb
+
+    show_pb.dump_program(_model_bytes(args.model))
+    return 0
+
+
+def cmd_merge_model(args) -> int:
+    from . import io
+
+    print(io.merge_model(args.model_dir, args.out))
     return 0
 
 
@@ -815,14 +864,6 @@ def cmd_master(args) -> int:
 
 def main(argv=None) -> int:
     real_argv = sys.argv[1:] if argv is None else list(argv)
-    if real_argv and real_argv[0] in UNPORTED:
-        item = UNPORTED[real_argv[0]]
-        print(f"paddle_tpu_torch: subcommand {real_argv[0]!r} is not ported "
-              f"(ROADMAP.md Queue A item {item}; the port has 'train', "
-              f"'version', 'lint', 'analyze', 'diff', 'metrics', 'trace', "
-              f"'attribute', 'tune', 'pserver', 'master' and "
-              f"'cluster_train')", file=sys.stderr)
-        return 2
     # `cluster_train ...` — one-command multi-host launch (reference
     # paddle/scripts/cluster_train/paddle.py).  Dispatched BEFORE
     # argparse: the launcher owns its whole argv
@@ -1017,6 +1058,17 @@ def main(argv=None) -> int:
                         "loop")
     p.add_argument("--place", **place_kw)
     p.set_defaults(fn=cmd_tune)
+
+    for name, fn in (("dump_config", cmd_dump_config), ("stats", cmd_stats),
+                     ("validate", cmd_validate), ("show_pb", cmd_show_pb)):
+        p = sub.add_parser(name)
+        p.add_argument("model", help="saved model dir or __model__ file")
+        p.set_defaults(fn=fn)
+
+    p = sub.add_parser("merge_model")
+    p.add_argument("model_dir")
+    p.add_argument("out")
+    p.set_defaults(fn=cmd_merge_model)
 
     p = sub.add_parser("pserver")
     p.add_argument("--host", default="127.0.0.1")

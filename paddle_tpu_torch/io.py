@@ -15,9 +15,11 @@ dtype the program declares for its name; a loaded value lands on the
 executor's device (the JAX package's own ``load_vars`` cannot read its
 bf16 files back: ``jnp.asarray`` refuses ``|V2``).
 
-The JAX package's save checks ``__model__`` with its native desc library
-when that library is prebuilt; the native library is not ported
-(ROADMAP.md Queue A item 12), so this save does not validate.
+The save checks ``__model__`` with the native desc library
+(``native/program_desc``) before it touches the directory, as the JAX
+package's does.  The JAX save checks only when its library is prebuilt;
+the port's library needs only g++ and builds at first use, so every save
+validates, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -184,9 +186,11 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     `fold_batch_norm=True` folds inference-mode BatchNorm into the conv
     filters first (``inference_transpiler.fuse_batch_norm``): the saved
     model carries the folded weights, written into a detached child scope,
-    so the live scope is untouched.  ``__model__`` is not validated (see
-    the module docstring)."""
+    so the live scope is untouched.  ``__model__`` is validated first (see
+    the module docstring): a refused program raises ``ValueError`` with the
+    desc library's diagnostics and leaves no directory behind."""
     from .framework import proto_io
+    from .native import program_desc
 
     program = main_program or default_main_program()
     target_names = [t.name if hasattr(t, "name") else t for t in target_vars]
@@ -203,9 +207,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         # raw value (the fold skips it)
         scope = Scope(parent=scope)
         fuse_batch_norm(inference_program, scope, fetch_names=target_names)
-    # serialize before touching the directory: an unserializable program
-    # leaves no half-written model behind
+    # serialize and validate before touching the directory: a rejected or
+    # unserializable program leaves no half-written model behind
     model_bytes = proto_io.serialize_program(inference_program)
+    ok, diag = program_desc.validate(model_bytes)
+    if not ok:
+        raise ValueError(f"inference program failed validation:\n{diag}")
     os.makedirs(dirname, exist_ok=True)
     meta = {
         "feed_var_names": list(feeded_var_names),

@@ -19,18 +19,17 @@ codec runs only for ``use_native=False``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
-import subprocess
-import tempfile
 import threading
 import zlib
 from typing import Iterator, List, Optional
 
+from . import _cxx
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "recordio.cc")
-_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
+_BUILD = _cxx.BUILD
 _MAGIC = 0x52433130
 CXX = "g++"
 CXX_FLAGS = ["-O2", "-shared", "-fPIC"]
@@ -41,34 +40,16 @@ _lock = threading.Lock()
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join([CXX, *CXX_FLAGS, *LIBS]).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(_BUILD, f"librecordio_{h.hexdigest()[:16]}.so")
+    return _cxx.hashed_path(_BUILD, "librecordio",
+                            [CXX, *CXX_FLAGS, *LIBS], [_SRC])
 
 
 def build_lib() -> str:
     """Compile the library unless the one for this source and command
     exists; returns its path.  Raises with the compiler's output."""
     so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    try:
-        try:
-            r = subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, _SRC, *LIBS],
-                               capture_output=True, text=True, timeout=120)
-        except (OSError, subprocess.SubprocessError) as e:
-            raise RuntimeError(f"recordio: cannot run {CXX!r}: {e}") from e
-        if r.returncode:
-            raise RuntimeError(f"recordio: {CXX} failed on {_SRC}:\n"
-                               f"{r.stdout}{r.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    if not os.path.exists(so):
+        _cxx.compile_to("recordio", CXX, _SRC, so, CXX_FLAGS, LIBS)
     return so
 
 

@@ -111,6 +111,21 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.v2.fluid\n"
         "import paddle_tpu_torch.v2.image\n"
         "import paddle_tpu_torch.v2.plot\n"
+        "import paddle_tpu_torch.native\n"
+        "import paddle_tpu_torch.native.program_desc\n"
+        "import paddle_tpu_torch.native.capi\n"
+        "import paddle_tpu_torch.capi_runtime\n"
+        "import paddle_tpu_torch.compiler\n"
+        "import paddle_tpu_torch.net_drawer\n"
+        "import paddle_tpu_torch.proto\n"
+        "import paddle_tpu_torch.utils\n"
+        "import paddle_tpu_torch.utils.dump_config\n"
+        "import paddle_tpu_torch.utils.make_model_diagram\n"
+        "import paddle_tpu_torch.utils.merge_model\n"
+        "import paddle_tpu_torch.utils.plotcurve\n"
+        "import paddle_tpu_torch.utils.preprocess_img\n"
+        "import paddle_tpu_torch.utils.show_pb\n"
+        "import paddle_tpu_torch.utils.torch2paddle\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
@@ -210,9 +225,17 @@ def test_source_scan_has_no_jax_or_paddle_tpu_import():
             os.path.join("distributed", "cluster_launch.py"),
             os.path.join("native", "__init__.py"),
             os.path.join("native", "recordio.py"),
+            os.path.join("native", "program_desc.py"),
+            os.path.join("native", "capi.py"),
+            "capi_runtime.py", "compiler.py", "net_drawer.py",
+            os.path.join("proto", "__init__.py"),
+            *(os.path.join("utils", f"{m}.py") for m in UTILS_MODULES),
             *(os.path.join("v2", f"{m}.py") for m in V2_MODULES)} <= scanned
 
 
+UTILS_MODULES = ("__init__", "dump_config", "make_model_diagram",
+                 "merge_model", "plotcurve", "preprocess_img", "show_pb",
+                 "torch2paddle")
 V2_MODULES = ("__init__", "activation", "attr", "data_feeder", "data_type",
               "evaluator", "event", "fluid", "image", "inference", "layer",
               "master", "minibatch", "op", "parameters", "plot", "pooling",

@@ -290,14 +290,17 @@ def test_parse_config_serializes_as_jax():
     assert tcp.parse_config_and_serialize(config, "hidden=5") != b""
 
 
-# the host services of Queue A item 11 are ported: they left UNPORTED and
-# their cases now check that the subcommand parses
+# the host services of Queue A item 11 and the deploy tools of item 12 are
+# ported: they left UNPORTED and their cases now check that the subcommand
+# parses
 _PORTED_11 = ("cluster_train", "master", "pserver")
+_PORTED_12 = ("dump_config", "merge_model", "show_pb", "stats", "validate")
 
 
-@pytest.mark.parametrize("sub", sorted(set(tcli.UNPORTED) | set(_PORTED_11)))
+@pytest.mark.parametrize("sub", sorted(set(tcli.UNPORTED) | set(_PORTED_11)
+                                       | set(_PORTED_12)))
 def test_unported_subcommands_exit_naming_the_roadmap(sub, capsys):
-    if sub in _PORTED_11:
+    if sub in _PORTED_11 + _PORTED_12:
         assert sub not in tcli.UNPORTED
         with pytest.raises(SystemExit) as e:
             tcli.main([sub, "--help"])

@@ -6,6 +6,7 @@ against change.
     python3 tools/torch_smoke_phases.py parallel
     python3 tools/torch_smoke_phases.py book
     python3 tools/torch_smoke_phases.py v2
+    python3 tools/torch_smoke_phases.py deploy
     python3 tools/torch_smoke_phases.py v1_rnn generation --parent DIR
 
 Without ``--parent`` the phases run once in this process after the kernel
@@ -36,6 +37,7 @@ PHASES = {
     "parallel": "cs.parallel_phase(torch.device('cuda', 0), name, smi)",
     "book": "cs.book_phase(torch.device('cuda', 0), name, smi)",
     "v2": "cs.v2_api_phase(torch.device('cuda', 0), name, smi)",
+    "deploy": "cs.deploy_phase(torch.device('cuda', 0), name, smi)",
 }
 
 _RUN = r'''
