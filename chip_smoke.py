@@ -373,7 +373,7 @@ non-zero and no result line is printed):
     state for 3 steps (losses 1e-4 relative, step-1 gradients 1e-3 of max
     |g|, K7 4 and K8 2 a step), then a ``train`` pass and ``test`` on the
     card; (b) at full width (vocab 30000, batch 64, length 100, padded to
-    128; f32), three subprocess runs of ``python -m paddle_tpu_torch
+    128; f32), two subprocess runs of ``python -m paddle_tpu_torch
     train --config ... --job time --time-batches 20`` (ms a batch: median,
     min, max; tokens a second), then in this process the same 20 batches
     (K7 4, K8 2 a step), peak memory, 3 profiled steps (device busy
@@ -469,7 +469,7 @@ non-zero and no result line is printed):
     timed beside the plain call; (b) ``lm_dp_sp`` at the bench widths:
     ``build_lm_train_program`` (dim 512, 8 layers, 8 heads, vocab 32000,
     bf16) at global batch 8 x 1024 over {"dp": 4, "sp": 2} on eight
-    positions of cuda:0 (zigzag), 2 + 10 steps, each held to the
+    positions of cuda:0 (zigzag), 2 + 5 steps, each held to the
     single-card Executor's step from the same state against a float32
     witness step (``mesh_gpt_phase``), with ms a step, device ms, busy
     share, peak memory, K4/K5/K6 launches a step (640, 320, 320), the
@@ -589,13 +589,53 @@ non-zero and no result line is printed):
     ``net_drawer.draw_graph`` gives a digraph; a bf16 fetch raises
     TypeError through ``capi_runtime.output_dtype`` (the C ABI has no
     bf16 code);
-45. summary.
+45. one program over two processes (``distributed/multihost.py``, the
+    mesh of ``distributed/launch.global_mesh``, ``parallel/transport.py``):
+    two processes with four positions of cuda:0 each, joined by the env
+    contract, each logging the transport the rule chose (gloo, card
+    tensors staged through pinned host memory: the two ranks share the
+    card), then this process over eight positions (the single-process
+    mesh), run the same cases from the same seed; (a) f32 parity of
+    ``tools/multihost_smoke.py``'s two programs (the dp-8 MLP under
+    ``fsdp_params``, four steps; the small LM over {"sp": 2, "dp": 4},
+    sp-major, four steps) and of ``sp_ring`` and ``ep_dp`` (three steps):
+    losses within 1e-6 relative and every state tensor within 1e-6 of its
+    largest |value| of the single process's (bitwise is logged); (b) the
+    full-width GPT (``build_lm_train_program``, dim 512, 8 layers, 8
+    heads, vocab 32000, bf16, Adam 3e-4) at global batch 8 x 1024 over
+    {"sp": 2, "dp": 4}, sp-major, so that every zigzag hop crosses the
+    process boundary: 2 + 10 steps, the first four steps' losses and the
+    state after them equal to the single-process mesh's over the same
+    axes from the same state (to the bit: the processes add every psum in
+    the single process's order; the single process runs those four
+    steps), the two processes equal to each other after the last; per
+    process ms a step, device ms and busy share of
+    one profiled step, peak memory, K4/K5/K6 launches a step (half of
+    phase 40's 640/320/320: each process runs four of the eight
+    positions), collectives a step and the transport's bytes and seconds
+    a step, beside the single process's and phase 40(b)'s figures (the
+    two processes time-share one card: no speed claim); (c)
+    ``ProgramPipeline`` over {"pp": 2, "dp": 2}, pp-major (the stage hop
+    crosses the processes), the bench GPT cut after its fourth block,
+    bf16, n_micro 2, SGD 0.05: 2 + 5 steps equal to the single-process
+    pipeline's, hops a step and K4/K5/K6 launches a process a step (8 x 2
+    x 2 / 2 each); (d) ``run(steps_per_dispatch=2)`` of f32 ``sp_ring``
+    on the two-process mesh takes the loud eager route (its safety
+    reasons name the staged transport, nothing is captured) and equals
+    two ``run()`` calls to the bit, three dispatches; (e) first, in this
+    process, K4, K5 and K6 at the processes' per-position shapes (a
+    zigzag training call over {"sp": 2}: the GPT's [2, 8, 256, 64] halves
+    in bf16 and f32, the small LM's [2, 2, 16, 32] in f32) held to their
+    plain versions at phase 40(a)'s tolerances, the launches to the
+    schedule's;
+46. summary.
 
 The second-to-last line is the ``{"kernels": [...], "serve": [...],
 "train": [...], "step_loop": [...], "options": {...}, "generate":
 {...}, "remat_save_load": {...}, "zoo": {...}, "srl": {...}, "legacy":
 {...}, "router": {...}, "measurement": {...}, "parallel": {...},
-"distributed": {...}, "book": {...}, "v2": {...}, "deploy": {...}}``
+"distributed": {...}, "book": {...}, "v2": {...}, "deploy": {...},
+"multiprocess": {...}}``
 summary (all 15 kernels)
 and the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 and
@@ -626,6 +666,7 @@ import paddle_tpu_torch.v2 as paddle_v2
 from paddle_tpu_torch.framework import executor as texecutor
 from paddle_tpu_torch.dataset import common as dataset_common
 from paddle_tpu_torch.dataset import conll05, imdb
+from paddle_tpu_torch.distributed import multihost as mh
 from paddle_tpu_torch.distributed.master import MasterServer, MasterService
 from paddle_tpu_torch.framework import step_loop
 from paddle_tpu_torch import lod as lod_mod
@@ -5900,7 +5941,7 @@ V1_RNN = {"vocab": 30000, "emb": 512, "hidden": 512, "lstm_num": 2,
 V1_RNN_SMALL = {"vocab": 300, "emb": 32, "hidden": 32, "lstm_num": 2,
                 "batch_size": 8, "seq_len": 12, "ragged": 1, "samples": 24,
                 "test_samples": 16}
-V1_RNN_TIME_BATCHES, V1_RNN_RUNS, V1_RNN_PROFILED = 20, 3, 3
+V1_RNN_TIME_BATCHES, V1_RNN_RUNS, V1_RNN_PROFILED = 20, 2, 3
 V1_RNN_WANT = {"lstm_forward": 4, "lstm_backward": 2}
 
 # the @provider module: seeded synthetic token sequences (labels {0, 1}:
@@ -6073,7 +6114,7 @@ def v1_rnn_time_run(conf):
 
 def v1_rnn_bench_phase(conf, card_name, smi):
     """36(b) the full-width config (``V1_RNN``: about 19.6 M parameters,
-    f32) through the CLI, three runs of `train --config ... --job time
+    f32) through the CLI, two runs of `train --config ... --job time
     --time-batches 20` in subprocesses (ms a batch: median, min, max;
     tokens a second); then in this process: a warm-up step, the same 20
     batches with every count at 0 before them (K7 4, K8 2 a step), peak
@@ -7304,7 +7345,7 @@ RING_SCHEDULES = ("flash", "zigzag", "ulysses")
 # (b) the flagship dp x sp step: GPT bench widths, eight positions of
 # cuda:0, 2 warm-up + MESH_TIMED held steps
 MESH_AXES = {"dp": 4, "sp": 2}
-MESH_TIMED = 10
+MESH_TIMED = 5
 # (c) f32 modes on the card against an explicit-CPU ParallelExecutor
 MESH_PARITY_MODES = ("dp", "sp_ring", "ep_dp")
 
@@ -7461,11 +7502,12 @@ def all_rel(state, witness):
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def mesh_launch_want(S):
-    """K4, K5, K6 a step of the dp x sp GPT: each layer's attention is a
-    zigzag ring of 2S + 1 blocks a position, run by the forward op and
-    again by its gradient op (which then runs the blocks' K5 and K6)."""
-    P = MESH_AXES["dp"] * S
+def mesh_launch_want(S, P=None):
+    """K4, K5, K6 a step of the dp x sp GPT over P positions (all of
+    MESH_AXES by default): each layer's attention is a zigzag ring of
+    2S + 1 blocks a position, run by the forward op and again by its
+    gradient op (which then runs the blocks' K5 and K6)."""
+    P = MESH_AXES["dp"] * S if P is None else P
     per = (2 * S + 1) * P * LAYERS
     return {"flash_attention_fwd": 2 * per, "flash_attention_dq": per,
             "flash_attention_dkv": per}
@@ -7510,7 +7552,7 @@ def mesh_gpt_phase(dev, card_name, smi):
     """(b) lm_dp_sp at the GPT bench widths: ``build_lm_train_program``
     (dim 512, 8 layers, 8 heads, vocab 32000, bf16) at global batch 8 x
     1024 over {"dp": 4, "sp": 2} on eight positions of cuda:0, zigzag.
-    2 warm-up + 10 steps, each held to the single-card Executor's step
+    2 warm-up + 5 steps, each held to the single-card Executor's step
     from the same state against a float32 witness step from that state
     (the same program built in f32, its state cast back to the bf16
     program's dtypes): per step, the mesh step's loss within
@@ -9527,6 +9569,294 @@ def parallel_summary(par, name, smi):
         "sp_ring_k2_dispatches": par["loop_k2"]}
 
 
+# -- 45. one program over two processes -------------------------------------
+
+MP_PARITY = ("jax_mlp_fsdp", "jax_lm_sp", "mode:sp_ring", "mode:ep_dp")
+MP_NPROC = 2
+MP_TIMEOUT = 300.0
+
+
+def mp_job(cases, nproc, out):
+    """One multihost job on the card (the cases' seed is SEED's 0); fatal
+    unless every process exits 0 and the processes agree."""
+    t0 = time.monotonic()
+    rc, outs = mh.launch_job(cases, nproc=nproc, place="cuda", out=out,
+                             timeout=MP_TIMEOUT)
+    if rc != 0:
+        raise AssertionError(
+            f"multiprocess: {cases} over {nproc} process(es) exit {rc}:\n"
+            + "\n".join(o[-4000:] for o in outs))
+    infos = [json.loads(ln[len("TRANSPORT "):]) for o in outs
+             for ln in o.splitlines() if ln.startswith("TRANSPORT ")]
+    return {"wall_s": time.monotonic() - t0, "transport": infos}
+
+
+def mp_rel(got, want):
+    """(largest |difference| over largest |value|, bitwise) of two
+    arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {got.shape} != {want.shape}")
+    d = float(np.abs(got - want).max()) if got.size else 0.0
+    return d / max(float(np.abs(want).max()) if want.size else 0.0,
+                   1e-30), bool(np.array_equal(got, want))
+
+
+def mp_per_step(rows, key):
+    return [r[key] for r in rows]
+
+
+def mp_process_row(meta, warm):
+    """One process's figures of a timed case."""
+    f = meta["figures"]
+    timed = f["steps"][warm:]
+    launches = {k: [r["launches"][k] for r in timed]
+                for k in timed[0]["launches"]}
+    tx = {k: float(np.mean([r["transport"][k] for r in timed]))
+          for k in timed[0].get("transport", {})}
+    return {"step_ms": float(np.median(mp_per_step(timed, "ms"))),
+            "step_ms_each": mp_per_step(timed, "ms"),
+            "peak_mem_gb": max(r.get("peak_mem_gb", 0.0) for r in f["steps"]),
+            "launches_per_step": {k: v[-1] for k, v in launches.items()},
+            "launches_each_step": launches,
+            "collectives_per_step": f["collectives_per_step"],
+            "transport_per_step": tx, "mesh": f["mesh"],
+            **{k: f[k] for k in ("device_ms_per_step", "device_busy_share",
+                                 "wall_ms_profiled_per_step", "profiled")
+               if k in f}}
+
+
+def mp_parity(two, one):
+    """(a) each case: the two processes' losses and state against the
+    single process's."""
+    rows = {}
+    for case in MP_PARITY:
+        (m2, a2), (m1, a1) = (mh.results(two, case, MP_NPROC)[0],
+                              mh.results(one, case, 1)[0])
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(m2["losses"],
+                                                        m1["losses"])]
+        state = {k: mp_rel(a2[k], a1[k]) for k in a1
+                 if k.startswith("state/")}
+        row = {"case": case, "losses": m2["losses"],
+               "single_losses": m1["losses"], "loss_rel_err": loss_rel,
+               "state_rel_err_max": max(r for r, _ in state.values()),
+               "bitwise": m2["losses"] == m1["losses"]
+               and all(b for _, b in state.values()),
+               "seconds_two": m2["seconds"], "seconds_one": m1["seconds"]}
+        log("multiprocess_parity", row)
+        if max(loss_rel) > 1e-6 or row["state_rel_err_max"] > 1e-6:
+            worst = sorted(state.items(), key=lambda kv: -kv[1][0])[:3]
+            raise AssertionError(f"multiprocess {case}: two processes part "
+                                 f"from one: {row}, worst {worst}")
+        rows[case] = row
+    return rows
+
+
+def mp_held(case, two, one, warm, want_launches):
+    """(b)/(c): the loss of every step the single process ran and the
+    state's digests after them (``sha1/``) of the two processes equal to
+    the single process's, and each process's launches a step at
+    `want_launches`."""
+    got = mh.results(two, case, MP_NPROC)
+    m1, a1 = mh.results(one, case, 1)[0]
+    (m2, a2) = got[0]
+    held = len(m1["losses"])
+    if m2["figures"].get("held_steps", held) != held:
+        raise AssertionError(f"multiprocess {case}: the processes took "
+                             f"their digests after "
+                             f"{m2['figures']['held_steps']} steps, the "
+                             f"single process ran {held}")
+    digests = [k for k in a1 if k.startswith("sha1/")]
+    if not digests or any(k not in a2 for k in digests):
+        raise AssertionError(f"multiprocess {case}: the digests after "
+                             f"{held} steps are missing")
+    differ = sorted(k.split("/", 1)[1] for k in digests
+                    if not np.array_equal(a2[k], a1[k]))
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(m2["losses"][:held],
+                                                    m1["losses"])]
+    rows = [mp_process_row(m, warm) for m, _ in got]
+    for r, (m, _) in enumerate(got):
+        for row in m["figures"]["steps"]:
+            if row["launches"] != want_launches:
+                raise AssertionError(
+                    f"multiprocess {case}: process {r} launched "
+                    f"{row['launches']} in a step, want {want_launches}")
+    res = {"losses": m2["losses"], "single_losses": m1["losses"],
+           "seconds": {"two": [m["seconds"] for m, _ in got],
+                       "one": m1["seconds"]},
+           "held_steps": held, "loss_rel_err": loss_rel,
+           "state_tensors_differ": differ[:5],
+           "bitwise": m2["losses"][:held] == m1["losses"] and not differ,
+           "processes": rows, "single_process": mp_process_row(m1, warm),
+           "launches_want_per_process_step": want_launches}
+    if not res["bitwise"]:
+        raise AssertionError(f"multiprocess {case}: two processes part "
+                             f"from the single-process mesh: {res}")
+    if not all(np.isfinite(m2["losses"])):
+        raise AssertionError(f"multiprocess {case}: losses {m2['losses']}")
+    return res
+
+
+def mp_ring_shapes():
+    """[(dtype, global q/k/v shape over a two-position sp ring)] at which
+    phase 45's cases reach K4-K6 a position: the GPT of ``gpt_sp`` (a dp
+    position's batch, zigzag halves of [2, 8, 256, 64]; bf16 as it runs,
+    and f32) and ``jax_lm_sp``'s small LM (f32, halves of [2, 2, 16,
+    32])."""
+    o = mh.GPT
+    dp = mh.GPT_AXES["dp"]
+    gpt = (o["bs"] // dp, o["heads"], o["seq"], o["dim"] // o["heads"])
+    lm = (8 // dp, 2, 64, 32)
+    return [(torch.bfloat16, gpt), (torch.float32, gpt),
+            (torch.float32, lm)]
+
+
+def mp_kernel_check(dev):
+    """(e) K4, K5 and K6 at the per-position shapes of the processes' ring
+    (``mp_ring_shapes``): one zigzag training call over {"sp": 2} on the
+    kernels held to the same call on their plain versions at phase 40(a)'s
+    TOL, the launches held to the schedule's."""
+    S = mh.GPT_AXES["sp"]
+    mesh = pmesh.make_mesh({"sp": S}, devices=[dev] * S)
+    rows = []
+    for dtype, shape in mp_ring_shapes():
+        g = torch.Generator(device=dev).manual_seed(SEED + 45)
+        q, k, v, do = (torch.randn(*shape, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        got, launches = counted(lambda: ring_call("zigzag", mesh, q, k, v,
+                                                  do))
+        tag = f"multiprocess_ring_{str(dtype).split('.')[1]}_{shape[2]}"
+        check_launches(tag, launches, ring_want("zigzag", S))
+        with plain_ring():
+            ref = ring_call("zigzag", mesh, q, k, v, do)
+        torch.cuda.synchronize()
+        B, H, T, D = shape
+        row = {"schedule": "zigzag", "S": S,
+               "dtype": str(dtype).split(".")[1], "shape": list(shape),
+               "block": [B, H, T // (2 * S), D],
+               "max_abs_err": max_err(got[0], ref[0]),
+               "grad_max_rel_err": max(
+                   rel_err(a, b) for a, b in zip(got[1:], ref[1:])),
+               "tol": TOL[dtype],
+               "launches": {n: launches[n] for n in (
+                   "flash_attention_fwd", "flash_attention_dq",
+                   "flash_attention_dkv")}}
+        log("multiprocess_ring_kernel", row)
+        if row["max_abs_err"] > TOL[dtype] or \
+                row["grad_max_rel_err"] > TOL[dtype]:
+            raise AssertionError(f"{tag}: the ring on the kernels disagrees "
+                                 f"with the ring on the plain versions: "
+                                 f"{row}")
+        rows.append(row)
+    return rows
+
+
+def multiprocess_phase(card_name, smi, par=None, dist=None):
+    """Phase 45: (a)-(e) of the docstring, one two-process job and the
+    same cases on the single-process mesh in this process (``gpt_sp`` for
+    the steps it holds); `par` and `dist` (phases 40 and 41, when they
+    ran) give the figures set beside."""
+    t0 = time.monotonic()
+    fluid.reset()
+    torch.cuda.empty_cache()
+    ring = mp_kernel_check(torch.device("cuda", 0))
+    o = mh.GPT
+    with tempfile.TemporaryDirectory() as tmp:
+        two, one = os.path.join(tmp, "two"), os.path.join(tmp, "one")
+        job_two = mp_job(list(MP_PARITY) + ["gpt_sp", "gpt_pipe", "loop_k2"],
+                         MP_NPROC, two)
+        # the single-process mesh in this process (the kernels are loaded);
+        # gpt_sp runs the steps the two processes' digests follow
+        t1 = time.monotonic()
+        mh.run_here(list(MP_PARITY) + ["gpt_pipe"], place="cuda", out=one)
+        mh.run_here(["gpt_sp"], place="cuda", out=one,
+                    opts={"timed": o["held"] - o["warm"]})
+        job_one = {"wall_s": time.monotonic() - t1}
+        fluid.reset()
+        torch.cuda.empty_cache()
+        for info in job_two["transport"]:
+            tr = info["transport"]
+            log("multiprocess_transport", info)
+            if tr is None or tr["backend"] != "gloo" or not tr["staged"]:
+                raise AssertionError(f"multiprocess: rank {info['rank']} "
+                                     f"took {tr}, want gloo staged")
+        parity = mp_parity(two, one)
+        per_process = int(np.prod(list(mh.GPT_AXES.values()))) // MP_NPROC
+        gpt = mp_held("gpt_sp", two, one, o["warm"], mesh_launch_want(
+            mh.GPT_AXES["sp"], per_process))
+        want_pipe = {k: v // MP_NPROC for k, v in pipe_launch_want(
+            mh.PIPE_AXES, mh.PIPE_MICRO).items()}
+        pipe = mp_held("gpt_pipe", two, one, o["warm"], want_pipe)
+        loops = [m["figures"] for m, _ in
+                 mh.results(two, "loop_k2", MP_NPROC)]
+        for r, f in enumerate(loops):
+            log("multiprocess_loop_k2", {"rank": r, **f})
+            if not f["bitwise"] or f["captured"] or not any(
+                    "host memory" in x for x in f["safety_reasons"]):
+                raise AssertionError(f"multiprocess loop_k2: rank {r}: {f}")
+    g40 = par["lm_dp_sp"] if par else {}
+    p41 = dist["pipeline"]["pp2_dp2"] if dist else {}
+    res = {"card": card_name, "nvidia_smi": smi,
+           "processes": MP_NPROC, "positions_per_process": 4,
+           "device": "cuda:0", "transport": job_two["transport"],
+           "ring_kernels": ring, "parity_f32": parity,
+           "gpt_sp": {"mesh": mh.GPT_AXES, "order": "sp-major",
+                      "bs": o["bs"], "seq": o["seq"], "dtype": o["dtype"],
+                      **gpt,
+                      "phase40_single_process": {k: g40[k] for k in (
+                          "step_ms", "peak_mem_gb", "launches_per_step",
+                          "device_ms_per_step", "device_busy_share")
+                          if k in g40}},
+           "gpt_pipe": {"mesh": mh.PIPE_AXES, "order": "pp-major",
+                        "n_micro": mh.PIPE_MICRO, "dtype": o["dtype"],
+                        **pipe,
+                        "phase41_pp2_dp2": {k: p41[k] for k in (
+                            "step_ms", "peak_mem_gb",
+                            "launches_per_step") if k in p41}},
+           "loop_k2": loops, "wall_s": {"two": job_two["wall_s"],
+                                        "one": job_one["wall_s"]},
+           "time_sharing": "the two processes share one card: their step "
+                           "times are no speed claim; a hop between them "
+                           "is a host round trip, not a link",
+           "phase_s": time.monotonic() - t0}
+    log("multiprocess", res)
+    return res
+
+
+def multiprocess_launches(mp, case):
+    """The launches the processes of a case made, summed, every kernel."""
+    out = {k: 0 for k in KERNELS}
+    for row in mp[case]["processes"]:
+        for k, each in row["launches_each_step"].items():
+            out[k] += sum(each)
+    return out
+
+
+def multiprocess_summary(mp):
+    """Phase 45's numbers for the summary line."""
+    keep = ("step_ms", "peak_mem_gb", "launches_per_step",
+            "collectives_per_step", "transport_per_step",
+            "device_ms_per_step", "device_busy_share")
+    return {
+        "card": mp["card"], "nvidia_smi": mp["nvidia_smi"],
+        "transport": [i["transport"] for i in mp["transport"]],
+        "ring_kernels": [{k: r[k] for k in (
+            "dtype", "block", "max_abs_err", "grad_max_rel_err", "tol")}
+            for r in mp["ring_kernels"]],
+        "parity_f32": {c: {k: r[k] for k in (
+            "loss_rel_err", "state_rel_err_max", "bitwise")}
+            for c, r in mp["parity_f32"].items()},
+        **{case: {"bitwise": mp[case]["bitwise"],
+                  "held_steps": mp[case]["held_steps"],
+                  "losses": mp[case]["losses"],
+                  "processes": [{k: p.get(k) for k in keep}
+                                for p in mp[case]["processes"]],
+                  "single_process": {k: mp[case]["single_process"].get(k)
+                                     for k in keep}}
+           for case in ("gpt_sp", "gpt_pipe")},
+        "loop_k2_bitwise": all(f["bitwise"] for f in mp["loop_k2"])}
+
+
 def errs_by_dtype(rows, key="max_abs_err"):
     out = {}
     for r in rows:
@@ -9615,6 +9945,7 @@ def main():
     book = book_phase(dev, name, smi)
     v2 = v2_api_phase(dev, name, smi)
     deploy = deploy_phase(dev, name, smi)
+    mp = multiprocess_phase(name, smi, par, dist)
     ring_launches = {k: sum(r["launches"].get(k, 0) for r in par["ring"])
                      for k in KERNELS}
     by_path = {"fifo": fifo_row["launches"], "v2": v2_launch,
@@ -9687,7 +10018,11 @@ def main():
                "v2_sequence_generator": v2["beam"]["launches"],
                "capi_engine_gpt_forward": deploy["engine"]["launches"],
                "build_callable_gpt_forward":
-                   deploy["build_callable"]["launches"]}
+                   deploy["build_callable"]["launches"],
+               "gpt_sp_major_two_processes_bf16_12_steps":
+                   multiprocess_launches(mp, "gpt_sp"),
+               "gpt_pp2_dp2_two_processes_bf16_7_steps":
+                   multiprocess_launches(mp, "gpt_pipe")}
     csrc = "paddle_tpu_torch/ops/cuda_kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
 
@@ -10058,7 +10393,8 @@ def main():
                       "distributed": distributed_summary(dist),
                       "book": book_summary(book),
                       "v2": v2_api_summary(v2),
-                      "deploy": deploy}),
+                      "deploy": deploy,
+                      "multiprocess": multiprocess_summary(mp)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -87,8 +87,24 @@ def checkpoint_ok(path: str) -> bool:
         return False
 
 
+def _processes(executor):
+    """(rank, count) of the processes the executor's mesh spans."""
+    mesh = getattr(executor, "mesh", None)
+    if mesh is None:
+        return 0, 1
+    return mesh.process_index, mesh.process_count
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    dist.barrier()
+
+
 def _gathered(scope):
-    """`scope`, or an overlay holding its sharded values gathered whole."""
+    """`scope`, or an overlay holding its sharded values gathered whole
+    (over a mesh of several processes a collective: every process calls
+    it)."""
     scope = scope if scope is not None else global_scope()
     sharded = [n for n in scope.local_names()
                if getattr(scope.find(n), "__sharded__", False)]
@@ -110,6 +126,18 @@ def save_checkpoint(executor, dirname, main_program=None, trainer_state=None,
     written tmp+rename.  A crash at ANY point leaves either the previous
     state or a complete new checkpoint plus debris this function sweeps
     on its next call — never a torn snapshot a reader could trust."""
+    rank, count = _processes(executor)
+    if count > 1:
+        # every process gathers (a gather only rank 0 called would hang
+        # the job), rank 0 writes, and all meet at a barrier
+        overlay = _gathered(scope)
+        _barrier()
+        if rank == 0:
+            final = save_checkpoint(
+                _Rank0(executor), dirname, main_program, trainer_state,
+                master, keep, overlay, fault_hook)
+        _barrier()
+        return final if rank == 0 else latest_checkpoint(dirname)
     hook = fault_hook if fault_hook is not None else (lambda point: None)
     os.makedirs(dirname, exist_ok=True)
     # sweep kill-during-save leftovers (ours included: a same-version
@@ -155,6 +183,13 @@ def save_checkpoint(executor, dirname, main_program=None, trainer_state=None,
         shutil.rmtree(os.path.join(dirname, f"ckpt_{old}"),
                       ignore_errors=True)
     return final
+
+
+class _Rank0:
+    """An executor seen as a single process's (rank 0 writes alone)."""
+
+    def __init__(self, executor):
+        self.executor = executor
 
 
 def latest_checkpoint(dirname, verify: bool = False) -> Optional[str]:

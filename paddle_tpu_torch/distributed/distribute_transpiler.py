@@ -240,6 +240,14 @@ class RemoteUpdater:
                 # value travels as bf16
                 value = self.scope.find(pname)
                 if getattr(value, "__sharded__", False):
+                    if value.mesh.process_count > 1:
+                        # a gather that only trainer 0 called would hang
+                        # the other processes of the mesh
+                        raise ValueError(
+                            f"parameter {pname!r} is sharded over a mesh "
+                            f"of {value.mesh.process_count} processes; the "
+                            f"pserver updater reads whole values (one "
+                            f"process's mesh a trainer)")
                     value = value.gather()
                 if value is None:
                     raise RuntimeError(

@@ -357,7 +357,8 @@ class Executor:
         first = entry is None
         if first:  # the next dispatch of this key captures
             entry = self._loops[key] = step_loop.LoopEntry(
-                step_loop.safety_report(program, block_id))
+                step_loop.safety_report(program, block_id,
+                                        self._loop_transport()))
         if not entry.safety["safe"]:
             step_loop.warn_unsafe(k, entry.safety)
             return sequential()
@@ -391,6 +392,11 @@ class Executor:
         if return_numpy:
             return [to_numpy(fetches[n]) for n in fetch_names]
         return [fetches[n].clone() for n in fetch_names]
+
+    def _loop_transport(self):
+        """The exchange between processes a step runs (none for one
+        process; a mesh executor's is its mesh's)."""
+        return None
 
     def _drop_stale(self, program):
         """Release the entries (loops and verdicts) of an older version of

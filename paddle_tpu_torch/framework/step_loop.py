@@ -63,7 +63,7 @@ def _draws_rng(op) -> bool:
                for t in (op.type, op.attrs.get("__fwd_type__")) if t)
 
 
-def safety_report(program, block_id: int = 0) -> dict:
+def safety_report(program, block_id: int = 0, transport=None) -> dict:
     """Static loop-safety verdict for one block, from descs alone.
 
     Returns ``{"safe": bool, "reasons": [str, ...]}``.  Unsafe programs
@@ -78,8 +78,16 @@ def safety_report(program, block_id: int = 0) -> dict:
     nested block is safe: a ``recompute`` segment (and the re-run of it
     in its ``generic_grad``) is straight-line, so it passes when its
     sub-block's ops pass the same checks, recursively; its reasons name
-    the ops inside."""
+    the ops inside.  `transport` is the exchange of a mesh over several
+    processes (``parallel/transport.py``): one that stages through host
+    memory (gloo) is a reason of its own, since a CUDA graph cannot hold a
+    gloo exchange; an NCCL transport keeps the block's verdict."""
     reasons = _unsafe_ops(program, block_id)
+    if transport is not None and transport.staged:
+        reasons.append(
+            f"the mesh's transport ({transport.backend}) stages its "
+            f"exchanges between processes through host memory: a captured "
+            f"loop cannot hold a gloo exchange")
     return {"safe": not reasons, "reasons": reasons}
 
 

@@ -113,7 +113,7 @@ def _sdpa_mesh(ctx, ins, attrs):
         sched = "plain"
 
     def run(view, ctxs):
-        qs, ks, vs = ([view(s, 0, p) for p in range(mesh.size)]
+        qs, ks, vs = (mesh.local_map(lambda p, s=s: view(s, 0, p))
                       for s in ("Q", "K", "V"))
         if mode == "alltoall":
             outs = ra.ulysses_shards(qs, ks, vs, mesh, "sp", causal=causal,

@@ -119,22 +119,22 @@ def _moe_sharded(ctx, ins, attrs):
                 "WI": [(("ep",), None, None)], "WO": [(("ep",), None, None)]}
 
     def run(view, ctxs):
-        P = mesh.size
-        xs = [view("X", 0, p) for p in range(P)]
-        routes = [_dispatch(xs[p], view("Gate", 0, p), n_exp, capacity)
-                  for p in range(P)]
-        send = [_scatter_send(xs[p], r[0], r[1], r[2], n_exp, capacity)
-                for p, r in enumerate(routes)]
+        each = mesh.local_map
+        xs = each(lambda p: view("X", 0, p))
+        routes = each(lambda p: _dispatch(xs[p], view("Gate", 0, p), n_exp,
+                                          capacity))
+        send = each(lambda p: _scatter_send(xs[p], *routes[p][:3], n_exp,
+                                            capacity))
         # [E, C, D] -> each member holds every sender's tokens for ITS
         # expert: [senders, C, D]
         recv = col.all_to_all(send, mesh, "ep", split_axis=0,
                               concat_axis=0, tiled=False)
-        h = [_ffn(recv[p], view("WI", 0, p)[0], view("WO", 0, p)[0], act)
-             for p in range(P)]
+        h = each(lambda p: _ffn(recv[p], view("WI", 0, p)[0],
+                                view("WO", 0, p)[0], act))
         back = col.all_to_all(h, mesh, "ep", split_axis=0, concat_axis=0,
                               tiled=False)
-        out = [_combine(back[p], *routes[p][:2], routes[p][2], routes[p][3],
-                        xs[p]) for p in range(P)]
+        out = each(lambda p: _combine(back[p], *routes[p][:2], routes[p][2],
+                                      routes[p][3], xs[p]))
         return {"Out": [ShardedTensor(mesh, tok, out)]}
 
     return MeshPlan(in_specs, mesh.axis_names, run, mesh_aware=True)

@@ -1,14 +1,22 @@
 """Device mesh, the PartitionSpec mint and ``shard_map`` — the port of
 ``paddle_tpu/parallel/mesh.py``.
 
-The JAX package is single-controller: one Python process drives every
-device of a ``jax.sharding.Mesh``.  So is the port.  A ``Mesh`` here is a
-grid of mesh POSITIONS, each on a ``torch.device``; an op runs once for
-each position on that position's shard, and collectives
+A ``Mesh`` here is a grid of mesh POSITIONS, each on a ``torch.device``
+and owned by one process; an op runs once for each of this process's
+positions on that position's shard, and collectives
 (``parallel/collectives.py``) are explicit functions over the positions'
 shards.  Positions may repeat a device: eight positions on ``cuda:0``
 (or, in the tests, on the CPU) are the port's virtual devices, the
 counterpart of JAX's ``--xla_force_host_platform_device_count``.
+
+One process may own every position (``make_mesh``), or the mesh may span
+the processes of a ``torch.distributed`` group (``distributed.launch.
+global_mesh``), as JAX's global mesh spans every process's devices after
+``jax.distributed.initialize``: positions are process-contiguous (rank
+0's first), every process runs the same program, holds only its own
+positions' shards and exchanges the rest through ``mesh.transport``
+(``parallel/transport.py``).  A list of per-position values has one entry
+a position, ``None`` at the positions of other processes.
 
 Axis names:
   dp — data parallel (batch axis)
@@ -49,15 +57,40 @@ class PartitionSpec(tuple):
 class Mesh:
     """A grid of mesh positions: ``devices`` is a numpy object array of
     ``torch.device`` shaped by the axis sizes, ``axis_names`` names its
-    dims.  Position ``p`` is the ``p``-th cell in row-major order."""
+    dims.  Position ``p`` is the ``p``-th cell in row-major order.
 
-    def __init__(self, devices, axis_names):
+    `owners` (one process index a position, row-major; default all 0)
+    says which process holds each position, `process_index` which process
+    this is, and `transport` how it reaches the others (None when it owns
+    every position).  A remote position's device is the label its owner
+    gave it; nothing here moves data to it."""
+
+    def __init__(self, devices, axis_names, owners=None,
+                 process_index: int = 0, transport=None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"mesh devices of shape {self.devices.shape} "
                              f"for axes {self.axis_names}")
         self._flat = list(self.devices.reshape(-1))
+        self._owner = ([0] * len(self._flat) if owners is None
+                       else [int(o) for o in np.asarray(owners).reshape(-1)])
+        if len(self._owner) != len(self._flat) or any(
+                b < a for a, b in zip(self._owner, self._owner[1:])):
+            raise ValueError(f"mesh owners {self._owner}: one process a "
+                             f"position, process-contiguous")
+        self.process_index = int(process_index)
+        self.process_count = self._owner[-1] + 1 if self._owner else 1
+        self.local = tuple(p for p, o in enumerate(self._owner)
+                           if o == self.process_index)
+        if not self.local:
+            raise ValueError(f"process {self.process_index} owns no "
+                             f"position of the mesh")
+        self._is_local = [o == self.process_index for o in self._owner]
+        if self.process_count > 1 and transport is None:
+            raise ValueError("a mesh over several processes needs a "
+                             "transport")
+        self.transport = transport
         shape = self.devices.shape
         self._coords = [
             {a: int(i) for a, i in zip(self.axis_names,
@@ -82,19 +115,43 @@ class Mesh:
         """{axis: index} of a position (do not mutate)."""
         return self._coords[position]
 
+    def process_of(self, position: int) -> int:
+        """The process that owns `position`."""
+        return self._owner[position]
+
+    def is_local(self, position: int) -> bool:
+        return self._is_local[position]
+
+    def local_map(self, fn) -> list:
+        """[fn(p)] at this process's positions, None at the others'."""
+        return [fn(p) if loc else None
+                for p, loc in enumerate(self._is_local)]
+
+    def first_local(self, group):
+        """The first of `group`'s positions this process owns (None if
+        it owns none)."""
+        return next((p for p in group if self._is_local[p]), None)
+
     def __eq__(self, other):
         return (isinstance(other, Mesh)
                 and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
+                and self._owner == other._owner
+                and self.process_index == other.process_index
                 and all(a == b for a, b in zip(self.devices.reshape(-1),
                                                other.devices.reshape(-1))))
 
     def __hash__(self):
-        return hash((self.axis_names, self.devices.shape))
+        return hash((self.axis_names, self.devices.shape,
+                     self.process_count, self.process_index))
 
     def __repr__(self):
-        devices = sorted(set(map(str, self._flat)))
-        return f"Mesh({self.shape}, devices={devices})"
+        devices = sorted(set(map(str, (self._flat[p] for p in self.local))))
+        if self.process_count == 1:
+            return f"Mesh({self.shape}, devices={devices})"
+        return (f"Mesh({self.shape}, process {self.process_index} of "
+                f"{self.process_count}, positions {list(self.local)}, "
+                f"devices={devices})")
 
 
 class NamedSharding:
@@ -260,24 +317,24 @@ class AxisContext:
 
 def shard_map(fn, mesh, in_specs, out_specs):
     """``jax.shard_map``'s counterpart: the returned callable takes global
-    tensors, runs ``fn(ctx, *local_shards)`` once for each position in
-    row-major order (``ctx`` an ``AxisContext``), and assembles the
-    positions' outputs into global tensors by `out_specs` (one spec, or a
-    tuple of specs for a tuple of outputs).  A body that needs a
+    tensors, runs ``fn(ctx, *local_shards)`` once for each of this
+    process's positions in row-major order (``ctx`` an
+    ``AxisContext``), and assembles the positions' outputs into global
+    tensors by `out_specs` (one spec, or a tuple of specs for a tuple of
+    outputs).  A body that needs a
     collective takes every position's shards at once instead (the ring
     bodies of ``parallel/ring_attention.py``)."""
     from .sharded import ShardedTensor
 
     def run(*xs):
-        outs = []
-        for p in range(mesh.size):
-            locals_ = [local_slice(mesh, x, s, p).to(mesh.device(p))
-                       for x, s in zip(xs, in_specs)]
-            outs.append(fn(AxisContext(mesh, p), *locals_))
+        outs = mesh.local_map(lambda p: fn(AxisContext(mesh, p), *[
+            local_slice(mesh, x, s, p).to(mesh.device(p))
+            for x, s in zip(xs, in_specs)]))
         if isinstance(out_specs, PartitionSpec) or not isinstance(
                 out_specs, (tuple, list)):
             return ShardedTensor(mesh, out_specs, outs).gather()
-        return tuple(ShardedTensor(mesh, s, [o[j] for o in outs]).gather()
-                     for j, s in enumerate(out_specs))
+        return tuple(ShardedTensor(mesh, s, [
+            None if o is None else o[j] for o in outs]).gather()
+            for j, s in enumerate(out_specs))
 
     return run

@@ -14,7 +14,7 @@ import torch
 
 from . import collectives
 from .mesh import axis_size, local_slice, pspec as P
-from .pipeline import _grads, _leaves, _restack
+from .pipeline import _grads, _leaves, _restack, backward_once
 
 
 def init_moe_params(generator: torch.Generator, n_experts: int,
@@ -34,13 +34,15 @@ def init_moe_params(generator: torch.Generator, n_experts: int,
 
 
 def moe_apply(params, x, mesh, *, axis_name: str = "ep", capacity: int):
-    """Over every position of `mesh` at once: x one [tokens, d_model]
-    local shard a position; params one dict a position holding this
-    member's expert only (wi [d_model, d_hidden], wo [d_hidden,
+    """Over every position of `mesh` at once (over a mesh of several
+    processes, this process's; the others' entries None): x one [tokens,
+    d_model] local shard a position; params one dict a position holding
+    this member's expert only (wi [d_model, d_hidden], wo [d_hidden,
     d_model]) and the replicated gate [d_model, n_experts]."""
     n_exp = axis_size(mesh, axis_name)
-    sends, routes = [], []
-    for prm, xp in zip(params, x):
+    sends, routes = [None] * mesh.size, [None] * mesh.size
+    for p in mesh.local:
+        prm, xp = params[p], x[p]
         probs = torch.softmax(xp @ prm["gate"], dim=-1)       # [T, E]
         expert = torch.argmax(probs, dim=-1)                  # [T] top-1
         gatew = torch.max(probs, dim=-1).values               # [T]
@@ -57,49 +59,53 @@ def moe_apply(params, x, mesh, *, axis_name: str = "ep", capacity: int):
                               torch.where(keep[:, None], xp,
                                           torch.zeros_like(xp)),
                               accumulate=True)
-        sends.append(send)
-        routes.append((expert, src_slot, keep, gatew))
+        sends[p] = send
+        routes[p] = (expert, src_slot, keep, gatew)
     # after the exchange each member holds the tokens every sender routed
     # to ITS expert: [n_senders, capacity, D]
     recv = collectives.all_to_all(sends, mesh, axis_name, 0, 0, tiled=False)
-    hs = [torch.relu(r @ prm["wi"]) @ prm["wo"]
-          for r, prm in zip(recv, params)]
+    hs = mesh.local_map(lambda p: torch.relu(recv[p] @ params[p]["wi"])
+                        @ params[p]["wo"])
     back = collectives.all_to_all(hs, mesh, axis_name, 0, 0, tiled=False)
-    out = []
-    for b, xp, (expert, src_slot, keep, gatew) in zip(back, x, routes):
-        y = b[expert, src_slot] * torch.where(
+
+    def combine(p):
+        expert, src_slot, keep, gatew = routes[p]
+        y = back[p][expert, src_slot] * torch.where(
             keep, gatew, torch.zeros_like(gatew))[:, None]
         # dropped tokens ride the residual connection
-        out.append(torch.where(keep[:, None], y, xp))
-    return out
+        return torch.where(keep[:, None], y, x[p])
+
+    return mesh.local_map(combine)
 
 
 def build_moe_train_step(mesh, d_model: int, d_hidden: int, capacity: int,
                          lr: float = 0.1):
     """``train_step(params, x [tokens, D], y) -> (loss, new_params)``:
     experts split over `ep`, tokens over (`dp`, `ep`)."""
+    from . import transport
+
     spec = {"wi": P("ep"), "wo": P("ep"), "gate": None}
     tokens = P(("dp", "ep"))
 
     def train_step(params, x, y):
         x, y = torch.as_tensor(x), torch.as_tensor(y)
         with torch.enable_grad():
+            since = transport.mark(mesh.transport)
             leaves = _leaves(params, mesh, spec.get)
-            xs = [local_slice(mesh, x, tokens, p).to(mesh.device(p))
-                  for p in range(mesh.size)]
-            ys = [local_slice(mesh, y, tokens, p).to(mesh.device(p))
-                  for p in range(mesh.size)]
+            xs, ys = (mesh.local_map(lambda p, v=v: local_slice(
+                mesh, v, tokens, p).to(mesh.device(p))) for v in (x, y))
             out = moe_apply(leaves, xs, mesh, capacity=capacity)
-            loss = [torch.mean((o - t) ** 2) for o, t in zip(out, ys)]
+            loss = mesh.local_map(lambda p: torch.mean((out[p] - ys[p])
+                                                       ** 2))
             loss = collectives.pmean(collectives.pmean(loss, mesh, "dp"),
                                      mesh, "ep")
-            loss[0].backward()
+            mine = backward_once(mesh, loss, since)
         # an expert is held by its ep member's dp positions; the gate by
         # every position
         grads = _grads(leaves, mesh, lambda k: ("dp",) if spec[k]
                        else ("dp", "ep"))
         with torch.no_grad():
             new = _restack(leaves, grads, mesh, "ep", lr, {"wi", "wo"})
-        return loss[0].detach(), new
+        return mine, new
 
     return train_step

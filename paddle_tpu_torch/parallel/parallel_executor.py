@@ -64,11 +64,12 @@ from ..framework.executor import Executor, OpLoweringError, live_ops
 from ..framework.place import CPUPlace, CUDAPlace
 from ..observability.attribution import op_scope
 from ..ops.registry import get_op_info, unbound_slots, _generic_grad_emit
-from . import collectives
+from . import collectives, transport
 from . import mesh as mesh_lib
 from .mesh import make_mesh
 from .sharded import (ShardedTensor, from_global, from_groups, layout_groups,
-                      local_view, norm_spec, reshard, spec_axes)
+                      local_groups, local_view, norm_spec, reshard,
+                      spec_axes)
 from .transpiler import DistributeTranspiler, ShardingRules
 
 logger = logging.getLogger(__name__)
@@ -106,27 +107,44 @@ def axes_in_order(mesh, axes) -> tuple:
     return tuple(a for a in mesh.axis_names if a in s)
 
 
+def _groups_on(mesh, axes) -> list:
+    return layout_groups(mesh, (tuple(axes),) if axes else ())
+
+
 def reps_of(mesh, axes) -> list:
-    """The first position of each group on `axes` (zero off them)."""
+    """The first position of each group on `axes` (zero off them) in
+    this process: each group computes once a process."""
     key = ("reps", frozenset(axes))
     memo = mesh.memo.get(key)
     if memo is None:
-        memo = [g[0] for g in layout_groups(mesh, (tuple(axes),)
-                                            if axes else ())]
+        memo = [g[0] for g in local_groups(mesh, _groups_on(mesh, axes))]
         mesh.memo[key] = memo
     return memo
 
 
 def rep_map(mesh, axes) -> list:
-    """Position → the first position of its group on `axes`."""
+    """Position → the first position of its group on `axes` in this
+    process (None at the positions of other processes)."""
     key = ("repmap", frozenset(axes))
     memo = mesh.memo.get(key)
     if memo is None:
-        memo = [0] * mesh.size
-        for g in layout_groups(mesh, (tuple(axes),) if axes else ()):
+        memo = [None] * mesh.size
+        for g in local_groups(mesh, _groups_on(mesh, axes)):
             for q in g:
                 memo[q] = g[0]
         mesh.memo[key] = memo
+    return memo
+
+
+def spans_processes(mesh, axes) -> bool:
+    """Whether some group on `axes` holds positions of two processes (so
+    each of them computes it)."""
+    key = ("spans", frozenset(axes))
+    memo = mesh.memo.get(key)
+    if memo is None:
+        memo = mesh.memo[key] = any(
+            mesh.process_of(g[0]) != mesh.process_of(g[-1])
+            for g in _groups_on(mesh, axes))
     return memo
 
 
@@ -167,7 +185,7 @@ def local_plan(mesh, emit, attrs, in_specs, out_specs, psum_out=None,
                 red = psum_out.get(slot, [None] * len(specs))[i]
                 if red:
                     rmap = rep_map(mesh, E)
-                    full = [by_rep[rmap[p]] for p in range(mesh.size)]
+                    full = mesh.local_map(lambda p: by_rep[rmap[p]])
                     full = collectives.psum(full, mesh, tuple(red))
                     by_rep = {r: full[r] for r in reps}
                 val = from_groups(mesh, sp, by_rep)
@@ -305,8 +323,8 @@ def _rule_mean(ex, op_type, ins, attrs):
     n = x.numel()
 
     def run(view, ctxs):
-        full = [view("X", 0, p).sum() for p in range(mesh.size)]
-        tot = collectives.psum(full, mesh, axes)[0]
+        full = mesh.local_map(lambda p: view("X", 0, p).sum())
+        tot = collectives.psum(full, mesh, axes)[mesh.local[0]]
         return {"Out": [(tot / n).reshape(1).to(x.dtype)]}
 
     return MeshPlan(_keep(ins), axes, run)
@@ -554,8 +572,8 @@ def _rule_batch_norm(ex, op_type, ins, attrs):
     def run(view, ctxs):
         reps = reps_of(mesh, axes)
         rmap = rep_map(mesh, axes)
-        scale, bias = view("Scale", 0, 0), view("Bias", 0, 0)
-        mean_in, var_in = view("Mean", 0, 0), view("Variance", 0, 0)
+        p0 = mesh.local[0]
+        mean_in, var_in = view("Mean", 0, p0), view("Variance", 0, p0)
         xs = {r: view("X", 0, r) for r in reps}
         sdt = bn_matmul.compute_dtype(xs[reps[0]])
         shape = [1] * x.ndim
@@ -564,31 +582,69 @@ def _rule_batch_norm(ex, op_type, ins, attrs):
             use_mean, use_var = mean_in, var_in
             mean_out, var_out = mean_in, var_in
         else:
-            s1 = collectives.psum(
-                [xs[rmap[p]].to(sdt).sum(red) for p in range(mesh.size)],
-                mesh, axes)[0]
+            s1 = collectives.psum(mesh.local_map(
+                lambda p: xs[rmap[p]].to(sdt).sum(red)), mesh, axes)[p0]
             use_mean = s1 / count
-            s2 = collectives.psum(
-                [((xs[rmap[p]].to(sdt) - use_mean.reshape(shape)) ** 2
-                  ).sum(red) for p in range(mesh.size)], mesh, axes)[0]
+            centre = dict(zip(reps, _FanOut.apply(mesh, axes, use_mean)))
+            s2 = collectives.psum(mesh.local_map(
+                lambda p: ((xs[rmap[p]].to(sdt)
+                            - centre[rmap[p]].reshape(shape)) ** 2
+                           ).sum(red)), mesh, axes)[p0]
             use_var = s2 / count
             mean_out = momentum * mean_in + (1 - momentum) * use_mean.to(
                 mean_in.dtype)
             var_out = momentum * var_in + (1 - momentum) * use_var.to(
                 var_in.dtype)
         inv = 1.0 / torch.sqrt(use_var.to(sdt) + eps)
+        # each computation reads its own copy of the statistics and of the
+        # affine parameters, so their gradients meet in the positions' flat
+        # order (a psum) whatever the processes
+        means, invs = (dict(zip(reps, _FanOut.apply(mesh, axes, t)))
+                       for t in (use_mean, inv))
         ys = {}
         for r in reps:
             xr = xs[r]
-            xhat = (xr.to(sdt) - use_mean.reshape(shape).to(xr.device)) \
-                * inv.reshape(shape).to(xr.device)
-            ys[r] = (xhat * scale.reshape(shape).to(xr.device)
-                     + bias.reshape(shape).to(xr.device)).to(xr.dtype)
+            sc, bi = view("Scale", 0, r), view("Bias", 0, r)
+            xhat = (xr.to(sdt) - means[r].reshape(shape).to(xr.device)) \
+                * invs[r].reshape(shape).to(xr.device)
+            ys[r] = (xhat * sc.reshape(shape).to(xr.device)
+                     + bi.reshape(shape).to(xr.device)).to(xr.dtype)
         return {"Y": [from_groups(mesh, sp, ys)], "MeanOut": [mean_out],
                 "VarianceOut": [var_out], "SavedMean": [use_mean],
                 "SavedVariance": [use_var]}
 
     return MeshPlan(in_specs, axes, run)
+
+
+class _FanOut(torch.autograd.Function):
+    """One copy of a replicated value for each representative of the
+    groups on `axes` (``reps_of``).  The backward adds the copies'
+    gradients in the positions' flat order (a psum over `axes`,
+    uncounted), so the sum does not depend on how the positions split
+    over processes.  Where that psum crosses processes, the copies are
+    linked through the exchanges and the process that owns position 0
+    takes the sum (the others pass zeros on); else every process takes
+    its own."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, x):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(x.clone() for _ in reps_of(mesh, axes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axes = ctx.mesh, ctx.axes
+        by_rep = dict(zip(reps_of(mesh, axes), grads))
+        rmap = rep_map(mesh, axes)
+        with collectives.uncounted():
+            total = collectives.psum(
+                mesh.local_map(lambda p: by_rep[rmap[p]]), mesh,
+                axes)[mesh.local[0]]
+        if mesh.process_of(0) != mesh.process_index and any(
+                mesh.process_of(g[0]) != mesh.process_of(g[-1])
+                for g in collectives.groups(mesh, axes)):
+            total = torch.zeros_like(total)
+        return None, None, total
 
 
 def _rule_optimizer(ex, op_type, ins, attrs):
@@ -672,7 +728,7 @@ class ParallelExecutor(Executor):
                  rules: Optional[ShardingRules] = None, devices=None,
                  zero_dp_states: bool = False, fsdp_params: bool = False):
         self.mesh = mesh if mesh is not None else make_mesh(axes, devices)
-        dev0 = self.mesh.device(0)
+        dev0 = self.mesh.device(self.mesh.local[0])
         place = CPUPlace() if dev0.type == "cpu" else CUDAPlace(
             dev0.index or 0)
         super().__init__(place)
@@ -818,23 +874,28 @@ class ParallelExecutor(Executor):
 
     # ------------------------------------------------------------------
     def _contexts(self, ctx):
-        """One emit context a position: ctx with the position's device and
-        index (the executor's constants are kept per device)."""
-        out = []
+        """One emit context a position of this process: ctx with the
+        position's device and index (the executor's constants are kept
+        per device)."""
         by_dev = {}
-        for p in range(self.mesh.size):
+
+        def one(p):
             dev = self.mesh.device(p)
             c = copy.copy(ctx)
             c.device = dev
             c.position = p
             if dev != ctx.device:
                 c.constants = by_dev.setdefault(str(dev), {})
-            out.append(c)
-        return out
+            return c
+
+        return self.mesh.local_map(one)
+
+    def _loop_transport(self):
+        return self.mesh.transport
 
     def _walk(self, block, env, fetch_names, scope, ctx):
         ctx.mesh = self.mesh
-        ctx.position = 0
+        ctx.position = self.mesh.local[0]
         self._ctx_is_test = ctx.is_test
         ctxs = self._contexts(ctx)
         # a control-flow op's nested block runs whole: its op gathered
@@ -906,10 +967,12 @@ class ParallelExecutor(Executor):
         in_specs = {s: [(None,) * v.ndim if _is_sh(v) else None
                         for v in vals] for s, vals in ins.items()}
 
+        p0 = self.mesh.local[0]
+
         def run(view, ctxs):
-            whole = {s: [view(s, i, 0) for i in range(len(vals))]
+            whole = {s: [view(s, i, p0) for i in range(len(vals))]
                      for s, vals in ins.items()}
-            return info.emit(ctxs[0], whole, attrs)
+            return info.emit(ctxs[p0], whole, attrs)
 
         return MeshPlan(in_specs, (), run)
 
@@ -1009,7 +1072,16 @@ class ParallelExecutor(Executor):
         """``generic_grad`` over the mesh: the forward op's plan again, on
         leaves of each computation's blocks, the output cotangents pulled
         back by autograd; a leaf's gradients psummed over the groups that
-        share its input block (explicit, counted)."""
+        share its input block (explicit, counted).
+
+        Over several processes a group that spans two of them is computed
+        by each.  Where the re-run exchanged nothing between processes,
+        each process's copy is a whole computation of its own and takes
+        the whole cotangent.  Where it did, the copies are linked through
+        the exchanges' backwards, so each value takes its cotangent once
+        (at the process that owns its group's first position; zeros at
+        the others, which keeps every process's backward running) and a
+        leaf's copies' gradients are summed over the processes."""
         fwd_type = attrs["__fwd_type__"]
         fwd_attrs = attrs["__fwd_attrs__"]
         in_slots = attrs["__fwd_input_slots__"]
@@ -1049,18 +1121,28 @@ class ParallelExecutor(Executor):
                 return base(s, i, p)
             return lv[rmap[p]].to(mesh.device(p))
 
+        tr = mesh.transport
+        since = transport.mark(tr)
+        crossed = tr.crossings if tr is not None else 0
         if plan.mesh_aware:
             leaf_vals = {s: list(prepared[s]) for s in prepared}
             for (s, i), lv in leaves.items():
                 leaf_vals[s][i] = ShardedTensor(
                     mesh, spec_of_value(prepared[s][i]),
-                    [lv[rmap[p]] for p in range(mesh.size)])
+                    mesh.local_map(lambda p: lv[rmap[p]]))
             with torch.enable_grad(), collectives.uncounted():
                 outs = info.mesh_emit(ctx, leaf_vals, fwd_attrs).run(
                     self._viewer(leaf_vals), ctxs)
         else:
             with torch.enable_grad(), collectives.uncounted():
                 outs = plan.run(view, ctxs)
+        linked = tr is not None and tr.crossings != crossed
+        me = mesh.process_index
+
+        def once(g):
+            """This process takes group g's cotangent."""
+            return not linked or mesh.process_of(g[0]) == me
+
         primals, cts = [], []
         for s in out_slots:
             grads = ins.get(s + GRAD_SUFFIX, [])
@@ -1074,48 +1156,87 @@ class ParallelExecutor(Executor):
                     if primal.local_only:
                         continue
                     g = reshard(g, primal.spec, mesh, self._stats)
-                    for r in primal.representatives():
-                        t = primal.shards[r]
-                        if t.requires_grad:
+                    for grp in primal.groups():
+                        r = mesh.first_local(grp)
+                        t = None if r is None else primal.shards[r]
+                        if t is not None and t.requires_grad:
                             primals.append(t)
-                            cts.append(local_view(mesh, g, r).to(t.dtype))
+                            ct = local_view(mesh, g, r).to(t.dtype)
+                            cts.append(ct if once(grp)
+                                       else torch.zeros_like(ct))
                 else:
                     if not primal.requires_grad:
                         continue
                     primals.append(primal)
-                    cts.append(self._whole(g).to(primal.dtype)
-                               .to(primal.device))
+                    ct = self._whole(g).to(primal.dtype).to(primal.device)
+                    cts.append(ct if once(range(mesh.size))
+                               else torch.zeros_like(ct))
         flat = [(k, r) for k in diff for r in reps]
         leaf_list = [leaves[k][r] for k, r in flat]
-        if primals and leaf_list:
+        if (primals and leaf_list) or transport.mark(tr) > since:
             with torch.enable_grad():
-                din = torch.autograd.grad(primals, leaf_list, cts,
-                                          allow_unused=True)
+                din = transport.grad(tr, primals, leaf_list, cts, since)
         else:
             din = [None] * len(leaf_list)
         got = {}
         for (k, r), leaf, g in zip(flat, leaf_list, din):
             got.setdefault(k, {})[r] = torch.zeros_like(leaf) \
                 if g is None else g
+        if linked and spans_processes(mesh, E):
+            got = self._sum_copies(E, got)
         result = {}
         for (s, i) in diff:
             v = prepared[s][i]
             in_spec = spec_of_value(v)
             red = tuple(a for a in E if a not in spec_axes(in_spec))
             by_rep = got[(s, i)]
+            in_groups = local_groups(mesh, layout_groups(mesh, in_spec))
             if red:
-                full = [by_rep[rmap[p]] for p in range(mesh.size)]
+                full = mesh.local_map(lambda p: by_rep[rmap[p]])
                 with collectives.tagged(grad_names.get((s, i))):
                     full = collectives.psum(full, mesh, red)
-                by_rep = {g[0]: full[g[0]]
-                          for g in layout_groups(mesh, in_spec)}
+                by_rep = {g[0]: full[g[0]] for g in in_groups}
             else:
-                by_rep = {g[0]: by_rep[rmap[g[0]]]
-                          for g in layout_groups(mesh, in_spec)}
+                by_rep = {g[0]: by_rep[rmap[g[0]]] for g in in_groups}
             result.setdefault(s + GRAD_SUFFIX, {})[i] = from_groups(
                 mesh, in_spec, by_rep)
         return {s: [by_idx.get(i) for i in range(max(by_idx) + 1)]
                 for s, by_idx in result.items()}
+
+    def _sum_copies(self, E, got):
+        """{leaf: {rep: gradient}} with each group on E that spans
+        processes given the sum of its processes' copies, added in process
+        order."""
+        mesh = self.mesh
+        me = mesh.process_index
+        spanning = [g for g in _groups_on(mesh, E)
+                    if mesh.process_of(g[0]) != mesh.process_of(g[-1])]
+        wants = []
+        for k in got:
+            for g in spanning:
+                procs = sorted({mesh.process_of(q) for q in g})
+                wants += [((k, g[0], src), src, dst) for dst in procs
+                          for src in procs if src != dst]
+        rep = {g[0]: mesh.first_local(g) for g in spanning}
+        mine = lambda key: got[key[0]][rep[key[1]]]  # noqa: E731
+        recv = collectives._swap(
+            mesh, wants, mine, lambda key: (tuple(mine(key).shape),
+                                            mine(key).dtype,
+                                            mine(key).device))
+        out = {k: dict(v) for k, v in got.items()}
+        for k in got:
+            for g in spanning:
+                r = rep[g[0]]
+                if r is None:
+                    continue
+                procs = sorted({mesh.process_of(q) for q in g})
+                parts = [got[k][r] if src == me else recv[(k, g[0], src)]
+                         for src in procs]
+                acc = parts[0]
+                for t in parts[1:]:
+                    acc = acc + t
+                out[k][r] = acc
+        return out
 
     def _whole(self, v):
         """A value gathered to one tensor (an all-gather when sharded,

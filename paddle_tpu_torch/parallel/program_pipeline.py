@@ -21,12 +21,16 @@ Design points, as in the JAX package:
   float32 buffer sized to the largest interface and cast back on the far
   side (bf16 rounding depends on these casts, so their order is JAX's).
 
-The port is single-controller: a step is a Python loop over ticks, and
-at each tick every position whose stage has a microbatch in flight runs
-it.  JAX computes every stage every tick and masks the invalid ones to
-zero; that masked work adds nothing to the loss or its gradient, so
-skipping it gives the same result.  The backward is autograd through the
-whole schedule.
+A step is a Python loop over ticks, and at each tick every position of
+this process whose stage has a microbatch in flight runs it.  JAX
+computes every stage every tick and masks the invalid ones to zero; that
+masked work adds nothing to the loss or its gradient, so skipping it
+gives the same result.  The backward is autograd through the whole
+schedule.  Over a mesh of several processes (``distributed.launch.
+global_mesh``) a stage runs in the process that owns its positions, a
+tick's hop crosses processes where neighbouring stages do, the backward
+runs back through the exchanges (``parallel/transport.py``), and the
+loss takes its cotangent once, in the process that owns position 0.
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ from ..framework.core import torch_dtype
 from ..framework.executor import Executor
 from ..framework.scope import global_scope
 from ..ops.registry import EmitContext
-from . import collectives
+from . import collectives, transport
 from .mesh import mesh_axis_sizes
+from .pipeline import backward_once
 
 
 def split_stages(block) -> List[list]:
@@ -237,26 +242,46 @@ class ProgramPipeline:
             flat_stages.append(chunks)
         L = max((m[-1][3] + int(np.prod(m[-1][1])) for m in
                  self._param_meta if m), default=1) or 1
-        self._rows = []
-        for p in range(self.mesh.size):
+
+        def row_of(p):
             dev = self.mesh.device(p)
             row = torch.zeros((L,), dtype=torch.float32, device=dev)
             off = 0
             for c in flat_stages[self._stage_of[p]]:
                 row[off:off + c.numel()] = c.to(dev)
                 off += c.numel()
-            self._rows.append(row)
+            return row
+
+        self._rows = self.mesh.local_map(row_of)
         if self.opt_kind == "momentum":
-            self._velocity = [torch.zeros_like(r) for r in self._rows]
+            self._velocity = [None if r is None else torch.zeros_like(r)
+                              for r in self._rows]
         return self
+
+    def _stage_rows(self) -> Dict[int, torch.Tensor]:
+        """{stage: the row of the first position that holds it}; over
+        several processes a stage's row comes from the process that owns
+        that position (every process calls this)."""
+        mesh = self.mesh
+        firsts = {s: self._first_of_stage(s) for s in range(self.pp)}
+        wants = [(s, mesh.process_of(p), k) for s, p in firsts.items()
+                 for k in range(mesh.process_count)]
+        like = self._rows[mesh.local[0]]
+        got = collectives._swap(
+            mesh, wants, lambda s: self._rows[firsts[s]],
+            lambda s: (tuple(like.shape), like.dtype, like.device))
+        return {s: self._rows[p] if mesh.is_local(p) else got[s]
+                for s, p in firsts.items()}
 
     def params(self, cast: bool = True) -> Dict[str, torch.Tensor]:
         """The trained parameters, each sliced from its stage's row (the
         first position that holds the stage) and cast to its declared
         dtype; ``cast=False`` gives the float32 row values."""
         out = {}
+        with torch.no_grad():
+            rows = self._stage_rows()
         for s, metas in enumerate(self._param_meta):
-            row = self._rows[self._first_of_stage(s)]
+            row = rows[s]
             for (n, shape, dtype, off) in metas:
                 size = int(np.prod(shape)) if shape else 1
                 v = row[off:off + size].reshape(shape)
@@ -333,24 +358,29 @@ class ProgramPipeline:
         """The schedule's loss (position 0's copy) after its backward;
         the rows' leaves carry their gradients."""
         mesh, pp, n_micro = self.mesh, self.pp, self.n_micro
+        each = mesh.local_map
         lbs = plan.local_bs
-        local = []
-        for p in range(mesh.size):
+
+        def feeds_of(p):
             d, dev = self._dp_of[p], mesh.device(p)
-            local.append({k: v[:, d * lbs:(d + 1) * lbs].to(dev)
-                          for k, v in feeds_micro.items()})
-        leaves = [r.detach().requires_grad_(True) for r in self._rows]
+            return {k: v[:, d * lbs:(d + 1) * lbs].to(dev)
+                    for k, v in feeds_micro.items()}
+
+        local = each(feeds_of)
+        leaves = each(lambda p: self._rows[p].detach().requires_grad_(True))
         fwd_perm = [(s, s + 1) for s in range(pp - 1)]
-        buf = [torch.zeros((plan.act_len,), dtype=torch.float32,
-                           device=mesh.device(p)) for p in range(mesh.size)]
+        buf = each(lambda p: torch.zeros((plan.act_len,),
+                                         dtype=torch.float32,
+                                         device=mesh.device(p)))
         losses = [[] for _ in range(mesh.size)]
+        since = transport.mark(mesh.transport)
         for t in range(n_micro + pp - 1):
-            ys = []
-            for p in range(mesh.size):
+            ys = [None] * mesh.size
+            for p in mesh.local:
                 s = self._stage_of[p]
                 micro = t - s
                 if not 0 <= micro < n_micro:
-                    ys.append(torch.zeros_like(buf[p]))
+                    ys[p] = torch.zeros_like(buf[p])
                     continue
                 ctx = _TickContext(mesh.device(p), self.program, step, t,
                                    mesh, self._constants)
@@ -360,34 +390,35 @@ class ProgramPipeline:
                 if s == pp - 1:
                     losses[p].append(y)
                     y = torch.zeros_like(buf[p])
-                ys.append(y)
+                ys[p] = y
             buf = collectives.ppermute(ys, mesh, "pp", fwd_perm)
         # only the last stage holds losses; share them.  Under pp×dp each
         # member saw its local_bs slice: the mean over dp gives the global
         # batch mean
-        vec = [torch.stack(losses[p]) if self._stage_of[p] == pp - 1
-               else torch.zeros((n_micro,), device=mesh.device(p))
-               for p in range(mesh.size)]
-        loss = [v.mean() for v in collectives.psum(vec, mesh, "pp")]
+        vec = each(lambda p: torch.stack(losses[p])
+                   if self._stage_of[p] == pp - 1
+                   else torch.zeros((n_micro,), device=mesh.device(p)))
+        loss = [None if v is None else v.mean()
+                for v in collectives.psum(vec, mesh, "pp")]
         if self.dp > 1:
             loss = collectives.pmean(loss, mesh, "dp")
-        loss[0].backward()
-        return loss[0].detach(), leaves
+        return backward_once(mesh, loss, since), leaves
 
     def _update(self, leaves):
-        grads = [lf.grad if lf.grad is not None else torch.zeros_like(lf)
-                 for lf in leaves]
+        each = self.mesh.local_map
+        grads = each(lambda p: leaves[p].grad if leaves[p].grad is not None
+                     else torch.zeros_like(leaves[p]))
         if self.dp > 1:
             grads = collectives.psum(grads, self.mesh, "dp")
         if self.opt_kind == "sgd":
             lr = self.opt_args[0]
-            self._rows = [lf.detach() - lr * g for lf, g in zip(leaves, grads)]
+            self._rows = each(lambda p: leaves[p].detach() - lr * grads[p])
         elif self.opt_kind == "momentum":
             lr, mu = self.opt_args
-            self._velocity = [mu * v + g
-                              for v, g in zip(self._velocity, grads)]
-            self._rows = [lf.detach() - lr * v
-                          for lf, v in zip(leaves, self._velocity)]
+            self._velocity = each(lambda p: mu * self._velocity[p]
+                                  + grads[p])
+            self._rows = each(lambda p: leaves[p].detach()
+                              - lr * self._velocity[p])
 
     # ------------------------------------------------------------------
     def run(self, feed: Dict[str, object], seed: Optional[int] = None):

@@ -76,6 +76,28 @@ def _perm(S):
     return [(i, (i + 1) % S) for i in range(S)]
 
 
+def _each(mesh, xs, fn, *more):
+    """fn(xs[p], *(m[p] for m in more)) at this process's positions."""
+    return mesh.local_map(lambda p: fn(xs[p], *(m[p] for m in more)))
+
+
+def _zeros32(x):
+    return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
+
+def _mine(mesh, xs):
+    """This process's entries of a per-position list."""
+    return [xs[p] for p in mesh.local]
+
+
+def _full(mesh, mine):
+    """A per-position list from this process's entries."""
+    out = [None] * mesh.size
+    for p, x in zip(mesh.local, mine):
+        out[p] = x
+    return out
+
+
 def _merge(o_acc, lse_acc, o_s, lse_s):
     """The attention-merge identity in f32: (o, lse) of two chunks' parts."""
     lse_s = lse_s.reshape(lse_acc.shape).float()
@@ -88,19 +110,18 @@ def _merge(o_acc, lse_acc, o_s, lse_s):
 def _ring_body(qs, ks, vs, mesh, axis: str, causal: bool, scale: float):
     """Plain ring, every position at once: the online softmax in f32 over
     the chunks as they arrive."""
-    P = mesh.size
     S = axis_size(mesh, axis)
     my = col.axis_index(mesh, axis)
-    q_s = [q * scale for q in qs]
-    m = [torch.full(q.shape[:-1], -1e30, dtype=torch.float32,
-                    device=q.device) for q in qs]
-    l = [torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
-         for q in qs]
-    o = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-         for q in qs]
+    q_s = _each(mesh, qs, lambda q: q * scale)
+    m = _each(mesh, qs, lambda q: torch.full(
+        q.shape[:-1], -1e30, dtype=torch.float32, device=q.device))
+    l = _each(mesh, qs, lambda q: torch.zeros(
+        q.shape[:-1], dtype=torch.float32, device=q.device))
+    o = _each(mesh, qs, lambda q: torch.zeros(
+        q.shape, dtype=torch.float32, device=q.device))
     k_cur, v_cur = list(ks), list(vs)
     for s in range(S):
-        for p in range(P):
+        for p in mesh.local:
             t = qs[p].shape[2]
             logits = torch.einsum("bhqd,bhkd->bhqk", q_s[p],
                                   k_cur[p]).float()
@@ -121,21 +142,21 @@ def _ring_body(qs, ks, vs, mesh, axis: str, causal: bool, scale: float):
             m[p] = m_new
         k_cur = col.ppermute(k_cur, mesh, axis, _perm(S))
         v_cur = col.ppermute(v_cur, mesh, axis, _perm(S))
-    return [(o[p] / l[p][..., None]).to(qs[p].dtype) for p in range(P)]
+    return mesh.local_map(lambda p: (o[p] / l[p][..., None]).to(
+        qs[p].dtype))
 
 
 def _ring_flash_fwd(qs, ks, vs, mesh, axis, scale, causal):
     """Flash ring forward: (out shards, f32 lse shards [B,H,t])."""
-    P = mesh.size
     S = axis_size(mesh, axis)
     my = col.axis_index(mesh, axis)
-    o_acc = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-             for q in qs]
-    lse_acc = [torch.full(q.shape[:-1], float("-inf"), dtype=torch.float32,
-                          device=q.device) for q in qs]
+    o_acc = _each(mesh, qs, lambda q: torch.zeros(
+        q.shape, dtype=torch.float32, device=q.device))
+    lse_acc = _each(mesh, qs, lambda q: torch.full(
+        q.shape[:-1], float("-inf"), dtype=torch.float32, device=q.device))
     k_cur, v_cur = list(ks), list(vs)
     for s in range(S):
-        for p in range(P):
+        for p in mesh.local:
             out_s, lse_s = fa.flash_attention_fwd(
                 qs[p], k_cur[p], v_cur[p], causal=causal and s == 0,
                 scale=scale)
@@ -147,25 +168,19 @@ def _ring_flash_fwd(qs, ks, vs, mesh, axis, scale, causal):
         if s < S - 1:  # the final hop's result would be discarded
             k_cur = col.ppermute(k_cur, mesh, axis, _perm(S))
             v_cur = col.ppermute(v_cur, mesh, axis, _perm(S))
-    return [o.to(q.dtype) for o, q in zip(o_acc, qs)], lse_acc
+    return _each(mesh, o_acc, lambda o, q: o.to(q.dtype), qs), lse_acc
 
 
 def _ring_flash_bwd(qs, ks, vs, outs, lses, dos, mesh, axis, scale,
                     causal):
     """Flash ring backward: K5 and K6 a hop against the total lse; dK/dV
     accumulators rotate with their chunks (all S hops, arriving home)."""
-    P = mesh.size
     S = axis_size(mesh, axis)
     my = col.axis_index(mesh, axis)
-    dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-          for q in qs]
-    dk = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-          for k in ks]
-    dv = [torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-          for v in vs]
+    dq, dk, dv = (_each(mesh, xs, _zeros32) for xs in (qs, ks, vs))
     k_cur, v_cur = list(ks), list(vs)
     for s in range(S):
-        for p in range(P):
+        for p in mesh.local:
             lse_k = lses[p].reshape(-1, lses[p].shape[-1])
             dq_s, dk_s, dv_s = fa.flash_attention_bwd(
                 qs[p], k_cur[p], v_cur[p], outs[p], lse_k, dos[p],
@@ -180,9 +195,8 @@ def _ring_flash_bwd(qs, ks, vs, outs, lses, dos, mesh, axis, scale,
             v_cur = col.ppermute(v_cur, mesh, axis, _perm(S))
         dk = col.ppermute(dk, mesh, axis, _perm(S))
         dv = col.ppermute(dv, mesh, axis, _perm(S))
-    return ([g.to(q.dtype) for g, q in zip(dq, qs)],
-            [g.to(k.dtype) for g, k in zip(dk, ks)],
-            [g.to(v.dtype) for g, v in zip(dv, vs)])
+    return tuple(_each(mesh, g, lambda a, x: a.to(x.dtype), xs)
+                 for g, xs in ((dq, qs), (dk, ks), (dv, vs)))
 
 
 def zigzag_permutation(T: int, S: int):
@@ -208,7 +222,6 @@ def _halves(x):
 
 def _ring_flash_zigzag_core(qs, ks, vs, mesh, axis, scale):
     """Zigzag forward over the zigzag-laid-out shards: (out, lse)."""
-    P = mesh.size
     S = axis_size(mesh, axis)
     my = col.axis_index(mesh, axis)
 
@@ -217,14 +230,11 @@ def _ring_flash_zigzag_core(qs, ks, vs, mesh, axis, scale):
                 torch.full(x.shape[:-1], float("-inf"),
                            dtype=torch.float32, device=x.device))
 
-    acc_e, acc_l = [], []
-    for q in qs:
-        qe, ql = _halves(q)
-        acc_e.append(fresh(qe))
-        acc_l.append(fresh(ql))
+    acc_e = _each(mesh, qs, lambda q: fresh(_halves(q)[0]))
+    acc_l = _each(mesh, qs, lambda q: fresh(_halves(q)[1]))
     k_cur, v_cur = list(ks), list(vs)
     for s in range(S):
-        for p in range(P):
+        for p in mesh.local:
             qe, ql = _halves(qs[p])
             ke, kl = _halves(k_cur[p])
             ve, vl = _halves(v_cur[p])
@@ -249,36 +259,28 @@ def _ring_flash_zigzag_core(qs, ks, vs, mesh, axis, scale):
         if s < S - 1:
             k_cur = col.ppermute(k_cur, mesh, axis, _perm(S))
             v_cur = col.ppermute(v_cur, mesh, axis, _perm(S))
-    outs = [torch.cat([e[0], l[0]], 2).to(q.dtype)
-            for e, l, q in zip(acc_e, acc_l, qs)]
-    lses = [torch.cat([e[1], l[1]], 2) for e, l in zip(acc_e, acc_l)]
+    outs = mesh.local_map(lambda p: torch.cat(
+        [acc_e[p][0], acc_l[p][0]], 2).to(qs[p].dtype))
+    lses = mesh.local_map(lambda p: torch.cat(
+        [acc_e[p][1], acc_l[p][1]], 2))
     return outs, lses
 
 
 def _ring_flash_zigzag_bwd(qs, ks, vs, outs, lses, dos, mesh, axis, scale):
     """Zigzag backward: the same balanced block schedule transposed; the
     dK/dV pair rotates with its K/V pair (all S hops, arriving home)."""
-    P = mesh.size
     S = axis_size(mesh, axis)
     my = col.axis_index(mesh, axis)
-    dq_e, dq_l = [], []
-    for q in qs:
-        qe, ql = _halves(q)
-        dq_e.append(torch.zeros(qe.shape, dtype=torch.float32,
-                                device=q.device))
-        dq_l.append(torch.zeros(ql.shape, dtype=torch.float32,
-                                device=q.device))
-    dk = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-          for k in ks]
-    dv = [torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-          for v in vs]
+    dq_e = _each(mesh, qs, lambda q: _zeros32(_halves(q)[0]))
+    dq_l = _each(mesh, qs, lambda q: _zeros32(_halves(q)[1]))
+    dk, dv = (_each(mesh, xs, _zeros32) for xs in (ks, vs))
     k_cur, v_cur = list(ks), list(vs)
 
     def rows(lse):
         return lse.reshape(-1, lse.shape[-1])
 
     for s in range(S):
-        for p in range(P):
+        for p in mesh.local:
             qe, ql = _halves(qs[p])
             oe, ol = _halves(outs[p])
             doe, dol = _halves(dos[p])
@@ -318,59 +320,68 @@ def _ring_flash_zigzag_bwd(qs, ks, vs, outs, lses, dos, mesh, axis, scale):
             v_cur = col.ppermute(v_cur, mesh, axis, _perm(S))
         dk = col.ppermute(dk, mesh, axis, _perm(S))
         dv = col.ppermute(dv, mesh, axis, _perm(S))
-    dq = [torch.cat([e, l], 2).to(q.dtype)
-          for e, l, q in zip(dq_e, dq_l, qs)]
-    return (dq, [g.to(k.dtype) for g, k in zip(dk, ks)],
-            [g.to(v.dtype) for g, v in zip(dv, vs)])
+    dq = mesh.local_map(lambda p: torch.cat([dq_e[p], dq_l[p]], 2).to(
+        qs[p].dtype))
+    return (dq, _each(mesh, dk, lambda g, k: g.to(k.dtype), ks),
+            _each(mesh, dv, lambda g, v: g.to(v.dtype), vs))
 
 
 class _RingTrain(torch.autograd.Function):
-    """A ring over every position's shards: forward (out, lse) by
-    `fwd`, backward by `bwd`.  Inputs: (spec, *qs, *ks, *vs)."""
+    """A ring over this process's positions' shards: forward (out, lse)
+    by `fwd`, backward by `bwd` (whose hops reach the other processes'
+    positions).  Inputs: (spec, *qs, *ks, *vs), the local positions'
+    only."""
 
     @staticmethod
     def forward(ctx, spec, *qkv):
-        P = spec["mesh"].size
-        qs, ks, vs = (list(qkv[:P]), list(qkv[P:2 * P]),
-                      list(qkv[2 * P:]))
+        mesh = spec["mesh"]
+        L = len(mesh.local)
+        qs, ks, vs = (_full(mesh, qkv[i * L:(i + 1) * L]) for i in range(3))
         outs, lses = spec["fwd"](qs, ks, vs)
         ctx.spec = spec
-        ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
-        return tuple(outs)
+        ctx.save_for_backward(*qkv, *_mine(mesh, outs), *_mine(mesh, lses))
+        return tuple(_mine(mesh, outs))
 
     @staticmethod
     def backward(ctx, *dos):
         spec = ctx.spec
-        P = spec["mesh"].size
+        mesh = spec["mesh"]
+        L = len(mesh.local)
         saved = ctx.saved_tensors
-        qs, ks, vs = saved[:P], saved[P:2 * P], saved[2 * P:3 * P]
-        outs, lses = saved[3 * P:4 * P], saved[4 * P:]
-        dos = [torch.zeros_like(o) if d is None else d
-               for d, o in zip(dos, outs)]
+        qs, ks, vs, outs, lses = (_full(mesh, saved[i * L:(i + 1) * L])
+                                  for i in range(5))
+        dos = _full(mesh, [torch.zeros_like(o) if d is None else d
+                           for d, o in zip(dos, saved[3 * L:4 * L])])
         dq, dk, dv = spec["bwd"](qs, ks, vs, outs, lses, dos)
-        return (None, *dq, *dk, *dv)
+        return (None, *_mine(mesh, dq), *_mine(mesh, dk), *_mine(mesh, dv))
+
+
+def _train(spec, qs, ks, vs):
+    mesh = spec["mesh"]
+    return _full(mesh, _RingTrain.apply(spec, *_mine(mesh, qs),
+                                        *_mine(mesh, ks), *_mine(mesh, vs)))
 
 
 def ring_flash_train(qs, ks, vs, mesh, axis, scale, causal):
     """``make_ring_flash_train``'s counterpart: the flash ring with its
     ring backward, over every position's shards."""
-    spec = {"mesh": mesh,
-            "fwd": lambda q, k, v: _ring_flash_fwd(q, k, v, mesh, axis,
-                                                   scale, causal),
-            "bwd": lambda q, k, v, o, l, d: _ring_flash_bwd(
-                q, k, v, o, l, d, mesh, axis, scale, causal)}
-    return list(_RingTrain.apply(spec, *qs, *ks, *vs))
+    return _train({"mesh": mesh,
+                   "fwd": lambda q, k, v: _ring_flash_fwd(
+                       q, k, v, mesh, axis, scale, causal),
+                   "bwd": lambda q, k, v, o, l, d: _ring_flash_bwd(
+                       q, k, v, o, l, d, mesh, axis, scale, causal)},
+                  qs, ks, vs)
 
 
 def ring_zigzag_train(qs, ks, vs, mesh, axis, scale):
     """``make_ring_flash_zigzag_train``'s counterpart, on zigzag-laid-out
     shards."""
-    spec = {"mesh": mesh,
-            "fwd": lambda q, k, v: _ring_flash_zigzag_core(q, k, v, mesh,
-                                                           axis, scale),
-            "bwd": lambda q, k, v, o, l, d: _ring_flash_zigzag_bwd(
-                q, k, v, o, l, d, mesh, axis, scale)}
-    return list(_RingTrain.apply(spec, *qs, *ks, *vs))
+    return _train({"mesh": mesh,
+                   "fwd": lambda q, k, v: _ring_flash_zigzag_core(
+                       q, k, v, mesh, axis, scale),
+                   "bwd": lambda q, k, v, o, l, d: _ring_flash_zigzag_bwd(
+                       q, k, v, o, l, d, mesh, axis, scale)},
+                  qs, ks, vs)
 
 
 _ZIGZAG_INDEX = {}
@@ -394,15 +405,16 @@ def zigzag_relayout(shards, mesh, axis, inverse=False):
     all-gather, counted) and re-sliced."""
     S = axis_size(mesh, axis)
     whole = col.all_gather(shards, mesh, axis, dim=2)
-    T = whole[0].shape[2]
+    T = whole[mesh.local[0]].shape[2]
     my = col.axis_index(mesh, axis)
     t = T // S
-    out = []
-    for p in range(mesh.size):
+
+    def one(p):
         laid = whole[p].index_select(
             2, _zigzag_index(T, S, inverse, whole[p].device))
-        out.append(laid[:, :, my[p] * t:(my[p] + 1) * t])
-    return out
+        return laid[:, :, my[p] * t:(my[p] + 1) * t]
+
+    return mesh.local_map(one)
 
 
 def ring_attention_shards(qs, ks, vs, mesh, axis="sp", causal=False,
@@ -410,7 +422,7 @@ def ring_attention_shards(qs, ks, vs, mesh, axis="sp", causal=False,
                           schedule="plain", pre_permuted=False):
     """The ring over every position's [B,H,t,D] shards (t = T/S, the
     sequence split over `axis` in order); returns the output shards."""
-    d = qs[0].shape[-1]
+    d = qs[mesh.local[0]].shape[-1]
     s = scale if scale is not None else 1.0 / (d ** 0.5)
     zigzag = schedule == "zigzag"
     if zigzag and not (use_flash and causal):
@@ -421,7 +433,7 @@ def ring_attention_shards(qs, ks, vs, mesh, axis="sp", causal=False,
         return _ring_body(qs, ks, vs, mesh, axis, causal, s)
     if zigzag:
         S = axis_size(mesh, axis)
-        T = qs[0].shape[2] * S
+        T = qs[mesh.local[0]].shape[2] * S
         if T % (2 * S):
             raise ValueError(
                 f"zigzag needs T divisible by 2*S ({T} vs {2 * S})")
@@ -444,7 +456,8 @@ def _split_seq(x, mesh, axis):
     from .sharded import from_global, norm_spec
 
     sh = from_global(mesh, x, norm_spec((None, None, axis, None), 4))
-    return sh.shards if hasattr(sh, "shards") else [x] * mesh.size
+    return sh.shards if hasattr(sh, "shards") else mesh.local_map(
+        lambda p: x)
 
 
 def _join_seq(shards, mesh, axis):
@@ -492,25 +505,24 @@ def ulysses_shards(qs, ks, vs, mesh, axis="sp", causal=False, scale=None,
     """Ulysses over every position's [B,H,t,D] shards: all_to_all to
     [B,H/S,T,D], full-sequence attention, all_to_all back."""
     S = axis_size(mesh, axis)
-    H = qs[0].shape[1]
+    H = qs[mesh.local[0]].shape[1]
     if H % S:
         raise ValueError(
             f"ulysses attention: head count {H} must be a multiple of the "
             f"{axis!r} axis size {S}")
     qh, kh, vh = (col.all_to_all(x, mesh, axis, split_axis=1,
                                  concat_axis=2) for x in (qs, ks, vs))
-    out = []
-    for p in range(mesh.size):
+
+    def one(p):
         if use_flash:
             if is_train:
-                o = fa.FlashAttentionTrain.apply(qh[p], kh[p], vh[p],
-                                                 causal, scale)
-            else:
-                o = fa.flash_attention_fwd(qh[p], kh[p], vh[p],
-                                           causal=causal, scale=scale)[0]
-        else:
-            o = attention(qh[p], kh[p], vh[p], causal=causal, scale=scale)
-        out.append(o)
+                return fa.FlashAttentionTrain.apply(qh[p], kh[p], vh[p],
+                                                    causal, scale)
+            return fa.flash_attention_fwd(qh[p], kh[p], vh[p],
+                                          causal=causal, scale=scale)[0]
+        return attention(qh[p], kh[p], vh[p], causal=causal, scale=scale)
+
+    out = mesh.local_map(one)
     return col.all_to_all(out, mesh, axis, split_axis=2, concat_axis=1)
 
 

@@ -9,6 +9,13 @@ first position (its representative) holds the tensor, and the others hold
 it moved to their device, which on one device is the same object.  So a
 value is never held twice on one device, and autograd sees each shard
 once.
+
+Over a mesh of several processes a ``ShardedTensor`` holds no tensor for
+the positions of other processes (``None``), and a group's
+representative is its first position in this process.  ``from_global``,
+``from_groups`` and ``local_view`` touch this process's positions only;
+``gather``, ``all_gathered``, ``__array__`` and a ``reshard`` that is not
+a local slice are collectives that every process calls.
 """
 
 from __future__ import annotations
@@ -57,22 +64,26 @@ class ShardedTensor:
             raise ValueError(f"{len(shards)} shards for a mesh of "
                              f"{mesh.size} positions")
         self.mesh = mesh
-        self.spec = norm_spec(spec, shards[0].ndim)
         self.shards = list(shards)
+        self.spec = norm_spec(spec, self._any().ndim)
         self.local_only = local_only
+
+    def _any(self) -> torch.Tensor:
+        """This process's first shard."""
+        return self.shards[self.mesh.local[0]]
 
     # -- shape ---------------------------------------------------------
     @property
     def ndim(self) -> int:
-        return self.shards[0].ndim
+        return self._any().ndim
 
     @property
     def dtype(self):
-        return self.shards[0].dtype
+        return self._any().dtype
 
     @property
     def device(self):
-        return self.shards[0].device
+        return self._any().device
 
     def split_of(self, d: int) -> int:
         n = 1
@@ -85,7 +96,7 @@ class ShardedTensor:
     def shape(self) -> tuple:
         """The global shape."""
         return tuple(s * self.split_of(d)
-                     for d, s in enumerate(self.shards[0].shape))
+                     for d, s in enumerate(self._any().shape))
 
     def numel(self) -> int:
         n = 1
@@ -94,13 +105,13 @@ class ShardedTensor:
         return n
 
     def element_size(self) -> int:
-        return self.shards[0].element_size()
+        return self._any().element_size()
 
     def local(self, p: int) -> torch.Tensor:
         return self.shards[p]
 
     def is_floating_point(self) -> bool:
-        return self.shards[0].is_floating_point()
+        return self._any().is_floating_point()
 
     def clone(self) -> "ShardedTensor":
         return self.map(torch.Tensor.clone)
@@ -128,24 +139,43 @@ class ShardedTensor:
         return layout_groups(self.mesh, self.spec)
 
     def representatives(self) -> List[int]:
-        return [g[0] for g in self.groups()]
+        """Each group's first position in this process (groups this
+        process holds no position of are left out)."""
+        return [g[0] for g in local_groups(self.mesh, self.groups())]
 
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
-        """The global tensor on `device` (position 0's by default), by
-        concatenation: differentiable, and counts nothing (callers that
-        move data between positions count it)."""
+        """The global tensor on `device` (this process's first position's
+        by default), by concatenation: differentiable, and counts nothing
+        (callers that move data between positions count it).  Over
+        several processes every process calls it: a group's block comes
+        from the process that owns the group's first position."""
         if self.local_only:
             raise ValueError(
                 "a local-only sharded value (per-position row statistics "
                 "of a dim pair sharded two ways) has no global order")
-        device = device or self.mesh.device(0)
+        mesh = self.mesh
+        device = device or mesh.device(mesh.local[0])
+        gs = self.groups()
+        wants = []
+        for g in gs:
+            if mesh.process_count > 1:
+                have = {mesh.process_of(q) for q in g}
+                wants += [(g[0], mesh.process_of(g[0]), k)
+                          for k in range(mesh.process_count)
+                          if k not in have]
+        like = self._any()
+        got = collectives._swap(
+            mesh, wants, lambda q: self.shards[q],
+            lambda q: (tuple(like.shape), like.dtype, device))
         blocks: Dict[tuple, torch.Tensor] = {}
         sharded = [(d, axes) for d, axes in enumerate(self.spec) if axes]
-        for g in self.groups():
-            c = self.mesh.coords(g[0])
-            key = tuple(shard_index(self.mesh, c, axes)[0]
+        for g in gs:
+            c = mesh.coords(g[0])
+            key = tuple(shard_index(mesh, c, axes)[0]
                         for _, axes in sharded)
-            blocks[key] = self.shards[g[0]].to(device)
+            r = mesh.first_local(g)
+            blocks[key] = (self.shards[r] if r is not None
+                           else got[g[0]]).to(device)
 
         def build(level, prefix):
             if level == len(sharded):
@@ -171,6 +201,20 @@ class ShardedTensor:
                 f"dtype={self.dtype})")
 
 
+def local_groups(mesh, gs) -> List[List[int]]:
+    """`gs` (groups of positions) cut to this process's positions, the
+    groups it holds none of left out."""
+    if mesh.process_count == 1:
+        return gs
+    key = ("local", id(gs))
+    memo = mesh.memo.get(key)
+    if memo is None or memo[0] is not gs:
+        memo = mesh.memo[key] = (gs, [
+            [q for q in g if mesh.is_local(q)] for g in gs
+            if mesh.first_local(g) is not None])
+    return memo[1]
+
+
 def layout_groups(mesh, spec) -> List[List[int]]:
     """Positions grouped by their coordinates on the axes `spec` uses
     (the groups in the order of their first positions)."""
@@ -188,14 +232,15 @@ def layout_groups(mesh, spec) -> List[List[int]]:
 
 
 def from_groups(mesh, spec, by_rep: Dict[int, torch.Tensor]):
-    """A ShardedTensor from {representative position: shard}; a spec
-    with no axes gives the plain tensor."""
+    """A ShardedTensor from {representative position: shard} (each
+    group's first position in this process); a spec with no axes gives
+    the plain tensor."""
     some = next(iter(by_rep.values()))
     spec = norm_spec(spec, some.ndim)
     if not spec_axes(spec):
         return some
     shards = [None] * mesh.size
-    for g in layout_groups(mesh, spec):
+    for g in local_groups(mesh, layout_groups(mesh, spec)):
         t = by_rep[g[0]]
         for q in g:
             shards[q] = t.to(mesh.device(q))
@@ -203,14 +248,14 @@ def from_groups(mesh, spec, by_rep: Dict[int, torch.Tensor]):
 
 
 def from_global(mesh, x: torch.Tensor, spec):
-    """Slice a global (replicated) tensor by `spec`; no data moves
-    between positions."""
+    """Slice a global (replicated) tensor by `spec` at this process's
+    positions; no data moves between positions."""
     spec = norm_spec(spec, x.ndim)
     if not spec_axes(spec):
         return x
     return from_groups(mesh, spec, {
         g[0]: local_slice(mesh, x, spec, g[0])
-        for g in layout_groups(mesh, spec)})
+        for g in local_groups(mesh, layout_groups(mesh, spec))})
 
 
 def local_view(mesh, x, p: int, spec=None) -> torch.Tensor:
@@ -250,7 +295,7 @@ def reshard(x, spec, mesh=None, stats: Optional[dict] = None):
         return x
     if _refines(x.spec, spec):
         out = {}
-        for g in layout_groups(mesh, spec):
+        for g in local_groups(mesh, layout_groups(mesh, spec)):
             p = g[0]
             t = x.shards[p]
             c = mesh.coords(p)

@@ -388,21 +388,24 @@ assert launch.init_distributed("127.0.0.1:{port}", num_processes=2,
                                timeout_s=60)
 t = torch.tensor([rank + 1.0])
 dist.all_reduce(t)
-try:
-    launch.global_mesh({{"dp": 2}}, devices=[torch.device("cpu")] * 2)
-    refused = False
-except NotImplementedError as e:
-    refused = "single-controller" in str(e)
+from paddle_tpu_torch.parallel import collectives as col
+mesh = launch.global_mesh({{"dp": 2}}, devices=[torch.device("cpu")])
+shards = [None, None]
+shards[rank] = torch.tensor([rank + 1.0])
+total = col.psum(shards, mesh, "dp")[rank]
+built = (mesh.size == 2 and mesh.process_count == 2
+         and mesh.local == (rank,) and float(total) == 3.0)
 dist.barrier()
 dist.destroy_process_group()
-print("RESULT", rank, float(t), refused, flush=True)
+print("RESULT", rank, float(t), built, flush=True)
 '''
 
 
 def test_init_distributed_two_processes_gloo():
     """Two processes join one gloo group from the env-contract fields;
-    an all-reduce sums across them; `global_mesh` refuses a group of two
-    (the port's mesh is single-controller); one process joins nothing."""
+    an all-reduce sums across them; `global_mesh` builds one mesh over
+    both processes (a position each, a psum across them); one process
+    joins nothing."""
     import socket
 
     from paddle_tpu_torch.distributed import launch

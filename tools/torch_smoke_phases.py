@@ -7,6 +7,7 @@ against change.
     python3 tools/torch_smoke_phases.py book
     python3 tools/torch_smoke_phases.py v2
     python3 tools/torch_smoke_phases.py deploy
+    python3 tools/torch_smoke_phases.py multiprocess
     python3 tools/torch_smoke_phases.py v1_rnn generation --parent DIR
 
 Without ``--parent`` the phases run once in this process after the kernel
@@ -38,6 +39,7 @@ PHASES = {
     "book": "cs.book_phase(torch.device('cuda', 0), name, smi)",
     "v2": "cs.v2_api_phase(torch.device('cuda', 0), name, smi)",
     "deploy": "cs.deploy_phase(torch.device('cuda', 0), name, smi)",
+    "multiprocess": "cs.multiprocess_phase(name, smi)",
 }
 
 _RUN = r'''
